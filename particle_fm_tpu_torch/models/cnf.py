@@ -1,0 +1,107 @@
+"""CNF vector-field wrapper; counterpart of particle_fm_tpu/models/cnf.py.
+
+The port carries the EPiC branch with the parameter-free time embeddings
+(sincos, cosine). The cosine ladder's frequency table is a non-persistent
+buffer built on the CPU the reference's way (see nets/time_emb.py); a test
+may overwrite it with the JAX package's table.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from particle_fm_tpu_torch.nets.epic import EPiCEncoder
+from particle_fm_tpu_torch.nets.time_emb import cosine_frequencies, time_embedding
+
+
+class CNF(nn.Module):
+    """One flow transform: time embedding + EPiC vector-field network."""
+
+    def __init__(
+        self,
+        model: str = "epic",
+        features: int = 3,
+        frequencies: int = 6,
+        hidden_dim: int = 128,
+        layers: int = 8,
+        global_cond_dim: int = 0,
+        local_cond_dim: int = 0,
+        latent: int = 16,
+        activation: str = "leaky_relu",
+        use_weight_norm: bool = True,
+        t_local_cat: bool = False,
+        t_global_cat: bool = False,
+        add_time_to_input: bool = True,
+        t_emb: str = "sincos",
+        sum_scale: float = 1e-2,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        if model != "epic":
+            raise NotImplementedError(f"the port carries the epic model only, not {model}")
+        if t_emb not in ("sincos", "cosine"):
+            raise NotImplementedError(f"t_emb={t_emb} is not ported")
+        self.frequencies = frequencies
+        self.t_emb = t_emb
+        self.add_time_to_input = add_time_to_input
+        t_dim = 2 * frequencies
+        self.net = EPiCEncoder(
+            in_feats=features + t_dim if add_time_to_input else features,
+            feats=features,
+            hid_dim=hidden_dim,
+            latent_dim=latent,
+            equiv_layers=layers,
+            t_dim=t_dim,
+            cond_dim=global_cond_dim,
+            global_cond_dim=global_cond_dim,
+            local_cond_dim=local_cond_dim,
+            t_local_cat=t_local_cat,
+            t_global_cat=t_global_cat,
+            activation=activation,
+            use_weight_norm=use_weight_norm,
+            sum_scale=sum_scale,
+            generator=generator,
+        )
+        freqs = cosine_frequencies(t_dim) if t_emb == "cosine" else torch.empty(0)
+        self.register_buffer("cos_freqs", freqs, persistent=False)
+
+    def forward(
+        self,
+        t: torch.Tensor,
+        x: torch.Tensor,
+        cond: torch.Tensor | None = None,
+        mask: torch.Tensor | None = None,
+    ) -> torch.Tensor:
+        """t: scalar or (B,) -> v(t, x) of x's shape."""
+        b, n, _ = x.shape
+        freqs = self.cos_freqs if self.t_emb == "cosine" else None
+        emb = time_embedding(t, self.t_emb, self.frequencies, freqs).to(x.dtype)
+        # scalar sampling times give batch-1 embeddings; broadcast to x's batch
+        emb = emb.expand(b, emb.shape[-1])
+        if self.add_time_to_input:
+            x = torch.cat([emb[:, None, :].expand(b, n, emb.shape[-1]), x], dim=-1)
+        return self.net(emb, x, cond, mask)
+
+
+class CNFStack(nn.Module):
+    """`n_transforms` CNFs applied in sequence (no in-model normaliser)."""
+
+    def __init__(self, n_transforms: int = 1, features: int = 3, global_cond_dim: int = 0,
+                 generator: torch.Generator | None = None, **cnf_config):
+        super().__init__()
+        self.flows = nn.ModuleList(
+            CNF(features=features, global_cond_dim=global_cond_dim, generator=generator,
+                **cnf_config)
+            for _ in range(n_transforms)
+        )
+
+    def forward(self, t, x, cond=None, mask=None):
+        """Vector field v(t, x): the composition of all flow transforms."""
+        for flow in self.flows:
+            x = flow(t, x, cond=cond, mask=mask)
+        return x
+
+    def flow_k(self, k: int, t, x, cond=None, mask=None):
+        """Apply a single flow transform (for per-flow ODE integration)."""
+        return self.flows[k](t, x, cond=cond, mask=mask)

@@ -1,0 +1,183 @@
+"""FlowMatchingModel, sampling side; counterpart of particle_fm_tpu/models/flow_matching.py.
+
+The port carries the families whose ODE drift is the network itself (FM-OT,
+CFM, CFM-OT) with the fixed-step solvers, in float32. As in the JAX package
+the model is a configuration bundle: `init` builds the network (a `CNFStack`
+module on the requested device), and `sample` folds weight norm once,
+draws masked noise from a `torch.Generator` and integrates from t=1 to 0.
+
+`integrate` takes the noise `z` explicitly, so a test can hand it the noise
+the JAX package drew.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+from torch import nn
+
+from particle_fm_tpu_torch.models.cnf import CNFStack
+from particle_fm_tpu_torch.nets.common import WNDense
+from particle_fm_tpu_torch.nets.epic import EPiCLayer
+from particle_fm_tpu_torch.samplers.ode import FIXED_SOLVERS, odeint_fixed
+from particle_fm_tpu_torch.utils.device import resolve_device
+
+_DRIFT_IS_NET = ("FM-OT", "CFM", "CFM-OT")
+
+
+def draw_noise(generator: torch.Generator, shape: tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """Standard normal noise for the sampler's starting point."""
+    return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+
+
+@dataclasses.dataclass(eq=False)
+class FlowMatchingModel:
+    """Configuration bundle for CNF sampling on particle sets (field names as
+    in the JAX FlowMatchingModel)."""
+
+    model: str = "epic"
+    features: int = 3
+    num_particles: int = 150
+    frequencies: int = 6
+    hidden_dim: int = 128
+    layers: int = 8
+    n_transforms: int = 1
+    activation: str = "leaky_relu"
+    use_weight_norm: bool = True
+    latent: int = 16
+    t_local_cat: bool = False
+    t_global_cat: bool = False
+    add_time_to_input: bool = True
+    global_cond_dim: int = 0
+    local_cond_dim: int = 0
+    sum_scale: float = 1e-2
+    loss_type: str = "FM-OT"
+    t_emb: str = "sincos"
+    use_normaliser: bool = False
+    self_cond: bool = False
+    dtype: Any = None
+
+    def __post_init__(self):
+        if self.loss_type not in _DRIFT_IS_NET:
+            raise NotImplementedError(f"loss_type={self.loss_type} is not ported")
+        if self.use_normaliser or self.self_cond or self.dtype is not None:
+            raise NotImplementedError("the normaliser, self-conditioning and dtype are not ported")
+        self.conditioned = self.global_cond_dim > 0
+
+    def init(self, seed: int = 0, device: str | torch.device = "cuda") -> CNFStack:
+        """The network, with torch-Linear init drawn from `seed`, on `device`."""
+        dev = resolve_device(device)
+        gen = torch.Generator().manual_seed(seed)
+        net = CNFStack(
+            n_transforms=self.n_transforms,
+            features=self.features,
+            global_cond_dim=self.global_cond_dim,
+            generator=gen,
+            model=self.model,
+            frequencies=self.frequencies,
+            hidden_dim=self.hidden_dim,
+            layers=self.layers,
+            local_cond_dim=self.local_cond_dim,
+            latent=self.latent,
+            activation=self.activation,
+            use_weight_norm=self.use_weight_norm,
+            t_local_cat=self.t_local_cat,
+            t_global_cat=self.t_global_cat,
+            add_time_to_input=self.add_time_to_input,
+            t_emb=self.t_emb,
+            sum_scale=self.sum_scale,
+        )
+        return net.to(dev).eval()
+
+    @staticmethod
+    def fold_weight_norm(net: nn.Module) -> None:
+        """Fold w = g * v / ||v|| into every weight once, and cut the EPiC
+        layers' weights for the fused layer. `unfold_weight_norm` undoes it."""
+        for m in net.modules():
+            if isinstance(m, (WNDense, EPiCLayer)):
+                m.fold()
+
+    @staticmethod
+    def unfold_weight_norm(net: nn.Module) -> None:
+        for m in net.modules():
+            if isinstance(m, (WNDense, EPiCLayer)):
+                m.unfold()
+
+    def vector_field(self, net: CNFStack, t, x, cond=None, mask=None) -> torch.Tensor:
+        return net(t, x, cond=cond, mask=mask)
+
+    def make_drift(self, net: CNFStack, cond=None, mask=None, flow_idx=None, guidance_scale=None):
+        """ODE drift f(t, x): the network, with optional classifier-free
+        guidance as one doubled-batch forward, v = v_u + w * (v_c - v_u)."""
+
+        def raw_net(t, x, c, m):
+            if flow_idx is None:
+                return net(t, x, cond=c, mask=m)
+            return net.flow_k(flow_idx, t, x, cond=c, mask=m)
+
+        if guidance_scale is not None and guidance_scale != 1.0 and cond is not None:
+            w = guidance_scale
+            cc = torch.cat([cond, torch.zeros_like(cond)], dim=0)
+            mm = None if mask is None else torch.cat([mask, mask], dim=0)
+
+            def drift(t, x):
+                out = raw_net(t, torch.cat([x, x], dim=0), cc, mm)
+                v_c, v_u = torch.chunk(out, 2, dim=0)
+                return v_u + w * (v_c - v_u)
+
+            return drift
+        return lambda t, x: raw_net(t, x, cond, mask)
+
+    @torch.no_grad()
+    def integrate(
+        self,
+        net: CNFStack,
+        z: torch.Tensor,
+        cond: torch.Tensor | None = None,
+        mask: torch.Tensor | None = None,
+        ode_solver: str = "midpoint",
+        ode_steps: int = 100,
+        guidance_scale: float | None = None,
+    ) -> torch.Tensor:
+        """Integrate every flow transform in reverse order from the noise z
+        (already masked) at t=1 to t=0, with weight norm folded once."""
+        if ode_solver not in FIXED_SOLVERS:
+            raise NotImplementedError(f"ode_solver={ode_solver} is not ported")
+        self.fold_weight_norm(net)
+        try:
+            x = z
+            for k in reversed(range(self.n_transforms)):
+                drift = self.make_drift(net, cond, mask, flow_idx=k, guidance_scale=guidance_scale)
+                x = odeint_fixed(drift, x, 1.0, 0.0, ode_steps=ode_steps, method=ode_solver)
+        finally:
+            self.unfold_weight_norm(net)
+        return x
+
+    def sample(
+        self,
+        net: CNFStack,
+        generator: torch.Generator,
+        n_samples: int | None = None,
+        cond: torch.Tensor | None = None,
+        mask: torch.Tensor | None = None,
+        ode_solver: str = "midpoint",
+        ode_steps: int = 100,
+        num_points: int | None = None,
+        guidance_scale: float | None = None,
+    ) -> torch.Tensor:
+        """Generate samples: z ~ N(0, 1) from `generator` (on the network's
+        device), masked, then `integrate`. The mask's particle axis wins over
+        `num_points`, as in the JAX package."""
+        if n_samples is None:
+            n_samples = cond.shape[0] if cond is not None else mask.shape[0]
+        if mask is not None:
+            num_points = mask.shape[1]
+        elif num_points is None:
+            num_points = self.num_particles
+        device = next(net.parameters()).device
+        z = draw_noise(generator, (n_samples, num_points, self.features), device)
+        if mask is not None:
+            z = z * mask
+        return self.integrate(net, z, cond, mask, ode_solver, ode_steps, guidance_scale)

@@ -1,0 +1,184 @@
+"""Shared network building blocks: activations, weight-normalized Dense.
+
+Counterpart of particle_fm_tpu/nets/common.py. Parameters are stored the
+torch way, `weight_v (out, in)`, `g (out,)`, `bias (out,)` (the flax tree
+holds `kernel (in, out)`; utils/from_jax.py carries one into the other).
+
+Weight norm is written out as `g * v / max(||v||, 1e-12)` per output feature
+(the norm runs over the input axis). `torch.nn.utils.weight_norm` has no
+clamp, so it is not used.
+
+For sampling, `fold()` computes the normalized weight once and keeps it;
+every later forward uses it until `unfold()`.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+_ACTS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "leaky_relu": lambda x: F.leaky_relu(x, negative_slope=0.01),
+    "lrlu": lambda x: F.leaky_relu(x, negative_slope=0.1),
+    "relu": F.relu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "elu": F.elu,
+    "selu": F.selu,
+    "silu": F.silu,
+    "swish": F.silu,
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "softmax": lambda x: torch.softmax(x, dim=-1),
+    "identity": lambda x: x,
+    "none": lambda x: x,
+}
+
+
+def get_act(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Activation registry; unknown names fall back to identity, as in the
+    JAX package. `gelu` is the tanh approximation, jax.nn.gelu's default."""
+    return _ACTS.get(name, lambda x: x)
+
+
+def _uniform_(t: torch.Tensor, fan_in: int, generator: torch.Generator | None) -> None:
+    """torch.nn.Linear's default init: U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
+    bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
+    with torch.no_grad():
+        t.uniform_(-bound, bound, generator=generator)
+
+
+def fold_weight(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """w = v * (g / max(||v||, 1e-12)), the norm per output row of v (out, in)."""
+    norm = torch.linalg.vector_norm(v, dim=1, keepdim=True)
+    return v * (g[:, None] / torch.clamp(norm, min=1e-12))
+
+
+class WNDense(nn.Module):
+    """Dense layer with weight normalization, y = x @ w.T + b."""
+
+    def __init__(
+        self,
+        in_features: int,
+        features: int,
+        use_weight_norm: bool = True,
+        use_bias: bool = True,
+        init_zeros: bool = False,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        self.in_features = in_features
+        self.features = features
+        self.use_weight_norm = use_weight_norm
+        v = torch.empty(features, in_features)
+        if init_zeros:
+            v.zero_()
+        else:
+            _uniform_(v, in_features, generator)
+        if use_weight_norm:
+            self.weight_v = nn.Parameter(v)
+            self.g = nn.Parameter(torch.linalg.vector_norm(v, dim=1))
+        else:
+            self.weight = nn.Parameter(v)
+        if use_bias:
+            b = torch.zeros(features)
+            if not init_zeros:
+                _uniform_(b, in_features, generator)
+            self.bias = nn.Parameter(b)
+        else:
+            self.bias = None
+        self._folded: torch.Tensor | None = None
+
+    def effective_weight(self) -> torch.Tensor:
+        """The (out, in) weight the layer applies."""
+        if self._folded is not None:
+            return self._folded
+        if self.use_weight_norm:
+            return fold_weight(self.weight_v, self.g)
+        return self.weight
+
+    @torch.no_grad()
+    def fold(self) -> None:
+        self._folded = self.effective_weight().detach().clone()
+
+    def unfold(self) -> None:
+        self._folded = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x @ self.effective_weight().t()
+        if self.bias is not None:
+            y = y + self.bias
+        return y
+
+
+class WNDenseSplit(WNDense):
+    """Weight-norm Dense over a concat of per-particle and per-set segments,
+    without materializing the concat.
+
+    `segments` at construction is the concat layout, a list of
+    (width, kind) with kind in {"set", "particle"}; zero-width segments are
+    dropped, as the JAX module drops None/zero-width inputs. The forward
+    takes the matching list of (tensor or None, kind): "set" tensors are
+    (B, k), "particle" tensors (B, N, k). It computes
+    x @ W_x + broadcast(cat(set segments) @ W_set) + b: one per-particle
+    matmul and one tiny per-set matmul.
+    """
+
+    def __init__(
+        self,
+        segments: Sequence[tuple[int, str]],
+        features: int,
+        use_weight_norm: bool = True,
+        use_bias: bool = True,
+        generator: torch.Generator | None = None,
+    ):
+        self.segments = [(k, kind) for k, kind in segments if k > 0]
+        super().__init__(
+            sum(k for k, _ in self.segments),
+            features,
+            use_weight_norm=use_weight_norm,
+            use_bias=use_bias,
+            generator=generator,
+        )
+
+    def forward(self, segments) -> torch.Tensor:
+        segments = [(a, kind) for a, kind in segments if a is not None and a.shape[-1] > 0]
+        layout = [(a.shape[-1], kind) for a, kind in segments]
+        if layout != self.segments:
+            raise ValueError(f"segment layout {layout} != constructed {self.segments}")
+        w = self.effective_weight()
+        out = None
+        set_parts, set_ws = [], []
+        col = 0
+        for a, kind in segments:
+            k = a.shape[-1]
+            w_seg = w[:, col : col + k]
+            col += k
+            if kind == "particle":
+                part = a @ w_seg.t()
+                out = part if out is None else out + part
+            else:
+                set_parts.append(a)
+                set_ws.append(w_seg)
+        if set_parts:
+            set_in = torch.cat(set_parts, dim=-1) if len(set_parts) > 1 else set_parts[0]
+            set_w = torch.cat(set_ws, dim=1) if len(set_ws) > 1 else set_ws[0]
+            set_out = (set_in @ set_w.t())[..., None, :]
+            out = set_out if out is None else out + set_out
+        if self.bias is not None:
+            out = out + self.bias
+        return out
+
+
+def cat(*parts: torch.Tensor | None) -> torch.Tensor | None:
+    """Concatenate along the last axis, skipping None and zero-width parts;
+    None when no part is left."""
+    kept = [p for p in parts if p is not None and p.shape[-1] > 0]
+    if not kept:
+        return None
+    if len(kept) == 1:
+        return kept[0]
+    return torch.cat(kept, dim=-1)

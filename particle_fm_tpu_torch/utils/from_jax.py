@@ -1,0 +1,62 @@
+"""Carry a flax parameter tree into the port's modules.
+
+The inverse of particle_fm_tpu/utils/torch_import.py: the flax
+`variables["params"]` tree (numpy arrays, e.g. from `jax.device_get`) becomes
+the port's `state_dict`. Names map one to one, with `flows_{k}` becoming the
+ModuleList entry `flows.{k}`; a weight-norm Dense's `kernel (in, out)`
+becomes `weight_v (out, in)` (a plain Dense's becomes `weight`), and `g`
+and `bias` are copied. The mapping is shape-checked both ways: every flax
+leaf must land on a parameter of the same shape, and every parameter must
+be covered, so nothing keeps its random init.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        name = re.sub(r"^flows_(\d+)$", r"flows.\1", k)
+        path = f"{prefix}{name}"
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, path + "."))
+        else:
+            out[path] = np.asarray(v)
+    return out
+
+
+def state_dict_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """flax params tree -> port state_dict (names and layouts only)."""
+    flat = _flatten(params)
+    sd = {}
+    for path, arr in flat.items():
+        head, _, leaf = path.rpartition(".")
+        prefix = f"{head}." if head else ""
+        if leaf == "kernel":
+            has_g = f"{prefix}g" in flat
+            sd[f"{prefix}{'weight_v' if has_g else 'weight'}"] = torch.tensor(arr.T)
+        else:
+            sd[path] = torch.tensor(arr)
+    return sd
+
+
+def load_flax_params(module: nn.Module, params: Mapping[str, Any]) -> nn.Module:
+    """Copy a flax params tree into `module` in place; returns it."""
+    sd = state_dict_from_flax(params)
+    own = module.state_dict()
+    missing = sorted(set(own) - set(sd))
+    extra = sorted(set(sd) - set(own))
+    if missing or extra:
+        raise ValueError(f"param tree mismatch: only-in-port={missing} only-in-flax={extra}")
+    for k, v in sd.items():
+        if tuple(own[k].shape) != tuple(v.shape):
+            raise ValueError(f"shape mismatch at {k}: port {tuple(own[k].shape)} vs flax {tuple(v.shape)}")
+    module.load_state_dict({k: v.to(own[k].dtype) for k, v in sd.items()})
+    return module

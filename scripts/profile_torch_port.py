@@ -1,0 +1,122 @@
+#!/usr/bin/env python3
+"""Where the time goes in the PyTorch port's sampler on one NVIDIA GPU.
+
+    python3 scripts/profile_torch_port.py [--nfe-steps 6] [--out build/measurements/profile_torch_port.json]
+
+Builds the fm_tops150_cond network at full width (seeded random weights),
+then for each path -- the fused EPiC kernel and the EPiC layer's plain
+PyTorch version -- serves one batch of 640 jets (midpoint, `--nfe-steps`
+grid points) once without and once under torch.profiler, after a warm-up.
+Prints, per path, the wall time per network evaluation (both runs; the
+profiler slows the host), the device's busy share (summed kernel time over
+each wall time) and the kernels by device time, and writes the same
+as JSON to `--out`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+from unittest import mock
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+from particle_fm_tpu_torch.models.flow_matching import FlowMatchingModel  # noqa: E402
+from particle_fm_tpu_torch.ops import epic_layer as ops  # noqa: E402
+from particle_fm_tpu_torch.serving import make_serve_fn  # noqa: E402
+
+
+def profile_path(fn, cond, mask, nfe: int) -> dict:
+    fn(0, cond, mask)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(1, cond, mask)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn(1, cond, mask)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        # kernels only: an aten op's self device time is that of the kernels
+        # it launched, which would count them twice
+        if e.device_type != DeviceType.CUDA:
+            continue
+        self_dev = getattr(e, "self_device_time_total", None)
+        if self_dev is None:
+            self_dev = e.self_cuda_time_total
+        if self_dev > 0:
+            rows.append({"name": e.key[:90], "calls": e.count, "device_ms": self_dev / 1e3})
+    rows.sort(key=lambda r: -r["device_ms"])
+    busy_ms = sum(r["device_ms"] for r in rows)
+    return {
+        "wall_ms_per_nfe_unprofiled": plain_wall * 1e3 / nfe,
+        "wall_ms": wall * 1e3,
+        "wall_ms_per_nfe": wall * 1e3 / nfe,
+        "device_busy_ms": busy_ms,
+        "device_ms_per_nfe": busy_ms / nfe,
+        "device_busy_share": busy_ms / (wall * 1e3),
+        "device_busy_share_unprofiled": busy_ms / (plain_wall * 1e3),
+        "kernels": rows[:15],
+    }
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--nfe-steps", type=int, default=6, help="ode_steps of the profiled run")
+    ap.add_argument("--out", default=str(ROOT / "build" / "measurements" / "profile_torch_port.json"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("profile_torch_port: CUDA is not available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+
+    model = FlowMatchingModel(
+        model="epic", features=3, num_particles=150, frequencies=16, hidden_dim=128,
+        layers=6, latent=10, t_emb="cosine", t_global_cat=True, t_local_cat=True,
+        add_time_to_input=False, global_cond_dim=2, local_cond_dim=2, loss_type="FM-OT",
+    )
+    net = model.init(seed=0, device="cuda")
+    fn = make_serve_fn(model, net, batch_size=640, ode_solver="midpoint",
+                       ode_steps=args.nfe_steps, has_cond=True, has_mask=True)
+    rs = np.random.RandomState(0)
+    counts = rs.randint(30, 151, size=(640, 1))
+    mask = (np.arange(150)[None, :] < counts).astype(np.float32)[..., None]
+    cond = rs.randn(640, 2).astype(np.float32)
+    nfe = 2 * (args.nfe_steps - 1)
+
+    ops.load_library()
+    result = {"card": card, "batch": 640, "nfe": nfe}
+    result["kernel_path"] = profile_path(fn, cond, mask, nfe)
+    with mock.patch.object(ops, "epic_layer", ops.epic_layer_reference):
+        result["plain_path"] = profile_path(fn, cond, mask, nfe)
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(result, indent=1))
+    print(card)
+    for path in ("kernel_path", "plain_path"):
+        r = result[path]
+        print(f"{path}: {r['wall_ms_per_nfe_unprofiled']:.3f} ms/NFE wall unprofiled, "
+              f"{r['wall_ms_per_nfe']:.3f} profiled; kernels {r['device_ms_per_nfe']:.3f} "
+              f"ms/NFE, busy share {r['device_busy_share_unprofiled']:.3f} of the unprofiled "
+              f"wall, {r['device_busy_share']:.3f} of the profiled")
+        for k in r["kernels"][:8]:
+            print(f"  {k['device_ms']:9.3f} ms  {k['calls']:5d}x  {k['name']}")
+
+
+if __name__ == "__main__":
+    main()
