@@ -3,23 +3,48 @@
 
     python3 chip_smoke.py
 
-1. Prints the card's name and power limit (nvidia-smi) and builds the
-   kernel library from csrc/ with nvcc (build time on its own line).
-2. Kernel phase: the fused EPiC layer (csrc/epic_layer.cu) at the
-   JetNet-150 flagship shapes (B=640, N=150, H=128, L=10, t=32, C=2, float32,
-   multiplicities 30-150) against its plain PyTorch version on the card,
-   atol 1e-4 / rtol 1e-4, and both timed with CUDA events in turns (plain,
-   kernel, kernel, plain; each 20 calls back to back between two events,
-   the median of 5 such runs, after 5 calls of warm-up).
-3. Serving phase: the fm_tops150_cond configuration at full width (seeded
-   random weights; the repo has no trained checkpoint) answers requests of
-   1000, 640 and 7 jets through `make_serve_fn`/`serve_batches`: batch 640,
-   midpoint, ode_steps=51 (100 network evaluations). Checks finite outputs,
-   zero padded rows, and 6 layers x 100 evaluations x 4 batches kernel
-   launches; then the same requests run with the EPiC layer's plain version
-   and must agree within atol 1e-3, and a small batch must agree with the
-   CPU within atol 1e-4. Prints jets/s of both paths, each the mean of two
-   runs taken in turns (kernel, plain, plain, kernel).
+1. Prints the card's name and power limit (nvidia-smi) and builds the kernel
+   libraries from csrc/ with nvcc, one compiler per source, all started
+   together (build time on its own line).
+2. Kernel phases, each kernel against its plain PyTorch version on the card
+   at the shapes the serving paths give it, atol 1e-4 / rtol 1e-4, and both
+   timed with CUDA events in turns (plain, kernel, kernel, plain; each 20
+   calls back to back between two events, the median of 5 such runs, after 5
+   calls of warm-up):
+   - the fused EPiC layer (csrc/epic_layer.cu) at the JetNet-150 flagship
+     shapes (B=640, N=150, H=128, L=10, t=32, C=2, float32, multiplicities
+     30-150);
+   - packed short-set attention (csrc/short_attention.cu) at the PC-Droid
+     transformer's shape (B=640, L=150, 16 heads of 16, ragged key mask,
+     q/k/v as the three slices of one QKV projection), and once with a
+     (B, H, L, L) bias at B=64;
+   - fused short-set attention (same source) at the cross-attention model's
+     two shapes (B=640, 16 heads of 8: 4 queries on 150 masked keys, 150
+     queries on 4 keys; the times are those of one such pair), and once
+     masked with a bias at Lq=37, Lk=150.
+   Beside each: the least time the card could take (bytes over 3.35 TB/s
+   against float32 operations over 67 TFLOP/s) and, for attention, one
+   `scaled_dot_product_attention` call on the same tensors as a yardstick
+   (the port never calls it).
+3. Serving phases through `make_serve_fn`/`serve_batches`, batch 640,
+   midpoint, ode_steps=51 (100 network evaluations), float32, seeded random
+   weights (the repo has no trained checkpoint), ragged masks 30-150 and a
+   2-wide cond:
+   - fm_tops150_cond (EPiC) answers requests of 640 and 7 jets;
+   - path A, fm_droid_transformer at full width (model_dim 256, 3 layers,
+     16 heads, attn_impl=packed, scores_dtype=null), requests of 1000, 640
+     and 7 jets;
+   - path B, fm_droid_crossattention at full width (model_dim 128, 8 layers,
+     16 heads, 4 global tokens, attn_impl=fused), requests of 640 and 7 jets.
+   The two transformer configurations zero-initialise their attention and
+   output projections, so every parameter is re-drawn from a seed first, and
+   the vector field must not be identically zero. Each phase sets the launch
+   counts to 0, serves, and checks finite outputs, zero padded rows and the
+   exact number of kernel launches; then the same requests run with the
+   kernel's wrapper replaced by its plain version and must agree within atol
+   1e-3, and a small batch must agree with the CPU within atol 1e-4. Prints
+   jets/s of both paths, each the mean of two runs taken in turns (kernel,
+   plain, plain, kernel).
 4. Prints the `kernels` JSON line, the card line again, and as the last
    line {"ok": true, "device": {...}}.
 
@@ -48,9 +73,11 @@ PEAK_BYTES = 3.35e12
 KERNEL_TOL = 1e-4
 PATH_TOL = 1e-3
 CPU_TOL = 1e-4
-REQUESTS = (1000, 640, 7)
 SERVE_BATCH = 640
 ODE_STEPS = 51
+# operations per attention score beside the two products: scale, mask add,
+# subtract the maximum, exponential, sum
+SCORE_OPS = 5
 
 
 def fail(msg: str) -> None:
@@ -71,14 +98,40 @@ def ragged_mask(rs: np.random.RandomState, b: int, n: int, lo: int = 30) -> np.n
     return (np.arange(n)[None, :] < counts).astype(np.float32)
 
 
-def kernel_phase(torch, ops, dev) -> dict:
+def check_kernel(torch, name: str, got, want) -> float:
+    """Max abs error of a kernel's result against its plain version's."""
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        fail(f"{name} kernel gave non-finite values")
+    err = (got - want).abs().max().item()
+    if not torch.allclose(got, want, atol=KERNEL_TOL, rtol=KERNEL_TOL):
+        fail(f"{name} kernel disagrees with its plain version: max abs err {err}")
+    return err
+
+
+def timed_in_turns(kernel_fn, plain_fn) -> dict:
+    """plain, kernel, kernel, plain, so clock ramps hit both alike."""
     from particle_fm_tpu_torch.utils.timing import cuda_ms
 
+    turns = [cuda_ms(f) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn)]
+    return {"ms": (turns[1] + turns[2]) / 2, "plain_ms": (turns[0] + turns[3]) / 2,
+            "turns_ms": {"plain": [turns[0], turns[3]], "kernel": [turns[1], turns[2]]}}
+
+
+def bound(n_bytes: float, flops: float) -> dict:
+    """Least time for the work: each input read once and each output written
+    once, against the float32 operations at the CUDA cores' rate."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "flops": flops}
+
+
+def kernel_phase(torch, ops, dev) -> dict:
     gen = torch.Generator().manual_seed(0)
 
     def lin(fan_in, *shape):
-        bound = fan_in ** -0.5
-        return (torch.rand(*shape, generator=gen) * 2 - 1) * bound
+        bound_ = fan_in ** -0.5
+        return (torch.rand(*shape, generator=gen) * 2 - 1) * bound_
 
     k1, k2, k3, k4 = T + 2 * H + L + C, T + H + C, T + L + C, T + C
     rs = np.random.RandomState(0)
@@ -95,28 +148,14 @@ def kernel_phase(torch, ops, dev) -> dict:
     dims = dict(sum_scale=1e-2, tg_dim=T, tl_dim=T, c_dim=C)
 
     xo, go = ops.epic_layer(*args, **dims)
-    torch.cuda.synchronize()
     rx, rg = ops.epic_layer_reference(*args, **dims)
-    if not (torch.isfinite(xo).all() and torch.isfinite(go).all()):
-        fail("epic_layer kernel gave non-finite values")
-    err = max((xo - rx).abs().max().item(), (go - rg).abs().max().item())
-    for got, want in ((xo, rx), (go, rg)):
-        if not torch.allclose(got, want, atol=KERNEL_TOL, rtol=KERNEL_TOL):
-            fail(f"epic_layer kernel disagrees with its plain version: max abs err {err}")
+    err = max(check_kernel(torch, "epic_layer", xo, rx), check_kernel(torch, "epic_layer", go, rg))
 
-    # in turns (plain, kernel, kernel, plain), so clock ramps hit both alike
-    kernel_fn = lambda: ops.epic_layer(*args, **dims)
-    plain_fn = lambda: ops.epic_layer_reference(*args, **dims)
-    turns = [cuda_ms(f) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn)]
-    ms, plain_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
-
-    # least time for the same work: each input read once and each output
-    # written once, against the multiply-adds of the pool, the per-set MLPs
-    # and the two H x H local matmuls plus their five elementwise operations
+    # the multiply-adds of the pool, the per-set MLPs and the two H x H local
+    # matmuls plus their five elementwise operations
     n_bytes = sum(a.numel() * a.element_size() for a in args) + 4 * (B * N * H + B * L)
     flops = (2 * B * N * H + 2 * B * (k1 * H + k2 * L + k3 * H + k4 * H)
              + 2 * 2 * B * N * H * H + 5 * B * N * H)
-    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
     return {
         "name": "epic_layer",
         "route": "cuda",
@@ -124,39 +163,124 @@ def kernel_phase(torch, ops, dev) -> dict:
         "replaces": "particle_fm_tpu/ops/pallas/epic_layer.py:113",
         "launches": None,
         "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        **timed_in_turns(lambda: ops.epic_layer(*args, **dims),
+                         lambda: ops.epic_layer_reference(*args, **dims)),
+        **bound(n_bytes, flops),
         "library_ms": None,  # no single PyTorch call computes an EPiC layer
-        "turns_ms": {"plain": [turns[0], turns[3]], "kernel": [turns[1], turns[2]]},
         "shape": {"B": B, "N": N, "H": H, "L": L, "t": T, "C": C, "dtype": "float32"},
-        "bytes": n_bytes,
-        "flops": flops,
     }
 
 
-def serving_phase(torch, ops, dev) -> dict:
-    from particle_fm_tpu_torch.models.flow_matching import FlowMatchingModel
+def attention_case(torch, dev, seed, b, lq, lk, h, d, masked, bias=False, fused_qkv=False):
+    """q, k, v (B, L, H, D), mask (B, Lk) and bias (B, H, Lq, Lk) on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    if fused_qkv:  # the three slices of one (B, L, 3*H*D) projection output
+        qkv = torch.randn(b, lq, 3 * h * d, generator=gen).to(dev)
+        q, k, v = (t.view(b, lq, h, d) for t in qkv.chunk(3, dim=-1))
+    else:
+        q = torch.randn(b, lq, h, d, generator=gen).to(dev)
+        k = torch.randn(b, lk, h, d, generator=gen).to(dev)
+        v = torch.randn(b, lk, h, d, generator=gen).to(dev)
+    mask = torch.from_numpy(ragged_mask(np.random.RandomState(seed), b, lk, lo=min(30, lk))).to(dev) if masked else None
+    ab = torch.randn(b, h, lq, lk, generator=gen).to(dev) if bias else None
+    return q, k, v, mask, ab
+
+
+def attention_measure(torch, name, fn, ref, case) -> dict:
+    """One attention kernel at one shape: check, time in turns with its plain
+    version, time the library call, count the bound."""
+    import torch.nn.functional as F
+
+    from particle_fm_tpu_torch.utils.timing import cuda_ms
+
+    q, k, v, mask, ab = case
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    err = check_kernel(torch, name, fn(q, k, v, mask, ab), ref(q, k, v, mask, ab))
+    add = None if mask is None else ((mask - 1.0) * 1e9)[:, None, None, :]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=add).transpose(1, 2)
+    lib_err = (library() - ref(q, k, v, mask, ab)).abs().max().item()
+    if not lib_err <= KERNEL_TOL:
+        fail(f"{name}: the library yardstick computes another function (max abs err {lib_err})")
+    n_bytes = 4 * (2 * q.numel() + k.numel() + v.numel() + (0 if mask is None else mask.numel()))
+    flops = (4 * d + SCORE_OPS) * b * h * lq * lk
+    return {"max_abs_err": err,
+            **timed_in_turns(lambda: fn(q, k, v, mask, ab), lambda: ref(q, k, v, mask, ab)),
+            **bound(n_bytes, flops), "library_ms": cuda_ms(library),
+            "shape": {"B": b, "Lq": lq, "Lk": lk, "H": h, "D": d, "masked": mask is not None,
+                      "dtype": "float32"}}
+
+
+def packed_phase(torch, sa, dev) -> dict:
+    main = attention_case(torch, dev, 3, 640, 150, 150, 16, 16, masked=True, fused_qkv=True)
+    entry = attention_measure(torch, "packed_short_attention", sa.packed_short_attention,
+                              sa.packed_short_attention_reference, main)
+    q, k, v, mask, ab = attention_case(torch, dev, 4, 64, 150, 150, 16, 16, masked=True, bias=True)
+    bias_err = check_kernel(torch, "packed_short_attention (bias)",
+                            sa.packed_short_attention(q, k, v, mask, ab),
+                            sa.packed_short_attention_reference(q, k, v, mask, ab))
+    return {"name": "packed_short_attention", "route": "cuda",
+            "source": "particle_fm_tpu_torch/csrc/short_attention.cu",
+            "replaces": "particle_fm_tpu/ops/pallas/short_attention.py:308",
+            "launches": None, **entry, "max_abs_err_with_bias": bias_err}
+
+
+def fused_phase(torch, sa, dev) -> dict:
+    fn, ref = sa.fused_short_attention, sa.fused_short_attention_reference
+    shapes = {
+        "from": attention_measure(torch, "fused_short_attention (from)", fn, ref,
+                                  attention_case(torch, dev, 5, 640, 4, 150, 16, 8, masked=True)),
+        "to": attention_measure(torch, "fused_short_attention (to)", fn, ref,
+                                attention_case(torch, dev, 6, 640, 150, 4, 16, 8, masked=False)),
+    }
+    q, k, v, mask, ab = attention_case(torch, dev, 7, 64, 37, 150, 16, 8, masked=True, bias=True)
+    bias_err = check_kernel(torch, "fused_short_attention (bias)", fn(q, k, v, mask, ab),
+                            ref(q, k, v, mask, ab))
+    pair = lambda key: sum(s[key] for s in shapes.values())
+    return {"name": "fused_short_attention", "route": "cuda",
+            "source": "particle_fm_tpu_torch/csrc/short_attention.cu",
+            "replaces": "particle_fm_tpu/ops/pallas/short_attention.py:74",
+            "launches": None,
+            "max_abs_err": max(s["max_abs_err"] for s in shapes.values()),
+            # one layer of the cross-attention encoder launches one of each shape
+            "per": "one 'from' launch plus one 'to' launch",
+            "ms": pair("ms"), "plain_ms": pair("plain_ms"),
+            **bound(pair("bytes"), pair("flops")), "library_ms": pair("library_ms"),
+            "shapes": shapes, "max_abs_err_with_bias": bias_err}
+
+
+def redraw_parameters(torch, net, seed: int) -> None:
+    """Seeded non-zero values for every parameter: matrices N(0, 1/fan_in),
+    vectors their initial value (LayerNorm 1, bias 0 or small) + 0.1 N(0, 1)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in net.parameters():
+            draw = torch.randn(p.shape, generator=gen).to(p.device)
+            if p.ndim >= 2:
+                p.copy_(draw / p.shape[-1] ** 0.5)
+            else:
+                p.add_(0.1 * draw)
+
+
+def serving_phase(torch, dev, name, config, model, net, wrapper_owner, wrapper_name,
+                  launches_per_eval, requests, counted) -> dict:
+    """Serve `requests` through make_serve_fn/serve_batches on the kernel path
+    and on the plain path, and hold a small batch against the CPU."""
     from particle_fm_tpu_torch.serving import make_serve_fn, serve_batches
 
-    # configs/experiment/jetnet/fm_tops150_cond.yaml on configs/model/flow_matching.yaml
-    model = FlowMatchingModel(
-        model="epic", features=3, num_particles=150, frequencies=16, hidden_dim=128,
-        layers=6, latent=10, t_emb="cosine", t_global_cat=True, t_local_cat=True,
-        add_time_to_input=False, global_cond_dim=2, local_cond_dim=2, loss_type="FM-OT",
-    )
-    net = model.init(seed=0, device=dev)
+    wrapper = getattr(wrapper_owner, wrapper_name)
+    plain = getattr(wrapper_owner, wrapper_name + "_reference")
+    n, feats = model.num_particles, model.features
     proto = dict(batch_size=SERVE_BATCH, ode_solver="midpoint", has_cond=True, has_mask=True,
                  means=[0.0, 0.0, 0.05], stds=[0.1, 0.1, 0.06])
     fn = make_serve_fn(model, net, ode_steps=ODE_STEPS, **proto)
     warm = make_serve_fn(model, net, ode_steps=2, **proto)
 
     rs = np.random.RandomState(1)
-    reqs = [(ragged_mask(rs, n, 150)[..., None], rs.randn(n, 2).astype(np.float32))
-            for n in REQUESTS]
-    n_batches = sum(-(-n // SERVE_BATCH) for n in REQUESTS)
-    want_launches = model.layers * 2 * (ODE_STEPS - 1) * n_batches
+    reqs = [(ragged_mask(rs, r, n)[..., None], rs.randn(r, 2).astype(np.float32)) for r in requests]
+    n_batches = sum(-(-r // SERVE_BATCH) for r in requests)
+    want_launches = launches_per_eval * 2 * (ODE_STEPS - 1) * n_batches
 
     def answer(f):
         torch.cuda.synchronize()
@@ -167,55 +291,80 @@ def serving_phase(torch, ops, dev) -> dict:
         return outs, time.perf_counter() - t0
 
     answer(warm)
-    ops.epic_layer.launches = 0
+    for w in counted:
+        w.launches = 0
     outs, secs = answer(fn)  # the main path
-    launches = ops.epic_layer.launches
+    launches = wrapper.launches
 
     for (m, _), out in zip(reqs, outs):
-        if out.shape != (len(m), 150, 3):
-            fail(f"served shape {out.shape}, expected {(len(m), 150, 3)}")
+        if out.shape != (len(m), n, feats):
+            fail(f"{name}: served shape {out.shape}, expected {(len(m), n, feats)}")
         if not np.isfinite(out).all():
-            fail("served samples are not finite")
+            fail(f"{name}: served samples are not finite")
         if np.abs(out[m[..., 0] == 0]).max(initial=0.0) != 0.0:
-            fail("padded rows of the served samples are not zero")
+            fail(f"{name}: padded rows of the served samples are not zero")
     if launches != want_launches:
-        fail(f"epic_layer launched {launches} times on the serving path, expected {want_launches}")
+        fail(f"{name}: {wrapper_name} launched {launches} times on the serving path, "
+             f"expected {want_launches}")
+    if sum(w.launches for w in counted) != launches:
+        fail(f"{name}: a kernel of another path was launched on this one")
 
-    # then in turns with the EPiC layer's plain version: plain, plain, kernel
-    with mock.patch.object(ops, "epic_layer", ops.epic_layer_reference):
+    # then in turns with the kernel's plain version: plain, plain, kernel
+    with mock.patch.object(wrapper_owner, wrapper_name, plain):
         answer(warm)
         plain_outs, plain_secs = answer(fn)
         plain_secs2 = answer(fn)[1]
     secs2 = answer(fn)[1]
     path_err = max(float(np.abs(a - b).max()) for a, b in zip(outs, plain_outs))
     if not path_err <= PATH_TOL:
-        fail(f"kernel path and plain path disagree after 100 evaluations: {path_err}")
+        fail(f"{name}: kernel path and plain path disagree after 100 evaluations: {path_err}")
 
     # a small input against the CPU, with the same noise and weights
     gen = torch.Generator().manual_seed(2)
-    mask = torch.from_numpy(ragged_mask(rs, 8, 150)[..., None])
+    mask = torch.from_numpy(ragged_mask(rs, 8, n)[..., None])
     cond = torch.randn(8, 2, generator=gen)
-    z = torch.randn(8, 150, 3, generator=gen) * mask
+    z = torch.randn(8, n, feats, generator=gen) * mask
+    with torch.no_grad():
+        field = model.vector_field(net, torch.full((8,), 0.5, device=dev), z.to(dev),
+                                   cond.to(dev), mask.to(dev))
+    field_max = float(field.abs().max())
+    if not (np.isfinite(field_max) and field_max > 0.0):
+        fail(f"{name}: the vector field is identically zero or not finite (max abs {field_max})")
     gpu = model.integrate(net, z.to(dev), cond.to(dev), mask.to(dev), "midpoint", 5).cpu()
     cpu_net = copy.deepcopy(net).cpu()
     cpu = model.integrate(cpu_net, z, cond, mask, "midpoint", 5)
     cpu_err = float((gpu - cpu).abs().max())
     if not cpu_err <= CPU_TOL:
-        fail(f"small batch on the card disagrees with the CPU: {cpu_err}")
+        fail(f"{name}: small batch on the card disagrees with the CPU: {cpu_err}")
 
-    jets = sum(REQUESTS)
+    jets = sum(requests)
     return {
-        "config": "fm_tops150_cond (seeded random weights)",
-        "requests": list(REQUESTS), "batch": SERVE_BATCH, "batches": n_batches,
+        "config": config, "requests": list(requests), "batch": SERVE_BATCH, "batches": n_batches,
         "ode_solver": "midpoint", "ode_steps": ODE_STEPS, "nfe": 2 * (ODE_STEPS - 1),
         "kernel_path_s": [secs, secs2], "plain_path_s": [plain_secs, plain_secs2],
         "kernel_path_jets_per_s": 2 * jets / (secs + secs2),
         "plain_path_jets_per_s": 2 * jets / (plain_secs + plain_secs2),
         "kernel_path_batch_jets_per_s": 2 * n_batches * SERVE_BATCH / (secs + secs2),
         "plain_path_batch_jets_per_s": 2 * n_batches * SERVE_BATCH / (plain_secs + plain_secs2),
-        "epic_layer_launches": launches,
+        "kernel": wrapper_name, "launches": launches, "vector_field_max_abs": field_max,
         "max_abs_diff_kernel_vs_plain": path_err, "max_abs_diff_card_vs_cpu": cpu_err,
     }
+
+
+def droid_net_config(core_key: str, model_dim: int, num_layers: int, attn_impl: str,
+                     dense_hddn: int | None = None) -> dict:
+    """net_config of configs/model/fm_droid_{transformer,crossattention}.yaml,
+    with the attention kernel chosen and float32 scores."""
+    embd = {"act_h": "lrlu", "nrm": "layer"}
+    dense = dict(embd, output_init_zeros=True)
+    if dense_hddn:
+        dense["hddn_dim"] = dense_hddn
+    mha = {"num_heads": 16, "init_zeros": True, "do_layer_norm": True,
+           "scores_dtype": None, "attn_impl": attn_impl}
+    return {"node_embd_config": embd, "ctxt_embd_config": dict(embd, outp_dim=64),
+            "outp_embd_config": dict(embd, output_init_zeros=True),
+            core_key: {"model_dim": model_dim, "num_layers": num_layers, "mha_config": mha,
+                       "dense_config": dense}}
 
 
 def main() -> None:
@@ -226,7 +375,10 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     try:
         import particle_fm_tpu_torch
+        from particle_fm_tpu_torch.models.flow_matching import FlowMatchingModel
+        from particle_fm_tpu_torch.ops import _build
         from particle_fm_tpu_torch.ops import epic_layer as ops
+        from particle_fm_tpu_torch.ops import short_attention as sa
     except ImportError as e:
         fail(f"the port is not beside this script ({e})")
     if Path(particle_fm_tpu_torch.__file__).resolve().parent.parent != ROOT:
@@ -239,22 +391,57 @@ def main() -> None:
     dev = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
-    lib = ops.build_library()
+    libs = _build.build_libraries([ops.SOURCE, sa.SOURCE])
     ops.load_library()
-    print(json.dumps({"build_s": time.perf_counter() - t0, "library": lib.name}), flush=True)
-    log = lib.with_suffix(".log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print("ptxas:", line.strip())
+    sa.load_library()
+    print(json.dumps({"build_s": time.perf_counter() - t0, "libraries": [p.name for p in libs]}),
+          flush=True)
+    for lib in libs:
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
+                print(f"ptxas ({lib.name}):", line.strip())
 
-    kernel = kernel_phase(torch, ops, dev)
-    print(json.dumps({"kernel_phase": kernel}), flush=True)
-    serving = serving_phase(torch, ops, dev)
-    print(json.dumps({"serving": serving}), flush=True)
-    kernel["launches"] = serving["epic_layer_launches"]
+    kernels = [kernel_phase(torch, ops, dev), packed_phase(torch, sa, dev),
+               fused_phase(torch, sa, dev)]
+    for k in kernels:
+        print(json.dumps({"kernel_phase": k}), flush=True)
 
-    print(json.dumps({"kernels": [kernel]}))
+    common = dict(features=3, num_particles=150, frequencies=16, t_emb="cosine",
+                  global_cond_dim=2, loss_type="FM-OT")
+    # configs/experiment/jetnet/fm_tops150_cond.yaml on configs/model/flow_matching.yaml
+    epic = FlowMatchingModel(
+        model="epic", hidden_dim=128, layers=6, latent=10, t_global_cat=True, t_local_cat=True,
+        add_time_to_input=False, local_cond_dim=2, **common,
+    )
+    droid = FlowMatchingModel(
+        model="droid_fulltransformer", add_time_to_input=True,
+        net_config=droid_net_config("te_config", 256, 3, "packed"), **common,
+    )
+    cross = FlowMatchingModel(
+        model="droid_fullcrossattention", add_time_to_input=True,
+        net_config=droid_net_config("cae_config", 128, 8, "fused", dense_hddn=256), **common,
+    )
+    droid_net, cross_net = droid.init(seed=0, device=dev), cross.init(seed=0, device=dev)
+    redraw_parameters(torch, droid_net, seed=1)
+    redraw_parameters(torch, cross_net, seed=2)
+    runs = [
+        ("epic", "fm_tops150_cond (seeded random weights)", epic, epic.init(seed=0, device=dev),
+         ops, "epic_layer", epic.layers, (640, 7)),
+        ("path A", "fm_droid_transformer, attn_impl=packed, scores_dtype=null (every "
+         "parameter re-drawn from a seed)", droid, droid_net, sa, "packed_short_attention",
+         3, (1000, 640, 7)),
+        ("path B", "fm_droid_crossattention, attn_impl=fused, scores_dtype=null, 4 global "
+         "tokens (every parameter re-drawn from a seed)", cross, cross_net, sa,
+         "fused_short_attention", 2 * 8, (640, 7)),
+    ]
+    counted = [ops.epic_layer, sa.packed_short_attention, sa.fused_short_attention]
+    for kernel, (name, config, model, net, owner, wrapper, per_eval, requests) in zip(kernels, runs):
+        serving = serving_phase(torch, dev, name, config, model, net, owner, wrapper, per_eval,
+                                requests, counted)
+        print(json.dumps({"serving": name, **serving}), flush=True)
+        kernel["launches"] = serving["launches"]
+
+    print(json.dumps({"kernels": kernels}))
     print(card)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -1,22 +1,31 @@
 """CNF vector-field wrapper; counterpart of particle_fm_tpu/models/cnf.py.
 
-The port carries the EPiC branch with the parameter-free time embeddings
-(sincos, cosine). The cosine ladder's frequency table is a non-persistent
-buffer built on the CPU the reference's way (see nets/time_emb.py); a test
-may overwrite it with the JAX package's table.
+The port carries the EPiC branch and the two PC-Droid transformer branches
+(`droid_fulltransformer`, `droid_fullcrossattention`, configured through
+`net_config`) with the parameter-free time embeddings (sincos, cosine). The
+cosine ladder's frequency table is a non-persistent buffer built on the CPU
+the reference's way (see nets/time_emb.py); a test may overwrite it with the
+JAX package's table.
+
+One convention inside the port: the network is handed the per-set time
+embedding (B, T). The JAX CNF hands its networks a (B, N, T) broadcast, and
+its transformers slice the first particle back out (`t[..., 0, :]`).
 """
 
 from __future__ import annotations
+
+from typing import Any, Mapping
 
 import torch
 from torch import nn
 
 from particle_fm_tpu_torch.nets.epic import EPiCEncoder
+from particle_fm_tpu_torch.nets.transformer import FullCrossAttentionEncoder, FullTransformerEncoder
 from particle_fm_tpu_torch.nets.time_emb import cosine_frequencies, time_embedding
 
 
 class CNF(nn.Module):
-    """One flow transform: time embedding + EPiC vector-field network."""
+    """One flow transform: time embedding + vector-field network."""
 
     def __init__(
         self,
@@ -35,19 +44,36 @@ class CNF(nn.Module):
         add_time_to_input: bool = True,
         t_emb: str = "sincos",
         sum_scale: float = 1e-2,
+        net_config: Mapping[str, Any] | None = None,
         generator: torch.Generator | None = None,
     ):
         super().__init__()
-        if model != "epic":
-            raise NotImplementedError(f"the port carries the epic model only, not {model}")
         if t_emb not in ("sincos", "cosine"):
             raise NotImplementedError(f"t_emb={t_emb} is not ported")
         self.frequencies = frequencies
         self.t_emb = t_emb
         self.add_time_to_input = add_time_to_input
         t_dim = 2 * frequencies
+        in_feats = features + t_dim if add_time_to_input else features
+        freqs = cosine_frequencies(t_dim) if t_emb == "cosine" else torch.empty(0)
+        self.register_buffer("cos_freqs", freqs, persistent=False)
+        encoders = {"droid_fulltransformer": FullTransformerEncoder,
+                    "droid_fullcrossattention": FullCrossAttentionEncoder}
+        if model in encoders:
+            self.net = encoders[model](
+                in_feats, outp_dim=features, ctxt_dim=global_cond_dim + t_dim,
+                generator=generator, **dict(net_config or {}),
+            )
+            return
+        if model != "epic":
+            raise NotImplementedError(
+                f"model={model} is not ported (the port carries epic, droid_fulltransformer "
+                "and droid_fullcrossattention)"
+            )
+        if net_config:
+            raise NotImplementedError("net_config for the epic model is not ported")
         self.net = EPiCEncoder(
-            in_feats=features + t_dim if add_time_to_input else features,
+            in_feats=in_feats,
             feats=features,
             hid_dim=hidden_dim,
             latent_dim=latent,
@@ -63,8 +89,6 @@ class CNF(nn.Module):
             sum_scale=sum_scale,
             generator=generator,
         )
-        freqs = cosine_frequencies(t_dim) if t_emb == "cosine" else torch.empty(0)
-        self.register_buffer("cos_freqs", freqs, persistent=False)
 
     def forward(
         self,

@@ -13,7 +13,7 @@ the JAX package drew.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Mapping
 
 import torch
 from torch import nn
@@ -57,6 +57,7 @@ class FlowMatchingModel:
     t_emb: str = "sincos"
     use_normaliser: bool = False
     self_cond: bool = False
+    net_config: Mapping[str, Any] = dataclasses.field(default_factory=dict)
     dtype: Any = None
 
     def __post_init__(self):
@@ -88,13 +89,15 @@ class FlowMatchingModel:
             add_time_to_input=self.add_time_to_input,
             t_emb=self.t_emb,
             sum_scale=self.sum_scale,
+            net_config=dict(self.net_config),
         )
         return net.to(dev).eval()
 
     @staticmethod
     def fold_weight_norm(net: nn.Module) -> None:
         """Fold w = g * v / ||v|| into every weight once, and cut the EPiC
-        layers' weights for the fused layer. `unfold_weight_norm` undoes it."""
+        layers' weights for the fused layer. `unfold_weight_norm` undoes it.
+        The transformer networks have no weight norm: nothing changes there."""
         for m in net.modules():
             if isinstance(m, (WNDense, EPiCLayer)):
                 m.fold()

@@ -102,7 +102,9 @@ class WNDense(nn.Module):
 
     @torch.no_grad()
     def fold(self) -> None:
-        self._folded = self.effective_weight().detach().clone()
+        """Keep the normalised weight; nothing to do for a plain Dense."""
+        if self.use_weight_norm:
+            self._folded = self.effective_weight().detach().clone()
 
     def unfold(self) -> None:
         self._folded = None

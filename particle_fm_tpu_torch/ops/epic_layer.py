@@ -20,28 +20,22 @@ t_l = set_feat[:, :tl], cond = set_feat[:, S-C:].
 
 `epic_layer` runs the plain version for a tensor on the CPU and launches
 `csrc/epic_layer.cu` for a CUDA tensor; it never falls back from one to the
-other. The CUDA library is built with nvcc at first use into
-`build/torch_kernels/` beside the package.
+other. The CUDA library is built with nvcc at first use (ops/_build.py).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "epic_layer.cu"
-BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "torch_kernels"
-MAX_WIDTH = 256  # the largest H and L the kernel takes
+from particle_fm_tpu_torch.ops import _build
+from particle_fm_tpu_torch.ops._build import check_tensor as _check
 
-_libs: dict[Path, ctypes.CDLL] = {}
+SOURCE = _build.CSRC_DIR / "epic_layer.cu"
+MAX_WIDTH = 256  # the largest H and L the kernel takes
 
 
 def _act(x: torch.Tensor) -> torch.Tensor:
@@ -81,66 +75,21 @@ def epic_layer_reference(
     return out, g_new
 
 
-def _nvcc() -> str:
-    for cand in (
-        os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
-        shutil.which("nvcc"),
-        "/usr/local/cuda/bin/nvcc",
-    ):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+def _declare(lib: ctypes.CDLL) -> None:
+    fn = lib.epic_layer_fwd_f32
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
 
 
 def build_library(source: Path | None = None) -> Path:
-    """Compile `source` (default csrc/epic_layer.cu) for sm_90a, once per
-    source version. The compiler's report (registers, shared memory, spills)
-    is kept beside the library as `<name>.log`."""
-    source = source or SOURCE
-    src = source.read_bytes()
-    out = BUILD_DIR / f"lib{source.stem}_{hashlib.sha256(src).hexdigest()[:12]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, str(source),
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
+    """Compile `source` (default csrc/epic_layer.cu); see ops/_build.py."""
+    return _build.build_library(source or SOURCE)
 
 
 def load_library(source: Path | None = None) -> ctypes.CDLL:
     """The kernel library built from `source` (default: `SOURCE` as it is
     at the call), loaded once."""
-    source = source or SOURCE
-    if source not in _libs:
-        lib = ctypes.CDLL(str(build_library(source)))
-        fn = lib.epic_layer_fwd_f32
-        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 + [
-            ctypes.c_float, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        _libs[source] = lib
-    return _libs[source]
-
-
-def _check(name: str, t: torch.Tensor, shape: tuple[int, ...], device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} has dtype {t.dtype}; the kernel takes float32")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
+    return _build.load_library(source or SOURCE, _declare)
 
 
 def epic_layer(

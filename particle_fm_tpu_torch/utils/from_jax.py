@@ -4,8 +4,11 @@ The inverse of particle_fm_tpu/utils/torch_import.py: the flax
 `variables["params"]` tree (numpy arrays, e.g. from `jax.device_get`) becomes
 the port's `state_dict`. Names map one to one, with `flows_{k}` becoming the
 ModuleList entry `flows.{k}`; a weight-norm Dense's `kernel (in, out)`
-becomes `weight_v (out, in)` (a plain Dense's becomes `weight`), and `g`
-and `bias` are copied. The mapping is shape-checked both ways: every flax
+becomes `weight_v (out, in)` (a plain Dense's becomes `weight`), a
+LayerNorm's `scale` becomes `weight`, and `g`, `bias` and bare parameters
+such as `global_tokens` are copied. The module names of the transformer
+family (`lin_0`, `nrm_0`, `layer_0`, ...) are the same on both sides. The
+mapping is shape-checked both ways: every flax
 leaf must land on a parameter of the same shape, and every parameter must
 be covered, so nothing keeps its random init.
 """
@@ -42,6 +45,8 @@ def state_dict_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
         if leaf == "kernel":
             has_g = f"{prefix}g" in flat
             sd[f"{prefix}{'weight_v' if has_g else 'weight'}"] = torch.tensor(arr.T)
+        elif leaf == "scale":
+            sd[f"{prefix}weight"] = torch.tensor(arr)
         else:
             sd[path] = torch.tensor(arr)
     return sd

@@ -1,12 +1,17 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's sampler on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_port.py [--nfe-steps 6] [--out build/measurements/profile_torch_port.json]
+    python3 scripts/profile_torch_port.py [--config epic|transformer|crossattention]
+        [--nfe-steps 6] [--out build/measurements/profile_torch_port_<config>.json]
 
-Builds the fm_tops150_cond network at full width (seeded random weights),
-then for each path -- the fused EPiC kernel and the EPiC layer's plain
-PyTorch version -- serves one batch of 640 jets (midpoint, `--nfe-steps`
-grid points) once without and once under torch.profiler, after a warm-up.
+Builds one of the served networks at full width with seeded random weights,
+as chip_smoke.py builds them: `epic` is fm_tops150_cond (fused EPiC layer),
+`transformer` is fm_droid_transformer with attn_impl=packed (packed short-set
+attention), `crossattention` is fm_droid_crossattention with attn_impl=fused
+(fused short-set attention). Then for each path -- the configuration's CUDA
+kernel and that kernel's plain PyTorch version -- it serves one batch of 640
+jets (midpoint, `--nfe-steps` grid points) once without and once under
+torch.profiler, after a warm-up.
 Prints, per path, the wall time per network evaluation (both runs; the
 profiler slows the host), the device's busy share (summed kernel time over
 each wall time) and the kernels by device time, and writes the same
@@ -30,9 +35,27 @@ from torch.autograd import DeviceType
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
+from chip_smoke import droid_net_config, redraw_parameters  # noqa: E402
 from particle_fm_tpu_torch.models.flow_matching import FlowMatchingModel  # noqa: E402
-from particle_fm_tpu_torch.ops import epic_layer as ops  # noqa: E402
+from particle_fm_tpu_torch.ops import epic_layer as epic_ops  # noqa: E402
+from particle_fm_tpu_torch.ops import short_attention as attention_ops  # noqa: E402
 from particle_fm_tpu_torch.serving import make_serve_fn  # noqa: E402
+
+COMMON = dict(features=3, num_particles=150, frequencies=16, t_emb="cosine", global_cond_dim=2,
+              loss_type="FM-OT")
+# name -> (model arguments, module and name of the kernel's wrapper)
+CONFIGS = {
+    "epic": (dict(model="epic", hidden_dim=128, layers=6, latent=10, t_global_cat=True,
+                  t_local_cat=True, add_time_to_input=False, local_cond_dim=2),
+             epic_ops, "epic_layer"),
+    "transformer": (dict(model="droid_fulltransformer", add_time_to_input=True,
+                         net_config=droid_net_config("te_config", 256, 3, "packed")),
+                    attention_ops, "packed_short_attention"),
+    "crossattention": (dict(model="droid_fullcrossattention", add_time_to_input=True,
+                            net_config=droid_net_config("cae_config", 128, 8, "fused",
+                                                        dense_hddn=256)),
+                       attention_ops, "fused_short_attention"),
+}
 
 
 def profile_path(fn, cond, mask, nfe: int) -> dict:
@@ -75,9 +98,11 @@ def profile_path(fn, cond, mask, nfe: int) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", choices=list(CONFIGS), default="epic")
     ap.add_argument("--nfe-steps", type=int, default=6, help="ode_steps of the profiled run")
-    ap.add_argument("--out", default=str(ROOT / "build" / "measurements" / "profile_torch_port.json"))
+    ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    out = Path(args.out or ROOT / "build" / "measurements" / f"profile_torch_port_{args.config}.json")
     if not torch.cuda.is_available():
         sys.exit("profile_torch_port: CUDA is not available")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -85,12 +110,11 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
 
-    model = FlowMatchingModel(
-        model="epic", features=3, num_particles=150, frequencies=16, hidden_dim=128,
-        layers=6, latent=10, t_emb="cosine", t_global_cat=True, t_local_cat=True,
-        add_time_to_input=False, global_cond_dim=2, local_cond_dim=2, loss_type="FM-OT",
-    )
+    model_args, owner, wrapper = CONFIGS[args.config]
+    model = FlowMatchingModel(**model_args, **COMMON)
     net = model.init(seed=0, device="cuda")
+    if args.config != "epic":  # these configurations zero-initialise their attention
+        redraw_parameters(torch, net, seed=1)
     fn = make_serve_fn(model, net, batch_size=640, ode_solver="midpoint",
                        ode_steps=args.nfe_steps, has_cond=True, has_mask=True)
     rs = np.random.RandomState(0)
@@ -99,22 +123,21 @@ def main() -> None:
     cond = rs.randn(640, 2).astype(np.float32)
     nfe = 2 * (args.nfe_steps - 1)
 
-    ops.load_library()
-    result = {"card": card, "batch": 640, "nfe": nfe}
+    owner.load_library()
+    result = {"card": card, "config": args.config, "kernel": wrapper, "batch": 640, "nfe": nfe}
     result["kernel_path"] = profile_path(fn, cond, mask, nfe)
-    with mock.patch.object(ops, "epic_layer", ops.epic_layer_reference):
+    with mock.patch.object(owner, wrapper, getattr(owner, wrapper + "_reference")):
         result["plain_path"] = profile_path(fn, cond, mask, nfe)
-    out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))
-    print(card)
+    print(card, args.config)
     for path in ("kernel_path", "plain_path"):
         r = result[path]
         print(f"{path}: {r['wall_ms_per_nfe_unprofiled']:.3f} ms/NFE wall unprofiled, "
               f"{r['wall_ms_per_nfe']:.3f} profiled; kernels {r['device_ms_per_nfe']:.3f} "
               f"ms/NFE, busy share {r['device_busy_share_unprofiled']:.3f} of the unprofiled "
               f"wall, {r['device_busy_share']:.3f} of the profiled")
-        for k in r["kernels"][:8]:
+        for k in r["kernels"][:12]:
             print(f"  {k['device_ms']:9.3f} ms  {k['calls']:5d}x  {k['name']}")
 
 

@@ -24,6 +24,38 @@ SMALL = dict(features=3, num_particles=16, hidden_dim=32, latent=8, layers=2,
 YAML_FLAGSHIP = dict(SMALL, t_global_cat=True, t_local_cat=True, add_time_to_input=False)
 GRAFT_FLAGSHIP = dict(SMALL, t_global_cat=False, t_local_cat=False, add_time_to_input=True)
 
+# narrow stand-ins of configs/model/fm_droid_transformer.yaml and
+# fm_droid_crossattention.yaml, zero-initialised layers included
+_EMBD = dict(act_h="lrlu", nrm="layer")
+_MHA = dict(num_heads=4, init_zeros=True, do_layer_norm=True)
+_DENSE = dict(_EMBD, output_init_zeros=True)
+_DROID = dict(features=3, num_particles=16, frequencies=16, t_emb="cosine", loss_type="FM-OT",
+              add_time_to_input=True, global_cond_dim=2)
+
+
+def droid_net_config(core: str, mha: dict | None = None, **core_cfg) -> dict:
+    """net_config of a narrow droid model; `core` is te_config or cae_config."""
+    return dict(
+        node_embd_config=_EMBD, ctxt_embd_config=dict(_EMBD, outp_dim=12),
+        outp_embd_config=dict(_EMBD, output_init_zeros=True),
+        **{core: dict(model_dim=32, num_layers=2, mha_config=dict(_MHA, **(mha or {})),
+                      dense_config=_DENSE, **core_cfg)},
+    )
+
+
+def droid_configs(jax_mha: dict | None = None, port_mha: dict | None = None, **overrides):
+    """{name: (jax config, port config)} of the two droid models; the two
+    sides may differ in `mha_config` (which attention each one runs)."""
+    out = {}
+    for name, model, core, extra in (
+        ("transformer", "droid_fulltransformer", "te_config", {}),
+        ("crossattention", "droid_fullcrossattention", "cae_config", {"num_tokens": 3}),
+    ):
+        base = dict(_DROID, model=model, **overrides)
+        out[name] = (dict(base, net_config=droid_net_config(core, jax_mha, **extra)),
+                     dict(base, net_config=droid_net_config(core, port_mha, **extra)))
+    return out
+
 
 def cloud(b=4, n=16, feats=3, cond_dim=2, seed=0):
     """Ragged numpy batch: x (B,N,F) masked, mask (B,N,1), cond (B,C), t (B,)."""
@@ -42,12 +74,23 @@ def jax_cos_table(outp_dim: int) -> np.ndarray:
     return np.array(jnp.exp(jnp.arange(outp_dim, dtype=jnp.float32)))
 
 
-def model_pair(cfg: dict, seed: int = 0):
+def filled(params, seed: int = 0, scale: float = 0.3):
+    """A flax parameter tree of the same structure with every leaf drawn from
+    numpy: no leaf keeps a zero or one from its initialiser."""
+    rs = np.random.RandomState(seed)
+    return jax.tree_util.tree_map(
+        lambda a: (rs.randn(*a.shape) * scale).astype(np.float32), jax.device_get(params))
+
+
+def model_pair(cfg: dict, seed: int = 0, port_cfg: dict | None = None, fill: bool = False):
     """(jax model, jax variables, port model, port network) with the JAX
-    parameters carried across and the JAX cosine table in the port's buffer."""
+    parameters carried across and the JAX cosine table in the port's buffer.
+    `fill` replaces every JAX parameter by a seeded numpy draw first."""
     jm = JaxModel(**cfg)
     variables = jm.init(jax.random.PRNGKey(seed))
-    pm = PortModel(**cfg)
+    if fill:
+        variables = {"params": filled(variables["params"], seed)}
+    pm = PortModel(**(port_cfg or cfg))
     net = pm.init(seed=seed, device="cpu")
     load_flax_params(net, jax.device_get(variables["params"]))
     for flow in net.flows:
