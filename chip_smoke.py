@@ -3,14 +3,14 @@
 
     python3 chip_smoke.py
 
-1. Prints the card's name and power limit (nvidia-smi) and builds the kernel
-   libraries from csrc/ with nvcc, one compiler per source, all started
-   together (build time on its own line).
-2. Kernel phases, each kernel against its plain PyTorch version on the card
-   at the shapes the serving paths give it, atol 1e-4 / rtol 1e-4, and both
-   timed with CUDA events in turns (plain, kernel, kernel, plain; each 20
-   calls back to back between two events, the median of 5 such runs, after 5
-   calls of warm-up):
+1. Prints the card's name and power limit (nvidia-smi) and builds the three
+   kernel libraries from csrc/ with nvcc, one compiler per source, all
+   started together (build time on its own line).
+2. Kernel phases, each of the four kernels against its plain PyTorch version
+   on the card at the shapes the serving paths give it, atol 1e-4 / rtol
+   1e-4, and both timed with CUDA events in turns (plain, kernel, kernel,
+   plain; each 20 calls back to back between two events, the median of 5 such
+   runs, after 5 calls of warm-up):
    - the fused EPiC layer (csrc/epic_layer.cu) at the JetNet-150 flagship
      shapes (B=640, N=150, H=128, L=10, t=32, C=2, float32, multiplicities
      30-150);
@@ -21,30 +21,41 @@
    - fused short-set attention (same source) at the cross-attention model's
      two shapes (B=640, 16 heads of 8: 4 queries on 150 masked keys, 150
      queries on 4 keys; the times are those of one such pair), and once
-     masked with a bias at Lq=37, Lk=150.
+     masked with a bias at Lq=37, Lk=150;
+   - blockwise flash attention (csrc/flash_attention.cu) at MDMA's shape
+     (B=32, one class-token query on 6000 keys with 1000-6000 real ones, 2
+     heads of 128) and at the transformer's shape on 279-particle sets
+     (B=256, Lq=Lk=279, 16 heads of 16, slices of one QKV projection), and
+     checked only at B=4, Lq=Lk=1500, 4 heads of 128, masked and unmasked.
    Beside each: the least time the card could take (bytes over 3.35 TB/s
    against float32 operations over 67 TFLOP/s) and, for attention, one
    `scaled_dot_product_attention` call on the same tensors as a yardstick
    (the port never calls it).
-3. Serving phases through `make_serve_fn`/`serve_batches`, batch 640,
-   midpoint, ode_steps=51 (100 network evaluations), float32, seeded random
-   weights (the repo has no trained checkpoint), ragged masks 30-150 and a
-   2-wide cond:
-   - fm_tops150_cond (EPiC) answers requests of 640 and 7 jets;
+3. Serving phases through `make_serve_fn`/`serve_batches`, midpoint,
+   ode_steps=51 (100 network evaluations), float32, seeded random weights
+   (the repo has no trained checkpoint), ragged masks and a random cond:
+   - fm_tops150_cond (EPiC), batch 640, requests of 640 and 7 jets;
    - path A, fm_droid_transformer at full width (model_dim 256, 3 layers,
-     16 heads, attn_impl=packed, scores_dtype=null), requests of 1000, 640
-     and 7 jets;
+     16 heads, attn_impl=packed, scores_dtype=null), batch 640, requests of
+     640 and 7 jets;
    - path B, fm_droid_crossattention at full width (model_dim 128, 8 layers,
-     16 heads, 4 global tokens, attn_impl=fused), requests of 640 and 7 jets.
-   The two transformer configurations zero-initialise their attention and
+     16 heads, 4 global tokens, attn_impl=fused), batch 640, 640 and 7 jets;
+   - path C, calo/mdma_calo on flow_matching_mdma (4 features, 6000 hits,
+     1-wide cond, hidden 256, latent 16, 8 layers) with net_config.num_heads=2,
+     so that the head dim is 128 and attention(impl="auto") takes the flash
+     kernel; batch 32, requests of 32 and 5 showers of 1000-6000 hits;
+   - path D, lhco/jets_transformer on fm_droid_transformer (279 particles,
+     5-wide cond) with attn_impl=flash, scores_dtype=null; batch 256,
+     requests of 256 and 7 events of 30-279 particles.
+   The transformer configurations zero-initialise their attention and
    output projections, so every parameter is re-drawn from a seed first, and
    the vector field must not be identically zero. Each phase sets the launch
-   counts to 0, serves, and checks finite outputs, zero padded rows and the
-   exact number of kernel launches; then the same requests run with the
-   kernel's wrapper replaced by its plain version and must agree within atol
-   1e-3, and a small batch must agree with the CPU within atol 1e-4. Prints
-   jets/s of both paths, each the mean of two runs taken in turns (kernel,
-   plain, plain, kernel).
+   counts to 0, serves, and checks finite outputs, zero padded rows, the
+   exact number of launches of its kernel and none of another path's; then
+   the same requests run with the kernel's wrapper replaced by its plain
+   version and must agree within atol 1e-3, and a small batch must agree
+   with the CPU within atol 1e-4. Prints jets/s of both paths, each the mean
+   of two runs taken in turns (kernel, plain, plain, kernel).
 4. Prints the `kernels` JSON line, the card line again, and as the last
    line {"ok": true, "device": {...}}.
 
@@ -73,7 +84,6 @@ PEAK_BYTES = 3.35e12
 KERNEL_TOL = 1e-4
 PATH_TOL = 1e-3
 CPU_TOL = 1e-4
-SERVE_BATCH = 640
 ODE_STEPS = 51
 # operations per attention score beside the two products: scale, mask add,
 # subtract the maximum, exponential, sum
@@ -171,8 +181,10 @@ def kernel_phase(torch, ops, dev) -> dict:
     }
 
 
-def attention_case(torch, dev, seed, b, lq, lk, h, d, masked, bias=False, fused_qkv=False):
-    """q, k, v (B, L, H, D), mask (B, Lk) and bias (B, H, Lq, Lk) on the card."""
+def attention_case(torch, dev, seed, b, lq, lk, h, d, masked, bias=False, fused_qkv=False,
+                   lo=30):
+    """q, k, v (B, L, H, D), mask (B, Lk) with `lo`..Lk real keys and bias
+    (B, H, Lq, Lk) on the card."""
     gen = torch.Generator().manual_seed(seed)
     if fused_qkv:  # the three slices of one (B, L, 3*H*D) projection output
         qkv = torch.randn(b, lq, 3 * h * d, generator=gen).to(dev)
@@ -181,7 +193,7 @@ def attention_case(torch, dev, seed, b, lq, lk, h, d, masked, bias=False, fused_
         q = torch.randn(b, lq, h, d, generator=gen).to(dev)
         k = torch.randn(b, lk, h, d, generator=gen).to(dev)
         v = torch.randn(b, lk, h, d, generator=gen).to(dev)
-    mask = torch.from_numpy(ragged_mask(np.random.RandomState(seed), b, lk, lo=min(30, lk))).to(dev) if masked else None
+    mask = torch.from_numpy(ragged_mask(np.random.RandomState(seed), b, lk, lo=min(lo, lk))).to(dev) if masked else None
     ab = torch.randn(b, h, lq, lk, generator=gen).to(dev) if bias else None
     return q, k, v, mask, ab
 
@@ -250,6 +262,33 @@ def fused_phase(torch, sa, dev) -> dict:
             "shapes": shapes, "max_abs_err_with_bias": bias_err}
 
 
+def flash_phase(torch, fa, dev) -> dict:
+    fn = lambda q, k, v, mask, ab: fa.flash_masked_attention(q, k, v, mask)
+    ref = lambda q, k, v, mask, ab: fa.flash_masked_attention_reference(q, k, v, mask)
+    shapes = {
+        "path C": attention_measure(torch, "flash_masked_attention (class token)", fn, ref,
+                                    attention_case(torch, dev, 8, 32, 1, 6000, 2, 128, masked=True,
+                                                   lo=1000)),
+        "path D": attention_measure(torch, "flash_masked_attention (279 particles)", fn, ref,
+                                    attention_case(torch, dev, 9, 256, 279, 279, 16, 16,
+                                                   masked=True, fused_qkv=True)),
+    }
+    long_errs = {}
+    for key, masked in (("max_abs_err_long_masked", True), ("max_abs_err_long_unmasked", False)):
+        case = attention_case(torch, dev, 10, 4, 1500, 1500, 4, 128, masked=masked)
+        long_errs[key] = check_kernel(torch, f"flash_masked_attention ({key})", fn(*case), ref(*case))
+    main = shapes["path C"]  # the shape `impl="auto"` sends to this kernel
+    return {"name": "flash_masked_attention", "route": "cuda",
+            "source": "particle_fm_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "particle_fm_tpu/ops/pallas/flash_attention.py:58",
+            "launches": None,
+            "max_abs_err": max(s["max_abs_err"] for s in shapes.values()),
+            "per": "one launch at path C's shape; path D's shape under `shapes`",
+            **{key: main[key] for key in ("ms", "plain_ms", "turns_ms", "bound_ms", "bound_by",
+                                          "bytes", "flops", "library_ms", "shape")},
+            "shapes": shapes, **long_errs}
+
+
 def redraw_parameters(torch, net, seed: int) -> None:
     """Seeded non-zero values for every parameter: matrices N(0, 1/fan_in),
     vectors their initial value (LayerNorm 1, bias 0 or small) + 0.1 N(0, 1)."""
@@ -264,22 +303,26 @@ def redraw_parameters(torch, net, seed: int) -> None:
 
 
 def serving_phase(torch, dev, name, config, model, net, wrapper_owner, wrapper_name,
-                  launches_per_eval, requests, counted) -> dict:
-    """Serve `requests` through make_serve_fn/serve_batches on the kernel path
-    and on the plain path, and hold a small batch against the CPU."""
+                  launches_per_eval, requests, counted, batch=640, mask_lo=30,
+                  cpu_batch=8) -> dict:
+    """Serve `requests` in batches of `batch` through make_serve_fn/
+    serve_batches on the kernel path and on the plain path, and hold a small
+    batch of `cpu_batch` sets against the CPU. Sets have `mask_lo` to
+    `model.num_particles` real particles."""
     from particle_fm_tpu_torch.serving import make_serve_fn, serve_batches
 
     wrapper = getattr(wrapper_owner, wrapper_name)
     plain = getattr(wrapper_owner, wrapper_name + "_reference")
-    n, feats = model.num_particles, model.features
-    proto = dict(batch_size=SERVE_BATCH, ode_solver="midpoint", has_cond=True, has_mask=True,
-                 means=[0.0, 0.0, 0.05], stds=[0.1, 0.1, 0.06])
+    n, feats, cond_dim = model.num_particles, model.features, model.global_cond_dim
+    proto = dict(batch_size=batch, ode_solver="midpoint", has_cond=True, has_mask=True,
+                 means=[0.0, 0.0, 0.05, 0.0][:feats], stds=[0.1, 0.1, 0.06, 0.2][:feats])
     fn = make_serve_fn(model, net, ode_steps=ODE_STEPS, **proto)
     warm = make_serve_fn(model, net, ode_steps=2, **proto)
 
     rs = np.random.RandomState(1)
-    reqs = [(ragged_mask(rs, r, n)[..., None], rs.randn(r, 2).astype(np.float32)) for r in requests]
-    n_batches = sum(-(-r // SERVE_BATCH) for r in requests)
+    reqs = [(ragged_mask(rs, r, n, mask_lo)[..., None], rs.randn(r, cond_dim).astype(np.float32))
+            for r in requests]
+    n_batches = sum(-(-r // batch) for r in requests)
     want_launches = launches_per_eval * 2 * (ODE_STEPS - 1) * n_batches
 
     def answer(f):
@@ -321,11 +364,11 @@ def serving_phase(torch, dev, name, config, model, net, wrapper_owner, wrapper_n
 
     # a small input against the CPU, with the same noise and weights
     gen = torch.Generator().manual_seed(2)
-    mask = torch.from_numpy(ragged_mask(rs, 8, n)[..., None])
-    cond = torch.randn(8, 2, generator=gen)
-    z = torch.randn(8, n, feats, generator=gen) * mask
+    mask = torch.from_numpy(ragged_mask(rs, cpu_batch, n, mask_lo)[..., None])
+    cond = torch.randn(cpu_batch, cond_dim, generator=gen)
+    z = torch.randn(cpu_batch, n, feats, generator=gen) * mask
     with torch.no_grad():
-        field = model.vector_field(net, torch.full((8,), 0.5, device=dev), z.to(dev),
+        field = model.vector_field(net, torch.full((cpu_batch,), 0.5, device=dev), z.to(dev),
                                    cond.to(dev), mask.to(dev))
     field_max = float(field.abs().max())
     if not (np.isfinite(field_max) and field_max > 0.0):
@@ -339,15 +382,16 @@ def serving_phase(torch, dev, name, config, model, net, wrapper_owner, wrapper_n
 
     jets = sum(requests)
     return {
-        "config": config, "requests": list(requests), "batch": SERVE_BATCH, "batches": n_batches,
+        "config": config, "requests": list(requests), "batch": batch, "batches": n_batches,
         "ode_solver": "midpoint", "ode_steps": ODE_STEPS, "nfe": 2 * (ODE_STEPS - 1),
         "kernel_path_s": [secs, secs2], "plain_path_s": [plain_secs, plain_secs2],
         "kernel_path_jets_per_s": 2 * jets / (secs + secs2),
         "plain_path_jets_per_s": 2 * jets / (plain_secs + plain_secs2),
-        "kernel_path_batch_jets_per_s": 2 * n_batches * SERVE_BATCH / (secs + secs2),
-        "plain_path_batch_jets_per_s": 2 * n_batches * SERVE_BATCH / (plain_secs + plain_secs2),
+        "kernel_path_batch_jets_per_s": 2 * n_batches * batch / (secs + secs2),
+        "plain_path_batch_jets_per_s": 2 * n_batches * batch / (plain_secs + plain_secs2),
         "kernel": wrapper_name, "launches": launches, "vector_field_max_abs": field_max,
         "max_abs_diff_kernel_vs_plain": path_err, "max_abs_diff_card_vs_cpu": cpu_err,
+        "cpu_batch": cpu_batch,
     }
 
 
@@ -378,6 +422,7 @@ def main() -> None:
         from particle_fm_tpu_torch.models.flow_matching import FlowMatchingModel
         from particle_fm_tpu_torch.ops import _build
         from particle_fm_tpu_torch.ops import epic_layer as ops
+        from particle_fm_tpu_torch.ops import flash_attention as fa
         from particle_fm_tpu_torch.ops import short_attention as sa
     except ImportError as e:
         fail(f"the port is not beside this script ({e})")
@@ -391,9 +436,9 @@ def main() -> None:
     dev = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
-    libs = _build.build_libraries([ops.SOURCE, sa.SOURCE])
-    ops.load_library()
-    sa.load_library()
+    libs = _build.build_libraries([ops.SOURCE, sa.SOURCE, fa.SOURCE])
+    for module in (ops, sa, fa):
+        module.load_library()
     print(json.dumps({"build_s": time.perf_counter() - t0, "libraries": [p.name for p in libs]}),
           flush=True)
     for lib in libs:
@@ -401,46 +446,74 @@ def main() -> None:
             if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
                 print(f"ptxas ({lib.name}):", line.strip())
 
-    kernels = [kernel_phase(torch, ops, dev), packed_phase(torch, sa, dev),
-               fused_phase(torch, sa, dev)]
-    for k in kernels:
+    kernels = {k["name"]: k for k in (kernel_phase(torch, ops, dev), packed_phase(torch, sa, dev),
+                                      fused_phase(torch, sa, dev), flash_phase(torch, fa, dev))}
+    for k in kernels.values():
         print(json.dumps({"kernel_phase": k}), flush=True)
 
-    common = dict(features=3, num_particles=150, frequencies=16, t_emb="cosine",
-                  global_cond_dim=2, loss_type="FM-OT")
+    jets = dict(features=3, frequencies=16, t_emb="cosine", loss_type="FM-OT")
+    jetnet = dict(jets, num_particles=150, global_cond_dim=2)
     # configs/experiment/jetnet/fm_tops150_cond.yaml on configs/model/flow_matching.yaml
     epic = FlowMatchingModel(
         model="epic", hidden_dim=128, layers=6, latent=10, t_global_cat=True, t_local_cat=True,
-        add_time_to_input=False, local_cond_dim=2, **common,
+        add_time_to_input=False, local_cond_dim=2, **jetnet,
     )
     droid = FlowMatchingModel(
         model="droid_fulltransformer", add_time_to_input=True,
-        net_config=droid_net_config("te_config", 256, 3, "packed"), **common,
+        net_config=droid_net_config("te_config", 256, 3, "packed"), **jetnet,
     )
     cross = FlowMatchingModel(
         model="droid_fullcrossattention", add_time_to_input=True,
-        net_config=droid_net_config("cae_config", 128, 8, "fused", dense_hddn=256), **common,
+        net_config=droid_net_config("cae_config", 128, 8, "fused", dense_hddn=256), **jetnet,
     )
-    droid_net, cross_net = droid.init(seed=0, device=dev), cross.init(seed=0, device=dev)
-    redraw_parameters(torch, droid_net, seed=1)
-    redraw_parameters(torch, cross_net, seed=2)
+    # configs/experiment/calo/mdma_calo.yaml on configs/model/flow_matching_mdma.yaml, with 2
+    # heads of 128 in place of 8 of 32 (the parameters have the same shapes)
+    mdma = FlowMatchingModel(
+        model="mdma", features=4, num_particles=6000, global_cond_dim=1, frequencies=16,
+        t_emb="cosine", add_time_to_input=False, loss_type="CFM",
+        net_config=dict(latent=16, hidden_dim=256, layers=8, num_heads=2, t_local_cat=True,
+                        t_global_cat=True, global_cond_dim=1),
+    )
+    # configs/experiment/lhco/jets_transformer.yaml on configs/model/fm_droid_transformer.yaml
+    lhco = FlowMatchingModel(
+        model="droid_fulltransformer", add_time_to_input=True, num_particles=279,
+        global_cond_dim=5, net_config=droid_net_config("te_config", 256, 3, "flash"), **jets,
+    )
+    nets = {}
+    for seed, (key, model) in enumerate([("droid", droid), ("cross", cross), ("lhco", lhco)], 1):
+        nets[key] = model.init(seed=0, device=dev)
+        redraw_parameters(torch, nets[key], seed=seed)
+    redrawn = "(every parameter re-drawn from a seed)"
     runs = [
-        ("epic", "fm_tops150_cond (seeded random weights)", epic, epic.init(seed=0, device=dev),
-         ops, "epic_layer", epic.layers, (640, 7)),
-        ("path A", "fm_droid_transformer, attn_impl=packed, scores_dtype=null (every "
-         "parameter re-drawn from a seed)", droid, droid_net, sa, "packed_short_attention",
-         3, (1000, 640, 7)),
-        ("path B", "fm_droid_crossattention, attn_impl=fused, scores_dtype=null, 4 global "
-         "tokens (every parameter re-drawn from a seed)", cross, cross_net, sa,
-         "fused_short_attention", 2 * 8, (640, 7)),
+        dict(name="epic", config="fm_tops150_cond (seeded random weights)", model=epic,
+             net=epic.init(seed=0, device=dev), wrapper_owner=ops, wrapper_name="epic_layer",
+             launches_per_eval=epic.layers, requests=(640, 7)),
+        dict(name="path A", config="fm_droid_transformer, attn_impl=packed, scores_dtype=null "
+             + redrawn, model=droid, net=nets["droid"], wrapper_owner=sa,
+             wrapper_name="packed_short_attention", launches_per_eval=3, requests=(640, 7)),
+        dict(name="path B", config="fm_droid_crossattention, attn_impl=fused, scores_dtype=null, "
+             "4 global tokens " + redrawn, model=cross, net=nets["cross"], wrapper_owner=sa,
+             wrapper_name="fused_short_attention", launches_per_eval=2 * 8, requests=(640, 7)),
+        dict(name="path C", config="calo/mdma_calo on flow_matching_mdma, net_config.num_heads=2 "
+             "(head dim 128: impl=auto takes the flash kernel), 6000 hits, CFM (seeded random "
+             "weights)", model=mdma, net=mdma.init(seed=0, device=dev), wrapper_owner=fa,
+             wrapper_name="flash_masked_attention", launches_per_eval=8, requests=(32, 5),
+             batch=32, mask_lo=1000, cpu_batch=2),
+        dict(name="path D", config="lhco/jets_transformer on fm_droid_transformer, "
+             "attn_impl=flash, scores_dtype=null, 279 particles, cond 5 " + redrawn, model=lhco,
+             net=nets["lhco"], wrapper_owner=fa, wrapper_name="flash_masked_attention",
+             launches_per_eval=3, requests=(256, 7), batch=256),
     ]
-    counted = [ops.epic_layer, sa.packed_short_attention, sa.fused_short_attention]
-    for kernel, (name, config, model, net, owner, wrapper, per_eval, requests) in zip(kernels, runs):
-        serving = serving_phase(torch, dev, name, config, model, net, owner, wrapper, per_eval,
-                                requests, counted)
-        print(json.dumps({"serving": name, **serving}), flush=True)
-        kernel["launches"] = serving["launches"]
+    counted = [ops.epic_layer, sa.packed_short_attention, sa.fused_short_attention,
+               fa.flash_masked_attention]
+    for run in runs:
+        serving = serving_phase(torch, dev, counted=counted, **run)
+        print(json.dumps({"serving": run["name"], **serving}), flush=True)
+        kernel = kernels[run["wrapper_name"]]
+        kernel["launches"] = (kernel["launches"] or 0) + serving["launches"]
+        kernel.setdefault("launches_by_path", {})[run["name"]] = serving["launches"]
 
+    kernels = list(kernels.values())
     print(json.dumps({"kernels": kernels}))
     print(card)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

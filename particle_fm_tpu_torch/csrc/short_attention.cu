@@ -50,67 +50,21 @@
 // 512), the maximum, the sum and the output are reduced over the group with
 // shuffles.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr float kNeg = 1e9f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kMaxSmem = 232448;  // bytes a block may use on sm_90
 constexpr int kMaxPackedLen = 256;
 constexpr int kMaxFusedLen = 512;
 constexpr int kMaxHeadDim = 64;
 constexpr int kFusedThreads = 128;
 
-// q, k or v: (B, L, H, D) with (H, D) packed; `bs` and `ld` are the distances
-// in elements between sets and between rows. `vec`: rows may be read as float4.
-struct Heads {
-  const float* p;
-  long long bs, ld;
-  bool vec;
-};
-
 template <int DP>
 __device__ __forceinline__ void load_row(float (&r)[DP], const float* row, int d, bool vec) {
 #pragma unroll
   for (int c = 0; c < DP; c += 4) {
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (vec) {
-      if (c < d) val = *reinterpret_cast<const float4*>(row + c);
-    } else {
-      if (c + 0 < d) val.x = row[c + 0];
-      if (c + 1 < d) val.y = row[c + 1];
-      if (c + 2 < d) val.z = row[c + 2];
-      if (c + 3 < d) val.w = row[c + 3];
-    }
+    const float4 val = load4(row, c, d, vec);
     r[c + 0] = val.x; r[c + 1] = val.y; r[c + 2] = val.z; r[c + 3] = val.w;
-  }
-}
-
-// Stage `rows` rows of one head (d wide) into shared memory at a row stride of
-// `stride` floats; columns d..DP-1 and rows rows..rows_p-1 become zero.
-template <int DP>
-__device__ __forceinline__ void stage_head(float* dst, int stride, const float* src,
-                                           long long ld, int rows, int rows_p, int d,
-                                           bool vec) {
-  constexpr int Q = DP / 4;
-  for (int i = threadIdx.x; i < rows_p * Q; i += blockDim.x) {
-    const int r = i / Q, c = (i % Q) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < rows) {
-      const float* row = src + r * ld;
-      if (vec) {
-        if (c < d) val = *reinterpret_cast<const float4*>(row + c);
-      } else {
-        if (c + 0 < d) val.x = row[c + 0];
-        if (c + 1 < d) val.y = row[c + 1];
-        if (c + 2 < d) val.z = row[c + 2];
-        if (c + 3 < d) val.w = row[c + 3];
-      }
-    }
-    *reinterpret_cast<float4*>(dst + r * stride + c) = val;
   }
 }
 
@@ -139,9 +93,6 @@ __device__ __forceinline__ void axpy_row(float (&o)[DP], float p, const float* v
     o[c + 3] = fmaf(p, vv.w, o[c + 3]);
   }
 }
-
-// exp(x) for x <= 0 (or -inf)
-__device__ __forceinline__ float exp_neg(float x) { return exp2f(x * kLog2e); }
 
 // ---------------------------------------------------------------------------
 // packed: block = (set, head), thread = query row
@@ -328,18 +279,6 @@ fused_attention_kernel(Heads q, Heads k, Heads v, const float* __restrict__ mask
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
-
-Heads heads(const float* p, long long bs, long long ld, int d) {
-  const bool vec = d % 4 == 0 && bs % 4 == 0 && ld % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  return Heads{p, bs, ld, vec};
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
 
 template <int DP>
 cudaError_t launch_packed(Heads q, Heads k, Heads v, const float* mask, const float* bias,

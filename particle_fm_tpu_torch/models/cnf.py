@@ -1,15 +1,18 @@
 """CNF vector-field wrapper; counterpart of particle_fm_tpu/models/cnf.py.
 
-The port carries the EPiC branch and the two PC-Droid transformer branches
-(`droid_fulltransformer`, `droid_fullcrossattention`, configured through
-`net_config`) with the parameter-free time embeddings (sincos, cosine). The
+The port carries the EPiC branch, the two PC-Droid transformer branches
+(`droid_fulltransformer`, `droid_fullcrossattention`) and MDMA (`mdma`), the
+last three configured through `net_config`, with the parameter-free time
+embeddings (sincos, cosine), and the in-model normalisers of `CNFStack` with
+frozen statistics. The
 cosine ladder's frequency table is a non-persistent buffer built on the CPU
 the reference's way (see nets/time_emb.py); a test may overwrite it with the
 JAX package's table.
 
 One convention inside the port: the network is handed the per-set time
 embedding (B, T). The JAX CNF hands its networks a (B, N, T) broadcast, and
-its transformers slice the first particle back out (`t[..., 0, :]`).
+its transformers and MDMA slice the first particle back out (`t[..., 0, :]`,
+`t[:, 0, :]`, `t_in[:, :1, :]`).
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import torch
 from torch import nn
 
 from particle_fm_tpu_torch.nets.epic import EPiCEncoder
+from particle_fm_tpu_torch.nets.mdma import MDMA
+from particle_fm_tpu_torch.nets.norm_layer import IterativeNormLayer
 from particle_fm_tpu_torch.nets.transformer import FullCrossAttentionEncoder, FullTransformerEncoder
 from particle_fm_tpu_torch.nets.time_emb import cosine_frequencies, time_embedding
 
@@ -65,10 +70,15 @@ class CNF(nn.Module):
                 generator=generator, **dict(net_config or {}),
             )
             return
+        if model == "mdma":
+            cfg = dict(net_config or {})
+            cfg.setdefault("out_features", features)
+            self.net = MDMA(in_feats, t_dim, cond_dim=global_cond_dim, generator=generator, **cfg)
+            return
         if model != "epic":
             raise NotImplementedError(
-                f"model={model} is not ported (the port carries epic, droid_fulltransformer "
-                "and droid_fullcrossattention)"
+                f"model={model} is not ported (the port carries epic, droid_fulltransformer, "
+                "droid_fullcrossattention and mdma)"
             )
         if net_config:
             raise NotImplementedError("net_config for the epic model is not ported")
@@ -109,9 +119,12 @@ class CNF(nn.Module):
 
 
 class CNFStack(nn.Module):
-    """`n_transforms` CNFs applied in sequence (no in-model normaliser)."""
+    """`n_transforms` CNFs applied in sequence, and the optional in-model
+    normalisers (`normaliser` for the features, `ctxt_normaliser` for the
+    global cond) with frozen statistics."""
 
     def __init__(self, n_transforms: int = 1, features: int = 3, global_cond_dim: int = 0,
+                 use_normaliser: bool = False, normaliser_config: Mapping[str, Any] | None = None,
                  generator: torch.Generator | None = None, **cnf_config):
         super().__init__()
         self.flows = nn.ModuleList(
@@ -119,6 +132,11 @@ class CNFStack(nn.Module):
                 **cnf_config)
             for _ in range(n_transforms)
         )
+        if use_normaliser:
+            self.normaliser = IterativeNormLayer(features, **dict(normaliser_config or {}))
+            if global_cond_dim > 0:
+                self.ctxt_normaliser = IterativeNormLayer(global_cond_dim,
+                                                          **dict(normaliser_config or {}))
 
     def forward(self, t, x, cond=None, mask=None):
         """Vector field v(t, x): the composition of all flow transforms."""
@@ -129,3 +147,9 @@ class CNFStack(nn.Module):
     def flow_k(self, k: int, t, x, cond=None, mask=None):
         """Apply a single flow transform (for per-flow ODE integration)."""
         return self.flows[k](t, x, cond=cond, mask=mask)
+
+    def normalise_cond(self, cond):
+        return self.ctxt_normaliser(cond)
+
+    def reverse_norm(self, x, mask=None):
+        return self.normaliser.reverse(x, mask)

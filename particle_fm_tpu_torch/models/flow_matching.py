@@ -56,6 +56,7 @@ class FlowMatchingModel:
     loss_type: str = "FM-OT"
     t_emb: str = "sincos"
     use_normaliser: bool = False
+    normaliser_config: Mapping[str, Any] = dataclasses.field(default_factory=dict)
     self_cond: bool = False
     net_config: Mapping[str, Any] = dataclasses.field(default_factory=dict)
     dtype: Any = None
@@ -63,8 +64,8 @@ class FlowMatchingModel:
     def __post_init__(self):
         if self.loss_type not in _DRIFT_IS_NET:
             raise NotImplementedError(f"loss_type={self.loss_type} is not ported")
-        if self.use_normaliser or self.self_cond or self.dtype is not None:
-            raise NotImplementedError("the normaliser, self-conditioning and dtype are not ported")
+        if self.self_cond or self.dtype is not None:
+            raise NotImplementedError("self-conditioning and dtype are not ported")
         self.conditioned = self.global_cond_dim > 0
 
     def init(self, seed: int = 0, device: str | torch.device = "cuda") -> CNFStack:
@@ -75,6 +76,8 @@ class FlowMatchingModel:
             n_transforms=self.n_transforms,
             features=self.features,
             global_cond_dim=self.global_cond_dim,
+            use_normaliser=self.use_normaliser,
+            normaliser_config=dict(self.normaliser_config),
             generator=gen,
             model=self.model,
             frequencies=self.frequencies,
@@ -97,7 +100,8 @@ class FlowMatchingModel:
     def fold_weight_norm(net: nn.Module) -> None:
         """Fold w = g * v / ||v|| into every weight once, and cut the EPiC
         layers' weights for the fused layer. `unfold_weight_norm` undoes it.
-        The transformer networks have no weight norm: nothing changes there."""
+        The transformer networks and MDMA have no weight norm: nothing changes
+        there."""
         for m in net.modules():
             if isinstance(m, (WNDense, EPiCLayer)):
                 m.fold()
@@ -145,9 +149,13 @@ class FlowMatchingModel:
         guidance_scale: float | None = None,
     ) -> torch.Tensor:
         """Integrate every flow transform in reverse order from the noise z
-        (already masked) at t=1 to t=0, with weight norm folded once."""
+        (already masked) at t=1 to t=0, with weight norm folded once; with
+        `use_normaliser`, around the normalised cond and the reverse
+        normalisation of the result, as the JAX `sample` places them."""
         if ode_solver not in FIXED_SOLVERS:
             raise NotImplementedError(f"ode_solver={ode_solver} is not ported")
+        if cond is not None and self.use_normaliser and self.conditioned:
+            cond = net.normalise_cond(cond)
         self.fold_weight_norm(net)
         try:
             x = z
@@ -156,6 +164,8 @@ class FlowMatchingModel:
                 x = odeint_fixed(drift, x, 1.0, 0.0, ode_steps=ode_steps, method=ode_solver)
         finally:
             self.unfold_weight_norm(net)
+        if self.use_normaliser:
+            x = net.reverse_norm(x, mask)
         return x
 
     def sample(

@@ -171,8 +171,10 @@ class MultiHeadedAttentionBlock(nn.Module):
 
     `scores_dtype` ("float32", "bfloat16" or None) is the storage type of the
     score tensors on the einsum path; `attn_impl` picks the attention
-    (`ops.attention.attention`): "auto", or "packed" / "fused" for the
-    short-set CUDA kernels.
+    (`ops.attention.attention`): "auto", "packed" / "fused" for the
+    short-set CUDA kernels, or "flash" for the blockwise one, which takes
+    sets of any length (the 279-particle sets of the LHCO configurations are
+    beyond the packed kernel's 256).
     """
 
     def __init__(

@@ -2,11 +2,11 @@
 
 Each source under `csrc/` has a plain C interface. It is compiled with nvcc
 for sm_90a at first use into `build/torch_kernels/` beside the package, one
-shared library per version of the source (named by a hash of its bytes), and
-loaded with ctypes. The compiler's report (registers, shared memory, spills)
-is kept beside the library as `<name>.log`. `build_libraries` starts one nvcc
-per source, all together, so several kernels build in the time of the
-slowest.
+shared library per version of the source (named by a hash of its bytes and
+of the headers `csrc/*.cuh` it may include), and loaded with ctypes. The
+compiler's report (registers, shared memory, spills) is kept beside the
+library as `<name>.log`. `build_libraries` starts one nvcc per source, all
+together, so several kernels build in the time of the slowest.
 """
 
 from __future__ import annotations
@@ -41,7 +41,10 @@ def nvcc() -> str:
 
 def library_path(source: Path) -> Path:
     """Where the library of this version of `source` lives once built."""
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
+    digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest = digest.hexdigest()[:12]
     return BUILD_DIR / f"lib{source.stem}_{digest}.so"
 
 
@@ -58,7 +61,8 @@ def build_libraries(sources: Sequence[Path]) -> list[Path]:
         os.close(fd)
         cmd = [
             nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-            "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, str(source),
+            "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC", "-I", str(CSRC_DIR), "-o", tmp,
+            str(source),
         ]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         jobs.append((proc, tmp, out))

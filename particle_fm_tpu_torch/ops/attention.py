@@ -8,8 +8,9 @@ has one real particle. The mask value is NEG_INF = -1e9, not -inf, so even a
 fully masked row stays finite.
 
 `masked_attention` and `class_token_attention` are plain tensor code, as in
-the JAX package. `attention` dispatches by `impl` to them or to the CUDA
-kernels of ops/short_attention.py.
+the JAX package. `attention` dispatches by `impl` to them or to the three
+attention CUDA kernels: the two of ops/short_attention.py (whole short sets)
+and the blockwise one of ops/flash_attention.py (sets of any length).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import math
 
 import torch
 
-from particle_fm_tpu_torch.ops import short_attention
+from particle_fm_tpu_torch.ops import flash_attention, short_attention
 
 NEG_INF = -1e9
 
@@ -97,6 +98,12 @@ def class_token_attention(
     return out.to(q.dtype)
 
 
+def auto_picks_flash(on_accel: bool, lk: int, d: int, has_bias: bool) -> bool:
+    """The JAX package's rule for `impl="auto"`: long sets with head dims that
+    are multiples of 128, on an accelerator, without bias."""
+    return on_accel and not has_bias and lk >= 1024 and d % 128 == 0
+
+
 def attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -109,9 +116,12 @@ def attention(
     """Dispatching front end, `impl` in {"auto", "einsum", "flash", "fused",
     "packed", "class_token"}, with the JAX package's rules.
 
-    "auto": the einsum path (`masked_attention`), except that long sets with
-      head dims that are multiples of 128 on the card belong to the blockwise
-      flash kernel, which is not ported: NotImplementedError.
+    "auto": the blockwise flash kernel for long sets (Lk >= 1024) with head
+      dims that are multiples of 128, without bias, on the card
+      (`auto_picks_flash`); else the einsum path (`masked_attention`).
+    "flash": `flash_attention.flash_masked_attention`, any Lq and Lk, head
+      dims up to 128, forward only. It has no bias: one raises (the JAX
+      dispatcher drops it unseen).
     "packed": `short_attention.packed_short_attention` for self-attention
       shapes (Lq == Lk <= 256) on the card; the einsum path for
       cross-attention shapes, longer sets or CPU tensors, so a model
@@ -131,17 +141,15 @@ def attention(
             )
         return class_token_attention(q, k, v, kv_mask)
     if impl == "auto":
-        use_flash = on_accel and attn_bias is None and lk >= 1024 and d % 128 == 0
-        impl = "flash" if use_flash else "einsum"
+        impl = "flash" if auto_picks_flash(on_accel, lk, d, attn_bias is not None) else "einsum"
     if impl == "packed":
         if on_accel and lq == lk and lk <= short_attention.MAX_PACKED_LEN:
             return short_attention.packed_short_attention(q, k, v, kv_mask, attn_bias)
         impl = "einsum"
     if impl == "flash":
-        raise NotImplementedError(
-            "the blockwise flash attention kernel (flash_masked_attention) is not ported; "
-            "use impl='einsum' for this shape"
-        )
+        if attn_bias is not None:
+            raise ValueError("impl='flash' takes no attn_bias; use 'einsum', 'packed' or 'fused'")
+        return flash_attention.flash_masked_attention(q, k, v, kv_mask)
     if impl == "fused":
         return short_attention.fused_short_attention(q, k, v, kv_mask, attn_bias)
     return masked_attention(q, k, v, kv_mask, attn_bias, scores_dtype)

@@ -41,7 +41,8 @@ MAX_HEAD_DIM = 64  # the kernels keep a query row and its output in registers
 _MAX_SMEM = 232448  # bytes of shared memory a block may use on sm_90
 
 
-def _mask_add(kv_mask: torch.Tensor | None, b: int, lk: int, like: torch.Tensor) -> torch.Tensor:
+def mask_add(kv_mask: torch.Tensor | None, b: int, lk: int, like: torch.Tensor) -> torch.Tensor:
+    """The (B, Lk) float32 term added to the scores: 0 for a real key, -1e9 for a masked one."""
     if kv_mask is None:
         return torch.zeros(b, lk, dtype=torch.float32, device=like.device)
     return (kv_mask.to(torch.float32) - 1.0) * (-NEG)
@@ -50,7 +51,7 @@ def _mask_add(kv_mask: torch.Tensor | None, b: int, lk: int, like: torch.Tensor)
 def packed_short_attention_reference(q, k, v, kv_mask=None, attn_bias=None):
     """Plain version of the packed kernel: the JAX package's `_ref_math`."""
     b, d = q.shape[0], q.shape[-1]
-    madd = _mask_add(kv_mask, b, k.shape[1], q)
+    madd = mask_add(kv_mask, b, k.shape[1], q)
     s = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32)
     s = s / math.sqrt(d) + madd[:, None, None, :]
     if attn_bias is not None:
@@ -67,7 +68,7 @@ def fused_short_attention_reference(q, k, v, kv_mask=None, attn_bias=None):
     s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32) * scale, k.to(torch.float32))
     if attn_bias is not None:
         s = s + attn_bias.to(torch.float32)
-    s = s + _mask_add(kv_mask, b, k.shape[1], q)[:, None, None, :]
+    s = s + mask_add(kv_mask, b, k.shape[1], q)[:, None, None, :]
     s = s - s.max(dim=-1, keepdim=True).values
     p = torch.exp(s)
     p = p / p.sum(dim=-1, keepdim=True)
@@ -87,7 +88,7 @@ def load_library() -> ctypes.CDLL:
     return _build.load_library(SOURCE, _declare)
 
 
-def _check_heads(name: str, t: torch.Tensor, shape: tuple[int, ...], device: torch.device) -> None:
+def check_heads(name: str, t: torch.Tensor, shape: tuple[int, ...], device: torch.device) -> None:
     """q, k or v: float32 on `device`, of `shape`, the last two axes packed."""
     _build.check_tensor(name, t, shape, device, contiguous=False)
     d = shape[-1]
@@ -103,12 +104,13 @@ def _launch(entry: str, q, k, v, kv_mask, attn_bias, max_len: int) -> torch.Tens
     b, lq, h, d = q.shape
     lk = k.shape[1] if k.ndim == 4 else -1
     if not (0 < lq <= max_len and 0 < lk <= max_len):
-        raise ValueError(f"{entry}: set lengths Lq={lq}, Lk={lk} outside the kernel's 1..{max_len}")
+        raise ValueError(f"{entry}: set lengths Lq={lq}, Lk={lk} outside the kernel's 1..{max_len}: "
+                         "use the einsum path or attn_impl='flash'")
     if not 0 < d <= MAX_HEAD_DIM:
         raise ValueError(f"{entry}: head dim {d} outside the kernel's 1..{MAX_HEAD_DIM}")
-    _check_heads("q", q, (b, lq, h, d), dev)
-    _check_heads("k", k, (b, lk, h, d), dev)
-    _check_heads("v", v, (b, lk, h, d), dev)
+    check_heads("q", q, (b, lq, h, d), dev)
+    check_heads("k", k, (b, lk, h, d), dev)
+    check_heads("v", v, (b, lk, h, d), dev)
     if kv_mask is not None:
         kv_mask = kv_mask.to(torch.float32).contiguous()
         _build.check_tensor("kv_mask", kv_mask, (b, lk), dev)
@@ -172,7 +174,7 @@ def packed_short_attention(q, k, v, kv_mask=None, attn_bias=None) -> torch.Tenso
     if lk != lq:
         raise ValueError(
             "packed_short_attention requires Lq == Lk (self-attention shapes); "
-            f"got Lq={lq}, Lk={lk}: use the einsum path."
+            f"got Lq={lq}, Lk={lk}: use the einsum path or attn_impl='flash'."
         )
     if attn_bias is not None:
         attn_bias = attn_bias.to(torch.float32)
@@ -203,7 +205,8 @@ def fused_short_attention(q, k, v, kv_mask=None, attn_bias=None) -> torch.Tensor
     if 4 * (2 * lk * (pad_d + 4) + lk) > _MAX_SMEM:
         raise ValueError(
             f"fused_short_attention keeps one head's keys and values in shared memory: "
-            f"Lk={lk} at head dim {d} does not fit {_MAX_SMEM} bytes"
+            f"Lk={lk} at head dim {d} does not fit {_MAX_SMEM} bytes: use the einsum path or "
+            "attn_impl='flash'"
         )
     out = _launch("fused_short_attention_f32", q, k, v, kv_mask, attn_bias, MAX_FUSED_LEN)
     fused_short_attention.launches += 1

@@ -7,10 +7,13 @@ ModuleList entry `flows.{k}`; a weight-norm Dense's `kernel (in, out)`
 becomes `weight_v (out, in)` (a plain Dense's becomes `weight`), a
 LayerNorm's `scale` becomes `weight`, and `g`, `bias` and bare parameters
 such as `global_tokens` are copied. The module names of the transformer
-family (`lin_0`, `nrm_0`, `layer_0`, ...) are the same on both sides. The
-mapping is shape-checked both ways: every flax
-leaf must land on a parameter of the same shape, and every parameter must
-be covered, so nothing keeps its random init.
+family (`lin_0`, `nrm_0`, `layer_0`, ...) and of MDMA (`embed`, `block_0`,
+`ln`, ...) are the same on both sides. The flax "norm_stats" collection of a
+model with `use_normaliser` (`normaliser` and `ctxt_normaliser`, each with
+`means`, `m2`, `vars`, `n`) becomes the buffers of the same names. The
+mapping is shape-checked both ways: every flax leaf must land on a parameter
+or buffer of the same shape, and every parameter and persistent buffer must
+be covered, so nothing keeps its initial value.
 """
 
 from __future__ import annotations
@@ -52,9 +55,12 @@ def state_dict_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     return sd
 
 
-def load_flax_params(module: nn.Module, params: Mapping[str, Any]) -> nn.Module:
-    """Copy a flax params tree into `module` in place; returns it."""
+def load_flax_params(module: nn.Module, params: Mapping[str, Any],
+                     norm_stats: Mapping[str, Any] | None = None) -> nn.Module:
+    """Copy a flax params tree, and the "norm_stats" collection of a model
+    with normalisers, into `module` in place; returns it."""
     sd = state_dict_from_flax(params)
+    sd.update({k: torch.tensor(v) for k, v in _flatten(norm_stats or {}).items()})
     own = module.state_dict()
     missing = sorted(set(own) - set(sd))
     extra = sorted(set(sd) - set(own))

@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's sampler on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_port.py [--config epic|transformer|crossattention]
+    python3 scripts/profile_torch_port.py
+        [--config epic|transformer|crossattention|mdma|lhco_transformer]
         [--nfe-steps 6] [--out build/measurements/profile_torch_port_<config>.json]
 
 Builds one of the served networks at full width with seeded random weights,
 as chip_smoke.py builds them: `epic` is fm_tops150_cond (fused EPiC layer),
 `transformer` is fm_droid_transformer with attn_impl=packed (packed short-set
 attention), `crossattention` is fm_droid_crossattention with attn_impl=fused
-(fused short-set attention). Then for each path -- the configuration's CUDA
-kernel and that kernel's plain PyTorch version -- it serves one batch of 640
-jets (midpoint, `--nfe-steps` grid points) once without and once under
-torch.profiler, after a warm-up.
+(fused short-set attention), `mdma` is calo/mdma_calo with 2 heads of 128
+(flash attention, one class-token query on 6000 hits) and `lhco_transformer`
+is lhco/jets_transformer with attn_impl=flash (flash attention on 279
+particles). Then for each path -- the configuration's CUDA kernel and that
+kernel's plain PyTorch version -- it serves one batch (640 jets; 32 showers
+for `mdma`, 256 events for `lhco_transformer`; midpoint, `--nfe-steps` grid
+points) once without and once under torch.profiler, after a warm-up.
 Prints, per path, the wall time per network evaluation (both runs; the
 profiler slows the host), the device's busy share (summed kernel time over
 each wall time) and the kernels by device time, and writes the same
@@ -38,23 +42,34 @@ sys.path.insert(0, str(ROOT))
 from chip_smoke import droid_net_config, redraw_parameters  # noqa: E402
 from particle_fm_tpu_torch.models.flow_matching import FlowMatchingModel  # noqa: E402
 from particle_fm_tpu_torch.ops import epic_layer as epic_ops  # noqa: E402
+from particle_fm_tpu_torch.ops import flash_attention as flash_ops  # noqa: E402
 from particle_fm_tpu_torch.ops import short_attention as attention_ops  # noqa: E402
 from particle_fm_tpu_torch.serving import make_serve_fn  # noqa: E402
 
-COMMON = dict(features=3, num_particles=150, frequencies=16, t_emb="cosine", global_cond_dim=2,
-              loss_type="FM-OT")
-# name -> (model arguments, module and name of the kernel's wrapper)
+JETS = dict(features=3, frequencies=16, t_emb="cosine", loss_type="FM-OT")
+JETNET = dict(JETS, num_particles=150, global_cond_dim=2)
+# name -> (model arguments, module and name of the kernel's wrapper, batch,
+# fewest real particles of a set)
 CONFIGS = {
     "epic": (dict(model="epic", hidden_dim=128, layers=6, latent=10, t_global_cat=True,
-                  t_local_cat=True, add_time_to_input=False, local_cond_dim=2),
-             epic_ops, "epic_layer"),
+                  t_local_cat=True, add_time_to_input=False, local_cond_dim=2, **JETNET),
+             epic_ops, "epic_layer", 640, 30),
     "transformer": (dict(model="droid_fulltransformer", add_time_to_input=True,
-                         net_config=droid_net_config("te_config", 256, 3, "packed")),
-                    attention_ops, "packed_short_attention"),
+                         net_config=droid_net_config("te_config", 256, 3, "packed"), **JETNET),
+                    attention_ops, "packed_short_attention", 640, 30),
     "crossattention": (dict(model="droid_fullcrossattention", add_time_to_input=True,
                             net_config=droid_net_config("cae_config", 128, 8, "fused",
-                                                        dense_hddn=256)),
-                       attention_ops, "fused_short_attention"),
+                                                        dense_hddn=256), **JETNET),
+                       attention_ops, "fused_short_attention", 640, 30),
+    "mdma": (dict(model="mdma", features=4, num_particles=6000, global_cond_dim=1, frequencies=16,
+                  t_emb="cosine", add_time_to_input=False, loss_type="CFM",
+                  net_config=dict(latent=16, hidden_dim=256, layers=8, num_heads=2,
+                                  t_local_cat=True, t_global_cat=True, global_cond_dim=1)),
+             flash_ops, "flash_masked_attention", 32, 1000),
+    "lhco_transformer": (dict(model="droid_fulltransformer", add_time_to_input=True,
+                              num_particles=279, global_cond_dim=5,
+                              net_config=droid_net_config("te_config", 256, 3, "flash"), **JETS),
+                         flash_ops, "flash_masked_attention", 256, 30),
 }
 
 
@@ -110,21 +125,22 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
 
-    model_args, owner, wrapper = CONFIGS[args.config]
-    model = FlowMatchingModel(**model_args, **COMMON)
+    model_args, owner, wrapper, batch, fewest = CONFIGS[args.config]
+    model = FlowMatchingModel(**model_args)
     net = model.init(seed=0, device="cuda")
-    if args.config != "epic":  # these configurations zero-initialise their attention
+    if model.model.startswith("droid"):  # these configurations zero-initialise their attention
         redraw_parameters(torch, net, seed=1)
-    fn = make_serve_fn(model, net, batch_size=640, ode_solver="midpoint",
+    fn = make_serve_fn(model, net, batch_size=batch, ode_solver="midpoint",
                        ode_steps=args.nfe_steps, has_cond=True, has_mask=True)
     rs = np.random.RandomState(0)
-    counts = rs.randint(30, 151, size=(640, 1))
-    mask = (np.arange(150)[None, :] < counts).astype(np.float32)[..., None]
-    cond = rs.randn(640, 2).astype(np.float32)
+    n = model.num_particles
+    counts = rs.randint(fewest, n + 1, size=(batch, 1))
+    mask = (np.arange(n)[None, :] < counts).astype(np.float32)[..., None]
+    cond = rs.randn(batch, model.global_cond_dim).astype(np.float32)
     nfe = 2 * (args.nfe_steps - 1)
 
     owner.load_library()
-    result = {"card": card, "config": args.config, "kernel": wrapper, "batch": 640, "nfe": nfe}
+    result = {"card": card, "config": args.config, "kernel": wrapper, "batch": batch, "nfe": nfe}
     result["kernel_path"] = profile_path(fn, cond, mask, nfe)
     with mock.patch.object(owner, wrapper, getattr(owner, wrapper + "_reference")):
         result["plain_path"] = profile_path(fn, cond, mask, nfe)

@@ -20,6 +20,7 @@ import torch
 from particle_fm_tpu.ops import attention as jattn
 from particle_fm_tpu.ops.pallas import short_attention as jshort
 from particle_fm_tpu_torch.ops import attention as pattn
+from particle_fm_tpu_torch.ops import flash_attention as pflash
 from particle_fm_tpu_torch.ops import short_attention as pshort
 from tests.torch_port_helpers import t
 
@@ -84,8 +85,10 @@ def test_dispatcher_rules(monkeypatch):
         torch.testing.assert_close(pattn.attention(q, k, v, mask, impl=impl), einsum, rtol=0, atol=0)
     with pytest.raises(ValueError, match="scores_dtype"):
         pattn.attention(q[:, :1], k, v, mask, impl="class_token", scores_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="flash_masked_attention"):
-        pattn.attention(q, k, v, mask, impl="flash")
+    # "flash" goes to its wrapper, which on CPU tensors is its plain version
+    torch.testing.assert_close(pattn.attention(q, k, v, mask, impl="flash"),
+                               pflash.flash_masked_attention_reference(q, k, v, mask), rtol=0, atol=0)
+    torch.testing.assert_close(pattn.attention(q, k, v, mask, impl="flash"), einsum, rtol=0, atol=2e-5)
     # on the CPU "packed" takes the einsum path (scores_dtype and all), as the
     # JAX dispatcher does without an accelerator; "fused" goes to its wrapper
     calls = []
@@ -102,9 +105,11 @@ def test_dispatcher_rules(monkeypatch):
 def test_dispatcher_on_the_card_picks_kernels_by_shape(monkeypatch):
     """What the dispatcher does with a CUDA tensor, shown on CPU tensors whose
     device type is faked: packed for self-attention shapes up to 256, einsum
-    beyond, and no quiet einsum in the flash kernel's place."""
+    beyond, and the flash kernel, not a quiet einsum, for long sets at head
+    dim 128."""
     calls = []
     monkeypatch.setattr(pshort, "packed_short_attention", lambda *a: calls.append("packed"))
+    monkeypatch.setattr(pflash, "flash_masked_attention", lambda *a: calls.append("flash"))
 
     class OnCard(torch.Tensor):
         @property
@@ -122,9 +127,10 @@ def test_dispatcher_on_the_card_picks_kernels_by_shape(monkeypatch):
     pattn.attention(card(long), long, long, impl="packed")
     assert calls == ["packed"]
     big = torch.zeros(1, 1024, 1, 128)
-    with pytest.raises(NotImplementedError, match="flash_masked_attention"):
-        pattn.attention(card(big), big, big)
+    pattn.attention(card(big), big, big)
+    assert calls == ["packed", "flash"]
     assert pattn.attention(big, big, big).shape == big.shape  # on the CPU, auto is einsum
+    assert calls == ["packed", "flash"]
 
 
 @pytest.mark.parametrize("masked", [True, False])

@@ -122,7 +122,7 @@ def test_bf16_scores_configuration_matches_jax():
 
 
 def test_unported_models_and_options_raise():
-    for bad, what in ((dict(model="mdma"), "mdma"), (dict(model="epic", net_config={"x": 1}), "net_config"),
+    for bad, what in ((dict(model="part"), "part"), (dict(model="epic", net_config={"x": 1}), "net_config"),
                       (dict(model="droid_fulltransformer",
                             net_config=dict(te_config=dict(model_dim=8, moe_config={}))), "moe_config"),
                       (dict(model="droid_fullcrossattention",

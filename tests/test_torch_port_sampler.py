@@ -97,7 +97,7 @@ def test_sample_matches_compiled_jax_with_sincos():
 def test_unported_options_raise():
     from particle_fm_tpu_torch.models.flow_matching import FlowMatchingModel
 
-    for bad in (dict(loss_type="diffusion"), dict(use_normaliser=True), dict(self_cond=True)):
+    for bad in (dict(loss_type="diffusion"), dict(dtype="bfloat16"), dict(self_cond=True)):
         with pytest.raises(NotImplementedError):
             FlowMatchingModel(**bad)
     pm = FlowMatchingModel(hidden_dim=8, latent=4, layers=1)

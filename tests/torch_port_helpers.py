@@ -57,6 +57,14 @@ def droid_configs(jax_mha: dict | None = None, port_mha: dict | None = None, **o
     return out
 
 
+# narrow stand-in of configs/experiment/calo/mdma_calo.yaml on
+# configs/model/flow_matching_mdma.yaml
+MDMA_SMALL = dict(model="mdma", features=4, num_particles=16, global_cond_dim=1, frequencies=16,
+                  t_emb="cosine", add_time_to_input=False, loss_type="CFM",
+                  net_config=dict(latent=8, hidden_dim=32, layers=2, num_heads=4, t_local_cat=True,
+                                  t_global_cat=True, global_cond_dim=1))
+
+
 def cloud(b=4, n=16, feats=3, cond_dim=2, seed=0):
     """Ragged numpy batch: x (B,N,F) masked, mask (B,N,1), cond (B,C), t (B,)."""
     rs = np.random.RandomState(seed)
@@ -82,17 +90,22 @@ def filled(params, seed: int = 0, scale: float = 0.3):
         lambda a: (rs.randn(*a.shape) * scale).astype(np.float32), jax.device_get(params))
 
 
-def model_pair(cfg: dict, seed: int = 0, port_cfg: dict | None = None, fill: bool = False):
+def model_pair(cfg: dict, seed: int = 0, port_cfg: dict | None = None, fill: bool = False,
+               norm_stats: dict | None = None):
     """(jax model, jax variables, port model, port network) with the JAX
     parameters carried across and the JAX cosine table in the port's buffer.
-    `fill` replaces every JAX parameter by a seeded numpy draw first."""
+    `fill` replaces every JAX parameter by a seeded numpy draw first (True:
+    of scale 0.3; a number: of that scale);
+    `norm_stats` is the statistics collection of a model with normalisers."""
     jm = JaxModel(**cfg)
     variables = jm.init(jax.random.PRNGKey(seed))
     if fill:
-        variables = {"params": filled(variables["params"], seed)}
+        variables = {"params": filled(variables["params"], seed, 0.3 if fill is True else fill)}
+    if norm_stats is not None:
+        variables["norm_stats"] = norm_stats
     pm = PortModel(**(port_cfg or cfg))
     net = pm.init(seed=seed, device="cpu")
-    load_flax_params(net, jax.device_get(variables["params"]))
+    load_flax_params(net, jax.device_get(variables["params"]), norm_stats)
     for flow in net.flows:
         if flow.t_emb == "cosine":
             flow.cos_freqs.copy_(torch.from_numpy(jax_cos_table(flow.cos_freqs.shape[0])))
