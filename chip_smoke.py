@@ -14,10 +14,13 @@
    - the fused EPiC layer (csrc/epic_layer.cu) at the JetNet-150 flagship
      shapes (B=640, N=150, H=128, L=10, t=32, C=2, float32, multiplicities
      30-150);
-   - packed short-set attention (csrc/short_attention.cu) at the PC-Droid
-     transformer's shape (B=640, L=150, 16 heads of 16, ragged key mask,
-     q/k/v as the three slices of one QKV projection), and once with a
-     (B, H, L, L) bias at B=64;
+   - packed short-set attention (csrc/short_attention.cu, on the tensor
+     cores through csrc/attention_mma.cuh) at the PC-Droid transformer's
+     shape (B=640, L=150, 16 heads of 16, ragged key mask, q/k/v as the three
+     slices of one QKV projection), and once with a (B, H, L, L) bias at B=64;
+     checked only at the edges of its tiles (L of 1, 15, 16, 17 and 256 at
+     head dims 8, 12, 32 and 64), with q/k/v offset by one float (no 16-byte
+     loads) and with q and k times 4 (scores of some tens);
    - fused short-set attention (same source) at the cross-attention model's
      two shapes (B=640, 16 heads of 8: 4 queries on 150 masked keys, 150
      queries on 4 keys; the times are those of one such pair), and once
@@ -25,12 +28,19 @@
    - blockwise flash attention (csrc/flash_attention.cu) at MDMA's shape
      (B=32, one class-token query on 6000 keys with 1000-6000 real ones, 2
      heads of 128) and at the transformer's shape on 279-particle sets
-     (B=256, Lq=Lk=279, 16 heads of 16, slices of one QKV projection), and
-     checked only at B=4, Lq=Lk=1500, 4 heads of 128, masked and unmasked.
-   Beside each: the least time the card could take (bytes over 3.35 TB/s
-   against float32 operations over 67 TFLOP/s) and, for attention, one
+     (B=256, Lq=Lk=279, 16 heads of 16, slices of one QKV projection; this
+     shape runs on the tensor cores), and checked only at B=4, Lq=Lk=1500, 4
+     heads of 128, masked and unmasked, at Lq=Lk of 5, 17 and 558 at head dims
+     8, 12, 32 and 64, with q/k/v offset by one float and with q and k times 4.
+   Beside each: the least time the card could take and, for attention, one
    `scaled_dot_product_attention` call on the same tensors as a yardstick
-   (the port never calls it).
+   (the port never calls it). The bound is the larger of the bytes over
+   3.35 TB/s and the float32 operations over 67 TFLOP/s; for a kernel that
+   does its two products on the tensor cores in split-precision TF32, the
+   products' operations times the TF32 products issued per float32 product
+   over 495 TFLOP/s, plus the other operations over 67 TFLOP/s. The lines of
+   those kernels also give the instruction, the products per float32 product,
+   a block's shared memory and the registers per thread from the build log.
 3. Serving phases through `make_serve_fn`/`serve_batches`, midpoint,
    ode_steps=51 (100 network evaluations), float32, seeded random weights
    (the repo has no trained checkpoint), ragged masks and a random cond:
@@ -80,6 +90,7 @@ ROOT = Path(__file__).resolve().parent
 # flagship kernel shapes and the H100 SXM's published peaks
 B, N, H, L, T, C = 640, 150, 128, 10, 32, 2
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12  # dense, on the tensor cores
 PEAK_BYTES = 3.35e12
 KERNEL_TOL = 1e-4
 PATH_TOL = 1e-3
@@ -128,12 +139,17 @@ def timed_in_turns(kernel_fn, plain_fn) -> dict:
             "turns_ms": {"plain": [turns[0], turns[3]], "kernel": [turns[1], turns[2]]}}
 
 
-def bound(n_bytes: float, flops: float) -> dict:
+def bound(n_bytes: float, flops: float, tensor_flops: float = 0.0, tf32_products: int = 1) -> dict:
     """Least time for the work: each input read once and each output written
-    once, against the float32 operations at the CUDA cores' rate."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
-    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": n_bytes, "flops": flops}
+    once, against the float32 operations at the CUDA cores' rate. Of the
+    `flops`, `tensor_flops` are matrix products that the kernel issues
+    `tf32_products` times each on the tensor cores in TF32."""
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = ((flops - tensor_flops) / PEAK_F32_FLOPS
+             + tensor_flops * tf32_products / PEAK_TF32_FLOPS) * 1e3
+    by = "bytes" if t_bytes >= t_ops else "tensor operations" if tensor_flops else "operations"
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": by, "bytes": n_bytes, "flops": flops,
+            "tensor_flops_issued": tensor_flops * tf32_products}
 
 
 def kernel_phase(torch, ops, dev) -> dict:
@@ -198,9 +214,11 @@ def attention_case(torch, dev, seed, b, lq, lk, h, d, masked, bias=False, fused_
     return q, k, v, mask, ab
 
 
-def attention_measure(torch, name, fn, ref, case) -> dict:
+def attention_measure(torch, name, fn, ref, case, tf32_products: int = 0) -> dict:
     """One attention kernel at one shape: check, time in turns with its plain
-    version, time the library call, count the bound."""
+    version, time the library call, count the bound. `tf32_products`: how
+    many TF32 products the kernel issues on the tensor cores per float32
+    product of q . k and p . v (0: it runs them on the CUDA cores)."""
     import torch.nn.functional as F
 
     from particle_fm_tpu_torch.utils.timing import cuda_ms
@@ -217,25 +235,89 @@ def attention_measure(torch, name, fn, ref, case) -> dict:
         fail(f"{name}: the library yardstick computes another function (max abs err {lib_err})")
     n_bytes = 4 * (2 * q.numel() + k.numel() + v.numel() + (0 if mask is None else mask.numel()))
     flops = (4 * d + SCORE_OPS) * b * h * lq * lk
+    products = 4 * d * b * h * lq * lk if tf32_products else 0.0
     return {"max_abs_err": err,
             **timed_in_turns(lambda: fn(q, k, v, mask, ab), lambda: ref(q, k, v, mask, ab)),
-            **bound(n_bytes, flops), "library_ms": cuda_ms(library),
+            **bound(n_bytes, flops, products, tf32_products), "library_ms": cuda_ms(library),
             "shape": {"B": b, "Lq": lq, "Lk": lk, "H": h, "D": d, "masked": mask is not None,
                       "dtype": "float32"}}
 
 
-def packed_phase(torch, sa, dev) -> dict:
+def offset_by_one_float(torch, t):
+    """The same values at an address that is no multiple of 16 bytes."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    return buf[1:].view(t.shape)
+
+
+def edge_checks(torch, dev, name, fn, ref, lengths, served, bias_dims=()) -> dict:
+    """A tensor-core kernel against its plain version where its tiles of 16
+    query rows and 8 keys end (`lengths`, at head dims 8, 12, 32 and 64, with
+    1 to L real keys; with a bias too at `bias_dims`), with operands that
+    allow no 16-byte loads, and at the `served` case with q and k times 4:
+    split-precision TF32's error grows with the operands, and inputs at unit
+    scale do not show it. Not timed."""
+    errs = {}
+    for l in lengths:
+        for d in (8, 12, 32, 64):
+            case = attention_case(torch, dev, l + d, 3, l, l, 3, d, masked=True, bias=d in bias_dims,
+                                  lo=1)
+            errs[f"L={l} D={d}"] = check_kernel(torch, f"{name} (L={l}, D={d})", fn(*case), ref(*case))
+    q, k, v, mask, ab = attention_case(torch, dev, 12, 3, 37, 37, 3, 16, masked=True, lo=1)
+    q, k, v = (offset_by_one_float(torch, t) for t in (q, k, v))
+    unaligned = check_kernel(torch, f"{name} (offset by one float)", fn(q, k, v, mask, ab),
+                             ref(q, k, v, mask, ab))
+    q, k, v, mask, ab = served
+    q, k = q * 4.0, k * 4.0
+    scores = torch.einsum("qhd,khd->hqk", q[0], k[0]).abs().max().item() / q.shape[-1] ** 0.5
+    scaled = check_kernel(torch, f"{name} (q and k times 4)", fn(q, k, v, mask, ab),
+                          ref(q, k, v, mask, ab))
+    return {"max_abs_err_edges": max(errs.values()), "edge_cases": len(errs),
+            "max_abs_err_offset_by_one_float": unaligned, "max_abs_err_q_k_times_4": scaled,
+            "largest_score_q_k_times_4": scores}
+
+
+def ptxas_registers(libs, kernel: str) -> dict:
+    """Registers per thread of every instantiation of `kernel`, from the
+    build logs: {template arguments: registers}."""
+    import re
+
+    regs = {}
+    for lib in libs:
+        entry = None
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            found = re.search(r"Compiling entry function '\S*?\d+" + kernel + r"I(\w+?)EEv", line)
+            if "Compiling entry function" in line:
+                entry = ",".join(re.findall(r"L[ib](\d+)E", found.group(1) + "E")) if found else None
+            used = re.search(r"Used (\d+) registers", line)
+            if used and entry is not None:
+                regs[entry] = int(used.group(1))
+    if not regs:
+        fail(f"the build logs name no kernel {kernel}")
+    return regs
+
+
+def tensor_core_design(sa, libs, kernel: str, smem_bytes: int) -> dict:
+    return {"instruction": sa.MMA_INSTRUCTION, "tf32_products_per_float32_product": sa.MMA_PRODUCTS,
+            "smem_bytes_per_block": smem_bytes,
+            "registers_per_thread_by_template_arguments": ptxas_registers(libs, kernel)}
+
+
+def packed_phase(torch, sa, dev, libs) -> dict:
+    fn, ref = sa.packed_short_attention, sa.packed_short_attention_reference
     main = attention_case(torch, dev, 3, 640, 150, 150, 16, 16, masked=True, fused_qkv=True)
-    entry = attention_measure(torch, "packed_short_attention", sa.packed_short_attention,
-                              sa.packed_short_attention_reference, main)
+    entry = attention_measure(torch, "packed_short_attention", fn, ref, main, sa.MMA_PRODUCTS)
     q, k, v, mask, ab = attention_case(torch, dev, 4, 64, 150, 150, 16, 16, masked=True, bias=True)
-    bias_err = check_kernel(torch, "packed_short_attention (bias)",
-                            sa.packed_short_attention(q, k, v, mask, ab),
-                            sa.packed_short_attention_reference(q, k, v, mask, ab))
+    bias_err = check_kernel(torch, "packed_short_attention (bias)", fn(q, k, v, mask, ab),
+                            ref(q, k, v, mask, ab))
+    edges = edge_checks(torch, dev, "packed_short_attention", fn, ref, (1, 15, 16, 17, 256), main,
+                        bias_dims=(12, 64))
+    design = tensor_core_design(sa, libs, "packed_attention_kernel",
+                                sa.packed_geometry(150, 16)["smem_bytes"])
     return {"name": "packed_short_attention", "route": "cuda",
             "source": "particle_fm_tpu_torch/csrc/short_attention.cu",
             "replaces": "particle_fm_tpu/ops/pallas/short_attention.py:308",
-            "launches": None, **entry, "max_abs_err_with_bias": bias_err}
+            "launches": None, **entry, "max_abs_err_with_bias": bias_err, **edges, **design}
 
 
 def fused_phase(torch, sa, dev) -> dict:
@@ -262,17 +344,21 @@ def fused_phase(torch, sa, dev) -> dict:
             "shapes": shapes, "max_abs_err_with_bias": bias_err}
 
 
-def flash_phase(torch, fa, dev) -> dict:
+def flash_phase(torch, fa, sa, dev, libs) -> dict:
     fn = lambda q, k, v, mask, ab: fa.flash_masked_attention(q, k, v, mask)
     ref = lambda q, k, v, mask, ab: fa.flash_masked_attention_reference(q, k, v, mask)
+    path_d = attention_case(torch, dev, 9, 256, 279, 279, 16, 16, masked=True, fused_qkv=True)
     shapes = {
         "path C": attention_measure(torch, "flash_masked_attention (class token)", fn, ref,
                                     attention_case(torch, dev, 8, 32, 1, 6000, 2, 128, masked=True,
                                                    lo=1000)),
         "path D": attention_measure(torch, "flash_masked_attention (279 particles)", fn, ref,
-                                    attention_case(torch, dev, 9, 256, 279, 279, 16, 16,
-                                                   masked=True, fused_qkv=True)),
+                                    path_d, sa.MMA_PRODUCTS),
     }
+    # more than 4 query rows at head dims up to 64 run on the tensor cores
+    shapes["path D"].update(
+        edge_checks(torch, dev, "flash_masked_attention", fn, ref, (5, 17, 558), path_d),
+        **tensor_core_design(sa, libs, "flash_mma_kernel", fa.mma_geometry(279, 16)["smem_bytes"]))
     long_errs = {}
     for key, masked in (("max_abs_err_long_masked", True), ("max_abs_err_long_unmasked", False)):
         case = attention_case(torch, dev, 10, 4, 1500, 1500, 4, 128, masked=masked)
@@ -446,8 +532,10 @@ def main() -> None:
             if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
                 print(f"ptxas ({lib.name}):", line.strip())
 
-    kernels = {k["name"]: k for k in (kernel_phase(torch, ops, dev), packed_phase(torch, sa, dev),
-                                      fused_phase(torch, sa, dev), flash_phase(torch, fa, dev))}
+    kernels = {k["name"]: k for k in (kernel_phase(torch, ops, dev),
+                                      packed_phase(torch, sa, dev, libs),
+                                      fused_phase(torch, sa, dev),
+                                      flash_phase(torch, fa, sa, dev, libs))}
     for k in kernels.values():
         print(json.dumps({"kernel_phase": k}), flush=True)
 

@@ -18,43 +18,63 @@
 //
 // What differs from the TPU kernel. There one program keeps a whole head's K
 // and V on chip (3 MB each at Lk=6000, D=128); a block here has 227 KB, so K
-// and V are streamed through shared memory in tiles of 16 KB each, and the
-// tile loop is the softmax's chunk loop. A group of G lanes owns one query
-// row and splits the head dim: lane g keeps the float4s g, g+G, ... of the
-// scaled q row and of the accumulator in registers (16 floats each at the
-// usual G), the partial dot products are summed over the group with
-// shuffles, and every lane of the group carries the same m and l. All lanes
-// read the same staged K or V row at a time, neighbouring lanes neighbouring
-// float4s, so shared memory is read without bank conflicts. A lane takes 8
-// keys at a time: 8 scores in registers, one update of the maximum and one
-// rescale of the accumulator per 8 keys.
+// and V are streamed through shared memory in tiles of about 16 KB each, and
+// the tile loop is the softmax's chunk loop. Three variants, chosen by shape
+// in the launcher:
 //
-// Two shapes are served. The PC-Droid transformer on 279-particle sets
-// (B=256, Lq=Lk=279, H=16, D=16) is bound by operations (20.4 GFLOP in the
-// two products, 0.32 ms at 67 TFLOP/s float32 against 0.09 ms for its 293
-// MB): G=1, one thread per query row as in the packed kernel, 93 rows per
-// block, three blocks per (set, head). MDMA's class token on calorimeter
-// showers (B=32, Lq=1, Lk=6000, H=2, D=128) is bound by bytes (393 MB of K
-// and V, 0.12 ms at 3.35 TB/s) and has only 64 (set, head) pairs for 132 SMs.
-// There one warp owns the row (G=32) and the keys are split over `splits`
-// blocks per pair; each writes its partial (m, l, acc) to scratch memory and
-// a second small kernel merges them:
-//   M = max m_s,  o = sum acc_s e^(m_s - M) / max(sum l_s e^(m_s - M), 1e-30)
-// The wrapper chooses `splits` (1: no scratch, no merge) and allocates the
-// scratch. With at most 4 query rows nothing is shared between rows, so this
-// variant does not stage: a lane loads its float4 of 8 K rows and 8 V rows
+// More than 4 query rows, head dim <= 64: the tensor cores. A block takes up
+// to 128 query rows, a warp a tile of 16 of them, and runs the tile step of
+// attention_mma.cuh over each staged tile of keys, 8 keys at a time: Q's
+// fragments and the accumulator in registers, both products through mma.sync
+// in split-precision TF32 (three TF32 products per float32 product), the
+// softmax on the accumulator's registers. The query tiles of a set are of
+// equal size (279 rows: 3 blocks of 6 warps), and rows past the set's end
+// inside the last tile repeat the last row and are not stored.
+//
+// More than 4 query rows, head dim 128: the CUDA cores. Q's fragments, head
+// and remainder, and the accumulator would take 192 registers a thread, so
+// this shape (on no served path) keeps the lane-group design: 8 lanes own one
+// query row and split the head dim, lane g keeps the float4s g, g+8, ... of
+// the scaled q row and of the accumulator in registers, the partial dot
+// products are summed over the group with shuffles, a lane takes 8 keys at a
+// time.
+//
+// At most 4 query rows (a class token): nothing is shared between rows, so
+// this variant does not stage. One warp owns the row (the whole head dim
+// spread over its lanes), a lane loads its float4 of 8 K rows and 8 V rows
 // straight from device memory, 16 loads in flight before the first is used
 // (staged through shared memory by a single warp the loads go one after
 // another, and the kernel takes 3.6 times as long at MDMA's shape).
+//
+// Two shapes are served, counted as chip_smoke.py counts them on an H100 SXM
+// (3.35 TB/s; TF32 on the tensor cores 495 TFLOP/s dense; float32 on the CUDA
+// cores 67 TFLOP/s). The PC-Droid transformer on 279-particle sets (B=256,
+// Lq=Lk=279, H=16, D=16): 293 MB, 0.087 ms; the two products are
+// 4*B*H*Lq*Lk*D = 20.4 GFLOP, issued three times in TF32, 0.124 ms, plus 5
+// operations per score (1.6 GFLOP) on the CUDA cores, 0.024 ms: bound by
+// tensor operations, 0.148 ms. MDMA's class token on calorimeter showers
+// (B=32, Lq=1, Lk=6000, H=2, D=128) is bound by bytes (394 MB of K and V,
+// 0.118 ms) and has only 64 (set, head) pairs for 132 SMs, so the keys are
+// split over `splits` blocks per pair; each writes its partial (m, l, acc) to
+// scratch memory and a second small kernel merges them:
+//   M = max m_s,  o = sum acc_s e^(m_s - M) / max(sum l_s e^(m_s - M), 1e-30)
+// The wrapper chooses `splits` (1: no scratch, no merge) and allocates the
+// scratch; every variant takes a split.
 
-#include "attention_common.cuh"
+#include "attention_mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;       // most threads of a block
+constexpr int kThreads = 128;       // most threads of a block of the CUDA-core variants
+constexpr int kRowsPerBlock = 128;  // most query rows of a block of the tensor-core variant
 constexpr int kSub = 8;             // keys whose scores a lane holds at a time
 constexpr int kTileFloats = 4096;   // floats of K, and of V, staged at a time (16 KB each)
 constexpr float kMinSum = 1e-30f;
+
+// Keys of a staged tile of the tensor-core variant: about 16 KB of K, and of V
+__host__ __device__ constexpr int flash_mma_tile_keys(int dp) {
+  return dp <= 16 ? 256 : kTileFloats / dp;
+}
 
 __device__ __forceinline__ void store4(float* row, int c, int d, float4 val) {
   if (d % 4 == 0) {
@@ -219,6 +239,64 @@ flash_attention_kernel(Heads q, Heads k, Heads v, const float* __restrict__ mask
            make_float4(o[4 * i] * f, o[4 * i + 1] * f, o[4 * i + 2] * f, o[4 * i + 3] * f));
 }
 
+// The tensor-core variant. Grid as above; block: one warp per tile of 16
+// query rows, `blockDim.x / 32` tiles to a block. A warp past the set's last
+// row repeats that row and stores nothing, so every warp takes part in the
+// barriers. The scale is applied to the accumulated score, not to q.
+template <int DP>
+__global__ void __launch_bounds__(32 * kRowsPerBlock / kMmaRows)
+flash_mma_kernel(Heads q, Heads k, Heads v, const float* __restrict__ mask,
+                 float* __restrict__ out, float* __restrict__ part,
+                 int lq, int lk, int h, int d, int keys_per_split, float scale) {
+  constexpr int ST = DP + 4, KC = flash_mma_tile_keys(DP);
+  extern __shared__ float4 smem4[];
+  float* ks = reinterpret_cast<float*>(smem4);
+  float* vs = ks + KC * ST;
+  float* madd = vs + KC * ST;
+
+  const int b = blockIdx.x / h, hd = blockIdx.x % h;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int row0 = (blockIdx.y * (blockDim.x >> 5) + (threadIdx.x >> 5)) * kMmaRows;
+  const int kbeg = blockIdx.z * keys_per_split;
+  const int kend = min(lk, kbeg + keys_per_split);
+
+  MmaTile<DP> t;
+  mma_tile_init(t, q.p + b * q.bs + hd * d, q.ld, row0, lq - 1, d, -kNeg);
+
+  const float* kbase = k.p + b * k.bs + hd * d;
+  const float* vbase = v.p + b * v.bs + hd * d;
+  for (int c0 = kbeg; c0 < kend; c0 += KC) {
+    const int n = min(KC, kend - c0);
+    const int np = (n + kMmaKeys - 1) / kMmaKeys * kMmaKeys;  // <= KC, a multiple of 8
+    __syncthreads();  // the previous tile has been used
+    stage_head<DP>(ks, ST, kbase + c0 * k.ld, k.ld, n, np, d, k.vec);
+    stage_head<DP>(vs, ST, vbase + c0 * v.ld, v.ld, n, np, d, v.vec);
+    stage_mask(madd, mask ? mask + (long long)b * lk + c0 : nullptr, n, np);
+    __syncthreads();
+    mma_softmax_keys(t, ks, vs, madd, np, scale, NoBias{});
+  }
+
+  const long long n_rows = (long long)gridDim.x * lq;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const float sum = mma_row_sum(t, half);  // every lane shuffles
+    const int row = row0 + 8 * half + g;
+    if (row >= lq) continue;
+    const long long rowid = ((long long)b * lq + row) * h + hd;
+    if (part == nullptr) {
+      mma_store_row(t, half, 1.f / fmaxf(sum, kMinSum), out + rowid * d, d);
+    } else {  // partial result of this split, not normalised
+      const long long slot = (long long)blockIdx.z * n_rows + rowid;
+      mma_store_row(t, half, 1.f, part + slot * d, d);
+      if ((threadIdx.x & 3) == 0) {
+        float* ml = part + (long long)gridDim.z * n_rows * d + slot * 2;
+        ml[0] = t.m[half];
+        ml[1] = sum;
+      }
+    }
+  }
+}
+
 // One thread per output element: the splits' partial results into one.
 __global__ void flash_merge_kernel(const float* __restrict__ part, float* __restrict__ out,
                                    long long n_rows, int d, int splits) {
@@ -237,28 +315,9 @@ __global__ void flash_merge_kernel(const float* __restrict__ part, float* __rest
   out[e] = acc / fmaxf(l, kMinSum);
 }
 
-template <int DP, int G, bool kDirect>
-cudaError_t launch_flash(Heads q, Heads k, Heads v, const float* mask, float* out, float* part,
-                         int b, int lq, int lk, int h, int d, int splits, cudaStream_t stream) {
-  constexpr int KC = kTileFloats / DP;
-  const size_t smem = kDirect ? 0 : sizeof(float) * ((size_t)2 * KC * DP + KC);
-  cudaError_t err = allow_smem(flash_attention_kernel<DP, G, kDirect>, smem);
-  if (err != cudaSuccess) return err;
-  // tiles of equal size: 279 rows at 128 a block are 3 tiles of 93
-  const int max_rows = kThreads / G;
-  const int tiles = (lq + max_rows - 1) / max_rows;
-  const int rows = (lq + tiles - 1) / tiles;
-  const int threads = (rows * G + 31) / 32 * 32;
-  // no split is empty: count them again from the keys each one takes
-  const int keys_per_split = (lk + splits - 1) / splits;
-  const int n_splits = (lk + keys_per_split - 1) / keys_per_split;
-  if (tiles > 65535 || n_splits > 65535 || (n_splits > 1 && part == nullptr))
-    return cudaErrorInvalidValue;
-  const dim3 grid(b * h, tiles, n_splits);
-  flash_attention_kernel<DP, G, kDirect><<<grid, threads, smem, stream>>>(
-      q, k, v, mask, out, n_splits > 1 ? part : nullptr, lq, lk, h, d, rows, keys_per_split,
-      1.f / sqrtf((float)d));
-  err = cudaGetLastError();
+// The merge of the splits' partial results, where the keys were split.
+cudaError_t launch_merge(cudaError_t err, const float* part, float* out, int b, int lq, int h,
+                         int d, int n_splits, cudaStream_t stream) {
   if (err != cudaSuccess || n_splits == 1) return err;
   const long long n_rows = (long long)b * lq * h;
   const int merge_threads = 256;
@@ -269,17 +328,74 @@ cudaError_t launch_flash(Heads q, Heads k, Heads v, const float* mask, float* ou
   return cudaGetLastError();
 }
 
-// G lanes to a query row: few when there are rows enough to fill a block
-// (16 floats of q and of the accumulator per lane), the whole head dim spread
-// over the lanes, and no staging, when there are at most 4 query rows (a class
-// token).
+// No split is empty: they are counted again from the keys each one takes.
+struct Splits {
+  int keys_per_split, n;
+};
+
+Splits count_splits(int lk, int splits) {
+  const int keys_per_split = (lk + splits - 1) / splits;
+  return Splits{keys_per_split, (lk + keys_per_split - 1) / keys_per_split};
+}
+
+template <int DP, int G, bool kDirect>
+cudaError_t launch_flash(Heads q, Heads k, Heads v, const float* mask, float* out, float* part,
+                         int b, int lq, int lk, int h, int d, int splits, cudaStream_t stream) {
+  constexpr int KC = kTileFloats / DP;
+  const size_t smem = kDirect ? 0 : sizeof(float) * ((size_t)2 * KC * DP + KC);
+  cudaError_t err = allow_smem(flash_attention_kernel<DP, G, kDirect>, smem);
+  if (err != cudaSuccess) return err;
+  // tiles of equal size
+  const int max_rows = kThreads / G;
+  const int tiles = (lq + max_rows - 1) / max_rows;
+  const int rows = (lq + tiles - 1) / tiles;
+  const int threads = (rows * G + 31) / 32 * 32;
+  const Splits sp = count_splits(lk, splits);
+  if (tiles > 65535 || sp.n > 65535 || (sp.n > 1 && part == nullptr))
+    return cudaErrorInvalidValue;
+  const dim3 grid(b * h, tiles, sp.n);
+  flash_attention_kernel<DP, G, kDirect><<<grid, threads, smem, stream>>>(
+      q, k, v, mask, out, sp.n > 1 ? part : nullptr, lq, lk, h, d, rows, sp.keys_per_split,
+      1.f / sqrtf((float)d));
+  return launch_merge(cudaGetLastError(), part, out, b, lq, h, d, sp.n, stream);
+}
+
+template <int DP>
+cudaError_t launch_flash_mma(Heads q, Heads k, Heads v, const float* mask, float* out,
+                             float* part, int b, int lq, int lk, int h, int d, int splits,
+                             cudaStream_t stream) {
+  constexpr int KC = flash_mma_tile_keys(DP);
+  const size_t smem = sizeof(float) * ((size_t)2 * KC * (DP + 4) + KC);
+  cudaError_t err = allow_smem(flash_mma_kernel<DP>, smem);
+  if (err != cudaSuccess) return err;
+  // blocks of equal size: 279 rows are 18 tiles of 16, 3 blocks of 6 warps
+  const int tiles = (lq + kMmaRows - 1) / kMmaRows;
+  const int blocks = (tiles + kRowsPerBlock / kMmaRows - 1) / (kRowsPerBlock / kMmaRows);
+  const int warps = (tiles + blocks - 1) / blocks;
+  const Splits sp = count_splits(lk, splits);
+  if (blocks > 65535 || sp.n > 65535 || (sp.n > 1 && part == nullptr))
+    return cudaErrorInvalidValue;
+  const dim3 grid(b * h, blocks, sp.n);
+  flash_mma_kernel<DP><<<grid, 32 * warps, smem, stream>>>(
+      q, k, v, mask, out, sp.n > 1 ? part : nullptr, lq, lk, h, d, sp.keys_per_split,
+      1.f / sqrtf((float)d));
+  return launch_merge(cudaGetLastError(), part, out, b, lq, h, d, sp.n, stream);
+}
+
+// The variant by shape: at most 4 query rows (a class token) read K and V
+// directly, the whole head dim spread over GW lanes; more rows go to the
+// tensor cores up to head dim 64, and beyond to G lanes a row (16 floats of q
+// and of the accumulator per lane).
 template <int DP, int G, int GW>
 cudaError_t launch_flash_dp(Heads q, Heads k, Heads v, const float* mask, float* out,
                             float* part, int b, int lq, int lk, int h, int d, int splits,
                             cudaStream_t stream) {
   if (lq <= 4)
     return launch_flash<DP, GW, true>(q, k, v, mask, out, part, b, lq, lk, h, d, splits, stream);
-  return launch_flash<DP, G, false>(q, k, v, mask, out, part, b, lq, lk, h, d, splits, stream);
+  if constexpr (DP <= 64)
+    return launch_flash_mma<DP>(q, k, v, mask, out, part, b, lq, lk, h, d, splits, stream);
+  else
+    return launch_flash<DP, G, false>(q, k, v, mask, out, part, b, lq, lk, h, d, splits, stream);
 }
 
 }  // namespace

@@ -22,22 +22,28 @@
 // is computed, padded ones included. The TPU kernels pad L to the tile of the
 // matrix unit; here the ragged edge is handled in the kernel.
 //
-// Bounds on an H100 SXM (67 TFLOP/s float32 on the CUDA cores, 3.35 TB/s):
-//   packed, PC-Droid transformer shape (B=640, L=150, H=16, D=16): q, k, v and
-//     the output are 393 MB, 0.12 ms; the two products are 4*B*H*L*L*D =
-//     14.7 GFLOP, 0.22 ms. Bound by operations.
+// Bounds on an H100 SXM (3.35 TB/s; TF32 on the tensor cores 495 TFLOP/s
+// dense; float32 on the CUDA cores 67 TFLOP/s), counted as chip_smoke.py
+// counts them:
+//   packed, PC-Droid transformer shape (B=640, L=150, H=16, D=16): q, k, v,
+//     the mask and the output are 393.6 MB, 0.117 ms. The two products are
+//     4*B*H*L*L*D = 14.7 GFLOP, issued three times in TF32 (split precision,
+//     attention_mma.cuh): 0.089 ms; the 5 operations per score beside them
+//     (1.2 GFLOP) stay on the CUDA cores, 0.017 ms. Bound by bytes, 0.117 ms.
 //   fused, cross-attention shapes (B=640, H=16, D=8; Lq=4, Lk=150 and Lq=150,
 //     Lk=4): about 100 MB and 0.2 GFLOP each. Bound by bytes.
 //
 // Design of the packed kernel: one block per (set, head), so 640 sets x 16
-// heads give the 132 SMs 10,240 blocks. The head's K and V rows (2 x 9.6 KB
-// at L=150, D=16) are staged in shared memory once. One thread owns one query
-// row: q and the output accumulator stay in registers, the thread walks over
-// the keys 8 at a time (8 scores in registers, one running-maximum update and
-// one rescale of the accumulator per 8 keys, then 8 exponentials and the PV
-// multiply-adds). All threads of a warp read the same K or V row at a time, a
-// shared-memory broadcast, so a 16-byte load feeds 4 multiply-adds in each of
-// 32 threads and the FMA pipes, not shared memory, set the pace.
+// heads give the 132 SMs 10,240 blocks. The head's K and V rows are staged in
+// shared memory once, at a row stride of D+4 floats, the keys padded to a
+// multiple of 8 with rows of zeros that take a mask of -inf. A warp owns a
+// tile of 16 query rows (10 warps at L=150; at most 16 warps, 8 at D=64,
+// which then take several tiles in turn) and runs the tensor-core tile step
+// of attention_mma.cuh over the keys: Q's fragments and the accumulator stay
+// in registers, both products go through mma.sync in split-precision TF32,
+// the softmax between them works on the accumulator's registers. Query rows
+// past the set's end inside the last tile repeat the last row and are not
+// stored.
 //
 // Design of the fused kernel: its shapes on the serving path are lopsided
 // (4 queries against 150 keys, 150 queries against 4 keys) and bound by
@@ -50,7 +56,7 @@
 // 512), the maximum, the sum and the output are reduced over the group with
 // shuffles.
 
-#include "attention_common.cuh"
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -95,82 +101,64 @@ __device__ __forceinline__ void axpy_row(float (&o)[DP], float p, const float* v
 }
 
 // ---------------------------------------------------------------------------
-// packed: block = (set, head), thread = query row
+// packed: block = (set, head), warp = tiles of 16 query rows
 // ---------------------------------------------------------------------------
 
-constexpr int kChunk = 8;  // keys whose scores a thread holds at a time
+// Most warps of a block: one per row tile of the longest set, as far as the
+// registers of Q's fragments and the accumulator allow.
+__host__ __device__ constexpr int packed_max_warps(int dp) {
+  return kMaxPackedLen / kMmaRows / (dp <= 32 ? 1 : 2);
+}
 
-template <int DP>
-__global__ void __launch_bounds__(kMaxPackedLen)
+struct PackedBias {  // one head's (L, L) bias; rows and keys past the set's end add nothing
+  static constexpr bool kOn = true;
+  const float* head;
+  int l, row0;
+  __device__ __forceinline__ float operator()(int row_in_tile, int key) const {
+    const int row = row0 + row_in_tile + ((threadIdx.x & 31) >> 2);
+    return row < l && key < l ? head[(long long)row * l + key] : 0.f;
+  }
+};
+
+// At head dims up to 16 without a bias, 64 registers a thread: three blocks of
+// 10 warps (L=150) to an SM in place of two.
+template <int DP, bool kBias>
+__global__ void __launch_bounds__(32 * packed_max_warps(DP), DP <= 16 && !kBias ? 2 : 1)
 packed_attention_kernel(Heads q, Heads k, Heads v, const float* __restrict__ mask,
                         const float* __restrict__ bias, float* __restrict__ out,
                         int l, int h, int d, float scale) {
+  constexpr int ST = DP + 4;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  const int lp = (l + kChunk - 1) / kChunk * kChunk;
+  const int lp = (l + kMmaKeys - 1) / kMmaKeys * kMmaKeys;
   float* ks = sm;
-  float* vs = ks + lp * DP;
-  float* madd = vs + lp * DP;
+  float* vs = ks + lp * ST;
+  float* madd = vs + lp * ST;
   const int b = blockIdx.x / h, hd = blockIdx.x % h;
 
-  stage_head<DP>(ks, DP, k.p + b * k.bs + hd * d, k.ld, l, lp, d, k.vec);
-  stage_head<DP>(vs, DP, v.p + b * v.bs + hd * d, v.ld, l, lp, d, v.vec);
-  for (int j = threadIdx.x; j < lp; j += blockDim.x) {
-    float a = -CUDART_INF_F;  // keys past the set's end take no weight
-    if (j < l) a = mask ? (mask[(long long)b * l + j] - 1.f) * kNeg : 0.f;
-    madd[j] = a;
-  }
+  stage_head<DP>(ks, ST, k.p + b * k.bs + hd * d, k.ld, l, lp, d, k.vec);
+  stage_head<DP>(vs, ST, v.p + b * v.bs + hd * d, v.ld, l, lp, d, v.vec);
+  stage_mask(madd, mask ? mask + (long long)b * l : nullptr, l, lp);
   __syncthreads();
 
-  const int row = threadIdx.x;
-  if (row >= l) return;
-  float qr[DP];
-  load_row<DP>(qr, q.p + b * q.bs + row * q.ld + hd * d, d, q.vec);
-  const float* brow = bias ? bias + (((long long)b * h + hd) * l + row) * l : nullptr;
-
-  float o[DP];
-#pragma unroll
-  for (int c = 0; c < DP; ++c) o[c] = 0.f;
-  float m = -CUDART_INF_F, sum = 0.f;
-
-  for (int j0 = 0; j0 < lp; j0 += kChunk) {
-    float s[kChunk];
-    float cm = -CUDART_INF_F;
-#pragma unroll
-    for (int c = 0; c < kChunk; ++c) {
-      const int j = j0 + c;
-      float sc = dot_row<DP>(qr, ks + j * DP) * scale + madd[j];
-      if (brow != nullptr && j < l) sc += brow[j];
-      s[c] = sc;
-      cm = fmaxf(cm, sc);
+  const int g = (threadIdx.x & 31) >> 2;
+  const float* qhead = q.p + b * q.bs + hd * d;
+  for (int row0 = (threadIdx.x >> 5) * kMmaRows; row0 < l; row0 += (blockDim.x >> 5) * kMmaRows) {
+    MmaTile<DP> t;
+    mma_tile_init(t, qhead, q.ld, row0, l - 1, d, -CUDART_INF_F);
+    if constexpr (kBias) {
+      const PackedBias bs{bias + ((long long)b * h + hd) * l * l, l, row0};
+      mma_softmax_keys(t, ks, vs, madd, lp, scale, bs);
+    } else {
+      mma_softmax_keys(t, ks, vs, madd, lp, scale, NoBias{});
     }
-    // every chunk starts on a key of the set, so cm is finite
-    const float mn = fmaxf(m, cm);
-    const float corr = exp_neg(m - mn);  // 0 at the first chunk (m = -inf)
-    sum *= corr;
 #pragma unroll
-    for (int c = 0; c < DP; ++c) o[c] *= corr;
-#pragma unroll
-    for (int c = 0; c < kChunk; ++c) {
-      const float p = exp_neg(s[c] - mn);
-      sum += p;
-      axpy_row<DP>(o, p, vs + (j0 + c) * DP);
+    for (int half = 0; half < 2; ++half) {
+      const float sum = mma_row_sum(t, half);  // every lane shuffles
+      const int row = row0 + 8 * half + g;
+      if (row < l)
+        mma_store_row(t, half, 1.f / sum, out + (((long long)b * l + row) * h + hd) * d, d);
     }
-    m = mn;
-  }
-
-  const float inv = 1.f / sum;
-  float* orow = out + (((long long)b * l + row) * h + hd) * d;
-  if (d % 4 == 0) {
-#pragma unroll
-    for (int c = 0; c < DP; c += 4)
-      if (c < d)
-        *reinterpret_cast<float4*>(orow + c) =
-            make_float4(o[c] * inv, o[c + 1] * inv, o[c + 2] * inv, o[c + 3] * inv);
-  } else {
-#pragma unroll
-    for (int c = 0; c < DP; ++c)
-      if (c < d) orow[c] = o[c] * inv;
   }
 }
 
@@ -280,17 +268,24 @@ fused_attention_kernel(Heads q, Heads k, Heads v, const float* __restrict__ mask
 // launchers
 // ---------------------------------------------------------------------------
 
-template <int DP>
+template <int DP, bool kBias>
 cudaError_t launch_packed(Heads q, Heads k, Heads v, const float* mask, const float* bias,
                           float* out, int b, int l, int h, int d, cudaStream_t stream) {
-  const int lp = (l + kChunk - 1) / kChunk * kChunk;
-  const size_t smem = sizeof(float) * ((size_t)2 * lp * DP + lp);
-  cudaError_t err = allow_smem(packed_attention_kernel<DP>, smem);
+  const int lp = (l + kMmaKeys - 1) / kMmaKeys * kMmaKeys;
+  const size_t smem = sizeof(float) * ((size_t)2 * lp * (DP + 4) + lp);
+  cudaError_t err = allow_smem(packed_attention_kernel<DP, kBias>, smem);
   if (err != cudaSuccess) return err;
-  const int threads = (l + 31) / 32 * 32;
-  packed_attention_kernel<DP><<<b * h, threads, smem, stream>>>(
+  const int warps = min((l + kMmaRows - 1) / kMmaRows, packed_max_warps(DP));
+  packed_attention_kernel<DP, kBias><<<b * h, 32 * warps, smem, stream>>>(
       q, k, v, mask, bias, out, l, h, d, 1.f / sqrtf((float)d));
   return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_packed_dp(Heads q, Heads k, Heads v, const float* mask, const float* bias,
+                             float* out, int b, int l, int h, int d, cudaStream_t stream) {
+  if (bias != nullptr) return launch_packed<DP, true>(q, k, v, mask, bias, out, b, l, h, d, stream);
+  return launch_packed<DP, false>(q, k, v, mask, bias, out, b, l, h, d, stream);
 }
 
 template <int DP, int G>
@@ -334,10 +329,10 @@ extern "C" int packed_short_attention_f32(
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const Heads qh = heads(q, q_bs, q_ld, d), kh = heads(k, k_bs, k_ld, d),
               vh = heads(v, v_bs, v_ld, d);
-  if (d <= 8) return (int)launch_packed<8>(qh, kh, vh, mask, bias, out, b, l, h, d, stream);
-  if (d <= 16) return (int)launch_packed<16>(qh, kh, vh, mask, bias, out, b, l, h, d, stream);
-  if (d <= 32) return (int)launch_packed<32>(qh, kh, vh, mask, bias, out, b, l, h, d, stream);
-  return (int)launch_packed<64>(qh, kh, vh, mask, bias, out, b, l, h, d, stream);
+  if (d <= 8) return (int)launch_packed_dp<8>(qh, kh, vh, mask, bias, out, b, l, h, d, stream);
+  if (d <= 16) return (int)launch_packed_dp<16>(qh, kh, vh, mask, bias, out, b, l, h, d, stream);
+  if (d <= 32) return (int)launch_packed_dp<32>(qh, kh, vh, mask, bias, out, b, l, h, d, stream);
+  return (int)launch_packed_dp<64>(qh, kh, vh, mask, bias, out, b, l, h, d, stream);
 }
 
 extern "C" int fused_short_attention_f32(

@@ -17,7 +17,10 @@ agree.)
 `csrc/flash_attention.cu` for CUDA tensors; it never falls back from one to
 the other. The kernel takes float32 and reads q, k and v where they lie, as
 long as the last two axes (H, D) are packed, and head dims up to 128. It
-counts its launches in `flash_masked_attention.launches`.
+counts its launches in `flash_masked_attention.launches`. With more than 4
+query rows and head dims up to 64 the kernel runs on the tensor cores
+(`csrc/attention_mma.cuh`, three TF32 products per float32 product;
+`mma_geometry` mirrors its launcher), else on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -27,12 +30,16 @@ import ctypes
 import torch
 
 from particle_fm_tpu_torch.ops import _build
-from particle_fm_tpu_torch.ops.short_attention import check_heads, mask_add
+from particle_fm_tpu_torch.ops.short_attention import (MMA_KEYS, MMA_ROWS, check_heads, mask_add,
+                                                       padded_head_dim)
 
 SOURCE = _build.CSRC_DIR / "flash_attention.cu"
 NEG_INF = -1e9
 BLOCK_K = 128  # keys per step of the plain version, the JAX kernel's block_k
 MAX_HEAD_DIM = 128
+MMA_MAX_HEAD_DIM = 64  # beyond, and with at most `DIRECT_MAX_ROWS` query rows, the CUDA cores
+DIRECT_MAX_ROWS = 4
+ROWS_PER_BLOCK = 128  # most query rows of a block (kRowsPerBlock in csrc/flash_attention.cu)
 # blocks that fill the card's 132 SMs some 16 times over; with fewer (set,
 # head, query tile) triples than this the keys are split over several blocks
 _MIN_BLOCKS = 2048
@@ -64,12 +71,27 @@ def flash_masked_attention_reference(q, k, v, kv_mask=None, block_k: int = BLOCK
     return out.permute(0, 2, 1, 3).to(q.dtype)
 
 
+def mma_geometry(lq: int, d: int) -> dict:
+    """What `launch_flash_mma` of csrc/flash_attention.cu gives the
+    tensor-core variant (more than 4 query rows, head dim <= 64): the blocks
+    that share a set's query rows, equal in size, the warps of each (one per
+    tile of 16 query rows), the keys of a staged tile and a block's bytes of
+    shared memory (K and V rows at a stride of D+4 floats, and the mask)."""
+    dp = padded_head_dim(d)
+    tiles = -(-lq // MMA_ROWS)
+    blocks = -(-tiles // (ROWS_PER_BLOCK // MMA_ROWS))
+    tile_keys = 256 if dp <= 16 else 4096 // dp
+    assert tile_keys % MMA_KEYS == 0
+    return {"blocks": blocks, "warps": -(-tiles // blocks), "tile_keys": tile_keys,
+            "smem_bytes": 4 * (2 * tile_keys * (dp + 4) + tile_keys)}
+
+
 def key_splits(b: int, lq: int, lk: int, h: int) -> int:
     """Over how many blocks the kernel splits one head's keys: 1 when the
-    (set, head, 128-row query tile) triples alone fill the card, else enough
-    to reach `_MIN_BLOCKS` blocks, each with at least `_MIN_KEYS_PER_SPLIT`
-    keys."""
-    blocks = b * h * -(-lq // 128)
+    (set, head, block of `ROWS_PER_BLOCK` query rows) triples alone fill the
+    card, else enough to reach `_MIN_BLOCKS` blocks, each with at least
+    `_MIN_KEYS_PER_SPLIT` keys."""
+    blocks = b * h * -(-lq // ROWS_PER_BLOCK)
     if blocks >= _MIN_BLOCKS:
         return 1
     return max(1, min(-(-_MIN_BLOCKS // blocks), lk // _MIN_KEYS_PER_SPLIT))

@@ -22,6 +22,11 @@ from one to the other. The kernels take float32 and read q, k and v where
 they lie, as long as the last two axes (H, D) are packed: a slice of a fused
 QKV projection needs no copy. Each wrapper counts its launches in
 `<wrapper>.launches`.
+
+The packed kernel does its two products on the tensor cores, each float32
+product as three TF32 products (`csrc/attention_mma.cuh`; the arithmetic is
+modelled in `ops/attention_tf32.py`). `packed_geometry` mirrors what its
+launcher gives a block.
 """
 
 from __future__ import annotations
@@ -38,7 +43,12 @@ NEG = -1e9
 MAX_PACKED_LEN = 256
 MAX_FUSED_LEN = 512
 MAX_HEAD_DIM = 64  # the kernels keep a query row and its output in registers
-_MAX_SMEM = 232448  # bytes of shared memory a block may use on sm_90
+MAX_SMEM = 232448  # bytes of shared memory a block may use on sm_90
+# the tile of csrc/attention_mma.cuh (m16n8k8): a warp owns 16 query rows and
+# takes the staged keys 8 at a time
+MMA_ROWS, MMA_KEYS = 16, 8
+MMA_INSTRUCTION = "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32"
+MMA_PRODUCTS = 3  # TF32 products per float32 product (head and remainder of each operand)
 
 
 def mask_add(kv_mask: torch.Tensor | None, b: int, lk: int, like: torch.Tensor) -> torch.Tensor:
@@ -46,6 +56,24 @@ def mask_add(kv_mask: torch.Tensor | None, b: int, lk: int, like: torch.Tensor) 
     if kv_mask is None:
         return torch.zeros(b, lk, dtype=torch.float32, device=like.device)
     return (kv_mask.to(torch.float32) - 1.0) * (-NEG)
+
+
+def padded_head_dim(d: int) -> int:
+    """The head dim the kernels are compiled for: 8, 16, 32 or 64."""
+    return next(p for p in (8, 16, 32, 64) if d <= p)
+
+
+def packed_geometry(l: int, d: int) -> dict:
+    """What `launch_packed` of csrc/short_attention.cu gives a block of the
+    packed kernel for sets of `l` particles at head dim `d`: its warps (one
+    per tile of 16 query rows, at most 16, 8 at head dim 64), the keys it
+    stages (padded to whole tiles of 8) and its bytes of shared memory (K and
+    V rows at a stride of D+4 floats, and the additive mask)."""
+    dp = padded_head_dim(d)
+    max_warps = MAX_PACKED_LEN // MMA_ROWS // (1 if dp <= 32 else 2)
+    keys = -(-l // MMA_KEYS) * MMA_KEYS
+    return {"warps": min(-(-l // MMA_ROWS), max_warps), "keys": keys,
+            "smem_bytes": 4 * (2 * keys * (dp + 4) + keys)}
 
 
 def packed_short_attention_reference(q, k, v, kv_mask=None, attn_bias=None):
@@ -201,11 +229,11 @@ def fused_short_attention(q, k, v, kv_mask=None, attn_bias=None) -> torch.Tensor
     if q.device.type != "cuda":
         raise ValueError(f"fused_short_attention runs on cuda or cpu, got {q.device}")
     d, lk = q.shape[-1], k.shape[1]
-    pad_d = next((p for p in (8, 16, 32, 64) if d <= p), d)
-    if 4 * (2 * lk * (pad_d + 4) + lk) > _MAX_SMEM:
+    pad_d = padded_head_dim(d) if d <= MAX_HEAD_DIM else d
+    if 4 * (2 * lk * (pad_d + 4) + lk) > MAX_SMEM:
         raise ValueError(
             f"fused_short_attention keeps one head's keys and values in shared memory: "
-            f"Lk={lk} at head dim {d} does not fit {_MAX_SMEM} bytes: use the einsum path or "
+            f"Lk={lk} at head dim {d} does not fit {MAX_SMEM} bytes: use the einsum path or "
             "attn_impl='flash'"
         )
     out = _launch("fused_short_attention_f32", q, k, v, kv_mask, attn_bias, MAX_FUSED_LEN)

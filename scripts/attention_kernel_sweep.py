@@ -21,7 +21,13 @@ also builds another version of the kernels' source (same C entry points;
 csrc/flash_attention.cu when only flash rows are asked for, else
 csrc/short_attention.cu, whose rows are then the ones compared) and times
 the two in turns at each shape (other, this, this, other), so that two
-versions are compared inside one run on one card.
+versions are compared inside one run on one card. OTHER.cu finds the headers
+it includes beside itself first, then in csrc/. An earlier commit's kernel:
+
+    mkdir -p build/parent
+    git show <commit>:particle_fm_tpu_torch/csrc/short_attention.cu > build/parent/short_attention.cu
+    git show <commit>:particle_fm_tpu_torch/csrc/attention_common.cuh > build/parent/attention_common.cuh
+    python3 scripts/attention_kernel_sweep.py --kernels packed --compare build/parent/short_attention.cu
 """
 
 from __future__ import annotations

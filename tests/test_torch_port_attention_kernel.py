@@ -1,8 +1,10 @@
 """PyTorch port, the two short-set attention CUDA kernels
-(csrc/short_attention.cu) held against their plain PyTorch versions on the
+(csrc/short_attention.cu; the packed one on the tensor cores through
+csrc/attention_mma.cuh) held against their plain PyTorch versions on the
 same inputs on the card: atol 1e-4 / rtol 1e-4 (float32; the kernels sum in
-another order and take exp through exp2). Every test needs an NVIDIA GPU and
-skips without one.
+another order and take exp through exp2; the packed kernel's products are
+three TF32 products each, which drops terms of 2^-22). Every test needs an
+NVIDIA GPU and skips without one.
 
 This file imports no JAX, so it runs where JAX is not installed:
 
@@ -56,15 +58,54 @@ def _inputs(b, lq, lk, h, d, seed, device, masked=True, bias=False, fused_qkv=Fa
      (2, 129, 2, 24, True, False, False)],
 )
 def test_packed_kernel_matches_plain_version(cuda, b, l, h, d, masked, bias, fused_qkv):
-    q, k, v, mask, ab = _inputs(b, l, l, h, d, b + l + d, cuda, masked, bias, fused_qkv)
+    _check_packed(*_inputs(b, l, l, h, d, b + l + d, cuda, masked, bias, fused_qkv))
+
+
+def _check_packed(q, k, v, mask, ab):
     before = ops.packed_short_attention.launches
     out = ops.packed_short_attention(q, k, v, mask, ab)
     torch.cuda.synchronize()
     assert ops.packed_short_attention.launches == before + 1
-    assert out.shape == (b, l, h, d) and out.is_contiguous()
+    assert out.shape == q.shape and out.is_contiguous()
     assert torch.isfinite(out).all()  # padded query rows included
     torch.testing.assert_close(out, ops.packed_short_attention_reference(q, k, v, mask, ab), **TOL)
     torch.testing.assert_close(out, attn.masked_attention(q, k, v, mask, ab), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 12, 16, 32, 64])
+@pytest.mark.parametrize("l", [1, 15, 16, 17, 256])
+def test_packed_kernel_at_the_edges_of_its_tiles(cuda, l, d):
+    """Tiles of 16 query rows and 8 keys: sets that end one short of a tile,
+    on it and one past it, the longest set, every padded head dim."""
+    _check_packed(*_inputs(3, l, l, 3, d, l + d, cuda, bias=d in (12, 64)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [False, True])
+def test_packed_kernel_reads_operands_that_allow_no_16_byte_loads(cuda, bias):
+    q, k, v, mask, ab = _inputs(3, 37, 37, 3, 16, 5, cuda, bias=bias)
+    q, k, v = (_offset_by_one_float(t) for t in (q, k, v))
+    assert q.data_ptr() % 16 == 4
+    _check_packed(q, k, v, mask, ab)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,h,d", [(64, 150, 16, 16), (4, 256, 2, 64), (8, 40, 4, 8)])
+def test_packed_kernel_with_scores_of_some_tens(cuda, b, l, h, d):
+    """q and k times 4, as a trained network's sharp heads give: the error of
+    split-precision TF32 grows with the operands, and unit-scale inputs do
+    not show it."""
+    q, k, v, mask, ab = _inputs(b, l, l, h, d, 21, cuda, fused_qkv=True)
+    q, k = q * 4.0, k * 4.0
+    assert torch.einsum("bqhd,bkhd->bhqk", q, k).abs().max() / d ** 0.5 > 30.0
+    _check_packed(q, k, v, mask, ab)
+
+
+def _offset_by_one_float(t):
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    return buf[1:].view(t.shape)
 
 
 @pytest.mark.cuda

@@ -2,7 +2,10 @@
 (csrc/flash_attention.cu) held against its plain PyTorch version and against
 the einsum attention on the same inputs on the card: atol 1e-4 / rtol 1e-4
 (float32; the kernel sums in another order, rescales every 8 keys and takes
-exp through exp2). Every test needs an NVIDIA GPU and skips without one.
+exp through exp2; with more than 4 query rows and head dims up to 64 it runs
+on the tensor cores through csrc/attention_mma.cuh, three TF32 products per
+float32 product, which drops terms of 2^-22). Every test needs an NVIDIA GPU
+and skips without one.
 
 This file imports no JAX, so it runs where JAX is not installed:
 
@@ -86,7 +89,44 @@ def test_flash_kernel_served_and_odd_shapes(cuda, b, lq, lk, h, d, masked, strid
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lq,lk,d", [(20, 20, 16), (1, 3000, 128)])
+@pytest.mark.parametrize("d", [8, 12, 16, 32, 64])
+@pytest.mark.parametrize("l", [5, 16, 17, 129, 558])
+def test_flash_kernel_at_the_edges_of_its_tiles(cuda, l, d):
+    """The tensor-core variant's tiles of 16 query rows and 8 keys, its blocks
+    of 128 rows and its staged tiles of keys: sets that end just past one."""
+    _check(*_inputs(3, l, l, 3, d, l + d, cuda, strided=l % 2 == 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk,d", [(37, 37, 16), (9, 300, 64), (2, 300, 64)])
+def test_flash_kernel_reads_operands_that_allow_no_16_byte_loads(cuda, lq, lk, d):
+    q, k, v, mask = _inputs(3, lq, lk, 3, d, 5, cuda)
+    q, k, v = (_offset_by_one_float(t) for t in (q, k, v))
+    assert k.data_ptr() % 16 == 4
+    _check(q, k, v, mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,lk,h,d", [(32, 279, 279, 16, 16), (2, 600, 1500, 2, 64),
+                                         (4, 1, 3000, 2, 128)])
+def test_flash_kernel_with_scores_of_some_tens(cuda, b, lq, lk, h, d):
+    """q and k times 4, as a trained network's sharp heads give: the error of
+    split-precision TF32 grows with the operands, and unit-scale inputs do
+    not show it. The middle case splits its keys over blocks and merges."""
+    q, k, v, mask = _inputs(b, lq, lk, h, d, 21, cuda, strided=True)
+    q, k = q * 4.0, k * 4.0
+    assert torch.einsum("bqhd,bkhd->bhqk", q, k).abs().max() / d ** 0.5 > 30.0
+    _check(q, k, v, mask)
+
+
+def _offset_by_one_float(t):
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    return buf[1:].view(t.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk,d", [(20, 20, 16), (1, 3000, 128), (150, 40, 64)])
 def test_flash_kernel_gives_uniform_weights_to_a_fully_masked_set(cuda, lq, lk, d):
     q, k, v, mask = _inputs(3, lq, lk, 2, d, 0, cuda)
     mask[1] = 0.0
