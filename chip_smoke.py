@@ -38,9 +38,11 @@
    3.35 TB/s and the float32 operations over 67 TFLOP/s; for a kernel that
    does its two products on the tensor cores in split-precision TF32, the
    products' operations times the TF32 products issued per float32 product
-   over 495 TFLOP/s, plus the other operations over 67 TFLOP/s. The lines of
-   those kernels also give the instruction, the products per float32 product,
-   a block's shared memory and the registers per thread from the build log.
+   over 495 TFLOP/s, plus the other operations over 67 TFLOP/s. The
+   `kernel_phase` lines of those kernels also give what the built library
+   says of its launch at the served shape: the instruction, the products per
+   float32 product, a block's warps and shared memory and the registers per
+   thread; the run fails if the wrappers' mirror of that geometry differs.
 3. Serving phases through `make_serve_fn`/`serve_batches`, midpoint,
    ode_steps=51 (100 network evaluations), float32, seeded random weights
    (the repo has no trained checkpoint), ragged masks and a random cond:
@@ -277,33 +279,25 @@ def edge_checks(torch, dev, name, fn, ref, lengths, served, bias_dims=()) -> dic
             "largest_score_q_k_times_4": scores}
 
 
-def ptxas_registers(libs, kernel: str) -> dict:
-    """Registers per thread of every instantiation of `kernel`, from the
-    build logs: {template arguments: registers}."""
-    import re
-
-    regs = {}
-    for lib in libs:
-        entry = None
-        for line in lib.with_suffix(".log").read_text().splitlines():
-            found = re.search(r"Compiling entry function '\S*?\d+" + kernel + r"I(\w+?)EEv", line)
-            if "Compiling entry function" in line:
-                entry = ",".join(re.findall(r"L[ib](\d+)E", found.group(1) + "E")) if found else None
-            used = re.search(r"Used (\d+) registers", line)
-            if used and entry is not None:
-                regs[entry] = int(used.group(1))
-    if not regs:
-        fail(f"the build logs name no kernel {kernel}")
-    return regs
+def tensor_core_design(products: int, report_fn, mirror_fn, l: int, d: int) -> dict:
+    """What the built library says its launcher gives a block of a tensor-core
+    kernel for `l` query rows at head dim `d` (instruction, TF32 products per
+    float32 product, warps, keys staged, bytes of shared memory, registers per
+    thread from cudaFuncGetAttributes), and the registers at the other head
+    dims. Fails unless the wrapper's mirror of the geometry and the
+    `products` that the bound counts agree with it."""
+    report, mirror = report_fn(l, d), mirror_fn(l, d)
+    if {key: report[key] for key in mirror} != mirror:
+        fail(f"{mirror_fn.__name__}({l}, {d}) = {mirror}, but the library launches {report}")
+    if report["tf32_products_per_float32_product"] != products:
+        fail(f"the bound counts {products} TF32 products per float32 product, the library "
+             f"does {report['tf32_products_per_float32_product']}")
+    report["registers_per_thread_by_head_dim"] = {
+        dp: report_fn(l, dp)["registers_per_thread"] for dp in (8, 16, 32, 64)}
+    return report
 
 
-def tensor_core_design(sa, libs, kernel: str, smem_bytes: int) -> dict:
-    return {"instruction": sa.MMA_INSTRUCTION, "tf32_products_per_float32_product": sa.MMA_PRODUCTS,
-            "smem_bytes_per_block": smem_bytes,
-            "registers_per_thread_by_template_arguments": ptxas_registers(libs, kernel)}
-
-
-def packed_phase(torch, sa, dev, libs) -> dict:
+def packed_phase(torch, sa, dev) -> dict:
     fn, ref = sa.packed_short_attention, sa.packed_short_attention_reference
     main = attention_case(torch, dev, 3, 640, 150, 150, 16, 16, masked=True, fused_qkv=True)
     entry = attention_measure(torch, "packed_short_attention", fn, ref, main, sa.MMA_PRODUCTS)
@@ -312,12 +306,10 @@ def packed_phase(torch, sa, dev, libs) -> dict:
                             ref(q, k, v, mask, ab))
     edges = edge_checks(torch, dev, "packed_short_attention", fn, ref, (1, 15, 16, 17, 256), main,
                         bias_dims=(12, 64))
-    design = tensor_core_design(sa, libs, "packed_attention_kernel",
-                                sa.packed_geometry(150, 16)["smem_bytes"])
     return {"name": "packed_short_attention", "route": "cuda",
             "source": "particle_fm_tpu_torch/csrc/short_attention.cu",
             "replaces": "particle_fm_tpu/ops/pallas/short_attention.py:308",
-            "launches": None, **entry, "max_abs_err_with_bias": bias_err, **edges, **design}
+            "launches": None, **entry, "max_abs_err_with_bias": bias_err, **edges}
 
 
 def fused_phase(torch, sa, dev) -> dict:
@@ -344,7 +336,7 @@ def fused_phase(torch, sa, dev) -> dict:
             "shapes": shapes, "max_abs_err_with_bias": bias_err}
 
 
-def flash_phase(torch, fa, sa, dev, libs) -> dict:
+def flash_phase(torch, fa, sa, dev) -> dict:
     fn = lambda q, k, v, mask, ab: fa.flash_masked_attention(q, k, v, mask)
     ref = lambda q, k, v, mask, ab: fa.flash_masked_attention_reference(q, k, v, mask)
     path_d = attention_case(torch, dev, 9, 256, 279, 279, 16, 16, masked=True, fused_qkv=True)
@@ -357,8 +349,7 @@ def flash_phase(torch, fa, sa, dev, libs) -> dict:
     }
     # more than 4 query rows at head dims up to 64 run on the tensor cores
     shapes["path D"].update(
-        edge_checks(torch, dev, "flash_masked_attention", fn, ref, (5, 17, 558), path_d),
-        **tensor_core_design(sa, libs, "flash_mma_kernel", fa.mma_geometry(279, 16)["smem_bytes"]))
+        edge_checks(torch, dev, "flash_masked_attention", fn, ref, (5, 17, 558), path_d))
     long_errs = {}
     for key, masked in (("max_abs_err_long_masked", True), ("max_abs_err_long_unmasked", False)):
         case = attention_case(torch, dev, 10, 4, 1500, 1500, 4, 128, masked=masked)
@@ -533,11 +524,21 @@ def main() -> None:
                 print(f"ptxas ({lib.name}):", line.strip())
 
     kernels = {k["name"]: k for k in (kernel_phase(torch, ops, dev),
-                                      packed_phase(torch, sa, dev, libs),
+                                      packed_phase(torch, sa, dev),
                                       fused_phase(torch, sa, dev),
-                                      flash_phase(torch, fa, sa, dev, libs))}
+                                      flash_phase(torch, fa, sa, dev))}
+    # on these lines only: the `kernels` line below holds what this run timed and counted
+    designs = {
+        "packed_short_attention": tensor_core_design(
+            sa.MMA_PRODUCTS, sa.packed_launch_report, sa.packed_geometry, 150, 16),
+        "flash_masked_attention": tensor_core_design(
+            sa.MMA_PRODUCTS, fa.mma_launch_report, fa.mma_geometry, 279, 16),
+    }
     for k in kernels.values():
-        print(json.dumps({"kernel_phase": k}), flush=True)
+        line = {"kernel_phase": k}
+        if k["name"] in designs:
+            line["tensor_core_design_at_the_served_shape"] = designs[k["name"]]
+        print(json.dumps(line), flush=True)
 
     jets = dict(features=3, frequencies=16, t_emb="cosine", loss_type="FM-OT")
     jetnet = dict(jets, num_particles=150, global_cond_dim=2)

@@ -72,8 +72,10 @@
 
 namespace {
 
-constexpr int kMmaRows = 16;  // query rows of a warp's tile
-constexpr int kMmaKeys = 8;   // keys of one tile of scores
+constexpr int kMmaRows = 16;     // query rows of a warp's tile
+constexpr int kMmaKeys = 8;      // keys of one tile of scores
+constexpr int kMmaProducts = 3;  // TF32 products per float32 product (mma_3xtf32)
+#define ATTENTION_MMA_INSTRUCTION "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32"
 
 // 8-key tiles per softmax step: they share one update of the maximum and one
 // rescale of the accumulator.
@@ -93,8 +95,8 @@ __device__ __forceinline__ Tf32 split_tf32(float x) {
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
   asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      ATTENTION_MMA_INSTRUCTION
+      " {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
@@ -102,6 +104,7 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], 
 // c += a . b in float32: three TF32 products, small terms first
 __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&a_hi)[4],
                                            const uint32_t (&a_lo)[4], Tf32 b0, Tf32 b1) {
+  static_assert(kMmaProducts == 3, "one mma_tf32 below per product");
   mma_tf32(c, a_lo, b0.hi, b1.hi);
   mma_tf32(c, a_hi, b0.lo, b1.lo);
   mma_tf32(c, a_hi, b0.hi, b1.hi);
@@ -279,6 +282,20 @@ __device__ __forceinline__ void mma_store_row(const MmaTile<DP>& t, int half, fl
       if (col + 1 < d) orow[col + 1] = x1;
     }
   }
+}
+
+// What a launcher gave, or would give, a block of a kernel on this tile step,
+// for the `*_geometry` entry points: the Python wrappers mirror these numbers
+// (for the shared-memory check and the key split), and chip_smoke.py and the
+// kernel tests hold the mirrors against them.
+template <typename Kernel>
+cudaError_t mma_report(Kernel kernel, int blocks, int warps, int keys, size_t smem, int* out) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  const int report[6] = {blocks, warps, keys, (int)smem, attr.numRegs, kMmaProducts};
+  for (int i = 0; i < 6; ++i) out[i] = report[i];
+  return cudaSuccess;
 }
 
 // Keys of a set's additive mask into shared memory: 0 for a real key, -1e9

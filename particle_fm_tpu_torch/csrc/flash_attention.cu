@@ -360,18 +360,21 @@ cudaError_t launch_flash(Heads q, Heads k, Heads v, const float* mask, float* ou
   return launch_merge(cudaGetLastError(), part, out, b, lq, h, d, sp.n, stream);
 }
 
+// With `report`, nothing is launched: the block's geometry goes there instead
+// (mma_report).
 template <int DP>
 cudaError_t launch_flash_mma(Heads q, Heads k, Heads v, const float* mask, float* out,
                              float* part, int b, int lq, int lk, int h, int d, int splits,
-                             cudaStream_t stream) {
+                             cudaStream_t stream, int* report) {
   constexpr int KC = flash_mma_tile_keys(DP);
   const size_t smem = sizeof(float) * ((size_t)2 * KC * (DP + 4) + KC);
-  cudaError_t err = allow_smem(flash_mma_kernel<DP>, smem);
-  if (err != cudaSuccess) return err;
   // blocks of equal size: 279 rows are 18 tiles of 16, 3 blocks of 6 warps
   const int tiles = (lq + kMmaRows - 1) / kMmaRows;
   const int blocks = (tiles + kRowsPerBlock / kMmaRows - 1) / (kRowsPerBlock / kMmaRows);
   const int warps = (tiles + blocks - 1) / blocks;
+  if (report) return mma_report(flash_mma_kernel<DP>, blocks, warps, KC, smem, report);
+  cudaError_t err = allow_smem(flash_mma_kernel<DP>, smem);
+  if (err != cudaSuccess) return err;
   const Splits sp = count_splits(lk, splits);
   if (blocks > 65535 || sp.n > 65535 || (sp.n > 1 && part == nullptr))
     return cudaErrorInvalidValue;
@@ -384,18 +387,37 @@ cudaError_t launch_flash_mma(Heads q, Heads k, Heads v, const float* mask, float
 
 // The variant by shape: at most 4 query rows (a class token) read K and V
 // directly, the whole head dim spread over GW lanes; more rows go to the
-// tensor cores up to head dim 64, and beyond to G lanes a row (16 floats of q
-// and of the accumulator per lane).
-template <int DP, int G, int GW>
+// tensor cores up to head dim 64, and at head dim 128 to 8 lanes a row (16
+// floats of q and of the accumulator per lane). `report` is for the
+// tensor-core variant only.
+template <int DP, int GW>
 cudaError_t launch_flash_dp(Heads q, Heads k, Heads v, const float* mask, float* out,
                             float* part, int b, int lq, int lk, int h, int d, int splits,
-                            cudaStream_t stream) {
+                            cudaStream_t stream, int* report) {
+  if (report && (lq <= 4 || DP > 64)) return cudaErrorInvalidValue;
   if (lq <= 4)
     return launch_flash<DP, GW, true>(q, k, v, mask, out, part, b, lq, lk, h, d, splits, stream);
   if constexpr (DP <= 64)
-    return launch_flash_mma<DP>(q, k, v, mask, out, part, b, lq, lk, h, d, splits, stream);
+    return launch_flash_mma<DP>(q, k, v, mask, out, part, b, lq, lk, h, d, splits, stream,
+                                report);
   else
-    return launch_flash<DP, G, false>(q, k, v, mask, out, part, b, lq, lk, h, d, splits, stream);
+    return launch_flash<DP, 8, false>(q, k, v, mask, out, part, b, lq, lk, h, d, splits, stream);
+}
+
+cudaError_t launch_flash_d(Heads q, Heads k, Heads v, const float* mask, float* out, float* part,
+                           int b, int lq, int lk, int h, int d, int splits, cudaStream_t stream,
+                           int* report) {
+  if (b <= 0 || h <= 0 || lq <= 0 || lk <= 0 || d <= 0 || d > 128 || splits <= 0)
+    return cudaErrorInvalidValue;
+  if (d <= 8)
+    return launch_flash_dp<8, 2>(q, k, v, mask, out, part, b, lq, lk, h, d, splits, stream, report);
+  if (d <= 16)
+    return launch_flash_dp<16, 4>(q, k, v, mask, out, part, b, lq, lk, h, d, splits, stream, report);
+  if (d <= 32)
+    return launch_flash_dp<32, 8>(q, k, v, mask, out, part, b, lq, lk, h, d, splits, stream, report);
+  if (d <= 64)
+    return launch_flash_dp<64, 16>(q, k, v, mask, out, part, b, lq, lk, h, d, splits, stream, report);
+  return launch_flash_dp<128, 32>(q, k, v, mask, out, part, b, lq, lk, h, d, splits, stream, report);
 }
 
 }  // namespace
@@ -410,18 +432,19 @@ extern "C" int flash_masked_attention_f32(
     float* scratch, int b, int lq, int lk, int h, int d, int splits,
     long long q_bs, long long q_ld, long long k_bs, long long k_ld,
     long long v_bs, long long v_ld, void* stream_ptr) {
-  if (b <= 0 || h <= 0 || lq <= 0 || lk <= 0 || d <= 0 || d > 128 || splits <= 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const Heads qh = heads(q, q_bs, q_ld, d), kh = heads(k, k_bs, k_ld, d),
-              vh = heads(v, v_bs, v_ld, d);
-  if (d <= 8)
-    return (int)launch_flash_dp<8, 1, 2>(qh, kh, vh, mask, out, scratch, b, lq, lk, h, d, splits, stream);
-  if (d <= 16)
-    return (int)launch_flash_dp<16, 1, 4>(qh, kh, vh, mask, out, scratch, b, lq, lk, h, d, splits, stream);
-  if (d <= 32)
-    return (int)launch_flash_dp<32, 2, 8>(qh, kh, vh, mask, out, scratch, b, lq, lk, h, d, splits, stream);
-  if (d <= 64)
-    return (int)launch_flash_dp<64, 4, 16>(qh, kh, vh, mask, out, scratch, b, lq, lk, h, d, splits, stream);
-  return (int)launch_flash_dp<128, 8, 32>(qh, kh, vh, mask, out, scratch, b, lq, lk, h, d, splits, stream);
+  return (int)launch_flash_d(heads(q, q_bs, q_ld, d), heads(k, k_bs, k_ld, d),
+                             heads(v, v_bs, v_ld, d), mask, out, scratch, b, lq, lk, h, d, splits,
+                             static_cast<cudaStream_t>(stream_ptr), nullptr);
 }
+
+// What the launcher gives a block of the tensor-core variant for `lq` query
+// rows (more than 4) at head dim `d` (at most 64), into `report`: blocks per
+// (set, head, split), warps, keys of a staged tile, bytes of shared memory,
+// registers per thread, TF32 products per float32 product. Launches nothing.
+extern "C" int flash_masked_attention_geometry(int lq, int d, int* report) {
+  const Heads none{};
+  return (int)launch_flash_d(none, none, none, nullptr, nullptr, nullptr, 1, lq, 1, 1, d, 1,
+                             nullptr, report);
+}
+
+extern "C" const char* attention_mma_instruction() { return ATTENTION_MMA_INSTRUCTION; }

@@ -268,14 +268,19 @@ fused_attention_kernel(Heads q, Heads k, Heads v, const float* __restrict__ mask
 // launchers
 // ---------------------------------------------------------------------------
 
+// With `report`, nothing is launched: the block's geometry goes there instead
+// (mma_report).
 template <int DP, bool kBias>
 cudaError_t launch_packed(Heads q, Heads k, Heads v, const float* mask, const float* bias,
-                          float* out, int b, int l, int h, int d, cudaStream_t stream) {
+                          float* out, int b, int l, int h, int d, cudaStream_t stream,
+                          int* report) {
   const int lp = (l + kMmaKeys - 1) / kMmaKeys * kMmaKeys;
   const size_t smem = sizeof(float) * ((size_t)2 * lp * (DP + 4) + lp);
+  const int warps = min((l + kMmaRows - 1) / kMmaRows, packed_max_warps(DP));
+  if (report)
+    return mma_report(packed_attention_kernel<DP, kBias>, b * h, warps, lp, smem, report);
   cudaError_t err = allow_smem(packed_attention_kernel<DP, kBias>, smem);
   if (err != cudaSuccess) return err;
-  const int warps = min((l + kMmaRows - 1) / kMmaRows, packed_max_warps(DP));
   packed_attention_kernel<DP, kBias><<<b * h, 32 * warps, smem, stream>>>(
       q, k, v, mask, bias, out, l, h, d, 1.f / sqrtf((float)d));
   return cudaGetLastError();
@@ -283,9 +288,25 @@ cudaError_t launch_packed(Heads q, Heads k, Heads v, const float* mask, const fl
 
 template <int DP>
 cudaError_t launch_packed_dp(Heads q, Heads k, Heads v, const float* mask, const float* bias,
-                             float* out, int b, int l, int h, int d, cudaStream_t stream) {
-  if (bias != nullptr) return launch_packed<DP, true>(q, k, v, mask, bias, out, b, l, h, d, stream);
-  return launch_packed<DP, false>(q, k, v, mask, bias, out, b, l, h, d, stream);
+                             float* out, int b, int l, int h, int d, cudaStream_t stream,
+                             bool biased, int* report) {
+  if (biased)
+    return launch_packed<DP, true>(q, k, v, mask, bias, out, b, l, h, d, stream, report);
+  return launch_packed<DP, false>(q, k, v, mask, bias, out, b, l, h, d, stream, report);
+}
+
+cudaError_t launch_packed_d(Heads q, Heads k, Heads v, const float* mask, const float* bias,
+                            float* out, int b, int l, int h, int d, cudaStream_t stream,
+                            bool biased, int* report) {
+  if (b <= 0 || h <= 0 || l <= 0 || l > kMaxPackedLen || d <= 0 || d > kMaxHeadDim)
+    return cudaErrorInvalidValue;
+  if (d <= 8)
+    return launch_packed_dp<8>(q, k, v, mask, bias, out, b, l, h, d, stream, biased, report);
+  if (d <= 16)
+    return launch_packed_dp<16>(q, k, v, mask, bias, out, b, l, h, d, stream, biased, report);
+  if (d <= 32)
+    return launch_packed_dp<32>(q, k, v, mask, bias, out, b, l, h, d, stream, biased, report);
+  return launch_packed_dp<64>(q, k, v, mask, bias, out, b, l, h, d, stream, biased, report);
 }
 
 template <int DP, int G>
@@ -323,17 +344,23 @@ extern "C" int packed_short_attention_f32(
     float* out, int b, int lq, int lk, int h, int d,
     long long q_bs, long long q_ld, long long k_bs, long long k_ld,
     long long v_bs, long long v_ld, void* stream_ptr) {
-  const int l = lq;
-  if (b <= 0 || h <= 0 || lk != lq || l <= 0 || l > kMaxPackedLen || d <= 0 || d > kMaxHeadDim)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const Heads qh = heads(q, q_bs, q_ld, d), kh = heads(k, k_bs, k_ld, d),
-              vh = heads(v, v_bs, v_ld, d);
-  if (d <= 8) return (int)launch_packed_dp<8>(qh, kh, vh, mask, bias, out, b, l, h, d, stream);
-  if (d <= 16) return (int)launch_packed_dp<16>(qh, kh, vh, mask, bias, out, b, l, h, d, stream);
-  if (d <= 32) return (int)launch_packed_dp<32>(qh, kh, vh, mask, bias, out, b, l, h, d, stream);
-  return (int)launch_packed_dp<64>(qh, kh, vh, mask, bias, out, b, l, h, d, stream);
+  if (lk != lq) return (int)cudaErrorInvalidValue;
+  return (int)launch_packed_d(heads(q, q_bs, q_ld, d), heads(k, k_bs, k_ld, d),
+                              heads(v, v_bs, v_ld, d), mask, bias, out, b, lq, h, d,
+                              static_cast<cudaStream_t>(stream_ptr), bias != nullptr, nullptr);
 }
+
+// What the packed kernel's launcher gives a block for sets of `l` particles at
+// head dim `d`, with or without a bias, into `report`: blocks per (set, head),
+// warps, keys staged, bytes of shared memory, registers per thread, TF32
+// products per float32 product. Launches nothing.
+extern "C" int packed_short_attention_geometry(int l, int d, int biased, int* report) {
+  const Heads none{};
+  return (int)launch_packed_d(none, none, none, nullptr, nullptr, nullptr, 1, l, 1, d, nullptr,
+                              biased != 0, report);
+}
+
+extern "C" const char* attention_mma_instruction() { return ATTENTION_MMA_INSTRUCTION; }
 
 extern "C" int fused_short_attention_f32(
     const float* q, const float* k, const float* v, const float* mask, const float* bias,

@@ -3,7 +3,8 @@
 Each source under `csrc/` has a plain C interface. It is compiled with nvcc
 for sm_90a at first use into `build/torch_kernels/` beside the package, one
 shared library per version of the source (named by a hash of its bytes and
-of the headers `csrc/*.cuh` it may include), and loaded with ctypes. The
+of the headers it may include: the `*.cuh` beside it, which the compiler
+finds first, and `csrc/*.cuh`), and loaded with ctypes. The
 compiler's report (registers, shared memory, spills) is kept beside the
 library as `<name>.log`. `build_libraries` starts one nvcc per source, all
 together, so several kernels build in the time of the slowest.
@@ -42,7 +43,8 @@ def nvcc() -> str:
 def library_path(source: Path) -> Path:
     """Where the library of this version of `source` lives once built."""
     digest = hashlib.sha256(source.read_bytes())
-    for header in sorted(CSRC_DIR.glob("*.cuh")):
+    beside = sorted(source.resolve().parent.glob("*.cuh"))
+    for header in beside + [h for h in sorted(CSRC_DIR.glob("*.cuh")) if h not in beside]:
         digest.update(header.read_bytes())
     digest = digest.hexdigest()[:12]
     return BUILD_DIR / f"lib{source.stem}_{digest}.so"

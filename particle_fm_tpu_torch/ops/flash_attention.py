@@ -20,7 +20,8 @@ long as the last two axes (H, D) are packed, and head dims up to 128. It
 counts its launches in `flash_masked_attention.launches`. With more than 4
 query rows and head dims up to 64 the kernel runs on the tensor cores
 (`csrc/attention_mma.cuh`, three TF32 products per float32 product;
-`mma_geometry` mirrors its launcher), else on the CUDA cores.
+`mma_geometry` mirrors its launcher and `mma_launch_report` asks the built
+library for the same numbers), else on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -30,8 +31,8 @@ import ctypes
 import torch
 
 from particle_fm_tpu_torch.ops import _build
-from particle_fm_tpu_torch.ops.short_attention import (MMA_KEYS, MMA_ROWS, check_heads, mask_add,
-                                                       padded_head_dim)
+from particle_fm_tpu_torch.ops.short_attention import (MMA_KEYS, MMA_ROWS, check_heads,
+                                                       launch_report, mask_add, padded_head_dim)
 
 SOURCE = _build.CSRC_DIR / "flash_attention.cu"
 NEG_INF = -1e9
@@ -86,6 +87,15 @@ def mma_geometry(lq: int, d: int) -> dict:
             "smem_bytes": 4 * (2 * tile_keys * (dp + 4) + tile_keys)}
 
 
+def mma_launch_report(lq: int, d: int) -> dict:
+    """`short_attention.launch_report` of the tensor-core variant, from the
+    built library (needs a CUDA device); `mma_geometry(lq, d)` mirrors its
+    blocks, warps, keys of a tile and bytes."""
+    lib = load_library()
+    return launch_report(lib.flash_masked_attention_geometry, lib.attention_mma_instruction,
+                         "tile_keys", lq, d)
+
+
 def key_splits(b: int, lq: int, lk: int, h: int) -> int:
     """Over how many blocks the kernel splits one head's keys: 1 when the
     (set, head, block of `ROWS_PER_BLOCK` query rows) triples alone fill the
@@ -102,6 +112,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    geometry = lib.flash_masked_attention_geometry
+    geometry.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    geometry.restype = ctypes.c_int
+    lib.attention_mma_instruction.argtypes = []
+    lib.attention_mma_instruction.restype = ctypes.c_char_p
 
 
 def load_library() -> ctypes.CDLL:

@@ -26,7 +26,9 @@ QKV projection needs no copy. Each wrapper counts its launches in
 The packed kernel does its two products on the tensor cores, each float32
 product as three TF32 products (`csrc/attention_mma.cuh`; the arithmetic is
 modelled in `ops/attention_tf32.py`). `packed_geometry` mirrors what its
-launcher gives a block.
+launcher gives a block, and the wrapper refuses a shape whose bytes would not
+fit one; `packed_launch_report` asks the built library for the same numbers,
+and the kernel tests and chip_smoke.py hold the mirror against it.
 """
 
 from __future__ import annotations
@@ -47,7 +49,6 @@ MAX_SMEM = 232448  # bytes of shared memory a block may use on sm_90
 # the tile of csrc/attention_mma.cuh (m16n8k8): a warp owns 16 query rows and
 # takes the staged keys 8 at a time
 MMA_ROWS, MMA_KEYS = 16, 8
-MMA_INSTRUCTION = "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32"
 MMA_PRODUCTS = 3  # TF32 products per float32 product (head and remainder of each operand)
 
 
@@ -74,6 +75,28 @@ def packed_geometry(l: int, d: int) -> dict:
     keys = -(-l // MMA_KEYS) * MMA_KEYS
     return {"warps": min(-(-l // MMA_ROWS), max_warps), "keys": keys,
             "smem_bytes": 4 * (2 * keys * (dp + 4) + keys)}
+
+
+def launch_report(geometry_fn, instruction_fn, keys_name: str, *shape: int) -> dict:
+    """What a library's `*_geometry` entry point says its launcher gives a
+    block of a tensor-core kernel at `shape`: blocks per (set, head), warps,
+    keys staged (under `keys_name`), bytes of shared memory, registers per
+    thread, TF32 products per float32 product, and the instruction."""
+    report = (ctypes.c_int * 6)()
+    err = geometry_fn(*shape, report)
+    if err != 0:
+        raise RuntimeError(f"{geometry_fn.__name__}{shape} failed: cudaError {err}")
+    names = ("blocks", "warps", keys_name, "smem_bytes", "registers_per_thread",
+             "tf32_products_per_float32_product")
+    return dict(zip(names, report), instruction=instruction_fn().decode())
+
+
+def packed_launch_report(l: int, d: int, biased: bool = False) -> dict:
+    """`launch_report` of the packed kernel, from the built library (needs a
+    CUDA device); `packed_geometry(l, d)` mirrors its warps, keys and bytes."""
+    lib = load_library()
+    return launch_report(lib.packed_short_attention_geometry, lib.attention_mma_instruction,
+                         "keys", l, d, int(biased))
 
 
 def packed_short_attention_reference(q, k, v, kv_mask=None, attn_bias=None):
@@ -109,6 +132,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 6
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    geometry = lib.packed_short_attention_geometry
+    geometry.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    geometry.restype = ctypes.c_int
+    lib.attention_mma_instruction.argtypes = []
+    lib.attention_mma_instruction.restype = ctypes.c_char_p
 
 
 def load_library() -> ctypes.CDLL:
@@ -168,6 +196,15 @@ def _packed_forward(q, k, v, kv_mask, attn_bias) -> torch.Tensor:
         return packed_short_attention_reference(q, k, v, kv_mask, attn_bias)
     if q.device.type != "cuda":
         raise ValueError(f"packed_short_attention runs on cuda or cpu, got {q.device}")
+    l, d = q.shape[1], q.shape[-1]
+    if 0 < l <= MAX_PACKED_LEN and 0 < d <= MAX_HEAD_DIM:  # else `_launch` says what is wrong
+        smem = packed_geometry(l, d)["smem_bytes"]
+        if smem > MAX_SMEM:
+            raise ValueError(
+                f"packed_short_attention keeps one head's keys and values in shared memory: "
+                f"L={l} at head dim {d} needs {smem} bytes of {MAX_SMEM}: use the einsum path or "
+                "attn_impl='flash'"
+            )
     out = _launch("packed_short_attention_f32", q, k, v, kv_mask, attn_bias, MAX_PACKED_LEN)
     packed_short_attention.launches += 1
     return out

@@ -26,7 +26,7 @@ through the list, so that clock ramps hit all alike; utils/timing.py) at the
 packed kernel's served shape (B=640, L=150, 16 heads of 16, q/k/v slices of
 one QKV projection) and the flash kernel's (B=256, Lq=Lk=279, 16 heads of 16).
 Prints one JSON line per shape with the mean ms per variant, and the
-registers per thread of the two kernels from ptxas.
+registers per thread of the two kernels as each library reports them.
 """
 
 from __future__ import annotations
@@ -43,11 +43,11 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import attention_case, ptxas_registers  # noqa: E402
+from chip_smoke import attention_case  # noqa: E402
 from particle_fm_tpu_torch.ops import _build, flash_attention, short_attention  # noqa: E402
 from particle_fm_tpu_torch.utils.timing import cuda_ms  # noqa: E402
 
-MMA, SHORT = "attention_mma.cuh", "short_attention.cu"
+MMA, SHORT, FLASH = "attention_mma.cuh", "short_attention.cu", "flash_attention.cu"
 KEYS_8 = (MMA, "return dp <= 16 ? 2 : 1;", "return 1;")
 NO_CAP = (SHORT, "DP <= 16 && !kBias ? 2 : 1)", "1)")
 HEAD = "  r.hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n"
@@ -92,19 +92,19 @@ def main() -> None:
     print(card)
     dev = torch.device("cuda", 0)
 
-    # a variant's headers lie beside its source and are found there first; the
-    # library's name must tell the variants apart, the hash covers csrc/ only
-    hashed = _build.library_path
-    _build.library_path = lambda src: hashed(src).with_name(
-        f"{hashed(src).stem}_{src.parent.name}.so")
+    # a variant's headers lie beside its source: the compiler finds them there
+    # first, and the library's name hashes them
     dirs = {name: make_variant(name) for name in names}
-    libs = _build.build_libraries([d / f for d in dirs.values()
-                                   for f in (SHORT, "flash_attention.cu")])
+    _build.build_libraries([d / f for d in dirs.values() for f in (SHORT, FLASH)])
+    committed = short_attention.SOURCE, flash_attention.SOURCE
     result = {"card": card, "registers": {}, "shapes": {}}
-    for name, pair in zip(names, zip(libs[0::2], libs[1::2])):
+    for name in names:
+        short_attention.SOURCE, flash_attention.SOURCE = dirs[name] / SHORT, dirs[name] / FLASH
         result["registers"][name] = {
-            "packed_attention_kernel<16, no bias>": ptxas_registers(pair[:1], "packed_attention_kernel")["16,0"],
-            "flash_mma_kernel<16>": ptxas_registers(pair[1:], "flash_mma_kernel")["16"]}
+            "packed_attention_kernel<16, no bias>":
+                short_attention.packed_launch_report(150, 16)["registers_per_thread"],
+            "flash_mma_kernel<16>": flash_attention.mma_launch_report(279, 16)["registers_per_thread"]}
+    short_attention.SOURCE, flash_attention.SOURCE = committed
     print(json.dumps({"registers": result["registers"]}))
 
     shapes = {
@@ -113,7 +113,7 @@ def main() -> None:
             short_attention.packed_short_attention_reference,
             attention_case(torch, dev, 3, 640, 150, 150, 16, 16, masked=True, fused_qkv=True)[:4]),
         "flash B=256 L=279 H=16 D=16": (
-            flash_attention, "flash_attention.cu", flash_attention.flash_masked_attention,
+            flash_attention, FLASH, flash_attention.flash_masked_attention,
             flash_attention.flash_masked_attention_reference,
             attention_case(torch, dev, 9, 256, 279, 279, 16, 16, masked=True, fused_qkv=True)[:4]),
     }

@@ -102,6 +102,30 @@ def test_packed_kernel_with_scores_of_some_tens(cuda, b, l, h, d):
     _check_packed(q, k, v, mask, ab)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("d", [1, 8, 9, 16, 17, 32, 33, 64])
+def test_packed_geometry_mirrors_the_launcher(cuda, d, bias):
+    """The wrapper's `packed_geometry` against what the built library's
+    launcher gives a block, at every set length the kernel takes."""
+    for l in range(1, ops.MAX_PACKED_LEN + 1):
+        mirror = ops.packed_geometry(l, d)
+        report = ops.packed_launch_report(l, d, bias)
+        assert {key: report[key] for key in mirror} == mirror, (l, d)
+    assert report["blocks"] == 1 and report["tf32_products_per_float32_product"] == ops.MMA_PRODUCTS
+    assert "m16n8k8" in report["instruction"] and "tf32" in report["instruction"]
+    assert 0 < report["registers_per_thread"] * 32 * report["warps"] <= 65536
+
+
+@pytest.mark.cuda
+def test_packed_wrapper_refuses_what_does_not_fit_a_block(cuda, monkeypatch):
+    q, k, v, mask, _ = _inputs(2, 150, 150, 4, 16, 0, cuda)
+    monkeypatch.setattr(ops, "MAX_SMEM", ops.packed_geometry(150, 16)["smem_bytes"] - 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.packed_short_attention(q, k, v, mask)
+    _check_packed(*_inputs(2, 144, 144, 4, 12, 1, cuda, bias=True))  # 8 keys fewer: it fits
+
+
 def _offset_by_one_float(t):
     buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
     buf[1:] = t.reshape(-1)

@@ -119,6 +119,22 @@ def test_flash_kernel_with_scores_of_some_tens(cuda, b, lq, lk, h, d):
     _check(q, k, v, mask)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 8, 9, 16, 17, 32, 33, 64])
+def test_mma_geometry_mirrors_the_launcher(cuda, d):
+    """The wrapper's `mma_geometry` against what the built library's launcher
+    gives a block of the tensor-core variant."""
+    for lq in (*range(5, 300), 558, 1500, 6000):
+        mirror = ops.mma_geometry(lq, d)
+        report = ops.mma_launch_report(lq, d)
+        assert {key: report[key] for key in mirror} == mirror, (lq, d)
+    assert report["tf32_products_per_float32_product"] == short_attention.MMA_PRODUCTS
+    assert report["instruction"] == short_attention.packed_launch_report(150, 16)["instruction"]
+    for lq, d_ in ((4, d), (37, 128)):  # the CUDA-core variants have no such report
+        with pytest.raises(RuntimeError, match="cudaError"):
+            ops.mma_launch_report(lq, d_)
+
+
 def _offset_by_one_float(t):
     buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
     buf[1:] = t.reshape(-1)
