@@ -11,9 +11,13 @@
    1e-4, and both timed with CUDA events in turns (plain, kernel, kernel,
    plain; each 20 calls back to back between two events, the median of 5 such
    runs, after 5 calls of warm-up):
-   - the fused EPiC layer (csrc/epic_layer.cu) at the JetNet-150 flagship
-     shapes (B=640, N=150, H=128, L=10, t=32, C=2, float32, multiplicities
-     30-150);
+   - the fused EPiC layer (csrc/epic_layer.cu, its two local matmuls on the
+     tensor cores through csrc/mma_tf32.cuh) at the JetNet-150 flagship shapes
+     (B=640, N=150, H=128, L=10, t=32, cond 2 on both MLP paths, float32,
+     multiplicities 30-150), at lhco/bigPC's (B=128, N=558, H=256, L=256,
+     cond 10 on both) and at jetclass/jetclass_cond's (B=512, N=128, H=300,
+     L=16, cond 12 on the global path only); checked only at N of 1, 15, 16,
+     17 and 558, at H of 3, 48, 136, 140, 256 and 300, and with x times 4;
    - packed short-set attention (csrc/short_attention.cu, on the tensor
      cores through csrc/attention_mma.cuh) at the PC-Droid transformer's
      shape (B=640, L=150, 16 heads of 16, ragged key mask, q/k/v as the three
@@ -24,7 +28,9 @@
    - fused short-set attention (same source) at the cross-attention model's
      two shapes (B=640, 16 heads of 8: 4 queries on 150 masked keys, 150
      queries on 4 keys; the times are those of one such pair), and once
-     masked with a bias at Lq=37, Lk=150;
+     masked with a bias at Lq=37, Lk=150; checked only at Lq and Lk of 1, 5,
+     17 and 512 (alike, and against 4) at head dims 8, 12, 32 and 64 with 3
+     heads, and with q/k/v offset by one float;
    - blockwise flash attention (csrc/flash_attention.cu) at MDMA's shape
      (B=32, one class-token query on 6000 keys with 1000-6000 real ones, 2
      heads of 128) and at the transformer's shape on 279-particle sets
@@ -42,7 +48,9 @@
    `kernel_phase` lines of those kernels also give what the built library
    says of its launch at the served shape: the instruction, the products per
    float32 product, a block's warps and shared memory and the registers per
-   thread; the run fails if the wrappers' mirror of that geometry differs.
+   thread; the run fails if the wrappers' mirror of that geometry differs, or
+   if the products the bound counts are not those the library issues (the
+   EPiC kernel: at each of its three shapes).
 3. Serving phases through `make_serve_fn`/`serve_batches`, midpoint,
    ode_steps=51 (100 network evaluations), float32, seeded random weights
    (the repo has no trained checkpoint), ragged masks and a random cond:
@@ -58,7 +66,10 @@
      kernel; batch 32, requests of 32 and 5 showers of 1000-6000 hits;
    - path D, lhco/jets_transformer on fm_droid_transformer (279 particles,
      5-wide cond) with attn_impl=flash, scores_dtype=null; batch 256,
-     requests of 256 and 7 events of 30-279 particles.
+     requests of 256 and 7 events of 30-279 particles;
+   - path E, jetclass/jetclass_cond on flow_matching (EPiC, 13 features, 128
+     particles, hidden 300, latent 16, 20 layers, cond 12 on the global MLPs
+     only); batch 512, requests of 512 and 7 jets.
    The transformer configurations zero-initialise their attention and
    output projections, so every parameter is re-drawn from a seed first, and
    the vector field must not be identically zero. Each phase sets the launch
@@ -98,6 +109,7 @@ KERNEL_TOL = 1e-4
 PATH_TOL = 1e-3
 CPU_TOL = 1e-4
 ODE_STEPS = 51
+EPIC_TF32_PRODUCTS = 3  # TF32 products per float32 product of the EPiC kernel's local matmuls
 # operations per attention score beside the two products: scale, mask add,
 # subtract the maximum, exponential, sum
 SCORE_OPS = 5
@@ -154,49 +166,114 @@ def bound(n_bytes: float, flops: float, tensor_flops: float = 0.0, tf32_products
             "tensor_flops_issued": tensor_flops * tf32_products}
 
 
-def kernel_phase(torch, ops, dev) -> dict:
-    gen = torch.Generator().manual_seed(0)
+def epic_case(torch, dev, seed, b, n, h, lat, c, local=True, x_scale=1.0, lo=30):
+    """Inputs of one EPiC layer on the card, t=32 on both paths, cond C wide on
+    the global MLPs and, when `local`, on the local biases too; weights of
+    scale 1/sqrt(fan_in), sets with `lo`..N real particles."""
+    gen = torch.Generator().manual_seed(seed)
+    cl = c if local else 0
 
     def lin(fan_in, *shape):
-        bound_ = fan_in ** -0.5
-        return (torch.rand(*shape, generator=gen) * 2 - 1) * bound_
+        return (torch.rand(*shape, generator=gen) * 2 - 1) * fan_in ** -0.5
 
-    k1, k2, k3, k4 = T + 2 * H + L + C, T + H + C, T + L + C, T + C
-    rs = np.random.RandomState(0)
+    k1, k2, k3, k4 = T + 2 * h + lat + c, T + h + c, T + lat + cl, T + cl
+    mask = torch.from_numpy(ragged_mask(np.random.RandomState(seed), b, n, lo=min(lo, n)))
     inputs = [
-        torch.randn(B, N, H, generator=gen),
-        torch.randn(B, L, generator=gen),
-        torch.from_numpy(ragged_mask(rs, B, N)),
-        torch.randn(B, T + C, generator=gen),
-        lin(k1, k1, H), lin(k1, H), lin(k2, k2, L), lin(k2, L),
-        lin(k3, H, H), lin(k3, k3, H), lin(k3, H),
-        lin(k4, H, H), lin(k4, k4, H), lin(k4, H),
+        torch.randn(b, n, h, generator=gen) * x_scale, torch.randn(b, lat, generator=gen), mask,
+        torch.randn(b, T + c, generator=gen),
+        lin(k1, k1, h), lin(k1, h), lin(k2, k2, lat), lin(k2, lat),
+        lin(k3, h, h), lin(k3, k3, h), lin(k3, h),
+        lin(k4, h, h), lin(k4, k4, h), lin(k4, h),
     ]
-    args = [a.to(dev).contiguous() for a in inputs]
-    dims = dict(sum_scale=1e-2, tg_dim=T, tl_dim=T, c_dim=C)
+    return ([a.to(dev).contiguous() for a in inputs],
+            dict(sum_scale=1e-2, tg_dim=T, tl_dim=T, cg_dim=c, cl_dim=cl))
 
+
+def epic_measure(torch, ops, args, dims) -> dict:
+    """The EPiC kernel at one shape: check, time in turns with its plain
+    version, count the bound (the two local matmuls on the tensor cores as
+    three TF32 products per float32 product)."""
+    b, n, h = args[0].shape
+    lat = args[1].shape[-1]
     xo, go = ops.epic_layer(*args, **dims)
     rx, rg = ops.epic_layer_reference(*args, **dims)
     err = max(check_kernel(torch, "epic_layer", xo, rx), check_kernel(torch, "epic_layer", go, rg))
-
+    k1, k2, k3, k4 = (w.shape[0] for w in (args[4], args[6], args[9], args[12]))
     # the multiply-adds of the pool, the per-set MLPs and the two H x H local
     # matmuls plus their five elementwise operations
-    n_bytes = sum(a.numel() * a.element_size() for a in args) + 4 * (B * N * H + B * L)
-    flops = (2 * B * N * H + 2 * B * (k1 * H + k2 * L + k3 * H + k4 * H)
-             + 2 * 2 * B * N * H * H + 5 * B * N * H)
+    n_bytes = sum(a.numel() * a.element_size() for a in args) + 4 * (b * n * h + b * lat)
+    flops = (2 * b * n * h + 2 * b * (k1 * h + k2 * lat + k3 * h + k4 * h)
+             + 2 * 2 * b * n * h * h + 5 * b * n * h)
+    return {"max_abs_err": err,
+            **timed_in_turns(lambda: ops.epic_layer(*args, **dims),
+                             lambda: ops.epic_layer_reference(*args, **dims)),
+            **bound(n_bytes, flops, 4 * b * n * h * h, EPIC_TF32_PRODUCTS),
+            "shape": {"B": b, "N": n, "H": h, "L": lat, "t": T, "cg": dims["cg_dim"],
+                      "cl": dims["cl_dim"], "dtype": "float32"}}
+
+
+def kernel_phase(torch, ops, dev) -> dict:
+    shapes = {
+        "flagship": epic_measure(torch, ops, *epic_case(torch, dev, 0, B, N, H, L, C)),
+        # configs/experiment/lhco/bigPC.yaml: 558 particles, hidden and latent 256, cond 10
+        "lhco/bigPC": epic_measure(torch, ops, *epic_case(torch, dev, 1, 128, 558, 256, 256, 10)),
+        # configs/experiment/jetclass/jetclass_cond.yaml: hidden 300, latent 16, cond 12 global
+        "jetclass/jetclass_cond": epic_measure(
+            torch, ops, *epic_case(torch, dev, 2, 512, 128, 300, 16, 12, local=False)),
+    }
+    # the edges of the row tiles, the widths around the padding and the
+    # weights' two homes, and x times 4 (split-precision TF32's error grows
+    # with the operands); not timed
+    edges = {}
+    for n in (1, 15, 16, 17, 558):
+        edges[f"N={n}"] = (4, n, 128, 10, 2, True)
+    for h in (3, 48, 136, 140, 256, 300):
+        edges[f"H={h}"] = (4, 70, h, 16, 12, h != 300)
+    errs = {}
+    for i, (key, (b, n, h, lat, c, local)) in enumerate(edges.items()):
+        args, dims = epic_case(torch, dev, 10 + i, b, n, h, lat, c, local, lo=1)
+        xo, go = ops.epic_layer(*args, **dims)
+        rx, rg = ops.epic_layer_reference(*args, **dims)
+        errs[key] = max(check_kernel(torch, f"epic_layer ({key})", xo, rx),
+                        check_kernel(torch, f"epic_layer ({key})", go, rg))
+    scaled = {}
+    for key, (b, n, h, lat, c, local) in (("flagship", (64, N, H, L, C, True)),
+                                          ("H=300", (64, 128, 300, 16, 12, False))):
+        args, dims = epic_case(torch, dev, 30, b, n, h, lat, c, local, x_scale=4.0)
+        xo, _ = ops.epic_layer(*args, **dims)
+        scaled[key] = check_kernel(torch, f"epic_layer (x times 4, {key})", xo,
+                                   ops.epic_layer_reference(*args, **dims)[0])
+    main = shapes["flagship"]
     return {
         "name": "epic_layer",
         "route": "cuda",
         "source": "particle_fm_tpu_torch/csrc/epic_layer.cu",
         "replaces": "particle_fm_tpu/ops/pallas/epic_layer.py:113",
         "launches": None,
-        "max_abs_err": err,
-        **timed_in_turns(lambda: ops.epic_layer(*args, **dims),
-                         lambda: ops.epic_layer_reference(*args, **dims)),
-        **bound(n_bytes, flops),
+        "max_abs_err": max(s["max_abs_err"] for s in shapes.values()),
+        "per": "one launch at the flagship's shape; the other configs' shapes under `shapes`",
+        **{key: main[key] for key in ("ms", "plain_ms", "turns_ms", "bound_ms", "bound_by", "bytes",
+                                      "flops", "tensor_flops_issued", "shape")},
         "library_ms": None,  # no single PyTorch call computes an EPiC layer
-        "shape": {"B": B, "N": N, "H": H, "L": L, "t": T, "C": C, "dtype": "float32"},
+        "shapes": shapes, "max_abs_err_edges": max(errs.values()), "edge_cases": len(errs),
+        "max_abs_err_x_times_4": scaled,
     }
+
+
+def epic_design(ops) -> dict:
+    """What the built library says its launcher gives the EPiC kernel at the
+    three configs' shapes; fails unless the products that the bound counts
+    are the products the kernel issues."""
+    reports = {
+        "flagship": ops.launch_report(B, N, H, L, T + C, T, T, C, C),
+        "lhco/bigPC": ops.launch_report(128, 558, 256, 256, T + 10, T, T, 10, 10),
+        "jetclass/jetclass_cond": ops.launch_report(512, 128, 300, 16, T + 12, T, T, 12, 0),
+    }
+    for key, report in reports.items():
+        if report["tf32_products_per_float32_product"] != EPIC_TF32_PRODUCTS:
+            fail(f"the EPiC bound counts {EPIC_TF32_PRODUCTS} TF32 products per float32 "
+                 f"product, the library does {report['tf32_products_per_float32_product']} ({key})")
+    return reports
 
 
 def attention_case(torch, dev, seed, b, lq, lk, h, d, masked, bias=False, fused_qkv=False,
@@ -323,6 +400,23 @@ def fused_phase(torch, sa, dev) -> dict:
     q, k, v, mask, ab = attention_case(torch, dev, 7, 64, 37, 150, 16, 8, masked=True, bias=True)
     bias_err = check_kernel(torch, "fused_short_attention (bias)", fn(q, k, v, mask, ab),
                             ref(q, k, v, mask, ab))
+    # keys in registers (at most 8) or streamed; 3 heads, so H*D is no multiple
+    # of 128; a bias at head dims 12 and 64; then operands offset by one float
+    errs = {}
+    for lq, lk in [(l, l) for l in (1, 5, 17, 512)] + [(4, l) for l in (1, 5, 17, 512)] + [
+            (l, 4) for l in (5, 17, 512)]:
+        for d in (8, 12, 32, 64):
+            case = attention_case(torch, dev, lq + lk + d, 3, lq, lk, 3, d, masked=True,
+                                  bias=d in (12, 64), lo=1)
+            errs[f"Lq={lq} Lk={lk} D={d}"] = check_kernel(
+                torch, f"fused_short_attention (Lq={lq}, Lk={lk}, D={d})", fn(*case), ref(*case))
+    unaligned = {}
+    for lq, lk in ((4, 150), (150, 4)):
+        q, k, v, mask, ab = attention_case(torch, dev, 13, 3, lq, lk, 16, 8, masked=True, bias=True)
+        q, k, v = (offset_by_one_float(torch, t) for t in (q, k, v))
+        unaligned[f"Lq={lq} Lk={lk}"] = check_kernel(
+            torch, "fused_short_attention (offset by one float)", fn(q, k, v, mask, ab),
+            ref(q, k, v, mask, ab))
     pair = lambda key: sum(s[key] for s in shapes.values())
     return {"name": "fused_short_attention", "route": "cuda",
             "source": "particle_fm_tpu_torch/csrc/short_attention.cu",
@@ -333,7 +427,9 @@ def fused_phase(torch, sa, dev) -> dict:
             "per": "one 'from' launch plus one 'to' launch",
             "ms": pair("ms"), "plain_ms": pair("plain_ms"),
             **bound(pair("bytes"), pair("flops")), "library_ms": pair("library_ms"),
-            "shapes": shapes, "max_abs_err_with_bias": bias_err}
+            "shapes": shapes, "max_abs_err_with_bias": bias_err,
+            "max_abs_err_edges": max(errs.values()), "edge_cases": len(errs),
+            "max_abs_err_offset_by_one_float": max(unaligned.values())}
 
 
 def flash_phase(torch, fa, sa, dev) -> dict:
@@ -391,8 +487,10 @@ def serving_phase(torch, dev, name, config, model, net, wrapper_owner, wrapper_n
     wrapper = getattr(wrapper_owner, wrapper_name)
     plain = getattr(wrapper_owner, wrapper_name + "_reference")
     n, feats, cond_dim = model.num_particles, model.features, model.global_cond_dim
+    means = ([0.0, 0.0, 0.05, 0.0] + [0.0] * 9)[:feats]
+    stds = ([0.1, 0.1, 0.06, 0.2] + [0.5] * 9)[:feats]
     proto = dict(batch_size=batch, ode_solver="midpoint", has_cond=True, has_mask=True,
-                 means=[0.0, 0.0, 0.05, 0.0][:feats], stds=[0.1, 0.1, 0.06, 0.2][:feats])
+                 means=means, stds=stds)
     fn = make_serve_fn(model, net, ode_steps=ODE_STEPS, **proto)
     warm = make_serve_fn(model, net, ode_steps=2, **proto)
 
@@ -533,6 +631,7 @@ def main() -> None:
             sa.MMA_PRODUCTS, sa.packed_launch_report, sa.packed_geometry, 150, 16),
         "flash_masked_attention": tensor_core_design(
             sa.MMA_PRODUCTS, fa.mma_launch_report, fa.mma_geometry, 279, 16),
+        "epic_layer": epic_design(ops),
     }
     for k in kernels.values():
         line = {"kernel_phase": k}
@@ -563,6 +662,13 @@ def main() -> None:
         net_config=dict(latent=16, hidden_dim=256, layers=8, num_heads=2, t_local_cat=True,
                         t_global_cat=True, global_cond_dim=1),
     )
+    # configs/experiment/jetclass/jetclass_cond.yaml on configs/model/flow_matching.yaml: cond
+    # on the global MLPs only
+    jetclass = FlowMatchingModel(
+        model="epic", features=13, num_particles=128, global_cond_dim=12, local_cond_dim=0,
+        hidden_dim=300, layers=20, latent=16, t_global_cat=True, t_local_cat=True,
+        add_time_to_input=False, frequencies=16, t_emb="cosine", loss_type="FM-OT",
+    )
     # configs/experiment/lhco/jets_transformer.yaml on configs/model/fm_droid_transformer.yaml
     lhco = FlowMatchingModel(
         model="droid_fulltransformer", add_time_to_input=True, num_particles=279,
@@ -592,6 +698,11 @@ def main() -> None:
              "attn_impl=flash, scores_dtype=null, 279 particles, cond 5 " + redrawn, model=lhco,
              net=nets["lhco"], wrapper_owner=fa, wrapper_name="flash_masked_attention",
              launches_per_eval=3, requests=(256, 7), batch=256),
+        dict(name="path E", config="jetclass/jetclass_cond on flow_matching (13 features, 128 "
+             "particles, hidden 300, latent 16, 20 layers, cond 12 on the global path only; "
+             "seeded random weights)", model=jetclass, net=jetclass.init(seed=0, device=dev),
+             wrapper_owner=ops, wrapper_name="epic_layer", launches_per_eval=jetclass.layers,
+             requests=(512, 7), batch=512, cpu_batch=4),
     ]
     counted = [ops.epic_layer, sa.packed_short_attention, sa.fused_short_attention,
                fa.flash_masked_attention]

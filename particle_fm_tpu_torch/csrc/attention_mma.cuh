@@ -10,30 +10,16 @@
 //   m, l, O      rescaled by exp(m_old - m_new); p = exp(s - m_new); l += p
 //   O (16 x D)  += P (16 x 8) . V (8 x D)         D / 8 tiles of 8 columns
 //
-// Split precision. The matrix unit reads the sign, the exponent and the upper
-// 10 mantissa bits of a float32 operand: one TF32 product keeps three decimal
-// digits, and the kernels are held to 1e-4 against float32. So every operand
-// is split into a TF32 head and the remainder, hi = x rounded to 10 mantissa
-// bits (to nearest, ties away from zero) and lo = x - hi (exact in float32;
-// the unit reads its upper bits), and every float32 product is three TF32
-// products, small terms first: lo.hi + hi.lo + hi.hi. What is dropped, the
-// lo.lo term and the last bits of lo, is 2^-21 of the product. P . V needs
-// the three as much as Q . K does: with two the result misses 1e-4
-// (ops/attention_tf32.py models this arithmetic;
-// tests/test_torch_port_attention_tf32.py). The head is an integer add and an
-// AND: cvt.rna.tf32.f32 computes the same through the narrow conversion unit
-// and is slower; the AND alone, rounding towards zero, is faster and less
-// exact (times and errors below). Q is split once, into registers that stay
-// for the whole key loop. K and V are split where a fragment is loaded from
-// shared memory, by every warp that reads it: staging them split would double
-// their shared memory, and the packed kernel at L=256, D=64 would no longer
-// fit a block.
+// Split precision (mma_tf32.cuh): every float32 product is three TF32
+// products, lo.hi + hi.lo + hi.hi. P . V needs the three as much as Q . K
+// does: with two the result misses 1e-4 (ops/attention_tf32.py models this
+// arithmetic; tests/test_torch_port_attention_tf32.py). Q is split once, into
+// registers that stay for the whole key loop. K and V are split where a
+// fragment is loaded from shared memory, by every warp that reads it: staging
+// them split would double their shared memory, and the packed kernel at
+// L=256, D=64 would no longer fit a block.
 //
-// Fragments (g = lane / 4, t = lane % 4):
-//   A  a0 (g, t)  a1 (g+8, t)  a2 (g, t+4)  a3 (g+8, t+4)
-//   B  b0 (k=t, n=g)  b1 (k=t+4, n=g)
-//   C  c0 (g, 2t)  c1 (g, 2t+1)  c2 (g+8, 2t)  c3 (g+8, 2t+1)
-// S comes out in the C layout, P . V wants P in the A layout. No lane
+// Fragments: mma_tf32.cuh. S comes out in the C layout, P . V wants P in the A layout. No lane
 // exchanges anything: a sum over keys does not care about their order, so
 // C's columns 2t and 2t+1 are taken as A's columns t and t+4, and V's B
 // fragment is loaded from keys 2t and 2t+1 accordingly.
@@ -69,46 +55,16 @@
 #pragma once
 
 #include "attention_common.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
 constexpr int kMmaRows = 16;     // query rows of a warp's tile
 constexpr int kMmaKeys = 8;      // keys of one tile of scores
-constexpr int kMmaProducts = 3;  // TF32 products per float32 product (mma_3xtf32)
-#define ATTENTION_MMA_INSTRUCTION "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32"
 
 // 8-key tiles per softmax step: they share one update of the maximum and one
 // rescale of the accumulator.
 __host__ __device__ constexpr int mma_key_tiles(int dp) { return dp <= 16 ? 2 : 1; }
-
-struct Tf32 {
-  uint32_t hi, lo;
-};
-
-__device__ __forceinline__ Tf32 split_tf32(float x) {
-  Tf32 r;
-  r.hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  r.lo = __float_as_uint(x - __uint_as_float(r.hi));
-  return r;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      ATTENTION_MMA_INSTRUCTION
-      " {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a . b in float32: three TF32 products, small terms first
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&a_hi)[4],
-                                           const uint32_t (&a_lo)[4], Tf32 b0, Tf32 b1) {
-  static_assert(kMmaProducts == 3, "one mma_tf32 below per product");
-  mma_tf32(c, a_lo, b0.hi, b1.hi);
-  mma_tf32(c, a_hi, b0.lo, b1.lo);
-  mma_tf32(c, a_hi, b0.hi, b1.hi);
-}
 
 // 2^x for x <= 0 or -inf (gives 0); 2^0 is exactly 1
 __device__ __forceinline__ float exp2_neg(float x) {

@@ -447,4 +447,4 @@ extern "C" int flash_masked_attention_geometry(int lq, int d, int* report) {
                              nullptr, report);
 }
 
-extern "C" const char* attention_mma_instruction() { return ATTENTION_MMA_INSTRUCTION; }
+extern "C" const char* attention_mma_instruction() { return MMA_TF32_INSTRUCTION; }

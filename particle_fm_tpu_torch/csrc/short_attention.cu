@@ -47,14 +47,30 @@
 //
 // Design of the fused kernel: its shapes on the serving path are lopsided
 // (4 queries against 150 keys, 150 queries against 4 keys) and bound by
-// bytes, so it needs many loads in flight, not arithmetic. One block per
-// (set, head) stages the head's K and V in shared memory (row stride D+4
-// floats: 16-byte loads of neighbouring rows fall on different banks). A
-// group of G lanes owns one query row, G = 4, 8, 16 or 32 by Lk, so with 4
-// keys a warp works on 8 query rows at once and with 150 keys a warp splits
-// them 5 to a lane. A lane keeps its scores in registers (at most 16: Lk <=
-// 512), the maximum, the sum and the output are reduced over the group with
-// shuffles.
+// bytes, so it needs whole rows read with wide loads and many of them in
+// flight, not arithmetic. In the (B, L, H, D) layout one row of a set holds
+// all heads, H*D floats: at 16 heads of 8, 512 contiguous bytes, one 16-byte
+// load per lane of a warp. So a block takes one set and 32 slots of 4 floats
+// of a row (all the heads at H*D = 128; wider rows take several blocks), a
+// lane owns 4 floats of one head, a head spans D/4 lanes (padded to a power
+// of two) and reduces its dot products in log2(D/4) shuffles, one at D=8. The
+// first version staged each head's keys in shared memory, 32-byte pieces 512
+// bytes apart, and ran a chain of grouped reductions over every output
+// column. Two kernels, by the number of keys:
+//   * at most 8 keys (150 queries on 4 keys): every lane keeps its slot of
+//     the set's K and V rows in registers, and a warp streams query rows, 4
+//     at a time (2 with 5 to 8 keys), each row read and written once whole.
+//     The (set, 4 rows) items are dealt to a grid that fills the card once,
+//     in runs of consecutive items per warp: blocks of one set each left a
+//     second wave 60% full;
+//   * more keys (4 queries on 150 keys): each of 4 warps keeps a group of 4
+//     query rows in registers and streams its share of the keys (keys w,
+//     w+4, ...) with a running maximum, sum and output per (row, head); the
+//     warps' partial results meet once in shared memory (12 KB). Five blocks
+//     fit an SM, so 640 sets run in one wave.
+// The softmax is taken with a running maximum and the output divided by the
+// sum at the end: the same function as the plain version's softmax divided
+// before PV, summed in another order (1e-4).
 
 #include "attention_mma.cuh"
 
@@ -63,42 +79,10 @@ namespace {
 constexpr int kMaxPackedLen = 256;
 constexpr int kMaxFusedLen = 512;
 constexpr int kMaxHeadDim = 64;
-constexpr int kFusedThreads = 128;
-
-template <int DP>
-__device__ __forceinline__ void load_row(float (&r)[DP], const float* row, int d, bool vec) {
-#pragma unroll
-  for (int c = 0; c < DP; c += 4) {
-    const float4 val = load4(row, c, d, vec);
-    r[c + 0] = val.x; r[c + 1] = val.y; r[c + 2] = val.z; r[c + 3] = val.w;
-  }
-}
-
-template <int DP>
-__device__ __forceinline__ float dot_row(const float (&q)[DP], const float* krow) {
-  float acc = 0.f;
-#pragma unroll
-  for (int c = 0; c < DP; c += 4) {
-    const float4 kk = *reinterpret_cast<const float4*>(krow + c);
-    acc = fmaf(q[c + 0], kk.x, acc);
-    acc = fmaf(q[c + 1], kk.y, acc);
-    acc = fmaf(q[c + 2], kk.z, acc);
-    acc = fmaf(q[c + 3], kk.w, acc);
-  }
-  return acc;
-}
-
-template <int DP>
-__device__ __forceinline__ void axpy_row(float (&o)[DP], float p, const float* vrow) {
-#pragma unroll
-  for (int c = 0; c < DP; c += 4) {
-    const float4 vv = *reinterpret_cast<const float4*>(vrow + c);
-    o[c + 0] = fmaf(p, vv.x, o[c + 0]);
-    o[c + 1] = fmaf(p, vv.y, o[c + 1]);
-    o[c + 2] = fmaf(p, vv.z, o[c + 2]);
-    o[c + 3] = fmaf(p, vv.w, o[c + 3]);
-  }
-}
+constexpr int kFewWarps = 8;    // warps of a block of the fused kernel with few keys
+constexpr int kManyWarps = 4;   // ... with many keys
+constexpr int kFusedRegKeys = 8;   // at most this many keys: K and V rows in registers
+constexpr int kFusedRows = 4;      // query rows a warp keeps while it streams the keys
 
 // ---------------------------------------------------------------------------
 // packed: block = (set, head), warp = tiles of 16 query rows
@@ -163,104 +147,209 @@ packed_attention_kernel(Heads q, Heads k, Heads v, const float* __restrict__ mas
 }
 
 // ---------------------------------------------------------------------------
-// fused: block = (set, head), group of G lanes = query row
+// fused: block = (set, 32 slots of a row across the heads), lane = 4 floats
 // ---------------------------------------------------------------------------
 
-template <int G>
-__device__ __forceinline__ float group_max(float x) {
+// Slot 32 * chunk + lane of a row of H heads of D floats: floats 4c .. 4c+3
+// of head hd = slot / QP, c = slot % QP, where QP, the lanes a head spans, is
+// the power of two at or above D/4. A slot past the last head or the head dim
+// holds no float (n = 0): it reads zeros, stores nothing, and still takes part
+// in the shuffles.
+template <int QP>
+struct Slot {
+  int off;  // offset of its first float in a row
+  int hd;   // its head, at most h - 1
+  int n;    // how many of its 4 floats lie in the head
+  __device__ __forceinline__ Slot(int chunk, int h, int d) {
+    const int s = 32 * chunk + (threadIdx.x & 31), c = s % QP;
+    const int head = s / QP;
+    n = head < h ? max(0, min(4, d - 4 * c)) : 0;
+    hd = min(head, h - 1);
+    off = head * d + 4 * c;
+  }
+};
+
+// The slot's floats of a row (vec: d % 4 == 0 and 16-byte rows, so n is 0 or 4)
+__device__ __forceinline__ float4 load_slot(const float* p, int n, bool vec) {
+  float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (vec) {
+    if (n) r = *reinterpret_cast<const float4*>(p);
+  } else {
+    if (n > 0) r.x = p[0];
+    if (n > 1) r.y = p[1];
+    if (n > 2) r.z = p[2];
+    if (n > 3) r.w = p[3];
+  }
+  return r;
+}
+
+__device__ __forceinline__ void store_slot(float* p, float4 r, int n, bool vec) {
+  if (vec) {
+    if (n) *reinterpret_cast<float4*>(p) = r;
+  } else {
+    if (n > 0) p[0] = r.x;
+    if (n > 1) p[1] = r.y;
+    if (n > 2) p[2] = r.z;
+    if (n > 3) p[3] = r.w;
+  }
+}
+
+// q . k over the head: this lane's 4 products, summed over the QP lanes of the head
+template <int QP>
+__device__ __forceinline__ float head_dot(float4 a, float4 b) {
+  float x = fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, a.w * b.w)));
 #pragma unroll
-  for (int off = G / 2; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  for (int off = QP / 2; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
 }
 
-template <int G>
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int off = G / 2; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+__device__ __forceinline__ float4 scaled(float4 a, float f) {
+  return make_float4(a.x * f, a.y * f, a.z * f, a.w * f);
+}
+__device__ __forceinline__ float4 axpy(float p, float4 v, float4 o) {
+  return make_float4(fmaf(p, v.x, o.x), fmaf(p, v.y, o.y), fmaf(p, v.z, o.z), fmaf(p, v.w, o.w));
 }
 
-template <int DP, int G>
-__global__ void __launch_bounds__(kFusedThreads)
-fused_attention_kernel(Heads q, Heads k, Heads v, const float* __restrict__ mask,
-                       const float* __restrict__ bias, float* __restrict__ out,
-                       int lq, int lk, int h, int d, float scale) {
-  constexpr int KPL = G == 32 ? kMaxFusedLen / 32 : 1;  // keys a lane holds
-  constexpr int ST = DP + 4;
-  extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
-  float* ks = sm;
-  float* vs = ks + lk * ST;
-  float* madd = vs + lk * ST;
-  const int b = blockIdx.x / h, hd = blockIdx.x % h;
-
-  stage_head<DP>(ks, ST, k.p + b * k.bs + hd * d, k.ld, lk, lk, d, k.vec);
-  stage_head<DP>(vs, ST, v.p + b * v.bs + hd * d, v.ld, lk, lk, d, v.vec);
-  for (int j = threadIdx.x; j < lk; j += blockDim.x)
-    madd[j] = mask ? (mask[(long long)b * lk + j] - 1.f) * kNeg : 0.f;
-  __syncthreads();
-
-  const int gl = threadIdx.x % G, grp = threadIdx.x / G;
-  constexpr int kGroups = kFusedThreads / G;
-  for (int r0 = 0; r0 < lq; r0 += kGroups) {
-    // a group past the last row repeats the last row and stores nothing, so
-    // every lane of a warp takes part in the shuffles
-    const bool store = r0 + grp < lq;
-    const int row = store ? r0 + grp : lq - 1;
-    float qr[DP];
-    load_row<DP>(qr, q.p + b * q.bs + row * q.ld + hd * d, d, q.vec);
+// At most KR keys (4 or 8): every lane keeps its slot of a set's K and V rows
+// in registers and streams the set's query rows, RB at a time. The work items
+// (set, slots, RB rows) are dealt to the warps of a grid that fills the card
+// once, in runs of `per_warp` consecutive items, so a warp reloads K and V only
+// where its run crosses into the next set and no wave of blocks is left half
+// full.
+template <int QP, int KR>
+__global__ void __launch_bounds__(32 * kFewWarps)
+fused_few_keys_kernel(Heads q, Heads k, Heads v, const float* __restrict__ mask,
+                      const float* __restrict__ bias, float* __restrict__ out, int n_sets,
+                      int lq, int lk, int h, int d, int chunks, float scale, int per_warp) {
+  constexpr int RB = KR <= 4 ? 4 : 2;
+  const int groups = (lq + RB - 1) / RB;
+  const long long total = (long long)n_sets * chunks * groups;
+  long long it = ((long long)blockIdx.x * kFewWarps + (threadIdx.x >> 5)) * per_warp;
+  const long long end = min(it + per_warp, total);
+  const bool ovec = d % 4 == 0;
+  int held = -1;  // the (set, slots) whose K and V the registers hold
+  Slot<QP> sl(0, h, d);
+  float4 kr[KR], vr[KR];
+  float madd[KR];
+  const float *qb = nullptr, *bb = nullptr;
+  float* ob = nullptr;
+  for (; it < end; ++it) {
+    const int bc = (int)(it / groups), r0 = (int)(it % groups) * RB;
+    if (bc != held) {  // warp-uniform
+      held = bc;
+      const int b = bc / chunks;
+      sl = Slot<QP>(bc % chunks, h, d);
 #pragma unroll
-    for (int c = 0; c < DP; ++c) qr[c] *= scale;
-    const float* brow = bias ? bias + (((long long)b * h + hd) * lq + row) * lk : nullptr;
-
-    float s[KPL];
-    float m = -CUDART_INF_F;
-#pragma unroll
-    for (int i = 0; i < KPL; ++i) {
-      const int j = gl + G * i;
-      float sc = -CUDART_INF_F;
-      if (j < lk) {
-        sc = dot_row<DP>(qr, ks + j * ST);
-        if (brow != nullptr) sc += brow[j];
-        sc += madd[j];
+      for (int j = 0; j < KR; ++j) {
+        const bool in = j < lk;
+        kr[j] = load_slot(k.p + b * k.bs + j * k.ld + sl.off, in ? sl.n : 0, k.vec);
+        vr[j] = load_slot(v.p + b * v.bs + j * v.ld + sl.off, in ? sl.n : 0, v.vec);
+        madd[j] = !in ? -CUDART_INF_F : mask ? (mask[(long long)b * lk + j] - 1.f) * kNeg : 0.f;
       }
-      s[i] = sc;
-      m = fmaxf(m, sc);
+      qb = q.p + b * q.bs + sl.off;
+      ob = out + (long long)b * lq * h * d + sl.off;
+      bb = bias ? bias + ((long long)b * h + sl.hd) * lq * lk : nullptr;
     }
-    m = group_max<G>(m);
-    float sum = 0.f;
+    float4 qv[RB];
 #pragma unroll
-    for (int i = 0; i < KPL; ++i) {
-      s[i] = exp_neg(s[i] - m);
-      sum += s[i];
+    for (int i = 0; i < RB; ++i)  // rows past the last repeat it and store nothing
+      qv[i] = scaled(load_slot(qb + min(r0 + i, lq - 1) * q.ld, sl.n, q.vec), scale);
+#pragma unroll
+    for (int i = 0; i < RB; ++i) {
+      const int row = min(r0 + i, lq - 1);
+      float s[KR], m = -CUDART_INF_F;
+#pragma unroll
+      for (int j = 0; j < KR; ++j) {
+        float sc = head_dot<QP>(qv[i], kr[j]);
+        if (bb != nullptr && j < lk) sc += bb[(long long)row * lk + j];
+        s[j] = sc + madd[j];
+        m = fmaxf(m, s[j]);
+      }
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < KR; ++j) {
+        s[j] = exp_neg(s[j] - m);
+        sum += s[j];
+      }
+      float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int j = 0; j < KR; ++j) o = axpy(s[j] / sum, vr[j], o);
+      if (r0 + i < lq) store_slot(ob + (long long)(r0 + i) * h * d, o, sl.n, ovec);
     }
-    sum = group_sum<G>(sum);
+  }
+}
 
-    float o[DP];
+// More than kFusedRegKeys keys: the query rows in groups of kFusedRows; every
+// warp keeps a group's rows in registers and streams its share of the keys
+// (keys warp, warp + 4, ...) with a running maximum, sum and output per row
+// and head; the warps' partial results meet once in shared memory. Blocks of
+// 4 warps at most 102 registers a thread: five blocks to an SM, so the 640
+// sets of the served shape run in one wave.
+template <int QP>
+__global__ void __launch_bounds__(32 * kManyWarps, 5)
+fused_many_keys_kernel(Heads q, Heads k, Heads v, const float* __restrict__ mask,
+                       const float* __restrict__ bias, float* __restrict__ out,
+                       int lq, int lk, int h, int d, int chunks, float scale) {
+  constexpr int R = kFusedRows;
+  __shared__ float4 part_o[kManyWarps][R][32];
+  __shared__ float2 part_ml[kManyWarps][R][32];
+  const int b = blockIdx.x / chunks, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const Slot<QP> sl(blockIdx.x % chunks, h, d);
+  const float* qb = q.p + b * q.bs + sl.off;
+  const float* kb = k.p + b * k.bs + sl.off;
+  const float* vb = v.p + b * v.bs + sl.off;
+  const float* mb = mask ? mask + (long long)b * lk : nullptr;
+  const float* bb = bias ? bias + ((long long)b * h + sl.hd) * lq * lk : nullptr;
+  float* ob = out + (long long)b * lq * h * d + sl.off;
+  for (int r0 = 0; r0 < lq; r0 += R) {
+    float4 qv[R], o[R];
+    float m[R], l[R];
 #pragma unroll
-    for (int c = 0; c < DP; ++c) o[c] = 0.f;
+    for (int i = 0; i < R; ++i) {
+      qv[i] = scaled(load_slot(qb + min(r0 + i, lq - 1) * q.ld, sl.n, q.vec), scale);
+      o[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      m[i] = -CUDART_INF_F;
+      l[i] = 0.f;
+    }
+#pragma unroll 2
+    for (int j = warp; j < lk; j += kManyWarps) {
+      const float4 kv = load_slot(kb + j * k.ld, sl.n, k.vec);
+      const float4 vv = load_slot(vb + j * v.ld, sl.n, v.vec);
+      const float ma = mb ? (mb[j] - 1.f) * kNeg : 0.f;
 #pragma unroll
-    for (int i = 0; i < KPL; ++i) {
-      const int j = gl + G * i;
-      if (j < lk) axpy_row<DP>(o, s[i] / sum, vs + j * ST);
+      for (int i = 0; i < R; ++i) {
+        float sc = head_dot<QP>(qv[i], kv);
+        if (bb != nullptr) sc += bb[(long long)min(r0 + i, lq - 1) * lk + j];
+        sc += ma;
+        const float mn = fmaxf(m[i], sc);
+        const float corr = exp_neg(m[i] - mn), p = exp_neg(sc - mn);
+        l[i] = fmaf(l[i], corr, p);
+        o[i] = axpy(p, vv, scaled(o[i], corr));
+        m[i] = mn;
+      }
     }
 #pragma unroll
-    for (int c = 0; c < DP; ++c) o[c] = group_sum<G>(o[c]);
-
-    if (!store) continue;
-    float* orow = out + (((long long)b * lq + row) * h + hd) * d;
-    if (d % 4 == 0) {
-      // every lane holds the whole row; lane gl writes the float4s gl, gl+G, ...
-#pragma unroll
-      for (int c4 = 0; c4 < DP / 4; ++c4)
-        if (c4 % G == gl && 4 * c4 < d)
-          *reinterpret_cast<float4*>(orow + 4 * c4) =
-              make_float4(o[4 * c4], o[4 * c4 + 1], o[4 * c4 + 2], o[4 * c4 + 3]);
-    } else if (gl == 0) {
-#pragma unroll
-      for (int c = 0; c < DP; ++c)
-        if (c < d) orow[c] = o[c];
+    for (int i = 0; i < R; ++i) {
+      part_o[warp][i][lane] = o[i];
+      part_ml[warp][i][lane] = make_float2(m[i], l[i]);
     }
+    __syncthreads();
+    if (warp < R && r0 + warp < lq) {  // warp i merges row r0 + i
+      float mx = -CUDART_INF_F;
+#pragma unroll
+      for (int w = 0; w < kManyWarps; ++w) mx = fmaxf(mx, part_ml[w][warp][lane].x);
+      float sum = 0.f;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int w = 0; w < kManyWarps; ++w) {
+        const float2 ml = part_ml[w][warp][lane];
+        const float f = exp_neg(ml.x - mx);
+        sum = fmaf(ml.y, f, sum);
+        acc = axpy(f, part_o[w][warp][lane], acc);
+      }
+      store_slot(ob + (long long)(r0 + warp) * h * d, scaled(acc, 1.f / sum), sl.n, d % 4 == 0);
+    }
+    __syncthreads();
   }
 }
 
@@ -309,26 +398,43 @@ cudaError_t launch_packed_d(Heads q, Heads k, Heads v, const float* mask, const 
   return launch_packed_dp<64>(q, k, v, mask, bias, out, b, l, h, d, stream, biased, report);
 }
 
-template <int DP, int G>
-cudaError_t launch_fused(Heads q, Heads k, Heads v, const float* mask, const float* bias,
-                         float* out, int b, int lq, int lk, int h, int d, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)2 * lk * (DP + 4) + lk);
-  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(fused_attention_kernel<DP, G>, smem);
+template <int QP, int KR>
+cudaError_t launch_few_keys(Heads q, Heads k, Heads v, const float* mask, const float* bias,
+                            float* out, int b, int lq, int lk, int h, int d, int chunks,
+                            float scale, cudaStream_t stream) {
+  constexpr int RB = KR <= 4 ? 4 : 2;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_few_keys_kernel<QP, KR>,
+                                                      32 * kFewWarps, 0);
   if (err != cudaSuccess) return err;
-  fused_attention_kernel<DP, G><<<b * h, kFusedThreads, smem, stream>>>(
-      q, k, v, mask, bias, out, lq, lk, h, d, 1.f / sqrtf((float)d));
+  const long long items = (long long)b * chunks * ((lq + RB - 1) / RB);
+  const long long warps = (long long)sms * max(per_sm, 1) * kFewWarps;
+  const int per_warp = (int)((items + warps - 1) / warps);
+  const int grid = (int)((items + (long long)per_warp * kFewWarps - 1) / (per_warp * kFewWarps));
+  fused_few_keys_kernel<QP, KR><<<grid, 32 * kFewWarps, 0, stream>>>(
+      q, k, v, mask, bias, out, b, lq, lk, h, d, chunks, scale, per_warp);
   return cudaGetLastError();
 }
 
-template <int DP>
-cudaError_t launch_fused_dp(Heads q, Heads k, Heads v, const float* mask, const float* bias,
-                            float* out, int b, int lq, int lk, int h, int d,
-                            cudaStream_t stream) {
-  if (lk <= 4) return launch_fused<DP, 4>(q, k, v, mask, bias, out, b, lq, lk, h, d, stream);
-  if (lk <= 8) return launch_fused<DP, 8>(q, k, v, mask, bias, out, b, lq, lk, h, d, stream);
-  if (lk <= 16) return launch_fused<DP, 16>(q, k, v, mask, bias, out, b, lq, lk, h, d, stream);
-  return launch_fused<DP, 32>(q, k, v, mask, bias, out, b, lq, lk, h, d, stream);
+// QP: lanes a head spans (1, 2, 4, 8 or 16 for head dims up to 4, 8, 16, 32, 64)
+template <int QP>
+cudaError_t launch_fused(Heads q, Heads k, Heads v, const float* mask, const float* bias,
+                         float* out, int b, int lq, int lk, int h, int d, cudaStream_t stream) {
+  const int chunks = (h * QP + 31) / 32;
+  const float scale = 1.f / sqrtf((float)d);
+  if (lk <= 4)
+    return launch_few_keys<QP, 4>(q, k, v, mask, bias, out, b, lq, lk, h, d, chunks, scale,
+                                  stream);
+  if (lk <= kFusedRegKeys)
+    return launch_few_keys<QP, kFusedRegKeys>(q, k, v, mask, bias, out, b, lq, lk, h, d, chunks,
+                                              scale, stream);
+  fused_many_keys_kernel<QP><<<b * chunks, 32 * kManyWarps, 0, stream>>>(
+      q, k, v, mask, bias, out, lq, lk, h, d, chunks, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -360,7 +466,7 @@ extern "C" int packed_short_attention_geometry(int l, int d, int biased, int* re
                               biased != 0, report);
 }
 
-extern "C" const char* attention_mma_instruction() { return ATTENTION_MMA_INSTRUCTION; }
+extern "C" const char* attention_mma_instruction() { return MMA_TF32_INSTRUCTION; }
 
 extern "C" int fused_short_attention_f32(
     const float* q, const float* k, const float* v, const float* mask, const float* bias,
@@ -373,10 +479,9 @@ extern "C" int fused_short_attention_f32(
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const Heads qh = heads(q, q_bs, q_ld, d), kh = heads(k, k_bs, k_ld, d),
               vh = heads(v, v_bs, v_ld, d);
-  if (d <= 8) return (int)launch_fused_dp<8>(qh, kh, vh, mask, bias, out, b, lq, lk, h, d, stream);
-  if (d <= 16)
-    return (int)launch_fused_dp<16>(qh, kh, vh, mask, bias, out, b, lq, lk, h, d, stream);
-  if (d <= 32)
-    return (int)launch_fused_dp<32>(qh, kh, vh, mask, bias, out, b, lq, lk, h, d, stream);
-  return (int)launch_fused_dp<64>(qh, kh, vh, mask, bias, out, b, lq, lk, h, d, stream);
+  if (d <= 4) return (int)launch_fused<1>(qh, kh, vh, mask, bias, out, b, lq, lk, h, d, stream);
+  if (d <= 8) return (int)launch_fused<2>(qh, kh, vh, mask, bias, out, b, lq, lk, h, d, stream);
+  if (d <= 16) return (int)launch_fused<4>(qh, kh, vh, mask, bias, out, b, lq, lk, h, d, stream);
+  if (d <= 32) return (int)launch_fused<8>(qh, kh, vh, mask, bias, out, b, lq, lk, h, d, stream);
+  return (int)launch_fused<16>(qh, kh, vh, mask, bias, out, b, lq, lk, h, d, stream);
 }

@@ -74,8 +74,6 @@ class EPiCLayer(nn.Module):
         (`ops/epic_layer.py`), once."""
         if self.activation != "leaky_relu":
             raise NotImplementedError(f"the fused EPiC layer computes leaky_relu, not {self.activation}")
-        if self.gc != self.lc:
-            raise NotImplementedError("the fused EPiC layer feeds cond to both MLP paths or to neither")
         fcs = (self.fc_global1, self.fc_global2, self.fc_local1, self.fc_local2)
         for fc in fcs:
             fc.fold()
@@ -109,7 +107,8 @@ class EPiCLayer(nn.Module):
 
         if self._kernel_weights is not None:
             b, n, _ = x_local.shape
-            set_feat = cat(t_set if (self.tg or self.tl) else None, g_cond)
+            set_feat = cat(t_set if (self.tg or self.tl) else None,
+                           cond if (self.gc or self.lc) else None)
             if set_feat is None:
                 set_feat = x_local.new_zeros(b, 0)
             m = x_local.new_ones(b, n) if mask is None else mask[..., 0]
@@ -119,7 +118,8 @@ class EPiCLayer(nn.Module):
                 set_feat.contiguous(),
                 w["wg1"], w["bg1"], w["wg2"], w["bg2"],
                 w["w1x"], w["w1s"], w["b1"], w["w2x"], w["w2s"], w["b2"],
-                sum_scale=self.sum_scale, tg_dim=self.tg, tl_dim=self.tl, c_dim=self.gc,
+                sum_scale=self.sum_scale, tg_dim=self.tg, tl_dim=self.tl, cg_dim=self.gc,
+                cl_dim=self.lc,
             )
             return x_global, x_local
 

@@ -265,14 +265,6 @@ def fused_short_attention(q, k, v, kv_mask=None, attn_bias=None) -> torch.Tensor
         return fused_short_attention_reference(q, k, v, kv_mask, attn_bias)
     if q.device.type != "cuda":
         raise ValueError(f"fused_short_attention runs on cuda or cpu, got {q.device}")
-    d, lk = q.shape[-1], k.shape[1]
-    pad_d = padded_head_dim(d) if d <= MAX_HEAD_DIM else d
-    if 4 * (2 * lk * (pad_d + 4) + lk) > MAX_SMEM:
-        raise ValueError(
-            f"fused_short_attention keeps one head's keys and values in shared memory: "
-            f"Lk={lk} at head dim {d} does not fit {MAX_SMEM} bytes: use the einsum path or "
-            "attn_impl='flash'"
-        )
     out = _launch("fused_short_attention_f32", q, k, v, kv_mask, attn_bias, MAX_FUSED_LEN)
     fused_short_attention.launches += 1
     return out

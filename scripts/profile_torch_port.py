@@ -2,7 +2,7 @@
 """Where the time goes in the PyTorch port's sampler on one NVIDIA GPU.
 
     python3 scripts/profile_torch_port.py
-        [--config epic|transformer|crossattention|mdma|lhco_transformer]
+        [--config epic|transformer|crossattention|mdma|lhco_transformer|jetclass_cond]
         [--nfe-steps 6] [--out build/measurements/profile_torch_port_<config>.json]
 
 Builds one of the served networks at full width with seeded random weights,
@@ -12,9 +12,11 @@ attention), `crossattention` is fm_droid_crossattention with attn_impl=fused
 (fused short-set attention), `mdma` is calo/mdma_calo with 2 heads of 128
 (flash attention, one class-token query on 6000 hits) and `lhco_transformer`
 is lhco/jets_transformer with attn_impl=flash (flash attention on 279
-particles). Then for each path -- the configuration's CUDA kernel and that
+particles), `jetclass_cond` is jetclass/jetclass_cond (fused EPiC layer at
+hidden 300, 20 layers, cond on the global path only). Then for each path -- the configuration's CUDA kernel and that
 kernel's plain PyTorch version -- it serves one batch (640 jets; 32 showers
-for `mdma`, 256 events for `lhco_transformer`; midpoint, `--nfe-steps` grid
+for `mdma`, 256 events for `lhco_transformer`, 512 jets for
+`jetclass_cond`; midpoint, `--nfe-steps` grid
 points) once without and once under torch.profiler, after a warm-up.
 Prints, per path, the wall time per network evaluation (both runs; the
 profiler slows the host), the device's busy share (summed kernel time over
@@ -70,6 +72,11 @@ CONFIGS = {
                               num_particles=279, global_cond_dim=5,
                               net_config=droid_net_config("te_config", 256, 3, "flash"), **JETS),
                          flash_ops, "flash_masked_attention", 256, 30),
+    "jetclass_cond": (dict(model="epic", features=13, num_particles=128, global_cond_dim=12,
+                           local_cond_dim=0, hidden_dim=300, layers=20, latent=16,
+                           t_global_cat=True, t_local_cat=True, add_time_to_input=False,
+                           frequencies=16, t_emb="cosine", loss_type="FM-OT"),
+                      epic_ops, "epic_layer", 512, 30),
 }
 
 

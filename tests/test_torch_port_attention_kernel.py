@@ -3,8 +3,9 @@
 csrc/attention_mma.cuh) held against their plain PyTorch versions on the
 same inputs on the card: atol 1e-4 / rtol 1e-4 (float32; the kernels sum in
 another order and take exp through exp2; the packed kernel's products are
-three TF32 products each, which drops terms of 2^-22). Every test needs an
-NVIDIA GPU and skips without one.
+three TF32 products each, which drops terms of 2^-22; the fused kernel takes
+its softmax with a running maximum and divides at the end). Every test needs
+an NVIDIA GPU and skips without one.
 
 This file imports no JAX, so it runs where JAX is not installed:
 
@@ -152,6 +153,36 @@ def test_fused_kernel_matches_plain_version(cuda, b, lq, lk, h, d, masked, bias)
     torch.testing.assert_close(out, attn.masked_attention(q, k, v, mask, ab), **TOL)
 
 
+def _check_fused(q, k, v, mask, ab):
+    before = ops.fused_short_attention.launches
+    out = ops.fused_short_attention(q, k, v, mask, ab)
+    torch.cuda.synchronize()
+    assert ops.fused_short_attention.launches == before + 1
+    assert out.shape == q.shape and torch.isfinite(out).all()
+    torch.testing.assert_close(out, ops.fused_short_attention_reference(q, k, v, mask, ab), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 12, 32, 64])
+@pytest.mark.parametrize("lq,lk", [(l, l) for l in (1, 5, 17, 512)]
+                         + [(4, l) for l in (1, 5, 17, 512)] + [(l, 4) for l in (5, 17, 512)])
+def test_fused_kernel_at_its_edges(cuda, lq, lk, d):
+    """Keys in registers (at most 8) or streamed by 8 warps, query rows in
+    groups of 4 or 2; 3 heads, so H*D is no multiple of 128 and a row ends
+    inside a warp's 32 slots; a bias at head dims 12 and 64."""
+    _check_fused(*_inputs(3, lq, lk, 3, d, lq + lk + d, cuda, bias=d in (12, 64)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk", [(4, 150), (150, 4), (37, 150)])
+@pytest.mark.parametrize("bias", [False, True])
+def test_fused_kernel_reads_operands_that_allow_no_16_byte_loads(cuda, lq, lk, bias):
+    q, k, v, mask, ab = _inputs(3, lq, lk, 16, 8, 5, cuda, bias=bias)
+    q, k, v = (_offset_by_one_float(t) for t in (q, k, v))
+    assert q.data_ptr() % 16 == 4
+    _check_fused(q, k, v, mask, ab)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["packed", "fused"])
 def test_kernels_give_uniform_weights_to_a_fully_masked_set(cuda, kernel):
@@ -200,10 +231,11 @@ def test_wrappers_refuse_bad_inputs(cuda):
         ops.packed_short_attention(q, k[:, :5], v[:, :5])
     with pytest.raises(NotImplementedError, match="forward only"):
         ops.fused_short_attention(q.clone().requires_grad_(True), k, v)
+    # the fused kernel streams the keys: 500 keys at head dim 64 need no shared
+    # memory of a block (the first version staged them and refused this)
     big = torch.zeros(1, 4, 1, 64, device=cuda)
     keys = torch.zeros(1, 500, 1, 64, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        ops.fused_short_attention(big, keys, keys)
+    assert torch.equal(ops.fused_short_attention(big, keys, keys), big)
 
 
 @pytest.mark.cuda

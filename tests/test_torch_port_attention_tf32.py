@@ -30,6 +30,7 @@ from particle_fm_tpu.ops.pallas import short_attention as jshort
 from particle_fm_tpu_torch.ops import attention_tf32 as tf32
 from particle_fm_tpu_torch.ops import flash_attention as pflash
 from particle_fm_tpu_torch.ops import short_attention as pshort
+from particle_fm_tpu_torch.ops import tf32 as split
 from tests.torch_port_helpers import t
 
 ATOL = 2e-5
@@ -59,20 +60,20 @@ def _p(*arrays):
 
 def test_split_keeps_all_but_the_last_bits():
     x = t(np.random.RandomState(0).randn(4096) * 37.0)
-    hi, lo = tf32.split_tf32(x)
+    hi, lo = split.split_tf32(x)
     for part in (hi, lo):  # what the unit reads: the low 13 mantissa bits are clear
         assert (part.view(torch.int32) & 0x1FFF).eq(0).all()
     assert ((x - hi).abs() <= x.abs() * 2.0 ** -11).all()  # to nearest: half an ulp of 10 bits
     assert ((x - (hi + lo)).abs() < x.abs() * 2.0 ** -21).all()
     # the head: ties away from zero, as cvt.rna.tf32.f32; the unit itself cuts
     tie = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12])
-    assert tf32.tf32_round(tie).tolist() == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0]
-    assert tf32.tf32_truncate(tie).tolist() == [1.0, -1.0, 1.0]
+    assert split.tf32_round(tie).tolist() == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0]
+    assert split.tf32_truncate(tie).tolist() == [1.0, -1.0, 1.0]
     exact = torch.tensor([0.0, 1.0, -2.5, 1024.0, 1.0 + 2.0 ** -10])
-    assert torch.equal(tf32.tf32_round(exact), exact)
-    assert torch.equal(tf32.split_tf32(exact)[1], torch.zeros(5))
+    assert torch.equal(split.tf32_round(exact), exact)
+    assert torch.equal(split.split_tf32(exact)[1], torch.zeros(5))
     with pytest.raises(ValueError, match="products"):
-        tf32.product_tf32("ij,jk->ik", torch.eye(2), torch.eye(2), 4)
+        split.product_tf32("ij,jk->ik", torch.eye(2), torch.eye(2), 4)
 
 
 @pytest.mark.parametrize("bias", [False, True])

@@ -3,10 +3,13 @@
 On the CPU: the plain version `epic_layer_reference` against the JAX linen
 `EPiCLayer` and against the Pallas kernel `epic_layer_fused_fwd` in
 interpret mode, and the port's `EPiCLayer` (module path and folded path)
-against the linen layer, for three layouts: t-cats on with cond (the yaml
+against the linen layer, for these layouts: t-cats on with cond (the yaml
 flagship), t-cats off with cond (__graft_entry__.py), t-cats on without
-cond, and neither (the second local bias is then b2 alone). Tolerance: atol 1e-5 (float32; H=32-wide matmuls summed in another
-order). The kernel itself is held against the plain version on the card by
+cond, neither (the second local bias is then b2 alone), cond on the global
+MLPs only (configs/experiment/jetclass/jetclass_cond.yaml) and cond on the
+local biases only. The Pallas kernel takes one cond width for both paths, so
+it is compared only where cond feeds both or neither. Tolerance: atol 1e-5
+(float32; H=32-wide matmuls summed in another order). The kernel itself is held against the plain version on the card by
 tests/test_torch_port_kernel.py and chip_smoke.py.
 """
 
@@ -28,12 +31,19 @@ from tests.torch_port_helpers import t
 ATOL = 1e-5
 B, N, H, L, T = 4, 16, 32, 8, 12
 
+# c: width of cond; cg, cl: whether it feeds the global MLPs, the local biases
 LAYOUTS = {
-    "yaml": dict(t_cat=True, c=2),
-    "graft": dict(t_cat=False, c=2),
-    "nocond": dict(t_cat=True, c=0),
-    "bare": dict(t_cat=False, c=0),
+    "yaml": dict(t_cat=True, c=2, cg=True, cl=True),
+    "graft": dict(t_cat=False, c=2, cg=True, cl=True),
+    "nocond": dict(t_cat=True, c=0, cg=False, cl=False),
+    "bare": dict(t_cat=False, c=0, cg=False, cl=False),
+    "global_cond_only": dict(t_cat=True, c=5, cg=True, cl=False),
+    "local_cond_only": dict(t_cat=True, c=3, cg=False, cl=True),
 }
+
+
+def _cond_dims(cfg: dict) -> tuple[int, int]:
+    return (cfg["c"] if cfg["cg"] else 0), (cfg["c"] if cfg["cl"] else 0)
 
 
 def _inputs(c: int, seed: int = 0, b: int = B, n: int = N, h: int = H):
@@ -67,8 +77,9 @@ def _kernel_weights(params, tl: int, h: int = H):
 def _jax_layer(layout: str, seed: int = 0):
     cfg = LAYOUTS[layout]
     c = cfg["c"]
+    cg, cl = _cond_dims(cfg)
     x, g, temb, cond, mask = _inputs(c, seed)
-    layer = JaxEPiCLayer(hid_dim=H, latent_dim=L, global_cond_dim=c, local_cond_dim=c,
+    layer = JaxEPiCLayer(hid_dim=H, latent_dim=L, global_cond_dim=cg, local_cond_dim=cl,
                          t_local_cat=cfg["t_cat"], t_global_cat=cfg["t_cat"])
     tb = jnp.asarray(np.tile(temb[:, None, :], (1, N, 1)))
     jcond = None if cond is None else jnp.asarray(cond)
@@ -78,7 +89,7 @@ def _jax_layer(layout: str, seed: int = 0):
     ref_g, ref_x = layer.apply(params, tb, jnp.asarray(g), jnp.asarray(x), cond=jcond, mask=jmask)
     tdim = T if cfg["t_cat"] else 0
     set_feat = np.concatenate([temb[:, :tdim]] + ([cond] if c else []), axis=-1)
-    dims = dict(sum_scale=1e-2, tg_dim=tdim, tl_dim=tdim, c_dim=c)
+    dims = dict(sum_scale=1e-2, tg_dim=tdim, tl_dim=tdim, cg_dim=cg, cl_dim=cl)
     return dict(x=x, g=g, temb=temb, cond=cond, mask=mask, set_feat=set_feat, dims=dims,
                 params=jax.device_get(params["params"]),
                 ref_x=np.asarray(ref_x), ref_g=np.asarray(ref_g))
@@ -94,15 +105,18 @@ def test_reference_matches_linen_layer(layout):
     np.testing.assert_allclose(go.numpy(), d["ref_g"], atol=ATOL)
 
 
-# the Pallas kernel takes no zero-width set_feat, so "bare" is not among these
+# the Pallas kernel takes no zero-width set_feat, so "bare" is not among these,
+# and one cond width for both paths, so neither are the one-sided layouts
 @pytest.mark.parametrize("layout", ["yaml", "graft", "nocond"])
 def test_reference_matches_pallas_interpret(layout):
     d = _jax_layer(layout, seed=1)
     w = _kernel_weights(d["params"], d["dims"]["tl_dim"])
+    dims = d["dims"]
     jxo, jgo = epic_layer_fused_fwd(
         jnp.asarray(d["x"]), jnp.asarray(d["g"]), jnp.asarray(d["mask"]),
-        jnp.asarray(d["set_feat"]), *map(jnp.asarray, w),
-        **d["dims"], tile_b=2, interpret=True,
+        jnp.asarray(d["set_feat"]), *map(jnp.asarray, w), sum_scale=dims["sum_scale"],
+        tg_dim=dims["tg_dim"], tl_dim=dims["tl_dim"], c_dim=dims["cg_dim"],
+        tile_b=2, interpret=True,
     )
     xo, go = ops.epic_layer_reference(t(d["x"]), t(d["g"]), t(d["mask"]), t(d["set_feat"]),
                                       *map(t, w), **d["dims"])
@@ -114,9 +128,9 @@ def test_reference_matches_pallas_interpret(layout):
 def test_port_layer_matches_linen_layer(layout):
     d = _jax_layer(layout, seed=2)
     cfg = LAYOUTS[layout]
-    c = cfg["c"]
-    layer = EPiCLayer(hid_dim=H, latent_dim=L, t_dim=T, cond_dim=c, global_cond_dim=c,
-                      local_cond_dim=c, t_local_cat=cfg["t_cat"], t_global_cat=cfg["t_cat"])
+    cg, cl = _cond_dims(cfg)
+    layer = EPiCLayer(hid_dim=H, latent_dim=L, t_dim=T, cond_dim=cfg["c"], global_cond_dim=cg,
+                      local_cond_dim=cl, t_local_cat=cfg["t_cat"], t_global_cat=cfg["t_cat"])
     load_flax_params(layer, d["params"])
     args = (t(d["temb"]), t(d["g"]), t(d["x"]),
             None if d["cond"] is None else t(d["cond"]), t(d["mask"][..., None]))
@@ -146,7 +160,14 @@ def test_padded_rows_finite_and_empty_set_nan():
 
 
 def test_fold_refuses_what_the_kernel_does_not_compute():
+    """Only another activation is refused: cond on one MLP path alone is
+    computed (the layouts above hold it against linen)."""
     with pytest.raises(NotImplementedError, match="leaky_relu"):
         EPiCLayer(hid_dim=8, latent_dim=4, activation="gelu").fold()
-    with pytest.raises(NotImplementedError, match="cond"):
-        EPiCLayer(hid_dim=8, latent_dim=4, cond_dim=2, global_cond_dim=2).fold()
+    for gc, lc in ((2, 0), (0, 2)):
+        layer = EPiCLayer(hid_dim=8, latent_dim=4, cond_dim=2, global_cond_dim=gc,
+                          local_cond_dim=lc)
+        layer.fold()
+        w = layer._kernel_weights
+        assert w["wg1"].shape == (2 * 8 + 4 + gc, 8) and w["wg2"].shape == (8 + gc, 4)
+        assert w["w1s"].shape == (4 + lc, 8) and w["w2s"].shape == (lc, 8)

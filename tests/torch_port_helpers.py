@@ -23,6 +23,9 @@ SMALL = dict(features=3, num_particles=16, hidden_dim=32, latent=8, layers=2,
              global_cond_dim=2, local_cond_dim=2)
 YAML_FLAGSHIP = dict(SMALL, t_global_cat=True, t_local_cat=True, add_time_to_input=False)
 GRAFT_FLAGSHIP = dict(SMALL, t_global_cat=False, t_local_cat=False, add_time_to_input=True)
+# narrow stand-in of configs/experiment/jetclass/jetclass_cond.yaml on
+# flow_matching.yaml: 13 features, cond 12 wide on the global MLPs only
+JETCLASS_COND_SMALL = dict(YAML_FLAGSHIP, features=13, global_cond_dim=12, local_cond_dim=0)
 
 # narrow stand-ins of configs/model/fm_droid_transformer.yaml and
 # fm_droid_crossattention.yaml, zero-initialised layers included
