@@ -79,8 +79,33 @@
    version and must agree within atol 1e-3, and a small batch must agree
    with the CPU within atol 1e-4. Prints jets/s of both paths, each the mean
    of two runs taken in turns (kernel, plain, plain, kernel).
-4. Prints the `kernels` JSON line, the card line again, and as the last
-   line {"ok": true, "device": {...}}.
+4. Training phases at full width, float32 without TF32, each model composed
+   from configs/ by the port's compose/instantiate (AdamW, clip 0.5, batch
+   1024, synthetic JetNet-150, the step of particle_fm_tpu_torch/training/
+   step.py over the Trainer's epoch batches):
+   - train EPiC (fm_tops150_cond): one step's loss and gradients on the card
+     against the CPU from the same weights and pinned draws of t and the
+     noise (64 jets; loss rtol 1e-5, gradients within 1e-4 of the largest),
+     then 30 steps at constant lr 1e-3 that must lower the loss (the last 5
+     against the first 5) and launch no kernel: the EPiC kernel is
+     forward-only, training runs the module path. Prints the median step
+     after 5 of warm-up as steps/s and jets/s, and the peak memory;
+   - train path A (fm_droid_transformer, attn_impl=packed, scores_dtype=null,
+     every parameter re-drawn): one step's loss and gradients with the packed
+     kernel in the forward pass (its backward the plain version, as the JAX
+     custom_vjp) against the wrapper replaced by its plain version, on a full
+     batch with pinned draws, same tolerances; then 4 steps a turn, in turns
+     (kernel, plain, plain, kernel): exactly 3 packed launches a kernel step,
+     jets/s and peak memory of each path;
+   - train CLI: particle_fm_tpu_torch.train.main with
+     experiment=jetnet/fm_tops150_cond data.synthetic=true
+     data.synthetic_num_jets=4096 trainer=smoke callbacks=none: a finite
+     val_loss, the `last` and best checkpoints, a resume from `last` that
+     continues at its step, then the EMA weights serve 7 jets at NFE 100 with
+     exactly 6 x 100 EPiC launches, within atol 1e-3 of the plain path.
+5. Prints the `kernels` JSON line (the launches of the training phases under
+   `launches_by_path` too), the card line again, and as the last line
+   {"ok": true, "device": {...}}.
 
 Every failure exits non-zero before the last line. The script needs the
 repository beside it and a CUDA device; it imports nothing of JAX.
@@ -586,6 +611,249 @@ def droid_net_config(core_key: str, model_dim: int, num_layers: int, attn_impl: 
                        "dense_config": dense}}
 
 
+# training phases: the loss at the card against the CPU and the kernel
+# against the plain path, from the same weights and pinned draws
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4  # max abs gradient error over the largest gradient
+TRAIN_STEPS = 30
+
+
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def compose_training(overrides: list[str]):
+    """(model, datamodule, cfg) built from configs/ by the port's compose and
+    instantiate, the model block's optimizer and scheduler popped."""
+    from particle_fm_tpu_torch.config.core import compose, instantiate
+    from particle_fm_tpu_torch.train import CONFIG_DIR
+
+    cfg = compose(CONFIG_DIR, "train", overrides)
+    model_cfg = {k: v for k, v in cfg["model"].items() if k not in ("optimizer", "scheduler")}
+    return instantiate(model_cfg), instantiate(cfg["data"]), cfg
+
+
+def pinned_loss_and_grads(torch, model, net, batch, seed: int):
+    """The training loss and every parameter's gradient, with the loss's t
+    and noise pinned to numpy draws from `seed` (one t and one z: FM-OT)."""
+    from particle_fm_tpu_torch.losses import flow_matching as ploss
+
+    x = batch[0]
+    rs = np.random.RandomState(seed)
+    t = torch.from_numpy(rs.rand(x.shape[0]).astype(np.float32)).to(x.device)
+    z = torch.from_numpy(rs.randn(*x.shape).astype(np.float32)).to(x.device)
+    with mock.patch.multiple(ploss, _sample_t=lambda g, b, d: t, _normal=lambda g, s, d: z):
+        loss = model.loss(net, torch.Generator(x.device), *batch, train=True)
+        grads = torch.autograd.grad(loss, list(net.parameters()))
+    return float(loss.detach()), [g.detach().cpu() for g in grads]
+
+
+def held_against(name: str, got, want) -> dict:
+    """Loss and gradients (from pinned_loss_and_grads) against a reference."""
+    loss_err = abs(got[0] - want[0]) / abs(want[0])
+    scale = max(float(g.abs().max()) for g in want[1])
+    grad_err = max(float((a - b).abs().max()) for a, b in zip(got[1], want[1])) / scale
+    if not (loss_err <= TRAIN_LOSS_RTOL and grad_err <= TRAIN_GRAD_TOL):
+        fail(f"{name}: loss rel err {loss_err} (limit {TRAIN_LOSS_RTOL}), gradient err {grad_err} "
+             f"of the largest gradient (limit {TRAIN_GRAD_TOL})")
+    return {"loss": got[0], "loss_rel_err": loss_err, "grad_err_over_largest": grad_err,
+            "largest_grad": scale, "n_params": len(want[1])}
+
+
+def run_steps(torch, trainer, state, data, n_steps: int):
+    """`n_steps` train steps over the trainer's epoch batches of `data` (the
+    train split on the device; the trainer's shuffle and per-step seeds); the
+    losses and each step's wall seconds."""
+    from particle_fm_tpu_torch.training.trainer import step_seed
+
+    dev = trainer.device
+    gen = torch.Generator(dev)
+    losses, secs, epoch = [], [], 0
+    while len(losses) < n_steps:
+        for batch in trainer._epoch_batches(data, epoch):
+            gen.manual_seed(step_seed(trainer.seed, state.step))
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            losses.append(trainer.train_step(state, gen, *batch))
+            sync(torch, dev)
+            secs.append(time.perf_counter() - t0)
+            if len(losses) == n_steps:
+                break
+        epoch += 1
+    return [float(l) for l in losses], secs
+
+
+def train_setup(torch, model, dm, cfg, dev, lr: float = 1e-3):
+    """A Trainer at a constant lr and a fresh TrainState from seed 0."""
+    from particle_fm_tpu_torch.training.step import create_train_state, make_optimizer
+    from particle_fm_tpu_torch.training.trainer import Trainer
+
+    opt = make_optimizer(lr=lr, weight_decay=cfg["model"]["optimizer"]["weight_decay"],
+                         grad_clip=cfg["trainer"]["grad_clip"])
+    trainer = Trainer(model, dm, opt, seed=cfg["seed"], device=dev, verbose=False,
+                      ema_decay=cfg["trainer"]["ema"]["decay"])
+    return trainer, create_train_state(model, opt, seed=0, device=dev)
+
+
+def train_epic_phase(torch, ops, dev, counted, data_overrides=()) -> dict:
+    """fm_tops150_cond: one step's loss and gradients on the card against
+    the CPU (64 jets, pinned draws), then TRAIN_STEPS steps at constant lr
+    1e-3 that must lower the loss and launch no EPiC kernel (training runs
+    the module path: the kernel is forward-only)."""
+    model, dm, cfg = compose_training(["experiment=jetnet/fm_tops150_cond", "data.synthetic=true",
+                                       *data_overrides])
+    dm.setup()
+    trainer, state = train_setup(torch, model, dm, cfg, dev)
+    split = dm.train
+    batch = [torch.from_numpy(a[:64]) for a in (split.x, split.mask, split.cond)]
+    card = pinned_loss_and_grads(torch, model, state.net, [a.to(dev) for a in batch], 5)
+    cpu = pinned_loss_and_grads(torch, model, copy.deepcopy(state.net).cpu(), batch, 5)
+    agree = held_against("train EPiC, card against CPU", card, cpu)
+
+    for w in counted:
+        w.launches = 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, secs = run_steps(torch, trainer, state, trainer._place_train_split(), TRAIN_STEPS)
+    launched = {w.__name__: w.launches for w in counted}
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    if any(launched.values()):
+        fail(f"train EPiC: the train steps launched kernels {launched} (expected none)")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not (np.isfinite(losses).all() and last < first):
+        fail(f"train EPiC: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    median = float(np.median(secs[5:]))
+    return {"config": "fm_tops150_cond (configs/), synthetic JetNet-150, AdamW lr 1e-3 constant, "
+                      "clip 0.5, EMA 0.999", "batch": dm.batch_size, "train_jets": len(split),
+            "steps": TRAIN_STEPS, "card_vs_cpu_64_jets": agree, "loss_first_5": first,
+            "loss_last_5": last, "median_step_ms": 1e3 * median, "steps_per_s": 1.0 / median,
+            "jets_per_s": dm.batch_size / median, "peak_memory_bytes": peak,
+            "kernel_launches": launched}
+
+
+def train_path_a_phase(torch, sa, dev, counted, data_overrides=()) -> dict:
+    """fm_droid_transformer (attn_impl=packed, scores_dtype=null) on the
+    JetNet-150 cond data, every parameter re-drawn: one step's loss and
+    gradients with the packed kernel against the wrapper replaced by its
+    plain version (pinned draws, a full batch), then steps in turns (kernel,
+    plain, plain, kernel), the kernel turns launching 3 packed kernels a step."""
+    model, dm, cfg = compose_training([
+        "experiment=jetnet/fm_tops150_cond", "model=fm_droid_transformer", "data.synthetic=true",
+        "model.net_config.te_config.mha_config.attn_impl=packed",
+        "model.net_config.te_config.mha_config.scores_dtype=null", *data_overrides])
+    dm.setup()
+    trainer, state = train_setup(torch, model, dm, cfg, dev)
+    redraw_parameters(torch, state.net, seed=4)
+    with torch.no_grad():
+        for e, p in zip(state.ema_params, state.params()):
+            e.copy_(p)
+    split = dm.train
+    batch = [torch.from_numpy(a[:dm.batch_size]).to(dev) for a in (split.x, split.mask, split.cond)]
+    kernel = pinned_loss_and_grads(torch, model, state.net, batch, 6)
+    with mock.patch.object(sa, "packed_short_attention", sa.packed_short_attention_reference):
+        plain = pinned_loss_and_grads(torch, model, state.net, batch, 6)
+    agree = held_against("train path A, kernel against plain", kernel, plain)
+
+    per_turn = 4
+    data = trainer._place_train_split()
+    turns = {"kernel": [], "plain": []}
+    peak = {"kernel": 0, "plain": 0}
+    for w in counted:
+        w.launches = 0
+    for path in ("kernel", "plain", "plain", "kernel"):
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        if path == "plain":
+            with mock.patch.object(sa, "packed_short_attention", sa.packed_short_attention_reference):
+                losses, secs = run_steps(torch, trainer, state, data, per_turn)
+        else:
+            losses, secs = run_steps(torch, trainer, state, data, per_turn)
+        if not np.isfinite(losses).all():
+            fail(f"train path A: non-finite loss {losses}")
+        turns[path] += secs
+        if dev.type == "cuda":
+            peak[path] = max(peak[path], torch.cuda.max_memory_allocated(dev))
+    launched = {w.__name__: w.launches for w in counted}
+    want = {w.__name__: 0 for w in counted}
+    want["packed_short_attention"] = 3 * 2 * per_turn if dev.type == "cuda" else 0
+    if launched != want:
+        fail(f"train path A: launches {launched}, expected {want}")
+    ms = {k: 1e3 * float(np.median(v)) for k, v in turns.items()}
+    return {"config": "fm_droid_transformer (configs/) on fm_tops150_cond's data, attn_impl=packed, "
+                      "scores_dtype=null, every parameter re-drawn, AdamW lr 1e-3 constant",
+            "batch": dm.batch_size, "kernel_vs_plain": agree, "steps_per_turn": per_turn,
+            "median_step_ms": ms, "jets_per_s": {k: dm.batch_size / (v / 1e3) for k, v in ms.items()},
+            "step_s": turns, "peak_memory_bytes": peak, "kernel_launches": launched,
+            "launches": launched["packed_short_attention"]}
+
+
+def train_cli_phase(torch, ops, dev, counted, extra=()) -> dict:
+    """The training entry point on fm_tops150_cond with 4096 synthetic jets
+    and trainer=smoke: a finite val_loss, the `last` and best checkpoints, a
+    resume from `last` that continues at its step, then the EMA weights serve
+    7 jets at NFE 100 with 6 x 100 EPiC launches, agreeing with the plain path."""
+    import shutil
+
+    from particle_fm_tpu_torch import train as ptrain
+    from particle_fm_tpu_torch.serving import make_serve_fn, serve_batches
+
+    out_root = ROOT / "build" / "train_smoke"
+    shutil.rmtree(out_root, ignore_errors=True)
+    args = ["experiment=jetnet/fm_tops150_cond", "data.synthetic=true",
+            "data.synthetic_num_jets=4096", "trainer=smoke", "callbacks=none", *extra]
+    t0 = time.perf_counter()
+    metrics, objs = ptrain.main(args + [f"output_dir={out_root / 'first'}"])
+    first_s = time.perf_counter() - t0
+    trainer, out = objs["trainer"], objs["out_dir"]
+    if not np.isfinite(metrics.get("val_loss", np.nan)):
+        fail(f"train CLI: val_loss is not finite: {metrics}")
+    last = Path(out) / "checkpoints" / "last.pt"
+    best = sorted((Path(out) / "checkpoints" / "val_loss").glob("step_*_metric_*.pt"))
+    if not last.exists() or len(best) != 1:
+        fail(f"train CLI: checkpoints missing: last {last.exists()}, best {best}")
+    saved_step = trainer.state.step
+    epochs = len(trainer.metrics_history)
+    metrics2, objs2 = ptrain.main(args + [f"output_dir={out_root / 'resumed'}",
+                                          f"trainer.max_epochs={epochs + 1}", f"ckpt_path={last}"])
+    resumed = objs2["trainer"]
+    per_epoch = saved_step // epochs
+    if (resumed.metrics_history[0]["epoch"] != epochs
+            or resumed.state.step != saved_step + per_epoch):
+        fail(f"train CLI: the resume did not continue at step {saved_step} "
+             f"({resumed.metrics_history}, step {resumed.state.step})")
+
+    dm, model = objs2["datamodule"], objs2["model"]
+    net = resumed.state.ema_network()
+    fn = make_serve_fn(model, net, batch_size=7, ode_steps=ODE_STEPS, has_cond=True,
+                       has_mask=True, means=dm.means, stds=dm.stds)
+    mask, cond = dm.test.mask[:7], dm.test.cond[:7]
+    for w in counted:
+        w.launches = 0
+    served = serve_batches(fn, fn.meta, 7, cond=cond, mask=mask, seed=3)
+    launched = {w.__name__: w.launches for w in counted}
+    want = {w.__name__: 0 for w in counted}
+    want["epic_layer"] = model.layers * 2 * (ODE_STEPS - 1) if dev.type == "cuda" else 0
+    if launched != want:
+        fail(f"train CLI: serving the EMA weights launched {launched}, expected {want}")
+    with mock.patch.object(ops, "epic_layer", ops.epic_layer_reference):
+        plain = serve_batches(fn, fn.meta, 7, cond=cond, mask=mask, seed=3)
+    err = float(np.abs(served - plain).max())
+    if not (np.isfinite(served).all() and err <= PATH_TOL):
+        fail(f"train CLI: the EMA weights served on the kernel path disagree with the plain "
+             f"path: {err}")
+    if np.abs(served[mask[..., 0] == 0]).max(initial=0.0) != 0.0:
+        fail("train CLI: padded rows of the served samples are not zero")
+    return {"args": args, "val_loss": metrics["val_loss"], "train_loss": metrics["train_loss"],
+            "steps_per_epoch": per_epoch, "saved_step": saved_step,
+            "resumed_at_epoch": resumed.metrics_history[0]["epoch"],
+            "step_after_resume": resumed.state.step, "first_run_s": first_s,
+            "checkpoints": [str(last.relative_to(ROOT)), str(best[0].relative_to(ROOT))],
+            "ema_served": {"jets": 7, "ode_steps": ODE_STEPS, "launches": launched,
+                           "max_abs_diff_kernel_vs_plain": err},
+            "launches": launched["epic_layer"]}
+
+
 def main() -> None:
     import torch
 
@@ -712,6 +980,19 @@ def main() -> None:
         kernel = kernels[run["wrapper_name"]]
         kernel["launches"] = (kernel["launches"] or 0) + serving["launches"]
         kernel.setdefault("launches_by_path", {})[run["name"]] = serving["launches"]
+
+    t0 = time.perf_counter()
+    epic_train = train_epic_phase(torch, ops, dev, counted)
+    print(json.dumps({"training": "train EPiC", **epic_train}), flush=True)
+    path_a = train_path_a_phase(torch, sa, dev, counted)
+    print(json.dumps({"training": "train path A", **path_a}), flush=True)
+    cli = train_cli_phase(torch, ops, dev, counted)
+    print(json.dumps({"training": "train CLI", **cli}), flush=True)
+    print(json.dumps({"training_phases_s": time.perf_counter() - t0}), flush=True)
+    for kernel_name, path, run in (("packed_short_attention", "train path A", path_a),
+                                   ("epic_layer", "train CLI (EMA weights served)", cli)):
+        kernels[kernel_name]["launches"] += run["launches"]
+        kernels[kernel_name]["launches_by_path"][path] = run["launches"]
 
     kernels = list(kernels.values())
     print(json.dumps({"kernels": kernels}))

@@ -5,9 +5,11 @@ the counterpart of `particle_fm_tpu/nets/common.py`, and so on). It imports
 torch, numpy and the standard library only: nothing of JAX and nothing of
 `particle_fm_tpu`.
 
-Ported so far: the EPiC flow-matching sampler (FM-OT family, fixed-step ODE
-solvers) and its serving entry points, with the fused EPiC layer as a hand-written
-CUDA kernel (`csrc/epic_layer.cu`, wrapper in `ops/epic_layer.py`).
+Ported so far: the flow-matching samplers of the EPiC, PC-Droid transformer
+and MDMA families (FM-OT, CFM, CFM-OT; fixed-step ODE solvers) and their
+serving entry points, with the TPU kernels as hand-written CUDA kernels
+(`csrc/`, wrappers in `ops/`); and single-device training of FM-OT and CFM
+models (`train.py`, `training/`, `losses/`, `data/`, `config/`).
 
 Entry points run on the card (`device="cuda"`) unless the caller passes
 `device="cpu"`; without CUDA they raise rather than move work to the CPU.

@@ -148,6 +148,9 @@ class CNFStack(nn.Module):
         """Apply a single flow transform (for per-flow ODE integration)."""
         return self.flows[k](t, x, cond=cond, mask=mask)
 
+    def normalise(self, x, mask=None):
+        return self.normaliser(x, mask)
+
     def normalise_cond(self, cond):
         return self.ctxt_normaliser(cond)
 

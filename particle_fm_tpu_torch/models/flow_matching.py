@@ -1,10 +1,13 @@
-"""FlowMatchingModel, sampling side; counterpart of particle_fm_tpu/models/flow_matching.py.
+"""FlowMatchingModel; counterpart of particle_fm_tpu/models/flow_matching.py.
 
-The port carries the families whose ODE drift is the network itself (FM-OT,
-CFM, CFM-OT) with the fixed-step solvers, in float32. As in the JAX package
-the model is a configuration bundle: `init` builds the network (a `CNFStack`
-module on the requested device), and `sample` folds weight norm once,
-draws masked noise from a `torch.Generator` and integrates from t=1 to 0.
+The port samples the families whose ODE drift is the network itself (FM-OT,
+CFM, CFM-OT) with the fixed-step solvers, in float32, and trains FM-OT and
+CFM. As in the JAX package the model is a configuration bundle that takes
+every field of the shipped model configs: `init` builds the network (a
+`CNFStack` module on the requested device), `loss` is the masked training
+and validation loss on the unfolded network, and `sample` folds weight norm
+once, draws masked noise from a `torch.Generator` and integrates from t=1
+to 0. A field raises only where its value asks for what the port lacks.
 
 `integrate` takes the noise `z` explicitly, so a test can hand it the noise
 the JAX package drew.
@@ -18,6 +21,7 @@ from typing import Any, Mapping
 import torch
 from torch import nn
 
+from particle_fm_tpu_torch.losses.flow_matching import CRITERIA, get_loss_fn
 from particle_fm_tpu_torch.models.cnf import CNFStack
 from particle_fm_tpu_torch.nets.common import WNDense
 from particle_fm_tpu_torch.nets.epic import EPiCLayer
@@ -30,6 +34,21 @@ _DRIFT_IS_NET = ("FM-OT", "CFM", "CFM-OT")
 def draw_noise(generator: torch.Generator, shape: tuple[int, ...], device: torch.device) -> torch.Tensor:
     """Standard normal noise for the sampler's starting point."""
     return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+
+
+def _keep(generator: torch.Generator, p: float, shape: tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """Bernoulli(p) draw: which sets keep their cond under cond_dropout."""
+    return torch.rand(shape, generator=generator, device=device) < p
+
+
+def is_folded(net: nn.Module) -> bool:
+    """Whether weight norm is folded into `net` (between `fold_weight_norm`
+    and `unfold_weight_norm`)."""
+    return any(
+        (isinstance(m, WNDense) and m._folded is not None)
+        or (isinstance(m, EPiCLayer) and m._kernel_weights is not None)
+        for m in net.modules()
+    )
 
 
 @dataclasses.dataclass(eq=False)
@@ -52,12 +71,21 @@ class FlowMatchingModel:
     add_time_to_input: bool = True
     global_cond_dim: int = 0
     local_cond_dim: int = 0
+    dropout: float = 0.0
     sum_scale: float = 1e-2
     loss_type: str = "FM-OT"
+    sigma: float = 1e-4
     t_emb: str = "sincos"
+    diff_config: Mapping[str, Any] = dataclasses.field(
+        default_factory=lambda: {"max_sr": 1.0, "min_sr": 1e-8}
+    )
+    criterion: str = "mse"
+    droid_t_max: float = 1.0
+    ot_config: Mapping[str, Any] = dataclasses.field(default_factory=dict)
     use_normaliser: bool = False
     normaliser_config: Mapping[str, Any] = dataclasses.field(default_factory=dict)
     self_cond: bool = False
+    cond_dropout: float = 0.0
     net_config: Mapping[str, Any] = dataclasses.field(default_factory=dict)
     dtype: Any = None
 
@@ -66,6 +94,12 @@ class FlowMatchingModel:
             raise NotImplementedError(f"loss_type={self.loss_type} is not ported")
         if self.self_cond or self.dtype is not None:
             raise NotImplementedError("self-conditioning and dtype are not ported")
+        if self.dropout > 0.0:
+            raise NotImplementedError("dropout is not ported")
+        if self.droid_t_max != 1.0:
+            raise NotImplementedError("droid_t_max != 1 (the droid VE prior) is not ported")
+        if self.criterion not in CRITERIA:
+            raise ValueError(f"criterion {self.criterion} not supported")
         self.conditioned = self.global_cond_dim > 0
 
     def init(self, seed: int = 0, device: str | torch.device = "cuda") -> CNFStack:
@@ -114,6 +148,47 @@ class FlowMatchingModel:
 
     def vector_field(self, net: CNFStack, t, x, cond=None, mask=None) -> torch.Tensor:
         return net(t, x, cond=cond, mask=mask)
+
+    def loss_accum_weight(self, x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+        """Gradient-accumulation weight of one microbatch: its loss
+        normalisation mass, so that weighted microbatch gradients add up to
+        the big-batch gradient."""
+        if mask is None:
+            return torch.tensor(float(x.shape[0] * x.shape[1]), device=x.device)
+        return torch.sum(mask).to(torch.float32)
+
+    def loss(
+        self,
+        net: CNFStack,
+        generator: torch.Generator,
+        x: torch.Tensor,
+        mask: torch.Tensor | None = None,
+        cond: torch.Tensor | None = None,
+        train: bool = False,
+    ) -> torch.Tensor:
+        """Masked training (`train=True`) or validation loss of the unfolded
+        network, with t and the noise drawn from `generator`. In training,
+        `cond_dropout` sets whole sets' cond to the null token (zeros),
+        drawn from the generator before t."""
+        if is_folded(net):
+            raise RuntimeError(
+                "loss needs the unfolded network: folded weights carry no gradient to "
+                "weight norm's v and g (call unfold_weight_norm first)"
+            )
+        loss_fn = get_loss_fn(self.loss_type, sigma=self.sigma, criterion=self.criterion)
+        if self.use_normaliser:
+            if train:
+                raise NotImplementedError(
+                    "training with use_normaliser is not ported: the running statistics' "
+                    "update is not"
+                )
+            x = net.normalise(x, mask)
+            if self.conditioned and cond is not None:
+                cond = net.normalise_cond(cond)
+        if train and self.cond_dropout > 0.0 and self.conditioned and cond is not None:
+            keep = _keep(generator, 1.0 - self.cond_dropout, (cond.shape[0], 1), cond.device)
+            cond = torch.where(keep, cond, torch.zeros_like(cond))
+        return loss_fn(lambda t, y, c, m: net(t, y, cond=c, mask=m), generator, x, mask, cond)
 
     def make_drift(self, net: CNFStack, cond=None, mask=None, flow_idx=None, guidance_scale=None):
         """ODE drift f(t, x): the network, with optional classifier-free

@@ -52,3 +52,30 @@ def meansum_pool(
         s = torch.sum(x * mask, dim=-2)
         m = s / torch.sum(mask, dim=-2)
     return m, s * sum_scale
+
+
+def _denominator(v: torch.Tensor, mask: torch.Tensor | None):
+    if mask is None:
+        return float(v.shape[0] * v.shape[1]) if v.ndim == 3 else float(v.shape[0])
+    return torch.sum(mask)
+
+
+def masked_mse(v: torch.Tensor, u: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    """sum((v - u)^2) / mask.sum(): the numerator sums over all positions
+    (padded slots give 0 when v and u are masked upstream), the denominator
+    counts the real particles only."""
+    return torch.sum(torch.square(v - u)) / _denominator(v, mask)
+
+
+def huber(err: torch.Tensor, delta: float = 1.0) -> torch.Tensor:
+    """Elementwise Huber loss (torch.nn.HuberLoss semantics)."""
+    abs_err = torch.abs(err)
+    quad = 0.5 * torch.square(err)
+    lin = delta * (abs_err - 0.5 * delta)
+    return torch.where(abs_err <= delta, quad, lin)
+
+
+def masked_huber(v: torch.Tensor, u: torch.Tensor, mask: torch.Tensor | None,
+                 delta: float = 1.0) -> torch.Tensor:
+    """sum(huber(v - u)) / mask.sum()."""
+    return torch.sum(huber(v - u, delta)) / _denominator(v, mask)

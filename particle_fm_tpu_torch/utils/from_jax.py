@@ -14,6 +14,12 @@ model with `use_normaliser` (`normaliser` and `ctxt_normaliser`, each with
 mapping is shape-checked both ways: every flax leaf must land on a parameter
 or buffer of the same shape, and every parameter and persistent buffer must
 be covered, so nothing keeps its initial value.
+
+`load_flax_train_state` carries a whole JAX `TrainState` (params, norm_stats,
+ema_params, the Adam moments `mu`/`nu` and count of the optax chain, step)
+into the port's `training/step.py::TrainState`, so that a JAX run can go on
+in the port. The JAX state is read through its attributes and numpy; nothing
+of JAX is imported.
 """
 
 from __future__ import annotations
@@ -71,3 +77,47 @@ def load_flax_params(module: nn.Module, params: Mapping[str, Any],
             raise ValueError(f"shape mismatch at {k}: port {tuple(own[k].shape)} vs flax {tuple(v.shape)}")
     module.load_state_dict({k: v.to(own[k].dtype) for k, v in sd.items()})
     return module
+
+
+def _adam_state(opt_state):
+    """The optax ScaleByAdamState (count, mu, nu) inside a chain's state."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu") and hasattr(opt_state, "count"):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def _by_parameter(module: nn.Module, tree: Mapping[str, Any]) -> list[torch.Tensor]:
+    """A params-shaped flax tree as tensors in the order of module.parameters()."""
+    sd = state_dict_from_flax(tree)
+    names = [name for name, _ in module.named_parameters()]
+    if sorted(sd) != sorted(names):
+        raise ValueError(f"param tree mismatch: port {sorted(names)} vs flax {sorted(sd)}")
+    return [sd[name] for name in names]
+
+
+def load_flax_train_state(state, jax_state) -> Any:
+    """Copy a JAX TrainState into the port's TrainState `state` in place;
+    returns it."""
+    net = state.net
+    load_flax_params(net, jax_state.params, getattr(jax_state, "norm_stats", None) or None)
+    with torch.no_grad():
+        for e, v in zip(state.ema_params, _by_parameter(net, jax_state.ema_params), strict=True):
+            e.copy_(v.to(e.device, e.dtype))
+    adam = _adam_state(jax_state.opt_state)
+    if adam is None:
+        raise ValueError("the JAX optimizer state holds no Adam moments")
+    count = float(np.asarray(adam.count))
+    params = list(net.parameters())
+    mus, nus = _by_parameter(net, adam.mu), _by_parameter(net, adam.nu)
+    opt = state.opt_state
+    for p, mu, nu in zip(params, mus, nus, strict=True):
+        opt.state[p] = {"step": torch.tensor(count, dtype=torch.float32),
+                        "exp_avg": mu.to(p.device, p.dtype),
+                        "exp_avg_sq": nu.to(p.device, p.dtype)}
+    state.step = int(np.asarray(jax_state.step))
+    return state

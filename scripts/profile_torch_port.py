@@ -80,6 +80,24 @@ CONFIGS = {
 }
 
 
+def kernel_rows(prof) -> list[dict]:
+    """The profiled window's CUDA kernels by device time, largest first."""
+    rows = []
+    for e in prof.key_averages():
+        # kernels only: an aten op's self device time is that of the kernels
+        # it launched, and a user annotation's (such as Optimizer.step) spans
+        # the kernels inside it, either would count them twice
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue
+        self_dev = getattr(e, "self_device_time_total", None)
+        if self_dev is None:
+            self_dev = e.self_cuda_time_total
+        if self_dev > 0:
+            rows.append({"name": e.key[:90], "calls": e.count, "device_ms": self_dev / 1e3})
+    rows.sort(key=lambda r: -r["device_ms"])
+    return rows
+
+
 def profile_path(fn, cond, mask, nfe: int) -> dict:
     fn(0, cond, mask)
     torch.cuda.synchronize()
@@ -93,18 +111,7 @@ def profile_path(fn, cond, mask, nfe: int) -> dict:
         fn(1, cond, mask)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = []
-    for e in prof.key_averages():
-        # kernels only: an aten op's self device time is that of the kernels
-        # it launched, which would count them twice
-        if e.device_type != DeviceType.CUDA:
-            continue
-        self_dev = getattr(e, "self_device_time_total", None)
-        if self_dev is None:
-            self_dev = e.self_cuda_time_total
-        if self_dev > 0:
-            rows.append({"name": e.key[:90], "calls": e.count, "device_ms": self_dev / 1e3})
-    rows.sort(key=lambda r: -r["device_ms"])
+    rows = kernel_rows(prof)
     busy_ms = sum(r["device_ms"] for r in rows)
     return {
         "wall_ms_per_nfe_unprofiled": plain_wall * 1e3 / nfe,

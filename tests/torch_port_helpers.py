@@ -125,3 +125,48 @@ def jax_noise(seed: int, shape, mask=None) -> np.ndarray:
 
 def t(a) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a, np.float32).copy())
+
+
+def draws(b: int, shape, n_normals: int, steps: int, seed: int = 0):
+    """Numpy draws for `steps` loss calls: (ts, zs), one t of (b,) and
+    `n_normals` noise arrays of `shape` per call."""
+    rs = np.random.RandomState(seed)
+    ts, zs = [], []
+    for _ in range(steps):
+        ts.append(rs.rand(b).astype(np.float32))
+        zs.extend(rs.randn(*shape).astype(np.float32) for _ in range(n_normals))
+    return ts, zs
+
+
+def pin_draws(monkeypatch, ts=None, zs=None, **draw_kw):
+    """Make both packages' losses replay the same t and noise arrays, call
+    after call (`_sample_t`/`_normal` of both loss modules); with `draw_kw`,
+    the arrays come from `draws(**draw_kw)`. Returns (ts, zs)."""
+    from particle_fm_tpu.losses import flow_matching as jloss
+    from particle_fm_tpu_torch.losses import flow_matching as ploss
+
+    if draw_kw:
+        ts, zs = draws(**draw_kw)
+
+    def replay(arrays, to):
+        queue = iter(arrays)
+
+        def draw(_rng, size, _where):
+            a = next(queue)
+            assert tuple(np.shape(a)) == tuple(size if isinstance(size, tuple) else (size,)), size
+            return to(a, _where)
+        return draw
+
+    monkeypatch.setattr(jloss, "_sample_t", replay(ts, lambda a, _: jnp.asarray(a)))
+    monkeypatch.setattr(jloss, "_normal", replay(zs, lambda a, _: jnp.asarray(a)))
+    monkeypatch.setattr(ploss, "_sample_t", replay(ts, lambda a, dev: t(a).to(dev)))
+    monkeypatch.setattr(ploss, "_normal", replay(zs, lambda a, dev: t(a).to(dev)))
+    return ts, zs
+
+
+def grads_by_name(flax_tree) -> dict[str, np.ndarray]:
+    """A params-shaped flax tree (gradients, Adam moments) under the port's
+    parameter names and layouts."""
+    from particle_fm_tpu_torch.utils.from_jax import state_dict_from_flax
+
+    return {k: v.numpy() for k, v in state_dict_from_flax(jax.device_get(flax_tree)).items()}
