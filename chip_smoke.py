@@ -103,9 +103,24 @@
      val_loss, the `last` and best checkpoints, a resume from `last` that
      continues at its step, then the EMA weights serve 7 jets at NFE 100 with
      exactly 6 x 100 EPiC launches, within atol 1e-3 of the plain path.
-5. Prints the `kernels` JSON line (the launches of the training phases under
-   `launches_by_path` too), the card line again, and as the last line
-   {"ok": true, "device": {...}}.
+5. Eval phases at full width (`eval_cli_phase`, `eval_timing_phase`):
+   - eval CLI: particle_fm_tpu_torch.train.main with
+     experiment=jetnet/fm_tops150_cond data.synthetic=true
+     data.synthetic_num_jets=4096 trainer=smoke and the shipped
+     `callbacks: jetnet` (batch 1000, midpoint, ode_steps 200, EMA weights,
+     40 bootstrap batches), evaluated every epoch from epoch 0 on 2,000
+     jets, and `test: true`: finite W1M/W1P every epoch, the test pass on
+     the restored best checkpoint, exactly 6 x 2 x 199 x 2 EPiC launches per
+     pass; then the same evaluation with the plain EPiC layer: jets within
+     1e-3, W1M and W1P within 1e-3 absolute;
+   - eval timing: 10,000 jets generated against 10,000 synthetic test jets
+     (N = 150), each stage timed: generation (exact EPiC launches), EFPs and
+     energy correlators on the card, the native clustering (tau1-3, d12/d23),
+     W1M, W1P, W1EFP and W1(tau21); then the EFPs and correlators on the card
+     against the CPU on 256 jets (rtol 1e-4).
+6. Prints the `kernels` JSON line (the launches of the training and eval
+   phases under `launches_by_path` too), the card line again, and as the
+   last line {"ok": true, "device": {...}}.
 
 Every failure exits non-zero before the last line. The script needs the
 repository beside it and a CUDA device; it imports nothing of JAX.
@@ -854,6 +869,219 @@ def train_cli_phase(torch, ops, dev, counted, extra=()) -> dict:
             "launches": launched["epic_layer"]}
 
 
+# eval phase: the shipped JetNet callbacks in the training entry point, then
+# the evaluation stages timed at 10,000 jets
+EVAL_JETS = 2000  # the callback's num_jet_samples: 2 batches of 1000
+EVAL_TIMING_JETS = 10_000
+EVAL_W1_TOL = 1e-3  # W1M and W1P, kernel path against plain path
+EVAL_CPU_JETS = 256
+EVAL_CPU_RTOL = 1e-4
+EVAL_RNG_SEED = 7  # the bootstrap generator (eval/metrics.py::_rng), pinned alike on both paths
+
+
+def eval_cli_phase(torch, ops, dev, counted) -> dict:
+    """The training entry point on fm_tops150_cond with 4096 synthetic jets,
+    trainer=smoke and the shipped `callbacks: jetnet` (generation_batch_size
+    1000, midpoint, ode_steps 200, EMA weights, W1 over 40 bootstrap
+    batches), evaluated every epoch from epoch 0 on EVAL_JETS jets, and
+    `test: true`. Checks: finite w1m_mean/w1p_mean in every epoch's metrics;
+    the test pass runs the callback once more, with `testing` set, on the
+    restored best checkpoint; exactly 6 x 2 x 199 x ceil(EVAL_JETS / 1000) EPiC
+    launches per evaluation pass and no other kernel.
+
+    Then the same evaluation on the restored weights with `epic_layer`
+    replaced by its plain version, the same seeds and the bootstrap generator
+    pinned alike: the generated jets within PATH_TOL (1e-3) and W1M and W1P
+    within EVAL_W1_TOL (1e-3) absolute. The bound for W1P is the path
+    tolerance itself: with the bootstrap indices alike, each per-feature W1
+    moves by at most the largest change of a particle feature. W1M moves by
+    at most the mean change of a jet's mass, which for jets of 30 to 150
+    particles and these widths is expected far below 1e-3; the limit stays
+    1e-3 for both."""
+    import shutil
+
+    from particle_fm_tpu_torch import train as ptrain
+    from particle_fm_tpu_torch.eval import metrics as pmetrics
+    from particle_fm_tpu_torch.eval.callbacks import JetNetEvalCallback
+
+    out_root = ROOT / "build" / "eval_smoke"
+    shutil.rmtree(out_root, ignore_errors=True)
+    args = ["experiment=jetnet/fm_tops150_cond", "data.synthetic=true",
+            "data.synthetic_num_jets=4096", "trainer=smoke",
+            "callbacks.jetnet_eval.every_n_epochs=1", "callbacks.jetnet_eval.log_epoch_zero=true",
+            f"callbacks.jetnet_eval.num_jet_samples={EVAL_JETS}", f"output_dir={out_root}"]
+    calls = []
+    through = JetNetEvalCallback.__call__
+
+    def recorded(cb, trainer):
+        calls.append({"epoch": trainer.epoch, "testing": trainer.testing,
+                      "step": trainer.state.step})
+        return through(cb, trainer)
+
+    for w in counted:
+        w.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(JetNetEvalCallback, "__call__", recorded):
+        metrics, objs = ptrain.main(args)  # the main path
+    cli_s = time.perf_counter() - t0
+    launched = {w.__name__: w.launches for w in counted}
+    trainer, model = objs["trainer"], objs["model"]
+    (cb,) = trainer.callbacks
+    if (cb.generation_batch_size, cb.ode_steps, cb.ode_solver, cb.use_ema) != (
+            1000, 200, "midpoint", True):
+        fail(f"eval CLI: the callback is not the shipped one: {cb}")
+    history = trainer.metrics_history
+    for m in history:
+        if not all(np.isfinite(m.get(k, np.nan)) for k in ("w1m_mean", "w1p_mean")):
+            fail(f"eval CLI: epoch {m['epoch']} logged no finite w1m_mean/w1p_mean: {m}")
+    best = sorted((Path(objs["out_dir"]) / "checkpoints" / "val_loss").glob("step_*_metric_*.pt"))
+    best_step = int(best[0].name.split("_")[1]) if len(best) == 1 else None
+    want_calls = [{"epoch": m["epoch"], "testing": False, "step": None} for m in history] + [
+        {"epoch": history[-1]["epoch"], "testing": True, "step": best_step}]
+    got_calls = [dict(c, step=None) if not c["testing"] else c for c in calls]
+    if best_step is None or got_calls != want_calls:
+        fail(f"eval CLI: callback calls {calls}, expected {want_calls} (best checkpoint {best})")
+    if trainer.state.step != best_step or "w1m_mean" not in metrics:
+        fail(f"eval CLI: the test pass did not restore the best checkpoint or give metrics "
+             f"(step {trainer.state.step}, best {best_step}, {metrics})")
+    per_pass = model.layers * 2 * (cb.ode_steps - 1) * -(-EVAL_JETS // cb.generation_batch_size)
+    want = {w.__name__: 0 for w in counted}
+    want["epic_layer"] = len(calls) * per_pass if dev.type == "cuda" else 0
+    if launched != want:
+        fail(f"eval CLI: launches {launched}, expected {want}")
+
+    # kernel path against plain path on the restored weights
+    def evaluate():
+        pmetrics._rng = np.random.default_rng(EVAL_RNG_SEED)
+        real, gen, _ = cb._generate(trainer, EVAL_JETS)
+        pmetrics._rng = np.random.default_rng(EVAL_RNG_SEED)
+        w1 = pmetrics.calculate_all_wasserstein_metrics(
+            real[:EVAL_JETS], gen, calculate_efps=False, device=dev, **cb.w1_kwargs)
+        return gen, w1
+
+    gen_k, w1_k = evaluate()
+    with mock.patch.object(ops, "epic_layer", ops.epic_layer_reference):
+        gen_p, w1_p = evaluate()
+    gen_err = float(np.abs(gen_k - gen_p).max())
+    w1_err = {k: abs(w1_k[k] - w1_p[k]) for k in ("w1m_mean", "w1p_mean")}
+    if not (np.isfinite(gen_k).all() and gen_err <= PATH_TOL):
+        fail(f"eval CLI: generated jets, kernel path against plain path: {gen_err}")
+    if not all(e <= EVAL_W1_TOL for e in w1_err.values()):
+        fail(f"eval CLI: W1, kernel path against plain path: {w1_err} (limit {EVAL_W1_TOL})")
+    test_metrics = {k: v for k, v in metrics.items() if k.startswith(("w1", "generation"))}
+    return {"args": args, "cli_s": cli_s, "epochs": len(history),
+            "callback_calls": calls, "per_epoch_w1": [
+                {k: m[k] for k in ("epoch", "w1m_mean", "w1p_mean")} for m in history],
+            "test_metrics": test_metrics, "best_step": best_step,
+            "launches_per_pass": per_pass, "passes": len(calls),
+            "kernel_vs_plain": {"max_abs_diff_jets": gen_err, "w1_abs_diff": w1_err,
+                                "w1_kernel": w1_k, "w1_plain": w1_p},
+            "launches": launched["epic_layer"], "trainer": trainer, "model": model,
+            "datamodule": objs["datamodule"], "callback": cb}
+
+
+def eval_timing_phase(torch, ops, dev, counted, cli: dict) -> dict:
+    """The evaluation stages at EVAL_TIMING_JETS generated jets (the trained EMA weights of
+    the eval CLI run, its test split's cond and masks tiled, batch 1000,
+    midpoint, 200 steps) against as many synthetic test jets at N = 150, each
+    timed on the host clock around work that ends on the host: generation
+    (exact EPiC launches counted), EFPs and energy correlators on the card,
+    the native clustering (tau1-3, d12/d23), and the bootstrap W1s. Then the
+    EFPs and correlators on the card against the port's CPU path on the
+    first EVAL_CPU_JETS jets (rtol 1e-4; EFPs of each EFP's largest
+    magnitude)."""
+    from particle_fm_tpu_torch.eval import metrics as pmetrics
+    from particle_fm_tpu_torch.eval.callbacks import _tile_to, eval_network
+    from particle_fm_tpu_torch.eval.efp import efps
+    from particle_fm_tpu_torch.eval.generation import generate_data
+    from particle_fm_tpu_torch.eval.substructure import ecfs, nsubjettiness
+    from particle_fm_tpu_torch.native.binding import kt_split_scales
+
+    n = EVAL_TIMING_JETS
+    trainer, model, dm, cb = cli["trainer"], cli["model"], cli["datamodule"], cli["callback"]
+    # test split = int(0.15 * jets) + 1 jets (the reference's len-1 split offsets)
+    _, big, _ = compose_training(["experiment=jetnet/fm_tops150_cond", "data.synthetic=true",
+                                  f"data.synthetic_num_jets={int(np.ceil(n / 0.15))}"])
+    big.setup()
+    real = big.tensor_test[:n]
+    if len(real) != n:
+        fail(f"eval timing: {len(real)} synthetic test jets, expected {n}")
+    stages = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        stages[name] = time.perf_counter() - t0
+        return out
+
+    net = eval_network(trainer, True)
+    for w in counted:
+        w.launches = 0
+    gen, gen_time = timed("generation_s", lambda: generate_data(
+        model, net, n, batch_size=cb.generation_batch_size,
+        cond=_tile_to(dm.tensor_conditioning_test, n), variable_set_sizes=True,
+        mask=_tile_to(dm.mask_test, n), normalized_data=True, means=dm.means, stds=dm.stds,
+        ode_solver=cb.ode_solver, ode_steps=cb.ode_steps, seed=cb.seed,
+        num_points=int(real.shape[1]), device=dev))
+    launched = {w.__name__: w.launches for w in counted}
+    want = {w.__name__: 0 for w in counted}
+    want["epic_layer"] = (model.layers * 2 * (cb.ode_steps - 1) * -(-n // cb.generation_batch_size)
+                          if dev.type == "cuda" else 0)
+    if launched != want or not np.isfinite(gen).all() or gen.shape != real.shape:
+        fail(f"eval timing: generation launched {launched} (expected {want}), shape "
+             f"{gen.shape}, finite {np.isfinite(gen).all()}")
+    stages["generation_time_s"] = gen_time  # without the first batch
+
+    e_real = timed("efps_real_s", lambda: efps(real, device=dev))
+    e_gen = timed("efps_gen_s", lambda: efps(gen, device=dev))
+
+    def parts(x):
+        pt = x[..., 2] * (x[..., 2] > 0)
+        return pt, x[..., 0], x[..., 1], (x[..., 2] > 0).astype(np.float64)
+
+    ecf = {key: timed(f"ecfs_{key}_s", lambda x=x: ecfs(*parts(np.asarray(x, np.float64)),
+                                                        device=dev))
+           for key, x in (("real", real), ("gen", gen))}
+
+    def cluster(x):
+        pt, eta, phi, mask = parts(np.asarray(x, np.float64))
+        return nsubjettiness(pt, eta, phi, mask), kt_split_scales(pt, eta, phi, R=0.8)
+
+    clustered = {key: timed(f"clustering_{key}_s", lambda x=x: cluster(x))
+                 for key, x in (("real", real), ("gen", gen))}
+    # the W1s of calculate_all_wasserstein_metrics one by one, then tau21's
+    pmetrics._rng = np.random.default_rng(EVAL_RNG_SEED)
+    boot = (cb.w1_kwargs["num_eval_samples"], cb.w1_kwargs["num_batches"])
+    w1m = timed("w1m_s", lambda: pmetrics.w1m(real, gen, *boot))
+    w1p = timed("w1p_s", lambda: pmetrics.w1p(real, gen, None, None, *boot))
+    w1efp = timed("w1efp_s", lambda: pmetrics.w1efp(real, gen, *boot, device=dev))
+    tau21 = {key: c[0][1] / np.maximum(c[0][0], 1e-30) for key, c in clustered.items()}
+    w1_tau21 = timed("w1_tau21_s", lambda: pmetrics.wasserstein_distance_batched(
+        tau21["real"], tau21["gen"], n, 40))
+    for key, x in (("e_real", e_real), ("e_gen", e_gen)):
+        if not np.isfinite(x).all():
+            fail(f"eval timing: {key} not finite")
+
+    # card against the port's CPU path
+    first = real[:EVAL_CPU_JETS]
+    e_card, e_cpu = efps(first, device=dev), efps(first, device="cpu")
+    efp_err = float((np.abs(e_card - e_cpu).max(0) / np.abs(e_cpu).max(0)).max())
+    c_card = ecfs(*parts(np.asarray(first, np.float64)), device=dev)
+    c_cpu = ecfs(*parts(np.asarray(first, np.float64)), device="cpu")
+    ecf_err = max(float(np.max(np.abs(a - b) / np.abs(b))) for a, b in zip(c_card, c_cpu))
+    if not (efp_err <= EVAL_CPU_RTOL and ecf_err <= EVAL_CPU_RTOL):
+        fail(f"eval timing: card against CPU on {EVAL_CPU_JETS} jets: EFPs {efp_err}, "
+             f"e2/e3 {ecf_err} (limit {EVAL_CPU_RTOL})")
+    return {"jets": n, "real": f"synthetic JetNet-150 test split, {n} jets", "stages_s": stages,
+            "generation_jets_per_s": n / stages["generation_s"], "launches": launched,
+            "w1": {"w1m": list(w1m), "w1p": [float(np.mean(w1p[0])), float(np.mean(w1p[1]))],
+                   "w1efp": [float(np.mean(w1efp[0])), float(np.mean(w1efp[1]))],
+                   "w1_tau21": list(w1_tau21)},
+            "ecf_means": {k: [float(np.mean(a)) for a in v] for k, v in ecf.items()},
+            "card_vs_cpu": {"jets": EVAL_CPU_JETS, "efp_err_over_largest": efp_err,
+                            "e2_e3_rel_err": ecf_err}}
+
+
 def main() -> None:
     import torch
 
@@ -993,6 +1221,19 @@ def main() -> None:
                                    ("epic_layer", "train CLI (EMA weights served)", cli)):
         kernels[kernel_name]["launches"] += run["launches"]
         kernels[kernel_name]["launches_by_path"][path] = run["launches"]
+
+    t0 = time.perf_counter()
+    ev = eval_cli_phase(torch, ops, dev, counted)
+    print(json.dumps({"eval": "eval CLI", **{k: v for k, v in ev.items() if k not in (
+        "trainer", "model", "datamodule", "callback")}}), flush=True)
+    timing = eval_timing_phase(torch, ops, dev, counted, ev)
+    print(json.dumps({"eval": "eval timing", **timing}), flush=True)
+    print(json.dumps({"eval_phases_s": time.perf_counter() - t0}), flush=True)
+    for path, launches in ((f"eval CLI (shipped callbacks, {ev['passes']} passes)", ev["launches"]),
+                           (f"eval timing ({timing['jets']:,} jets)",
+                            timing["launches"]["epic_layer"])):
+        kernels["epic_layer"]["launches"] += launches
+        kernels["epic_layer"]["launches_by_path"][path] = launches
 
     kernels = list(kernels.values())
     print(json.dumps({"kernels": kernels}))

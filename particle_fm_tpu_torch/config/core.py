@@ -42,7 +42,7 @@ def deep_merge(base: dict, overlay: dict) -> dict:
     return out
 
 
-def _load_yaml(path: str) -> dict:
+def load_config(path: str) -> dict:
     with open(path) as f:
         return yaml.safe_load(f) or {}
 
@@ -60,7 +60,7 @@ def _group_file(config_dir: str, group: str, name: str) -> str:
 def compose(config_dir: str, config_name: str = "train", overrides: list[str] = ()) -> dict:
     """Compose the config tree like hydra: root defaults -> groups ->
     experiment overlay -> dotlist overrides -> interpolation."""
-    root = _load_yaml(os.path.join(config_dir, f"{config_name}.yaml"))
+    root = load_config(os.path.join(config_dir, f"{config_name}.yaml"))
     defaults = root.pop("defaults", [])
 
     # parse group selections from defaults + overrides
@@ -89,7 +89,7 @@ def compose(config_dir: str, config_name: str = "train", overrides: list[str] = 
     exp_cfg = None
     exp_name = cli_selections.get("experiment", selections.get("experiment"))
     if exp_name:
-        exp_cfg = _load_yaml(_group_file(config_dir, "experiment", str(exp_name)))
+        exp_cfg = load_config(_group_file(config_dir, "experiment", str(exp_name)))
         for entry in exp_cfg.pop("defaults", []):
             if isinstance(entry, dict):
                 ((group, name),) = entry.items()
@@ -107,16 +107,22 @@ def compose(config_dir: str, config_name: str = "train", overrides: list[str] = 
         name = selections.get(group)
         if not name:
             continue
-        group_cfg = _load_yaml(_group_file(config_dir, group, str(name)))
+        group_cfg = load_config(_group_file(config_dir, group, str(name)))
         cfg[group] = deep_merge(cfg.get(group, {}), group_cfg)
 
     if exp_cfg:
         cfg = deep_merge(cfg, exp_cfg)
 
-    for key, value in dot_overrides:
-        _set_dotted(cfg, key, yaml.safe_load(value))
+    set_overrides(cfg, dot_overrides)
 
     return _resolve_interpolations(cfg)
+
+
+def set_overrides(cfg: dict, pairs) -> None:
+    """Set each (dotted key, value string) pair, the value read by YAML's
+    scalar rules: the dotlist overrides of every CLI."""
+    for key, value in pairs:
+        _set_dotted(cfg, key, yaml.safe_load(value))
 
 
 def _set_dotted(cfg: dict, key: str, value: Any) -> None:

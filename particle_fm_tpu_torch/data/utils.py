@@ -1,6 +1,6 @@
-"""Data preprocessing (host-side numpy); the functions of
-particle_fm_tpu/data/utils.py that data/jetnet.py uses, with the p4 helpers
-they rest on.
+"""Data preprocessing and jet kinematics (host-side numpy); the functions of
+particle_fm_tpu/data/utils.py that data/jetnet.py, the metrics and the
+substructure use, with the p4 helpers they rest on.
 """
 
 from __future__ import annotations
@@ -24,6 +24,25 @@ def p4s_from_ptyphims(ptyphim: np.ndarray) -> np.ndarray:
     )
 
 
+def m2s_from_p4s(p4s: np.ndarray) -> np.ndarray:
+    return p4s[..., 0] ** 2 - p4s[..., 1] ** 2 - p4s[..., 2] ** 2 - p4s[..., 3] ** 2
+
+
+def ms_from_p4s(p4s: np.ndarray) -> np.ndarray:
+    m2 = m2s_from_p4s(p4s)
+    return np.sign(m2) * np.sqrt(np.abs(m2))
+
+
+def pts_from_p4s(p4s: np.ndarray) -> np.ndarray:
+    return np.sqrt(p4s[..., 1] ** 2 + p4s[..., 2] ** 2)
+
+
+def ys_from_p4s(p4s: np.ndarray) -> np.ndarray:
+    """Rapidity y = 0.5*ln((E+pz)/(E-pz))."""
+    e, pz = p4s[..., 0], p4s[..., 3]
+    return 0.5 * np.log(np.maximum(e + pz, 1e-30) / np.maximum(e - pz, 1e-30))
+
+
 def etas_from_p4s(p4s: np.ndarray) -> np.ndarray:
     """Pseudorapidity from the 3-momentum."""
     px, py, pz = p4s[..., 1], p4s[..., 2], p4s[..., 3]
@@ -35,6 +54,19 @@ def phis_from_p4s(p4s: np.ndarray, phi_ref: float = 0.0) -> np.ndarray:
     """Azimuth in (phi_ref - pi, phi_ref + pi]."""
     phi = np.arctan2(p4s[..., 2], p4s[..., 1])
     return phi - 2 * np.pi * np.round((phi - phi_ref) / (2 * np.pi))
+
+
+def ptyphims_from_p4s(p4s: np.ndarray, phi_ref: float = 0.0) -> np.ndarray:
+    """(..., [E,px,py,pz]) -> (..., [pt, y, phi, m])."""
+    return np.stack(
+        [
+            pts_from_p4s(p4s),
+            ys_from_p4s(p4s),
+            phis_from_p4s(p4s, phi_ref),
+            ms_from_p4s(p4s),
+        ],
+        axis=-1,
+    )
 
 
 def one_hot_encode(
@@ -110,3 +142,27 @@ def normalize_tensor(x: np.ndarray, mean, std, sigma: float = 5) -> np.ndarray:
     mean = np.asarray(mean)
     std = np.asarray(std)
     return (x - mean) / (std / sigma)
+
+
+def inverse_normalize_tensor(x: np.ndarray, mean, std, sigma: float = 5) -> np.ndarray:
+    mean = np.asarray(mean)
+    std = np.asarray(std)
+    return x * (std / sigma) + mean
+
+
+def calculate_jet_features(particle_data: np.ndarray) -> np.ndarray:
+    """(B, N, [eta, phi, pt, (mask)]) -> per-jet (pt, y, phi, m). Parity: utils.py:261-276."""
+    pd = particle_data[..., [2, 0, 1]]
+    sum_p4 = np.sum(p4s_from_ptyphims(pd), axis=-2)
+    return ptyphims_from_p4s(sum_p4, phi_ref=0)
+
+
+def get_mjj(jet_x: np.ndarray, jet_y: np.ndarray) -> np.ndarray:
+    """Dijet invariant mass from two jets' (pt, y, phi[, m]). Parity: utils.py:279-292."""
+    return ms_from_p4s(p4s_from_ptyphims(jet_x) + p4s_from_ptyphims(jet_y))
+
+
+def get_jet_data(consts: np.ndarray) -> np.ndarray:
+    """(.., N, [pt, y, phi]) constituents -> jet (pt, y, phi, m)."""
+    sum_p4 = np.sum(p4s_from_ptyphims(consts[..., :3]), axis=-2)
+    return ptyphims_from_p4s(sum_p4, phi_ref=0)

@@ -1,0 +1,310 @@
+"""Evaluation callbacks: mid-training generation and physics metrics;
+counterpart of the JetNet callbacks of particle_fm_tpu/eval/callbacks.py
+(`JetNetEvalCallback`, `FinalEvalCallback`, same fields and defaults).
+
+Skeleton: on a logging schedule -> fixed seed -> EMA weights ->
+generate_data (batched, timed excluding warm-up) -> inverse-normalize -> W1
+metrics -> returned to the trainer, which logs them and feeds them to the
+metric-keyed checkpoints. Generation, the EFPs and the energy correlators
+run on the trainer's device.
+
+A callback works on a copy of the network (`trainer.state.ema_network()`
+with `use_ema`, else a copy of the live one) with its own generators, so it
+leaves the training run as it found it: the live network unfolded, its
+parameters and the optimizer untouched.
+
+Not ported: the plots (`make_plots=True` raises until eval/plotting.py is
+ported) and the other callbacks of the JAX module (whole-event LHCO, calo,
+flat, gen-challenge, classifier, device stats): a config that names one
+raises through config/core.py.
+"""
+
+from __future__ import annotations
+
+import copy
+import os
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import yaml
+
+from particle_fm_tpu_torch.eval.generation import generate_data
+from particle_fm_tpu_torch.eval.metrics import calculate_all_wasserstein_metrics
+from particle_fm_tpu_torch.training.logging_scheduler import should_log
+
+
+def _tile_to(a, n: int):
+    """Tile conditioning/masks along the batch axis to cover n samples
+    (oversampled generation, reference jetnet_final_eval.py semantics)."""
+    if a is None:
+        return None
+    if len(a) >= n:
+        return a[:n]
+    reps = -(-n // len(a))
+    return np.concatenate([a] * reps, axis=0)[:n]
+
+
+def eval_network(trainer, use_ema: bool):
+    """A copy of the network to sample with: the EMA weights, or the live ones."""
+    return trainer.state.ema_network() if use_ema else copy.deepcopy(trainer.state.net)
+
+
+@dataclass
+class JetNetEvalCallback:
+    """In-training eval: W1M/W1P(/W1EFP) on generated vs held-out jets."""
+
+    every_n_epochs: int | str = 10
+    num_jet_samples: int = 10000
+    generation_batch_size: int = 1024
+    w1_kwargs: dict = field(default_factory=lambda: dict(num_batches=40, num_eval_samples=10000))
+    calculate_efps: bool = False
+    use_ema: bool = True
+    ode_solver: str = "midpoint"
+    ode_steps: int = 100
+    split: str = "test"
+    on_test: bool = False  # also run inside trainer.test()
+    seed: int = 9999  # fixed eval seed, parity with the reference
+    log_epoch_zero: bool = False  # parity: jetnet_eval.yaml log_epoch_zero
+    per_type_w1: bool = False  # per-jet-type W1 breakdown (JetClass eval)
+    # generate with the datamodule's generated-conditioning twins
+    # (mask_gen / tensor_conditioning_gen) when present, else the split's own
+    use_gen_conditioning: bool = True
+    # external conditioning h5 with pt/mass/num_particles datasets
+    # (reference jetnet_final_eval.py:149-175 cond_path): overrides both
+    cond_path: Optional[str] = None
+    # classifier-free guidance weight (requires a model trained with
+    # cond_dropout > 0). None/1.0 = plain conditional sampling.
+    guidance_scale: Optional[float] = None
+
+    def _arrays(self, dm):
+        real = getattr(dm, f"tensor_{self.split}")
+        mask = getattr(dm, f"mask_{self.split}")
+        cond = getattr(dm, f"tensor_conditioning_{self.split}")
+        return real, mask, cond
+
+    def _gen_conditioning(self, dm, cond, mask, n):
+        """(cond, mask) to GENERATE with, tiled to n samples. Priority:
+        cond_path h5 > datamodule gen-twins > the eval split's own arrays."""
+        if self.cond_path is not None:
+            import h5py
+
+            from particle_fm_tpu_torch.data.utils import normalize_tensor
+
+            with h5py.File(self.cond_path, "r") as f:
+                pt_c = np.asarray(f["pt"])
+                mass_c = np.asarray(f["mass"])
+                num_particles_c = np.asarray(f["num_particles"]).squeeze()
+            jet_size = int(mask.shape[1]) if mask is not None else int(
+                getattr(dm, "num_particles", num_particles_c.max())
+            )
+            npart = np.clip(num_particles_c.astype(int), 1, jet_size)
+            mask_c = np.tri(jet_size)[npart - 1][..., None].astype(np.float32)
+            # the h5 supplies (pt, mass[, num_particles]) columns only, as in
+            # the reference (jetnet_final_eval.py:168)
+            if getattr(dm, "conditioning_type", False) or getattr(
+                dm, "conditioning_eta", False
+            ):
+                raise ValueError(
+                    "cond_path supplies only pt/mass/num_particles conditioning; "
+                    "this run conditions on jet type and/or eta, which the h5 "
+                    "cannot provide (reference jetnet_final_eval.py:168 TODO)"
+                )
+            cols = [pt_c.reshape(len(pt_c), -1), mass_c.reshape(len(mass_c), -1)]
+            if getattr(dm, "conditioning_num_particles", False):
+                cols.append(
+                    num_particles_c.reshape(len(num_particles_c), -1).astype(np.float32)
+                )
+            cond_means = getattr(dm, "cond_means", None)
+            if cond is not None and cond_means is not None:
+                # the sigma-scaled z-score the datamodule applied to its own
+                # conditioning
+                cond_stds = np.asarray(dm.cond_stds)
+                cond_means = np.asarray(cond_means)
+                sigma = getattr(dm, "normalize_sigma", 5)
+                cols = [
+                    normalize_tensor(c, cond_means[i], cond_stds[i], sigma)
+                    for i, c in enumerate(cols)
+                ]
+            cond_c = np.concatenate(cols, axis=-1).astype(np.float32)
+            if cond is not None and cond_c.shape[1] != cond.shape[1]:
+                raise ValueError(
+                    f"cond_path built {cond_c.shape[1]} conditioning columns but "
+                    f"the run's model consumes {cond.shape[1]}"
+                )
+            return _tile_to(cond_c, n), _tile_to(mask_c, n)
+        mask_gen = getattr(dm, "mask_gen", None)
+        if self.use_gen_conditioning and mask_gen is not None:
+            return (
+                _tile_to(getattr(dm, "tensor_conditioning_gen", None), n),
+                _tile_to(mask_gen, n),
+            )
+        return _tile_to(cond, n), _tile_to(mask, n)
+
+    def _should_run(self, trainer) -> bool:
+        if getattr(trainer, "testing", False):
+            return True
+        if trainer.epoch == 0 and not self.log_epoch_zero:
+            return False
+        return should_log(self.every_n_epochs, trainer.epoch)
+
+    def _generate(self, trainer, n: int):
+        """Generate n sets against the eval split; returns (real, gen, gen_time)."""
+        dm = trainer.datamodule
+        real, mask, cond = self._arrays(dm)
+        cond_n, mask_n = self._gen_conditioning(dm, cond, mask, n)
+        gen, gen_time = generate_data(
+            trainer.model,
+            eval_network(trainer, self.use_ema),
+            num_jet_samples=n,
+            batch_size=self.generation_batch_size,
+            cond=cond_n,
+            variable_set_sizes=dm.variable_jet_sizes,
+            mask=mask_n,
+            normalized_data=dm.means is not None,
+            normalize_sigma=getattr(dm, "normalize_sigma", 5),
+            means=dm.means,
+            stds=dm.stds,
+            log_pt=getattr(dm, "log_pt", False),
+            pt_standardization=getattr(dm, "pt_standardization", False),
+            ode_solver=self.ode_solver,
+            ode_steps=self.ode_steps,
+            seed=self.seed,
+            # fixed-size datasets (no mask): generate the DATA's set size, not
+            # the model default (guards a model/data num_particles mismatch)
+            num_points=int(real.shape[1]),
+            guidance_scale=self.guidance_scale,
+            device=trainer.device,
+        )
+        return real, gen, gen_time
+
+    def _generate_vs_real(self, trainer):
+        """Shared generation block: returns (real, gen, n, gen_time)."""
+        real = self._arrays(trainer.datamodule)[0]
+        # reference semantics: negative num_jet_samples = |n| x the dataset
+        # size, with conditioning/masks tiled to cover the oversample
+        if self.num_jet_samples < 0:
+            n = abs(self.num_jet_samples) * len(real)
+        else:
+            n = self.num_jet_samples
+        real, gen, gen_time = self._generate(trainer, n)
+        return real, gen, n, gen_time
+
+    def __call__(self, trainer) -> Optional[dict]:
+        if not self._should_run(trainer):
+            return None
+        real, gen, n, gen_time = self._generate_vs_real(trainer)
+        w1 = calculate_all_wasserstein_metrics(
+            real[:n],
+            gen,
+            calculate_efps=self.calculate_efps,
+            device=trainer.device,
+            **self.w1_kwargs,
+        )
+        w1["generation_time"] = gen_time
+        if self.per_type_w1:
+            w1.update(self._per_type_w1(trainer.datamodule, real, gen, n))
+        return w1
+
+    def _per_type_w1(self, dm, real, gen, n) -> dict:
+        """Per-jet-type W1M (reference jetclass_eval.py:214-420 per-type
+        breakdown) for datamodules exposing one-hot `labels_<split>` +
+        `used_jet_types` (JetClass)."""
+        labels = getattr(dm, f"labels_{self.split}", None)
+        names = getattr(dm, "used_jet_types", None)
+        if labels is None:
+            return {}
+        # oversampled generation: break down over the label-paired prefix
+        m = min(n, len(labels), len(real))
+        if m < 16:
+            return {}
+        idx = np.argmax(labels[:m], axis=1)
+        names = names or [str(i) for i in range(labels.shape[1])]
+        out = {}
+        for t, name in enumerate(names):
+            sel = idx == t
+            if sel.sum() < 8:
+                continue
+            w1 = calculate_all_wasserstein_metrics(
+                real[:m][sel], gen[:m][sel], calculate_efps=False, **self.w1_kwargs
+            )
+            out[f"w1m_mean_{name}"] = w1["w1m_mean"]
+            out[f"w1p_mean_{name}"] = w1["w1p_mean"]
+        return out
+
+
+@dataclass
+class FinalEvalCallback(JetNetEvalCallback):
+    """Post-training final evaluation: oversampled generation, W1 metrics,
+    substructure W1 (tau21/tau32/d2), FPD/KPD on the EFPs, saved arrays.
+
+    Parity: callbacks/jetnet_final_eval.py:37-438 (the on_test_end skeleton:
+    best/last EMA checkpoint selection happens in trainer.test()). The plots
+    are not ported: `make_plots=True` raises.
+    """
+
+    every_n_epochs: int | str = 1_000_000_000  # effectively test-only
+    num_samples_factor: float = 1.0  # N x dataset size (reference: -N)
+    save_dir: Optional[str] = None
+    compute_substructure: bool = True
+    compute_fpd_kpd: bool = True
+    make_plots: bool = True
+    on_test: bool = True
+
+    def __post_init__(self):
+        if self.make_plots:
+            raise NotImplementedError(
+                "FinalEvalCallback(make_plots=True): the plots (eval/plotting.py) are not "
+                "ported; pass make_plots=False")
+
+    def __call__(self, trainer) -> Optional[dict]:
+        if not getattr(trainer, "testing", False) and not should_log(
+            self.every_n_epochs, max(trainer.epoch, 1)
+        ):
+            return None
+        from particle_fm_tpu_torch.eval.efp import efps
+        from particle_fm_tpu_torch.eval.metrics import (
+            fpd_infinite,
+            kpd,
+            wasserstein_distance_batched,
+        )
+        from particle_fm_tpu_torch.eval.substructure import compute_substructure
+
+        device = trainer.device
+        real = self._arrays(trainer.datamodule)[0]
+        n = max(int(len(real) * self.num_samples_factor), 1)
+        real, gen, gen_time = self._generate(trainer, n)
+        out_dir = self.save_dir or trainer.artifacts_dir
+        os.makedirs(out_dir, exist_ok=True)
+        np.save(os.path.join(out_dir, "final_generated_data.npy"), gen)
+
+        metrics = calculate_all_wasserstein_metrics(
+            real[:n], gen, calculate_efps=self.calculate_efps, device=device, **self.w1_kwargs
+        )
+        metrics["generation_time"] = gen_time
+
+        if self.compute_substructure:
+            hlvs_real = compute_substructure(real[:n], device=device)
+            hlvs_gen = compute_substructure(gen, device=device)
+            n_eval = min(len(gen), 10_000)
+            for key in ("tau21", "tau32", "d2"):
+                mean, std = wasserstein_distance_batched(
+                    hlvs_real[key], hlvs_gen[key], num_eval_samples=n_eval, num_batches=40
+                )
+                metrics[f"w1_{key}_mean"] = mean
+                metrics[f"w1_{key}_std"] = std
+        if self.compute_fpd_kpd:
+            # FPD/KPD on the EFP feature set
+            e_real = efps(real[:n], device=device)
+            e_gen = efps(gen, device=device)
+            # official jetnet protocol: extrapolate the O(1/N) bias away
+            fpd_val, fpd_err = fpd_infinite(e_real, e_gen)
+            metrics["fpd"] = fpd_val
+            metrics["fpd_err"] = fpd_err
+            kpd_med, kpd_std = kpd(e_real, e_gen)
+            metrics["kpd_median"] = kpd_med
+            metrics["kpd_std"] = kpd_std
+
+        with open(os.path.join(out_dir, "final_eval_metrics.yml"), "w") as f:
+            yaml.safe_dump({k: float(v) for k, v in metrics.items()}, f)
+        return metrics

@@ -1,6 +1,6 @@
-"""Training loop, single device: epochs, validation, checkpoints, logging;
-counterpart of particle_fm_tpu/training/trainer.py (field names and
-semantics as there).
+"""Training loop, single device: epochs, validation, eval callbacks,
+checkpoints, logging; counterpart of particle_fm_tpu/training/trainer.py
+(field names and semantics as there).
 
 The train split is placed on the device once and each epoch's shuffle is
 one gather there. The shuffle is the JAX trainer's,
@@ -12,8 +12,16 @@ checkpoint continues as the uninterrupted run would have. Validation runs
 on the current parameters with the generator seeded VAL_SEED for every
 batch, as the JAX trainer hands every batch the same key.
 
-Not carried: eval callbacks, the scanned and fused epochs and the mesh
-strategies; asking for them raises.
+Once per epoch, after validation, each callback is called with the trainer;
+the metrics it returns (e.g. `w1m_mean`) are merged into the epoch's before
+logging and before the checkpoint monitors read them. `test` restores the
+best or last checkpoint and runs the callbacks marked `on_test` with
+`testing` set. A callback must not move the training run: it samples a copy
+of the network with its own generators (eval/callbacks.py), and each step's
+generator stays seeded from (seed + 1, step).
+
+Not carried: the scanned and fused epochs and the mesh strategies; asking
+for them raises.
 """
 
 from __future__ import annotations
@@ -74,10 +82,10 @@ class Trainer:
     state: TrainState = None
     epoch: int = 0
     metrics_history: list = field(default_factory=list)
+    last_metrics: dict = field(default_factory=dict)
+    testing: bool = False  # set by `test`: scheduled callbacks bypass their epoch gates
 
     def __post_init__(self):
-        if list(self.callbacks):
-            raise NotImplementedError("eval callbacks are not ported")
         if self.strategy != "dp":
             raise NotImplementedError(
                 f"trainer.strategy={self.strategy!r} is not ported (single device, 'dp')")
@@ -95,6 +103,8 @@ class Trainer:
                      if self.ckpt_dir else None)
         self.logger = (MultiLogger(self.log_dir, backends=tuple(self.logger_backends))
                        if self.log_dir else None)
+        # where callbacks write their files (final_generated_data.npy, ...)
+        self.artifacts_dir = self.log_dir or "."
 
     # ------------------------------------------------------------- helpers
     def _log(self, metrics: dict) -> None:
@@ -181,6 +191,12 @@ class Trainer:
             metrics = {"train_loss": train_loss, "epoch_time": time.perf_counter() - t0}
             if (epoch + 1) % self.check_val_every_n_epoch == 0:
                 metrics["val_loss"] = self.validate()
+            # eval callbacks may add metrics (e.g. w1m_mean) that drive checkpoints
+            self.last_metrics = metrics
+            for cb in self.callbacks:
+                out = cb(self)
+                if out:
+                    metrics.update(out)
             self._log(metrics)
 
             if self.ckpt is not None:
@@ -199,3 +215,27 @@ class Trainer:
             gen.manual_seed(VAL_SEED)
             losses.append(self.eval_step(self.state, gen, *self._to_device(batch)))
         return float(torch.stack(losses).mean()) if losses else float("nan")
+
+    # ---------------------------------------------------------------- test
+    def test(self, ckpt: str = "best", monitor: str | None = None) -> dict:
+        """Run the `on_test` callbacks on the best (of `monitor`, else the
+        first monitor) or the last checkpoint; returns their metrics."""
+        if self.ckpt is not None:
+            path = (self.ckpt.best_path(monitor or next(iter(self.ckpt_monitors)))
+                    if ckpt == "best" else self.ckpt.last_path())
+            if path is not None:
+                if self.state is None:
+                    self.state = create_train_state(self.model, self.optimizer, seed=self.seed,
+                                                    device=self.device)
+                self.state = self.ckpt.restore(path, self.state)
+        results = {}
+        self.testing = True
+        try:
+            for cb in self.callbacks:
+                if getattr(cb, "on_test", False):
+                    out = cb(self)
+                    if out:
+                        results.update(out)
+        finally:
+            self.testing = False
+        return results

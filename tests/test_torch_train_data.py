@@ -118,5 +118,9 @@ def test_instantiate_maps_targets_to_the_port():
     assert (model.hidden_dim, model.layers, model.latent, model.num_particles,
             model.global_cond_dim, model.local_cond_dim) == (128, 6, 10, 150, 2, 2)
     assert isinstance(instantiate(cfg["data"]), JetNetDataModule)
-    with pytest.raises(NotImplementedError, match="JetNetEvalCallback is not ported"):
-        instantiate(cfg["callbacks"]["jetnet_eval"])
+    from particle_fm_tpu_torch.eval.callbacks import JetNetEvalCallback
+
+    assert isinstance(instantiate(cfg["callbacks"]["jetnet_eval"]), JetNetEvalCallback)
+    whole = {"_target_": "particle_fm_tpu.eval.callbacks.WholeEventEvalCallback"}
+    with pytest.raises(NotImplementedError, match="WholeEventEvalCallback is not ported"):
+        instantiate(whole)

@@ -123,6 +123,28 @@ def jax_noise(seed: int, shape, mask=None) -> np.ndarray:
     return z if mask is None else z * mask
 
 
+def jax_noise_of_batch(seed: int, i: int, shape) -> np.ndarray:
+    """The noise the JAX `generate_data` draws for batch i: the i-th key of
+    `random.split` from PRNGKey(seed), then the sampler's own split."""
+    rng = jax.random.PRNGKey(seed)
+    for _ in range(i + 1):
+        rng, sub = jax.random.split(rng)
+    rng_z, _ = jax.random.split(sub)
+    return np.asarray(jax.random.normal(rng_z, shape))
+
+
+class WritableNumpy:
+    """numpy, with an `asarray` that returns a writable copy (the JAX
+    `generate_data` writes into the array it copied from the device)."""
+
+    def __getattr__(self, name):
+        return getattr(np, name)
+
+    @staticmethod
+    def asarray(a, *args, **kwargs):
+        return np.array(a, *args, **kwargs)
+
+
 def t(a) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a, np.float32).copy())
 
