@@ -118,9 +118,40 @@
      energy correlators on the card, the native clustering (tau1-3, d12/d23),
      W1M, W1P, W1EFP and W1(tau21); then the EFPs and correlators on the card
      against the CPU on 256 jets (rtol 1e-4).
-6. Prints the `kernels` JSON line (the launches of the training and eval
-   phases under `launches_by_path` too), the card line again, and as the
-   last line {"ok": true, "device": {...}}.
+6. Family phases (the other loss families and solvers), each composed from
+   configs/ and on the card, one `family` line each and their total:
+   - diffusion CLI, the full-width path of PC-JeDi: train.main with
+     experiment=jetnet/diffusion_tops150_cond data.synthetic=true (4096
+     jets, trainer=smoke, 2 epochs) and the experiment's `callbacks:
+     jetnet` (em, 200 steps, batch 1000, EMA weights) every epoch from
+     epoch 0 on 2,000 jets and the test pass: exactly 6 x 200 x 2 x 3 EPiC
+     launches; then 1,000 jets by em (200 steps) and by ddim (100 steps),
+     kernel path against plain path with the same generator (atol 1e-3), and
+     one train step's loss and gradients, card against CPU;
+   - droid: jetnet/droid_tops30 (droid_t_max 25) on path A's network
+     (attn_impl=packed, scores_dtype=null, every parameter re-drawn): 8
+     train steps, 3 packed launches each; 1,000 jets by midpoint, 100 steps,
+     kernel against plain within 1e-3 of the largest |x|;
+   - self-cond: jetnet/fm_selfcond_tops30: 8 train steps (no launch), 1,000
+     jets through odeint_fixed_sc, midpoint, 200 steps (6 x 398 launches),
+     kernel against plain within 1e-3;
+   - OT-CFM: jetnet/ot_cfm_tops30: 8 train steps at batch 1024; the pairing
+     of one batch equal, card against CPU; the Sinkhorn plan and the
+     hardening timed;
+   - DOPRI5: the flagship network with the sincos time embedding at batch
+     640, dopri5 and dopri5_per_sample: steps, network passes, exact
+     launches, sets/s; dopri5 kernel against plain within 1e-3; on the
+     per-set solver, whose step sizes read each set's rounding, every kernel
+     launch against the plain layer on its inputs (1e-4), the solver in
+     float64 card against CPU on 64 sets (the same decisions, within 1e-3),
+     and the two paths' results shown beside the spread that a start moved
+     by one ulp gives; the flagship's cosine embedding shown beside,
+     unchecked;
+   - log_prob: the flagship, Hutchinson, B=32, 20 steps, card against CPU
+     within 1e-3 relative.
+7. Prints the `kernels` JSON line (the launches of the training, eval and
+   family phases under `launches_by_path` too), the card line again, and as
+   the last line {"ok": true, "device": {...}}.
 
 Every failure exits non-zero before the last line. The script needs the
 repository beside it and a CUDA device; it imports nothing of JAX.
@@ -128,6 +159,7 @@ repository beside it and a CUDA device; it imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import subprocess
@@ -158,6 +190,17 @@ SCORE_OPS = 5
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def reset(counted) -> None:
+    """Set the launch count of every counted wrapper to 0."""
+    for w in counted:
+        w.launches = 0
+
+
+def launched(counted) -> dict:
+    """The launch counts by wrapper name."""
+    return {w.__name__: w.launches for w in counted}
 
 
 def card_line() -> str:
@@ -549,8 +592,7 @@ def serving_phase(torch, dev, name, config, model, net, wrapper_owner, wrapper_n
         return outs, time.perf_counter() - t0
 
     answer(warm)
-    for w in counted:
-        w.launches = 0
+    reset(counted)
     outs, secs = answer(fn)  # the main path
     launches = wrapper.launches
 
@@ -726,15 +768,14 @@ def train_epic_phase(torch, ops, dev, counted, data_overrides=()) -> dict:
     cpu = pinned_loss_and_grads(torch, model, copy.deepcopy(state.net).cpu(), batch, 5)
     agree = held_against("train EPiC, card against CPU", card, cpu)
 
-    for w in counted:
-        w.launches = 0
+    reset(counted)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     losses, secs = run_steps(torch, trainer, state, trainer._place_train_split(), TRAIN_STEPS)
-    launched = {w.__name__: w.launches for w in counted}
+    got = launched(counted)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
-    if any(launched.values()):
-        fail(f"train EPiC: the train steps launched kernels {launched} (expected none)")
+    if any(got.values()):
+        fail(f"train EPiC: the train steps launched kernels {got} (expected none)")
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     if not (np.isfinite(losses).all() and last < first):
         fail(f"train EPiC: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
@@ -744,7 +785,7 @@ def train_epic_phase(torch, ops, dev, counted, data_overrides=()) -> dict:
             "steps": TRAIN_STEPS, "card_vs_cpu_64_jets": agree, "loss_first_5": first,
             "loss_last_5": last, "median_step_ms": 1e3 * median, "steps_per_s": 1.0 / median,
             "jets_per_s": dm.batch_size / median, "peak_memory_bytes": peak,
-            "kernel_launches": launched}
+            "kernel_launches": got}
 
 
 def train_path_a_phase(torch, sa, dev, counted, data_overrides=()) -> dict:
@@ -774,8 +815,7 @@ def train_path_a_phase(torch, sa, dev, counted, data_overrides=()) -> dict:
     data = trainer._place_train_split()
     turns = {"kernel": [], "plain": []}
     peak = {"kernel": 0, "plain": 0}
-    for w in counted:
-        w.launches = 0
+    reset(counted)
     for path in ("kernel", "plain", "plain", "kernel"):
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
@@ -789,18 +829,18 @@ def train_path_a_phase(torch, sa, dev, counted, data_overrides=()) -> dict:
         turns[path] += secs
         if dev.type == "cuda":
             peak[path] = max(peak[path], torch.cuda.max_memory_allocated(dev))
-    launched = {w.__name__: w.launches for w in counted}
+    got = launched(counted)
     want = {w.__name__: 0 for w in counted}
     want["packed_short_attention"] = 3 * 2 * per_turn if dev.type == "cuda" else 0
-    if launched != want:
-        fail(f"train path A: launches {launched}, expected {want}")
+    if got != want:
+        fail(f"train path A: launches {got}, expected {want}")
     ms = {k: 1e3 * float(np.median(v)) for k, v in turns.items()}
     return {"config": "fm_droid_transformer (configs/) on fm_tops150_cond's data, attn_impl=packed, "
                       "scores_dtype=null, every parameter re-drawn, AdamW lr 1e-3 constant",
             "batch": dm.batch_size, "kernel_vs_plain": agree, "steps_per_turn": per_turn,
             "median_step_ms": ms, "jets_per_s": {k: dm.batch_size / (v / 1e3) for k, v in ms.items()},
-            "step_s": turns, "peak_memory_bytes": peak, "kernel_launches": launched,
-            "launches": launched["packed_short_attention"]}
+            "step_s": turns, "peak_memory_bytes": peak, "kernel_launches": got,
+            "launches": got["packed_short_attention"]}
 
 
 def train_cli_phase(torch, ops, dev, counted, extra=()) -> dict:
@@ -843,14 +883,13 @@ def train_cli_phase(torch, ops, dev, counted, extra=()) -> dict:
     fn = make_serve_fn(model, net, batch_size=7, ode_steps=ODE_STEPS, has_cond=True,
                        has_mask=True, means=dm.means, stds=dm.stds)
     mask, cond = dm.test.mask[:7], dm.test.cond[:7]
-    for w in counted:
-        w.launches = 0
+    reset(counted)
     served = serve_batches(fn, fn.meta, 7, cond=cond, mask=mask, seed=3)
-    launched = {w.__name__: w.launches for w in counted}
+    got = launched(counted)
     want = {w.__name__: 0 for w in counted}
     want["epic_layer"] = model.layers * 2 * (ODE_STEPS - 1) if dev.type == "cuda" else 0
-    if launched != want:
-        fail(f"train CLI: serving the EMA weights launched {launched}, expected {want}")
+    if got != want:
+        fail(f"train CLI: serving the EMA weights launched {got}, expected {want}")
     with mock.patch.object(ops, "epic_layer", ops.epic_layer_reference):
         plain = serve_batches(fn, fn.meta, 7, cond=cond, mask=mask, seed=3)
     err = float(np.abs(served - plain).max())
@@ -864,9 +903,9 @@ def train_cli_phase(torch, ops, dev, counted, extra=()) -> dict:
             "resumed_at_epoch": resumed.metrics_history[0]["epoch"],
             "step_after_resume": resumed.state.step, "first_run_s": first_s,
             "checkpoints": [str(last.relative_to(ROOT)), str(best[0].relative_to(ROOT))],
-            "ema_served": {"jets": 7, "ode_steps": ODE_STEPS, "launches": launched,
+            "ema_served": {"jets": 7, "ode_steps": ODE_STEPS, "launches": got,
                            "max_abs_diff_kernel_vs_plain": err},
-            "launches": launched["epic_layer"]}
+            "launches": got["epic_layer"]}
 
 
 # eval phase: the shipped JetNet callbacks in the training entry point, then
@@ -918,13 +957,12 @@ def eval_cli_phase(torch, ops, dev, counted) -> dict:
                       "step": trainer.state.step})
         return through(cb, trainer)
 
-    for w in counted:
-        w.launches = 0
+    reset(counted)
     t0 = time.perf_counter()
     with mock.patch.object(JetNetEvalCallback, "__call__", recorded):
         metrics, objs = ptrain.main(args)  # the main path
     cli_s = time.perf_counter() - t0
-    launched = {w.__name__: w.launches for w in counted}
+    got = launched(counted)
     trainer, model = objs["trainer"], objs["model"]
     (cb,) = trainer.callbacks
     if (cb.generation_batch_size, cb.ode_steps, cb.ode_solver, cb.use_ema) != (
@@ -947,8 +985,8 @@ def eval_cli_phase(torch, ops, dev, counted) -> dict:
     per_pass = model.layers * 2 * (cb.ode_steps - 1) * -(-EVAL_JETS // cb.generation_batch_size)
     want = {w.__name__: 0 for w in counted}
     want["epic_layer"] = len(calls) * per_pass if dev.type == "cuda" else 0
-    if launched != want:
-        fail(f"eval CLI: launches {launched}, expected {want}")
+    if got != want:
+        fail(f"eval CLI: launches {got}, expected {want}")
 
     # kernel path against plain path on the restored weights
     def evaluate():
@@ -976,7 +1014,7 @@ def eval_cli_phase(torch, ops, dev, counted) -> dict:
             "launches_per_pass": per_pass, "passes": len(calls),
             "kernel_vs_plain": {"max_abs_diff_jets": gen_err, "w1_abs_diff": w1_err,
                                 "w1_kernel": w1_k, "w1_plain": w1_p},
-            "launches": launched["epic_layer"], "trainer": trainer, "model": model,
+            "launches": got["epic_layer"], "trainer": trainer, "model": model,
             "datamodule": objs["datamodule"], "callback": cb}
 
 
@@ -1015,20 +1053,19 @@ def eval_timing_phase(torch, ops, dev, counted, cli: dict) -> dict:
         return out
 
     net = eval_network(trainer, True)
-    for w in counted:
-        w.launches = 0
+    reset(counted)
     gen, gen_time = timed("generation_s", lambda: generate_data(
         model, net, n, batch_size=cb.generation_batch_size,
         cond=_tile_to(dm.tensor_conditioning_test, n), variable_set_sizes=True,
         mask=_tile_to(dm.mask_test, n), normalized_data=True, means=dm.means, stds=dm.stds,
         ode_solver=cb.ode_solver, ode_steps=cb.ode_steps, seed=cb.seed,
         num_points=int(real.shape[1]), device=dev))
-    launched = {w.__name__: w.launches for w in counted}
+    got = launched(counted)
     want = {w.__name__: 0 for w in counted}
     want["epic_layer"] = (model.layers * 2 * (cb.ode_steps - 1) * -(-n // cb.generation_batch_size)
                           if dev.type == "cuda" else 0)
-    if launched != want or not np.isfinite(gen).all() or gen.shape != real.shape:
-        fail(f"eval timing: generation launched {launched} (expected {want}), shape "
+    if got != want or not np.isfinite(gen).all() or gen.shape != real.shape:
+        fail(f"eval timing: generation launched {got} (expected {want}), shape "
              f"{gen.shape}, finite {np.isfinite(gen).all()}")
     stages["generation_time_s"] = gen_time  # without the first batch
 
@@ -1073,13 +1110,459 @@ def eval_timing_phase(torch, ops, dev, counted, cli: dict) -> dict:
         fail(f"eval timing: card against CPU on {EVAL_CPU_JETS} jets: EFPs {efp_err}, "
              f"e2/e3 {ecf_err} (limit {EVAL_CPU_RTOL})")
     return {"jets": n, "real": f"synthetic JetNet-150 test split, {n} jets", "stages_s": stages,
-            "generation_jets_per_s": n / stages["generation_s"], "launches": launched,
+            "generation_jets_per_s": n / stages["generation_s"], "launches": got,
             "w1": {"w1m": list(w1m), "w1p": [float(np.mean(w1p[0])), float(np.mean(w1p[1]))],
                    "w1efp": [float(np.mean(w1efp[0])), float(np.mean(w1efp[1]))],
                    "w1_tau21": list(w1_tau21)},
             "ecf_means": {k: [float(np.mean(a)) for a in v] for k, v in ecf.items()},
             "card_vs_cpu": {"jets": EVAL_CPU_JETS, "efp_err_over_largest": efp_err,
                             "e2_e3_rel_err": ecf_err}}
+
+
+# phases of the other loss families and solvers: the PC-JeDi diffusion CLI
+# (the full-width path of EM generation), droid, self-conditioning, OT-CFM,
+# DOPRI5 and log_prob
+FAMILY_JETS = 1000
+FAMILY_TRAIN_STEPS = 8
+LOG_PROB_TOL = 1e-3  # relative, card against CPU
+
+
+def expect(name: str, got: dict, **want_of) -> None:
+    """Fail unless the launches are `want_of` (by wrapper name) and 0 elsewhere."""
+    want = {k: want_of.get(k, 0) for k in got}
+    if got != want:
+        fail(f"{name}: launches {got}, expected {want}")
+
+
+def test_inputs(torch, dm, n: int, dev, cond: bool = True):
+    """The test split's masks (and cond) tiled to n sets, on the card."""
+    from particle_fm_tpu_torch.eval.callbacks import _tile_to
+
+    mask = torch.from_numpy(_tile_to(dm.mask_test, n)).to(dev)
+    c = torch.from_numpy(_tile_to(dm.tensor_conditioning_test, n)).to(dev) if cond else None
+    return mask, c
+
+
+def kernel_against_plain(torch, dev, name, owner, wrapper, sample, relative=False):
+    """(kernel-path result, seconds, plain-path result, seconds, error): the
+    same call with `owner.wrapper` replaced by its plain version; the error
+    is absolute, or over the plain path's largest |x|."""
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    got = sample()
+    sync(torch, dev)
+    k_s = time.perf_counter() - t0
+    with mock.patch.object(owner, wrapper, getattr(owner, wrapper + "_reference")):
+        t0 = time.perf_counter()
+        want = sample()
+        sync(torch, dev)
+        p_s = time.perf_counter() - t0
+    err = float((got - want).abs().max())
+    if relative:
+        err /= float(want.abs().max())
+    if not (bool(torch.isfinite(got).all()) and err <= PATH_TOL):
+        fail(f"{name}: kernel path against plain path: {err} (limit {PATH_TOL}"
+             f"{' of the largest |x|' if relative else ''})")
+    return got, k_s, want, p_s, err
+
+
+def diffusion_cli_phase(torch, ops, dev, counted) -> dict:
+    """The slice's full-width main path: experiment=jetnet/diffusion_tops150_cond
+    (PC-JeDi VP-diffusion on EPiC, Huber loss with the MLE weight) through
+    the training entry point with 4096 synthetic jets, trainer=smoke (2
+    epochs) and the shipped `callbacks: jetnet` of the experiment (em, 200
+    steps, batch 1000, EMA weights), evaluated every epoch from epoch 0 on
+    EVAL_JETS jets, and `test: true`: exactly 6 x 200 x 2 x 3 EPiC launches.
+    Then 1000 jets by em (200 steps) and by ddim (100 steps) on the EMA
+    weights, kernel path against plain path with the same generator, and one
+    training step's loss and gradients, card against CPU (64 jets, pinned
+    draws)."""
+    import shutil
+
+    from particle_fm_tpu_torch import train as ptrain
+
+    out_root = ROOT / "build" / "diffusion_smoke"
+    shutil.rmtree(out_root, ignore_errors=True)
+    args = ["experiment=jetnet/diffusion_tops150_cond", "data.synthetic=true",
+            "data.synthetic_num_jets=4096", "trainer=smoke", "trainer.max_epochs=2",
+            "callbacks.jetnet_eval.every_n_epochs=1", "callbacks.jetnet_eval.log_epoch_zero=true",
+            f"callbacks.jetnet_eval.num_jet_samples={EVAL_JETS}", f"output_dir={out_root}"]
+    reset(counted)
+    t0 = time.perf_counter()
+    metrics, objs = ptrain.main(args)  # the main path
+    cli_s = time.perf_counter() - t0
+    got = launched(counted)
+    trainer, model, dm = objs["trainer"], objs["model"], objs["datamodule"]
+    (cb,) = trainer.callbacks
+    if (model.loss_type, model.criterion, cb.generation_batch_size, cb.ode_steps,
+            cb.ode_solver, cb.use_ema) != ("diffusion", "huber", 1000, 200, "em", True):
+        fail(f"diffusion CLI: not the shipped experiment: {model.loss_type}, {cb}")
+    history = trainer.metrics_history
+    for m in history + [metrics]:
+        if not all(np.isfinite(m.get(k, np.nan)) for k in ("w1m_mean", "w1p_mean", "val_loss")):
+            fail(f"diffusion CLI: no finite w1m_mean/w1p_mean/val_loss in {m}")
+    passes = len(history) + 1  # every epoch, then the test pass
+    per_pass = model.layers * cb.ode_steps * -(-EVAL_JETS // cb.generation_batch_size)
+    expect("diffusion CLI", got, epic_layer=passes * per_pass)
+
+    net = trainer.state.ema_network()
+    mask, cond = test_inputs(torch, dm, FAMILY_JETS, dev)
+    solvers = {}
+    for solver, steps in (("em", 200), ("ddim", 100)):
+        def sample(solver=solver, steps=steps):
+            gen = torch.Generator(dev).manual_seed(11)
+            return model.sample(net, gen, cond=cond, mask=mask, ode_solver=solver,
+                                ode_steps=steps) * mask
+        reset(counted)
+        x, k_s, _, p_s, err = kernel_against_plain(torch, dev, f"diffusion {solver}", ops,
+                                                   "epic_layer", sample)
+        solvers[solver] = {"ode_steps": steps, "nfe": steps, "kernel_s": k_s, "plain_s": p_s,
+                           "largest_abs_x": float(x.abs().max()),
+                           "kernel_jets_per_s": FAMILY_JETS / k_s,
+                           "plain_jets_per_s": FAMILY_JETS / p_s,
+                           "max_abs_diff_kernel_vs_plain": err}
+
+    split = dm.train
+    batch = [torch.from_numpy(a[:64]) for a in (split.x, split.mask, split.cond)]
+    card = pinned_loss_and_grads(torch, model, trainer.state.net, [a.to(dev) for a in batch], 5)
+    cpu = pinned_loss_and_grads(torch, model, copy.deepcopy(trainer.state.net).cpu(), batch, 5)
+    agree = held_against("diffusion train step, card against CPU", card, cpu)
+    return {"args": args, "cli_s": cli_s, "epochs": len(history), "passes": passes,
+            "launches_per_pass": per_pass, "launches": got["epic_layer"],
+            "per_epoch": [{k: m[k] for k in ("epoch", "train_loss", "val_loss", "w1m_mean",
+                                             "w1p_mean")} for m in history],
+            "test_metrics": {k: v for k, v in metrics.items() if k.startswith("w1")},
+            "sampling_1000_jets": solvers, "train_step_card_vs_cpu_64_jets": agree}
+
+
+def family_train(torch, name, overrides, dev, counted, redraw_seed=None, **want):
+    """Compose an experiment, take FAMILY_TRAIN_STEPS steps of the Trainer's
+    step over its epoch batches (constant lr 1e-3) and check the launches."""
+    model, dm, cfg = compose_training([*overrides, "data.synthetic=true"])
+    dm.setup()
+    trainer, state = train_setup(torch, model, dm, cfg, dev)
+    if redraw_seed is not None:
+        redraw_parameters(torch, state.net, seed=redraw_seed)
+    data = trainer._place_train_split()
+    reset(counted)
+    losses, secs = run_steps(torch, trainer, state, data, FAMILY_TRAIN_STEPS)
+    got = launched(counted)
+    if not np.isfinite(losses).all():
+        fail(f"{name}: non-finite training loss {losses}")
+    expect(f"{name} training", got, **want)
+    return model, dm, state, {"batch": dm.batch_size, "steps": FAMILY_TRAIN_STEPS,
+                              "losses": losses, "median_step_ms": 1e3 * float(np.median(secs[2:])),
+                              "launches": got}
+
+
+def droid_phase(torch, sa, dev, counted) -> dict:
+    """jetnet/droid_tops30 (PC-Droid, droid_t_max 25) on path A's network
+    (attn_impl=packed, scores_dtype=null), every parameter re-drawn:
+    FAMILY_TRAIN_STEPS steps with 3 packed launches each, then 1000 jets,
+    midpoint, 100 steps from the 25 x N(0, 1) prior, kernel path against
+    plain path within PATH_TOL of the largest |x|."""
+    over = ["experiment=jetnet/droid_tops30",
+            "model.net_config.te_config.mha_config.attn_impl=packed",
+            "model.net_config.te_config.mha_config.scores_dtype=null"]
+    model, dm, state, train = family_train(
+        torch, "droid", over, dev, counted, redraw_seed=8,
+        packed_short_attention=3 * FAMILY_TRAIN_STEPS)
+    if (model.loss_type, model.droid_t_max) != ("droid", 25.0):
+        fail(f"droid: not the shipped experiment ({model.loss_type}, {model.droid_t_max})")
+    mask, cond = test_inputs(torch, dm, FAMILY_JETS, dev)
+    steps = 100
+
+    def sample():
+        return model.sample(state.net, torch.Generator(dev).manual_seed(12), cond=cond,
+                            mask=mask, ode_solver="midpoint", ode_steps=steps)
+    reset(counted)
+    x, k_s, _, p_s, err = kernel_against_plain(torch, dev, "droid", sa, "packed_short_attention",
+                                               sample, relative=True)
+    n_eval = 2 * (steps - 1)
+    expect("droid sampling", launched(counted), packed_short_attention=3 * n_eval)
+    return {"config": "jetnet/droid_tops30 (fm_droid_transformer, droid_t_max 25), attn_impl="
+                      "packed, scores_dtype=null, every parameter re-drawn", "train": train,
+            "sampling": {"jets": FAMILY_JETS, "ode_solver": "midpoint", "ode_steps": steps,
+                         "nfe": n_eval, "kernel_s": k_s, "plain_s": p_s,
+                         "kernel_jets_per_s": FAMILY_JETS / k_s,
+                         "plain_jets_per_s": FAMILY_JETS / p_s, "largest_abs_x":
+                             float(x.abs().max()), "diff_over_largest_kernel_vs_plain": err,
+                         "launches": 3 * n_eval},
+            "launches": train["launches"]["packed_short_attention"] + 3 * n_eval}
+
+
+def self_cond_phase(torch, ops, dev, counted) -> dict:
+    """jetnet/fm_selfcond_tops30 (CFM, self_cond, unconditional):
+    FAMILY_TRAIN_STEPS steps on the module path (no launch), then 1000 jets
+    through odeint_fixed_sc, midpoint, 200 steps (6 x 398 EPiC launches),
+    kernel path against plain path."""
+    model, dm, state, train = family_train(
+        torch, "self-cond", ["experiment=jetnet/fm_selfcond_tops30"], dev, counted)
+    if not model.self_cond or model.conditioned:
+        fail("self-cond: not the shipped experiment")
+    mask, _ = test_inputs(torch, dm, FAMILY_JETS, dev, cond=False)
+    steps = 200
+
+    def sample():
+        return model.sample(state.net, torch.Generator(dev).manual_seed(13), mask=mask,
+                            ode_solver="midpoint", ode_steps=steps)
+    reset(counted)
+    x, k_s, _, p_s, err = kernel_against_plain(torch, dev, "self-cond", ops, "epic_layer", sample)
+    got = launched(counted)
+    n_eval = 2 * (steps - 1)
+    expect("self-cond sampling", got, epic_layer=model.layers * n_eval)
+    return {"config": "jetnet/fm_selfcond_tops30 (CFM, self_cond, EPiC, N=30)", "train": train,
+            "sampling": {"jets": FAMILY_JETS, "ode_solver": "midpoint (odeint_fixed_sc)",
+                         "ode_steps": steps, "nfe": n_eval, "kernel_s": k_s, "plain_s": p_s,
+                         "kernel_jets_per_s": FAMILY_JETS / k_s,
+                         "plain_jets_per_s": FAMILY_JETS / p_s,
+                         "max_abs_diff_kernel_vs_plain": err},
+            "launches": got["epic_layer"]}
+
+
+def ot_phase(torch, dev, counted) -> dict:
+    """jetnet/ot_cfm_tops30 (CFM-OT): FAMILY_TRAIN_STEPS steps at batch 1024
+    on the module path; the Sinkhorn plan and its hardening timed on one
+    batch (CUDA events, the median of 5 after 2 of warm-up), and the pairing
+    of that batch equal, card against CPU."""
+    from particle_fm_tpu_torch.losses import ot as pot
+
+    model, dm, state, train = family_train(
+        torch, "OT-CFM", ["experiment=jetnet/ot_cfm_tops30"], dev, counted)
+    if model.loss_type != "CFM-OT":
+        fail("OT-CFM: not the shipped experiment")
+    x1 = torch.from_numpy(dm.train.x[:dm.batch_size])
+    x0 = torch.from_numpy(np.random.RandomState(4).randn(*x1.shape).astype(np.float32))
+    cpu = pot.ot_pair_indices(x0, x1)
+    card = pot.ot_pair_indices(x0.to(dev), x1.to(dev)).cpu()
+    differ = int((card != cpu).any(dim=1).sum())
+    if differ:
+        fail(f"OT-CFM: the pairing of {differ} of {len(x1)} sets differs, card against CPU")
+
+    cost = pot.pairwise_sq_dists(x0.to(dev), x1.to(dev))
+    cost = cost / cost.amax(dim=(1, 2), keepdim=True)
+
+    def event_ms(fn):
+        times = []
+        for i in range(7):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn()
+            b.record()
+            torch.cuda.synchronize()
+            if i >= 2:
+                times.append(a.elapsed_time(b))
+        return out, float(np.median(times))
+
+    plan, sinkhorn_ms = event_ms(lambda: pot.sinkhorn_plan(cost))
+    _, greedy_ms = event_ms(lambda: pot.greedy_perm_from_plan(plan))
+    return {"config": "jetnet/ot_cfm_tops30 (CFM-OT, sinkhorn reg 0.01, 50 iterations, EPiC, "
+                      "N=30)", "train": train, "pairing_sets": len(x1),
+            "pairing_card_vs_cpu": "equal", "sinkhorn_ms": sinkhorn_ms,
+            "greedy_ms": greedy_ms, "launches": 0}
+
+
+def dopri5_runs(torch, ops, dev, counted, model, net, mask, cond, solver, held=None):
+    """The same DOPRI5 sample on the kernel path and the plain path:
+    {path: (x, seconds, stats, launches)}. With `held` (a list), the kernel
+    path runs once more, untimed, each launch computed by the plain layer on
+    the same inputs as well, and the largest difference of each is appended."""
+    runs = {}
+    for path in ("kernel", "plain") + (("held",) if held is not None else ()):
+        stats = []
+        kernel = ops.epic_layer
+
+        def checked(*args, **kwargs):
+            out = kernel(*args, **kwargs)
+            want = ops.epic_layer_reference(*args, **kwargs)
+            held.append(torch.stack([(a - b).abs().max() for a, b in zip(out, want)]).max())
+            return out
+
+        checked.launches = 0  # the wrapper counts on the module's name, patched here
+
+        patch = {"kernel": kernel, "plain": ops.epic_layer_reference, "held": checked}[path]
+        reset(counted)
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        with mock.patch.object(ops, "epic_layer", patch):
+            x = model.sample(net, torch.Generator(dev).manual_seed(14), cond=cond, mask=mask,
+                             ode_solver=solver, stats=stats) * mask
+        sync(torch, dev)
+        secs = time.perf_counter() - t0
+        (st,) = stats
+        if not bool(torch.as_tensor(st["reached"]).all()):
+            fail(f"{solver} ({path} path): did not reach t=0: {st}")
+        runs[path] = (x, secs, st, launched(counted))
+    if held is not None:
+        held[:] = torch.stack(held).tolist()
+    return runs
+
+
+WITNESS_SETS = 64  # sets of the float64 per-set run, card against CPU
+
+
+def same_decisions(torch, st, st_p):
+    """Per set: whether two dopri5_per_sample runs accepted the same attempts
+    and took the same number of them."""
+    a, b = st["accepted"].cpu(), st_p["accepted"].cpu()
+    rows = max(len(a), len(b))
+    pad = lambda h: torch.cat([h, h.new_zeros((rows - len(h), h.shape[1]))])
+    return (pad(a) == pad(b)).all(dim=0) & (st["steps"].cpu() == st_p["steps"].cpu())
+
+
+def spread(torch, x, st, y, st_p) -> dict:
+    """How far two dopri5_per_sample results lie apart, per set: on every
+    set and on the sets with the same decisions."""
+    same = same_decisions(torch, st, st_p)
+    d = (x.double().cpu() - y.double().cpu()).abs().amax(dim=(1, 2))
+    return {"sets": len(d), "sets_with_other_decisions": int((~same).sum()),
+            "max_abs_diff": float(d.max()),
+            "max_abs_diff_same_decisions": float(d[same].max()) if bool(same.any()) else None,
+            "median_abs_diff_same_decisions": float(d[same].median()) if bool(same.any())
+            else None}
+
+
+def per_set_witnesses(torch, ops, dev, model, net, mask, cond, plain) -> dict:
+    """Two runs of dopri5_per_sample by the plain layer beside the kernel
+    path's: (1) the start moved by one float32 ulp on the card, shown: the
+    spread that float32 rounding alone gives; (2) the solver in float64 on
+    the card against the same on the CPU, on the first WITNESS_SETS sets,
+    checked: the same decisions on every set and results within PATH_TOL, so
+    per-set t, dt and accept masks are right on the card."""
+    from particle_fm_tpu_torch.models.flow_matching import draw_noise
+
+    def flow(net, z, cond, mask):
+        stats = []
+        with mock.patch.object(ops, "epic_layer", ops.epic_layer_reference):
+            x = model.integrate(net, z, cond, mask, "dopri5_per_sample", stats=stats) * mask
+        return x, stats[0]
+
+    z = draw_noise(torch.Generator(dev).manual_seed(14), (B, N, model.features), dev) * mask
+    base = flow(net, z, cond, mask)
+    if not torch.equal(base[0], plain[0]):
+        fail("dopri5_per_sample: integrate from the drawn start differs from sample")
+    ulp = torch.nextafter(z, torch.full_like(z, np.inf)) * mask
+    moved = spread(torch, *flow(net, ulp, cond, mask), *base)
+
+    def f64(device):
+        t0 = time.perf_counter()
+        args = [a[:WITNESS_SETS].to(device=device, dtype=torch.float64) for a in (z, cond, mask)]
+        out = flow(copy.deepcopy(net).to(device=device, dtype=torch.float64), *args)
+        return out, time.perf_counter() - t0
+
+    (card, card_s), (cpu, cpu_s) = f64(dev), f64(torch.device("cpu"))
+    held = spread(torch, *card, *cpu)
+    if held["sets_with_other_decisions"] or held["max_abs_diff"] > PATH_TOL:
+        fail(f"dopri5_per_sample in float64, card against CPU: {held} (the same decisions on "
+             f"every set and within {PATH_TOL} expected)")
+    return {"plain_start_moved_by_one_ulp": moved,
+            "float64_card_vs_cpu": {**held, "card_s": card_s, "cpu_s": cpu_s}}
+
+
+def dopri5_phase(torch, ops, dev, counted, model) -> dict:
+    """The flagship's network (fm_tops150_cond, seeded random weights) at
+    batch 640 by dopri5 (one step size for the batch) and dopri5_per_sample
+    (one per set, one batched loop): steps, NFE, reached, exact EPiC launches
+    (7 network passes a step, 6 layers), kernel path against plain path
+    within PATH_TOL, sets/s. The check runs with the sincos time embedding
+    (frequencies 6): with the flagship's cosine embedding (frequencies up to
+    e^31) the field is a chaotic function of t in float32, and the kernel's
+    rounding, through the error norm, moves every later step; that run is
+    shown beside it (steps of both paths and their difference), unchecked.
+    dopri5_per_sample reads each set's error norm over its own 450 values,
+    and float32 rounding alone moves a set's step sizes and decisions: on
+    this network a start moved by one ulp, on the plain layer, moves results
+    by up to 2e-2 on the sets with the same decisions (4e-2 on all), the
+    size by which the kernel and plain paths differ (H100 80GB HBM3, 700 W;
+    tests/test_torch_samplers_adaptive.py holds the port's loop against the
+    JAX loop on the same field). So on that path every EPiC
+    launch of the kernel run is held against the plain layer on the same
+    inputs (KERNEL_TOL, the kernel phase's limit), the solver is held in
+    float64 card against CPU (`per_set_witnesses`), and the kernel and plain
+    paths' results are shown beside the one-ulp spread."""
+    import dataclasses
+
+    rs = np.random.RandomState(9)
+    mask = torch.from_numpy(ragged_mask(rs, B, N)[..., None]).to(dev)
+    cond = torch.from_numpy(rs.randn(B, C).astype(np.float32)).to(dev)
+    sincos = dataclasses.replace(model, t_emb="sincos", frequencies=6)
+    net = sincos.init(seed=0, device=dev)
+    out = {}
+    for solver in ("dopri5", "dopri5_per_sample"):
+        held = [] if solver == "dopri5_per_sample" else None
+        runs = dopri5_runs(torch, ops, dev, counted, sincos, net, mask, cond, solver, held)
+        (x, k_s, st, got), (x_p, p_s, st_p, _) = runs["kernel"], runs["plain"]
+        per_set = torch.as_tensor(st["steps"]).float().reshape(-1)
+        per_set_p = torch.as_tensor(st_p["steps"]).float().reshape(-1)
+        if solver == "dopri5" and st["steps"] != st_p["steps"]:
+            fail(f"dopri5: the kernel path took {st['steps']} steps, the plain path "
+                 f"{st_p['steps']}")
+        err = float((x - x_p).abs().max())
+        if not bool(torch.isfinite(x).all() and torch.isfinite(x_p).all()):
+            fail(f"{solver}: non-finite samples")
+        if held is None and err > PATH_TOL:
+            fail(f"{solver}: kernel path against plain path: {err} (limit {PATH_TOL})")
+        if held is not None and not (len(held) == got["epic_layer"]
+                                     and max(held) <= KERNEL_TOL):
+            fail(f"{solver}: the kernel's {len(held)} launches against the plain layer on their "
+                 f"inputs: {max(held, default=None)} (limit {KERNEL_TOL})")
+        passes = st["steps"] if solver == "dopri5" else st["loops"]
+        expect(solver, got, epic_layer=7 * model.layers * passes)
+        out[solver] = {
+            "kernel_vs_plain": None if held is None else spread(torch, x, st, x_p, st_p),
+            "launches_held_against_plain": None if held is None else {
+                "launches": len(held), "max_abs_err": max(held)},
+            "witnesses": None if held is None else per_set_witnesses(
+                torch, ops, dev, sincos, net, mask, cond, runs["plain"]),
+            "steps_kernel": {"min": int(per_set.min()), "mean": float(per_set.mean()),
+                             "max": int(per_set.max())},
+            "steps_plain": {"min": int(per_set_p.min()), "mean": float(per_set_p.mean()),
+                            "max": int(per_set_p.max())},
+            "network_passes": 7 * passes, "nfe_per_set_mean": 7 * float(per_set.mean()),
+            "reached": True, "kernel_s": k_s, "plain_s": p_s, "kernel_sets_per_s": B / k_s,
+            "plain_sets_per_s": B / p_s, "max_abs_diff_kernel_vs_plain": err,
+            "launches": got["epic_layer"]}
+    cosine = dopri5_runs(torch, ops, dev, counted, model, model.init(seed=0, device=dev), mask,
+                         cond, "dopri5")
+    (x, k_s, st, got), (x_p, p_s, st_p, _) = cosine["kernel"], cosine["plain"]
+    out["dopri5_cosine_unchecked"] = {
+        "steps_kernel": st["steps"], "steps_plain": st_p["steps"], "kernel_s": k_s,
+        "plain_s": p_s, "max_abs_diff_kernel_vs_plain": float((x - x_p).abs().max()),
+        "launches": got["epic_layer"]}
+    return {"config": "fm_tops150_cond's network (seeded random weights) with t_emb=sincos, "
+                      "frequencies 6; rtol = atol = 1e-4", "batch": B, **out,
+            "launches": sum(out[s]["launches"] for s in out)}
+
+
+def log_prob_phase(torch, dev, counted, model) -> dict:
+    """log_prob of the flagship (seeded random weights, unfolded: no kernel),
+    Hutchinson with e from numpy, B=32, 20 steps (19 midpoint steps, jvp
+    under vmap), card against CPU within LOG_PROB_TOL relative."""
+    net = model.init(seed=0, device=dev)
+    rs = np.random.RandomState(10)
+    b = 32
+    mask = ragged_mask(rs, b, N)[..., None]
+    x = (rs.randn(b, N, 3) * mask).astype(np.float32)
+    cond = rs.randn(b, C).astype(np.float32)
+    eps = rs.randn(b, N, 3).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (x, cond, mask)]
+    reset(counted)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    card = model.log_prob(net, *[a.to(dev) for a in args], ode_steps=20, exact=False,
+                          eps=torch.from_numpy(eps).to(dev)).cpu()
+    card_s = time.perf_counter() - t0
+    expect("log_prob", launched(counted))
+    t0 = time.perf_counter()
+    cpu = model.log_prob(copy.deepcopy(net).cpu(), *args, ode_steps=20, exact=False,
+                         eps=torch.from_numpy(eps))
+    cpu_s = time.perf_counter() - t0
+    err = float((card - cpu).abs().max() / cpu.abs().max())
+    if not (bool(torch.isfinite(card).all()) and err <= LOG_PROB_TOL):
+        fail(f"log_prob: card against CPU {err} (limit {LOG_PROB_TOL} relative)")
+    return {"config": "fm_tops150_cond (seeded random weights), Hutchinson, 20 steps",
+            "sets": b, "card_s": card_s, "cpu_s": cpu_s, "rel_err_card_vs_cpu": err,
+            "log_prob_mean": float(cpu.mean()), "launches": 0}
 
 
 def main() -> None:
@@ -1229,11 +1712,33 @@ def main() -> None:
     timing = eval_timing_phase(torch, ops, dev, counted, ev)
     print(json.dumps({"eval": "eval timing", **timing}), flush=True)
     print(json.dumps({"eval_phases_s": time.perf_counter() - t0}), flush=True)
-    for path, launches in ((f"eval CLI (shipped callbacks, {ev['passes']} passes)", ev["launches"]),
+    for path, launches in ((f"eval CLI (shipped callbacks, {ev['passes']} passes)",
+                            ev["launches"]),
                            (f"eval timing ({timing['jets']:,} jets)",
                             timing["launches"]["epic_layer"])):
         kernels["epic_layer"]["launches"] += launches
         kernels["epic_layer"]["launches_by_path"][path] = launches
+
+    t0 = time.perf_counter()
+    fam = [("diffusion CLI (em, 200 steps, 3 passes)", "epic_layer",
+            lambda: diffusion_cli_phase(torch, ops, dev, counted)),
+           ("droid train + sample", "packed_short_attention",
+            lambda: droid_phase(torch, sa, dev, counted)),
+           ("self-cond sample", "epic_layer",
+            lambda: self_cond_phase(torch, ops, dev, counted)),
+           ("OT-CFM train", None, lambda: ot_phase(torch, dev, counted)),
+           ("DOPRI5 (dopri5, dopri5_per_sample)", "epic_layer",
+            lambda: dopri5_phase(torch, ops, dev, counted, epic)),
+           ("log_prob", None, lambda: log_prob_phase(torch, dev, counted, epic))]
+    for path, kernel_name, phase in fam:
+        t1 = time.perf_counter()
+        res = phase()
+        print(json.dumps({"family": path, "phase_s": time.perf_counter() - t1, **res}),
+              flush=True)
+        if kernel_name is not None:
+            kernels[kernel_name]["launches"] += res["launches"]
+            kernels[kernel_name]["launches_by_path"][path] = res["launches"]
+    print(json.dumps({"family_phases_s": time.perf_counter() - t0}), flush=True)
 
     kernels = list(kernels.values())
     print(json.dumps({"kernels": kernels}))

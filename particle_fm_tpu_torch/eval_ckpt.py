@@ -25,6 +25,8 @@ import os
 import numpy as np
 import yaml
 
+from particle_fm_tpu_torch.models.flow_matching import SOLVERS
+
 VARIABLES_TO_CLIP = ["part_etarel", "part_dphi", "part_ptrel"]
 
 
@@ -66,7 +68,7 @@ def parse_args(argv=None):
     ap.add_argument("--ckpt", default="best", choices=["best", "last"])
     ap.add_argument("--n_samples", type=int, default=None)
     ap.add_argument("--ode_steps", type=int, default=100)
-    ap.add_argument("--ode_solver", default="midpoint")
+    ap.add_argument("--ode_solver", default="midpoint", choices=SOLVERS)
     ap.add_argument("--batch_size", type=int, default=1024)
     ap.add_argument("--no-cache", action="store_true")
     ap.add_argument(

@@ -1,15 +1,18 @@
 """Training objectives; counterpart of particle_fm_tpu/losses/flow_matching.py.
 
-The port carries the two families whose drift is the network and whose loss
-needs no pairing: FM-OT and CFM. Every loss has the form
+All six families of the JAX package: FM-OT, CFM, CFM-OT (minibatch-OT
+pairing, losses/ot.py), reflow (CFM on a fixed teacher coupling),
+PC-JeDi VP-diffusion (noise prediction with the MLE weight) and PC-Droid
+(y = x + t*t_max*z). Every loss has the form
 
     loss(vf, generator, x, mask, cond) -> scalar
 
 where `vf(t, y, cond, mask)` is the vector-field network, t is (B,) (one
 time per set), x is (B, N, F) and mask is (B, N, 1) or None. Randomness
 comes from the explicit `torch.Generator`, drawn through `_sample_t` and
-`_normal` in the JAX package's order (t, then the noise), so a test can pin
-both. Both normalise as sum(err) / mask.sum().
+`_normal` in the JAX package's order (t, then the noises in the order the
+JAX function splits its key), so a test can pin them. All normalise by
+mask.sum().
 """
 
 from __future__ import annotations
@@ -18,11 +21,12 @@ from typing import Callable
 
 import torch
 
+from particle_fm_tpu_torch.losses.diffusion import VPDiffusionSchedule
+from particle_fm_tpu_torch.losses.ot import gather_particles, ot_pair_indices
 from particle_fm_tpu_torch.ops.masked import huber
 
 VF = Callable  # vf(t: (B,), y: (B, N, F), cond, mask) -> (B, N, F)
 
-PORTED_LOSSES = ("FM-OT", "CFM")
 CRITERIA = ("mse", "huber")
 
 
@@ -103,8 +107,126 @@ def cfm_loss(
     return _reduce(_criterion(v, u, criterion), mask)
 
 
-def get_loss_fn(loss_type: str, sigma: float = 1e-4, criterion: str = "mse") -> Callable:
+def cfm_ot_loss(
+    vf: VF,
+    generator: torch.Generator,
+    x: torch.Tensor,
+    mask: torch.Tensor | None = None,
+    cond: torch.Tensor | None = None,
+    sigma: float = 1e-4,
+    criterion: str = "mse",
+    ot_method: str = "sinkhorn",
+    ot_reg: float = 0.01,
+    ot_iters: int = 50,
+) -> torch.Tensor:
+    """CFM with the noise particles of each set paired to its data particles
+    by a minibatch-OT permutation; each set's mask is permuted with it."""
+    if mask is None:
+        mask = _ones_mask(x)
+    t = _sample_t(generator, x.shape[0], x.device)
+    tb = _tb(t, x)
+    x0 = _normal(generator, x.shape, x.device)
+    x1 = x
+    with torch.no_grad():
+        j = ot_pair_indices(x0, x1, method=ot_method, reg=ot_reg, n_iters=ot_iters)
+    x1p = gather_particles(x1, j)
+    mask_ot = gather_particles(mask, j)
+    mu_t = x0 * tb + x1p * (1.0 - tb)
+    y = mu_t + sigma * _normal(generator, x.shape, x.device)
+    u = (x0 - x1p) * mask_ot
+    v = vf(t, y, cond, mask_ot)
+    return _reduce(_criterion(v, u, criterion), mask)
+
+
+def reflow_loss(
+    vf: VF,
+    generator: torch.Generator,
+    x: torch.Tensor,
+    mask: torch.Tensor | None = None,
+    cond: torch.Tensor | None = None,
+    sigma: float = 1e-4,
+    criterion: str = "mse",
+) -> torch.Tensor:
+    """Rectified flow: CFM on the fixed teacher coupling packed along the
+    feature axis, x = concat(x1 teacher sample, x0 its prior noise)."""
+    if x.shape[-1] % 2 != 0:
+        raise ValueError("reflow batches must pack concat(x1, x0) pairs")
+    f = x.shape[-1] // 2
+    x1, x0 = x[..., :f], x[..., f:]
+    if mask is None:
+        mask = _ones_mask(x1)
+    t = _sample_t(generator, x1.shape[0], x1.device)
+    tb = _tb(t, x1)
+    mu_t = (1.0 - tb) * x1 + tb * x0
+    y = mu_t + sigma * _normal(generator, x1.shape, x1.device)
+    u = (x0 - x1) * mask
+    v = vf(t, y, cond, mask)
+    return _reduce(_criterion(v, u, criterion), mask)
+
+
+def diffusion_loss(
+    vf: VF,
+    generator: torch.Generator,
+    x: torch.Tensor,
+    mask: torch.Tensor | None = None,
+    cond: torch.Tensor | None = None,
+    criterion: str = "huber",
+    schedule: VPDiffusionSchedule = VPDiffusionSchedule(max_sr=1.0, min_sr=1e-8),
+    mle_loss_weight: float = 0.001,
+) -> torch.Tensor:
+    """PC-JeDi VP-diffusion: the network predicts the noise z of
+    signal_rate * x + noise_rate * z, plus `mle_loss_weight` times the same
+    error weighted by beta / noise_rate."""
+    if mask is None:
+        mask = _ones_mask(x)
+    t = _sample_t(generator, x.shape[0], x.device)
+    tb = _tb(t, x)
+    z = _normal(generator, x.shape, x.device) * mask
+    signal_rates, noise_rates = schedule(tb)
+    noisy = signal_rates * x + noise_rates * z
+    pred = vf(t, noisy, cond, mask)
+    simple = _criterion(z, pred, criterion) * mask
+    out = torch.sum(simple) / torch.sum(mask)
+    if mle_loss_weight:
+        mle = (schedule.get_betas(tb) / noise_rates) * simple
+        out = out + mle_loss_weight * torch.sum(mle) / torch.sum(mask)
+    return out
+
+
+def droid_loss(
+    vf: VF,
+    generator: torch.Generator,
+    x: torch.Tensor,
+    mask: torch.Tensor | None = None,
+    cond: torch.Tensor | None = None,
+    criterion: str = "mse",
+    t_max: float = 1.0,
+) -> torch.Tensor:
+    """PC-Droid: y = x + s*t_max*z with the network time s in [0, 1], target
+    u = z. t_max >> the data's spread makes the s=1 marginal t_max*N(0, 1),
+    the sampler's prior (see the JAX function's docstring)."""
+    if mask is None:
+        mask = _ones_mask(x)
+    t = _sample_t(generator, x.shape[0], x.device)
+    tb = _tb(t, x) * t_max
+    z = _normal(generator, x.shape, x.device)
+    y = x + tb * z
+    u = z * mask
+    v = vf(t, y, cond, mask)
+    return _reduce(_criterion(v, u, criterion), mask)
+
+
+def get_loss_fn(
+    loss_type: str,
+    sigma: float = 1e-4,
+    criterion: str = "mse",
+    diff_config: dict | None = None,
+    ot_config: dict | None = None,
+    droid_t_max: float = 1.0,
+) -> Callable:
     """`loss(vf, generator, x, mask, cond)` for a loss_type string."""
+    diff_config = diff_config or {"max_sr": 1.0, "min_sr": 1e-8}
+    ot_config = ot_config or {}
     if loss_type == "FM-OT":
         return lambda vf, generator, x, mask=None, cond=None: fm_ot_loss(
             vf, generator, x, mask, cond, sigma=sigma, criterion=criterion
@@ -113,6 +235,21 @@ def get_loss_fn(loss_type: str, sigma: float = 1e-4, criterion: str = "mse") -> 
         return lambda vf, generator, x, mask=None, cond=None: cfm_loss(
             vf, generator, x, mask, cond, sigma=sigma, criterion=criterion
         )
-    raise NotImplementedError(
-        f"the {loss_type} loss is not ported (the port trains {', '.join(PORTED_LOSSES)})"
-    )
+    if loss_type == "reflow":
+        return lambda vf, generator, x, mask=None, cond=None: reflow_loss(
+            vf, generator, x, mask, cond, sigma=sigma, criterion=criterion
+        )
+    if loss_type == "CFM-OT":
+        return lambda vf, generator, x, mask=None, cond=None: cfm_ot_loss(
+            vf, generator, x, mask, cond, sigma=sigma, criterion=criterion, **ot_config
+        )
+    if loss_type == "diffusion":
+        sched = VPDiffusionSchedule(**diff_config)
+        return lambda vf, generator, x, mask=None, cond=None: diffusion_loss(
+            vf, generator, x, mask, cond, criterion=criterion, schedule=sched
+        )
+    if loss_type == "droid":
+        return lambda vf, generator, x, mask=None, cond=None: droid_loss(
+            vf, generator, x, mask, cond, criterion=criterion, t_max=droid_t_max
+        )
+    raise NotImplementedError(f"Loss type {loss_type} not implemented.")

@@ -3,8 +3,9 @@
 The port carries the EPiC branch, the two PC-Droid transformer branches
 (`droid_fulltransformer`, `droid_fullcrossattention`) and MDMA (`mdma`), the
 last three configured through `net_config`, with the parameter-free time
-embeddings (sincos, cosine), and the in-model normalisers of `CNFStack` with
-frozen statistics. The
+embeddings (sincos, cosine), self-conditioning (the field reads cat(x,
+x1_hat), x1_hat its own endpoint estimate, zeros when none is given), and the
+in-model normalisers of `CNFStack` with frozen statistics. The
 cosine ladder's frequency table is a non-persistent buffer built on the CPU
 the reference's way (see nets/time_emb.py); a test may overwrite it with the
 JAX package's table.
@@ -50,6 +51,7 @@ class CNF(nn.Module):
         t_emb: str = "sincos",
         sum_scale: float = 1e-2,
         net_config: Mapping[str, Any] | None = None,
+        self_cond: bool = False,
         generator: torch.Generator | None = None,
     ):
         super().__init__()
@@ -58,8 +60,10 @@ class CNF(nn.Module):
         self.frequencies = frequencies
         self.t_emb = t_emb
         self.add_time_to_input = add_time_to_input
+        self.self_cond = self_cond
         t_dim = 2 * frequencies
-        in_feats = features + t_dim if add_time_to_input else features
+        point_feats = 2 * features if self_cond else features
+        in_feats = point_feats + t_dim if add_time_to_input else point_feats
         freqs = cosine_frequencies(t_dim) if t_emb == "cosine" else torch.empty(0)
         self.register_buffer("cos_freqs", freqs, persistent=False)
         encoders = {"droid_fulltransformer": FullTransformerEncoder,
@@ -106,8 +110,12 @@ class CNF(nn.Module):
         x: torch.Tensor,
         cond: torch.Tensor | None = None,
         mask: torch.Tensor | None = None,
+        x_sc: torch.Tensor | None = None,
     ) -> torch.Tensor:
-        """t: scalar or (B,) -> v(t, x) of x's shape."""
+        """t: scalar or (B,) -> v(t, x) of x's shape; `x_sc` is the
+        self-conditioning estimate."""
+        if self.self_cond:
+            x = torch.cat([x, torch.zeros_like(x) if x_sc is None else x_sc], dim=-1)
         b, n, _ = x.shape
         freqs = self.cos_freqs if self.t_emb == "cosine" else None
         emb = time_embedding(t, self.t_emb, self.frequencies, freqs).to(x.dtype)
@@ -138,15 +146,15 @@ class CNFStack(nn.Module):
                 self.ctxt_normaliser = IterativeNormLayer(global_cond_dim,
                                                           **dict(normaliser_config or {}))
 
-    def forward(self, t, x, cond=None, mask=None):
+    def forward(self, t, x, cond=None, mask=None, x_sc=None):
         """Vector field v(t, x): the composition of all flow transforms."""
         for flow in self.flows:
-            x = flow(t, x, cond=cond, mask=mask)
+            x = flow(t, x, cond=cond, mask=mask, x_sc=x_sc)
         return x
 
-    def flow_k(self, k: int, t, x, cond=None, mask=None):
+    def flow_k(self, k: int, t, x, cond=None, mask=None, x_sc=None):
         """Apply a single flow transform (for per-flow ODE integration)."""
-        return self.flows[k](t, x, cond=cond, mask=mask)
+        return self.flows[k](t, x, cond=cond, mask=mask, x_sc=x_sc)
 
     def normalise(self, x, mask=None):
         return self.normaliser(x, mask)

@@ -31,7 +31,8 @@ _LN_EPS = 1e-5
 
 def _no_dropout(drp: float) -> None:
     if drp > 0:
-        raise NotImplementedError(f"dropout (drp={drp}) is not ported: the port serves, it does not train")
+        raise NotImplementedError(
+            f"dropout (drp={drp}) is not ported: the port trains and samples without it")
 
 
 def _broadcast_ctxt(ctxt: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

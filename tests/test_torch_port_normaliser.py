@@ -184,8 +184,12 @@ def test_statistics_are_carried_and_checked_both_ways():
 
 
 def test_self_cond_and_dtype_go_on_raising():
-    for bad in (dict(self_cond=True), dict(dtype="bfloat16")):
-        with pytest.raises(NotImplementedError):
+    """dtype is not ported; self_cond raises where the JAX model raises: with
+    a loss whose path is not linear and with more than one flow."""
+    with pytest.raises(NotImplementedError):
+        pfm.FlowMatchingModel(dtype="bfloat16")
+    for bad in (dict(self_cond=True, loss_type="diffusion"), dict(self_cond=True, n_transforms=2)):
+        with pytest.raises(ValueError, match="self_cond"):
             pfm.FlowMatchingModel(**bad)
     assert pfm.FlowMatchingModel(use_normaliser=True, normaliser_config={"max_n": 10}).init(
         device="cpu").normaliser.max_n == 10

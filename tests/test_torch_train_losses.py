@@ -92,12 +92,6 @@ def test_loss_draws_come_from_the_generator():
     assert run(0) == run(0) != run(1)
 
 
-@pytest.mark.parametrize("loss_type", ["CFM-OT", "diffusion", "droid", "reflow"])
-def test_unported_losses_raise(loss_type):
-    with pytest.raises(NotImplementedError, match=loss_type):
-        ploss.get_loss_fn(loss_type)
-
-
 @pytest.mark.parametrize("step,start,every", [(0, 0, 1), (3, 5, 1), (5, 5, 1), (6, 0, 4),
                                               (8, 0, 4)])
 def test_ema_update_matches_jax(step, start, every):

@@ -192,3 +192,46 @@ def grads_by_name(flax_tree) -> dict[str, np.ndarray]:
     from particle_fm_tpu_torch.utils.from_jax import state_dict_from_flax
 
     return {k: v.numpy() for k, v in state_dict_from_flax(jax.device_get(flax_tree)).items()}
+
+
+def jax_sde_noise(seed: int, shape, n_steps: int) -> list[np.ndarray]:
+    """The per-step noise FlowMatchingModel.sample's Euler-Maruyama draws
+    from PRNGKey(seed): the second key of the sampler's split, then one
+    `split` a step."""
+    _, key = jax.random.split(jax.random.PRNGKey(seed))
+    out = []
+    for _ in range(n_steps):
+        key, sub = jax.random.split(key)
+        out.append(np.asarray(jax.random.normal(sub, shape)))
+    return out
+
+
+def pin_sde_noise(monkeypatch, arrays) -> None:
+    """Make the port's Euler-Maruyama replay `arrays`, one a step."""
+    from particle_fm_tpu_torch.samplers import sde as psde
+
+    queue = iter(arrays)
+
+    def draw(_gen, shape, device):
+        a = next(queue)
+        assert tuple(a.shape) == tuple(shape)
+        return t(a).to(device)
+
+    monkeypatch.setattr(psde, "_normal", draw)
+
+
+def pin_self_cond(monkeypatch, use: np.ndarray) -> None:
+    """Make both packages' self-conditioned losses hand the estimate to the
+    sets of the boolean array `use` (B, 1, 1): the port's `_use_sc` and the
+    JAX loss's `jax.random.bernoulli(rng, 0.5, (B, 1, 1))`."""
+    from particle_fm_tpu_torch.models import flow_matching as pflow
+
+    bernoulli = jax.random.bernoulli
+
+    def jax_draw(key, p=0.5, shape=None):
+        if p == 0.5 and tuple(shape or ()) == use.shape:
+            return jnp.asarray(use)
+        return bernoulli(key, p, shape)
+
+    monkeypatch.setattr(jax.random, "bernoulli", jax_draw)
+    monkeypatch.setattr(pflow, "_use_sc", lambda _g, shape, dev: torch.from_numpy(use).to(dev))
