@@ -16,8 +16,11 @@
      (B=640, N=150, H=128, L=10, t=32, cond 2 on both MLP paths, float32,
      multiplicities 30-150), at lhco/bigPC's (B=128, N=558, H=256, L=256,
      cond 10 on both) and at jetclass/jetclass_cond's (B=512, N=128, H=300,
-     L=16, cond 12 on the global path only); checked only at N of 1, 15, 16,
-     17 and 558, at H of 3, 48, 136, 140, 256 and 300, and with x times 4;
+     L=16, cond 12 on the global path only), and at the generation batches of
+     the dataset phases (lhco/bigPC B=2048, N=558; lhco/whole_event B=2048,
+     N=560, cond 1; lhco/x_jet B=256, N=279, cond 4; jetclass_cond B=1000);
+     checked only at N of 1, 15, 16, 17 and 558, at H of 3, 48, 136, 140, 256
+     and 300, and with x times 4;
    - packed short-set attention (csrc/short_attention.cu, on the tensor
      cores through csrc/attention_mma.cuh) at the PC-Droid transformer's
      shape (B=640, L=150, 16 heads of 16, ragged key mask, q/k/v as the three
@@ -149,9 +152,41 @@
      unchecked;
    - log_prob: the flagship, Hutchinson, B=32, 20 steps, card against CPU
      within 1e-3 relative.
-7. Prints the `kernels` JSON line (the launches of the training, eval and
-   family phases under `launches_by_path` too), the card line again, and as
-   the last line {"ok": true, "device": {...}}.
+7. Dataset phases: the shipped LHCO, JetClass and CaloChallenge experiments
+   at full width through the training entry point on synthetic data, each
+   with its `dataset` line, the overrides it makes against the shipped
+   config among them, and their total:
+   - lhco/bigPC (EPiC, hidden and latent 256, 8 layers, cond 10, both jets
+     in one 558-particle cloud; `data.num_particles=279` per jet), 4000
+     events, batch 128, 2 epochs; lhco_eval and lhco_eval_sr (batch 2048,
+     midpoint, ode_steps 50, W1 over 10 bootstrap batches in place of 40)
+     once each in the test pass on 2,048 sets: exactly 2 x 8 x 98 EPiC
+     launches; then one batch of 2,048 with the EMA weights, 10 steps,
+     kernel against plain within 1e-4 of the largest |x|;
+   - lhco/whole_event (560-particle events, cond mjj), 12000 events, batch
+     1024, 1 epoch; the whole-event callback (batch 2048, ode_steps 50) in
+     the test pass on 2,048 events (10 bootstrap batches): anti-kt clustering
+     of 2,048 generated and 2,048 real events, exactly 6 x 98 launches;
+   - jetclass/jetclass_cond (13 features, 128 particles, hidden 300, 20
+     layers, cond 12 on the global path), 4,096 synthetic train jets of all
+     10 types handed to the datamodule in memory (no h5 file), batch 1024, 2
+     epochs with the per-jet-type validation losses; jetnet_eval with
+     per_type_w1 (batch 1000, ode_steps 200, 10 bootstrap batches) in the
+     test pass on 1,000 jets: exactly 20 x 398 launches; then one batch of
+     1,000 kernel against plain within 1e-4 of the largest |x|;
+   - calo/mdma_calo at its shipped width and lengths (8 heads of 32:
+     attention(impl="auto") takes the einsum path, so no kernel runs): 2,000
+     synthetic showers of 190 to 6,000 hits (1,700 on average) written from
+     the seed as the ragged npz the datamodule reads, bucketed host batches
+     (multiples of 64) under the shipped 400,000-hit budget, which binds,
+     with the alpha rotation and the fitted scaler, streamed through the
+     Trainer's prefetch worker, 2 epochs; calo_eval (ode_steps 100) in the
+     test pass on 64 test showers in one batch of 64; then one streamed
+     epoch timed and one profiled for the device's busy share, and the
+     peak device memory of training.
+8. Prints the `kernels` JSON line (the launches of the training, eval,
+   family and dataset phases under `launches_by_path` too), the card line
+   again, and as the last line {"ok": true, "device": {...}}.
 
 Every failure exits non-zero before the last line. The script needs the
 repository beside it and a CUDA device; it imports nothing of JAX.
@@ -303,6 +338,17 @@ def kernel_phase(torch, ops, dev) -> dict:
         # configs/experiment/jetclass/jetclass_cond.yaml: hidden 300, latent 16, cond 12 global
         "jetclass/jetclass_cond": epic_measure(
             torch, ops, *epic_case(torch, dev, 2, 512, 128, 300, 16, 12, local=False)),
+        # the generation shapes the dataset phases serve: the callbacks' batches of
+        # lhco/bigPC (2048), lhco/whole_event (2048 events of 560, cond 1), lhco/x_jet
+        # (256 of 279, cond 4) and jetclass_cond (1000)
+        "lhco/bigPC generation": epic_measure(
+            torch, ops, *epic_case(torch, dev, 3, 2048, 558, 256, 256, 10)),
+        "lhco/whole_event generation": epic_measure(
+            torch, ops, *epic_case(torch, dev, 4, 2048, 560, 128, 10, 1)),
+        "lhco/x_jet generation": epic_measure(
+            torch, ops, *epic_case(torch, dev, 5, 256, 279, 128, 10, 4)),
+        "jetclass/jetclass_cond generation": epic_measure(
+            torch, ops, *epic_case(torch, dev, 6, 1000, 128, 300, 16, 12, local=False)),
     }
     # the edges of the row tiles, the widths around the padding and the
     # weights' two homes, and x times 4 (split-precision TF32's error grows
@@ -1143,10 +1189,11 @@ def test_inputs(torch, dm, n: int, dev, cond: bool = True):
     return mask, c
 
 
-def kernel_against_plain(torch, dev, name, owner, wrapper, sample, relative=False):
+def kernel_against_plain(torch, dev, name, owner, wrapper, sample, relative=False,
+                         tol=PATH_TOL):
     """(kernel-path result, seconds, plain-path result, seconds, error): the
     same call with `owner.wrapper` replaced by its plain version; the error
-    is absolute, or over the plain path's largest |x|."""
+    is absolute, or over the plain path's largest |x|, and at most `tol`."""
     sync(torch, dev)
     t0 = time.perf_counter()
     got = sample()
@@ -1160,8 +1207,8 @@ def kernel_against_plain(torch, dev, name, owner, wrapper, sample, relative=Fals
     err = float((got - want).abs().max())
     if relative:
         err /= float(want.abs().max())
-    if not (bool(torch.isfinite(got).all()) and err <= PATH_TOL):
-        fail(f"{name}: kernel path against plain path: {err} (limit {PATH_TOL}"
+    if not (bool(torch.isfinite(got).all()) and err <= tol):
+        fail(f"{name}: kernel path against plain path: {err} (limit {tol}"
              f"{' of the largest |x|' if relative else ''})")
     return got, k_s, want, p_s, err
 
@@ -1565,6 +1612,307 @@ def log_prob_phase(torch, dev, counted, model) -> dict:
             "log_prob_mean": float(cpu.mean()), "launches": 0}
 
 
+# dataset phases: the shipped LHCO, JetClass and CaloChallenge experiments at
+# full width through the training entry point on synthetic data
+GEN_REL_TOL = 1e-4  # kernel path against plain path, of the largest |x|
+GEN_CHECK_STEPS = 10  # midpoint steps of the kernel-against-plain batch (18 evaluations)
+
+
+def dataset_cli(torch, name, experiment, overrides, counted):
+    """train.main on `experiment` with `overrides` (against the shipped
+    config), with generate_data and the clusterer timed on the host clock
+    (each ends on the host); returns (metrics, objects, seconds, launches,
+    timings)."""
+    import shutil
+
+    from particle_fm_tpu_torch import train as ptrain
+    from particle_fm_tpu_torch.eval import callbacks as pcb
+    from particle_fm_tpu_torch.eval import lhco_utils
+
+    out_root = ROOT / "build" / f"{name}_smoke"
+    shutil.rmtree(out_root, ignore_errors=True)
+    timings = {"generate_data_s": [], "sets": [], "cluster_data_s": [], "clustered_events": []}
+
+    def timed(fn, seconds, counts, size):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            timings[seconds].append(time.perf_counter() - t0)
+            timings[counts].append(size(args, kwargs))
+            return out
+        return run
+
+    gen = timed(pcb.generate_data, "generate_data_s", "sets",
+                lambda a, kw: kw.get("num_jet_samples", a[2] if len(a) > 2 else None))
+    clu = timed(lhco_utils.cluster_data, "cluster_data_s", "clustered_events",
+                lambda a, kw: len(a[0]))
+    reset(counted)
+    t0 = time.perf_counter()
+    with mock.patch.object(pcb, "generate_data", gen), \
+            mock.patch.object(lhco_utils, "cluster_data", clu):
+        metrics, objs = ptrain.main([f"experiment={experiment}", *overrides,
+                                     f"output_dir={out_root}"])  # the main path
+    cli_s = time.perf_counter() - t0
+    return metrics, objs, cli_s, launched(counted), timings
+
+
+def finite_history(name, history, keys) -> None:
+    for m in history:
+        if not all(np.isfinite(m.get(k, np.nan)) for k in keys):
+            fail(f"{name}: epoch {m.get('epoch')} logged no finite {keys}: {m}")
+
+
+def generation_check(torch, ops, dev, counted, name, model, net, dm, n) -> dict:
+    """One generated batch of n sets with the trained EMA weights (the test
+    split's masks and cond tiled), midpoint, GEN_CHECK_STEPS steps: kernel
+    path against plain path within GEN_REL_TOL of the largest |x|, and the
+    exact launches of the kernel path."""
+    mask, cond = test_inputs(torch, dm, n, dev)
+
+    def sample():
+        gen = torch.Generator(dev).manual_seed(11)
+        return model.sample(net, gen, cond=cond, mask=mask, ode_solver="midpoint",
+                            ode_steps=GEN_CHECK_STEPS) * mask
+
+    reset(counted)
+    x, k_s, _, p_s, err = kernel_against_plain(torch, dev, name, ops, "epic_layer", sample,
+                                               relative=True, tol=GEN_REL_TOL)
+    evals = 2 * (GEN_CHECK_STEPS - 1)
+    expect(f"{name} (kernel against plain)", launched(counted), epic_layer=model.layers * evals)
+    return {"sets": n, "shape": list(x.shape), "evaluations": evals,
+            "kernel_ms_per_evaluation": 1e3 * k_s / evals,
+            "plain_ms_per_evaluation": 1e3 * p_s / evals, "largest_abs_x": float(x.abs().max()),
+            "max_abs_diff_over_largest": err, "limit": GEN_REL_TOL}
+
+
+def eval_launches(cb, model, n) -> int:
+    """EPiC launches of one callback pass: layers x evaluations x batches."""
+    return model.layers * 2 * (cb.ode_steps - 1) * -(-n // cb.generation_batch_size)
+
+
+def lhco_bigpc_phase(torch, ops, dev, counted) -> dict:
+    """lhco/bigPC at its shipped width (EPiC, hidden and latent 256, 8 layers,
+    cond 10 on both paths, both jets in one 558-particle cloud), batch 128,
+    2 epochs, and the shipped lhco_eval and lhco_eval_sr (batch 2048, midpoint,
+    ode_steps 50, EMA weights), which run once each, in the test pass, on
+    2,048 sets of the test split and of its signal-region twin: exactly
+    2 x 8 x 98 EPiC launches. Then one batch of 2,048 kernel against plain."""
+    overrides = ["data.synthetic=true", "data.synthetic_num_events=4000",
+                 # per jet: the synthetic events' two jets make the 558-particle cloud
+                 "data.num_particles=279", "trainer.max_epochs=2",
+                 "callbacks.lhco_eval.num_jet_samples=2048",
+                 "callbacks.lhco_eval_sr.num_jet_samples=2048",
+                 "callbacks.lhco_eval.w1_kwargs.num_batches=10",
+                 "callbacks.lhco_eval_sr.w1_kwargs.num_batches=10"]
+    metrics, objs, cli_s, got, timings = dataset_cli(torch, "lhco_bigpc", "lhco/bigPC",
+                                                     overrides, counted)
+    trainer, model, dm = objs["trainer"], objs["model"], objs["datamodule"]
+    cbs = trainer.callbacks
+    if ((model.hidden_dim, model.latent, model.layers, model.num_particles)
+            != (256, 256, 8, 558) or dm.train.x.shape[1] != 558
+            or [(cb.split, cb.generation_batch_size, cb.ode_steps) for cb in cbs]
+            != [("test", 2048, 50), ("test_sr", 2048, 50)]):
+        fail(f"lhco/bigPC: not the shipped experiment: {model}, {cbs}, {dm.train.x.shape}")
+    finite_history("lhco/bigPC", trainer.metrics_history, ("train_loss", "val_loss"))
+    if not all(np.isfinite(metrics.get(k, np.nan)) for k in ("w1m_mean", "w1p_mean")):
+        fail(f"lhco/bigPC: the test pass gave no finite W1: {metrics}")
+    per_pass = eval_launches(cbs[0], model, 2048)
+    expect("lhco/bigPC CLI", got, epic_layer=len(cbs) * per_pass)
+    check = generation_check(torch, ops, dev, counted, "lhco/bigPC generation", model,
+                             trainer.state.ema_network(), dm, 2048)
+    return {"overrides": overrides, "cli_s": cli_s, "epochs": len(trainer.metrics_history),
+            "steps_per_epoch": dm.steps_per_epoch, "train_events": len(dm.train),
+            "per_epoch": [{k: m[k] for k in ("epoch", "train_loss", "val_loss", "epoch_time")}
+                          for m in trainer.metrics_history],
+            "test_metrics": {k: v for k, v in metrics.items() if k.startswith("w1")},
+            "timings": timings, "launches_per_pass": per_pass, "passes": len(cbs),
+            "launches": got["epic_layer"], "kernel_vs_plain_2048": check}
+
+
+def lhco_whole_event_phase(torch, ops, dev, counted) -> dict:
+    """lhco/whole_event at its shipped width (EPiC on flow_matching.yaml,
+    560-particle events, cond mjj), batch 1024, 1 epoch, and the shipped
+    whole-event callback (batch 2048, midpoint, ode_steps 50, EMA weights) in
+    the test pass on 2,048 events (W1 over 10 bootstrap batches in place of
+    40): anti-kt (R=1) clustering of 2,048 generated and 2,048 real events
+    into their two leading jets, per-jet W1s and W1(mjj); exactly 6 x 98 EPiC
+    launches."""
+    overrides = ["data.synthetic=true", "data.synthetic_num_events=12000", "trainer.max_epochs=1",
+                 "callbacks.lhco_whole_event_eval.num_jet_samples=2048",
+                 "callbacks.lhco_whole_event_eval.w1_kwargs.num_batches=10"]
+    metrics, objs, cli_s, got, timings = dataset_cli(torch, "lhco_whole_event", "lhco/whole_event",
+                                                     overrides, counted)
+    trainer, model, dm = objs["trainer"], objs["model"], objs["datamodule"]
+    (cb,) = trainer.callbacks
+    if (model.num_particles, dm.train.x.shape[1], cb.generation_batch_size, cb.ode_steps) != (
+            560, 560, 2048, 50) or len(dm.tensor_test) < 2048:
+        fail(f"lhco/whole_event: not the shipped experiment or too few test events: {cb}, "
+             f"{dm.train.x.shape}, {len(dm.tensor_test)} test events")
+    finite_history("lhco/whole_event", trainer.metrics_history, ("train_loss", "val_loss"))
+    keys = ("w1m_mean_x", "w1p_mean_x", "w1m_mean_y", "w1mass_jet_mean_x", "w1_mjj_mean")
+    if not all(np.isfinite(metrics.get(k, np.nan)) for k in keys):
+        fail(f"lhco/whole_event: the test pass gave no finite {keys}: {metrics}")
+    if timings["clustered_events"] != [2048, 2048]:
+        fail(f"lhco/whole_event: clustered {timings['clustered_events']} events")
+    per_pass = eval_launches(cb, model, 2048)
+    expect("lhco/whole_event CLI", got, epic_layer=per_pass)
+    return {"overrides": overrides, "cli_s": cli_s, "steps_per_epoch": dm.steps_per_epoch,
+            "train_events": len(dm.train), "test_metrics": {
+                k: v for k, v in metrics.items() if k.startswith(("w1", "generation"))},
+            "timings": timings, "launches": got["epic_layer"]}
+
+
+def jetclass_cond_phase(torch, ops, dev, counted) -> dict:
+    """jetclass/jetclass_cond at its shipped width (EPiC, 13 features, 128
+    particles, hidden 300, latent 16, 20 layers, cond 12 on the global path
+    only), batch 1024, on 4,096 synthetic train jets of all 10 types handed
+    to the datamodule in memory (no h5 file), 2 epochs with the per-jet-type
+    validation losses, and the shipped jetnet_eval with per_type_w1 (batch
+    1000, midpoint, ode_steps 200) in the test pass on 1,000 jets: exactly
+    20 x 398 EPiC launches. Then one batch of 1,000 kernel against plain."""
+    overrides = ["data.synthetic=true", "data.synthetic_num_jets=4096",
+                 "data.synthetic_num_particles=128", "trainer.max_epochs=2",
+                 "callbacks.jetnet_eval.num_jet_samples=1000",
+                 "callbacks.jetnet_eval.w1_kwargs.num_batches=10"]
+    metrics, objs, cli_s, got, timings = dataset_cli(torch, "jetclass_cond",
+                                                     "jetclass/jetclass_cond", overrides, counted)
+    trainer, model, dm = objs["trainer"], objs["model"], objs["datamodule"]
+    (cb,) = trainer.callbacks
+    if ((model.features, model.hidden_dim, model.latent, model.layers, model.global_cond_dim,
+         model.local_cond_dim) != (13, 300, 16, 20, 12, 0) or dm.train.x.shape != (4096, 128, 13)
+            or dm.batch_size != 1024 or not trainer.loss_per_jettype or not cb.per_type_w1
+            or (cb.generation_batch_size, cb.ode_steps) != (1000, 200)):
+        fail(f"jetclass_cond: not the shipped experiment: {model}, {cb}, {dm.train.x.shape}")
+    types = [f"val_loss_{t}" for t in ("QCD", "Hbb", "Hcc", "Hgg", "H4q", "Hqql", "Zqq", "Wqq",
+                                        "Tbqq", "Tbl")]
+    finite_history("jetclass_cond", trainer.metrics_history[:1], ("val_loss", *types))
+    finite_history("jetclass_cond", trainer.metrics_history, ("train_loss", "val_loss"))
+    per_type = sorted(k for k in metrics if k.startswith("w1m_mean_"))
+    if not np.isfinite(metrics.get("w1m_mean", np.nan)) or len(per_type) != 10:
+        fail(f"jetclass_cond: the test pass gave no finite W1 or no per-type W1: {metrics}")
+    per_pass = eval_launches(cb, model, 1000)
+    expect("jetclass_cond CLI", got, epic_layer=per_pass)
+    check = generation_check(torch, ops, dev, counted, "jetclass_cond generation", model,
+                             trainer.state.ema_network(), dm, 1000)
+    return {"overrides": overrides, "cli_s": cli_s, "steps_per_epoch": dm.steps_per_epoch,
+            "per_epoch": [{k: m[k] for k in ("epoch", "train_loss", "val_loss", "epoch_time")}
+                          for m in trainer.metrics_history],
+            "val_loss_per_type_epoch_0": {k: trainer.metrics_history[0][k] for k in types},
+            "test_metrics": {k: v for k, v in metrics.items() if k.startswith("w1")},
+            "timings": timings, "launches": got["epic_layer"], "kernel_vs_plain_1000": check}
+
+
+def streamed_epoch(torch, trainer, epoch: int) -> tuple[int, int, float]:
+    """One epoch of the Trainer's streamed batches through its train step,
+    synchronised once at the end: (steps, hits incl. padding, seconds)."""
+    from particle_fm_tpu_torch.training.trainer import step_seed
+
+    dev = trainer.device
+    gen = torch.Generator(dev)
+    steps = tokens = 0
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    for batch in trainer._epoch_batches(None, epoch):
+        gen.manual_seed(step_seed(trainer.seed, trainer.state.step))
+        trainer.train_step(trainer.state, gen, *batch)
+        steps += 1
+        tokens += batch[0].shape[0] * batch[0].shape[1]
+    sync(torch, dev)
+    return steps, tokens, time.perf_counter() - t0
+
+
+CALO_SHOWERS = 2000  # 1,600 train, 200 val, 200 test
+CALO_EVAL_SHOWERS = 64
+
+
+def write_calo_showers(path: Path, n: int, seed: int) -> None:
+    """n synthetic showers at the shipped 6,000-hit width (synthetic_calo:
+    6000 x sqrt(E_inc / 1 TeV) hits, E_inc log-uniform 1 GeV..1 TeV, so 190
+    to 6,000 hits) as the npz of ragged showers and incident energies that
+    CaloChallengeDataModule reads from `dataset_file`."""
+    from particle_fm_tpu_torch.data.synthetic import synthetic_calo
+
+    x, mask, e_inc = synthetic_calo(n, 6000, seed=seed)
+    showers = np.empty(n, dtype=object)
+    for i in range(n):
+        showers[i] = x[i][mask[i, :, 0] > 0]
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, showers=showers, energies=e_inc[:, 0])
+
+
+def calo_phase(torch, dev, counted) -> dict:
+    """calo/mdma_calo at its shipped width (MDMA, hidden 256, 8 layers, 8
+    heads of 32) and lengths: 2,000 synthetic showers of up to 6,000 hits
+    from a file, batch 256 under the 400,000-hit budget (which binds: the
+    long showers come in batches of 66 and up), bucketed host batches
+    (multiples of 64) with the alpha rotation and the fitted scaler,
+    streamed through the Trainer's prefetch worker, 2 epochs, and the
+    shipped calo_eval (midpoint, ode_steps 100) in the test pass on 64 test
+    showers in one batch of 64 (the shipped 256 padded to the split's 6,000
+    hits would take 4 x the time). No kernel runs: `attention(impl="auto")`
+    takes the einsum path (JAX's rule: Lk >= 1024 and a head dim that is a
+    multiple of 128). Then one streamed epoch timed (synchronised at its
+    end) and one under the profiler for the device's busy share."""
+    from scripts.profile_torch_port import kernel_rows
+
+    showers = ROOT / "build" / "calo_smoke_showers.npz"
+    write_calo_showers(showers, CALO_SHOWERS, seed=7)
+    overrides = [f"data.dataset_file={showers}", "trainer.max_epochs=2",
+                 f"callbacks.calo_eval.num_showers={CALO_EVAL_SHOWERS}",
+                 f"callbacks.calo_eval.generation_batch_size={CALO_EVAL_SHOWERS}"]
+    sync(torch, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    metrics, objs, cli_s, got, timings = dataset_cli(torch, "calo", "calo/mdma_calo", overrides,
+                                                     counted)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    trainer, model, dm = objs["trainer"], objs["model"], objs["datamodule"]
+    (cb,) = trainer.callbacks
+    net_cfg = model.net_config
+    if ((net_cfg["hidden_dim"], net_cfg["layers"], net_cfg["num_heads"]) != (256, 8, 8)
+            or dm.device_cacheable or trainer._maybe_cache_train_data() is not None
+            or not dm.rotate_alpha or dm.scaler is None or dm.synthetic
+            or (dm.batch_size, dm.max_tokens_per_batch, dm.max_hits) != (256, 400_000, 6000)
+            or (cb.ode_solver, cb.ode_steps) != ("midpoint", 100)):
+        fail(f"calo: not the shipped experiment on the streaming path: {net_cfg}, {dm}, {cb}")
+    finite_history("calo", trainer.metrics_history, ("train_loss", "val_loss"))
+    keys = ("features_E", "features_z", "features_alpha", "features_R", "w1p_mean")
+    if not all(np.isfinite(metrics.get(k, np.nan)) for k in keys):
+        fail(f"calo: the test pass gave no finite {keys}: {metrics}")
+    if timings["sets"] != [CALO_EVAL_SHOWERS]:
+        fail(f"calo: calo_eval generated {timings['sets']} showers")
+    expect("calo CLI", got)  # every count 0
+    masks = [b[1] for b in dm.train_batches(seed=99)]
+    shapes, hits = [m.shape[:2] for m in masks], sum(int(m.sum()) for m in masks)
+    padded = [n * length for n, length in shapes]
+    if (max(length for _, length in shapes) != 6000 or max(padded) > 400_000
+            or min(n for n, _ in shapes) >= 256):
+        fail(f"calo: the batches are not at the shipped lengths under a binding budget: {shapes}")
+
+    streamed_epoch(torch, trainer, 5)  # warm-up: every bucket length once
+    steps, tokens, wall = streamed_epoch(torch, trainer, 6)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, _, profiled = streamed_epoch(torch, trainer, 6)
+    device_ms = sum(r["device_ms"] for r in kernel_rows(prof))
+    busy = device_ms / (1e3 * wall) if device_ms > 0 else None
+    return {"overrides": overrides, "cli_s": cli_s, "steps_per_epoch": dm.steps_per_epoch,
+            "train_showers": len(dm.train), "train_hits": hits,
+            "batches": [list(map(int, sh)) for sh in sorted(shapes)],
+            "kernels": "none: attention(impl='auto') takes the einsum path at 8 heads of 32 "
+                       "(JAX's rule: Lk >= 1024 and head dim % 128 == 0)",
+            "per_epoch": [{k: m[k] for k in ("epoch", "train_loss", "val_loss", "epoch_time")}
+                          for m in trainer.metrics_history],
+            "test_metrics": {k: v for k, v in metrics.items()
+                             if k.startswith(("features", "w1", "weighted", "generation"))},
+            "timings": timings, "launches": got, "train_peak_memory_gib": peak_gib,
+            "streamed_epoch": {"steps": steps, "hits_with_padding": tokens, "wall_s": wall,
+                               "ms_per_step": 1e3 * wall / steps,
+                               "showers_per_s": len(dm.train) / wall,
+                               "hits_per_s": hits / wall,
+                               "profiled_wall_s": profiled, "device_ms": device_ms,
+                               "device_busy_share": busy if busy is not None else "not measured"}}
+
+
 def main() -> None:
     import torch
 
@@ -1739,6 +2087,25 @@ def main() -> None:
             kernels[kernel_name]["launches"] += res["launches"]
             kernels[kernel_name]["launches_by_path"][path] = res["launches"]
     print(json.dumps({"family_phases_s": time.perf_counter() - t0}), flush=True)
+
+    t0 = time.perf_counter()
+    datasets = [("lhco/bigPC CLI (lhco_eval, lhco_eval_sr)", "epic_layer",
+                 lambda: lhco_bigpc_phase(torch, ops, dev, counted)),
+                ("lhco/whole_event CLI (whole-event callback)", "epic_layer",
+                 lambda: lhco_whole_event_phase(torch, ops, dev, counted)),
+                ("jetclass/jetclass_cond CLI (jetnet_eval, per-type)", "epic_layer",
+                 lambda: jetclass_cond_phase(torch, ops, dev, counted)),
+                ("calo/mdma_calo CLI (calo_eval, streamed)", None,
+                 lambda: calo_phase(torch, dev, counted))]
+    for path, kernel_name, phase in datasets:
+        t1 = time.perf_counter()
+        res = phase()
+        print(json.dumps({"dataset": path, "phase_s": time.perf_counter() - t1, **res}),
+              flush=True)
+        if kernel_name is not None:
+            kernels[kernel_name]["launches"] += res["launches"]
+            kernels[kernel_name]["launches_by_path"][path] = res["launches"]
+    print(json.dumps({"dataset_phases_s": time.perf_counter() - t0}), flush=True)
 
     kernels = list(kernels.values())
     print(json.dumps({"kernels": kernels}))

@@ -50,6 +50,10 @@ class ArrayDataModule:
     tensor_conditioning_val: Optional[np.ndarray] = field(default=None, repr=False)
     tensor_conditioning_test: Optional[np.ndarray] = field(default=None, repr=False)
     variable_jet_sizes: bool = True
+    # a split of fixed-shape batches may be placed on the device once for the
+    # whole run (the Trainer's cache); datamodules that build their batches
+    # on the host (bucketed lengths) turn this off and are streamed
+    device_cacheable: bool = True
 
     def setup(self) -> None:  # pragma: no cover - abstract
         raise NotImplementedError

@@ -1,6 +1,9 @@
 """Evaluation callbacks: mid-training generation and physics metrics;
-counterpart of the JetNet callbacks of particle_fm_tpu/eval/callbacks.py
-(`JetNetEvalCallback`, `FinalEvalCallback`, same fields and defaults).
+counterpart of particle_fm_tpu/eval/callbacks.py's `JetNetEvalCallback`
+(JetNet, JetClass and LHCO jets, with the `*_sr` splits of LHCO),
+`FinalEvalCallback`, `WholeEventEvalCallback` (LHCO whole events, clustered
+into their two leading jets) and `CaloEvalCallback` (CaloChallenge
+showers), with the same fields, defaults and metric names.
 
 Skeleton: on a logging schedule -> fixed seed -> EMA weights ->
 generate_data (batched, timed excluding warm-up) -> inverse-normalize -> W1
@@ -14,9 +17,9 @@ leaves the training run as it found it: the live network unfolded, its
 parameters and the optimizer untouched.
 
 Not ported: the plots (`make_plots=True` raises until eval/plotting.py is
-ported) and the other callbacks of the JAX module (whole-event LHCO, calo,
-flat, gen-challenge, classifier, device stats): a config that names one
-raises through config/core.py.
+ported) and the other callbacks of the JAX module (flat, gen-challenge,
+classifier, device stats): a config that names one raises through
+config/core.py.
 """
 
 from __future__ import annotations
@@ -29,8 +32,13 @@ from typing import Optional
 import numpy as np
 import yaml
 
+from particle_fm_tpu_torch.data.utils import get_mjj
 from particle_fm_tpu_torch.eval.generation import generate_data
-from particle_fm_tpu_torch.eval.metrics import calculate_all_wasserstein_metrics
+from particle_fm_tpu_torch.eval.metrics import (
+    calculate_all_wasserstein_metrics,
+    calculate_wasserstein_metrics_jets,
+    wasserstein_distance_batched,
+)
 from particle_fm_tpu_torch.training.logging_scheduler import should_log
 
 
@@ -43,6 +51,18 @@ def _tile_to(a, n: int):
         return a[:n]
     reps = -(-n // len(a))
     return np.concatenate([a] * reps, axis=0)[:n]
+
+
+def _hist_cdf_w1(real_vals, gen_vals, edges, weights_real=None, weights_gen=None):
+    """The CaloChallenge W1 estimator: fill fixed-bin histograms, then the
+    mean |CDF_gen - CDF_real| with both CDFs normalised to 1."""
+    hr, _ = np.histogram(real_vals, bins=edges, weights=weights_real)
+    hg, _ = np.histogram(gen_vals, bins=edges, weights=weights_gen)
+    cr = hr.cumsum().astype(float)
+    cg = hg.cumsum().astype(float)
+    if cr[-1] == 0 or cg[-1] == 0:
+        return float("nan")
+    return float(np.mean(np.abs(cg / cg[-1] - cr / cr[-1])))
 
 
 def eval_network(trainer, use_ema: bool):
@@ -308,3 +328,155 @@ class FinalEvalCallback(JetNetEvalCallback):
         with open(os.path.join(out_dir, "final_eval_metrics.yml"), "w") as f:
             yaml.safe_dump({k: float(v) for k, v in metrics.items()}, f)
         return metrics
+
+
+@dataclass
+class WholeEventEvalCallback(JetNetEvalCallback):
+    """Whole-event LHCO eval: generated event clouds are clustered with the
+    native anti-kt into their two leading jets and compared per jet
+    (constituent-level W1M/W1P and jet-feature W1), plus W1(mjj), against
+    held-out real events clustered the same way."""
+
+    cluster_R: float = 1.0
+    cluster_num_particles: int = 279
+
+    def __call__(self, trainer) -> Optional[dict]:
+        if not self._should_run(trainer):
+            return None
+        from particle_fm_tpu_torch.eval.lhco_utils import cluster_data
+
+        real, gen, n, gen_time = self._generate_vs_real(trainer)
+        real = real[:n]
+
+        def cluster(events_ephipt):
+            # datamodule layout (eta, phi, pt) -> the clusterer's (pt, eta, phi)
+            ev = np.asarray(events_ephipt)[..., [2, 0, 1]]
+            jets, consts, _ = cluster_data(
+                ev, num_particles=self.cluster_num_particles, R=self.cluster_R)
+            return jets, consts
+
+        jets_g, consts_g = cluster(gen)
+        jets_r, consts_r = cluster(real)
+
+        metrics = {"generation_time": gen_time}
+        for j, name in ((0, "x"), (1, "y")):
+            w1 = calculate_all_wasserstein_metrics(
+                consts_r[:, j][..., [1, 2, 0]],  # back to (eta, phi, pt)
+                consts_g[:, j][..., [1, 2, 0]],
+                calculate_efps=self.calculate_efps,
+                device=trainer.device,
+                **self.w1_kwargs,
+            )
+            metrics.update({f"{k}_{name}": v for k, v in w1.items()})
+            wj = calculate_wasserstein_metrics_jets(jets_r[:, j], jets_g[:, j], **self.w1_kwargs)
+            metrics.update({f"{k}_{name}": v for k, v in wj.items()})
+
+        mjj_r = get_mjj(jets_r[:, 0], jets_r[:, 1])
+        mjj_g = get_mjj(jets_g[:, 0], jets_g[:, 1])
+        ok_r, ok_g = np.isfinite(mjj_r), np.isfinite(mjj_g)
+        if ok_r.any() and ok_g.any():
+            mean, std = wasserstein_distance_batched(mjj_r[ok_r], mjj_g[ok_g], **self.w1_kwargs)
+            metrics["w1_mjj_mean"], metrics["w1_mjj_std"] = mean, std
+        return metrics
+
+
+@dataclass
+class CaloEvalCallback:
+    """CaloChallenge in-training eval with the challenge's histogram protocol:
+    fixed-binning histograms of the raw hit values (E: Regular(100, 0,
+    6500); z, alpha, R: one bin per integer, 45/16/9 bins), each W1 the mean
+    absolute CDF difference, plus energy-weighted z/alpha/R variants and the
+    sum(E)/E_inc response on Regular(100, 0.6, 1.1). Metric names:
+    features_E, features_z, features_alpha, features_R, features_*_weighted,
+    weighted_z, w1p_mean, w1_response, generation_time. The plots are not
+    ported: `make_plots=True` raises."""
+
+    every_n_epochs: int | str = 10
+    num_showers: int = 2000
+    generation_batch_size: int = 256
+    use_ema: bool = True
+    ode_solver: str = "midpoint"
+    ode_steps: int = 100
+    split: str = "test"
+    on_test: bool = False
+    seed: int = 9999
+    log_epoch_zero: bool = False
+    feature_names: tuple = ("E", "z", "alpha", "R")
+    e_hist: tuple = (100, 0.0, 6500.0)
+    int_bins: tuple = (45, 16, 9)  # z, alpha, R integer axes
+    response_hist: tuple = (100, 0.6, 1.1)
+    make_plots: bool = False
+
+    def __post_init__(self):
+        if self.make_plots:
+            raise NotImplementedError(
+                "CaloEvalCallback(make_plots=True): the plots (eval/plotting.py) are not "
+                "ported; pass make_plots=False")
+
+    def __call__(self, trainer) -> Optional[dict]:
+        if not getattr(trainer, "testing", False):
+            if trainer.epoch == 0 and not self.log_epoch_zero:
+                return None
+            if not should_log(self.every_n_epochs, trainer.epoch):
+                return None
+        dm = trainer.datamodule
+        real = getattr(dm, f"tensor_{self.split}")
+        mask = getattr(dm, f"mask_{self.split}")
+        cond = getattr(dm, f"tensor_conditioning_{self.split}")
+        n = min(self.num_showers, len(real))
+        gen, gen_time = generate_data(
+            trainer.model,
+            eval_network(trainer, self.use_ema),
+            num_jet_samples=n,
+            batch_size=self.generation_batch_size,
+            cond=cond[:n] if cond is not None else None,
+            variable_set_sizes=True,
+            mask=mask[:n],
+            normalized_data=dm.means is not None,
+            normalize_sigma=getattr(dm, "normalize_sigma", 5),
+            means=dm.means,
+            stds=dm.stds,
+            ode_solver=self.ode_solver,
+            ode_steps=self.ode_steps,
+            seed=self.seed,
+            device=trainer.device,
+        )
+        # the W1 protocol runs in raw space (E in MeV, integer z/alpha/R);
+        # the datamodule stores scaler-transformed hits, so invert both sides
+        real_raw, gen_raw = real[:n], gen
+        scaler = getattr(dm, "scaler", None)
+        if scaler is not None:
+            real_raw = scaler.inverse_transform(np.asarray(real_raw).copy())
+            gen_raw = scaler.inverse_transform(np.asarray(gen_raw).copy())
+
+        out = {"generation_time": gen_time}
+        keep = mask[:n, :, 0] > 0
+        rr, gg = real_raw[keep], gen_raw[keep]
+        e_r, e_g = rr[:, 0], gg[:, 0]
+
+        w1ps = []
+        nb, lo, hi = self.e_hist
+        w1 = _hist_cdf_w1(e_r, e_g, np.linspace(lo, hi, int(nb) + 1))
+        out["features_E"] = w1
+        w1ps.append(w1)
+        for f, (name, nbins) in enumerate(zip(self.feature_names[1:], self.int_bins), start=1):
+            if f >= rr.shape[-1]:
+                break
+            edges = np.arange(0, nbins + 1)
+            w1 = _hist_cdf_w1(rr[:, f], gg[:, f], edges)
+            out[f"features_{name}"] = w1
+            w1ps.append(w1)
+            w1w = _hist_cdf_w1(rr[:, f], gg[:, f], edges, weights_real=e_r, weights_gen=e_g)
+            out[f"features_{name}_weighted"] = w1w
+            if name == "z":
+                out["weighted_z"] = w1w
+        out["w1p_mean"] = float(np.nanmean(w1ps))
+
+        # energy response sum(E_hits)/E_inc on the challenge's fixed axis
+        if cond is not None:
+            e_inc = np.exp(np.asarray(cond[:n]).reshape(-1) + 10.0)
+            resp_r = (real_raw[..., 0] * mask[:n, :, 0]).sum(axis=1) / e_inc
+            resp_g = (gen_raw[..., 0] * mask[:n, :, 0]).sum(axis=1) / e_inc
+            nb, lo, hi = self.response_hist
+            out["w1_response"] = _hist_cdf_w1(resp_r, resp_g, np.linspace(lo, hi, int(nb) + 1))
+        return out

@@ -8,7 +8,8 @@ Reload the run's saved config.yaml, restore the checkpoint's EMA weights,
 generate (or reuse the cached `.npz` of an earlier call with the same
 checkpoint, sample count and guidance) samples against the test split,
 postprocess them (clip generated features to the training range, argmax
-particle-ID one-hots, round charge, drop jets with < 3 particles), then
+particle-ID one-hots, round charge, drop sets with < 3 particles, or fewer than all where a set has
+fewer than 3 slots), then
 compute W1M/W1P/W1EFP, the substructure W1s (tau21, tau32, D2; 40 bootstrap
 batches) and the reverse KLD per feature, and write eval_metrics.yaml into
 the run directory. Generation, the EFPs and the energy correlators run on
@@ -58,7 +59,7 @@ def postprocess(data_gen, mask_gen, cond_gen, names_part_features=None,
     if "part_charge" in names:
         i = names.index("part_charge")
         data_gen[:, :, i] = np.round(data_gen[:, :, i])
-    keep = np.sum(mask_gen[:, :, 0], axis=1) >= 3
+    keep = np.sum(mask_gen[:, :, 0], axis=1) >= min(3, mask_gen.shape[1])
     return data_gen[keep], mask_gen[keep], (cond_gen[keep] if cond_gen is not None else None)
 
 
@@ -106,6 +107,8 @@ def main(argv: list[str] | None = None) -> dict:
     real = dm.tensor_test
     mask = dm.mask_test
     cond = dm.tensor_conditioning_test
+    if mask is None:  # fixed-size sets without a mask (jet-feature sets): every row is real
+        mask = np.ones(real.shape[:2] + (1,), np.float32)
     n = args.n_samples or len(real)
     n = min(n, len(real))
 
@@ -123,7 +126,7 @@ def main(argv: list[str] | None = None) -> dict:
             batch_size=args.batch_size,
             cond=cond[:n] if cond is not None else None,
             variable_set_sizes=dm.variable_jet_sizes,
-            mask=mask[:n] if mask is not None else None,
+            mask=mask[:n],
             normalized_data=dm.means is not None,
             normalize_sigma=getattr(dm, "normalize_sigma", 5),
             means=dm.means,
@@ -141,7 +144,7 @@ def main(argv: list[str] | None = None) -> dict:
         names_part_features=getattr(dm, "names_particle_features", None),
         min_max_train_dict=getattr(dm, "min_max_train_dict", None),
     )
-    keep_real = np.sum(mask[:n, :, 0], axis=1) >= 3
+    keep_real = np.sum(mask[:n, :, 0], axis=1) >= min(3, mask.shape[1])
     real_k, mask_k = real[:n][keep_real], mask[:n][keep_real]
 
     metrics = calculate_all_wasserstein_metrics(real_k, gen, device=device)

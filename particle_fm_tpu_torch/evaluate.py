@@ -21,36 +21,16 @@ import sys
 import yaml
 
 from particle_fm_tpu_torch.config.core import load_config, set_overrides
-from particle_fm_tpu_torch.train import build_callbacks
-from particle_fm_tpu_torch.training.trainer import Trainer
-from particle_fm_tpu_torch.utils.device import resolve_device
-from particle_fm_tpu_torch.utils.run_io import build_run
+from particle_fm_tpu_torch.train import build_trainer
 
 
 def evaluate(run_dir: str, ckpt: str = "best", overrides: dict | None = None) -> dict:
     cfg = load_config(os.path.join(run_dir, "config.yaml"))
     overrides = dict(overrides or {})
     # the device is this call's, never the one the run was trained on
-    cfg.pop("device", None)
-    device = resolve_device(overrides.pop("device", "cuda"))
+    cfg["device"] = overrides.pop("device", "cuda")
     set_overrides(cfg, overrides.items())
-
-    dm, model, optimizer = build_run(cfg)
-    callbacks = build_callbacks(cfg.get("callbacks"))
-    trainer_cfg = dict(cfg.get("trainer", {}))
-    for key in ("ema", "grad_clip", "multihost"):
-        trainer_cfg.pop(key, None)
-    trainer = Trainer(
-        model=model,
-        datamodule=dm,
-        optimizer=optimizer,
-        callbacks=callbacks,
-        ckpt_dir=os.path.join(run_dir, "checkpoints"),
-        log_dir=run_dir,
-        seed=cfg.get("seed", 0),
-        device=device,
-        **trainer_cfg,
-    )
+    trainer = build_trainer(cfg, run_dir)
     monitor = "w1m_mean" if "w1m_mean" in trainer.ckpt_monitors else None
     results = trainer.test(ckpt=ckpt, monitor=monitor)
     with open(os.path.join(run_dir, "final_eval_metrics.yaml"), "w") as f:

@@ -13,14 +13,17 @@ an epoch-denominated schedule with the optimizer steps of an epoch, runs
 Training and evaluation run on the card unless `device=cpu` is given;
 without CUDA they raise.
 
-The JetNet eval callbacks are ported (`callbacks: jetnet`, the default); a
-callback the port lacks raises through config/core.py. An entry without a
-`_target_`, as an experiment overlay leaves after `callbacks=none`, is
-skipped, as in the JAX package.
+The JetNet, LHCO (`lhco`, `lhco_whole_event`) and CaloChallenge (`calo`)
+eval callbacks are ported; a callback the port lacks raises through
+config/core.py. An entry without a `_target_`, as an experiment overlay
+leaves after `callbacks=none`, is skipped, as in the JAX package. A trainer
+key the port's Trainer does not declare (the JAX trainer's `scan_epochs`,
+`ckpt_async`, `model_axis_size`, ...) raises NotImplementedError.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import sys
 import time
@@ -46,27 +49,26 @@ def build_callbacks(callbacks_cfg: dict | None) -> list:
     return out
 
 
-def train(cfg: dict) -> tuple[dict, dict]:
-    """Returns (metrics, objects) like the JAX package's train()."""
+def build_trainer(cfg: dict, out_dir: str | None = None) -> Trainer:
+    """The Trainer of a composed config: its callbacks built, its datamodule
+    set up, its model and optimizer built; checkpoints and logs under
+    `out_dir` (None: none, and nothing is written)."""
     device = resolve_device(cfg.get("device", "cuda"))
     if cfg.get("debug") or (cfg.get("trainer") or {}).get("multihost") or cfg.get(
             "load_weights_from"):
         raise NotImplementedError(
             "the debug presets, multi-host runs and load_weights_from are not ported")
-    callbacks = build_callbacks(cfg.get("callbacks"))
-    out_dir = os.path.join(cfg.get("output_dir", "runs/train"), time.strftime("%Y-%m-%d_%H-%M-%S"))
-    os.makedirs(out_dir, exist_ok=True)
-    save_config(cfg, os.path.join(out_dir, "config.yaml"))
-    print(f"[train] run dir: {out_dir}", flush=True)
-
-    dm, model, optimizer = build_run(cfg)
-    trainer_cfg = dict(cfg.get("trainer", {}))
+    trainer_cfg = dict(cfg.get("trainer") or {})
     for key in ("multihost", "grad_clip"):
         trainer_cfg.pop(key, None)
     ema_cfg = trainer_cfg.pop("ema", {})
-    logger_backends = tuple((cfg.get("logger") or {}).get("backends", ["jsonl"]))
-
-    trainer = Trainer(
+    declared = {f.name for f in dataclasses.fields(Trainer)}
+    unported = sorted(k for k in trainer_cfg if k not in declared)
+    if unported:
+        raise NotImplementedError(f"trainer keys {unported} are not ported")
+    callbacks = build_callbacks(cfg.get("callbacks"))
+    dm, model, optimizer = build_run(cfg)
+    return Trainer(
         model=model,
         datamodule=dm,
         optimizer=optimizer,
@@ -74,13 +76,22 @@ def train(cfg: dict) -> tuple[dict, dict]:
         ema_decay=ema_cfg.get("decay", 0.999),
         ema_every_n=ema_cfg.get("every_n", 1),
         ema_start_step=ema_cfg.get("start_step", 0),
-        ckpt_dir=os.path.join(out_dir, "checkpoints"),
+        ckpt_dir=os.path.join(out_dir, "checkpoints") if out_dir else None,
         log_dir=out_dir,
-        logger_backends=logger_backends,
+        logger_backends=tuple((cfg.get("logger") or {}).get("backends", ["jsonl"])),
         seed=cfg.get("seed", 0),
         device=device,
         **trainer_cfg,
     )
+
+
+def train(cfg: dict) -> tuple[dict, dict]:
+    """Returns (metrics, objects) like the JAX package's train()."""
+    out_dir = os.path.join(cfg.get("output_dir", "runs/train"), time.strftime("%Y-%m-%d_%H-%M-%S"))
+    trainer = build_trainer(cfg, out_dir)
+    save_config(cfg, os.path.join(out_dir, "config.yaml"))
+    print(f"[train] run dir: {out_dir}", flush=True)
+    dm, model = trainer.datamodule, trainer.model
 
     metrics = {}
     if cfg.get("train", True):

@@ -2,15 +2,29 @@
 checkpoints, logging; counterpart of particle_fm_tpu/training/trainer.py
 (field names and semantics as there).
 
-The train split is placed on the device once and each epoch's shuffle is
-one gather there. The shuffle is the JAX trainer's,
+A train split of fixed-shape batches (`datamodule.device_cacheable`) is
+placed on the device once when it is under DEVICE_CACHE_LIMIT_MB, and each
+epoch's shuffle is one gather there.
+The shuffle is the JAX trainer's,
 `np.random.default_rng(seed + epoch).permutation(n)[:n_use]`, over the same
 usable batches, so both packages see the same batches in the same order.
+Otherwise the epoch's batches come from
+`datamodule.train_batches(seed=seed + epoch)` on the host (the bucketed
+CaloChallenge batches) and are streamed: a worker thread builds the next
+PREFETCH_BATCHES batches and copies them from page-locked buffers with
+`non_blocking` copies (data/prefetch.py); a worker's exception is raised at
+the next pull. With accumulation, each group of streamed batches is stacked
+on the host first, as in the JAX trainer.
 Each step draws from a generator seeded from (seed + 1, step), the
 counterpart of the JAX step's `fold_in(rng, step)`: a run resumed from a
 checkpoint continues as the uninterrupted run would have. Validation runs
 on the current parameters with the generator seeded VAL_SEED for every
 batch, as the JAX trainer hands every batch the same key.
+
+With `loss_per_jettype`, every `loss_per_jettype_every_n` epochs the
+validation loss of each jet type (the one-hot `jet_type_label_*` columns of
+the conditioning, JetClass) is logged as `val_loss_<type>`: at most 10,000
+validation sets a type, the generator seeded VAL_SEED.
 
 Once per epoch, after validation, each callback is called with the trainer;
 the metrics it returns (e.g. `w1m_mean`) are merged into the epoch's before
@@ -20,8 +34,9 @@ best or last checkpoint and runs the callbacks marked `on_test` with
 of the network with its own generators (eval/callbacks.py), and each step's
 generator stays seeded from (seed + 1, step).
 
-Not carried: the scanned and fused epochs and the mesh strategies; asking
-for them raises.
+Not carried: the scanned and fused epochs, the mesh strategies and the
+JAX trainer's cache and prefetch options (here the constants
+DEVICE_CACHE_LIMIT_MB and PREFETCH_BATCHES); asking for them raises.
 """
 
 from __future__ import annotations
@@ -33,6 +48,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from particle_fm_tpu_torch.data.prefetch import pinned_placer, prefetch_to_device
 from particle_fm_tpu_torch.training.checkpoint import CheckpointManager
 from particle_fm_tpu_torch.training.loggers import MultiLogger
 from particle_fm_tpu_torch.training.step import (
@@ -45,6 +61,8 @@ from particle_fm_tpu_torch.training.step import (
 from particle_fm_tpu_torch.utils.device import resolve_device
 
 VAL_SEED = 9999  # fixed validation seed, as in the JAX trainer
+DEVICE_CACHE_LIMIT_MB = 2048  # the JAX trainer's default device_cache_limit_mb
+PREFETCH_BATCHES = 2  # streamed batches the worker keeps in flight
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -72,6 +90,8 @@ class Trainer:
     # one optimizer step per this many microbatches of datamodule.batch_size,
     # their gradients weighted by the loss normalisation mass
     accumulate_grad_batches: int = 1
+    loss_per_jettype: bool = False
+    loss_per_jettype_every_n: int = 20
     fuse_epochs: int = 1
     strategy: str = "dp"
     seed: int = 0
@@ -124,6 +144,33 @@ class Trainer:
         split = self.datamodule.train
         return self._to_device((split.x, split.mask, split.cond))
 
+    def _maybe_cache_train_data(self):
+        """The train split on the device, or None to stream its batches."""
+        dm = self.datamodule
+        split = getattr(dm, "train", None)
+        if split is None or not getattr(dm, "device_cacheable", False):
+            return None
+        nbytes = split.x.nbytes + (split.mask.nbytes if split.mask is not None else 0)
+        return self._place_train_split() if nbytes < DEVICE_CACHE_LIMIT_MB * 2**20 else None
+
+    def _streamed_batches(self, epoch: int):
+        """The epoch's host batches on the device, prefetched; (A, B, ...)
+        groups of A stacked host batches with accumulation."""
+        batches = self.datamodule.train_batches(seed=self.seed + epoch)
+        accum = self.accumulate_grad_batches
+        if accum > 1:
+            def groups(batches=batches):
+                buf = []
+                for batch in batches:
+                    buf.append(batch)
+                    if len(buf) == accum:
+                        yield tuple(None if buf[0][j] is None
+                                    else np.stack([np.asarray(b[j]) for b in buf])
+                                    for j in range(3))
+                        buf = []
+            batches = groups()
+        return prefetch_to_device(batches, pinned_placer(self.device), PREFETCH_BATCHES)
+
     def _epoch_perm(self, n: int, n_use: int, epoch: int) -> np.ndarray:
         return np.random.default_rng(self.seed + epoch).permutation(n)[:n_use]
 
@@ -146,6 +193,9 @@ class Trainer:
         """The epoch's batches, gathered on the device: (B, ...) each, or
         (A, B, ...) groups with accumulation. A split smaller than one batch
         gives one short batch (without accumulation)."""
+        if dev_data is None:
+            yield from self._streamed_batches(epoch)
+            return
         bs, accum = self.datamodule.batch_size, self.accumulate_grad_batches
         x = dev_data[0]
         n = x.shape[0]
@@ -175,7 +225,7 @@ class Trainer:
             if self.verbose:
                 print(f"[trainer] resumed from {resume_from} at step {state.step}")
         self.state = state
-        dev_data = self._place_train_split()
+        dev_data = self._maybe_cache_train_data()
         gen = torch.Generator(self.device)
 
         opt_steps_per_epoch = max(
@@ -191,6 +241,8 @@ class Trainer:
             metrics = {"train_loss": train_loss, "epoch_time": time.perf_counter() - t0}
             if (epoch + 1) % self.check_val_every_n_epoch == 0:
                 metrics["val_loss"] = self.validate()
+            if self.loss_per_jettype and epoch % self.loss_per_jettype_every_n == 0:
+                metrics.update(self._per_jettype_losses())
             # eval callbacks may add metrics (e.g. w1m_mean) that drive checkpoints
             self.last_metrics = metrics
             for cb in self.callbacks:
@@ -216,18 +268,47 @@ class Trainer:
             losses.append(self.eval_step(self.state, gen, *self._to_device(batch)))
         return float(torch.stack(losses).mean()) if losses else float("nan")
 
+    def _per_jettype_losses(self) -> dict:
+        """Validation loss per jet type, the sets picked by the one-hot
+        conditioning columns named jet_type_label_* (JetClass)."""
+        dm = self.datamodule
+        names = getattr(dm, "names_conditioning", None)
+        split = dm.val
+        if not names or split.cond is None:
+            return {}
+        gen = torch.Generator(self.device)
+        out = {}
+        for i, name in enumerate(names):
+            if not str(name).startswith("jet_type_label_"):
+                continue
+            sel = np.where(split.cond[:, i] == 1)[0][:10_000]
+            if len(sel) == 0:
+                continue
+            batch = (split.x[sel], split.mask[sel] if split.mask is not None else None,
+                     split.cond[sel])
+            gen.manual_seed(VAL_SEED)
+            loss = self.eval_step(self.state, gen, *self._to_device(batch))
+            out[f"val_loss_{str(name).replace('jet_type_label_', '')}"] = float(loss)
+        return out
+
     # ---------------------------------------------------------------- test
     def test(self, ckpt: str = "best", monitor: str | None = None) -> dict:
         """Run the `on_test` callbacks on the best (of `monitor`, else the
-        first monitor) or the last checkpoint; returns their metrics."""
+        first monitor) or the last checkpoint; returns their metrics. A
+        monitor no epoch logged (a callback that never ran, or one whose
+        metrics have other names) has no best checkpoint: the last one is
+        taken then."""
         if self.ckpt is not None:
-            path = (self.ckpt.best_path(monitor or next(iter(self.ckpt_monitors)))
-                    if ckpt == "best" else self.ckpt.last_path())
+            best = (self.ckpt.best_path(monitor or next(iter(self.ckpt_monitors)))
+                    if ckpt == "best" else None)
+            path = best or self.ckpt.last_path()
             if path is not None:
                 if self.state is None:
                     self.state = create_train_state(self.model, self.optimizer, seed=self.seed,
                                                     device=self.device)
                 self.state = self.ckpt.restore(path, self.state)
+        if self.state is None:
+            raise FileNotFoundError("Trainer.test: no checkpoint to restore and no trained state")
         results = {}
         self.testing = True
         try:

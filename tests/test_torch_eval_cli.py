@@ -118,9 +118,9 @@ def test_shipped_callbacks_build_as_the_port():
             cb.on_test, cb.w1_kwargs) == ("epochs10000", 10000, 1000, 200, True,
                                           {"num_eval_samples": 10000, "num_batches": 40})
     assert ptrain.build_callbacks({"jetnet_eval": {"every_n_epochs": 3}}) == []
-    whole = compose(os.path.join(ROOT, "configs"), "train", ["callbacks=lhco_whole_event"])
-    with pytest.raises(NotImplementedError, match="WholeEventEvalCallback is not ported"):
-        instantiate(whole["callbacks"]["lhco_whole_event_eval"])
+    flat = compose(os.path.join(ROOT, "configs"), "train", ["callbacks=flat_eval"])
+    with pytest.raises(NotImplementedError, match="FlatEvalCallback is not ported"):
+        instantiate(flat["callbacks"]["flat_eval"])
 
 
 def test_importing_the_eval_entry_points_loads_no_jax():

@@ -6,8 +6,8 @@ final_metrics.yaml) and the checkpoints (`last` and the best val_loss), and
 the loss falls. Resumed from `last` it continues at the saved step, and ends
 where one uninterrupted run of as many epochs ends, exactly (each step's
 generator is seeded from the step). Without `device=cpu` on a machine
-without CUDA it raises; a callback the port lacks, mesh strategies and fused
-epochs raise; importing the entry point loads no JAX.
+without CUDA it raises; a callback the port lacks, mesh strategies, fused
+and scanned epochs raise; importing the entry point loads no JAX.
 """
 
 from __future__ import annotations
@@ -76,9 +76,11 @@ def test_cli_without_cuda_raises(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("override,match", [
-    ("callbacks=lhco_whole_event", "WholeEventEvalCallback is not ported"),
+    ("callbacks=flat_eval", "FlatEvalCallback is not ported"),
     ("trainer.strategy=fsdp", "strategy"),
     ("+trainer.fuse_epochs=2", "fused epochs"),
+    ("+trainer.scan_epochs=true", "scan_epochs"),
+    ("+trainer.cache_data_on_device=false", "cache_data_on_device"),
 ])
 def test_cli_raises_for_what_is_not_ported(tmp_path, override, match):
     args = [a for a in ARGS if a != "callbacks=none"] if override.startswith("callbacks") else ARGS

@@ -121,6 +121,6 @@ def test_instantiate_maps_targets_to_the_port():
     from particle_fm_tpu_torch.eval.callbacks import JetNetEvalCallback
 
     assert isinstance(instantiate(cfg["callbacks"]["jetnet_eval"]), JetNetEvalCallback)
-    whole = {"_target_": "particle_fm_tpu.eval.callbacks.WholeEventEvalCallback"}
-    with pytest.raises(NotImplementedError, match="WholeEventEvalCallback is not ported"):
-        instantiate(whole)
+    flat = {"_target_": "particle_fm_tpu.eval.callbacks.FlatEvalCallback"}
+    with pytest.raises(NotImplementedError, match="FlatEvalCallback is not ported"):
+        instantiate(flat)

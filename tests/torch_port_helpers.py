@@ -235,3 +235,30 @@ def pin_self_cond(monkeypatch, use: np.ndarray) -> None:
 
     monkeypatch.setattr(jax.random, "bernoulli", jax_draw)
     monkeypatch.setattr(pflow, "_use_sc", lambda _g, shape, dev: torch.from_numpy(use).to(dev))
+
+
+def pin_draws_on_demand(monkeypatch, seed: int = 0) -> None:
+    """Make both packages' losses draw t and the noise from numpy, each side
+    from its own RandomState(seed) in the order and at the shapes the calls
+    ask: the same arrays wherever both sides make the same calls (batches of
+    varying shapes, as the bucketed CaloChallenge batches are)."""
+    from particle_fm_tpu.losses import flow_matching as jloss
+    from particle_fm_tpu_torch.losses import flow_matching as ploss
+
+    def sides(to):
+        rs = np.random.RandomState(seed)
+
+        def sample_t(_rng, size, where):
+            return to(rs.rand(*(size if isinstance(size, tuple) else (size,)))
+                      .astype(np.float32), where)
+
+        def normal(_rng, size, where):
+            return to(rs.randn(*size).astype(np.float32), where)
+        return sample_t, normal
+
+    jt, jn = sides(lambda a, _: jnp.asarray(a))
+    pt_, pn = sides(lambda a, dev: t(a).to(dev))
+    monkeypatch.setattr(jloss, "_sample_t", jt)
+    monkeypatch.setattr(jloss, "_normal", jn)
+    monkeypatch.setattr(ploss, "_sample_t", pt_)
+    monkeypatch.setattr(ploss, "_normal", pn)
