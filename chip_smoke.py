@@ -54,6 +54,21 @@
    thread; the run fails if the wrappers' mirror of that geometry differs, or
    if the products the bound counts are not those the library issues (the
    EPiC kernel: at each of its three shapes).
+   Then the four bfloat16 variants, each against its plain version on
+   bfloat16 inputs (the mask and the bias float32) within 2 bfloat16 ulps of
+   the largest |out|, timed in turns the same way: `epic_layer_bf16` at the
+   flagship and at path E's shape (jetclass_cond, batch 512) and at the edges
+   of its 64-row tiles and padded widths (N of 1, 17, 65, 558; H of 3, 48,
+   300, 512); `packed_short_attention_bf16` at path A's shape and with a bias;
+   `fused_short_attention_bf16` at path B's pair and with a bias;
+   `flash_masked_attention_bf16` at paths C and D and at 1500 keys of head dim
+   128; each attention kernel at the edges of its tiles at head dims 8, 12, 32
+   and 64 and offset by one element. Beside each: one bf16
+   `scaled_dot_product_attention` call (the port never calls it; it must
+   agree within 4 ulps) and the bound, bytes at 2 per value and each
+   bfloat16 product once at 989 TFLOP/s (the flash kernel's P . V twice in
+   TF32); the run fails unless each library names mma.sync.m16n8k16 bf16 as
+   the instruction of its bfloat16 products.
 3. Serving phases through `make_serve_fn`/`serve_batches`, midpoint,
    ode_steps=51 (100 network evaluations), float32, seeded random weights
    (the repo has no trained checkpoint), ragged masks and a random cond:
@@ -82,6 +97,14 @@
    version and must agree within atol 1e-3, and a small batch must agree
    with the CPU within atol 1e-4. Prints jets/s of both paths, each the mean
    of two runs taken in turns (kernel, plain, plain, kernel).
+   Then the same six models, weights and requests with model.dtype=bfloat16
+   (`serving_bf16` lines): the exact launches of the bfloat16 kernel and of
+   no other (no float32 kernel takes a cast tensor), sets/s of the kernel
+   and the plain path beside the float32 kernel path's, the per-feature
+   mean and std of the real particles at NFE 100 within 5% of the float32
+   samples' std (the same noise), and after 4 midpoint steps on a full batch
+   the kernel path closer to the plain path than the plain bfloat16 path is
+   to float32 (Frobenius norms); a field not identically zero.
 4. Training phases at full width, float32 without TF32, each model composed
    from configs/ by the port's compose/instantiate (AdamW, clip 0.5, batch
    1024, synthetic JetNet-150, the step of particle_fm_tpu_torch/training/
@@ -211,12 +234,23 @@ ROOT = Path(__file__).resolve().parent
 B, N, H, L, T, C = 640, 150, 128, 10, 32, 2
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12  # dense, on the tensor cores
+PEAK_BF16_FLOPS = 989e12  # dense, on the tensor cores
 PEAK_BYTES = 3.35e12
 KERNEL_TOL = 1e-4
 PATH_TOL = 1e-3
 CPU_TOL = 1e-4
 ODE_STEPS = 51
 EPIC_TF32_PRODUCTS = 3  # TF32 products per float32 product of the EPiC kernel's local matmuls
+# the bfloat16 kernels' tensor-core instruction (csrc/mma_bf16.cuh), one product per product
+BF16_INSTRUCTION = "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"
+FLASH_BF16_PV_TF32_PRODUCTS = 2  # the flash bf16 kernel's P . V: P's head and remainder in TF32
+BF16_KERNEL_ULPS = 2  # a bf16 kernel against its plain version: bfloat16 ulps of the largest |out|
+BF16_LIBRARY_ULPS = 4  # the bf16 yardstick (scaled_dot_product_attention) rounds elsewhere
+# NFE 100 bf16 vs f32: per-feature mean and std, over the f32 std. Set after the first
+# reading: 0.026 at path C, whose hits share each shower's class token, so that the mean
+# over 37 showers moves with each shower's deviation; the other paths read 0.003 or less
+BF16_STATS_LIMIT = 0.05
+BF16_CHECK_STEPS = 5  # ode_steps of the bf16 kernel-against-plain check: 4 midpoint steps
 # operations per attention score beside the two products: scale, mask add,
 # subtract the maximum, exponential, sum
 SCORE_OPS = 5
@@ -271,17 +305,21 @@ def timed_in_turns(kernel_fn, plain_fn) -> dict:
             "turns_ms": {"plain": [turns[0], turns[3]], "kernel": [turns[1], turns[2]]}}
 
 
-def bound(n_bytes: float, flops: float, tensor_flops: float = 0.0, tf32_products: int = 1) -> dict:
+def bound(n_bytes: float, flops: float, tensor_flops: float = 0.0, tf32_products: int = 1,
+          bf16_flops: float = 0.0) -> dict:
     """Least time for the work: each input read once and each output written
     once, against the float32 operations at the CUDA cores' rate. Of the
     `flops`, `tensor_flops` are matrix products that the kernel issues
-    `tf32_products` times each on the tensor cores in TF32."""
+    `tf32_products` times each on the tensor cores in TF32, and `bf16_flops`
+    bfloat16 products it issues once each at the bfloat16 rate."""
     t_bytes = n_bytes / PEAK_BYTES * 1e3
-    t_ops = ((flops - tensor_flops) / PEAK_F32_FLOPS
-             + tensor_flops * tf32_products / PEAK_TF32_FLOPS) * 1e3
-    by = "bytes" if t_bytes >= t_ops else "tensor operations" if tensor_flops else "operations"
+    t_ops = ((flops - tensor_flops - bf16_flops) / PEAK_F32_FLOPS
+             + tensor_flops * tf32_products / PEAK_TF32_FLOPS
+             + bf16_flops / PEAK_BF16_FLOPS) * 1e3
+    by = ("bytes" if t_bytes >= t_ops else
+          "tensor operations" if tensor_flops or bf16_flops else "operations")
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": by, "bytes": n_bytes, "flops": flops,
-            "tensor_flops_issued": tensor_flops * tf32_products}
+            "tensor_flops_issued": tensor_flops * tf32_products + bf16_flops}
 
 
 def epic_case(torch, dev, seed, b, n, h, lat, c, local=True, x_scale=1.0, lo=30):
@@ -591,6 +629,251 @@ def flash_phase(torch, fa, sa, dev) -> dict:
             "shapes": shapes, **long_errs}
 
 
+# ---------------------------------------------------------------- bfloat16 kernels
+
+
+def bf16_tol(ref, ulps: int) -> float:
+    """`ulps` bfloat16 ulps of the largest |ref| (8 bits of mantissa)."""
+    import math
+
+    top = float(ref.float().abs().max())
+    return ulps * 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+
+
+def check_bf16_kernel(torch, name: str, got, want) -> float:
+    """Max abs error of a bfloat16 kernel's result against its plain
+    version's; fails beyond BF16_KERNEL_ULPS ulps of the largest |want|."""
+    torch.cuda.synchronize()
+    if got.dtype != torch.bfloat16:
+        fail(f"{name} returned {got.dtype}, not bfloat16")
+    if not torch.isfinite(got.float()).all():
+        fail(f"{name} kernel gave non-finite values")
+    err = (got.float() - want.float()).abs().max().item()
+    if not err <= bf16_tol(want, BF16_KERNEL_ULPS):
+        fail(f"{name} kernel disagrees with its plain version: max abs err {err} beyond "
+             f"{BF16_KERNEL_ULPS} bf16 ulps of the largest |out| ({bf16_tol(want, BF16_KERNEL_ULPS)})")
+    return err
+
+
+def bf16_instruction_checked(name: str, instruction_fn) -> str:
+    """The instruction the built library names for its bfloat16 products;
+    fails unless it is the one bfloat16 product the bound counts."""
+    got = instruction_fn()
+    if got != BF16_INSTRUCTION:
+        fail(f"{name}: the bound counts one {BF16_INSTRUCTION} per product, the library "
+             f"issues {got}")
+    return got
+
+
+def to_bf16(torch, args, keep=(2,)):
+    """The inputs in bfloat16, but for the positions in `keep` (the mask)."""
+    return [a if i in keep or a is None else a.to(torch.bfloat16) for i, a in enumerate(args)]
+
+
+def epic_bf16_measure(torch, ops, args, dims) -> dict:
+    """The bf16 EPiC kernel at one shape: check, time in turns with its plain
+    version, count the bound (the two local matmuls as bfloat16 products,
+    one each)."""
+    b, n, h = args[0].shape
+    lat = args[1].shape[-1]
+    xo, go = ops.epic_layer(*args, **dims)
+    rx, rg = ops.epic_layer_reference(*args, **dims)
+    err = max(check_bf16_kernel(torch, "epic_layer_bf16", xo, rx),
+              check_bf16_kernel(torch, "epic_layer_bf16", go, rg))
+    k1, k2, k3, k4 = (w.shape[0] for w in (args[4], args[6], args[9], args[12]))
+    n_bytes = sum(a.numel() * a.element_size() for a in args) + 2 * (b * n * h + b * lat)
+    flops = (2 * b * n * h + 2 * b * (k1 * h + k2 * lat + k3 * h + k4 * h)
+             + 2 * 2 * b * n * h * h + 5 * b * n * h)
+    return {"max_abs_err": err,
+            **timed_in_turns(lambda: ops.epic_layer(*args, **dims),
+                             lambda: ops.epic_layer_reference(*args, **dims)),
+            **bound(n_bytes, flops, bf16_flops=4 * b * n * h * h),
+            "shape": {"B": b, "N": n, "H": h, "L": lat, "t": T, "cg": dims["cg_dim"],
+                      "cl": dims["cl_dim"], "dtype": "bfloat16"}}
+
+
+def epic_bf16_phase(torch, ops, dev) -> dict:
+    """`epic_layer_bf16` at the two served EPiC shapes (the flagship and path
+    E, jetclass_cond at batch 512) and at the edges of its 64-row tiles (which
+    span sets) and of its widths (padded to 16; 3 and 300 off 8), with ragged
+    masks; against its plain version within BF16_KERNEL_ULPS."""
+    bf = lambda case: (to_bf16(torch, case[0]), case[1])
+    shapes = {
+        "flagship": epic_bf16_measure(torch, ops, *bf(epic_case(torch, dev, 40, B, N, H, L, C))),
+        "path E (jetclass/jetclass_cond)": epic_bf16_measure(
+            torch, ops, *bf(epic_case(torch, dev, 41, 512, 128, 300, 16, 12, local=False))),
+    }
+    errs = {}
+    for i, (key, (b, n, h, lat, c, local)) in enumerate({
+            "N=1": (4, 1, 128, 10, 2, True), "N=17": (5, 17, 128, 10, 2, True),
+            "N=65": (3, 65, 128, 10, 2, True), "N=558": (2, 558, 256, 256, 10, True),
+            "H=3": (4, 70, 3, 16, 12, True), "H=48": (4, 70, 48, 16, 12, True),
+            "H=300": (4, 70, 300, 16, 12, False), "H=512": (2, 70, 512, 512, 12, True)}.items()):
+        args, dims = bf(epic_case(torch, dev, 50 + i, b, n, h, lat, c, local, lo=1))
+        xo, go = ops.epic_layer(*args, **dims)
+        rx, rg = ops.epic_layer_reference(*args, **dims)
+        errs[key] = max(check_bf16_kernel(torch, f"epic_layer_bf16 ({key})", xo, rx),
+                        check_bf16_kernel(torch, f"epic_layer_bf16 ({key})", go, rg))
+    main = shapes["flagship"]
+    return {
+        "name": "epic_layer_bf16", "route": "cuda",
+        "source": "particle_fm_tpu_torch/csrc/epic_layer.cu",
+        "replaces": "particle_fm_tpu/ops/pallas/epic_layer.py:113", "launches": None,
+        "max_abs_err": max(s["max_abs_err"] for s in shapes.values()),
+        "per": "one launch at the flagship's shape; path E's under `shapes`",
+        **{key: main[key] for key in ("ms", "plain_ms", "turns_ms", "bound_ms", "bound_by", "bytes",
+                                      "flops", "tensor_flops_issued", "shape")},
+        "library_ms": None,  # no single PyTorch call computes an EPiC layer
+        "instruction": bf16_instruction_checked("epic_layer_bf16", ops.bf16_instruction),
+        "tolerance": f"{BF16_KERNEL_ULPS} bf16 ulps of the largest |out|",
+        "shapes": shapes, "max_abs_err_edges": max(errs.values()), "edge_cases": len(errs),
+    }
+
+
+def attention_bf16_measure(torch, name, fn, ref, case, bf16_products: float = 0.0,
+                           tf32_flops: float = 0.0, tf32_products: int = 1) -> dict:
+    """One bf16 attention kernel at one shape: check, time in turns with its
+    plain version, time bf16 `scaled_dot_product_attention` on the same
+    tensors, count the bound (`bf16_products`: the operations it runs as
+    bfloat16 products; `tf32_flops` those it runs `tf32_products` times in
+    TF32; the rest on the CUDA cores)."""
+    import torch.nn.functional as F
+
+    from particle_fm_tpu_torch.utils.timing import cuda_ms
+
+    q, k, v, mask, ab = case
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    want = ref(q, k, v, mask, ab)
+    err = check_bf16_kernel(torch, name, fn(q, k, v, mask, ab), want)
+    add = None if mask is None else ((mask - 1.0) * 1e9)[:, None, None, :].to(torch.bfloat16)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=add).transpose(1, 2)
+    lib_err = (library().float() - want.float()).abs().max().item()
+    if not lib_err <= bf16_tol(want, BF16_LIBRARY_ULPS):
+        fail(f"{name}: the bf16 library yardstick computes another function (max abs err "
+             f"{lib_err})")
+    n_bytes = (2 * (2 * q.numel() + k.numel() + v.numel())
+               + (0 if mask is None else 4 * mask.numel()))
+    flops = (4 * d + SCORE_OPS) * b * h * lq * lk
+    return {"max_abs_err": err, "max_abs_err_library": lib_err,
+            **timed_in_turns(lambda: fn(q, k, v, mask, ab), lambda: ref(q, k, v, mask, ab)),
+            **bound(n_bytes, flops, tf32_flops, tf32_products, bf16_flops=bf16_products),
+            "library_ms": cuda_ms(library),
+            "shape": {"B": b, "Lq": lq, "Lk": lk, "H": h, "D": d, "masked": mask is not None,
+                      "dtype": "bfloat16"}}
+
+
+def bf16_case(torch, case):
+    """An attention case in bfloat16 (the mask and the bias stay float32)."""
+    q, k, v, mask, ab = case
+    return (*(x.to(torch.bfloat16) for x in (q, k, v)), mask, ab)
+
+
+def bf16_edges(torch, dev, name, fn, ref, lengths, pairs=(), bias_dims=()) -> dict:
+    """A bf16 kernel against its plain version at `lengths` (Lq = Lk) and
+    `pairs` (Lq, Lk) at head dims 8, 12, 32 and 64, 1 to Lk real keys, a bias
+    at `bias_dims`, and with operands offset by one element (no wide loads)."""
+    errs = {}
+    for lq, lk in [(l, l) for l in lengths] + list(pairs):
+        for d in (8, 12, 32, 64):
+            case = bf16_case(torch, attention_case(torch, dev, lq + lk + d, 3, lq, lk, 3, d,
+                                                   masked=True, bias=d in bias_dims, lo=1))
+            errs[f"Lq={lq} Lk={lk} D={d}"] = check_bf16_kernel(
+                torch, f"{name} (Lq={lq}, Lk={lk}, D={d})", fn(*case), ref(*case))
+    q, k, v, mask, ab = bf16_case(torch, attention_case(torch, dev, 12, 3, 37, 37, 3, 16,
+                                                        masked=True, lo=1))
+    q, k, v = (offset_by_one_float(torch, x) for x in (q, k, v))
+    unaligned = check_bf16_kernel(torch, f"{name} (offset by one element)", fn(q, k, v, mask, ab),
+                                  ref(q, k, v, mask, ab))
+    return {"max_abs_err_edges": max(errs.values()), "edge_cases": len(errs),
+            "max_abs_err_offset_by_one_element": unaligned}
+
+
+def packed_bf16_phase(torch, sa, dev) -> dict:
+    fn, ref = sa.packed_short_attention, sa.packed_short_attention_reference
+    main = bf16_case(torch, attention_case(torch, dev, 60, 640, 150, 150, 16, 16, masked=True,
+                                           fused_qkv=True))
+    b, l, h, d = main[0].shape
+    entry = attention_bf16_measure(torch, "packed_short_attention_bf16", fn, ref, main,
+                                   bf16_products=4 * d * b * h * l * l)
+    case = bf16_case(torch, attention_case(torch, dev, 61, 64, 150, 150, 16, 16, masked=True,
+                                           bias=True))
+    bias_err = check_bf16_kernel(torch, "packed_short_attention_bf16 (bias)", fn(*case), ref(*case))
+    return {"name": "packed_short_attention_bf16", "route": "cuda",
+            "source": "particle_fm_tpu_torch/csrc/short_attention.cu",
+            "replaces": "particle_fm_tpu/ops/pallas/short_attention.py:308", "launches": None,
+            **entry, "max_abs_err_with_bias": bias_err,
+            "instruction": bf16_instruction_checked("packed_short_attention_bf16",
+                                                    sa.bf16_instruction),
+            "tolerance": f"{BF16_KERNEL_ULPS} bf16 ulps of the largest |out|",
+            **bf16_edges(torch, dev, "packed_short_attention_bf16", fn, ref, (1, 15, 16, 17, 256),
+                         bias_dims=(12, 64))}
+
+
+def fused_bf16_phase(torch, sa, dev) -> dict:
+    fn, ref = sa.fused_short_attention, sa.fused_short_attention_reference
+    shapes = {
+        "from": attention_bf16_measure(
+            torch, "fused_short_attention_bf16 (from)", fn, ref,
+            bf16_case(torch, attention_case(torch, dev, 62, 640, 4, 150, 16, 8, masked=True))),
+        "to": attention_bf16_measure(
+            torch, "fused_short_attention_bf16 (to)", fn, ref,
+            bf16_case(torch, attention_case(torch, dev, 63, 640, 150, 4, 16, 8, masked=False))),
+    }
+    case = bf16_case(torch, attention_case(torch, dev, 64, 64, 37, 150, 16, 8, masked=True,
+                                           bias=True))
+    bias_err = check_bf16_kernel(torch, "fused_short_attention_bf16 (bias)", fn(*case), ref(*case))
+    pair = lambda key: sum(x[key] for x in shapes.values())
+    return {"name": "fused_short_attention_bf16", "route": "cuda",
+            "source": "particle_fm_tpu_torch/csrc/short_attention.cu",
+            "replaces": "particle_fm_tpu/ops/pallas/short_attention.py:74", "launches": None,
+            "max_abs_err": max(x["max_abs_err"] for x in shapes.values()),
+            "per": "one 'from' launch plus one 'to' launch",
+            "ms": pair("ms"), "plain_ms": pair("plain_ms"),
+            **bound(pair("bytes"), pair("flops")), "library_ms": pair("library_ms"),
+            "tolerance": f"{BF16_KERNEL_ULPS} bf16 ulps of the largest |out|",
+            "shapes": shapes, "max_abs_err_with_bias": bias_err,
+            **bf16_edges(torch, dev, "fused_short_attention_bf16", fn, ref, (1, 5, 17, 512),
+                         pairs=[(4, 17), (4, 512), (17, 4), (512, 4)], bias_dims=(12, 64))}
+
+
+def flash_bf16_phase(torch, fa, dev) -> dict:
+    fn = lambda q, k, v, mask, ab: fa.flash_masked_attention(q, k, v, mask)
+    ref = lambda q, k, v, mask, ab: fa.flash_masked_attention_reference(q, k, v, mask)
+    path_d = bf16_case(torch, attention_case(torch, dev, 65, 256, 279, 279, 16, 16, masked=True,
+                                             fused_qkv=True))
+    b, l, h, d = path_d[0].shape
+    half = 2 * d * b * h * l * l  # each of Q . K^T and P . V
+    shapes = {
+        "path C": attention_bf16_measure(
+            torch, "flash_masked_attention_bf16 (class token)", fn, ref,
+            bf16_case(torch, attention_case(torch, dev, 66, 32, 1, 6000, 2, 128, masked=True,
+                                            lo=1000))),
+        "path D": attention_bf16_measure(
+            torch, "flash_masked_attention_bf16 (279 particles)", fn, ref, path_d,
+            bf16_products=half, tf32_flops=half, tf32_products=FLASH_BF16_PV_TF32_PRODUCTS),
+    }
+    long_err = check_bf16_kernel(
+        torch, "flash_masked_attention_bf16 (1500 keys, head dim 128)",
+        *(f(*bf16_case(torch, attention_case(torch, dev, 67, 4, 1500, 1500, 4, 128, masked=True)))
+          for f in (fn, ref)))
+    main = shapes["path C"]
+    return {"name": "flash_masked_attention_bf16", "route": "cuda",
+            "source": "particle_fm_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "particle_fm_tpu/ops/pallas/flash_attention.py:58", "launches": None,
+            "max_abs_err": max(x["max_abs_err"] for x in shapes.values()),
+            "per": "one launch at path C's shape; path D's shape under `shapes`",
+            **{key: main[key] for key in ("ms", "plain_ms", "turns_ms", "bound_ms", "bound_by",
+                                          "bytes", "flops", "library_ms", "shape")},
+            "instruction": bf16_instruction_checked("flash_masked_attention_bf16",
+                                                    fa.bf16_instruction),
+            "tolerance": f"{BF16_KERNEL_ULPS} bf16 ulps of the largest |out|",
+            "shapes": shapes, "max_abs_err_long_head_dim_128": long_err,
+            **bf16_edges(torch, dev, "flash_masked_attention_bf16", fn, ref, (5, 17, 558),
+                         pairs=[(3, 900)])}
+
+
 def redraw_parameters(torch, net, seed: int) -> None:
     """Seeded non-zero values for every parameter: matrices N(0, 1/fan_in),
     vectors their initial value (LayerNorm 1, bias 0 or small) + 0.1 N(0, 1)."""
@@ -616,10 +899,7 @@ def serving_phase(torch, dev, name, config, model, net, wrapper_owner, wrapper_n
     wrapper = getattr(wrapper_owner, wrapper_name)
     plain = getattr(wrapper_owner, wrapper_name + "_reference")
     n, feats, cond_dim = model.num_particles, model.features, model.global_cond_dim
-    means = ([0.0, 0.0, 0.05, 0.0] + [0.0] * 9)[:feats]
-    stds = ([0.1, 0.1, 0.06, 0.2] + [0.5] * 9)[:feats]
-    proto = dict(batch_size=batch, ode_solver="midpoint", has_cond=True, has_mask=True,
-                 means=means, stds=stds)
+    proto = serving_proto(model, batch)
     fn = make_serve_fn(model, net, ode_steps=ODE_STEPS, **proto)
     warm = make_serve_fn(model, net, ode_steps=2, **proto)
 
@@ -695,6 +975,133 @@ def serving_phase(torch, dev, name, config, model, net, wrapper_owner, wrapper_n
         "kernel": wrapper_name, "launches": launches, "vector_field_max_abs": field_max,
         "max_abs_diff_kernel_vs_plain": path_err, "max_abs_diff_card_vs_cpu": cpu_err,
         "cpu_batch": cpu_batch,
+        "_reqs": reqs, "_outs": outs,  # for the bfloat16 phase; not printed
+    }
+
+
+def serving_proto(model, batch: int) -> dict:
+    """The serving protocol of the serving phases: midpoint, cond and mask,
+    the datamodule's z-score undone with per-feature means and stds."""
+    feats = model.features
+    means = ([0.0, 0.0, 0.05, 0.0] + [0.0] * 9)[:feats]
+    stds = ([0.1, 0.1, 0.06, 0.2] + [0.5] * 9)[:feats]
+    return dict(batch_size=batch, ode_solver="midpoint", has_cond=True, has_mask=True,
+                means=means, stds=stds)
+
+
+def frob(x) -> float:
+    return float(np.sqrt(np.sum(np.square(np.asarray(x, np.float64)))))
+
+
+def bf16_serving_phase(torch, dev, name, config, model, net, wrapper_owner, wrapper_name,
+                       launches_per_eval, requests, counted, f32, batch=640, **_) -> dict:
+    """The same configuration, weights and requests served with
+    model.dtype=bfloat16 through make_serve_fn/serve_batches at NFE 100: the
+    exact launches of the bfloat16 kernel and of no other (no float32 kernel
+    takes a cast tensor), finite outputs, zero padded rows; sets/s of the
+    kernel path and the plain path, in turns; per-feature mean and std of
+    the real particles against the float32 kernel path's samples from the
+    same noise (`f32`, its serving phase), within BF16_STATS_LIMIT of the
+    float32 std; after 4 midpoint steps on a full batch, kernel path against
+    plain path closer than plain bfloat16 is to float32 (Frobenius norms);
+    a field not identically zero."""
+    import dataclasses
+
+    from particle_fm_tpu_torch.serving import make_serve_fn, serve_batches
+
+    model16 = dataclasses.replace(model, dtype="bfloat16")
+    net16 = model16.init(seed=0, device=dev)
+    net16.load_state_dict(net.state_dict())
+    counter = getattr(wrapper_owner, wrapper_name + "_bf16")
+    plain = getattr(wrapper_owner, wrapper_name + "_reference")
+    proto = serving_proto(model, batch)
+    fn = make_serve_fn(model16, net16, ode_steps=ODE_STEPS, **proto)
+    warm = make_serve_fn(model16, net16, ode_steps=2, **proto)
+    reqs = f32["_reqs"]
+    n_batches = sum(-(-r // batch) for r in requests)
+    want_launches = launches_per_eval * 2 * (ODE_STEPS - 1) * n_batches
+
+    def answer(f):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [serve_batches(f, f.meta, len(m), cond=c, mask=m, seed=10 + i)
+                for i, (m, c) in enumerate(reqs)]
+        torch.cuda.synchronize()
+        return outs, time.perf_counter() - t0
+
+    answer(warm)
+    reset(counted)
+    outs, secs = answer(fn)  # the main path
+    launches = counter.launches
+    for (m, _), out in zip(reqs, outs):
+        if out.dtype != np.float32 or not np.isfinite(out).all():
+            fail(f"{name} bf16: served samples are not finite float32")
+        if np.abs(out[m[..., 0] == 0]).max(initial=0.0) != 0.0:
+            fail(f"{name} bf16: padded rows of the served samples are not zero")
+    if launches != want_launches:
+        fail(f"{name} bf16: {counter.__name__} launched {launches} times, expected {want_launches}")
+    if sum(w.launches for w in counted) != launches:
+        fail(f"{name} bf16: another kernel (a float32 one?) was launched on this path: "
+             f"{launched(counted)}")
+
+    with mock.patch.object(wrapper_owner, wrapper_name, plain):  # plain, plain, kernel
+        answer(warm)
+        plain_outs, plain_secs = answer(fn)
+        plain_secs2 = answer(fn)[1]
+    secs2 = answer(fn)[1]
+
+    # 4 midpoint steps on a full batch: kernel against plain, and plain bf16 against float32
+    m, c = (torch.from_numpy(a[:batch]).to(dev) for a in reqs[0])
+    z = torch.randn(m.shape[0], model.num_particles, model.features,
+                    generator=torch.Generator().manual_seed(3)).to(dev) * m
+    k16 = model16.integrate(net16, z, c, m, "midpoint", BF16_CHECK_STEPS)
+    with mock.patch.object(wrapper_owner, wrapper_name, plain):
+        p16 = model16.integrate(net16, z, c, m, "midpoint", BF16_CHECK_STEPS)
+    x32 = model.integrate(net, z, c, m, "midpoint", BF16_CHECK_STEPS)
+    ours, theirs = frob((k16 - p16).cpu()), frob((p16 - x32).cpu())
+    if not ours < theirs:
+        fail(f"{name} bf16: kernel path and plain path after 4 steps |{ours}| are not closer "
+             f"than plain bf16 is to float32 |{theirs}|")
+
+    # NFE 100: the bf16 samples against the float32 kernel path's, per feature
+    path_err = max(float(np.abs(a - b).max()) for a, b in zip(outs, plain_outs))
+    real16 = np.concatenate([o[m[..., 0] > 0] for (m, _), o in zip(reqs, outs)])
+    real32 = np.concatenate([o[m[..., 0] > 0] for (m, _), o in zip(reqs, f32["_outs"])])
+    std32 = real32.std(axis=0)
+    d_mean = np.abs(real16.mean(axis=0) - real32.mean(axis=0)) / std32
+    d_std = np.abs(real16.std(axis=0) - std32) / std32
+    if not max(d_mean.max(), d_std.max()) <= BF16_STATS_LIMIT:
+        fail(f"{name} bf16: per-feature mean/std off the float32 samples by {d_mean.max()} / "
+             f"{d_std.max()} of the float32 std (limit {BF16_STATS_LIMIT})")
+
+    with torch.no_grad():
+        field = model16.vector_field(net16, torch.full((m.shape[0],), 0.5, device=dev), z, c, m)
+    field_max = float(field.float().abs().max())
+    if not (np.isfinite(field_max) and field_max > 0.0):
+        fail(f"{name} bf16: the vector field is identically zero or not finite ({field_max})")
+
+    jets = sum(requests)
+    return {
+        "config": config + ", model.dtype=bfloat16", "requests": list(requests), "batch": batch,
+        "batches": n_batches, "nfe": 2 * (ODE_STEPS - 1), "kernel": counter.__name__,
+        "launches": launches,
+        "kernel_path_s": [secs, secs2], "plain_path_s": [plain_secs, plain_secs2],
+        "kernel_path_jets_per_s": 2 * jets / (secs + secs2),
+        "plain_path_jets_per_s": 2 * jets / (plain_secs + plain_secs2),
+        "kernel_path_batch_jets_per_s": 2 * n_batches * batch / (secs + secs2),
+        "plain_path_batch_jets_per_s": 2 * n_batches * batch / (plain_secs + plain_secs2),
+        "f32_kernel_path_batch_jets_per_s": f32["kernel_path_batch_jets_per_s"],
+        "nfe100_vs_f32": {"max_mean_diff_over_std": float(d_mean.max()),
+                          "max_std_diff_over_std": float(d_std.max()),
+                          "mean_diff_over_std": d_mean.tolist(),
+                          "std_diff_over_std": d_std.tolist(), "limit": BF16_STATS_LIMIT,
+                          "max_abs_diff": max(float(np.abs(a - b).max())
+                                              for a, b in zip(outs, f32["_outs"]))},
+        "nfe100_max_abs_diff_kernel_vs_plain": path_err,
+        "four_steps": {"kernel_vs_plain_frobenius": ours, "plain_bf16_vs_f32_frobenius": theirs,
+                       "kernel_vs_plain_max_abs": float((k16 - p16).abs().max()),
+                       "plain_bf16_vs_f32_max_abs": float((p16 - x32).abs().max())},
+        "vector_field_max_abs": field_max,
     }
 
 
@@ -1951,7 +2358,11 @@ def main() -> None:
     kernels = {k["name"]: k for k in (kernel_phase(torch, ops, dev),
                                       packed_phase(torch, sa, dev),
                                       fused_phase(torch, sa, dev),
-                                      flash_phase(torch, fa, sa, dev))}
+                                      flash_phase(torch, fa, sa, dev),
+                                      epic_bf16_phase(torch, ops, dev),
+                                      packed_bf16_phase(torch, sa, dev),
+                                      fused_bf16_phase(torch, sa, dev),
+                                      flash_bf16_phase(torch, fa, dev))}
     # on these lines only: the `kernels` line below holds what this run timed and counted
     designs = {
         "packed_short_attention": tensor_core_design(
@@ -2032,13 +2443,27 @@ def main() -> None:
              requests=(512, 7), batch=512, cpu_batch=4),
     ]
     counted = [ops.epic_layer, sa.packed_short_attention, sa.fused_short_attention,
-               fa.flash_masked_attention]
+               fa.flash_masked_attention, ops.epic_layer_bf16, sa.packed_short_attention_bf16,
+               sa.fused_short_attention_bf16, fa.flash_masked_attention_bf16]
+    served = {}
     for run in runs:
         serving = serving_phase(torch, dev, counted=counted, **run)
-        print(json.dumps({"serving": run["name"], **serving}), flush=True)
+        print(json.dumps({"serving": run["name"],
+                          **{k: v for k, v in serving.items() if not k.startswith("_")}}),
+              flush=True)
+        served[run["name"]] = serving
         kernel = kernels[run["wrapper_name"]]
         kernel["launches"] = (kernel["launches"] or 0) + serving["launches"]
         kernel.setdefault("launches_by_path", {})[run["name"]] = serving["launches"]
+    t0 = time.perf_counter()
+    for run in runs:  # the same models, weights and requests in bfloat16
+        serving = bf16_serving_phase(torch, dev, counted=counted, f32=served.pop(run["name"]),
+                                     **run)
+        print(json.dumps({"serving_bf16": run["name"], **serving}), flush=True)
+        kernel = kernels[run["wrapper_name"] + "_bf16"]
+        kernel["launches"] = (kernel["launches"] or 0) + serving["launches"]
+        kernel.setdefault("launches_by_path", {})[run["name"] + " (bf16)"] = serving["launches"]
+    print(json.dumps({"bf16_serving_phases_s": time.perf_counter() - t0}), flush=True)
 
     t0 = time.perf_counter()
     epic_train = train_epic_phase(torch, ops, dev, counted)

@@ -55,6 +55,7 @@
 #pragma once
 
 #include "attention_common.cuh"
+#include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
@@ -261,6 +262,252 @@ __device__ __forceinline__ void stage_mask(float* madd, const float* mask_row, i
     float a = -CUDART_INF_F;
     if (j < n) a = mask_row ? (mask_row[j] - 1.f) * kNeg : 0.f;
     madd[j] = a;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16 operands: the tile step of the packed and flash kernels' bfloat16
+// variants (instruction: mma_bf16.cuh's m16n8k16). A warp owns 16 query rows,
+// Q's bfloat16 A fragments stay in registers, and the staged keys are taken
+// 16 at a time:
+//
+//   S (16 x 16)  = Q (16 x DP) . K^T      DP / 16 steps, 2 mma each (two n8 key tiles)
+//   s            = S * scale + madd (+ bias), float32 on the accumulator
+//
+// K and V sit in shared memory as bfloat16 rows at a stride of DP + 8
+// elements (DP: the head dim padded to 16, 32 or 64; rows 16 bytes beyond a
+// multiple of 32 bytes apart), read by ldmatrix: K without .trans (its rows
+// are B's columns), V with .trans. What follows S differs by kernel:
+//   packed (`packed_bf16_keys`): two passes over the keys, the first for the
+//     rows' maxima, the second recomputing S (the same instructions in the
+//     same order: the same values) for p = exp(s - max), the sum of the
+//     unrounded p, and O += bf16(P) . V as bfloat16 products, P taken from the
+//     accumulator's registers as A without any exchange (C's key tiles 0 and
+//     1 are A's columns 0..7 and 8..15). That is the Pallas `_packed_kernel`
+//     on bfloat16 (short_attention.py:187-206): the softmax over the whole row
+//     before P is rounded, the normalisation after PV.
+//   flash (`flash_bf16_step`): the streaming softmax over steps of 16 keys, P
+//     kept in float32 as the Pallas flash kernel keeps it
+//     (flash_attention.py:31-54): O += P . V as two TF32 products on
+//     m16n8k8, the head and the remainder of P, V exact in TF32 (a bfloat16
+//     has 8 bits of mantissa). The dropped part is the remainder's last bits,
+//     2^-21 of P.
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kBfKeys = 16;  // keys of a step
+constexpr int kBfTf32Products = 2;  // TF32 products of P . V in the flash variant
+
+// The head dim a bfloat16 variant is compiled for: 16, 32 or 64.
+__host__ __device__ constexpr int bf16_head_dim(int dp) { return dp < 16 ? 16 : dp; }
+
+template <int DP>
+struct MmaTileBf16 {
+  uint32_t q[DP / 16][4];
+  float o[DP / 8][4];
+  float m[2], l[2];
+};
+
+__device__ __forceinline__ uint32_t pack_raw_bf16(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// Rows row0 .. row0 + 15 of one head of q (row distance ld, d wide) as A
+// fragments; rows past last_row repeat it.
+template <int DP>
+__device__ __forceinline__ void mma_tile_init_bf16(MmaTileBf16<DP>& t, const bf16* qhead,
+                                                   long long ld, int row0, int last_row, int d,
+                                                   float m_init) {
+  const int g = (threadIdx.x & 31) >> 2, tt = threadIdx.x & 3;
+  const bf16 zero = __float2bfloat16_rn(0.f);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const bf16* qrow = qhead + min(row0 + 8 * half + g, last_row) * ld;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 16 * kk + 8 * c + 2 * tt;
+        t.q[kk][half + 2 * c] =
+            pack_raw_bf16(col < d ? qrow[col] : zero, col + 1 < d ? qrow[col + 1] : zero);
+      }
+    }
+    t.m[half] = m_init;
+    t.l[half] = 0.f;
+  }
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) t.o[n][i] = 0.f;
+  }
+}
+
+// s[kt][i] = the scores of keys key0 + 8 kt + 2 tt + (i & 1) for row g + 8 (i >> 1)
+// of the tile, scaled, masked and biased; returns nothing else.
+template <int DP, typename Bias>
+__device__ __forceinline__ void mma_scores_bf16(float (&s)[2][4], const MmaTileBf16<DP>& t,
+                                                const bf16* ks, const float* madd, int key0,
+                                                float scale, Bias bias) {
+  constexpr int ST = DP + 8;
+  const int lane = threadIdx.x & 31, tt = lane & 3;
+  const bf16* krow = ks + (key0 + (lane & 7) + 8 * (lane >> 4)) * ST + 8 * ((lane >> 3) & 1);
+#pragma unroll
+  for (int kt = 0; kt < 2; ++kt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[kt][i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    uint32_t b[4];
+    ldmatrix_x4(b, krow + 16 * kk);
+    mma_bf16(s[0], t.q[kk], b[0], b[1]);
+    mma_bf16(s[1], t.q[kk], b[2], b[3]);
+  }
+#pragma unroll
+  for (int kt = 0; kt < 2; ++kt) {
+    const int key = key0 + 8 * kt + 2 * tt;
+    const float2 ma = *reinterpret_cast<const float2*>(madd + key);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float sc = fmaf(s[kt][i], scale, (i & 1) ? ma.y : ma.x);
+      if (Bias::kOn) sc += bias(8 * (i >> 1), key + (i & 1));
+      s[kt][i] = sc;
+    }
+  }
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// The packed kernel's softmax over the staged keys 0 .. n_p - 1 (n_p a
+// multiple of 16): the rows' maxima, then p, its sum and O += bf16(P) . V.
+template <int DP, typename Bias>
+__device__ __forceinline__ void packed_bf16_keys(MmaTileBf16<DP>& t, const bf16* ks,
+                                                 const bf16* vs, const float* madd, int n_p,
+                                                 float scale, Bias bias) {
+  constexpr int ST = DP + 8;
+  const int lane = threadIdx.x & 31;
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  for (int key0 = 0; key0 < n_p; key0 += kBfKeys) {
+    float s[2][4];
+    mma_scores_bf16(s, t, ks, madd, key0, scale, bias);
+#pragma unroll
+    for (int kt = 0; kt < 2; ++kt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], s[kt][i]);
+  }
+  t.m[0] = quad_max(mx[0]);
+  t.m[1] = quad_max(mx[1]);
+
+  const bf16* vrow = vs + (lane & 15) * ST + 8 * (lane >> 4);
+  for (int key0 = 0; key0 < n_p; key0 += kBfKeys) {
+    float s[2][4];
+    mma_scores_bf16(s, t, ks, madd, key0, scale, bias);
+    float p[2][4];
+#pragma unroll
+    for (int kt = 0; kt < 2; ++kt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        p[kt][i] = exp2_neg((s[kt][i] - t.m[i >> 1]) * kLog2e);
+        t.l[i >> 1] += p[kt][i];
+      }
+    const uint32_t a[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
+                           pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
+#pragma unroll
+    for (int np = 0; np < DP / 16; ++np) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, vrow + key0 * ST + 16 * np);
+      mma_bf16(t.o[2 * np], a, b[0], b[1]);
+      mma_bf16(t.o[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// One step of the flash kernel's streaming softmax over the 16 staged keys
+// from key0 on (the step's first key is a key of the range, so its maximum is
+// finite).
+template <int DP>
+__device__ __forceinline__ void flash_bf16_step(MmaTileBf16<DP>& t, const bf16* ks,
+                                                const bf16* vs, const float* madd, int key0,
+                                                float scale) {
+  constexpr int ST = DP + 8;
+  const int g = (threadIdx.x & 31) >> 2, tt = threadIdx.x & 3;
+  float s[2][4];
+  mma_scores_bf16(s, t, ks, madd, key0, scale, NoBias{});
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+  for (int kt = 0; kt < 2; ++kt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], s[kt][i]);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const float x = fmaxf(quad_max(mx[half]), t.m[half]);
+    const float corr = exp2_neg((t.m[half] - x) * kLog2e);
+    t.m[half] = x;
+    t.l[half] *= corr;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      t.o[n][2 * half] *= corr;
+      t.o[n][2 * half + 1] *= corr;
+    }
+  }
+#pragma unroll
+  for (int kt = 0; kt < 2; ++kt) {
+    uint32_t p_hi[4], p_lo[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float p = exp2_neg((s[kt][i] - t.m[i >> 1]) * kLog2e);
+      t.l[i >> 1] += p;
+      // C's (row, key 2t | 2t+1) is A's (row, column t | t+4): c0 c1 c2 c3 -> a0 a2 a1 a3
+      const int a = (i >> 1) + 2 * (i & 1);
+      const Tf32 x = split_tf32(p);
+      p_hi[a] = x.hi;
+      p_lo[a] = x.lo;
+    }
+    const bf16* v0 = vs + (key0 + 8 * kt + 2 * tt) * ST + g;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {  // bfloat16 -> float32 is exact, and exact in TF32
+      const uint32_t b0 = __float_as_uint(__bfloat162float(v0[8 * n]));
+      const uint32_t b1 = __float_as_uint(__bfloat162float(v0[ST + 8 * n]));
+      mma_tf32(t.o[n], p_lo, b0, b1);
+      mma_tf32(t.o[n], p_hi, b0, b1);
+    }
+  }
+}
+
+// This lane's columns of row `half` of O times f, to a row of d outputs.
+template <int DP, typename T>
+__device__ __forceinline__ void mma_store_row_bf16(const MmaTileBf16<DP>& t, int half, float f,
+                                                   T* orow, int d) {
+  const int tt = threadIdx.x & 3;
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+    store2(orow, 8 * n + 2 * tt, d, t.o[n][2 * half] * f, t.o[n][2 * half + 1] * f);
+}
+
+// Stage `rows` rows of one bfloat16 head (d wide) at a row stride of DP + 8
+// elements; columns d..DP-1 and rows rows..rows_p-1 become zero. 16-byte
+// pieces where d % 8 == 0 and the rows allow it, else elements.
+template <int DP>
+__device__ __forceinline__ void stage_head_bf16(bf16* dst, const bf16* src, long long ld,
+                                                int rows, int rows_p, int d) {
+  constexpr int ST = DP + 8;
+  const bool vec = d % 8 == 0 && ld % 8 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0;
+  if (vec) {
+    constexpr int Q = DP / 8;
+    for (int i = threadIdx.x; i < rows_p * Q; i += blockDim.x) {
+      const int r = i / Q, c = (i % Q) * 8;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (r < rows && c < d) val = *reinterpret_cast<const uint4*>(src + r * ld + c);
+      *reinterpret_cast<uint4*>(dst + r * ST + c) = val;
+    }
+  } else {
+    const bf16 zero = __float2bfloat16_rn(0.f);
+    for (int i = threadIdx.x; i < rows_p * DP; i += blockDim.x) {
+      const int r = i / DP, c = i % DP;
+      dst[r * ST + c] = r < rows && c < d ? src[r * ld + c] : zero;
+    }
   }
 }
 

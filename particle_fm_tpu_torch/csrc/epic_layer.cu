@@ -1,4 +1,6 @@
-// One EPiC layer, forward only, float32, for sm_90a.
+// One EPiC layer, forward only, for sm_90a: float32 (`epic_layer_fwd_f32`,
+// below) and bfloat16 (`epic_layer_fwd_bf16`, at the end of this file, with
+// its own design note).
 //
 // Replaces the TPU kernel particle_fm_tpu/ops/pallas/epic_layer.py
 // (`epic_layer_fused_fwd` -> `_kernel`). It computes, for each set b:
@@ -75,6 +77,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
@@ -713,3 +716,418 @@ extern "C" int epic_layer_geometry(int b, int n, int h, int l, int s, int tg, in
 }
 
 extern "C" const char* epic_layer_mma_instruction() { return MMA_TF32_INSTRUCTION; }
+
+// ---------------------------------------------------------------------------
+// bfloat16: epic_layer_fwd_bf16
+// ---------------------------------------------------------------------------
+//
+// The bfloat16 instantiation of the same TPU kernel: x, g, the per-set
+// features, the weights and the biases in bfloat16, the mask in float32, every
+// product accumulated in float32, and the Pallas kernel's four roundings
+// (particle_fm_tpu/ops/pallas/epic_layer.py:57-106): the pool, the global MLPs
+// and the per-set biases in float32 on the bfloat16 values, g1 rounded before
+// the second global MLP, g_new rounded (the output, and the input of bias1),
+// x1 = act(x . w1x + bias1) rounded before the second local product, and the
+// output act(x1 . w2x + bias2 + x) rounded once. Both local products run as
+// bfloat16 products on mma.sync.m16n8k16 (mma_bf16.cuh), exact as the Pallas
+// kernel's bfloat16 `jnp.dot` with float32 accumulation is; the plain version
+// (ops/epic_layer.py::epic_layer_reference) computes the same function.
+//
+// Bound on an H100 SXM at the flagship shape (B=640, N=150, H=128): the two
+// local products are 6.29 GFLOP, 6.4 us at 989 TFLOP/s; x in and out is 49 MB,
+// 15 us at 3.35 TB/s: bound by bytes.
+//
+// Design, simple first: two kernels, one after the other on the stream.
+//   * epic_set_bf16_kernel, a block of 256 threads per set: the masked pool,
+//     the two global MLPs and the two per-set biases, the rows of x or of a
+//     weight split over the 8 warps and the columns over the lanes (4
+//     independent sums a lane; the warps' partial sums meet in shared memory),
+//     g_new written out, the biases (B, 2, H) in float32 to scratch memory that
+//     the wrapper allocates. The dot products are bound by the latency of their
+//     loads (660 rows at path E), so each lane keeps four sums in flight.
+//   * epic_local_bf16_kernel over the B*N rows as one matrix, in tiles of 128
+//     rows (64 where 128 do not fit a block: H above 336; a tile may span
+//     sets, and each row reads its set's biases): the x
+//     tile is staged in shared memory once, zero-padded to HP (H rounded up
+//     to 16, the k of one mma) at a row stride of HP+8; the weights are staged
+//     64 output columns at a time, all HP rows of them, at a row stride of 72;
+//     each of 16 warps (8) owns 16 rows and 32 of the 64 columns (4 n8 tiles,
+//     16 accumulators a lane), with A from the tile and B from the weights by
+//     ldmatrix (.trans: the weights are (in, out), k-major). x1 stays in shared
+//     memory between the two products; the residual x is read from the tile.
+//     Rows and weights are copied in 16-byte pieces where H % 8 == 0, else in
+//     8- or 4-byte pieces (H % 4, H % 2; jetclass_cond's H=300 takes 8), else
+//     by element: at H=300 one block fills an SM's shared memory, and its
+//     warps wait on the copies, so they must be wide, and a tile as tall as
+//     fits, so that each staged column of the weights serves many rows
+//     (PERF.md has the times of the narrower versions).
+//   Shared memory: 2 x 128 x (HP+8) + HP x 72 bfloat16, 88 KB at H=128 and 204
+//   KB at H=300 (64-row tiles at H=512: 207 KB). No cp.async pipeline, no
+//   persistent blocks, and the weights are read from L2 once per tile: that
+//   is for a later version.
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kSetThreads = 256;            // threads of a block of the per-set kernel
+constexpr int kLocalColWarps = 2;           // warps along the staged columns
+constexpr int kLocalCols = 64;              // output columns staged at a time
+constexpr int kBfWarpCols = kLocalCols / kLocalColWarps;  // of a warp: 4 n8 tiles
+constexpr int kBfPad = 8;                   // a row stride is a multiple of 16 plus this
+constexpr int kWStride = kLocalCols + kBfPad;
+
+struct ParamsBf16 {
+  const bf16* x;       // (B, N, H)
+  const bf16* g;       // (B, L)
+  const float* mask;   // (B, N)
+  const bf16* sfeat;   // (B, S): [t_emb, cond]
+  const bf16* wg1; const bf16* bg1;  // (tg+2H+L+cg, H), (H)
+  const bf16* wg2; const bf16* bg2;  // (tg+H+cg, L), (L)
+  const bf16* w1x; const bf16* w1s; const bf16* b1;  // (H, H), (tl+L+cl, H), (H)
+  const bf16* w2x; const bf16* w2s; const bf16* b2;  // (H, H), (tl+cl, H), (H)
+  bf16* xo;            // (B, N, H)
+  bf16* go;            // (B, L)
+  float* bias;         // (B, 2, H): bias1, bias2
+  int b, n, h, l, s, tg, tl, cg, cl;
+  float sum_scale;
+};
+
+__device__ __forceinline__ float bf(const bf16* p, long long i) { return __bfloat162float(p[i]); }
+
+constexpr int kSetWarps = kSetThreads / 32;
+
+// epi(j, dot(in[0:k], w[:, j])) for j < m (w bfloat16, row-major (k, m)), by
+// all the threads of the per-set kernel: warp q takes rows q, q + 8, ... of w
+// and lane i the columns i, i + 32, i + 64, i + 96 of a pass of 128, so a warp
+// reads whole rows and keeps four independent sums; the warps' partial sums
+// meet in `part` (kSetWarps * m floats). The sums are float32 on the
+// bfloat16 values.
+template <class Epi>
+__device__ __forceinline__ void set_dot(const float* in, const bf16* __restrict__ w, int k, int m,
+                                        float* part, Epi epi) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int c0 = lane; c0 < m; c0 += 128) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int i = warp; i < k; i += kSetWarps) {
+      const float a = in[i];
+      const bf16* wr = w + (long long)i * m + c0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (c0 + 32 * q < m) acc[q] = fmaf(a, __bfloat162float(wr[32 * q]), acc[q]);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (c0 + 32 * q < m) part[warp * m + c0 + 32 * q] = acc[q];
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < m; j += kSetThreads) {
+    float sum = 0.f;
+    for (int q = 0; q < kSetWarps; ++q) sum += part[q * m + j];
+    epi(j, sum);
+  }
+  __syncthreads();  // the outputs are written; part is reused next
+}
+
+// The per-set part of set blockIdx.x.
+__global__ void __launch_bounds__(kSetThreads) epic_set_bf16_kernel(ParamsBf16 p) {
+  extern __shared__ float fsm[];
+  const int b = blockIdx.x, tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n = p.n, h = p.h, l = p.l, tg = p.tg, tl = p.tl, s = p.s;
+  const int k1 = tg + 2 * h + l + p.cg, k2 = tg + h + p.cg, k3 = tl + l + p.cl, k4 = tl + p.cl;
+  float* gin = fsm;       // cat(t_g, mean, scaled_sum, g, cond_g)
+  float* in2 = gin + k1;  // cat(t_g, g1, cond_g)
+  float* s1 = in2 + k2;   // cat(t_l, g_new, cond_l)
+  float* s2 = s1 + k3;    // cat(t_l, cond_l)
+  float* cnt = s2 + k4;
+  float* part = cnt + 1;  // kSetWarps * max(h, l)
+  const bf16* x = p.x + (long long)b * n * h;
+  const float* m = p.mask + (long long)b * n;
+  const bf16* sf = p.sfeat + (long long)b * s;
+  const bf16* cond_g = sf + s - p.cg;
+  const bf16* cond_l = sf + s - p.cl;
+  const bf16* g = p.g + (long long)b * l;
+
+  if (tid < 32) {
+    float c = 0.f;
+    for (int r = tid; r < n; r += 32) c += m[r];
+    for (int off = 16; off > 0; off >>= 1) c += __shfl_xor_sync(0xffffffffu, c, off);
+    if (tid == 0) cnt[0] = c;
+  }
+  for (int i = tid; i < tg; i += kSetThreads) gin[i] = in2[i] = bf(sf, i);
+  for (int i = tid; i < l; i += kSetThreads) gin[tg + 2 * h + i] = bf(g, i);
+  for (int i = tid; i < p.cg; i += kSetThreads) {
+    gin[tg + 2 * h + l + i] = in2[tg + h + i] = bf(cond_g, i);
+  }
+  for (int i = tid; i < tl; i += kSetThreads) s1[i] = s2[i] = bf(sf, i);
+  for (int i = tid; i < p.cl; i += kSetThreads) s1[tl + l + i] = s2[tl + i] = bf(cond_l, i);
+
+  // the pool, in float32 on the bfloat16 values: warps over the rows, lanes
+  // over the columns, as in set_dot
+  for (int c0 = lane; c0 < h; c0 += 128) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int r = warp; r < n; r += kSetWarps) {
+      const float mv = m[r];
+      const bf16* xr = x + (long long)r * h + c0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (c0 + 32 * q < h) acc[q] = fmaf(__bfloat162float(xr[32 * q]), mv, acc[q]);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (c0 + 32 * q < h) part[warp * h + c0 + 32 * q] = acc[q];
+  }
+  __syncthreads();
+  const float count = cnt[0];
+  for (int c = tid; c < h; c += kSetThreads) {
+    float acc = 0.f;
+    for (int q = 0; q < kSetWarps; ++q) acc += part[q * h + c];
+    gin[tg + c] = acc / count;
+    gin[tg + h + c] = acc * p.sum_scale;
+  }
+  __syncthreads();
+
+  // global MLP 1; g1 rounded to bfloat16 as the second MLP's input
+  set_dot(gin, p.wg1, k1, h, part,
+          [&](int j, float v) { in2[tg + j] = round_bf16(act(v + bf(p.bg1, j))); });
+  // global MLP 2 with the residual g; g_new rounded once
+  set_dot(in2, p.wg2, k2, l, part, [&](int j, float v) {
+    const bf16 gn = __float2bfloat16_rn(act(v + bf(p.bg2, j) + bf(g, j)));
+    p.go[(long long)b * l + j] = gn;
+    s1[tl + j] = __bfloat162float(gn);
+  });
+  // the per-set biases of the two local products, float32
+  float* bias = p.bias + (long long)b * 2 * h;
+  set_dot(s1, p.w1s, k3, h, part, [&](int j, float v) { bias[j] = v + bf(p.b1, j); });
+  set_dot(s2, p.w2s, k4, h, part, [&](int j, float v) { bias[h + j] = v + bf(p.b2, j); });
+}
+
+// Shared memory of the local kernel, in bfloat16 elements from a 16-byte
+// aligned base: the x tile, the x1 tile (`rows` rows at a stride of st), the
+// staged weights (hp rows at a stride of kWStride).
+struct LocalLayout {
+  int hp, st, xs, x1s, ws;
+  __host__ __device__ LocalLayout(int h, int rows) {
+    hp = (h + 15) & ~15;
+    st = hp + kBfPad;
+    xs = 0;
+    x1s = rows * st;
+    ws = 2 * rows * st;
+  }
+  __host__ __device__ size_t bytes() const {
+    return sizeof(bf16) * ((size_t)ws + (size_t)hp * kWStride);
+  }
+};
+
+// A piece of P bfloat16 values (16, 8, 4 or 2 bytes), zeros where `in` is false.
+template <int P>
+struct Piece;
+template <>
+struct Piece<8> { using T = uint4; static __device__ T zero() { return make_uint4(0u, 0u, 0u, 0u); } };
+template <>
+struct Piece<4> { using T = uint2; static __device__ T zero() { return make_uint2(0u, 0u); } };
+template <>
+struct Piece<2> { using T = uint32_t; static __device__ T zero() { return 0u; } };
+template <>
+struct Piece<1> { using T = unsigned short; static __device__ T zero() { return 0; } };
+
+// rows x cols (cols a multiple of P) from src (row distance ld; rows past
+// `rows_in` and columns past `cols_in` read as zeros; both whole pieces) into
+// dst (row distance dst_ld), in pieces of P values, by all threads.
+template <int P>
+__device__ __forceinline__ void copy_pieces(bf16* dst, int dst_ld, const bf16* src, long long ld,
+                                            int rows, int cols, long long rows_in, int cols_in) {
+  using T = typename Piece<P>::T;
+  const int q = cols / P;
+  for (int i = threadIdx.x; i < rows * q; i += blockDim.x) {
+    const int r = i / q, c = (i - r * q) * P;
+    T v = Piece<P>::zero();
+    if (r < rows_in && c < cols_in) v = *reinterpret_cast<const T*>(src + r * ld + c);
+    *reinterpret_cast<T*>(dst + r * dst_ld + c) = v;
+  }
+}
+
+// The widest piece that the rows of `src` (h values, row distance h) allow.
+__device__ __forceinline__ int piece_of(const bf16* src, int h) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  if (h % 8 == 0 && a % 16 == 0) return 8;
+  if (h % 4 == 0 && a % 8 == 0) return 4;
+  if (h % 2 == 0 && a % 4 == 0) return 2;
+  return 1;
+}
+
+template <typename... A>
+__device__ __forceinline__ void copy_any(int piece, A... a) {
+  switch (piece) {
+    case 8: copy_pieces<8>(a...); break;
+    case 4: copy_pieces<4>(a...); break;
+    case 2: copy_pieces<2>(a...); break;
+    default: copy_pieces<1>(a...); break;
+  }
+}
+
+// Rows row0 .. row0 + rows - 1 of x (m rows of h) into the tile, zeros past
+// row m and from column h to hp.
+__device__ __forceinline__ void stage_rows_bf16(bf16* xs, const bf16* x, long long row0,
+                                                long long m, int h, int hp, int st, int rows) {
+  copy_any(piece_of(x, h), xs, st, x + row0 * h, (long long)h, rows, hp, m - row0, h);
+}
+
+// Columns c0 .. c0 + kLocalCols - 1 of the (h, h) weights w (in, out), all hp
+// rows, into ws; zeros past row h and column h.
+__device__ __forceinline__ void stage_weights_bf16(bf16* ws, const bf16* w, int h, int hp,
+                                                   int c0) {
+  copy_any(piece_of(w, h), ws, kWStride, w + c0, (long long)h, hp, kLocalCols, (long long)h,
+           h - c0);
+}
+
+// acc = rows 16 rw .. 16 rw + 15 of the tile `a` (row stride st) times the
+// staged columns cw .. cw + kBfWarpCols - 1, over k < hp: 4 n8 tiles, one
+// bfloat16 mma each per step of 16 along k. rw = warp % RW, cw = kBfWarpCols
+// (warp / RW), for RW warps along the rows.
+template <int RW>
+__device__ __forceinline__ void warp_columns_bf16(float (&acc)[kBfWarpCols / 8][4], const bf16* a,
+                                                  int st, const bf16* ws, int hp) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rw = warp % RW, cw = kBfWarpCols * (warp / RW);
+#pragma unroll
+  for (int nt = 0; nt < kBfWarpCols / 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+  const bf16* arow = a + (16 * rw + (lane & 15)) * st + 8 * (lane >> 4);
+  const bf16* brow = ws + (lane & 15) * kWStride + cw + 8 * (lane >> 4);
+  for (int k0 = 0; k0 < hp; k0 += 16) {
+    uint32_t af[4];
+    ldmatrix_x4(af, arow + k0);
+#pragma unroll
+    for (int np = 0; np < kBfWarpCols / 16; ++np) {
+      uint32_t bfr[4];
+      ldmatrix_x4_trans(bfr, brow + k0 * kWStride + 16 * np);
+      mma_bf16(acc[2 * np], af, bfr[0], bfr[1]);
+      mma_bf16(acc[2 * np + 1], af, bfr[2], bfr[3]);
+    }
+  }
+}
+
+// The local path of one tile of 16 RW of the B*N rows, by RW x 2 warps.
+template <int RW>
+__global__ void __launch_bounds__(32 * RW * kLocalColWarps)
+epic_local_bf16_kernel(ParamsBf16 p) {
+  constexpr int kRows = 16 * RW;
+  extern __shared__ __align__(16) uint4 smem_bf16[];
+  bf16* base = reinterpret_cast<bf16*>(smem_bf16);
+  const LocalLayout lay(p.h, kRows);
+  const int h = p.h, hp = lay.hp, st = lay.st;
+  bf16* xs = base + lay.xs;
+  bf16* x1s = base + lay.x1s;
+  bf16* ws = base + lay.ws;
+  const long long m = (long long)p.b * p.n;
+  const long long row0 = (long long)blockIdx.x * kRows;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int rw = 16 * (warp % RW), cw = kBfWarpCols * (warp / RW);
+  stage_rows_bf16(xs, p.x, row0, m, h, hp, st, kRows);
+
+  // x1 = act(x . w1x + bias1), rounded, zeros from column h to hp
+  for (int c0 = 0; c0 < hp; c0 += kLocalCols) {
+    __syncthreads();  // the tile is staged; the weights of the previous columns are read
+    stage_weights_bf16(ws, p.w1x, h, hp, c0);
+    __syncthreads();
+    float acc[kBfWarpCols / 8][4];
+    warp_columns_bf16<RW>(acc, xs, st, ws, hp);
+#pragma unroll
+    for (int nt = 0; nt < kBfWarpCols / 8; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = rw + g + 8 * half, col = c0 + cw + 8 * nt + 2 * t;
+        if (col >= hp) continue;
+        float v0 = 0.f, v1 = 0.f;
+        if (row0 + r < m) {
+          const float* bs = p.bias + (row0 + r) / p.n * 2 * h;
+          if (col < h) v0 = act(acc[nt][2 * half] + bs[col]);
+          if (col + 1 < h) v1 = act(acc[nt][2 * half + 1] + bs[col + 1]);
+        }
+        *reinterpret_cast<__nv_bfloat162*>(x1s + r * st + col) = __floats2bfloat162_rn(v0, v1);
+      }
+  }
+
+  // out = act(x1 . w2x + bias2 + x), rounded once
+  for (int c0 = 0; c0 < hp; c0 += kLocalCols) {
+    __syncthreads();  // x1 is whole; the weights of the previous columns are read
+    stage_weights_bf16(ws, p.w2x, h, hp, c0);
+    __syncthreads();
+    float acc[kBfWarpCols / 8][4];
+    warp_columns_bf16<RW>(acc, x1s, st, ws, hp);
+#pragma unroll
+    for (int nt = 0; nt < kBfWarpCols / 8; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = rw + g + 8 * half, col = c0 + cw + 8 * nt + 2 * t;
+        const long long row = row0 + r;
+        if (row >= m || col >= h) continue;
+        const float* bs = p.bias + row / p.n * 2 * h + h;
+        const float o0 = act(acc[nt][2 * half] + bs[col] + __bfloat162float(xs[r * st + col]));
+        bf16* orow = p.xo + row * h;
+        if (col + 1 < h) {
+          const float o1 =
+              act(acc[nt][2 * half + 1] + bs[col + 1] + __bfloat162float(xs[r * st + col + 1]));
+          if (h % 2 == 0) {
+            *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(o0, o1);
+          } else {
+            orow[col] = __float2bfloat16_rn(o0);
+            orow[col + 1] = __float2bfloat16_rn(o1);
+          }
+        } else {
+          orow[col] = __float2bfloat16_rn(o0);
+        }
+      }
+  }
+}
+
+// The local kernel with RW warps along the rows: tiles of 16 RW rows.
+template <int RW>
+cudaError_t launch_local_bf16(const ParamsBf16& p, cudaStream_t stream) {
+  constexpr int kRows = 16 * RW;
+  const LocalLayout lay(p.h, kRows);
+  cudaError_t err = cudaFuncSetAttribute(epic_local_bf16_kernel<RW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)lay.bytes());
+  if (err != cudaSuccess) return err;
+  const long long tiles = ((long long)p.b * p.n + kRows - 1) / kRows;
+  if (tiles > 2147483647LL) return cudaErrorInvalidValue;
+  epic_local_bf16_kernel<RW><<<(unsigned)tiles, 32 * RW * kLocalColWarps, lay.bytes(), stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Returns the first failing launch's cudaError_t (0 on success). Shapes and
+// types were checked by the Python wrapper (ops/epic_layer.py::
+// epic_layer_bf16): bfloat16 tensors but the float32 mask; `bias` is scratch
+// of B * 2 * H floats. 1 <= h <= 512, 1 <= l <= 512.
+extern "C" int epic_layer_fwd_bf16(
+    const bf16* x, const bf16* g, const float* mask, const bf16* sfeat,
+    const bf16* wg1, const bf16* bg1, const bf16* wg2, const bf16* bg2,
+    const bf16* w1x, const bf16* w1s, const bf16* b1,
+    const bf16* w2x, const bf16* w2s, const bf16* b2,
+    bf16* xo, bf16* go, float* bias,
+    int b, int n, int h, int l, int s, int tg, int tl, int cg, int cl,
+    float sum_scale, void* stream_ptr) {
+  if (b <= 0 || n <= 0 || h <= 0 || h > kMaxWidth || l <= 0 || l > kMaxWidth)
+    return (int)cudaErrorInvalidValue;
+  const ParamsBf16 p{x, g, mask, sfeat, wg1, bg1, wg2, bg2, w1x, w1s, b1, w2x, w2s, b2,
+                     xo, go, bias, b, n, h, l, s, tg, tl, cg, cl, sum_scale};
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const size_t set_smem =
+      sizeof(float) * ((size_t)(tg + 2 * h + l + cg) + (tg + h + cg) + (tl + l + cl) + (tl + cl) +
+                       1 + (size_t)kSetWarps * (h > l ? h : l));
+  epic_set_bf16_kernel<<<b, kSetThreads, set_smem, stream>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // tiles of 128 rows where they fit a block, else of 64 (H above 336)
+  return (int)(LocalLayout(h, 128).bytes() <= (size_t)kMaxSmem ? launch_local_bf16<8>(p, stream)
+                                                               : launch_local_bf16<4>(p, stream));
+}
+
+extern "C" const char* epic_layer_bf16_mma_instruction() { return MMA_BF16_INSTRUCTION; }

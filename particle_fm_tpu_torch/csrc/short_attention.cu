@@ -71,6 +71,25 @@
 // The softmax is taken with a running maximum and the output divided by the
 // sum at the end: the same function as the plain version's softmax divided
 // before PV, summed in another order (1e-4).
+//
+// bfloat16: two more entry points, with q, k, v and the output in bfloat16
+// (the mask and the bias stay float32).
+//   packed_short_attention_bf16: the Pallas `_packed_kernel` on bfloat16
+//     (short_attention.py:187-206): Q . K^T as bfloat16 products with float32
+//     accumulation, the softmax over the whole row in float32, P rounded to
+//     bfloat16 for a bfloat16 P . V, the normalisation after PV, the output
+//     rounded once. A block per (set, head) stages K and V as bfloat16 rows
+//     (keys padded to 16) and each warp runs attention_mma.cuh's bfloat16 tile
+//     step (`packed_bf16_keys`) over 16 keys at a time: a first pass over the
+//     keys for the rows' maxima, a second that recomputes S (the same
+//     instructions: the same values) for P. P must be rounded against the
+//     row's final maximum to be the Pallas kernel's P, which a streaming
+//     softmax cannot give; the two passes cost Q . K^T twice, a third more
+//     mma than one pass. Bound at path A's shape: 197 MB, 0.059 ms, bytes.
+//   fused_short_attention_bf16: the Pallas `_kernel` upcasts q, k and v and
+//     keeps P in float32 (short_attention.py:47-65), so the fused kernels
+//     above are instantiated for bfloat16 loads (8 bytes a lane) and stores
+//     around their float32 arithmetic.
 
 #include "attention_mma.cuh"
 
@@ -147,6 +166,56 @@ packed_attention_kernel(Heads q, Heads k, Heads v, const float* __restrict__ mas
 }
 
 // ---------------------------------------------------------------------------
+// packed, bfloat16: block = (set, head), warp = tiles of 16 query rows
+// ---------------------------------------------------------------------------
+
+constexpr int kPackedBf16Warps = kMaxPackedLen / kMmaRows;  // 16: a tile of each at L=256
+
+// As the float32 kernel, with the head's K and V staged as bfloat16 (keys
+// padded to a multiple of 16) and attention_mma.cuh's bfloat16 tile step
+// (`packed_bf16_keys`: the rows' maxima first, then bf16(P) . V).
+template <int DP, bool kBias>
+__global__ void __launch_bounds__(32 * kPackedBf16Warps)
+packed_attention_bf16_kernel(HeadsT<bf16> q, HeadsT<bf16> k, HeadsT<bf16> v,
+                             const float* __restrict__ mask, const float* __restrict__ bias,
+                             bf16* __restrict__ out, int l, int h, int d, float scale) {
+  constexpr int ST = DP + 8;
+  extern __shared__ float4 smem4[];
+  const int lp = (l + kBfKeys - 1) / kBfKeys * kBfKeys;
+  bf16* ks = reinterpret_cast<bf16*>(smem4);
+  bf16* vs = ks + lp * ST;
+  float* madd = reinterpret_cast<float*>(vs + lp * ST);
+  const int b = blockIdx.x / h, hd = blockIdx.x % h;
+
+  stage_head_bf16<DP>(ks, k.p + b * k.bs + hd * d, k.ld, l, lp, d);
+  stage_head_bf16<DP>(vs, v.p + b * v.bs + hd * d, v.ld, l, lp, d);
+  stage_mask(madd, mask ? mask + (long long)b * l : nullptr, l, lp);
+  __syncthreads();
+
+  const int g = (threadIdx.x & 31) >> 2;
+  const bf16* qhead = q.p + b * q.bs + hd * d;
+  for (int row0 = (threadIdx.x >> 5) * kMmaRows; row0 < l; row0 += (blockDim.x >> 5) * kMmaRows) {
+    MmaTileBf16<DP> t;
+    mma_tile_init_bf16(t, qhead, q.ld, row0, l - 1, d, -CUDART_INF_F);
+    if constexpr (kBias) {
+      const PackedBias bs{bias + ((long long)b * h + hd) * l * l, l, row0};
+      packed_bf16_keys(t, ks, vs, madd, lp, scale, bs);
+    } else {
+      packed_bf16_keys(t, ks, vs, madd, lp, scale, NoBias{});
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float sum = t.l[half];  // over the four lanes that share the row; every lane shuffles
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const int row = row0 + 8 * half + g;
+      if (row < l)
+        mma_store_row_bf16(t, half, 1.f / sum, out + (((long long)b * l + row) * h + hd) * d, d);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // fused: block = (set, 32 slots of a row across the heads), lane = 4 floats
 // ---------------------------------------------------------------------------
 
@@ -194,6 +263,16 @@ __device__ __forceinline__ void store_slot(float* p, float4 r, int n, bool vec) 
   }
 }
 
+// The same for bfloat16 rows (vec: 8-byte pieces), read into floats and
+// rounded to the nearest bfloat16 on the way out.
+__device__ __forceinline__ float4 load_slot(const __nv_bfloat16* p, int n, bool vec) {
+  return load4(p, 0, vec ? (n ? 4 : 0) : n, vec);
+}
+
+__device__ __forceinline__ void store_slot(__nv_bfloat16* p, float4 r, int n, bool vec) {
+  store4(p, 0, vec ? (n ? 4 : 0) : n, r, vec);
+}
+
 // q . k over the head: this lane's 4 products, summed over the QP lanes of the head
 template <int QP>
 __device__ __forceinline__ float head_dot(float4 a, float4 b) {
@@ -216,10 +295,10 @@ __device__ __forceinline__ float4 axpy(float p, float4 v, float4 o) {
 // once, in runs of `per_warp` consecutive items, so a warp reloads K and V only
 // where its run crosses into the next set and no wave of blocks is left half
 // full.
-template <int QP, int KR>
+template <typename T, int QP, int KR>
 __global__ void __launch_bounds__(32 * kFewWarps)
-fused_few_keys_kernel(Heads q, Heads k, Heads v, const float* __restrict__ mask,
-                      const float* __restrict__ bias, float* __restrict__ out, int n_sets,
+fused_few_keys_kernel(HeadsT<T> q, HeadsT<T> k, HeadsT<T> v, const float* __restrict__ mask,
+                      const float* __restrict__ bias, T* __restrict__ out, int n_sets,
                       int lq, int lk, int h, int d, int chunks, float scale, int per_warp) {
   constexpr int RB = KR <= 4 ? 4 : 2;
   const int groups = (lq + RB - 1) / RB;
@@ -231,8 +310,9 @@ fused_few_keys_kernel(Heads q, Heads k, Heads v, const float* __restrict__ mask,
   Slot<QP> sl(0, h, d);
   float4 kr[KR], vr[KR];
   float madd[KR];
-  const float *qb = nullptr, *bb = nullptr;
-  float* ob = nullptr;
+  const T* qb = nullptr;
+  const float* bb = nullptr;
+  T* ob = nullptr;
   for (; it < end; ++it) {
     const int bc = (int)(it / groups), r0 = (int)(it % groups) * RB;
     if (bc != held) {  // warp-uniform
@@ -285,22 +365,22 @@ fused_few_keys_kernel(Heads q, Heads k, Heads v, const float* __restrict__ mask,
 // and head; the warps' partial results meet once in shared memory. Blocks of
 // 4 warps at most 102 registers a thread: five blocks to an SM, so the 640
 // sets of the served shape run in one wave.
-template <int QP>
+template <typename T, int QP>
 __global__ void __launch_bounds__(32 * kManyWarps, 5)
-fused_many_keys_kernel(Heads q, Heads k, Heads v, const float* __restrict__ mask,
-                       const float* __restrict__ bias, float* __restrict__ out,
+fused_many_keys_kernel(HeadsT<T> q, HeadsT<T> k, HeadsT<T> v, const float* __restrict__ mask,
+                       const float* __restrict__ bias, T* __restrict__ out,
                        int lq, int lk, int h, int d, int chunks, float scale) {
   constexpr int R = kFusedRows;
   __shared__ float4 part_o[kManyWarps][R][32];
   __shared__ float2 part_ml[kManyWarps][R][32];
   const int b = blockIdx.x / chunks, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const Slot<QP> sl(blockIdx.x % chunks, h, d);
-  const float* qb = q.p + b * q.bs + sl.off;
-  const float* kb = k.p + b * k.bs + sl.off;
-  const float* vb = v.p + b * v.bs + sl.off;
+  const T* qb = q.p + b * q.bs + sl.off;
+  const T* kb = k.p + b * k.bs + sl.off;
+  const T* vb = v.p + b * v.bs + sl.off;
   const float* mb = mask ? mask + (long long)b * lk : nullptr;
   const float* bb = bias ? bias + ((long long)b * h + sl.hd) * lq * lk : nullptr;
-  float* ob = out + (long long)b * lq * h * d + sl.off;
+  T* ob = out + (long long)b * lq * h * d + sl.off;
   for (int r0 = 0; r0 < lq; r0 += R) {
     float4 qv[R], o[R];
     float m[R], l[R];
@@ -398,44 +478,87 @@ cudaError_t launch_packed_d(Heads q, Heads k, Heads v, const float* mask, const 
   return launch_packed_dp<64>(q, k, v, mask, bias, out, b, l, h, d, stream, biased, report);
 }
 
-template <int QP, int KR>
-cudaError_t launch_few_keys(Heads q, Heads k, Heads v, const float* mask, const float* bias,
-                            float* out, int b, int lq, int lk, int h, int d, int chunks,
-                            float scale, cudaStream_t stream) {
+template <int DP, bool kBias>
+cudaError_t launch_packed_bf16(HeadsT<bf16> q, HeadsT<bf16> k, HeadsT<bf16> v, const float* mask,
+                               const float* bias, bf16* out, int b, int l, int h, int d,
+                               cudaStream_t stream) {
+  const int lp = (l + kBfKeys - 1) / kBfKeys * kBfKeys;
+  const size_t smem = sizeof(bf16) * (size_t)2 * lp * (DP + 8) + sizeof(float) * lp;
+  const int warps = min((l + kMmaRows - 1) / kMmaRows, kPackedBf16Warps);
+  cudaError_t err = allow_smem(packed_attention_bf16_kernel<DP, kBias>, smem);
+  if (err != cudaSuccess) return err;
+  packed_attention_bf16_kernel<DP, kBias><<<b * h, 32 * warps, smem, stream>>>(
+      q, k, v, mask, bias, out, l, h, d, 1.f / sqrtf((float)d));
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_packed_bf16_dp(HeadsT<bf16> q, HeadsT<bf16> k, HeadsT<bf16> v,
+                                  const float* mask, const float* bias, bf16* out, int b, int l,
+                                  int h, int d, cudaStream_t stream) {
+  if (bias != nullptr)
+    return launch_packed_bf16<DP, true>(q, k, v, mask, bias, out, b, l, h, d, stream);
+  return launch_packed_bf16<DP, false>(q, k, v, mask, bias, out, b, l, h, d, stream);
+}
+
+template <typename T, int QP, int KR>
+cudaError_t launch_few_keys(HeadsT<T> q, HeadsT<T> k, HeadsT<T> v, const float* mask,
+                            const float* bias, T* out, int b, int lq, int lk, int h, int d,
+                            int chunks, float scale, cudaStream_t stream) {
   constexpr int RB = KR <= 4 ? 4 : 2;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_few_keys_kernel<QP, KR>,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_few_keys_kernel<T, QP, KR>,
                                                       32 * kFewWarps, 0);
   if (err != cudaSuccess) return err;
   const long long items = (long long)b * chunks * ((lq + RB - 1) / RB);
   const long long warps = (long long)sms * max(per_sm, 1) * kFewWarps;
   const int per_warp = (int)((items + warps - 1) / warps);
   const int grid = (int)((items + (long long)per_warp * kFewWarps - 1) / (per_warp * kFewWarps));
-  fused_few_keys_kernel<QP, KR><<<grid, 32 * kFewWarps, 0, stream>>>(
+  fused_few_keys_kernel<T, QP, KR><<<grid, 32 * kFewWarps, 0, stream>>>(
       q, k, v, mask, bias, out, b, lq, lk, h, d, chunks, scale, per_warp);
   return cudaGetLastError();
 }
 
 // QP: lanes a head spans (1, 2, 4, 8 or 16 for head dims up to 4, 8, 16, 32, 64)
-template <int QP>
-cudaError_t launch_fused(Heads q, Heads k, Heads v, const float* mask, const float* bias,
-                         float* out, int b, int lq, int lk, int h, int d, cudaStream_t stream) {
+template <typename T, int QP>
+cudaError_t launch_fused(HeadsT<T> q, HeadsT<T> k, HeadsT<T> v, const float* mask,
+                         const float* bias, T* out, int b, int lq, int lk, int h, int d,
+                         cudaStream_t stream) {
   const int chunks = (h * QP + 31) / 32;
   const float scale = 1.f / sqrtf((float)d);
   if (lk <= 4)
-    return launch_few_keys<QP, 4>(q, k, v, mask, bias, out, b, lq, lk, h, d, chunks, scale,
-                                  stream);
+    return launch_few_keys<T, QP, 4>(q, k, v, mask, bias, out, b, lq, lk, h, d, chunks, scale,
+                                     stream);
   if (lk <= kFusedRegKeys)
-    return launch_few_keys<QP, kFusedRegKeys>(q, k, v, mask, bias, out, b, lq, lk, h, d, chunks,
-                                              scale, stream);
-  fused_many_keys_kernel<QP><<<b * chunks, 32 * kManyWarps, 0, stream>>>(
+    return launch_few_keys<T, QP, kFusedRegKeys>(q, k, v, mask, bias, out, b, lq, lk, h, d,
+                                                 chunks, scale, stream);
+  fused_many_keys_kernel<T, QP><<<b * chunks, 32 * kManyWarps, 0, stream>>>(
       q, k, v, mask, bias, out, lq, lk, h, d, chunks, scale);
   return cudaGetLastError();
 }
+
+template <typename T>
+int fused_entry(const T* q, const T* k, const T* v, const float* mask, const float* bias, T* out,
+                int b, int lq, int lk, int h, int d, long long q_bs, long long q_ld,
+                long long k_bs, long long k_ld, long long v_bs, long long v_ld,
+                void* stream_ptr) {
+  if (b <= 0 || h <= 0 || lq <= 0 || lq > kMaxFusedLen || lk <= 0 || lk > kMaxFusedLen ||
+      d <= 0 || d > kMaxHeadDim)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const HeadsT<T> qh = heads(q, q_bs, q_ld, d), kh = heads(k, k_bs, k_ld, d),
+                  vh = heads(v, v_bs, v_ld, d);
+  if (d <= 4) return (int)launch_fused<T, 1>(qh, kh, vh, mask, bias, out, b, lq, lk, h, d, stream);
+  if (d <= 8) return (int)launch_fused<T, 2>(qh, kh, vh, mask, bias, out, b, lq, lk, h, d, stream);
+  if (d <= 16) return (int)launch_fused<T, 4>(qh, kh, vh, mask, bias, out, b, lq, lk, h, d, stream);
+  if (d <= 32) return (int)launch_fused<T, 8>(qh, kh, vh, mask, bias, out, b, lq, lk, h, d, stream);
+  return (int)launch_fused<T, 16>(qh, kh, vh, mask, bias, out, b, lq, lk, h, d, stream);
+}
+
 
 }  // namespace
 
@@ -468,20 +591,48 @@ extern "C" int packed_short_attention_geometry(int l, int d, int biased, int* re
 
 extern "C" const char* attention_mma_instruction() { return MMA_TF32_INSTRUCTION; }
 
+// The bfloat16 packed kernel: q, k, v and the output in bfloat16, the mask
+// and the bias in float32; arguments as packed_short_attention_f32's. Head dims
+// up to 16 run padded to 16.
+extern "C" int packed_short_attention_bf16(
+    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v, const float* mask,
+    const float* bias, __nv_bfloat16* out, int b, int lq, int lk, int h, int d,
+    long long q_bs, long long q_ld, long long k_bs, long long k_ld,
+    long long v_bs, long long v_ld, void* stream_ptr) {
+  if (lk != lq || b <= 0 || h <= 0 || lq <= 0 || lq > kMaxPackedLen || d <= 0 ||
+      d > kMaxHeadDim)
+    return (int)cudaErrorInvalidValue;
+  const HeadsT<bf16> qh = heads(q, q_bs, q_ld, d), kh = heads(k, k_bs, k_ld, d),
+                     vh = heads(v, v_bs, v_ld, d);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (d <= 16)
+    return (int)launch_packed_bf16_dp<16>(qh, kh, vh, mask, bias, out, b, lq, h, d, stream);
+  if (d <= 32)
+    return (int)launch_packed_bf16_dp<32>(qh, kh, vh, mask, bias, out, b, lq, h, d, stream);
+  return (int)launch_packed_bf16_dp<64>(qh, kh, vh, mask, bias, out, b, lq, h, d, stream);
+}
+
+extern "C" const char* attention_mma_bf16_instruction() { return MMA_BF16_INSTRUCTION; }
+
+
 extern "C" int fused_short_attention_f32(
     const float* q, const float* k, const float* v, const float* mask, const float* bias,
     float* out, int b, int lq, int lk, int h, int d,
     long long q_bs, long long q_ld, long long k_bs, long long k_ld,
     long long v_bs, long long v_ld, void* stream_ptr) {
-  if (b <= 0 || h <= 0 || lq <= 0 || lq > kMaxFusedLen || lk <= 0 || lk > kMaxFusedLen ||
-      d <= 0 || d > kMaxHeadDim)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const Heads qh = heads(q, q_bs, q_ld, d), kh = heads(k, k_bs, k_ld, d),
-              vh = heads(v, v_bs, v_ld, d);
-  if (d <= 4) return (int)launch_fused<1>(qh, kh, vh, mask, bias, out, b, lq, lk, h, d, stream);
-  if (d <= 8) return (int)launch_fused<2>(qh, kh, vh, mask, bias, out, b, lq, lk, h, d, stream);
-  if (d <= 16) return (int)launch_fused<4>(qh, kh, vh, mask, bias, out, b, lq, lk, h, d, stream);
-  if (d <= 32) return (int)launch_fused<8>(qh, kh, vh, mask, bias, out, b, lq, lk, h, d, stream);
-  return (int)launch_fused<16>(qh, kh, vh, mask, bias, out, b, lq, lk, h, d, stream);
+  return fused_entry(q, k, v, mask, bias, out, b, lq, lk, h, d, q_bs, q_ld, k_bs, k_ld, v_bs,
+                     v_ld, stream_ptr);
+}
+
+// The bfloat16 instantiation of the fused kernel: q, k, v and the output in
+// bfloat16, read into and written from the float32 arithmetic above, which
+// is what the Pallas kernel computes on bfloat16 inputs (it upcasts q, k and
+// v and keeps P in float32: short_attention.py:47-65).
+extern "C" int fused_short_attention_bf16(
+    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v, const float* mask,
+    const float* bias, __nv_bfloat16* out, int b, int lq, int lk, int h, int d,
+    long long q_bs, long long q_ld, long long k_bs, long long k_ld,
+    long long v_bs, long long v_ld, void* stream_ptr) {
+  return fused_entry(q, k, v, mask, bias, out, b, lq, lk, h, d, q_bs, q_ld, k_bs, k_ld, v_bs,
+                     v_ld, stream_ptr);
 }

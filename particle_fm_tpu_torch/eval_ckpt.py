@@ -2,11 +2,12 @@
 scripts/eval_ckpt.py.
 
     python -m particle_fm_tpu_torch.eval_ckpt --run_dir <run> [--ckpt best|last]
-        [--n_samples N] [--ode_steps K] [--no-cache] [--device cpu]
+        [--n_samples N] [--ode_steps K] [--no-cache] [--device cpu] [--dtype bfloat16]
 
-Reload the run's saved config.yaml, restore the checkpoint's EMA weights,
+Reload the run's saved config.yaml, restore the checkpoint's EMA weights
+(served in `--dtype` when given, else in the run's `model.dtype`),
 generate (or reuse the cached `.npz` of an earlier call with the same
-checkpoint, sample count and guidance) samples against the test split,
+checkpoint, sample count, guidance and type) samples against the test split,
 postprocess them (clip generated features to the training range, argmax
 particle-ID one-hots, round charge, drop sets with < 3 particles, or fewer than all where a set has
 fewer than 3 slots), then
@@ -82,6 +83,9 @@ def parse_args(argv=None):
     ap.add_argument("--write_classifier_h5", action="store_true",
                     help="not ported: raises")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dtype", default=None,
+                    help="compute type to sample in (float32 or bfloat16); default: the run's "
+                    "model.dtype")
     return ap.parse_args(argv)
 
 
@@ -101,7 +105,8 @@ def main(argv: list[str] | None = None) -> dict:
     from particle_fm_tpu_torch.utils.run_io import load_run
 
     device = resolve_device(args.device)
-    cfg, dm, model, net = load_run(args.run_dir, args.ckpt, ema=True, device=device)
+    cfg, dm, model, net = load_run(args.run_dir, args.ckpt, ema=True, device=device,
+                                   dtype=args.dtype)
     print(f"[eval_ckpt] restored {args.ckpt} checkpoint from {args.run_dir}")
 
     real = dm.tensor_test
@@ -113,6 +118,8 @@ def main(argv: list[str] | None = None) -> dict:
     n = min(n, len(real))
 
     gtag = "" if args.guidance_scale is None else f"_w{args.guidance_scale}"
+    if model.compute_dtype is not None:
+        gtag += "_bf16"
     cache = os.path.join(args.run_dir, f"generated_{args.ckpt}_{n}{gtag}.npz")
     if os.path.exists(cache) and not args.no_cache:
         print(f"[eval_ckpt] reusing cached samples {cache}")

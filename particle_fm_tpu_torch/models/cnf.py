@@ -10,6 +10,12 @@ cosine ladder's frequency table is a non-persistent buffer built on the CPU
 the reference's way (see nets/time_emb.py); a test may overwrite it with the
 JAX package's table.
 
+`dtype` (None or bfloat16) is the networks' compute type (nets/common.py).
+The time embedding is computed in t's type (float32) and cast to x's, as
+the JAX CNF casts it (`models/cnf.py:140`): x is the solver's float32
+state, so the embedding reaches the networks in float32 and each Dense
+casts it.
+
 One convention inside the port: the network is handed the per-set time
 embedding (B, T). The JAX CNF hands its networks a (B, N, T) broadcast, and
 its transformers and MDMA slice the first particle back out (`t[..., 0, :]`,
@@ -53,6 +59,7 @@ class CNF(nn.Module):
         net_config: Mapping[str, Any] | None = None,
         self_cond: bool = False,
         generator: torch.Generator | None = None,
+        dtype: torch.dtype | None = None,
     ):
         super().__init__()
         if t_emb not in ("sincos", "cosine"):
@@ -71,13 +78,14 @@ class CNF(nn.Module):
         if model in encoders:
             self.net = encoders[model](
                 in_feats, outp_dim=features, ctxt_dim=global_cond_dim + t_dim,
-                generator=generator, **dict(net_config or {}),
+                generator=generator, dtype=dtype, **dict(net_config or {}),
             )
             return
         if model == "mdma":
             cfg = dict(net_config or {})
             cfg.setdefault("out_features", features)
-            self.net = MDMA(in_feats, t_dim, cond_dim=global_cond_dim, generator=generator, **cfg)
+            self.net = MDMA(in_feats, t_dim, cond_dim=global_cond_dim, generator=generator,
+                            dtype=dtype, **cfg)
             return
         if model != "epic":
             raise NotImplementedError(
@@ -102,6 +110,7 @@ class CNF(nn.Module):
             use_weight_norm=use_weight_norm,
             sum_scale=sum_scale,
             generator=generator,
+            dtype=dtype,
         )
 
     def forward(

@@ -12,7 +12,16 @@ configuration bundle that takes every field of the shipped model configs:
 package's solvers (the fixed-step ones, `dopri5`/`dopri5_zuko`,
 `dopri5_per_sample`, and for diffusion `em`/`ddim`), and `log_prob` is the
 density by the augmented ODE. A field raises only where its value asks for
-what the port lacks (`dtype`, `dropout > 0`).
+what the port lacks (`dropout > 0`, a `dtype` other than float32 and
+bfloat16).
+
+`dtype` is the networks' compute type, as in the JAX package: None or
+"float32" computes in float32; "bfloat16" (or `torch.bfloat16`; from a
+config `model.dtype=bfloat16`) keeps the parameters in float32 and computes
+every Dense and LayerNorm, and the kernels, in bfloat16, while the time
+embedding, the solver's state, the noise, cond and mask stay float32.
+`sample`, `integrate` and serving run in it; `loss` raises (training in
+bfloat16 is the next slice of the port).
 
 `integrate` takes the starting point `z` explicitly (the prior draw, scaled
 by `droid_t_max` for droid and masked), so a test can hand it the noise the
@@ -32,7 +41,7 @@ from torch import nn
 from particle_fm_tpu_torch.losses.diffusion import VPDiffusionSchedule
 from particle_fm_tpu_torch.losses.flow_matching import CRITERIA, get_loss_fn
 from particle_fm_tpu_torch.models.cnf import CNFStack
-from particle_fm_tpu_torch.nets.common import WNDense
+from particle_fm_tpu_torch.nets.common import WNDense, check_compute_dtype
 from particle_fm_tpu_torch.nets.epic import EPiCLayer
 from particle_fm_tpu_torch.samplers.ode import (FIXED_SOLVERS, odeint_dopri5,
                                                 odeint_dopri5_per_sample, odeint_fixed,
@@ -42,6 +51,25 @@ from particle_fm_tpu_torch.utils.device import resolve_device
 
 SOLVERS = FIXED_SOLVERS + ("dopri5", "dopri5_zuko", "dopri5_per_sample", "em", "ddim")
 _KERNEL_ATTENTION = ("packed", "fused", "flash")
+
+
+_DTYPE_NAMES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(dtype) -> torch.dtype | None:
+    """A model's `dtype` (None, a name such as "bfloat16" or "jnp.bfloat16",
+    or a torch dtype) as the networks' compute type: None for float32,
+    else torch.bfloat16; another type raises."""
+    if dtype is None or dtype == torch.float32:
+        return None
+    if isinstance(dtype, str):
+        name = dtype.rsplit(".", 1)[-1]
+        if name not in _DTYPE_NAMES:
+            raise NotImplementedError(
+                f"dtype={dtype} is not ported: the port computes in float32 or bfloat16")
+        return _DTYPE_NAMES[name]
+    check_compute_dtype(dtype)
+    return dtype
 
 
 def draw_noise(generator: torch.Generator, shape: tuple[int, ...], device: torch.device) -> torch.Tensor:
@@ -122,8 +150,7 @@ class FlowMatchingModel:
                 )
             if self.n_transforms != 1:
                 raise ValueError("self_cond supports n_transforms=1")
-        if self.dtype is not None:
-            raise NotImplementedError("dtype is not ported: the port computes in float32")
+        self.compute_dtype = compute_dtype(self.dtype)
         if self.dropout > 0.0:
             raise NotImplementedError("dropout is not ported")
         if self.criterion not in CRITERIA:
@@ -161,6 +188,7 @@ class FlowMatchingModel:
             sum_scale=self.sum_scale,
             net_config=dict(self.net_config),
             self_cond=self.self_cond,
+            dtype=self.compute_dtype,
         )
         return net.to(dev).eval()
 
@@ -183,10 +211,18 @@ class FlowMatchingModel:
     def vector_field(self, net: CNFStack, t, x, cond=None, mask=None) -> torch.Tensor:
         return net(t, x, cond=cond, mask=mask)
 
+    def _refuse_training(self, what: str) -> None:
+        if self.compute_dtype is not None:
+            raise NotImplementedError(
+                f"{what} in {self.compute_dtype} is not ported yet: the port samples and serves "
+                "in bfloat16; training in it (float32 master weights, bfloat16 compute) is the "
+                "next slice. Train with dtype=None and sample with the weights in bfloat16.")
+
     def loss_accum_weight(self, x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
         """Gradient-accumulation weight of one microbatch: its loss
         normalisation mass, so that weighted microbatch gradients add up to
         the big-batch gradient."""
+        self._refuse_training("loss_accum_weight")
         if mask is None:
             return torch.tensor(float(x.shape[0] * x.shape[1]), device=x.device)
         return torch.sum(mask).to(torch.float32)
@@ -208,6 +244,7 @@ class FlowMatchingModel:
         (tm = droid_t_max for droid, else 1), masked, which the trained pass
         reads for a Bernoulli(0.5) half of the sets (drawn next), zeros for
         the others. Then t and the noises, as the loss family draws them."""
+        self._refuse_training("loss")
         if is_folded(net):
             raise RuntimeError(
                 "loss needs the unfolded network: folded weights carry no gradient to "
@@ -366,7 +403,9 @@ class FlowMatchingModel:
             sched = VPDiffusionSchedule(**dict(self.diff_config))
 
             def drift(t, x):
-                eps = pred(t, x)
+                # a bfloat16 prediction meets the float32 schedule as in JAX, which
+                # promotes it to float32 (a 0-dim float32 tensor would not)
+                eps = pred(t, x).to(x.dtype)
                 _, noise_rates = sched(t)
                 betas = sched.get_betas(t)
                 return -0.5 * _per_set(betas, x) * (x - eps / _per_set(noise_rates, x))

@@ -10,6 +10,14 @@ clamp, so it is not used.
 
 For sampling, `fold()` computes the normalized weight once and keeps it;
 every later forward uses it until `unfold()`.
+
+`dtype` is the compute type, as the flax modules' `dtype`: None computes in
+the parameters' float32; bfloat16 keeps the parameters float32 and casts the
+input, the weight and the bias to bfloat16 before the product and the bias
+add, which then run in bfloat16 (the product accumulated in float32 and
+rounded once). With a `dtype`, `fold()` keeps the weight and the bias cast.
+`LayerNorm` is `flax.linen.LayerNorm(epsilon=1e-5, dtype=...)` on float32
+parameters.
 """
 
 from __future__ import annotations
@@ -21,9 +29,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+def leaky_relu(x: torch.Tensor, negative_slope: float) -> torch.Tensor:
+    """jax.nn.leaky_relu: where(x >= 0, x, slope * x). In bfloat16 the slope
+    is a weakly typed constant that JAX rounds to bfloat16 before the
+    product (0.01 becomes 0.010009765625); torch's leaky_relu multiplies by
+    the slope as given, so it is handed the rounded one (the product of two
+    bfloat16 values is exact in float32, rounded once, as in JAX)."""
+    if x.dtype == torch.bfloat16:
+        negative_slope = float(torch.tensor(negative_slope, dtype=torch.bfloat16))
+    return F.leaky_relu(x, negative_slope=negative_slope)
+
+
 _ACTS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
-    "leaky_relu": lambda x: F.leaky_relu(x, negative_slope=0.01),
-    "lrlu": lambda x: F.leaky_relu(x, negative_slope=0.1),
+    "leaky_relu": lambda x: leaky_relu(x, 0.01),
+    "lrlu": lambda x: leaky_relu(x, 0.1),
     "relu": F.relu,
     "gelu": lambda x: F.gelu(x, approximate="tanh"),
     "elu": F.elu,
@@ -36,6 +55,14 @@ _ACTS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "identity": lambda x: x,
     "none": lambda x: x,
 }
+
+
+def check_compute_dtype(dtype: torch.dtype | None) -> None:
+    """Raise unless `dtype` is a compute type the port has: None (float32) or
+    bfloat16."""
+    if dtype is not None and dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"dtype={dtype} is not ported: the port computes in float32 (None) or bfloat16")
 
 
 def get_act(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -68,11 +95,14 @@ class WNDense(nn.Module):
         use_bias: bool = True,
         init_zeros: bool = False,
         generator: torch.Generator | None = None,
+        dtype: torch.dtype | None = None,
     ):
         super().__init__()
+        check_compute_dtype(dtype)
         self.in_features = in_features
         self.features = features
         self.use_weight_norm = use_weight_norm
+        self.dtype = dtype
         v = torch.empty(features, in_features)
         if init_zeros:
             v.zero_()
@@ -91,6 +121,7 @@ class WNDense(nn.Module):
         else:
             self.bias = None
         self._folded: torch.Tensor | None = None
+        self._folded_bias: torch.Tensor | None = None
 
     def effective_weight(self) -> torch.Tensor:
         """The (out, in) weight the layer applies."""
@@ -102,17 +133,39 @@ class WNDense(nn.Module):
 
     @torch.no_grad()
     def fold(self) -> None:
-        """Keep the normalised weight; nothing to do for a plain Dense."""
-        if self.use_weight_norm:
+        """Keep the normalised weight (computed in float32), cast to `dtype`
+        with the bias when there is one; nothing to do for a plain float32
+        Dense."""
+        if self.dtype is not None:
+            self._folded = self.effective_weight().detach().to(self.dtype)
+            if self.bias is not None:
+                self._folded_bias = self.bias.detach().to(self.dtype)
+        elif self.use_weight_norm:
             self._folded = self.effective_weight().detach().clone()
 
     def unfold(self) -> None:
         self._folded = None
+        self._folded_bias = None
+
+    def compute_weight(self) -> torch.Tensor:
+        """The (out, in) weight in the compute type."""
+        w = self.effective_weight()
+        return w if self.dtype is None else w.to(self.dtype)
+
+    def compute_bias(self) -> torch.Tensor | None:
+        """The bias in the compute type."""
+        if self._folded_bias is not None:
+            return self._folded_bias
+        if self.bias is None or self.dtype is None:
+            return self.bias
+        return self.bias.to(self.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.effective_weight().t()
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        y = x @ self.compute_weight().t()
         if self.bias is not None:
-            y = y + self.bias
+            y = y + self.compute_bias()
         return y
 
 
@@ -136,6 +189,7 @@ class WNDenseSplit(WNDense):
         use_weight_norm: bool = True,
         use_bias: bool = True,
         generator: torch.Generator | None = None,
+        dtype: torch.dtype | None = None,
     ):
         self.segments = [(k, kind) for k, kind in segments if k > 0]
         super().__init__(
@@ -144,6 +198,7 @@ class WNDenseSplit(WNDense):
             use_weight_norm=use_weight_norm,
             use_bias=use_bias,
             generator=generator,
+            dtype=dtype,
         )
 
     def forward(self, segments) -> torch.Tensor:
@@ -151,11 +206,13 @@ class WNDenseSplit(WNDense):
         layout = [(a.shape[-1], kind) for a, kind in segments]
         if layout != self.segments:
             raise ValueError(f"segment layout {layout} != constructed {self.segments}")
-        w = self.effective_weight()
+        w = self.compute_weight()
         out = None
         set_parts, set_ws = [], []
         col = 0
         for a, kind in segments:
+            if self.dtype is not None:
+                a = a.to(self.dtype)
             k = a.shape[-1]
             w_seg = w[:, col : col + k]
             col += k
@@ -171,8 +228,29 @@ class WNDenseSplit(WNDense):
             set_out = (set_in @ set_w.t())[..., None, :]
             out = set_out if out is None else out + set_out
         if self.bias is not None:
-            out = out + self.bias
+            out = out + self.compute_bias()
         return out
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm over the last axis with float32 parameters `weight` (flax's
+    `scale`) and `bias`. Without `dtype`, torch's LayerNorm. With one,
+    flax's `LayerNorm(dtype=...)`: the input upcast to float32, statistics,
+    scale and bias in float32, then one cast to `dtype` (torch's LayerNorm
+    on a bfloat16 tensor returns its own rounding of the same). flax takes
+    the variance as E[x^2] - E[x]^2 and torch in two passes: the two differ
+    in float32's last bits, below one bfloat16 rounding."""
+
+    def __init__(self, normalized_shape: int, eps: float = 1e-5,
+                 dtype: torch.dtype | None = None):
+        super().__init__(normalized_shape, eps=eps)
+        check_compute_dtype(dtype)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype is None:
+            return super().forward(x)
+        return super().forward(x.to(torch.float32)).to(self.compute_dtype)
 
 
 def cat(*parts: torch.Tensor | None) -> torch.Tensor | None:

@@ -9,6 +9,12 @@ After `fold()` (weight norm folded once, before sampling) an `EPiCLayer`
 runs through `ops.epic_layer.epic_layer`: the fused CUDA kernel for CUDA
 tensors, its plain PyTorch version for CPU tensors. Unfolded, it runs the
 concat-free module path below, which holds the same arithmetic.
+
+`dtype` (None or bfloat16) is the compute type of every Dense, as in the
+JAX modules. In bfloat16 the module path rounds where the JAX module rounds
+(after every Dense); the folded path hands the fused layer bfloat16 weights,
+x, g and per-set features (the mask stays float32), and the layer rounds
+where the Pallas kernel rounds (ops/epic_layer.py::epic_layer_reference).
 """
 
 from __future__ import annotations
@@ -46,18 +52,20 @@ class EPiCLayer(nn.Module):
         use_weight_norm: bool = True,
         sum_scale: float = 1e-2,
         generator: torch.Generator | None = None,
+        dtype: torch.dtype | None = None,
     ):
         super().__init__()
         self.hid_dim = hid_dim
         self.latent_dim = latent_dim
         self.activation = activation
         self.sum_scale = sum_scale
+        self.dtype = dtype
         self.tg = t_dim if t_global_cat else 0
         self.tl = t_dim if t_local_cat else 0
         self.gc = cond_dim if global_cond_dim > 0 else 0
         self.lc = cond_dim if local_cond_dim > 0 else 0
         h, lat = hid_dim, latent_dim
-        wn = dict(use_weight_norm=use_weight_norm, generator=generator)
+        wn = dict(use_weight_norm=use_weight_norm, generator=generator, dtype=dtype)
         self.fc_global1 = WNDense(self.tg + 2 * h + lat + self.gc, h, **wn)
         self.fc_global2 = WNDense(self.tg + h + self.gc, lat, **wn)
         self.fc_local1 = WNDenseSplit(
@@ -70,8 +78,9 @@ class EPiCLayer(nn.Module):
 
     @torch.no_grad()
     def fold(self) -> None:
-        """Fold weight norm and cut the weights into the fused layer's layout
-        (`ops/epic_layer.py`), once."""
+        """Fold weight norm (in float32) and cut the weights into the fused
+        layer's layout (`ops/epic_layer.py`), cast to `dtype` when it is set,
+        once."""
         if self.activation != "leaky_relu":
             raise NotImplementedError(f"the fused EPiC layer computes leaky_relu, not {self.activation}")
         fcs = (self.fc_global1, self.fc_global2, self.fc_local1, self.fc_local2)
@@ -80,12 +89,15 @@ class EPiCLayer(nn.Module):
         wg1, wg2, w1, w2 = (fc.effective_weight().t() for fc in fcs)
         w1x, w1s = _split_set_rows(w1, self.tl, self.hid_dim)
         w2x, w2s = _split_set_rows(w2, self.tl, self.hid_dim)
-        self._kernel_weights = dict(
+        weights = dict(
             wg1=wg1.contiguous(), bg1=self.fc_global1.bias.detach(),
             wg2=wg2.contiguous(), bg2=self.fc_global2.bias.detach(),
             w1x=w1x, w1s=w1s, b1=self.fc_local1.bias.detach(),
             w2x=w2x, w2s=w2s, b2=self.fc_local2.bias.detach(),
         )
+        if self.dtype is not None:
+            weights = {k: w.to(self.dtype) for k, w in weights.items()}
+        self._kernel_weights = weights
 
     def unfold(self) -> None:
         for fc in (self.fc_global1, self.fc_global2, self.fc_local1, self.fc_local2):
@@ -111,7 +123,9 @@ class EPiCLayer(nn.Module):
                            cond if (self.gc or self.lc) else None)
             if set_feat is None:
                 set_feat = x_local.new_zeros(b, 0)
-            m = x_local.new_ones(b, n) if mask is None else mask[..., 0]
+            elif self.dtype is not None:
+                set_feat = set_feat.to(self.dtype)
+            m = x_local.new_ones(b, n, dtype=torch.float32) if mask is None else mask[..., 0]
             w = self._kernel_weights
             x_local, x_global = epic_layer_ops.epic_layer(
                 x_local.contiguous(), x_global.contiguous(), m.contiguous(),
@@ -164,6 +178,7 @@ class EPiCEncoder(nn.Module):
         use_weight_norm: bool = True,
         sum_scale: float = 1e-2,
         generator: torch.Generator | None = None,
+        dtype: torch.dtype | None = None,
     ):
         super().__init__()
         self.activation = activation
@@ -174,7 +189,7 @@ class EPiCEncoder(nn.Module):
         self.gc = cond_dim if global_cond_dim > 0 else 0
         self.lc = cond_dim if local_cond_dim > 0 else 0
         h = hid_dim
-        wn = dict(use_weight_norm=use_weight_norm, generator=generator)
+        wn = dict(use_weight_norm=use_weight_norm, generator=generator, dtype=dtype)
         self.fc_l1 = WNDenseSplit(
             [(self.tl, "set"), (in_feats, "particle"), (self.lc, "set")], h, **wn
         )

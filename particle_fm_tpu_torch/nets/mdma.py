@@ -13,7 +13,8 @@ through `WNDenseSplit`, never through a (B, N, hidden + extras) concat.
 Differences of form: a module is given its input widths at construction
 (flax infers them at the first call), and the time embedding arrives as the
 per-set (B, T) tensor, where the JAX module takes (B, N, T) and slices its
-first particle. bf16 compute is not ported (`dtype` other than None raises).
+first particle. `dtype` (None or bfloat16) is the compute type of every
+Dense and of the LayerNorm, as the flax modules' (nets/common.py).
 
 The class token's attention goes through `ops.attention.attention` with
 `impl="auto"`: on the card, with at least 1024 particles and a head dim that
@@ -24,17 +25,16 @@ flash kernel; the shipped 8 heads of 32 take the einsum path.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from particle_fm_tpu_torch.nets.common import WNDense, WNDenseSplit, cat
+from particle_fm_tpu_torch.nets.common import LayerNorm, WNDense, WNDenseSplit, cat, leaky_relu
 from particle_fm_tpu_torch.ops.attention import attention
 
 _LN_EPS = 1e-5
 
 
 def _act(x: torch.Tensor | None) -> torch.Tensor | None:
-    return None if x is None else F.leaky_relu(x, negative_slope=0.01)
+    return None if x is None else leaky_relu(x, 0.01)
 
 
 def _glu(x: torch.Tensor) -> torch.Tensor:
@@ -58,6 +58,7 @@ class MDMABlock(nn.Module):
         local_cat_cond: bool = False,
         global_cat_cond: bool = False,
         generator: torch.Generator | None = None,
+        dtype: torch.dtype | None = None,
     ):
         super().__init__()
         if hidden % num_heads:
@@ -65,12 +66,12 @@ class MDMABlock(nn.Module):
         self.hidden, self.num_heads = hidden, num_heads
         self.t_local_cat, self.t_global_cat = t_local_cat, t_global_cat
         self.local_cat_cond, self.global_cat_cond = local_cat_cond, global_cat_cond
-        dense = dict(use_weight_norm=False, generator=generator)
+        dense = dict(use_weight_norm=False, generator=generator, dtype=dtype)
         t_loc, t_glob = t_dim * t_local_cat, t_dim * t_global_cat
         c_loc, c_glob = int(local_cat_cond), int(global_cat_cond)
         self.fc0 = WNDenseSplit([(hidden, "particle"), (t_loc, "set"), (c_loc, "set")], hidden, **dense)
         self.fc0_cls = WNDense(embed_dim + t_glob + c_glob, hidden, **dense)
-        self.ln = nn.LayerNorm(hidden, eps=_LN_EPS)
+        self.ln = LayerNorm(hidden, eps=_LN_EPS, dtype=dtype)
         self.attn_q = WNDense(hidden, hidden, **dense)
         self.attn_k = WNDense(hidden, hidden, **dense)
         self.attn_v = WNDense(hidden, hidden, **dense)
@@ -139,14 +140,12 @@ class MDMA(nn.Module):
         generator: torch.Generator | None = None,
     ):
         super().__init__()
-        if dtype is not None:
-            raise NotImplementedError(f"dtype={dtype} is not ported: MDMA runs in float32")
         self.has_cond = global_cat_cond or global_cond_dim > 0
         if (self.has_cond or local_cat_cond) and cond_dim <= 0:
             raise ValueError("MDMA is configured with a global cond but cond_dim is 0")
         self.layers, self.avg_n = layers, avg_n
         self.t_local_cat, self.local_cat_cond = t_local_cat, local_cat_cond
-        dense = dict(use_weight_norm=False, generator=generator)
+        dense = dict(use_weight_norm=False, generator=generator, dtype=dtype)
         c_loc = int(local_cat_cond)
         cond_vec = 1 + cond_dim * self.has_cond  # multiplicity, then the global cond
         self.embed = WNDenseSplit([(inpt_dim, "particle"), (t_dim * t_local_cat, "set"),
@@ -157,7 +156,7 @@ class MDMA(nn.Module):
             self.add_module(f"block_{i}", MDMABlock(
                 latent, hidden_dim, t_dim, cond_vec, num_heads=num_heads, t_local_cat=t_local_cat,
                 t_global_cat=t_global_cat, local_cat_cond=local_cat_cond,
-                global_cat_cond=global_cat_cond, generator=generator))
+                global_cat_cond=global_cat_cond, generator=generator, dtype=dtype))
         self.out = WNDenseSplit([(hidden_dim, "particle"), (c_loc, "set")], out_features, **dense)
 
     def forward(self, t_set, x, cond=None, mask=None) -> torch.Tensor:

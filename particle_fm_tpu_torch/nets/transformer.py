@@ -14,6 +14,10 @@ modules take (B, N, T) and slice its first particle; dropout is not ported
 (`drp > 0` raises), since serving is deterministic, and the mixture-of-experts
 dense block is not ported (`moe_config` raises). All attention goes through
 `ops.attention.attention`; LayerNorms use eps 1e-5.
+
+`dtype` (None or bfloat16) is the compute type of every Dense and
+LayerNorm, as the flax modules' `dtype` (nets/common.py); the parameters
+stay float32, and attention takes q, k, v in the projections' type.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from typing import Any, Mapping, Sequence
 import torch
 from torch import nn
 
-from particle_fm_tpu_torch.nets.common import WNDense, WNDenseSplit, cat, get_act
+from particle_fm_tpu_torch.nets.common import LayerNorm, WNDense, WNDenseSplit, cat, get_act
 from particle_fm_tpu_torch.ops import attention as attention_ops
 
 _LN_EPS = 1e-5
@@ -58,6 +62,7 @@ class MLPBlock(nn.Module):
         do_res: bool = False,
         init_zeros: bool = False,
         generator: torch.Generator | None = None,
+        dtype: torch.dtype | None = None,
     ):
         super().__init__()
         _no_dropout(drp)
@@ -75,14 +80,14 @@ class MLPBlock(nn.Module):
             zeros = init_zeros and n == n_layers - 1
             if n == 0 and self.split_ctxt:
                 lin = WNDenseSplit([(inpt_dim, "particle"), (ctxt_dim, "set")], outp_dim,
-                                   use_weight_norm=False, generator=generator)
+                                   use_weight_norm=False, generator=generator, dtype=dtype)
             else:
                 fan_in = inpt_dim + ctxt_dim if n == 0 else outp_dim
                 lin = WNDense(fan_in, outp_dim, use_weight_norm=False, init_zeros=zeros,
-                              generator=generator)
+                              generator=generator, dtype=dtype)
             self.add_module(f"lin_{n}", lin)
             if nrm == "layer":
-                self.add_module(f"nrm_{n}", nn.LayerNorm(outp_dim, eps=_LN_EPS))
+                self.add_module(f"nrm_{n}", LayerNorm(outp_dim, eps=_LN_EPS, dtype=dtype))
 
     def forward(self, x: torch.Tensor, ctxt: torch.Tensor | None = None) -> torch.Tensor:
         inpt = x
@@ -133,6 +138,7 @@ class DenseNetwork(nn.Module):
         ctxt_in_hddn: bool = False,
         output_init_zeros: bool = False,
         generator: torch.Generator | None = None,
+        dtype: torch.dtype | None = None,
     ):
         super().__init__()
         _no_dropout(drp)
@@ -143,19 +149,19 @@ class DenseNetwork(nn.Module):
         self.out_dim = (outp_dim or inpt_dim) if do_out else hddn[-1]
         self.input_block = MLPBlock(
             inpt_dim, hddn[0], ctxt_dim=ctxt_dim if ctxt_in_inpt else 0, act=act_h, nrm=nrm,
-            generator=generator,
+            generator=generator, dtype=dtype,
         )
         self.num_hidden = len(hddn) - 1
         for i, (h1, h2) in enumerate(zip(hddn[:-1], hddn[1:])):
             self.add_module(
                 f"hidden_block_{i}",
                 MLPBlock(h1, h2, ctxt_dim=ctxt_dim if ctxt_in_hddn else 0, n_layers=n_lyr_pbk,
-                         act=act_h, nrm=nrm, do_res=do_res, generator=generator),
+                         act=act_h, nrm=nrm, do_res=do_res, generator=generator, dtype=dtype),
             )
         if do_out:
             self.output_block = MLPBlock(
                 hddn[-1], self.out_dim, act=act_o, init_zeros=output_init_zeros,
-                nrm=nrm if nrm_on_output else "none", generator=generator,
+                nrm=nrm if nrm_on_output else "none", generator=generator, dtype=dtype,
             )
 
     def forward(self, x: torch.Tensor, ctxt: torch.Tensor | None = None) -> torch.Tensor:
@@ -189,6 +195,7 @@ class MultiHeadedAttentionBlock(nn.Module):
         scores_dtype: str | None = None,
         attn_impl: str = "auto",
         generator: torch.Generator | None = None,
+        dtype: torch.dtype | None = None,
     ):
         super().__init__()
         _no_dropout(drp)
@@ -198,14 +205,14 @@ class MultiHeadedAttentionBlock(nn.Module):
         self.do_selfattn = do_selfattn
         self.scores_dtype = attention_ops.scores_dtype_from(scores_dtype)
         self.attn_impl = attn_impl
-        dense = dict(use_weight_norm=False, generator=generator)
+        dense = dict(use_weight_norm=False, generator=generator, dtype=dtype)
         if do_selfattn:
             self.all_linear = WNDense(model_dim, 3 * model_dim, **dense)
         else:
             self.q_linear = WNDense(model_dim, model_dim, **dense)
             self.k_linear = WNDense(model_dim, model_dim, **dense)
             self.v_linear = WNDense(model_dim, model_dim, **dense)
-        self.layer_norm = nn.LayerNorm(model_dim, eps=_LN_EPS) if do_layer_norm else None
+        self.layer_norm = LayerNorm(model_dim, eps=_LN_EPS, dtype=dtype) if do_layer_norm else None
         self.out_linear = WNDense(model_dim, model_dim, init_zeros=init_zeros, **dense)
 
     def forward(self, q, k=None, v=None, kv_mask=None, attn_bias=None) -> torch.Tensor:
@@ -243,17 +250,18 @@ class TransformerEncoderLayer(nn.Module):
         ctxt_dim: int = 0,
         moe_config: Mapping[str, Any] | None = None,
         generator: torch.Generator | None = None,
+        dtype: torch.dtype | None = None,
     ):
         super().__init__()
         if moe_config is not None:
             raise NotImplementedError("the mixture-of-experts dense block (moe_config) is not ported")
-        self.norm1 = nn.LayerNorm(model_dim, eps=_LN_EPS)
+        self.norm1 = LayerNorm(model_dim, eps=_LN_EPS, dtype=dtype)
         self.self_attn = MultiHeadedAttentionBlock(
-            model_dim, do_selfattn=True, generator=generator, **dict(mha_config or {})
+            model_dim, do_selfattn=True, generator=generator, dtype=dtype, **dict(mha_config or {})
         )
-        self.norm2 = nn.LayerNorm(model_dim, eps=_LN_EPS)
+        self.norm2 = LayerNorm(model_dim, eps=_LN_EPS, dtype=dtype)
         self.dense = DenseNetwork(
-            model_dim, outp_dim=model_dim, ctxt_dim=ctxt_dim, generator=generator,
+            model_dim, outp_dim=model_dim, ctxt_dim=ctxt_dim, generator=generator, dtype=dtype,
             **dict(dense_config or {}),
         )
 
@@ -272,16 +280,18 @@ class TransformerCrossAttentionLayer(nn.Module):
         dense_config: Mapping[str, Any] | None = None,
         ctxt_dim: int = 0,
         generator: torch.Generator | None = None,
+        dtype: torch.dtype | None = None,
     ):
         super().__init__()
-        self.norm0 = nn.LayerNorm(model_dim, eps=_LN_EPS)
-        self.norm1 = nn.LayerNorm(model_dim, eps=_LN_EPS)
+        self.norm0 = LayerNorm(model_dim, eps=_LN_EPS, dtype=dtype)
+        self.norm1 = LayerNorm(model_dim, eps=_LN_EPS, dtype=dtype)
         self.cross_attn = MultiHeadedAttentionBlock(
-            model_dim, do_selfattn=False, generator=generator, **dict(mha_config or {})
+            model_dim, do_selfattn=False, generator=generator, dtype=dtype,
+            **dict(mha_config or {})
         )
-        self.norm2 = nn.LayerNorm(model_dim, eps=_LN_EPS)
+        self.norm2 = LayerNorm(model_dim, eps=_LN_EPS, dtype=dtype)
         self.dense = DenseNetwork(
-            model_dim, outp_dim=model_dim, ctxt_dim=ctxt_dim, generator=generator,
+            model_dim, outp_dim=model_dim, ctxt_dim=ctxt_dim, generator=generator, dtype=dtype,
             **dict(dense_config or {}),
         )
 
@@ -303,6 +313,7 @@ class TransformerEncoder(nn.Module):
         ctxt_dim: int = 0,
         moe_config: Mapping[str, Any] | None = None,
         generator: torch.Generator | None = None,
+        dtype: torch.dtype | None = None,
     ):
         super().__init__()
         self.num_layers = num_layers
@@ -310,9 +321,9 @@ class TransformerEncoder(nn.Module):
             self.add_module(
                 f"layer_{i}",
                 TransformerEncoderLayer(model_dim, mha_config, dense_config, ctxt_dim,
-                                        moe_config=moe_config, generator=generator),
+                                        moe_config=moe_config, generator=generator, dtype=dtype),
             )
-        self.final_norm = nn.LayerNorm(model_dim, eps=_LN_EPS)
+        self.final_norm = LayerNorm(model_dim, eps=_LN_EPS, dtype=dtype)
 
     def forward(self, x, mask=None, ctxt=None, attn_bias=None) -> torch.Tensor:
         for i in range(self.num_layers):
@@ -349,7 +360,7 @@ class _FullEncoder(nn.Module):
     core_name = ""
 
     def __init__(self, inpt_dim, outp_dim, ctxt_dim, core_cls, core_config, node_embd_config,
-                 outp_embd_config, ctxt_embd_config, generator):
+                 outp_embd_config, ctxt_embd_config, generator, dtype=None):
         super().__init__()
         core_cfg, node_cfg, outp_cfg, ctxt_cfg, model_dim = resolve_fte_configs(
             core_config or {}, node_embd_config or {}, outp_embd_config or {},
@@ -358,13 +369,14 @@ class _FullEncoder(nn.Module):
         self.ctxt_dim = ctxt_dim
         ctxt_out = 0
         if ctxt_dim:
-            self.ctxt_embd = DenseNetwork(ctxt_dim, generator=generator, **ctxt_cfg)
+            self.ctxt_embd = DenseNetwork(ctxt_dim, generator=generator, dtype=dtype, **ctxt_cfg)
             ctxt_out = self.ctxt_embd.out_dim
         self.node_embd = DenseNetwork(inpt_dim, outp_dim=model_dim, ctxt_dim=ctxt_out,
-                                      generator=generator, **node_cfg)
-        self.add_module(self.core_name, core_cls(ctxt_dim=ctxt_out, generator=generator, **core_cfg))
+                                      generator=generator, dtype=dtype, **node_cfg)
+        self.add_module(self.core_name, core_cls(ctxt_dim=ctxt_out, generator=generator,
+                                                 dtype=dtype, **core_cfg))
         self.outp_embd = DenseNetwork(model_dim, outp_dim=outp_dim, ctxt_dim=ctxt_out,
-                                      generator=generator, **outp_cfg)
+                                      generator=generator, dtype=dtype, **outp_cfg)
 
     def forward(self, t_set, x, cond=None, mask=None) -> torch.Tensor:
         kv_mask = mask[..., 0] if mask is not None else None
@@ -381,9 +393,9 @@ class FullTransformerEncoder(_FullEncoder):
 
     def __init__(self, inpt_dim: int, outp_dim: int, ctxt_dim: int = 0, te_config=None,
                  node_embd_config=None, outp_embd_config=None, ctxt_embd_config=None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, dtype: torch.dtype | None = None):
         super().__init__(inpt_dim, outp_dim, ctxt_dim, TransformerEncoder, te_config,
-                         node_embd_config, outp_embd_config, ctxt_embd_config, generator)
+                         node_embd_config, outp_embd_config, ctxt_embd_config, generator, dtype)
 
 
 class CrossAttentionEncoder(nn.Module):
@@ -399,6 +411,7 @@ class CrossAttentionEncoder(nn.Module):
         dense_config: Mapping[str, Any] | None = None,
         ctxt_dim: int = 0,
         generator: torch.Generator | None = None,
+        dtype: torch.dtype | None = None,
     ):
         super().__init__()
         self.num_layers = num_layers
@@ -408,7 +421,7 @@ class CrossAttentionEncoder(nn.Module):
                 self.add_module(
                     f"{name}_layer_{i}",
                     TransformerCrossAttentionLayer(model_dim, mha_config, dense_config, ctxt_dim,
-                                                   generator=generator),
+                                                   generator=generator, dtype=dtype),
                 )
 
     def forward(self, seq, mask=None, ctxt=None) -> torch.Tensor:
@@ -426,6 +439,6 @@ class FullCrossAttentionEncoder(_FullEncoder):
 
     def __init__(self, inpt_dim: int, outp_dim: int, ctxt_dim: int = 0, cae_config=None,
                  node_embd_config=None, outp_embd_config=None, ctxt_embd_config=None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, dtype: torch.dtype | None = None):
         super().__init__(inpt_dim, outp_dim, ctxt_dim, CrossAttentionEncoder, cae_config,
-                         node_embd_config, outp_embd_config, ctxt_embd_config, generator)
+                         node_embd_config, outp_embd_config, ctxt_embd_config, generator, dtype)

@@ -97,13 +97,15 @@ def load_library(source: Path, declare: Callable[[ctypes.CDLL], None]) -> ctypes
 
 
 def check_tensor(name: str, t: torch.Tensor, shape: tuple[int, ...], device: torch.device,
-                 contiguous: bool = True) -> None:
-    """Raise unless `t` is a float32 tensor of `shape` on `device`, contiguous
-    unless the caller checks its strides itself."""
+                 contiguous: bool = True, dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless `t` is a tensor of `dtype` (float32 or bfloat16) and
+    `shape` on `device`, contiguous unless the caller checks its strides
+    itself. A kernel takes its operands in the type it was written for: the
+    wrappers pass the caller's type through and never cast."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} has dtype {t.dtype}; the kernel takes float32")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}; the kernel takes {dtype}")
     if tuple(t.shape) != shape:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
     if contiguous and not t.is_contiguous():

@@ -61,31 +61,49 @@ def epic_layer_reference(
     cl_dim: int = 0,
     local_matmul=torch.matmul,
 ):
-    """Plain PyTorch version of the fused layer. Returns (x_local, x_global).
-    `local_matmul(x, w)` computes the two H x H local products."""
-    x, g = x_local, x_global
-    m = mask.to(torch.float32)
+    """Plain PyTorch version of the fused layer. Returns (x_local, x_global)
+    in x_local's dtype. `local_matmul(x, w)` computes the two H x H local
+    products.
+
+    In bfloat16 it keeps the Pallas kernel's arithmetic: every product in
+    float32 on the bfloat16 values (a bfloat16 product is exact in float32,
+    so a float32 product on the values is the kernel's bfloat16 product with
+    float32 accumulation), the mask, the pool, the biases and the residual
+    in float32, and four roundings to bfloat16: g1 before the second global
+    MLP, g_new (for the per-set bias and the output), x1 before the second
+    local product, and the output. In float32 (and float64) every cast is a
+    no-op."""
+    lowp = x_local.dtype
+    work = torch.promote_types(lowp, torch.float32)
+    x, g = x_local.to(work), x_global.to(work)
+    m = mask.to(work)
+    sf = set_feat.to(work)
+    wg1, bg1, wg2, bg2, w1x, w1s, b1, w2x, w2s, b2 = (
+        w.to(work) for w in (wg1, bg1, wg2, bg2, w1x, w1s, b1, w2x, w2s, b2))
     pooled_sum = torch.sum(x * m[..., None], dim=1)
     count = torch.sum(m, dim=1, keepdim=True)
     pooled_mean = pooled_sum / count
     pooled_scaled = pooled_sum * sum_scale
 
-    s = set_feat.shape[-1]
-    t_g = set_feat[:, :tg_dim]
-    t_l = set_feat[:, :tl_dim]
-    cond_g = set_feat[:, s - cg_dim :]
-    cond_l = set_feat[:, s - cl_dim :]
+    s = sf.shape[-1]
+    t_g = sf[:, :tg_dim]
+    t_l = sf[:, :tl_dim]
+    cond_g = sf[:, s - cg_dim :]
+    cond_l = sf[:, s - cl_dim :]
+
+    def rounded(v):
+        return v.to(lowp).to(work)
 
     g_in = torch.cat([t_g, pooled_mean, pooled_scaled, g, cond_g], dim=-1)
-    g1 = _act(g_in @ wg1 + bg1)
-    g_new = _act(torch.cat([t_g, g1, cond_g], dim=-1) @ wg2 + bg2 + g)
+    g1 = rounded(_act(g_in @ wg1 + bg1))
+    g_new = rounded(_act(torch.cat([t_g, g1, cond_g], dim=-1) @ wg2 + bg2 + g))
 
     bias1 = torch.cat([t_l, g_new, cond_l], dim=-1) @ w1s + b1
     bias2 = torch.cat([t_l, cond_l], dim=-1) @ w2s + b2  # zero-width inputs give b2
 
-    x1 = _act(local_matmul(x, w1x) + bias1[:, None, :])
+    x1 = rounded(_act(local_matmul(x, w1x) + bias1[:, None, :]))
     out = _act(local_matmul(x1, w2x) + bias2[:, None, :] + x)
-    return out, g_new
+    return out.to(lowp), g_new.to(lowp)
 
 
 def epic_layer_tf32(*args, products: int = 3, **dims):
@@ -106,6 +124,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     geometry.restype = ctypes.c_int
     lib.epic_layer_mma_instruction.argtypes = []
     lib.epic_layer_mma_instruction.restype = ctypes.c_char_p
+    if hasattr(lib, "epic_layer_fwd_bf16"):  # an earlier source, timed beside, may lack it
+        fn = lib.epic_layer_fwd_bf16
+        fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 9
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.epic_layer_bf16_mma_instruction.argtypes = []
+        lib.epic_layer_bf16_mma_instruction.restype = ctypes.c_char_p
 
 
 def launch_report(b: int, n: int, h: int, l: int, s: int, tg: int = 0, tl: int = 0,
@@ -136,26 +161,17 @@ def load_library(source: Path | None = None) -> ctypes.CDLL:
     return _build.load_library(source or SOURCE, _declare)
 
 
-def epic_layer(
-    x_local, x_global, mask, set_feat,
-    wg1, bg1, wg2, bg2, w1x, w1s, b1, w2x, w2s, b2,
-    sum_scale: float = 1e-2,
-    tg_dim: int = 0,
-    tl_dim: int = 0,
-    cg_dim: int = 0,
-    cl_dim: int = 0,
-):
-    """One EPiC layer: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors. Arguments as in `epic_layer_reference`."""
-    args = (x_local, x_global, mask, set_feat, wg1, bg1, wg2, bg2, w1x, w1s, b1, w2x, w2s, b2)
-    dims = dict(sum_scale=sum_scale, tg_dim=tg_dim, tl_dim=tl_dim, cg_dim=cg_dim,
-                cl_dim=cl_dim)
-    if x_local.device.type == "cpu":
-        return epic_layer_reference(*args, **dims)
-    if x_local.device.type != "cuda":
-        raise ValueError(f"epic_layer runs on cuda or cpu, got {x_local.device}")
+def bf16_instruction() -> str:
+    """The tensor-core instruction of the bfloat16 kernel's local products,
+    as the built library names it (needs the library; no device)."""
+    return load_library().epic_layer_bf16_mma_instruction().decode()
 
-    dev = x_local.device
+
+def _check_shapes(args, dims, dtype: torch.dtype) -> tuple[int, int, int, int, int]:
+    """Raise unless the arguments are a shape the kernels take, every tensor
+    of `dtype` but the float32 mask; (b, n, h, l, s)."""
+    x_local, x_global, mask, set_feat = args[:4]
+    tg_dim, tl_dim, cg_dim, cl_dim = (dims[k] for k in ("tg_dim", "tl_dim", "cg_dim", "cl_dim"))
     if x_local.ndim != 3:
         raise ValueError(f"x_local must be (B, N, H), got {tuple(x_local.shape)}")
     b, n, h = x_local.shape
@@ -168,27 +184,97 @@ def epic_layer(
         raise ValueError(f"set_feat width {s} cannot hold t ({tg_dim}, {tl_dim}) and cond {c}")
     if cg_dim not in (0, c) or cl_dim not in (0, c):
         raise ValueError(f"cond widths {cg_dim} (global) and {cl_dim} (local) must each be 0 or C")
+    dev = x_local.device
     for name, t, shape in (
         ("x_local", x_local, (b, n, h)),
         ("x_global", x_global, (b, l)),
         ("mask", mask, (b, n)),
         ("set_feat", set_feat, (b, s)),
-        ("wg1", wg1, (tg_dim + 2 * h + l + cg_dim, h)),
-        ("bg1", bg1, (h,)),
-        ("wg2", wg2, (tg_dim + h + cg_dim, l)),
-        ("bg2", bg2, (l,)),
-        ("w1x", w1x, (h, h)),
-        ("w1s", w1s, (tl_dim + l + cl_dim, h)),
-        ("b1", b1, (h,)),
-        ("w2x", w2x, (h, h)),
-        ("w2s", w2s, (tl_dim + cl_dim, h)),
-        ("b2", b2, (h,)),
+        ("wg1", args[4], (tg_dim + 2 * h + l + cg_dim, h)),
+        ("bg1", args[5], (h,)),
+        ("wg2", args[6], (tg_dim + h + cg_dim, l)),
+        ("bg2", args[7], (l,)),
+        ("w1x", args[8], (h, h)),
+        ("w1s", args[9], (tl_dim + l + cl_dim, h)),
+        ("b1", args[10], (h,)),
+        ("w2x", args[11], (h, h)),
+        ("w2s", args[12], (tl_dim + cl_dim, h)),
+        ("b2", args[13], (h,)),
     ):
-        _check(name, t, shape, dev)
-
+        # the mask stays float32 in both kernels, as in the Pallas kernel
+        _check(name, t, shape, dev, dtype=torch.float32 if name == "mask" else dtype)
     if x_local.data_ptr() % 16:
-        raise ValueError("x_local must start on 16 bytes (the kernel reads it as float4)")
+        raise ValueError("x_local must start on 16 bytes (the kernel reads it in 16-byte pieces)")
+    return b, n, h, l, s
 
+
+def epic_layer_bf16(
+    x_local, x_global, mask, set_feat,
+    wg1, bg1, wg2, bg2, w1x, w1s, b1, w2x, w2s, b2,
+    sum_scale: float = 1e-2,
+    tg_dim: int = 0,
+    tl_dim: int = 0,
+    cg_dim: int = 0,
+    cl_dim: int = 0,
+):
+    """The bfloat16 kernel on CUDA tensors (`epic_layer_fwd_bf16`): every
+    tensor bfloat16 but the float32 mask; arguments as in
+    `epic_layer_reference`, whose bfloat16 arithmetic it computes. Counts
+    its launches in `epic_layer_bf16.launches`."""
+    args = (x_local, x_global, mask, set_feat, wg1, bg1, wg2, bg2, w1x, w1s, b1, w2x, w2s, b2)
+    dims = dict(tg_dim=tg_dim, tl_dim=tl_dim, cg_dim=cg_dim, cl_dim=cl_dim)
+    if x_local.device.type != "cuda" or x_local.dtype != torch.bfloat16:
+        raise ValueError(f"epic_layer_bf16 takes bfloat16 CUDA tensors, got {x_local.dtype} on "
+                         f"{x_local.device}")
+    b, n, h, l, s = _check_shapes(args, dims, torch.bfloat16)
+    dev = x_local.device
+    xo = torch.empty_like(x_local)
+    go = torch.empty_like(x_global)
+    if b == 0:
+        return xo, go
+    # the per-set biases of the two local products, float32, between the
+    # library's two kernels
+    biases = torch.empty((b, 2, h), dtype=torch.float32, device=dev)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.epic_layer_fwd_bf16(
+            *(t.data_ptr() for t in args), xo.data_ptr(), go.data_ptr(), biases.data_ptr(),
+            b, n, h, l, s, tg_dim, tl_dim, cg_dim, cl_dim, float(sum_scale), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"epic_layer_bf16 kernel launch failed: cudaError {err}")
+    epic_layer_bf16.launches += 1
+    return xo, go
+
+
+epic_layer_bf16.launches = 0
+
+
+def epic_layer(
+    x_local, x_global, mask, set_feat,
+    wg1, bg1, wg2, bg2, w1x, w1s, b1, w2x, w2s, b2,
+    sum_scale: float = 1e-2,
+    tg_dim: int = 0,
+    tl_dim: int = 0,
+    cg_dim: int = 0,
+    cl_dim: int = 0,
+):
+    """One EPiC layer: for CUDA tensors the float32 kernel, or the bfloat16
+    one (`epic_layer_bf16`) for bfloat16 tensors; the plain version for CPU
+    tensors. Arguments as in `epic_layer_reference`."""
+    args = (x_local, x_global, mask, set_feat, wg1, bg1, wg2, bg2, w1x, w1s, b1, w2x, w2s, b2)
+    dims = dict(sum_scale=sum_scale, tg_dim=tg_dim, tl_dim=tl_dim, cg_dim=cg_dim,
+                cl_dim=cl_dim)
+    if x_local.device.type == "cpu":
+        return epic_layer_reference(*args, **dims)
+    if x_local.device.type != "cuda":
+        raise ValueError(f"epic_layer runs on cuda or cpu, got {x_local.device}")
+    if x_local.dtype == torch.bfloat16:
+        return epic_layer_bf16(*args, **dims)
+
+    dev = x_local.device
+    b, n, h, l, s = _check_shapes(args, dims, torch.float32)
     xo = torch.empty_like(x_local)
     go = torch.empty_like(x_global)
     if b == 0:

@@ -117,6 +117,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     geometry.restype = ctypes.c_int
     lib.attention_mma_instruction.argtypes = []
     lib.attention_mma_instruction.restype = ctypes.c_char_p
+    if hasattr(lib, "flash_masked_attention_bf16"):  # an earlier source, timed beside, may lack it
+        fn = lib.flash_masked_attention_bf16
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.attention_mma_bf16_instruction.argtypes = []
+        lib.attention_mma_bf16_instruction.restype = ctypes.c_char_p
 
 
 def load_library() -> ctypes.CDLL:
@@ -124,9 +131,58 @@ def load_library() -> ctypes.CDLL:
     return _build.load_library(SOURCE, _declare)
 
 
+def bf16_instruction() -> str:
+    """The tensor-core instruction of the bfloat16 kernel's Q . K^T, as the
+    built library names it (needs the library; no device)."""
+    return load_library().attention_mma_bf16_instruction().decode()
+
+
+def _launch(entry: str, q, k, v, kv_mask) -> torch.Tensor:
+    """Checks, then the launch of `entry`, which takes q's type (`*_f32`
+    float32, `*_bf16` bfloat16) and writes its output in it."""
+    dev = q.device
+    dtype = torch.bfloat16 if entry.endswith("_bf16") else torch.float32
+    if q.ndim != 4 or k.ndim != 4:
+        raise ValueError(f"q and k must be (B, L, H, D), got {tuple(q.shape)} and {tuple(k.shape)}")
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    if lq <= 0 or lk <= 0:
+        raise ValueError(f"flash_masked_attention: empty set (Lq={lq}, Lk={lk})")
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_masked_attention: head dim {d} outside the kernel's 1..{MAX_HEAD_DIM}")
+    check_heads("q", q, (b, lq, h, d), dev, dtype)
+    check_heads("k", k, (b, lk, h, d), dev, dtype)
+    check_heads("v", v, (b, lk, h, d), dev, dtype)
+    if kv_mask is not None:
+        kv_mask = kv_mask.to(torch.float32).contiguous()
+        _build.check_tensor("kv_mask", kv_mask, (b, lk), dev)
+
+    out = torch.empty((b, lq, h, d), dtype=dtype, device=dev)
+    if b == 0 or h == 0:
+        return out
+    splits = key_splits(b, lq, lk, h)
+    scratch = None
+    if splits > 1:  # per split an accumulator (B, Lq, H, D) and a pair (m, l), float32
+        scratch = torch.empty(splits * b * lq * h * (d + 2), dtype=torch.float32, device=dev)
+    fn = getattr(load_library(), entry)
+    with torch.cuda.device(dev):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if kv_mask is None else kv_mask.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), b, lq, lk, h, d, splits,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+    return out
+
+
 def flash_masked_attention(q, k, v, kv_mask=None) -> torch.Tensor:
-    """Streaming-softmax masked attention, any Lq and Lk, forward only: the
-    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    """Streaming-softmax masked attention, any Lq and Lk, forward only: for
+    CUDA tensors the float32 kernel, or the bfloat16 one
+    (`flash_masked_attention_bf16`) for bfloat16 tensors; the plain version
+    for CPU tensors."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
             "flash_masked_attention is forward only (the JAX kernel has no VJP either): "
@@ -137,41 +193,28 @@ def flash_masked_attention(q, k, v, kv_mask=None) -> torch.Tensor:
         return flash_masked_attention_reference(q, k, v, kv_mask)
     if dev.type != "cuda":
         raise ValueError(f"flash_masked_attention runs on cuda or cpu, got {dev}")
-    if q.ndim != 4 or k.ndim != 4:
-        raise ValueError(f"q and k must be (B, L, H, D), got {tuple(q.shape)} and {tuple(k.shape)}")
-    b, lq, h, d = q.shape
-    lk = k.shape[1]
-    if lq <= 0 or lk <= 0:
-        raise ValueError(f"flash_masked_attention: empty set (Lq={lq}, Lk={lk})")
-    if not 0 < d <= MAX_HEAD_DIM:
-        raise ValueError(f"flash_masked_attention: head dim {d} outside the kernel's 1..{MAX_HEAD_DIM}")
-    check_heads("q", q, (b, lq, h, d), dev)
-    check_heads("k", k, (b, lk, h, d), dev)
-    check_heads("v", v, (b, lk, h, d), dev)
-    if kv_mask is not None:
-        kv_mask = kv_mask.to(torch.float32).contiguous()
-        _build.check_tensor("kv_mask", kv_mask, (b, lk), dev)
-
-    out = torch.empty((b, lq, h, d), dtype=torch.float32, device=dev)
-    if b == 0 or h == 0:
-        return out
-    splits = key_splits(b, lq, lk, h)
-    scratch = None
-    if splits > 1:  # per split an accumulator (B, Lq, H, D) and a pair (m, l)
-        scratch = torch.empty(splits * b * lq * h * (d + 2), dtype=torch.float32, device=dev)
-    fn = load_library().flash_masked_attention_f32
-    with torch.cuda.device(dev):
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if kv_mask is None else kv_mask.data_ptr(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), b, lq, lk, h, d, splits,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"flash_masked_attention_f32 launch failed: cudaError {err}")
+    if q.dtype == torch.bfloat16:
+        return flash_masked_attention_bf16(q, k, v, kv_mask)
+    out = _launch("flash_masked_attention_f32", q, k, v, kv_mask)
     flash_masked_attention.launches += 1
     return out
 
 
 flash_masked_attention.launches = 0
+
+
+def flash_masked_attention_bf16(q, k, v, kv_mask=None) -> torch.Tensor:
+    """The bfloat16 kernel on CUDA tensors: q, k, v bfloat16, the mask
+    float32, the result bfloat16, as `flash_masked_attention_reference`
+    computes it on bfloat16 inputs (Q . K^T as bfloat16 products with the
+    scale applied to S, P kept in float32). Forward only. Counts its launches
+    in `flash_masked_attention_bf16.launches`."""
+    if q.device.type != "cuda" or q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_masked_attention_bf16 takes bfloat16 CUDA tensors, got "
+                         f"{q.dtype} on {q.device}")
+    out = _launch("flash_masked_attention_bf16", q, k, v, kv_mask)
+    flash_masked_attention_bf16.launches += 1
+    return out
+
+
+flash_masked_attention_bf16.launches = 0

@@ -100,7 +100,11 @@ def packed_launch_report(l: int, d: int, biased: bool = False) -> dict:
 
 
 def packed_short_attention_reference(q, k, v, kv_mask=None, attn_bias=None):
-    """Plain version of the packed kernel: the JAX package's `_ref_math`."""
+    """Plain version of the packed kernel. In float32 the JAX package's
+    `_ref_math` (float64 alike); in bfloat16 the Pallas `_packed_kernel`'s
+    arithmetic (`_packed_lowp`)."""
+    if q.dtype == torch.bfloat16:
+        return _packed_lowp(q, k, v, kv_mask, attn_bias)
     b, d = q.shape[0], q.shape[-1]
     madd = mask_add(kv_mask, b, k.shape[1], q)
     s = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32)
@@ -109,6 +113,23 @@ def packed_short_attention_reference(q, k, v, kv_mask=None, attn_bias=None):
         s = s + attn_bias.to(torch.float32)
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", w.to(q.dtype), v)
+
+
+def _packed_lowp(q, k, v, kv_mask, attn_bias):
+    """The Pallas `_packed_kernel` on bfloat16 q, k, v: Q . K^T as products of
+    the bfloat16 values summed in float32, s * scale + mask (+ bias), the
+    softmax over the whole row in float32, P rounded to q's type for the PV
+    product (float32 sum), the normalisation after PV, one rounding of the
+    output."""
+    f32, b, d = torch.float32, q.shape[0], q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(f32), k.to(f32))
+    s = s * (1.0 / (d ** 0.5)) + mask_add(kv_mask, b, k.shape[1], q)[:, None, None, :]
+    if attn_bias is not None:
+        s = s + attn_bias.to(f32)
+    p = torch.exp(s - s.max(dim=-1, keepdim=True).values)
+    denom = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhqk,bkhd->bhqd", p.to(q.dtype).to(f32), v.to(f32)) / denom
+    return o.permute(0, 2, 1, 3).to(q.dtype)
 
 
 def fused_short_attention_reference(q, k, v, kv_mask=None, attn_bias=None):
@@ -127,7 +148,12 @@ def fused_short_attention_reference(q, k, v, kv_mask=None, attn_bias=None):
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    for name in ("packed_short_attention_f32", "fused_short_attention_f32"):
+    names = ["packed_short_attention_f32", "fused_short_attention_f32"]
+    if hasattr(lib, "packed_short_attention_bf16"):  # an earlier source, timed beside, may lack it
+        names += ["packed_short_attention_bf16", "fused_short_attention_bf16"]
+        lib.attention_mma_bf16_instruction.argtypes = []
+        lib.attention_mma_bf16_instruction.restype = ctypes.c_char_p
+    for name in names:
         fn = getattr(lib, name)
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 6
                        + [ctypes.c_void_p])
@@ -144,17 +170,26 @@ def load_library() -> ctypes.CDLL:
     return _build.load_library(SOURCE, _declare)
 
 
-def check_heads(name: str, t: torch.Tensor, shape: tuple[int, ...], device: torch.device) -> None:
-    """q, k or v: float32 on `device`, of `shape`, the last two axes packed."""
-    _build.check_tensor(name, t, shape, device, contiguous=False)
+def bf16_instruction() -> str:
+    """The tensor-core instruction of the bfloat16 packed kernel, as the built
+    library names it (needs the library; no device)."""
+    return load_library().attention_mma_bf16_instruction().decode()
+
+
+def check_heads(name: str, t: torch.Tensor, shape: tuple[int, ...], device: torch.device,
+                dtype: torch.dtype = torch.float32) -> None:
+    """q, k or v: of `dtype` on `device`, of `shape`, the last two axes packed."""
+    _build.check_tensor(name, t, shape, device, contiguous=False, dtype=dtype)
     d = shape[-1]
     if t.stride(3) != 1 or t.stride(2) != d or t.stride(1) < shape[2] * d or t.stride(0) < 0:
         raise ValueError(f"{name} is not contiguous in its last two axes (strides {t.stride()})")
 
 
 def _launch(entry: str, q, k, v, kv_mask, attn_bias, max_len: int) -> torch.Tensor:
-    """Checks shared by both wrappers, then the launch of `entry`."""
+    """Checks shared by the wrappers, then the launch of `entry`, which takes
+    q's type (`*_f32` float32, `*_bf16` bfloat16) and writes its output in it."""
     dev = q.device
+    dtype = torch.bfloat16 if entry.endswith("_bf16") else torch.float32
     if q.ndim != 4:
         raise ValueError(f"q must be (B, Lq, H, D), got {tuple(q.shape)}")
     b, lq, h, d = q.shape
@@ -164,16 +199,16 @@ def _launch(entry: str, q, k, v, kv_mask, attn_bias, max_len: int) -> torch.Tens
                          "use the einsum path or attn_impl='flash'")
     if not 0 < d <= MAX_HEAD_DIM:
         raise ValueError(f"{entry}: head dim {d} outside the kernel's 1..{MAX_HEAD_DIM}")
-    check_heads("q", q, (b, lq, h, d), dev)
-    check_heads("k", k, (b, lk, h, d), dev)
-    check_heads("v", v, (b, lk, h, d), dev)
+    check_heads("q", q, (b, lq, h, d), dev, dtype)
+    check_heads("k", k, (b, lk, h, d), dev, dtype)
+    check_heads("v", v, (b, lk, h, d), dev, dtype)
     if kv_mask is not None:
         kv_mask = kv_mask.to(torch.float32).contiguous()
         _build.check_tensor("kv_mask", kv_mask, (b, lk), dev)
     if attn_bias is not None:
         _build.check_tensor("attn_bias", attn_bias, (b, h, lq, lk), dev)
 
-    out = torch.empty((b, lq, h, d), dtype=torch.float32, device=dev)
+    out = torch.empty((b, lq, h, d), dtype=dtype, device=dev)
     if b == 0 or h == 0:
         return out
     fn = getattr(load_library(), entry)
@@ -191,11 +226,30 @@ def _launch(entry: str, q, k, v, kv_mask, attn_bias, max_len: int) -> torch.Tens
     return out
 
 
+def packed_short_attention_bf16(q, k, v, kv_mask=None, attn_bias=None) -> torch.Tensor:
+    """The bfloat16 packed kernel on CUDA tensors: q, k, v bfloat16, the mask
+    and the bias float32; the result bfloat16, as `_packed_lowp` computes it.
+    Forward only. Counts its launches in `packed_short_attention_bf16.launches`."""
+    if q.device.type != "cuda" or q.dtype != torch.bfloat16:
+        raise ValueError(f"packed_short_attention_bf16 takes bfloat16 CUDA tensors, got "
+                         f"{q.dtype} on {q.device}")
+    if k.shape[1] != q.shape[1]:
+        raise ValueError("packed_short_attention_bf16 requires Lq == Lk")
+    out = _launch("packed_short_attention_bf16", q, k, v, kv_mask, attn_bias, MAX_PACKED_LEN)
+    packed_short_attention_bf16.launches += 1
+    return out
+
+
+packed_short_attention_bf16.launches = 0
+
+
 def _packed_forward(q, k, v, kv_mask, attn_bias) -> torch.Tensor:
     if q.device.type == "cpu":
         return packed_short_attention_reference(q, k, v, kv_mask, attn_bias)
     if q.device.type != "cuda":
         raise ValueError(f"packed_short_attention runs on cuda or cpu, got {q.device}")
+    if q.dtype == torch.bfloat16:
+        return packed_short_attention_bf16(q, k, v, kv_mask, attn_bias)
     l, d = q.shape[1], q.shape[-1]
     if 0 < l <= MAX_PACKED_LEN and 0 < d <= MAX_HEAD_DIM:  # else `_launch` says what is wrong
         smem = packed_geometry(l, d)["smem_bytes"]
@@ -245,6 +299,10 @@ def packed_short_attention(q, k, v, kv_mask=None, attn_bias=None) -> torch.Tenso
         attn_bias = attn_bias.to(torch.float32)
     tensors = [t for t in (q, k, v, attn_bias) if t is not None]
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        if q.dtype != torch.float32:
+            raise NotImplementedError(
+                f"packed_short_attention trains in float32 only: its {q.dtype} backward comes "
+                "with bfloat16 training")
         return _PackedAttention.apply(q, k, v, kv_mask, attn_bias)
     return _packed_forward(q, k, v, kv_mask, attn_bias)
 
@@ -265,9 +323,26 @@ def fused_short_attention(q, k, v, kv_mask=None, attn_bias=None) -> torch.Tensor
         return fused_short_attention_reference(q, k, v, kv_mask, attn_bias)
     if q.device.type != "cuda":
         raise ValueError(f"fused_short_attention runs on cuda or cpu, got {q.device}")
+    if q.dtype == torch.bfloat16:
+        return fused_short_attention_bf16(q, k, v, kv_mask, attn_bias)
     out = _launch("fused_short_attention_f32", q, k, v, kv_mask, attn_bias, MAX_FUSED_LEN)
     fused_short_attention.launches += 1
     return out
 
 
 fused_short_attention.launches = 0
+
+
+def fused_short_attention_bf16(q, k, v, kv_mask=None, attn_bias=None) -> torch.Tensor:
+    """The bfloat16 fused kernel on CUDA tensors: bfloat16 loads and stores
+    around the float32 arithmetic of `fused_short_attention_reference`.
+    Forward only. Counts its launches in `fused_short_attention_bf16.launches`."""
+    if q.device.type != "cuda" or q.dtype != torch.bfloat16:
+        raise ValueError(f"fused_short_attention_bf16 takes bfloat16 CUDA tensors, got "
+                         f"{q.dtype} on {q.device}")
+    out = _launch("fused_short_attention_bf16", q, k, v, kv_mask, attn_bias, MAX_FUSED_LEN)
+    fused_short_attention_bf16.launches += 1
+    return out
+
+
+fused_short_attention_bf16.launches = 0

@@ -14,6 +14,15 @@ tensors, so the loop never waits on the host.
 `odeint_fixed_sc` is the fixed-step loop of self-conditioned fields, which
 carry the data-endpoint estimate from one evaluation to the next.
 
+A network that computes in bfloat16 may return a bfloat16 field while the
+state stays float32. Its promotion follows JAX's: a Python float (the fixed
+steppers' dt) keeps the product in bfloat16 before it meets the float32
+state, as a weakly typed JAX scalar does; where the JAX solver multiplies by
+a float32 array (the Adams steps' dt, the time of the self-conditioned
+estimate, the DOPRI5 stages), JAX computes in float32, and so the field is
+cast to the state's type there first (a 0-dim float32 tensor would leave the
+product in bfloat16).
+
 `odeint_dopri5` is the adaptive Dormand-Prince 5(4) of the JAX package's
 `lax.while_loop`, with one step size and one error norm for the whole batch.
 t and dt are float32 tensors on the device, updated as the JAX loop's
@@ -115,26 +124,29 @@ def _odeint_adams(f: Drift, x0, t0, t1, ode_steps: int, order: int):
     def t_at(k):
         return _f32(t0 + k * dt).to(x0.device)
 
+    def step(v):  # dt times a field, as JAX's float32 dt computes it
+        return dt * v.to(x0.dtype)
+
     f0 = f(t_at(0), x0)
     if order == 2:
-        x = x0 + dt * f0
+        x = x0 + step(f0)
         f_prev = f0
         for k in range(1, n):
             fk = f(ts[k], x)
-            x = x + dt * (1.5 * fk - 0.5 * f_prev)
+            x = x + step(1.5 * fk - 0.5 * f_prev)
             f_prev = fk
         return x
 
-    k1 = f(t_at(0.5), x0 + 0.5 * dt * f0)
-    x1 = x0 + dt * k1
+    k1 = f(t_at(0.5), x0 + 0.5 * step(f0))
+    x1 = x0 + step(k1)
     if n == 1:
         return x1
     f1 = f(t_at(1), x1)
-    x = x1 + dt * (1.5 * f1 - 0.5 * f0)
+    x = x1 + step(1.5 * f1 - 0.5 * f0)
     fm1, fm2 = f1, f0
     for k in range(2, n):
         fk = f(ts[k], x)
-        x = x + dt * (23.0 / 12.0 * fk - 16.0 / 12.0 * fm1 + 5.0 / 12.0 * fm2)
+        x = x + step(23.0 / 12.0 * fk - 16.0 / 12.0 * fm1 + 5.0 / 12.0 * fm2)
         fm1, fm2 = fk, fm1
     return x
 
@@ -152,7 +164,7 @@ def odeint_fixed_sc(f, x0: torch.Tensor, t0: float = 1.0, t1: float = 0.0, ode_s
     x, sc = x0, torch.zeros_like(x0)
     for t, t_half in grid:
         v1 = f(t, x, sc)
-        sc = x - t * v1
+        sc = x - t * v1.to(x.dtype)
         if method == "euler":
             x = x + dt * v1
         else:
@@ -194,7 +206,7 @@ def _dp_stages(f: Drift, t: torch.Tensor, dt: torch.Tensor, x: torch.Tensor):
         xi = x
         for j, aij in enumerate(_DP_A[i]):
             xi = xi + dtb * aij * ks[j]
-        ks.append(f(t + _DP_C[i] * dt, xi))
+        ks.append(f(t + _DP_C[i] * dt, xi).to(x.dtype))
     k = torch.stack(ks)
     b5, b4 = _dp_weights(x.device, k.dtype)
     x5 = x + dtb * torch.tensordot(b5, k, dims=1)

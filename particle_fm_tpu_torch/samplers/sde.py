@@ -8,7 +8,9 @@ t_k - 1/n_steps, each rounded to float32 in the same order; they are built
 on the CPU and moved to the device once, so the loop never waits on the
 host. Euler-Maruyama draws one standard normal of x's shape per step, after
 the network call, through `_normal`, so a test can replay the JAX stream.
-As in the JAX package the per-step noise is not masked.
+As in the JAX package the per-step noise is not masked. A bfloat16
+prediction is cast to the state's type where it meets the float32 schedule,
+as JAX promotes it there.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ def ddim_sampler(model: NoiseModel, schedule: VPDiffusionSchedule, initial_noise
     noisy = pred_data = initial_noise
     for t, t_next in zip(ts, ts_next):
         signal_rates, noise_rates = schedule(t)
-        pred_noises = model(t, noisy)
+        pred_noises = model(t, noisy).to(noisy.dtype)
         pred_data = ddim_predict(noisy, pred_noises, signal_rates, noise_rates)
         if clip_predictions is not None:
             pred_data = torch.clamp(pred_data, *clip_predictions)
@@ -64,7 +66,7 @@ def euler_maruyama_sampler(model: NoiseModel, schedule: VPDiffusionSchedule,
     ts, _, delta_t = _times(n_steps, initial_noise.device)
     x_t = initial_noise
     for t in ts:
-        pred_noises = model(t, x_t)
+        pred_noises = model(t, x_t).to(x_t.dtype)
         _, noise_rates = schedule(t)
         s = -pred_noises / noise_rates
         betas = schedule.get_betas(t)

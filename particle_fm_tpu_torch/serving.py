@@ -7,7 +7,9 @@ inverse z-score x * std / sigma + mean, then the mask re-applied), and
 batches, one seed per batch derived as the JAX package derives it (hash_v1:
 SeedSequence([seed, chunk])). The seed starts a `torch.Generator` on the
 network's device. There is no exported artifact: the function runs the
-PyTorch program itself.
+PyTorch program itself. A model built with `dtype="bfloat16"` serves in it:
+the network computes in bfloat16, while the noise, cond, mask, the solver's
+state and the output stay float32.
 """
 
 from __future__ import annotations

@@ -40,10 +40,11 @@ def build_run(cfg: dict):
     return dm, model, optimizer
 
 
-def load_run(run_dir: str, ckpt: str = "best", ema: bool = True, device="cuda"):
+def load_run(run_dir: str, ckpt: str = "best", ema: bool = True, device="cuda", dtype=None):
     """Returns (cfg, datamodule, model, net): the network of the best
     checkpoint of the run's first monitor (else `last`), or of `last`, with
-    the EMA weights when `ema`."""
+    the EMA weights when `ema`. `dtype` (a name such as "bfloat16") replaces
+    the run's `model.dtype`: float32 weights served in bfloat16."""
     from particle_fm_tpu_torch.config.core import load_config
     from particle_fm_tpu_torch.training.checkpoint import CheckpointManager
     from particle_fm_tpu_torch.training.step import create_train_state
@@ -51,6 +52,8 @@ def load_run(run_dir: str, ckpt: str = "best", ema: bool = True, device="cuda"):
 
     dev = resolve_device(device)
     cfg = load_config(os.path.join(run_dir, "config.yaml"))
+    if dtype is not None:
+        cfg["model"]["dtype"] = dtype
     dm, model, optimizer = build_run(cfg)
     state = create_train_state(model, optimizer, seed=0, device=dev)
     cm = CheckpointManager(

@@ -3,7 +3,8 @@
 
     python3 scripts/profile_torch_port.py
         [--config epic|transformer|crossattention|mdma|lhco_transformer|jetclass_cond]
-        [--nfe-steps 6] [--out build/measurements/profile_torch_port_<config>.json]
+        [--nfe-steps 6] [--dtype float32|bfloat16]
+        [--out build/measurements/profile_torch_port_<config>[_bfloat16].json]
 
 Builds one of the served networks at full width with seeded random weights,
 as chip_smoke.py builds them: `epic` is fm_tops150_cond (fused EPiC layer),
@@ -18,7 +19,9 @@ kernel's plain PyTorch version -- it serves one batch (640 jets; 32 showers
 for `mdma`, 256 events for `lhco_transformer`, 512 jets for
 `jetclass_cond`; midpoint, `--nfe-steps` grid
 points) once without and once under torch.profiler, after a warm-up.
-Prints, per path, the wall time per network evaluation (both runs; the
+With `--dtype bfloat16` the model serves in bfloat16 (model.dtype), its
+kernel path through the bfloat16 kernels. Prints, per path, the wall time
+per network evaluation (both runs; the
 profiler slows the host), the device's busy share (summed kernel time over
 each wall time) and the kernels by device time, and writes the same
 as JSON to `--out`.
@@ -129,9 +132,13 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", choices=list(CONFIGS), default="epic")
     ap.add_argument("--nfe-steps", type=int, default=6, help="ode_steps of the profiled run")
+    ap.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32",
+                    help="the model's compute type")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
-    out = Path(args.out or ROOT / "build" / "measurements" / f"profile_torch_port_{args.config}.json")
+    tag = "" if args.dtype == "float32" else f"_{args.dtype}"
+    out = Path(args.out or ROOT / "build" / "measurements"
+               / f"profile_torch_port_{args.config}{tag}.json")
     if not torch.cuda.is_available():
         sys.exit("profile_torch_port: CUDA is not available")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -140,7 +147,7 @@ def main() -> None:
                           capture_output=True, text=True, check=True).stdout.strip()
 
     model_args, owner, wrapper, batch, fewest = CONFIGS[args.config]
-    model = FlowMatchingModel(**model_args)
+    model = FlowMatchingModel(**model_args, dtype=args.dtype)
     net = model.init(seed=0, device="cuda")
     if model.model.startswith("droid"):  # these configurations zero-initialise their attention
         redraw_parameters(torch, net, seed=1)
@@ -154,13 +161,14 @@ def main() -> None:
     nfe = 2 * (args.nfe_steps - 1)
 
     owner.load_library()
-    result = {"card": card, "config": args.config, "kernel": wrapper, "batch": batch, "nfe": nfe}
+    result = {"card": card, "config": args.config, "dtype": args.dtype, "kernel": wrapper,
+              "batch": batch, "nfe": nfe}
     result["kernel_path"] = profile_path(fn, cond, mask, nfe)
     with mock.patch.object(owner, wrapper, getattr(owner, wrapper + "_reference")):
         result["plain_path"] = profile_path(fn, cond, mask, nfe)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))
-    print(card, args.config)
+    print(card, args.config, args.dtype)
     for path in ("kernel_path", "plain_path"):
         r = result[path]
         print(f"{path}: {r['wall_ms_per_nfe_unprofiled']:.3f} ms/NFE wall unprofiled, "

@@ -192,8 +192,8 @@ def test_out_features_follow_the_model_and_can_be_set():
 
 
 def test_unported_and_missing_inputs_raise():
-    with pytest.raises(NotImplementedError, match="float32"):
-        pmdma.MDMA(4, T, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="float32"):  # bfloat16 is ported
+        pmdma.MDMA(4, T, dtype=torch.float16)
     with pytest.raises(ValueError, match="cond_dim"):
         pmdma.MDMA(4, T, cond_dim=0, global_cond_dim=1)
     net = pmdma.MDMA(4, T, cond_dim=1, global_cond_dim=1, hidden_dim=HID, layers=1, num_heads=2)

@@ -184,10 +184,11 @@ def test_statistics_are_carried_and_checked_both_ways():
 
 
 def test_self_cond_and_dtype_go_on_raising():
-    """dtype is not ported; self_cond raises where the JAX model raises: with
-    a loss whose path is not linear and with more than one flow."""
+    """A dtype the port lacks (float16; bfloat16 samples) raises; self_cond
+    raises where the JAX model raises: with a loss whose path is not linear
+    and with more than one flow."""
     with pytest.raises(NotImplementedError):
-        pfm.FlowMatchingModel(dtype="bfloat16")
+        pfm.FlowMatchingModel(dtype="float16")
     for bad in (dict(self_cond=True, loss_type="diffusion"), dict(self_cond=True, n_transforms=2)):
         with pytest.raises(ValueError, match="self_cond"):
             pfm.FlowMatchingModel(**bad)

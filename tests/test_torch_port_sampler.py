@@ -97,8 +97,8 @@ def test_sample_matches_compiled_jax_with_sincos():
 def test_unported_options_raise():
     from particle_fm_tpu_torch.models.flow_matching import FlowMatchingModel
 
-    with pytest.raises(NotImplementedError):
-        FlowMatchingModel(dtype="bfloat16")
+    with pytest.raises(NotImplementedError):  # bfloat16 is ported, float16 is not
+        FlowMatchingModel(dtype="float16")
     pm = FlowMatchingModel(hidden_dim=8, latent=4, layers=1)
     net = pm.init(device="cpu")
     with pytest.raises(NotImplementedError, match="rk45"):

@@ -107,8 +107,12 @@ def test_shipped_model_configs_sample_as_jax(name):
 ])
 def test_fields_raise_only_for_what_the_port_lacks(override, error):
     pflow.FlowMatchingModel(**model_block("flow_matching"))  # the shipped values build
+    x, mask, cond, _ = cloud(b=2, n=16, seed=0)
     with pytest.raises(error):
-        pflow.FlowMatchingModel(**model_block("flow_matching", override))
+        pm = pflow.FlowMatchingModel(**model_block("flow_matching", override))
+        # bfloat16 builds and samples (tests/test_torch_port_bf16_models.py); training in
+        # it is not ported, so its loss raises
+        pm.loss(pm.init(device="cpu"), torch.Generator(), t(x), t(mask), t(cond), train=True)
 
 
 def test_loss_refuses_what_it_cannot_train():

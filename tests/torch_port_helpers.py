@@ -262,3 +262,44 @@ def pin_draws_on_demand(monkeypatch, seed: int = 0) -> None:
     monkeypatch.setattr(jloss, "_normal", jn)
     monkeypatch.setattr(ploss, "_sample_t", pt_)
     monkeypatch.setattr(ploss, "_normal", pn)
+
+
+# ---------------------------------------------------------------- bfloat16
+
+# the folded EPiC layer rounds where the Pallas kernel rounds, the JAX
+# sampler's linen layers after every Dense: two bfloat16 computations of one
+# function, held to this multiple of JAX's own bfloat16-to-float32 gap
+# (independent roundings add up to about sqrt(2) of one)
+FOLDED_GAP = 1.5
+
+
+def frob(a) -> float:
+    """Frobenius norm, in float64."""
+    return float(np.sqrt(np.sum(np.square(np.asarray(a, np.float64)))))
+
+
+def bf16_gaps(port, jax16, jax32, name: str) -> tuple[float, float]:
+    """(|port - jax16|, |jax16 - jax32|) in the Frobenius norm, printed with
+    the max errors: the port in bfloat16 against JAX in bfloat16, and JAX's
+    bfloat16 against its float32."""
+    port, jax16, jax32 = (np.asarray(a, np.float32) for a in (port, jax16, jax32))
+    ours, theirs = frob(port - jax16), frob(jax16 - jax32)
+    print(f"{name}: |port-jax_bf16| {ours:.4g} (max {np.abs(port - jax16).max():.3g}), "
+          f"|jax_bf16-jax_f32| {theirs:.4g} (max {np.abs(jax16 - jax32).max():.3g})")
+    return ours, theirs
+
+
+def bf16_triple(cfg: dict, fill=True):
+    """(JAX float32 model, JAX bfloat16 model, variables, port bfloat16 model,
+    its network) with the same seeded parameters (`model_pair`'s `fill`) and
+    the JAX cosine table; the port's parameters stay float32."""
+    jm, variables, _, net = model_pair(cfg, fill=fill)
+    jm16 = JaxModel(**dict(cfg, dtype="bfloat16"))
+    pm16 = PortModel(**dict(cfg, dtype="bfloat16"))
+    net16 = pm16.init(device="cpu")
+    net16.load_state_dict(net.state_dict())
+    for mine, theirs in zip(net16.flows, net.flows):
+        mine.cos_freqs.copy_(theirs.cos_freqs)
+    assert pm16.compute_dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in net16.parameters())
+    return jm, jm16, variables, pm16, net16
