@@ -62,13 +62,22 @@
    300, 512); `packed_short_attention_bf16` at path A's shape and with a bias;
    `fused_short_attention_bf16` at path B's pair and with a bias;
    `flash_masked_attention_bf16` at paths C and D and at 1500 keys of head dim
-   128; each attention kernel at the edges of its tiles at head dims 8, 12, 32
-   and 64 and offset by one element. Beside each: one bf16
-   `scaled_dot_product_attention` call (the port never calls it; it must
-   agree within 4 ulps) and the bound, bytes at 2 per value and each
-   bfloat16 product once at 989 TFLOP/s (the flash kernel's P . V twice in
-   TF32); the run fails unless each library names mma.sync.m16n8k16 bf16 as
-   the instruction of its bfloat16 products.
+   128, and its class-token variant at 1 to 4 query rows, key counts off
+   every step and split, a fully masked set, twice in a row; each attention
+   kernel at the edges of its tiles at head dims 8, 12, 32 and 64 and offset
+   by one element. The two kernels redesigned for this card (`epic_layer_bf16`
+   and the flash class token) are timed in TURN_ROUNDS rounds of in-turn
+   readings (plain, kernel, library, library, kernel, plain), medians
+   reported, the flash one's beside bf16 `scaled_dot_product_attention` in
+   the same turns. Beside each: one bf16 `scaled_dot_product_attention`
+   call (the port never calls it; it must agree within 4 ulps) and the bound,
+   bytes at 2 per value and each bfloat16 product once at 989 TFLOP/s (the
+   flash kernel's P . V twice in TF32; the EPiC layer's per-set products,
+   float32 inputs in three bfloat16 pieces, three times). The run fails
+   unless the attention libraries name mma.sync.m16n8k16 bf16 and the EPiC
+   library wgmma.mma_async m64nNk16 bf16 as the instruction of their
+   bfloat16 products, and unless the EPiC and class-token launch reports
+   agree with the wrappers' mirrors (`bf16_geometry`, `token_geometry`).
 3. Serving phases through `make_serve_fn`/`serve_batches`, midpoint,
    ode_steps=51 (100 network evaluations), float32, seeded random weights
    (the repo has no trained checkpoint), ragged masks and a random cond:
@@ -243,6 +252,11 @@ ODE_STEPS = 51
 EPIC_TF32_PRODUCTS = 3  # TF32 products per float32 product of the EPiC kernel's local matmuls
 # the bfloat16 kernels' tensor-core instruction (csrc/mma_bf16.cuh), one product per product
 BF16_INSTRUCTION = "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"
+# the bfloat16 EPiC kernel's local products (csrc/wgmma_bf16.cuh): one wgmma a product, N the
+# column block of the launch report; its per-set products take a float32 input in three
+# bfloat16 pieces: three bfloat16 products per product
+EPIC_BF16_INSTRUCTION = "wgmma.mma_async.sync.aligned.m64nNk16.f32.bf16.bf16"
+EPIC_BF16_SET_PRODUCTS = 3
 FLASH_BF16_PV_TF32_PRODUCTS = 2  # the flash bf16 kernel's P . V: P's head and remainder in TF32
 BF16_KERNEL_ULPS = 2  # a bf16 kernel against its plain version: bfloat16 ulps of the largest |out|
 BF16_LIBRARY_ULPS = 4  # the bf16 yardstick (scaled_dot_product_attention) rounds elsewhere
@@ -305,21 +319,48 @@ def timed_in_turns(kernel_fn, plain_fn) -> dict:
             "turns_ms": {"plain": [turns[0], turns[3]], "kernel": [turns[1], turns[2]]}}
 
 
+TURN_ROUNDS = 3  # rounds of in-turn readings of a redesigned kernel: medians of 6 readings
+
+
+def median_in_turns(kernel_fn, plain_fn, library_fn=None, rounds: int = TURN_ROUNDS) -> dict:
+    """`rounds` rounds of plain, kernel, library, library, kernel, plain
+    (the library call left out where there is none), each reading
+    `cuda_ms`: the medians of the kernel's, the plain version's and the
+    library call's readings, and every reading."""
+    import statistics
+
+    from particle_fm_tpu_torch.utils.timing import cuda_ms
+
+    fns = {"plain": plain_fn, "kernel": kernel_fn, "library": library_fn}
+    order = [k for k in ("plain", "kernel", "library") if fns[k] is not None]
+    turns = {k: [] for k in order}
+    for _ in range(rounds):
+        for key in order + order[::-1]:
+            turns[key].append(cuda_ms(fns[key]))
+    out = {"ms": statistics.median(turns["kernel"]), "plain_ms": statistics.median(turns["plain"]),
+           "turns_ms": turns}
+    if library_fn is not None:
+        out["library_ms"] = statistics.median(turns["library"])
+    return out
+
+
 def bound(n_bytes: float, flops: float, tensor_flops: float = 0.0, tf32_products: int = 1,
-          bf16_flops: float = 0.0) -> dict:
+          bf16_flops: float = 0.0, bf16_issued: float | None = None) -> dict:
     """Least time for the work: each input read once and each output written
     once, against the float32 operations at the CUDA cores' rate. Of the
     `flops`, `tensor_flops` are matrix products that the kernel issues
     `tf32_products` times each on the tensor cores in TF32, and `bf16_flops`
-    bfloat16 products it issues once each at the bfloat16 rate."""
+    products it issues on the tensor cores in bfloat16 as `bf16_issued`
+    operations (default: once each) at the bfloat16 rate."""
+    issued = bf16_flops if bf16_issued is None else bf16_issued
     t_bytes = n_bytes / PEAK_BYTES * 1e3
     t_ops = ((flops - tensor_flops - bf16_flops) / PEAK_F32_FLOPS
              + tensor_flops * tf32_products / PEAK_TF32_FLOPS
-             + bf16_flops / PEAK_BF16_FLOPS) * 1e3
+             + issued / PEAK_BF16_FLOPS) * 1e3
     by = ("bytes" if t_bytes >= t_ops else
           "tensor operations" if tensor_flops or bf16_flops else "operations")
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": by, "bytes": n_bytes, "flops": flops,
-            "tensor_flops_issued": tensor_flops * tf32_products + bf16_flops}
+            "tensor_flops_issued": tensor_flops * tf32_products + issued}
 
 
 def epic_case(torch, dev, seed, b, n, h, lat, c, local=True, x_scale=1.0, lo=30):
@@ -655,13 +696,12 @@ def check_bf16_kernel(torch, name: str, got, want) -> float:
     return err
 
 
-def bf16_instruction_checked(name: str, instruction_fn) -> str:
+def bf16_instruction_checked(name: str, instruction_fn, want: str = BF16_INSTRUCTION) -> str:
     """The instruction the built library names for its bfloat16 products;
     fails unless it is the one bfloat16 product the bound counts."""
     got = instruction_fn()
-    if got != BF16_INSTRUCTION:
-        fail(f"{name}: the bound counts one {BF16_INSTRUCTION} per product, the library "
-             f"issues {got}")
+    if got != want:
+        fail(f"{name}: the bound counts one {want} per product, the library issues {got}")
     return got
 
 
@@ -672,11 +712,15 @@ def to_bf16(torch, args, keep=(2,)):
 
 def epic_bf16_measure(torch, ops, args, dims) -> dict:
     """The bf16 EPiC kernel at one shape: check, time in turns with its plain
-    version, count the bound (the two local matmuls as bfloat16 products,
-    one each)."""
+    version (the medians of TURN_ROUNDS rounds), count the bound: the two
+    local matmuls as bfloat16 products, one each, and the per-set products
+    (float32 inputs on bfloat16 weights) as three bfloat16 products each, as
+    the kernel issues them. The weights are laid out once for the kernels,
+    as `EPiCLayer.fold` does, before the timing."""
     b, n, h = args[0].shape
     lat = args[1].shape[-1]
-    xo, go = ops.epic_layer(*args, **dims)
+    image = ops.bf16_weight_image(*(args[i] for i in (4, 6, 9, 12, 8, 11)))
+    xo, go = ops.epic_layer(*args, **dims, weight_image=image)
     rx, rg = ops.epic_layer_reference(*args, **dims)
     err = max(check_bf16_kernel(torch, "epic_layer_bf16", xo, rx),
               check_bf16_kernel(torch, "epic_layer_bf16", go, rg))
@@ -684,10 +728,12 @@ def epic_bf16_measure(torch, ops, args, dims) -> dict:
     n_bytes = sum(a.numel() * a.element_size() for a in args) + 2 * (b * n * h + b * lat)
     flops = (2 * b * n * h + 2 * b * (k1 * h + k2 * lat + k3 * h + k4 * h)
              + 2 * 2 * b * n * h * h + 5 * b * n * h)
+    per_set = 2 * b * (k1 * h + k2 * lat + k3 * h + k4 * h)
     return {"max_abs_err": err,
-            **timed_in_turns(lambda: ops.epic_layer(*args, **dims),
-                             lambda: ops.epic_layer_reference(*args, **dims)),
-            **bound(n_bytes, flops, bf16_flops=4 * b * n * h * h),
+            **median_in_turns(lambda: ops.epic_layer(*args, **dims, weight_image=image),
+                              lambda: ops.epic_layer_reference(*args, **dims)),
+            **bound(n_bytes, flops, bf16_flops=4 * b * n * h * h + per_set,
+                    bf16_issued=4 * b * n * h * h + EPIC_BF16_SET_PRODUCTS * per_set),
             "shape": {"B": b, "N": n, "H": h, "L": lat, "t": T, "cg": dims["cg_dim"],
                       "cl": dims["cl_dim"], "dtype": "bfloat16"}}
 
@@ -724,19 +770,45 @@ def epic_bf16_phase(torch, ops, dev) -> dict:
         **{key: main[key] for key in ("ms", "plain_ms", "turns_ms", "bound_ms", "bound_by", "bytes",
                                       "flops", "tensor_flops_issued", "shape")},
         "library_ms": None,  # no single PyTorch call computes an EPiC layer
-        "instruction": bf16_instruction_checked("epic_layer_bf16", ops.bf16_instruction),
+        "instruction": bf16_instruction_checked("epic_layer_bf16", ops.bf16_instruction,
+                                                EPIC_BF16_INSTRUCTION),
         "tolerance": f"{BF16_KERNEL_ULPS} bf16 ulps of the largest |out|",
         "shapes": shapes, "max_abs_err_edges": max(errs.values()), "edge_cases": len(errs),
     }
 
 
+def epic_bf16_design(torch, ops) -> dict:
+    """What the built library says its launcher gives the two bfloat16 EPiC
+    kernels at the two served shapes and at lhco/bigPC's; fails unless the
+    wrapper's mirror (`bf16_geometry`) says the same and the instruction is
+    the wgmma of the column block."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    reports = {}
+    for key, (b, n, h, lat, c, cl) in {"flagship": (B, N, H, L, C, C),
+                                       "path E": (512, 128, 300, 16, 12, 0),
+                                       "lhco/bigPC": (128, 558, 256, 256, 10, 10)}.items():
+        report = ops.bf16_launch_report(b, n, h, lat, T + c, T, T, c, cl)
+        mirror = ops.bf16_geometry(b, n, h, lat, sms, T, T, c, cl)
+        if {k: report[k] for k in mirror} != mirror:
+            fail(f"epic_layer_bf16 ({key}): the library's launch {report} is not the wrapper's "
+                 f"mirror {mirror}")
+        want = EPIC_BF16_INSTRUCTION.replace("m64nNk16", f"m64n{mirror['column_block']}k16")
+        if report["instruction"] != want:
+            fail(f"epic_layer_bf16 ({key}): the library issues {report['instruction']}, the bound "
+                 f"counts {want}")
+        reports[key] = report
+    return reports
+
+
 def attention_bf16_measure(torch, name, fn, ref, case, bf16_products: float = 0.0,
-                           tf32_flops: float = 0.0, tf32_products: int = 1) -> dict:
+                           tf32_flops: float = 0.0, tf32_products: int = 1,
+                           in_turns_with_library: bool = False) -> dict:
     """One bf16 attention kernel at one shape: check, time in turns with its
     plain version, time bf16 `scaled_dot_product_attention` on the same
-    tensors, count the bound (`bf16_products`: the operations it runs as
-    bfloat16 products; `tf32_flops` those it runs `tf32_products` times in
-    TF32; the rest on the CUDA cores)."""
+    tensors (with `in_turns_with_library`, in the same turns, the medians of
+    TURN_ROUNDS rounds), count the bound (`bf16_products`: the operations it
+    runs as bfloat16 products; `tf32_flops` those it runs `tf32_products`
+    times in TF32; the rest on the CUDA cores)."""
     import torch.nn.functional as F
 
     from particle_fm_tpu_torch.utils.timing import cuda_ms
@@ -756,10 +828,14 @@ def attention_bf16_measure(torch, name, fn, ref, case, bf16_products: float = 0.
     n_bytes = (2 * (2 * q.numel() + k.numel() + v.numel())
                + (0 if mask is None else 4 * mask.numel()))
     flops = (4 * d + SCORE_OPS) * b * h * lq * lk
-    return {"max_abs_err": err, "max_abs_err_library": lib_err,
-            **timed_in_turns(lambda: fn(q, k, v, mask, ab), lambda: ref(q, k, v, mask, ab)),
+    if in_turns_with_library:  # a redesigned kernel: the library call in the turns too
+        times = median_in_turns(lambda: fn(q, k, v, mask, ab), lambda: ref(q, k, v, mask, ab),
+                                library)
+    else:
+        times = {**timed_in_turns(lambda: fn(q, k, v, mask, ab), lambda: ref(q, k, v, mask, ab)),
+                 "library_ms": cuda_ms(library)}
+    return {"max_abs_err": err, "max_abs_err_library": lib_err, **times,
             **bound(n_bytes, flops, tf32_flops, tf32_products, bf16_flops=bf16_products),
-            "library_ms": cuda_ms(library),
             "shape": {"B": b, "Lq": lq, "Lk": lk, "H": h, "D": d, "masked": mask is not None,
                       "dtype": "bfloat16"}}
 
@@ -849,11 +925,13 @@ def flash_bf16_phase(torch, fa, dev) -> dict:
         "path C": attention_bf16_measure(
             torch, "flash_masked_attention_bf16 (class token)", fn, ref,
             bf16_case(torch, attention_case(torch, dev, 66, 32, 1, 6000, 2, 128, masked=True,
-                                            lo=1000))),
+                                            lo=1000)), in_turns_with_library=True),
         "path D": attention_bf16_measure(
             torch, "flash_masked_attention_bf16 (279 particles)", fn, ref, path_d,
-            bf16_products=half, tf32_flops=half, tf32_products=FLASH_BF16_PV_TF32_PRODUCTS),
+            bf16_products=half, tf32_flops=half, tf32_products=FLASH_BF16_PV_TF32_PRODUCTS,
+            in_turns_with_library=True),
     }
+    token = token_bf16_checks(torch, fa, dev)
     long_err = check_bf16_kernel(
         torch, "flash_masked_attention_bf16 (1500 keys, head dim 128)",
         *(f(*bf16_case(torch, attention_case(torch, dev, 67, 4, 1500, 1500, 4, 128, masked=True)))
@@ -870,8 +948,41 @@ def flash_bf16_phase(torch, fa, dev) -> dict:
                                                     fa.bf16_instruction),
             "tolerance": f"{BF16_KERNEL_ULPS} bf16 ulps of the largest |out|",
             "shapes": shapes, "max_abs_err_long_head_dim_128": long_err,
+            # a timing, so reported and not failed on: run-to-run spread is a few percent
+            "path_c_kernel_over_library": main["ms"] / main["library_ms"],
+            "class_token": token,
             **bf16_edges(torch, dev, "flash_masked_attention_bf16", fn, ref, (5, 17, 558),
                          pairs=[(3, 900)])}
+
+
+def token_bf16_checks(torch, fa, dev) -> dict:
+    """The class-token variant: its launch report at path C's shape against
+    the wrapper's mirror (blocks, warps, and the resident blocks an SM that
+    its split count assumes), and the variant against its plain version at
+    1 to 4 query rows, on key counts off every step and split (one split:
+    700 (set, head) pairs), with a fully masked set, twice in a row (the
+    tickets are left at zero)."""
+    report = fa.token_launch_report(32, 1, 6000, 2, 128)
+    mirror = fa.token_geometry(32, 6000, 2, torch.cuda.get_device_properties(0).multi_processor_count)
+    if any(report[k] != mirror[k] for k in ("blocks", "warps", "resident_blocks_per_sm")):
+        fail(f"flash_masked_attention_bf16 class tokens: the library's launch {report} is not the "
+             f"wrapper's mirror {mirror}")
+    errs = {}
+    for lq, lk, h, d, b in ((1, 6001, 2, 128, 32), (2, 997, 3, 64, 3), (3, 37, 2, 32, 5),
+                            (4, 300, 3, 8, 4), (1, 150, 1, 128, 700)):
+        q, k, v, mask, _ = bf16_case(torch, attention_case(torch, dev, lq + lk, b, lq, lk, h, d,
+                                                           masked=True, lo=1))
+        mask[0] = 0.0  # a fully masked set
+        with torch.no_grad():
+            out = fa.flash_masked_attention(q, k, v, mask)
+            again = fa.flash_masked_attention(q, k, v, mask)
+        if not torch.equal(out, again):
+            fail(f"flash_masked_attention_bf16 (Lq={lq}, Lk={lk}): a second launch differs")
+        errs[f"Lq={lq} Lk={lk} D={d} B={b}"] = check_bf16_kernel(
+            torch, f"flash_masked_attention_bf16 (Lq={lq}, Lk={lk}, D={d})", out,
+            fa.flash_masked_attention_reference(q, k, v, mask))
+    return {"launch": report, "mirror": mirror, "max_abs_err_cases": max(errs.values()),
+            "cases": len(errs)}
 
 
 def redraw_parameters(torch, net, seed: int) -> None:
@@ -2370,6 +2481,7 @@ def main() -> None:
         "flash_masked_attention": tensor_core_design(
             sa.MMA_PRODUCTS, fa.mma_launch_report, fa.mma_geometry, 279, 16),
         "epic_layer": epic_design(ops),
+        "epic_layer_bf16": epic_bf16_design(torch, ops),
     }
     for k in kernels.values():
         line = {"kernel_phase": k}

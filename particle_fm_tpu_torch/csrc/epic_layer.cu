@@ -729,53 +729,94 @@ extern "C" const char* epic_layer_mma_instruction() { return MMA_TF32_INSTRUCTIO
 // the second global MLP, g_new rounded (the output, and the input of bias1),
 // x1 = act(x . w1x + bias1) rounded before the second local product, and the
 // output act(x1 . w2x + bias2 + x) rounded once. Both local products run as
-// bfloat16 products on mma.sync.m16n8k16 (mma_bf16.cuh), exact as the Pallas
-// kernel's bfloat16 `jnp.dot` with float32 accumulation is; the plain version
+// bfloat16 products on wgmma (wgmma_bf16.cuh), exact as the Pallas kernel's
+// bfloat16 `jnp.dot` with float32 accumulation is; the plain version
 // (ops/epic_layer.py::epic_layer_reference) computes the same function.
 //
-// Bound on an H100 SXM at the flagship shape (B=640, N=150, H=128): the two
-// local products are 6.29 GFLOP, 6.4 us at 989 TFLOP/s; x in and out is 49 MB,
-// 15 us at 3.35 TB/s: bound by bytes.
+// Bound on an H100 SXM: at the flagship (B=640, N=150, H=128) the two local
+// products are 6.29 GFLOP, 6.4 us at 989 TFLOP/s, and x in and out 49 MB, 15
+// us at 3.35 TB/s: bound by bytes. At jetclass_cond (path E: B=512, N=128,
+// H=300) the products are 23.6 GFLOP, 24 us, and x in and out 79 MB, 23 us:
+// bound by tensor operations, about 29 us with the per-set products.
 //
-// Design, simple first: two kernels, one after the other on the stream.
-//   * epic_set_bf16_kernel, a block of 256 threads per set: the masked pool,
-//     the two global MLPs and the two per-set biases, the rows of x or of a
-//     weight split over the 8 warps and the columns over the lanes (4
-//     independent sums a lane; the warps' partial sums meet in shared memory),
-//     g_new written out, the biases (B, 2, H) in float32 to scratch memory that
-//     the wrapper allocates. The dot products are bound by the latency of their
-//     loads (660 rows at path E), so each lane keeps four sums in flight.
-//   * epic_local_bf16_kernel over the B*N rows as one matrix, in tiles of 128
-//     rows (64 where 128 do not fit a block: H above 336; a tile may span
-//     sets, and each row reads its set's biases): the x
-//     tile is staged in shared memory once, zero-padded to HP (H rounded up
-//     to 16, the k of one mma) at a row stride of HP+8; the weights are staged
-//     64 output columns at a time, all HP rows of them, at a row stride of 72;
-//     each of 16 warps (8) owns 16 rows and 32 of the 64 columns (4 n8 tiles,
-//     16 accumulators a lane), with A from the tile and B from the weights by
-//     ldmatrix (.trans: the weights are (in, out), k-major). x1 stays in shared
-//     memory between the two products; the residual x is read from the tile.
-//     Rows and weights are copied in 16-byte pieces where H % 8 == 0, else in
-//     8- or 4-byte pieces (H % 4, H % 2; jetclass_cond's H=300 takes 8), else
-//     by element: at H=300 one block fills an SM's shared memory, and its
-//     warps wait on the copies, so they must be wide, and a tile as tall as
-//     fits, so that each staged column of the weights serves many rows
-//     (PERF.md has the times of the narrower versions).
-//   Shared memory: 2 x 128 x (HP+8) + HP x 72 bfloat16, 88 KB at H=128 and 204
-//   KB at H=300 (64-row tiles at H=512: 207 KB). No cp.async pipeline, no
-//   persistent blocks, and the weights are read from L2 once per tile: that
-//   is for a later version.
+// Design: three kernels, one after the other on the stream, and float32
+// scratch of B (3H + 1) values between them (the wrapper allocates it). The
+// kernels read the weights from an image laid out once where the layer's
+// weights are folded (ImageLayout; ops/epic_layer.py::bf16_weight_image,
+// nets/epic.py): every chunk or slice a block stages is one contiguous copy
+// in 16-byte pieces, whatever H (rows of 600 bytes at H = 300 are 8-byte
+// aligned only).
+//   * epic_pool_bf16_kernel, a block a set: the masked sums and the count,
+//     16-byte pieces of the rows (8 where H = 300), 8 pieces a thread issued
+//     before the first is used, the row threads' sums meeting in shared
+//     memory.
+//   * epic_sets_bf16_kernel, a block for every kSetsPerBlock sets: the two
+//     global MLPs and the two per-set biases on the tensor cores
+//     (mma.sync.m16n8k16, the sets the rows of A). Their input is float32 (the
+//     pooled mean and sum promote it), so it is split into three bfloat16
+//     pieces whose sum is the input exactly; each piece's product with the
+//     bfloat16 weight is exact in float32, so three products compute the
+//     float32 product on the bfloat16 weights. The weights come through
+//     shared memory in chunks of whole k16 steps (cp.async, two chunks ahead,
+//     rows padded in the image to 16 bytes plus 16, read by ldmatrix without
+//     bank conflicts),
+//     each block from its own chunk on, so that the blocks do not all read one
+//     chunk from L2 at once. g_new goes out, the biases (B, 2, H) to scratch.
+//   * the local products on wgmma.mma_async.m64nNk16 (wgmma_bf16.cuh), B (a
+//     weight, read as it lies: (in, out) is MN-major for B) from shared memory
+//     in core matrices without swizzle, cut into slices of 32 rows of k by a
+//     column block of N columns (H padded to 16: 128 at the flagship, 2
+//     blocks of 152 at H = 300), the accumulator 64 x N in registers; the
+//     slices lie in the weight image one after another, already in core
+//     matrices.
+//     Persistent blocks, one an SM, of two warpgroups, each on 64-row tiles of
+//     the B*N rows (a tile may span sets; where N >= 64 a tile's rows are of
+//     two sets at most, whose biases are staged in shared memory with the
+//     tile, else each row reads its own from global memory).
+//       - H <= 128, epic_local_regs_kernel: both weights staged once per
+//         block (64 KB at the flagship); x staged row-major in shared memory,
+//         the next tile's while this one is computed, and read into registers
+//         as the A fragments of product 1 (ldmatrix), which also give the
+//         residual; x1 = act(. + bias1) rounded straight from the accumulators
+//         into the A fragments of product 2 (wgmma with A from registers): x1
+//         never leaves the registers. The output is stored from the
+//         accumulators.
+//       - wider layers, epic_local_bf16_kernel: x and x1 tiles in shared
+//         memory (core matrices, x in 8-byte cp.async pieces where its rows
+//         are only 8-byte aligned: H = 300), the weights streamed through a ring of
+//         kRing slices, kRing - 2 ahead, the warpgroups' tiles (128 rows)
+//         taking each slice together (one barrier a slice), each block from
+//         its own k slice on; x1 stays in shared memory between the products,
+//         the residual x is read from global memory (L2). One warpgroup where
+//         two would not fit (H above 400).
+//     Padded rows and columns stay finite: x is zero past row m and column
+//     h, the weights zero past h, so x1 and the output are 0 past column h
+//     (the k of product 2), and a row past m (any finite value) is never
+//     stored.
+// Measured (NVIDIA H100 80GB HBM3, 700 W; PERF.md has the numbers and the
+// variants tried, scripts/bf16_kernel_variants.py): the flagship layer takes
+// some 0.09 ms and path E's 0.30, six and eleven times their bounds. The
+// three kernels' launches, the pool reading x a second time, the per-set
+// kernel's weight chunks and at H = 300 the block barrier of every slice
+// are what remains.
+
+#include "wgmma_bf16.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kSetThreads = 256;            // threads of a block of the per-set kernel
-constexpr int kLocalColWarps = 2;           // warps along the staged columns
-constexpr int kLocalCols = 64;              // output columns staged at a time
-constexpr int kBfWarpCols = kLocalCols / kLocalColWarps;  // of a warp: 4 n8 tiles
-constexpr int kBfPad = 8;                   // a row stride is a multiple of 16 plus this
-constexpr int kWStride = kLocalCols + kBfPad;
+constexpr int kSetThreads = 256;          // threads of a block of the per-set kernel
+constexpr int kSetWarps = kSetThreads / 32;
+constexpr int kSetsPerBlock = 4;          // sets of a per-set block, at most (rows of A: 16)
+constexpr int kPoolUnroll = 8;            // pool pieces a thread has in flight
+constexpr int kChunkBytes = 24576;        // bytes of a staged chunk of a per-set weight
+constexpr int kChunkStages = 3;           // chunks staged at once, kChunkStages - 1 ahead
+constexpr int kDotTiles = 8;              // n8 tiles of a per-set dot a warp holds at most
+constexpr int kMaxWg = 2;                 // warpgroups of a local block
+constexpr int kTileRows = 64;             // rows of a warpgroup's tile
+constexpr int kSliceK = 32;               // k of a weight slice: two wgmmas
+constexpr int kRing = 6;                  // slots of the streamed weights
 
 struct ParamsBf16 {
   const bf16* x;       // (B, N, H)
@@ -788,169 +829,18 @@ struct ParamsBf16 {
   const bf16* w2x; const bf16* w2s; const bf16* b2;  // (H, H), (tl+cl, H), (H)
   bf16* xo;            // (B, N, H)
   bf16* go;            // (B, L)
-  float* bias;         // (B, 2, H): bias1, bias2
+  float* bias;         // scratch: the biases (B, 2, H), then the pooled sums (B, H), counts (B)
+  const bf16* wsl;     // the weight image (ImageLayout; ops/epic_layer.py::
+                       // bf16_weight_image, laid out once where the weights are folded)
   int b, n, h, l, s, tg, tl, cg, cl;
   float sum_scale;
 };
 
 __device__ __forceinline__ float bf(const bf16* p, long long i) { return __bfloat162float(p[i]); }
 
-constexpr int kSetWarps = kSetThreads / 32;
-
-// epi(j, dot(in[0:k], w[:, j])) for j < m (w bfloat16, row-major (k, m)), by
-// all the threads of the per-set kernel: warp q takes rows q, q + 8, ... of w
-// and lane i the columns i, i + 32, i + 64, i + 96 of a pass of 128, so a warp
-// reads whole rows and keeps four independent sums; the warps' partial sums
-// meet in `part` (kSetWarps * m floats). The sums are float32 on the
-// bfloat16 values.
-template <class Epi>
-__device__ __forceinline__ void set_dot(const float* in, const bf16* __restrict__ w, int k, int m,
-                                        float* part, Epi epi) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int c0 = lane; c0 < m; c0 += 128) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-    for (int i = warp; i < k; i += kSetWarps) {
-      const float a = in[i];
-      const bf16* wr = w + (long long)i * m + c0;
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (c0 + 32 * q < m) acc[q] = fmaf(a, __bfloat162float(wr[32 * q]), acc[q]);
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      if (c0 + 32 * q < m) part[warp * m + c0 + 32 * q] = acc[q];
-  }
-  __syncthreads();
-  for (int j = threadIdx.x; j < m; j += kSetThreads) {
-    float sum = 0.f;
-    for (int q = 0; q < kSetWarps; ++q) sum += part[q * m + j];
-    epi(j, sum);
-  }
-  __syncthreads();  // the outputs are written; part is reused next
-}
-
-// The per-set part of set blockIdx.x.
-__global__ void __launch_bounds__(kSetThreads) epic_set_bf16_kernel(ParamsBf16 p) {
-  extern __shared__ float fsm[];
-  const int b = blockIdx.x, tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int n = p.n, h = p.h, l = p.l, tg = p.tg, tl = p.tl, s = p.s;
-  const int k1 = tg + 2 * h + l + p.cg, k2 = tg + h + p.cg, k3 = tl + l + p.cl, k4 = tl + p.cl;
-  float* gin = fsm;       // cat(t_g, mean, scaled_sum, g, cond_g)
-  float* in2 = gin + k1;  // cat(t_g, g1, cond_g)
-  float* s1 = in2 + k2;   // cat(t_l, g_new, cond_l)
-  float* s2 = s1 + k3;    // cat(t_l, cond_l)
-  float* cnt = s2 + k4;
-  float* part = cnt + 1;  // kSetWarps * max(h, l)
-  const bf16* x = p.x + (long long)b * n * h;
-  const float* m = p.mask + (long long)b * n;
-  const bf16* sf = p.sfeat + (long long)b * s;
-  const bf16* cond_g = sf + s - p.cg;
-  const bf16* cond_l = sf + s - p.cl;
-  const bf16* g = p.g + (long long)b * l;
-
-  if (tid < 32) {
-    float c = 0.f;
-    for (int r = tid; r < n; r += 32) c += m[r];
-    for (int off = 16; off > 0; off >>= 1) c += __shfl_xor_sync(0xffffffffu, c, off);
-    if (tid == 0) cnt[0] = c;
-  }
-  for (int i = tid; i < tg; i += kSetThreads) gin[i] = in2[i] = bf(sf, i);
-  for (int i = tid; i < l; i += kSetThreads) gin[tg + 2 * h + i] = bf(g, i);
-  for (int i = tid; i < p.cg; i += kSetThreads) {
-    gin[tg + 2 * h + l + i] = in2[tg + h + i] = bf(cond_g, i);
-  }
-  for (int i = tid; i < tl; i += kSetThreads) s1[i] = s2[i] = bf(sf, i);
-  for (int i = tid; i < p.cl; i += kSetThreads) s1[tl + l + i] = s2[tl + i] = bf(cond_l, i);
-
-  // the pool, in float32 on the bfloat16 values: warps over the rows, lanes
-  // over the columns, as in set_dot
-  for (int c0 = lane; c0 < h; c0 += 128) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-    for (int r = warp; r < n; r += kSetWarps) {
-      const float mv = m[r];
-      const bf16* xr = x + (long long)r * h + c0;
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (c0 + 32 * q < h) acc[q] = fmaf(__bfloat162float(xr[32 * q]), mv, acc[q]);
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      if (c0 + 32 * q < h) part[warp * h + c0 + 32 * q] = acc[q];
-  }
-  __syncthreads();
-  const float count = cnt[0];
-  for (int c = tid; c < h; c += kSetThreads) {
-    float acc = 0.f;
-    for (int q = 0; q < kSetWarps; ++q) acc += part[q * h + c];
-    gin[tg + c] = acc / count;
-    gin[tg + h + c] = acc * p.sum_scale;
-  }
-  __syncthreads();
-
-  // global MLP 1; g1 rounded to bfloat16 as the second MLP's input
-  set_dot(gin, p.wg1, k1, h, part,
-          [&](int j, float v) { in2[tg + j] = round_bf16(act(v + bf(p.bg1, j))); });
-  // global MLP 2 with the residual g; g_new rounded once
-  set_dot(in2, p.wg2, k2, l, part, [&](int j, float v) {
-    const bf16 gn = __float2bfloat16_rn(act(v + bf(p.bg2, j) + bf(g, j)));
-    p.go[(long long)b * l + j] = gn;
-    s1[tl + j] = __bfloat162float(gn);
-  });
-  // the per-set biases of the two local products, float32
-  float* bias = p.bias + (long long)b * 2 * h;
-  set_dot(s1, p.w1s, k3, h, part, [&](int j, float v) { bias[j] = v + bf(p.b1, j); });
-  set_dot(s2, p.w2s, k4, h, part, [&](int j, float v) { bias[h + j] = v + bf(p.b2, j); });
-}
-
-// Shared memory of the local kernel, in bfloat16 elements from a 16-byte
-// aligned base: the x tile, the x1 tile (`rows` rows at a stride of st), the
-// staged weights (hp rows at a stride of kWStride).
-struct LocalLayout {
-  int hp, st, xs, x1s, ws;
-  __host__ __device__ LocalLayout(int h, int rows) {
-    hp = (h + 15) & ~15;
-    st = hp + kBfPad;
-    xs = 0;
-    x1s = rows * st;
-    ws = 2 * rows * st;
-  }
-  __host__ __device__ size_t bytes() const {
-    return sizeof(bf16) * ((size_t)ws + (size_t)hp * kWStride);
-  }
-};
-
-// A piece of P bfloat16 values (16, 8, 4 or 2 bytes), zeros where `in` is false.
-template <int P>
-struct Piece;
-template <>
-struct Piece<8> { using T = uint4; static __device__ T zero() { return make_uint4(0u, 0u, 0u, 0u); } };
-template <>
-struct Piece<4> { using T = uint2; static __device__ T zero() { return make_uint2(0u, 0u); } };
-template <>
-struct Piece<2> { using T = uint32_t; static __device__ T zero() { return 0u; } };
-template <>
-struct Piece<1> { using T = unsigned short; static __device__ T zero() { return 0; } };
-
-// rows x cols (cols a multiple of P) from src (row distance ld; rows past
-// `rows_in` and columns past `cols_in` read as zeros; both whole pieces) into
-// dst (row distance dst_ld), in pieces of P values, by all threads.
-template <int P>
-__device__ __forceinline__ void copy_pieces(bf16* dst, int dst_ld, const bf16* src, long long ld,
-                                            int rows, int cols, long long rows_in, int cols_in) {
-  using T = typename Piece<P>::T;
-  const int q = cols / P;
-  for (int i = threadIdx.x; i < rows * q; i += blockDim.x) {
-    const int r = i / q, c = (i - r * q) * P;
-    T v = Piece<P>::zero();
-    if (r < rows_in && c < cols_in) v = *reinterpret_cast<const T*>(src + r * ld + c);
-    *reinterpret_cast<T*>(dst + r * dst_ld + c) = v;
-  }
-}
-
-// The widest piece that the rows of `src` (h values, row distance h) allow.
-__device__ __forceinline__ int piece_of(const bf16* src, int h) {
+// The widest piece, in bfloat16 values (8, 4, 2 or 1), that rows of h values
+// starting at `src` allow.
+__host__ __device__ __forceinline__ int piece_of(const void* src, int h) {
   const uintptr_t a = reinterpret_cast<uintptr_t>(src);
   if (h % 8 == 0 && a % 16 == 0) return 8;
   if (h % 4 == 0 && a % 8 == 0) return 4;
@@ -958,146 +848,951 @@ __device__ __forceinline__ int piece_of(const bf16* src, int h) {
   return 1;
 }
 
-template <typename... A>
-__device__ __forceinline__ void copy_any(int piece, A... a) {
-  switch (piece) {
-    case 8: copy_pieces<8>(a...); break;
-    case 4: copy_pieces<4>(a...); break;
-    case 2: copy_pieces<2>(a...); break;
-    default: copy_pieces<1>(a...); break;
+// `bytes` (16, 8 or 4) from src to shared memory, zeros where not `valid`
+__device__ __forceinline__ void cp_async_piece(void* dst, const void* src, int bytes, int valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? bytes : 0;
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src), "r"(n)
+                 : "memory");
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(d), "l"(src), "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d), "l"(src), "r"(n)
+                 : "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+// cp.async.wait_group with a count known at run time (0 .. kRing - 2)
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    default: cp_async_wait<5>(); break;
   }
 }
 
-// Rows row0 .. row0 + rows - 1 of x (m rows of h) into the tile, zeros past
-// row m and from column h to hp.
-__device__ __forceinline__ void stage_rows_bf16(bf16* xs, const bf16* x, long long row0,
-                                                long long m, int h, int hp, int st, int rows) {
-  copy_any(piece_of(x, h), xs, st, x + row0 * h, (long long)h, rows, hp, m - row0, h);
+// ------------------------------------------------------------ per-set kernel
+
+// A per-set dot of k rows and m output columns: the row distance of its
+// staged chunks of weight rows and of its results (m rounded up to 16, plus
+// 8: 16-byte rows that ldmatrix reads without bank conflicts), the rows of a
+// chunk (whole steps of 16), k rounded up to 16, the n8 tiles.
+struct DotGeo {
+  int ld, rows, kp, tiles;
+  __host__ __device__ DotGeo(int m, int k) {
+    ld = ((m + 15) & ~15) + 8;
+    kp = (k + 15) & ~15;
+    rows = (kChunkBytes / (2 * ld)) & ~15;
+    if (rows > kp) rows = kp;
+    tiles = (m + 7) / 8;
+  }
+};
+
+// The parts of the weight image (ops/epic_layer.py::bf16_weight_image, laid
+// out once where the weights are folded), offsets in bfloat16 values: the
+// four per-set weights, each kp rows (zeros past k) at a row distance ld
+// (DotGeo: rows on 16 bytes), so that a chunk of rows is one contiguous
+// copy; then w1x and w2x as the local kernels' slices.
+struct ImageLayout {
+  size_t wg1, wg2, w1s, w2s, local;
+  __host__ __device__ explicit ImageLayout(const ParamsBf16& p) {
+    const int k1 = p.tg + 2 * p.h + p.l + p.cg, k2 = p.tg + p.h + p.cg;
+    const int k3 = p.tl + p.l + p.cl, k4 = p.tl + p.cl;
+    const DotGeo g1(p.h, k1), g2(p.l, k2), g3(p.h, k3), g4(p.h, k4);
+    wg1 = 0;
+    wg2 = wg1 + (size_t)g1.kp * g1.ld;
+    w1s = wg2 + (size_t)g2.kp * g2.ld;
+    w2s = w1s + (size_t)g3.kp * g3.ld;
+    local = w2s + (size_t)g4.kp * g4.ld;
+  }
+};
+
+// The per-set kernel's shared memory, in floats from its base: the inputs of
+// the four dots (sets x k1, k2, k3, k4), the dots' results (sets x the
+// widest DotGeo ld), then in bfloat16 the split inputs (3 pieces x (sets + 1)
+// rows, the last one zeros for the rows of A past the sets, x the largest kp
+// + 8) and the weight chunks.
+struct SetsLayout {
+  int k1, k2, k3, k4, kmax, in2, s1, s2, res, apc_floats, floats;
+  __host__ __device__ SetsLayout(const ParamsBf16& p, int sets) {
+    k1 = p.tg + 2 * p.h + p.l + p.cg;
+    k2 = p.tg + p.h + p.cg;
+    k3 = p.tl + p.l + p.cl;
+    k4 = p.tl + p.cl;
+    kmax = k1 > k2 ? k1 : k2;
+    kmax = kmax > k3 ? kmax : k3;
+    kmax = (kmax + 15) & ~15;
+    in2 = sets * k1;
+    s1 = in2 + sets * k2;
+    s2 = s1 + sets * k3;
+    res = (s2 + sets * k4 + 3) & ~3;
+    const int wide = DotGeo(p.h > p.l ? p.h : p.l, 1).ld;
+    apc_floats = 3 * (sets + 1) * (kmax + 8) / 2;
+    floats = (res + sets * wide + 3) & ~3;
+  }
+  __host__ __device__ size_t bytes() const {
+    return sizeof(float) * ((size_t)floats + apc_floats) + (size_t)kChunkStages * kChunkBytes;
+  }
+};
+
+// Sets a block of the per-set kernel: kSetsPerBlock where its shared memory
+// allows, else 2, 1. (Up to 16, the rows of one mma tile, would read each
+// weight from L2 for more sets at once; 4 measured faster: more blocks share
+// the work, PERF.md.)
+inline int sets_per_block(const ParamsBf16& p) {
+  int sets = kSetsPerBlock;
+  while (sets > 1 && SetsLayout(p, sets).bytes() > (size_t)kMaxSmem) sets /= 2;
+  return sets;
 }
 
-// Columns c0 .. c0 + kLocalCols - 1 of the (h, h) weights w (in, out), all hp
-// rows, into ws; zeros past row h and column h.
-__device__ __forceinline__ void stage_weights_bf16(bf16* ws, const bf16* w, int h, int hp,
-                                                   int c0) {
-  copy_any(piece_of(w, h), ws, kWStride, w + c0, (long long)h, hp, kLocalCols, (long long)h,
-           h - c0);
+// P bfloat16 values of a row (P = 8, 4, 2, 1; the address aligned to them),
+// as loaded: a volatile asm, so that the compiler issues every load of a
+// batch before the first is used.
+template <int P>
+struct Raw;
+template <> struct Raw<8> { uint32_t w[4]; };
+template <> struct Raw<4> { uint32_t w[2]; };
+template <> struct Raw<2> { uint32_t w[1]; };
+template <> struct Raw<1> { uint32_t w[1]; };
+
+template <int P>
+__device__ __forceinline__ Raw<P> load_raw(const bf16* p) {
+  Raw<P> r;
+  if constexpr (P == 8)
+    asm volatile("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(r.w[0]), "=r"(r.w[1]), "=r"(r.w[2]), "=r"(r.w[3]) : "l"(p));
+  else if constexpr (P == 4)
+    asm volatile("ld.global.nc.v2.u32 {%0, %1}, [%2];" : "=r"(r.w[0]), "=r"(r.w[1]) : "l"(p));
+  else if constexpr (P == 2)
+    asm volatile("ld.global.nc.u32 %0, [%1];" : "=r"(r.w[0]) : "l"(p));
+  else
+    asm volatile("ld.global.nc.u16 %0, [%1];" : "=r"(r.w[0]) : "l"(p));
+  return r;
 }
 
-// acc = rows 16 rw .. 16 rw + 15 of the tile `a` (row stride st) times the
-// staged columns cw .. cw + kBfWarpCols - 1, over k < hp: 4 n8 tiles, one
-// bfloat16 mma each per step of 16 along k. rw = warp % RW, cw = kBfWarpCols
-// (warp / RW), for RW warps along the rows.
-template <int RW>
-__device__ __forceinline__ void warp_columns_bf16(float (&acc)[kBfWarpCols / 8][4], const bf16* a,
-                                                  int st, const bf16* ws, int hp) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int rw = warp % RW, cw = kBfWarpCols * (warp / RW);
+// Value i of a raw piece as a float.
+template <int P>
+__device__ __forceinline__ float raw_at(const Raw<P>& r, int i) {
+  if constexpr (P == 1) return __uint_as_float(r.w[0] << 16);
+  return __uint_as_float(i % 2 ? r.w[i / 2] & 0xffff0000u : r.w[i / 2] << 16);
+}
+
+// The masked sums of set blockIdx.x, in float32 on the bfloat16 values:
+// pool[set][c] = sum over the rows of mask * x, pool_count[set] = sum of the
+// mask. Thread t takes piece t % q (P values) of every (256 / q)-th row,
+// kPoolUnroll rows in flight; the row threads' sums meet in shared memory.
+template <int P>
+__device__ __forceinline__ void pool_set(const ParamsBf16& p, float* pool, float* part) {
+  const int set = blockIdx.x, n = p.n, h = p.h, q = h / P;
+  const bf16* x = p.x + (size_t)set * n * h;
+  const float* mask = p.mask + (size_t)set * n;
+  for (int c0 = 0; c0 < q; c0 += kSetThreads) {
+    const int qc = min(kSetThreads, q - c0), rt_n = kSetThreads / qc;
+    const int c = c0 + threadIdx.x % qc, rt = threadIdx.x / qc;
+    float acc[P];
 #pragma unroll
-  for (int nt = 0; nt < kBfWarpCols / 8; ++nt)
+    for (int i = 0; i < P; ++i) acc[i] = 0.f;
+    if (rt < rt_n) {
+      for (int r0 = rt; r0 < n; r0 += kPoolUnroll * rt_n) {
+        Raw<P> v[kPoolUnroll];
+        float mv[kPoolUnroll];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
-  const bf16* arow = a + (16 * rw + (lane & 15)) * st + 8 * (lane >> 4);
-  const bf16* brow = ws + (lane & 15) * kWStride + cw + 8 * (lane >> 4);
-  for (int k0 = 0; k0 < hp; k0 += 16) {
-    uint32_t af[4];
-    ldmatrix_x4(af, arow + k0);
+        for (int u = 0; u < kPoolUnroll; ++u) {
+          const int r = min(r0 + u * rt_n, n - 1);
+          v[u] = load_raw<P>(x + (size_t)r * h + c * P);
+          mv[u] = r0 + u * rt_n < n ? mask[r] : 0.f;
+        }
 #pragma unroll
-    for (int np = 0; np < kBfWarpCols / 16; ++np) {
-      uint32_t bfr[4];
-      ldmatrix_x4_trans(bfr, brow + k0 * kWStride + 16 * np);
-      mma_bf16(acc[2 * np], af, bfr[0], bfr[1]);
-      mma_bf16(acc[2 * np + 1], af, bfr[2], bfr[3]);
+        for (int u = 0; u < kPoolUnroll; ++u)
+#pragma unroll
+          for (int i = 0; i < P; ++i) acc[i] = fmaf(raw_at<P>(v[u], i), mv[u], acc[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < P; ++i) part[rt * qc * P + (c - c0) * P + i] = acc[i];
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < qc * P; e += kSetThreads) {
+      float sum = 0.f;
+      for (int r = 0; r < rt_n; ++r) sum += part[r * qc * P + e];
+      pool[(size_t)set * h + c0 * P + e] = sum;
+    }
+    __syncthreads();
+  }
+}
+
+// The first kernel: the masked pool of one set a block.
+__global__ void __launch_bounds__(kSetThreads) epic_pool_bf16_kernel(ParamsBf16 p, float* pool,
+                                                                     float* count) {
+  __shared__ float part[kSetThreads * 8];
+  if (threadIdx.x < 32) {
+    float c = 0.f;
+    for (int r = threadIdx.x; r < p.n; r += 32) c += p.mask[(size_t)blockIdx.x * p.n + r];
+    for (int off = 16; off > 0; off >>= 1) c += __shfl_xor_sync(0xffffffffu, c, off);
+    if (threadIdx.x == 0) count[blockIdx.x] = c;
+  }
+  switch (piece_of(p.x, p.h)) {
+    case 8: pool_set<8>(p, pool, part); break;
+    case 4: pool_set<4>(p, pool, part); break;
+    case 2: pool_set<2>(p, pool, part); break;
+    default: pool_set<1>(p, pool, part); break;
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const bf16* row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(a));
+}
+
+// epi(s, j, dot(in[s][0:k], w[:, j])) for the block's sets s < ns <= sets and
+// j < m (w bfloat16, k rows padded with zeros to DotGeo's kp at its row
+// distance ld, as in the weight image; in[s], float32, at in + s * in_ld), on
+// the tensor cores: the float32 inputs are split into three bfloat16 pieces,
+// hi + mid + lo, whose sum is the input exactly, and each piece's product with
+// the bfloat16 weight is exact in float32 (mma.sync.m16n8k16, the sets the
+// rows of A). The weight rows come through shared memory
+// in chunks (`wbuf`, kChunkStages of DotGeo(m, k).rows rows), with cp.async,
+// kChunkStages - 1 chunks ahead of their use, each block from its own chunk
+// on so that the blocks do not all read one chunk from L2 at once. Warp w
+// takes the n8 tiles w, w + 8, ...
+template <class Epi>
+__device__ __forceinline__ void sets_dot(const float* in, int in_ld, const bf16* __restrict__ w,
+                                         int k, int m, int sets, int ns, bf16* apc, float* res,
+                                         bf16* wbuf, Epi epi) {
+  const DotGeo geo(m, k);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const int as = geo.kp + 8, ar = sets + 1;  // row distance of a piece, rows of a piece
+  for (int e = threadIdx.x; e < ar * geo.kp; e += kSetThreads) {
+    const int r = e / geo.kp, c = e - r * geo.kp;
+    const float x = r < ns && c < k ? in[r * in_ld + c] : 0.f;
+    const bf16 hi = __float2bfloat16_rn(x);
+    const float r1 = x - __bfloat162float(hi);
+    const bf16 mid = __float2bfloat16_rn(r1);
+    apc[r * as + c] = hi;
+    apc[(ar + r) * as + c] = mid;
+    apc[(2 * ar + r) * as + c] = __float2bfloat16_rn(r1 - __bfloat162float(mid));
+  }
+  const int arow = min(lane & 15, sets);  // rows of A past the sets read the zero row
+  const int chunks = geo.kp > 0 ? (geo.kp + geo.rows - 1) / geo.rows : 0;  // k may be 0
+  const int slot = geo.rows * geo.ld, rot = chunks > 0 ? blockIdx.x % chunks : 0;
+  auto first_row = [&](int c) { return (c + rot) % chunks * geo.rows; };
+  auto stage = [&](int c) {  // rows r0 .. of the image, one contiguous copy
+    const int r0 = first_row(c), n16 = min(geo.rows, geo.kp - r0) * geo.ld / 8;
+    const bf16* src = w + (size_t)r0 * geo.ld;
+    bf16* dst = wbuf + (c % kChunkStages) * slot;
+    for (int i = threadIdx.x; i < n16; i += blockDim.x)
+      cp_async_piece(dst + 8 * i, src + 8 * i, 16, 1);
+  };
+  float acc[kDotTiles][4];
+#pragma unroll
+  for (int i = 0; i < kDotTiles; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int c = 0; c < kChunkStages - 1; ++c) {
+    if (c < chunks) stage(c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<kChunkStages - 2>();  // chunk c is in
+    __syncthreads();  // ... for every thread; chunk c - 1 is used; the pieces are written
+    if (c + kChunkStages - 1 < chunks) stage(c + kChunkStages - 1);
+    cp_async_commit();
+    const bf16* wb = wbuf + (c % kChunkStages) * slot;
+    const int k0 = first_row(c), nr = min(geo.rows, geo.kp - k0);
+    for (int kk = 0; kk < nr; kk += 16) {
+      uint32_t a[3][4];
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+        ldmatrix_x4(a[q], apc + (ar * q + arow) * as + k0 + kk + 8 * (lane >> 4));
+#pragma unroll
+      for (int i = 0; i < kDotTiles; ++i) {
+        const int nt = warp + kSetWarps * i;
+        if (nt >= geo.tiles) break;
+        uint32_t b[2];
+        ldmatrix_x2_trans(b, wb + (kk + (lane & 15)) * geo.ld + 8 * nt);
+        mma_bf16(acc[i], a[2], b[0], b[1]);  // the small pieces first
+        mma_bf16(acc[i], a[1], b[0], b[1]);
+        mma_bf16(acc[i], a[0], b[0], b[1]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int i = 0; i < kDotTiles; ++i) {
+    const int nt = warp + kSetWarps * i;
+    if (nt >= geo.tiles) break;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = g + 8 * half;
+      if (r < ns) {
+        res[r * geo.ld + 8 * nt + 2 * t] = acc[i][2 * half];
+        res[r * geo.ld + 8 * nt + 2 * t + 1] = acc[i][2 * half + 1];
+      }
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < ns * m; e += kSetThreads) {
+    const int s = e / m, j = e % m;
+    epi(s, j, res[s * geo.ld + j]);
+  }
+  __syncthreads();  // the outputs are written; the buffers are reused next
+}
+
+// The second kernel: the per-set part of sets blockIdx.x * sets ... (at most
+// `sets`) from their pooled sums and counts.
+__global__ void __launch_bounds__(kSetThreads) epic_sets_bf16_kernel(ParamsBf16 p, int sets,
+                                                                     const float* pool,
+                                                                     const float* count) {
+  extern __shared__ float fsm[];
+  const int tid = threadIdx.x;
+  const int b0 = blockIdx.x * sets, ns = min(sets, p.b - b0);
+  const int h = p.h, l = p.l, tg = p.tg, tl = p.tl, s_w = p.s;
+  const SetsLayout lay(p, sets);
+  const int k1 = lay.k1, k2 = lay.k2, k3 = lay.k3, k4 = lay.k4;
+  float* gin = fsm;              // sets x k1: cat(t_g, mean, scaled_sum, g, cond_g)
+  float* in2 = fsm + lay.in2;    // sets x k2: cat(t_g, g1, cond_g)
+  float* s1 = fsm + lay.s1;      // sets x k3: cat(t_l, g_new, cond_l)
+  float* s2 = fsm + lay.s2;      // sets x k4: cat(t_l, cond_l)
+  float* res = fsm + lay.res;    // the dots' results
+  bf16* apc = reinterpret_cast<bf16*>(fsm + lay.floats);                    // the split inputs
+  bf16* wbuf = reinterpret_cast<bf16*>(fsm + lay.floats + lay.apc_floats);  // weight chunks
+  for (int e = tid; e < ns * s_w; e += kSetThreads) {
+    const int s = e / s_w, i = e % s_w;
+    const float v = bf(p.sfeat, (long long)(b0 + s) * s_w + i);
+    if (i < tg) gin[s * k1 + i] = in2[s * k2 + i] = v;
+    if (i < tl) s1[s * k3 + i] = s2[s * k4 + i] = v;
+    const int ig = i - (s_w - p.cg), il = i - (s_w - p.cl);
+    if (ig >= 0) gin[s * k1 + tg + 2 * h + l + ig] = in2[s * k2 + tg + h + ig] = v;
+    if (il >= 0) s1[s * k3 + tl + l + il] = s2[s * k4 + tl + il] = v;
+  }
+  for (int e = tid; e < ns * l; e += kSetThreads) {
+    const int s = e / l, i = e % l;
+    gin[s * k1 + tg + 2 * h + i] = bf(p.g, (long long)(b0 + s) * l + i);
+  }
+  for (int e = tid; e < ns * h; e += kSetThreads) {
+    const int s = e / h, c = e % h;
+    const float sum = pool[(size_t)(b0 + s) * h + c];
+    gin[s * k1 + tg + c] = sum / count[b0 + s];
+    gin[s * k1 + tg + h + c] = sum * p.sum_scale;
+  }
+  __syncthreads();
+
+  const ImageLayout img(p);
+  // global MLP 1; g1 rounded to bfloat16 as the second MLP's input
+  sets_dot(gin, k1, p.wsl + img.wg1, k1, h, sets, ns, apc, res, wbuf, [&](int s, int j, float v) {
+    in2[s * k2 + tg + j] = round_bf16(act(v + bf(p.bg1, j)));
+  });
+  // global MLP 2 with the residual g; g_new rounded once
+  sets_dot(in2, k2, p.wsl + img.wg2, k2, l, sets, ns, apc, res, wbuf, [&](int s, int j, float v) {
+    const long long gi = (long long)(b0 + s) * l + j;
+    const bf16 gn = __float2bfloat16_rn(act(v + bf(p.bg2, j) + bf(p.g, gi)));
+    p.go[gi] = gn;
+    s1[s * k3 + tl + j] = __bfloat162float(gn);
+  });
+  // the per-set biases of the two local products, float32
+  sets_dot(s1, k3, p.wsl + img.w1s, k3, h, sets, ns, apc, res, wbuf, [&](int s, int j, float v) {
+    p.bias[(long long)(b0 + s) * 2 * h + j] = v + bf(p.b1, j);
+  });
+  sets_dot(s2, k4, p.wsl + img.w2s, k4, h, sets, ns, apc, res, wbuf, [&](int s, int j, float v) {
+    p.bias[(long long)(b0 + s) * 2 * h + h + j] = v + bf(p.b2, j);
+  });
+}
+
+size_t sets_smem_bytes(const ParamsBf16& p, int sets) { return SetsLayout(p, sets).bytes(); }
+
+// ---------------------------------------------------------------- local kernel
+
+// The local kernel's geometry at one width, the same on host and device.
+// Where H <= 128 (`regs`) the x and x1 tiles live in registers (x staged in
+// shared memory first, row-major) and both weights stay staged; wider layers
+// stage x and x1 tiles in shared memory in core matrices and stream the
+// weights.
+struct LocalGeo {
+  int hp;       // H rounded up to 16
+  bool regs;    // the register kernel: hp <= 128
+  int kp;       // k of the products: H rounded up to 32, or to the column block
+  int nb;       // columns of an accumulator: one wgmma's N
+  int ncb;      // column blocks, nb * ncb >= hp
+  int tc;       // columns of an x or x1 tile in shared memory (regs: an x tile's row distance)
+  int nks;      // k slices (32 rows of a weight) of a column block
+  int slices;   // slices of the two weights
+  int wgs;      // warpgroups of a block: 2, or 1 where two would not fit
+  int slots;    // staged slices: all of them (regs), or kRing
+  int bias_bufs;  // bias buffers of a warpgroup: 2 (the next tile's staged meanwhile) or 1
+  __host__ __device__ explicit LocalGeo(int h) {
+    hp = (h + 15) & ~15;
+    regs = hp <= 128;
+    nb = hp <= 64 ? 64 : (hp <= 128 || (hp > 152 && hp <= 256) || hp > 304) ? 128 : 152;
+    ncb = (hp + nb - 1) / nb;
+    kp = regs ? nb : (h + 31) & ~31;
+    tc = regs ? nb + 8 : (kp > ncb * nb ? kp : ncb * nb);
+    nks = kp / kSliceK;
+    slices = 2 * ncb * nks;
+    wgs = 2;
+    slots = regs ? slices : kRing;
+    bias_bufs = regs ? 2 : 1;
+    if (bytes() > (size_t)kMaxSmem) wgs = 1;
+  }
+  __host__ __device__ size_t slice_bytes() const { return (size_t)kSliceK * nb * sizeof(bf16); }
+  __host__ __device__ size_t tile_bytes() const { return (size_t)kTileRows * tc * sizeof(bf16); }
+  // the biases (bias1, bias2) of two sets, the most a warpgroup's tile spans
+  // where N >= 64
+  __host__ __device__ size_t bias_bytes() const {
+    return (size_t)2 * 2 * ncb * nb * sizeof(float);
+  }
+  // a warpgroup's tiles (regs: two x tiles; else the x and the x1 tile) and
+  // biases, for every warpgroup
+  __host__ __device__ size_t tiles_bytes() const {
+    return wgs * (2 * tile_bytes() + bias_bufs * bias_bytes());
+  }
+  __host__ __device__ size_t bytes() const { return tiles_bytes() + slots * slice_bytes(); }
+  // rows the block's warpgroups take at a time
+  __host__ __device__ int unit_rows() const { return wgs * kTileRows; }
+};
+
+// A (rows x cols) block of a row-major bfloat16 matrix (row distance ld) into
+// core matrices at `dst`: core matrix (r / 8, c / 8) at ((c / 8) (rows / 8) +
+// r / 8) 128 bytes, row r % 8 of it 16 bytes at (r % 8) 16. Rows from
+// `rows_in` and columns from `cols_in` on are zeros. Eight neighbouring
+// threads fill one core matrix (128 contiguous bytes of shared memory), the
+// next eight the next 8 columns of the same rows. cp.async in pieces of
+// `piece` values (8, 4, 2), or element by element (1); by threads `tid` of
+// `nthreads`.
+template <int P>
+__device__ __forceinline__ void stage_core_p(bf16* dst, const bf16* src, int ld, int rows,
+                                             int cols, int rows_in, int cols_in, int tid,
+                                             int nthreads) {
+  // thread tid takes row r % 8 = tid % 8 of the core matrices tid / 8, tid / 8
+  // + nthreads / 8, ... (column groups fastest), walked without a division
+  const int cgs = cols / 8, rgs = rows / 8, step = nthreads >> 3;
+  const int dq = step / cgs, dr = step % cgs, ri = tid & 7;
+  int cg = (tid >> 3) % cgs, rg = (tid >> 3) / cgs;
+  for (; rg < rgs; cg += dr, rg += dq) {
+    if (cg >= cgs) {
+      cg -= cgs;
+      ++rg;
+      if (rg >= rgs) break;
+    }
+    const int r = 8 * rg + ri, c = 8 * cg;
+    bf16* d = dst + ((cg * rgs + rg) * 64 + ri * 8);
+    const bf16* s = src + (r < rows_in ? (long long)r * ld : 0);
+    if constexpr (P == 1) {  // odd widths: element by element
+      uint32_t e[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        e[k] = r < rows_in && c + k < cols_in ? __bfloat16_as_ushort(s[c + k]) : 0u;
+      *reinterpret_cast<uint4*>(d) = make_uint4(e[0] | (e[1] << 16), e[2] | (e[3] << 16),
+                                                e[4] | (e[5] << 16), e[6] | (e[7] << 16));
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; k += P) {
+        const int ok = r < rows_in && c + k < cols_in;
+        cp_async_piece(d + k, ok ? s + c + k : src, 2 * P, ok);
+      }
     }
   }
 }
 
-// The local path of one tile of 16 RW of the B*N rows, by RW x 2 warps.
-template <int RW>
-__global__ void __launch_bounds__(32 * RW * kLocalColWarps)
-epic_local_bf16_kernel(ParamsBf16 p) {
-  constexpr int kRows = 16 * RW;
-  extern __shared__ __align__(16) uint4 smem_bf16[];
-  bf16* base = reinterpret_cast<bf16*>(smem_bf16);
-  const LocalLayout lay(p.h, kRows);
-  const int h = p.h, hp = lay.hp, st = lay.st;
-  bf16* xs = base + lay.xs;
-  bf16* x1s = base + lay.x1s;
-  bf16* ws = base + lay.ws;
-  const long long m = (long long)p.b * p.n;
-  const long long row0 = (long long)blockIdx.x * kRows;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
-  const int rw = 16 * (warp % RW), cw = kBfWarpCols * (warp / RW);
-  stage_rows_bf16(xs, p.x, row0, m, h, hp, st, kRows);
-
-  // x1 = act(x . w1x + bias1), rounded, zeros from column h to hp
-  for (int c0 = 0; c0 < hp; c0 += kLocalCols) {
-    __syncthreads();  // the tile is staged; the weights of the previous columns are read
-    stage_weights_bf16(ws, p.w1x, h, hp, c0);
-    __syncthreads();
-    float acc[kBfWarpCols / 8][4];
-    warp_columns_bf16<RW>(acc, xs, st, ws, hp);
-#pragma unroll
-    for (int nt = 0; nt < kBfWarpCols / 8; ++nt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = rw + g + 8 * half, col = c0 + cw + 8 * nt + 2 * t;
-        if (col >= hp) continue;
-        float v0 = 0.f, v1 = 0.f;
-        if (row0 + r < m) {
-          const float* bs = p.bias + (row0 + r) / p.n * 2 * h;
-          if (col < h) v0 = act(acc[nt][2 * half] + bs[col]);
-          if (col + 1 < h) v1 = act(acc[nt][2 * half + 1] + bs[col + 1]);
-        }
-        *reinterpret_cast<__nv_bfloat162*>(x1s + r * st + col) = __floats2bfloat162_rn(v0, v1);
-      }
-  }
-
-  // out = act(x1 . w2x + bias2 + x), rounded once
-  for (int c0 = 0; c0 < hp; c0 += kLocalCols) {
-    __syncthreads();  // x1 is whole; the weights of the previous columns are read
-    stage_weights_bf16(ws, p.w2x, h, hp, c0);
-    __syncthreads();
-    float acc[kBfWarpCols / 8][4];
-    warp_columns_bf16<RW>(acc, x1s, st, ws, hp);
-#pragma unroll
-    for (int nt = 0; nt < kBfWarpCols / 8; ++nt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = rw + g + 8 * half, col = c0 + cw + 8 * nt + 2 * t;
-        const long long row = row0 + r;
-        if (row >= m || col >= h) continue;
-        const float* bs = p.bias + row / p.n * 2 * h + h;
-        const float o0 = act(acc[nt][2 * half] + bs[col] + __bfloat162float(xs[r * st + col]));
-        bf16* orow = p.xo + row * h;
-        if (col + 1 < h) {
-          const float o1 =
-              act(acc[nt][2 * half + 1] + bs[col + 1] + __bfloat162float(xs[r * st + col + 1]));
-          if (h % 2 == 0) {
-            *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(o0, o1);
-          } else {
-            orow[col] = __float2bfloat16_rn(o0);
-            orow[col + 1] = __float2bfloat16_rn(o1);
-          }
-        } else {
-          orow[col] = __float2bfloat16_rn(o0);
-        }
-      }
+__device__ __forceinline__ void stage_core(bf16* dst, const bf16* src, int ld, int rows, int cols,
+                                           int rows_in, int cols_in, int piece, int tid,
+                                           int nthreads) {
+  switch (piece) {
+    case 8: stage_core_p<8>(dst, src, ld, rows, cols, rows_in, cols_in, tid, nthreads); break;
+    case 4: stage_core_p<4>(dst, src, ld, rows, cols, rows_in, cols_in, tid, nthreads); break;
+    case 2: stage_core_p<2>(dst, src, ld, rows, cols, rows_in, cols_in, tid, nthreads); break;
+    default: stage_core_p<1>(dst, src, ld, rows, cols, rows_in, cols_in, tid, nthreads); break;
   }
 }
 
-// The local kernel with RW warps along the rows: tiles of 16 RW rows.
-template <int RW>
-cudaError_t launch_local_bf16(const ParamsBf16& p, cudaStream_t stream) {
-  constexpr int kRows = 16 * RW;
-  const LocalLayout lay(p.h, kRows);
-  cudaError_t err = cudaFuncSetAttribute(epic_local_bf16_kernel<RW>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)lay.bytes());
+// Slice j of the two weights (product j / (ncb nks), column block, k slice
+// (j + rot) % nks) into `dst`: 32 rows of k by nb columns, as B (k rows, n
+// columns), in core matrices. The slices lie in the weight image already in
+// that layout, one after another: a contiguous copy in 16-byte pieces.
+__device__ __forceinline__ void stage_slice(bf16* dst, const ParamsBf16& p, const LocalGeo& geo,
+                                            int j, int rot, int tid, int nthreads) {
+  const int slice = kSliceK * geo.nb, ks = (j % geo.nks + rot) % geo.nks;
+  const bf16* src = p.wsl + ImageLayout(p).local + (size_t)(j - j % geo.nks + ks) * slice;
+  for (int i = tid; i < slice / 8; i += nthreads) cp_async_piece(dst + 8 * i, src + 8 * i, 16, 1);
+}
+
+// Rows row0 .. row0 + 63 of x into a tile (tc columns, zeros from h on).
+__device__ __forceinline__ void stage_x(bf16* dst, const ParamsBf16& p, const LocalGeo& geo,
+                                        int row0, int piece, int tid, int nthreads) {
+  const int m = p.b * p.n;
+  stage_core(dst, p.x + (long long)(row0 < m ? row0 : 0) * p.h, p.h, kTileRows, geo.tc, m - row0,
+             p.h, piece, tid, nthreads);
+}
+
+// Element (r, c) of a 64-row tile in core matrices.
+__device__ __forceinline__ int tile_at(int r, int c) {
+  return ((c / 8) * (kTileRows / 8) + r / 8) * 64 + (r % 8) * 8 + c % 8;
+}
+
+// wgmma descriptors: a 64-row tile at k step ks16 (LBO along k 8 core
+// matrices, 1024 bytes; SBO 128), half q of a slice (32 rows of k: LBO 128,
+// SBO 512)
+__device__ __forceinline__ uint64_t tile_desc(const bf16* tile, int ks16) {
+  return wgmma_desc(tile + ks16 * 2 * (kTileRows / 8) * 64, (kTileRows / 8) * 128, 128);
+}
+__device__ __forceinline__ uint64_t slice_desc(const bf16* slice, int q) {
+  return wgmma_desc(slice + q * 2 * 64, 128, (kSliceK / 8) * 128);
+}
+
+// The two columns col, col + 1 of a float row that is h wide (values past h
+// are any finite ones): one 8-byte load where h is even.
+__device__ __forceinline__ float2 pair_at(const float* row, int col, int h) {
+  if (h % 2 == 0) return *reinterpret_cast<const float2*>(row + min(col, h - 2));
+  return make_float2(row[min(col, h - 1)], row[min(col + 1, h - 1)]);
+}
+__device__ __forceinline__ float2 pair_at(const bf16* row, int col, int h) {
+  if (h % 2 == 0)
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + min(col, h - 2)));
+  return make_float2(__bfloat162float(row[min(col, h - 1)]),
+                     __bfloat162float(row[min(col + 1, h - 1)]));
+}
+
+// The biases (bias1, bias2) of the first two sets of the tile from row0 on
+// into a warpgroup's `bsm`: [set][bias1, bias2][bw floats], zeros past h
+// and past the last set; cp.async of 4 bytes, by the warpgroup's threads.
+// Every row of a tile has its set there where N >= 64.
+__device__ __forceinline__ void stage_biases(float* bsm, const ParamsBf16& p, const LocalGeo& geo,
+                                             int row0) {
+  const int s0 = row0 / p.n, bw = geo.ncb * geo.nb;
+  for (int sv = 0; sv < 4; ++sv) {
+    const int set = s0 + sv / 2;
+    const float* src = p.bias + (size_t)set * 2 * p.h + (sv % 2) * p.h;
+    for (int c = threadIdx.x & 127; c < bw; c += 128) {
+      const int ok = set < p.b && c < p.h;
+      cp_async_piece(bsm + sv * bw + c, ok ? src + c : p.bias, 4, ok);
+    }
+  }
+}
+
+// The biases (vec 0: bias1, 1: bias2) of the row of the tile from row0 on:
+// in shared memory (kShared: N >= 64), else in global memory.
+template <bool kShared>
+__device__ __forceinline__ const float* bias_of(const ParamsBf16& p, const LocalGeo& geo,
+                                                const float* bsm, int row0, int row, int vec) {
+  const int m = p.b * p.n, set = (row < m ? row : m - 1) / p.n;
+  if constexpr (kShared) return bsm + (2 * (set - row0 / p.n) + vec) * geo.ncb * geo.nb;
+  return p.bias + (size_t)set * 2 * p.h + vec * p.h;
+}
+
+// Columns col, col + 1 of a row of biases (any finite values past h).
+template <bool kShared>
+__device__ __forceinline__ float2 bias_pair(const float* bs, int col, int h) {
+  if constexpr (kShared) return *reinterpret_cast<const float2*>(bs + col);
+  return pair_at(bs, col, h);
+}
+
+// Output values in the accumulators' layout (out[j][half]: row 16 w + g + 8
+// half, columns col0 + 8 j + 2 t, + 1, rounded and packed) to global memory,
+// rows below m and columns below h. Every value is computed before this, and
+// kept so (an empty asm): a read of the accumulators on the divergent path of
+// a store makes the compiler serialise the wgmmas.
+template <int NB>
+__device__ __forceinline__ void store_out(uint32_t (&out)[NB / 8][2], const ParamsBf16& p,
+                                          int row0, int col0) {
+  const int i = threadIdx.x & 127, w = i >> 5, g = (i & 31) >> 2, t = i & 3;
+  const int m = p.b * p.n, h = p.h;
+#pragma unroll
+  for (int j = 0; j < NB / 8; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) asm volatile("" : "+r"(out[j][half])::"memory");
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + 16 * w + g + 8 * half;
+    if (row >= m) continue;
+    bf16* orow = p.xo + (size_t)row * h;
+#pragma unroll
+    for (int j = 0; j < NB / 8; ++j) {
+      const int col = col0 + 8 * j + 2 * t;
+      const uint32_t v = out[j][half];
+      if (col + 1 < h && h % 2 == 0) {
+        *reinterpret_cast<uint32_t*>(orow + col) = v;
+      } else {
+        if (col < h) orow[col] = __ushort_as_bfloat16((unsigned short)(v & 0xffffu));
+        if (col + 1 < h) orow[col + 1] = __ushort_as_bfloat16((unsigned short)(v >> 16));
+      }
+    }
+  }
+}
+
+// The epilogue of product 1, column block cb: x1 = act(acc + bias1), rounded,
+// into the warpgroup's x1 tile. Columns past h come out 0 (zero weights and
+// biases: the k of product 2 past h), rows past m any finite value (never
+// stored). Every accumulator is read on every thread without a branch: a read
+// of the accumulators on a divergent path makes the compiler serialise the
+// wgmmas.
+template <int NB, bool kShared>
+__device__ __forceinline__ void epilogue1(const float (&acc)[NB / 2], bf16* x1,
+                                          const ParamsBf16& p, const LocalGeo& geo,
+                                          const float* bsm, int row0, int cb) {
+  const int i = threadIdx.x & 127, w = i >> 5, g = (i & 31) >> 2, t = i & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int rl = 16 * w + g + 8 * half;
+    const float* bs = bias_of<kShared>(p, geo, bsm, row0, row0 + rl, 0);
+    bf16* xo = x1 + tile_at(rl, cb * NB + 2 * t);
+#pragma unroll
+    for (int j = 0; j < NB / 8; ++j) {
+      const float2 b = bias_pair<kShared>(bs, cb * NB + 8 * j + 2 * t, p.h);
+      *reinterpret_cast<uint32_t*>(xo + j * (kTileRows / 8) * 64) =
+          pack_bf16(act(acc[4 * j + 2 * half] + b.x), act(acc[4 * j + 2 * half + 1] + b.y));
+    }
+  }
+}
+
+// The epilogue of product 2, column block cb: out = act(acc + bias2 + x),
+// rounded once, x read from global memory (L2: the tile was read
+// microseconds before) and the output stored for rows below m and columns
+// below h, after every value is computed.
+template <int NB, bool kShared>
+__device__ __forceinline__ void epilogue2(const float (&acc)[NB / 2], const ParamsBf16& p,
+                                          const LocalGeo& geo, const float* bsm, int row0,
+                                          int cb) {
+  const int i = threadIdx.x & 127, w = i >> 5, g = (i & 31) >> 2, t = i & 3;
+  const int m = p.b * p.n, h = p.h;
+  uint32_t out[NB / 8][2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + 16 * w + g + 8 * half;
+    const float* bs = bias_of<kShared>(p, geo, bsm, row0, row, 1);
+    const bf16* xr = p.x + (size_t)(row < m ? row : m - 1) * h;
+#pragma unroll
+    for (int j = 0; j < NB / 8; ++j) {
+      const int col = cb * NB + 8 * j + 2 * t;
+      const float2 b = bias_pair<kShared>(bs, col, h);
+      const float2 r = pair_at(xr, col, h);
+      out[j][half] = pack_bf16(act(acc[4 * j + 2 * half] + b.x + r.x),
+                               act(acc[4 * j + 2 * half + 1] + b.y + r.y));
+    }
+  }
+  store_out<NB>(out, p, row0, cb * NB);
+}
+
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + wg), "r"(128) : "memory");
+}
+
+// The local path of layers wider than 128 (see the design note above),
+// persistent: the warpgroups' x tiles in shared memory, staged together, the
+// weights streamed through a ring of slices, each slice for all of them.
+// kShared: N >= 64, so a tile's rows are of two sets at most, whose biases
+// are staged.
+template <int NB, bool kShared>
+__global__ void __launch_bounds__(128 * kMaxWg, 1) epic_local_bf16_kernel(ParamsBf16 p) {
+  extern __shared__ __align__(128) uint4 smem_bf16[];
+  const LocalGeo geo(p.h);
+  bf16* base = reinterpret_cast<bf16*>(smem_bf16);
+  const int tid = threadIdx.x, wg = tid >> 7, nthreads = blockDim.x;
+  const size_t tile = geo.tile_bytes() / sizeof(bf16), slice = geo.slice_bytes() / sizeof(bf16);
+  bf16* xs = base + wg * 2 * tile;  // this warpgroup's x tile, then its x1 tile
+  bf16* x1s = xs + tile;
+  float* bsm = reinterpret_cast<float*>(base + geo.wgs * 2 * tile) +
+               wg * geo.bias_bytes() / sizeof(float);  // its biases
+  bf16* ws = reinterpret_cast<bf16*>(reinterpret_cast<float*>(base + geo.wgs * 2 * tile) +
+                                     geo.wgs * geo.bias_bytes() / sizeof(float));  // the slices
+  const int m = p.b * p.n;
+  const int xpiece = piece_of(p.x, p.h);
+  const int per = geo.ncb * geo.nks;  // slices of one product
+  float acc[NB / 2];
+
+  // x1's columns past the accumulators' stay zero (k of product 2 up to kp)
+  for (int i = tid & 127; i < kTileRows * (geo.tc - geo.ncb * NB); i += 128) {
+    const int r = i % kTileRows, c = geo.ncb * NB + i / kTileRows;
+    x1s[tile_at(r, c)] = __float2bfloat16_rn(0.f);
+  }
+
+  // streamed weights: the warpgroups' tiles together, each slice for all of them
+  const int units = (m + geo.unit_rows() - 1) / geo.unit_rows();
+  const int my_units = (int)blockIdx.x < units ? (units - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int total = my_units * 2 * per;     // slices this block runs
+  const int ahead = min(kRing - 2, per);    // slices in flight before their use
+  // each block walks k from its own slice (blockIdx.x % nks), so that the
+  // blocks do not all read one slice from L2 at once
+  const int rot = blockIdx.x % geo.nks;
+  auto unit_row0 = [&](int u) { return (blockIdx.x + u * gridDim.x) * geo.unit_rows(); };
+  auto stage_unit = [&](int u) {
+    for (int i = 0; i < geo.wgs; ++i)
+      stage_x(base + i * 2 * tile, p, geo, unit_row0(u) + i * kTileRows, xpiece, tid, nthreads);
+  };
+  if (my_units > 0) stage_unit(0);
+  cp_async_commit();
+  for (int j = 0; j < ahead; ++j) {
+    if (j < total) stage_slice(ws + (j % kRing) * slice, p, geo, j % (2 * per), rot, tid, nthreads);
+    cp_async_commit();
+  }
+  for (int s = 0, u = 0, j = 0; s < total; ++s) {
+    const int prod = j / per, cb = (j % per) / geo.nks, ks = j % geo.nks;
+    const int row0 = unit_row0(u) + wg * kTileRows;
+    cp_async_wait_n(ahead - 1);  // slice s (and the x of its tiles) is in
+    fence_proxy_async();
+    __syncthreads();  // ... for every thread; slice s - 2's products are done
+    if (kShared && j == 0) {  // a unit begins: its biases (the last unit's are read)
+      stage_biases(bsm, p, geo, row0);
+      cp_async_commit();
+      cp_async_wait<0>();
+      wg_sync(wg);
+    }
+    if (s + ahead < total)
+      stage_slice(ws + ((s + ahead) % kRing) * slice, p, geo, (s + ahead) % (2 * per), rot, tid,
+                  nthreads);
+    if (j == per && u + 1 < my_units) stage_unit(u + 1);  // product 2 begins: x is read
+    cp_async_commit();
+    const bf16* a = prod == 0 ? xs : x1s;
+    const bf16* w = ws + (s % kRing) * slice;
+    const int kr = (ks + rot) % geo.nks;  // the slice's k
+    wgmma_fence_operands(acc);
+    wgmma_fence();
+    Wgmma<NB>::mma(acc, tile_desc(a, 2 * kr), slice_desc(w, 0), ks);
+    Wgmma<NB>::mma(acc, tile_desc(a, 2 * kr + 1), slice_desc(w, 1), 1);
+    wgmma_commit();
+    if (++j == 2 * per) j = 0;
+    if (ks + 1 < geo.nks) {
+      wgmma_wait<1>();
+      wgmma_fence_operands(acc);
+      continue;
+    }
+    wgmma_wait<0>();
+    wgmma_fence_operands(acc);
+    if (prod == 0) {
+      epilogue1<NB, kShared>(acc, x1s, p, geo, bsm, row0, cb);
+      fence_proxy_async();  // x1 is read after the next barrier
+    } else {
+      epilogue2<NB, kShared>(acc, p, geo, bsm, row0, cb);
+      if (j == 0) ++u;
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// Rows row0 .. row0 + 63 of x into a row-major tile (row distance ld, nb
+// columns: zeros past row m and column h), cp.async in pieces of `piece`
+// values (element by element for 1), by the warpgroup's threads.
+__device__ __forceinline__ void stage_x_rows(bf16* dst, int ld, const ParamsBf16& p,
+                                             const LocalGeo& geo, int row0, int piece) {
+  const int m = p.b * p.n, h = p.h, q = geo.nb / piece;
+  const bf16* src = p.x + (size_t)(row0 < m ? row0 : 0) * h;
+  for (int e = threadIdx.x & 127; e < kTileRows * q; e += 128) {
+    const int r = e / q, c = (e - r * q) * piece, ok = row0 + r < m && c < h;
+    const bf16* s = ok ? src + (size_t)r * h + c : p.x;
+    if (piece == 1)
+      dst[r * ld + c] = ok ? *s : __float2bfloat16_rn(0.f);
+    else
+      cp_async_piece(dst + r * ld + c, s, 2 * piece, ok);
+  }
+}
+
+template <int KS>
+__device__ __forceinline__ void fence_frags(uint32_t (&frag)[KS][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) asm volatile("" : "+r"(frag[kk][q])::"memory");
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xffff0000u));
+}
+
+// The local path of layers up to 128 wide (see the design note above),
+// persistent: two warpgroups on their own 64-row tiles; x and x1 as A
+// fragments in registers (wgmma with A from registers), x read into them from
+// a row-major tile in shared memory (ldmatrix), both weights staged once per
+// block, the next tile's x and biases staged while this tile is computed.
+template <int NB, bool kShared>
+__global__ void __launch_bounds__(128 * kMaxWg, 1) epic_local_regs_kernel(ParamsBf16 p) {
+  constexpr int KS = NB / 16;  // k16 steps of a product: k padded to the column block
+  extern __shared__ __align__(128) uint4 smem_bf16[];
+  const LocalGeo geo(p.h);
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int i = tid & 127, w = i >> 5, g = (i & 31) >> 2, t = i & 3, lane = tid & 31;
+  const size_t slice = geo.slice_bytes() / sizeof(bf16), bias = geo.bias_bytes() / sizeof(float);
+  const size_t tile = geo.tile_bytes() / sizeof(bf16);
+  bf16* ws = reinterpret_cast<bf16*>(smem_bf16);  // the slices of both weights
+  bf16* xs = ws + geo.slices * slice + wg * 2 * tile;  // its two x tiles
+  float* bsm = reinterpret_cast<float*>(ws + geo.slices * slice + geo.wgs * 2 * tile) +
+               wg * 2 * bias;  // its biases, one buffer for each x tile
+  const int m = p.b * p.n, h = p.h, ld = geo.tc;
+  const int xpiece = piece_of(p.x, h);
+  const int tiles = (m + kTileRows - 1) / kTileRows, stride = gridDim.x * geo.wgs;
+  int tt = blockIdx.x * geo.wgs + wg, cur = 0;
+  for (int j = 0; j < geo.slices; ++j)
+    stage_slice(ws + j * slice, p, geo, j, 0, tid, blockDim.x);
+  if (tt < tiles) {
+    stage_x_rows(xs, ld, p, geo, tt * kTileRows, xpiece);
+    if (kShared) stage_biases(bsm, p, geo, tt * kTileRows);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+  uint32_t xa[KS][4], x1[KS][4];
+  float acc[NB / 2];
+  for (; tt < tiles; tt += stride, cur ^= 1) {
+    const int row0 = tt * kTileRows;
+    const float* bt = bsm + cur * bias;
+    const bf16* xt = xs + cur * tile + (16 * w + (lane & 15)) * ld + 8 * (lane >> 4);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) ldmatrix_x4(xa[kk], xt + 16 * kk);
+    if (tt + stride < tiles) {
+      stage_x_rows(xs + (cur ^ 1) * tile, ld, p, geo, (tt + stride) * kTileRows, xpiece);
+      if (kShared) stage_biases(bsm + (cur ^ 1) * bias, p, geo, (tt + stride) * kTileRows);
+    }
+    cp_async_commit();
+
+    // product 1: acc = x . w1x
+    wgmma_fence_operands(acc);
+    fence_frags<KS>(xa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      WgmmaRS<NB>::mma(acc, xa[kk], slice_desc(ws + (kk / 2) * slice, kk % 2), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_operands(acc);
+    fence_frags<KS>(xa);
+
+    // x1 = act(acc + bias1), rounded, as the A fragments of product 2
+    const float* b10 = bias_of<kShared>(p, geo, bt, row0, row0 + 16 * w + g, 0);
+    const float* b11 = bias_of<kShared>(p, geo, bt, row0, row0 + 16 * w + g + 8, 0);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int j = 2 * kk + jj, col = 8 * j + 2 * t;
+        const float2 b0 = bias_pair<kShared>(b10, col, h), b1 = bias_pair<kShared>(b11, col, h);
+        x1[kk][2 * jj] = pack_bf16(act(acc[4 * j] + b0.x), act(acc[4 * j + 1] + b0.y));
+        x1[kk][2 * jj + 1] =
+            pack_bf16(act(acc[4 * j + 2] + b1.x), act(acc[4 * j + 3] + b1.y));
+      }
+
+    // product 2: acc = x1 . w2x
+    fence_frags<KS>(x1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      WgmmaRS<NB>::mma(acc, x1[kk], slice_desc(ws + (geo.nks + kk / 2) * slice, kk % 2), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_operands(acc);
+    fence_frags<KS>(x1);
+
+    // out = act(acc + bias2 + x), rounded once; x from the fragments
+    const float* b20 = bias_of<kShared>(p, geo, bt, row0, row0 + 16 * w + g, 1);
+    const float* b21 = bias_of<kShared>(p, geo, bt, row0, row0 + 16 * w + g + 8, 1);
+    uint32_t out[NB / 8][2];
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int j = 2 * kk + jj, col = 8 * j + 2 * t;
+        const float2 b0 = bias_pair<kShared>(b20, col, h), b1 = bias_pair<kShared>(b21, col, h);
+        const float2 r0 = unpack_bf16(xa[kk][2 * jj]), r1 = unpack_bf16(xa[kk][2 * jj + 1]);
+        out[j][0] = pack_bf16(act(acc[4 * j] + b0.x + r0.x), act(acc[4 * j + 1] + b0.y + r0.y));
+        out[j][1] =
+            pack_bf16(act(acc[4 * j + 2] + b1.x + r1.x), act(acc[4 * j + 3] + b1.y + r1.y));
+      }
+    store_out<NB>(out, p, row0, 0);
+    cp_async_wait<0>();
+    wg_sync(wg);  // the next tile's x and biases are in for every thread; this tile's are read
+  }
+}
+
+int device_sms() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 0;
+  }
+  return sms;
+}
+
+// The local kernel `kernel` (the register one where geo.regs, else the
+// streamed one), or with `report` what it would be given.
+cudaError_t launch_local(void (*kernel)(ParamsBf16), int nb, const ParamsBf16& p,
+                         const LocalGeo& geo, int sms, cudaStream_t stream, int* report) {
+  const long long m = (long long)p.b * p.n;
+  const long long units = (m + geo.unit_rows() - 1) / geo.unit_rows();
+  const int blocks = (int)(units < sms ? units : sms);
+  if (report) {
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    report[0] = blocks;
+    report[1] = 4 * geo.wgs;
+    report[2] = geo.unit_rows();
+    report[3] = geo.slots;
+    report[4] = (int)geo.bytes();
+    report[5] = attr.numRegs;
+    report[6] = geo.regs;
+    report[7] = nb;
+    return cudaSuccess;
+  }
+  if (m > 2147483647LL) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)geo.bytes());
   if (err != cudaSuccess) return err;
-  const long long tiles = ((long long)p.b * p.n + kRows - 1) / kRows;
-  if (tiles > 2147483647LL) return cudaErrorInvalidValue;
-  epic_local_bf16_kernel<RW><<<(unsigned)tiles, 32 * RW * kLocalColWarps, lay.bytes(), stream>>>(p);
+  kernel<<<blocks, 128 * geo.wgs, geo.bytes(), stream>>>(p);
   return cudaGetLastError();
+}
+
+// The local kernel for this width and N (kShared: N >= 64, a tile's biases
+// staged).
+template <bool kShared>
+cudaError_t launch_local_bf16(const ParamsBf16& p, const LocalGeo& geo, int sms,
+                              cudaStream_t stream, int* report) {
+  if (geo.regs)
+    return geo.nb == 64
+               ? launch_local(epic_local_regs_kernel<64, kShared>, 64, p, geo, sms, stream, report)
+               : launch_local(epic_local_regs_kernel<128, kShared>, 128, p, geo, sms, stream,
+                              report);
+  return geo.nb == 128
+             ? launch_local(epic_local_bf16_kernel<128, kShared>, 128, p, geo, sms, stream, report)
+             : launch_local(epic_local_bf16_kernel<152, kShared>, 152, p, geo, sms, stream,
+                            report);
+}
+
+// Both kernels, or with `report` (10 ints) what they would be given: the local
+// kernel's blocks, warps, rows its warpgroups take at a time, staged slices,
+// shared bytes, registers per thread, whether the weights stay staged, the
+// column block (wgmma's N); the per-set kernel's blocks and sets a block.
+cudaError_t launch_bf16(const ParamsBf16& p, cudaStream_t stream, int* report) {
+  if (p.b <= 0 || p.n <= 0 || p.h <= 0 || p.h > kMaxWidth || p.l <= 0 || p.l > kMaxWidth)
+    return cudaErrorInvalidValue;
+  const int sms = device_sms();
+  if (sms <= 0) return cudaErrorNoDevice;
+  const int sets = sets_per_block(p);
+  const int set_blocks = (p.b + sets - 1) / sets;
+  const LocalGeo geo(p.h);
+  if (report) {
+    report[8] = set_blocks;
+    report[9] = sets;
+  } else {
+    // the scratch: the biases (B, 2, H), the pooled sums (B, H), the counts (B)
+    float* pool = p.bias + (size_t)p.b * 2 * p.h;
+    float* count = pool + (size_t)p.b * p.h;
+    epic_pool_bf16_kernel<<<p.b, kSetThreads, 0, stream>>>(p, pool, count);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const size_t smem = sets_smem_bytes(p, sets);
+    err = cudaFuncSetAttribute(epic_sets_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    epic_sets_bf16_kernel<<<set_blocks, kSetThreads, smem, stream>>>(p, sets, pool, count);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return p.n >= kTileRows ? launch_local_bf16<true>(p, geo, sms, stream, report)
+                          : launch_local_bf16<false>(p, geo, sms, stream, report);
 }
 
 }  // namespace
@@ -1105,29 +1800,31 @@ cudaError_t launch_local_bf16(const ParamsBf16& p, cudaStream_t stream) {
 // Returns the first failing launch's cudaError_t (0 on success). Shapes and
 // types were checked by the Python wrapper (ops/epic_layer.py::
 // epic_layer_bf16): bfloat16 tensors but the float32 mask; `bias` is scratch
-// of B * 2 * H floats. 1 <= h <= 512, 1 <= l <= 512.
+// of B * (3H + 1) floats (the biases, the pooled sums, the counts);
+// `wslices` the weight image as bf16_weight_image lays it out (the per-set
+// weights and w1x, w2x; the kernels read the weights from it only). 1 <= h
+// <= 512, 1 <= l <= 512.
 extern "C" int epic_layer_fwd_bf16(
     const bf16* x, const bf16* g, const float* mask, const bf16* sfeat,
     const bf16* wg1, const bf16* bg1, const bf16* wg2, const bf16* bg2,
     const bf16* w1x, const bf16* w1s, const bf16* b1,
     const bf16* w2x, const bf16* w2s, const bf16* b2,
-    bf16* xo, bf16* go, float* bias,
+    bf16* xo, bf16* go, float* bias, const bf16* wslices,
     int b, int n, int h, int l, int s, int tg, int tl, int cg, int cl,
     float sum_scale, void* stream_ptr) {
-  if (b <= 0 || n <= 0 || h <= 0 || h > kMaxWidth || l <= 0 || l > kMaxWidth)
-    return (int)cudaErrorInvalidValue;
   const ParamsBf16 p{x, g, mask, sfeat, wg1, bg1, wg2, bg2, w1x, w1s, b1, w2x, w2s, b2,
-                     xo, go, bias, b, n, h, l, s, tg, tl, cg, cl, sum_scale};
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const size_t set_smem =
-      sizeof(float) * ((size_t)(tg + 2 * h + l + cg) + (tg + h + cg) + (tl + l + cl) + (tl + cl) +
-                       1 + (size_t)kSetWarps * (h > l ? h : l));
-  epic_set_bf16_kernel<<<b, kSetThreads, set_smem, stream>>>(p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  // tiles of 128 rows where they fit a block, else of 64 (H above 336)
-  return (int)(LocalLayout(h, 128).bytes() <= (size_t)kMaxSmem ? launch_local_bf16<8>(p, stream)
-                                                               : launch_local_bf16<4>(p, stream));
+                     xo, go, bias, wslices, b, n, h, l, s, tg, tl, cg, cl, sum_scale};
+  return (int)launch_bf16(p, static_cast<cudaStream_t>(stream_ptr), nullptr);
 }
 
-extern "C" const char* epic_layer_bf16_mma_instruction() { return MMA_BF16_INSTRUCTION; }
+// What the launcher gives the two kernels for b sets of n particles at these
+// widths, into `report` (10 ints, as launch_bf16 writes them). Launches
+// nothing.
+extern "C" int epic_layer_bf16_geometry(int b, int n, int h, int l, int s, int tg, int tl, int cg,
+                                        int cl, int* report) {
+  ParamsBf16 p{};
+  p.b = b; p.n = n; p.h = h; p.l = l; p.s = s; p.tg = tg; p.tl = tl; p.cg = cg; p.cl = cl;
+  return (int)launch_bf16(p, nullptr, report);
+}
+
+extern "C" const char* epic_layer_bf16_mma_instruction() { return WGMMA_BF16_INSTRUCTION; }

@@ -71,13 +71,16 @@
 // the two agree bit for bit), and P . V with P kept in float32, as two TF32
 // products (P's head and remainder; V in bfloat16 is exact in TF32). Rounding
 // P to bfloat16 for a bfloat16 P . V was the other choice; it would change the
-// function. The other shapes (class tokens, head dim 128) run the CUDA-core
-// variants on bfloat16 loads and float32 arithmetic; the direct one takes 16
-// keys a step in bfloat16 (8-byte loads) to keep its bytes in flight. Bound at
+// function. At most 4 query rows: flash_token_bf16_kernel, at the end of this
+// file with its own note (16-byte loads, splits that fill whole waves, the
+// merge in the same launch). More than 4 rows at head dim 128 run the staged
+// CUDA-core variant on bfloat16 loads and float32 arithmetic. Bound at
 // path D's shape (B=256, Lq=Lk=279, 16 heads of 16): 147 MB, 0.044 ms; Q . K^T
 // 10.2 GFLOP in bfloat16, 0.010 ms, and P . V twice in TF32, 0.041 ms: bound
 // by tensor operations, 0.075 ms with the 5 operations a score on the CUDA
 // cores.
+
+#include <type_traits>
 
 #include "attention_mma.cuh"
 
@@ -96,45 +99,10 @@ __host__ __device__ constexpr int flash_mma_tile_keys(int dp) {
 
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
 
-// The direct variant's loads, kept as loaded until their step uses them, so
-// that every load of a step is in flight before the first is used: a float4
-// of float32, or 8 bytes (4 values) of bfloat16, which take twice the keys
-// a step (`kKeys`) for the same bytes in flight.
-template <typename T>
-struct Raw4;
-template <>
-struct Raw4<float> {
-  using type = float4;
-  static constexpr int kKeys = kSub;
-};
-template <>
-struct Raw4<__nv_bfloat16> {
-  using type = uint2;
-  static constexpr int kKeys = 2 * kSub;
-};
-
+// The direct variant's loads (float32), kept as loaded until their step uses
+// them, so that every load of a step is in flight before the first is used.
 __device__ __forceinline__ float4 raw4_load(const float* row, int c, int d, bool vec) {
   return load4(row, c, d, vec);
-}
-__device__ __forceinline__ uint2 raw4_load(const __nv_bfloat16* row, int c, int d, bool vec) {
-  uint2 r = make_uint2(0u, 0u);
-  if (vec) {
-    if (c < d) r = *reinterpret_cast<const uint2*>(row + c);
-  } else {
-    uint32_t e[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      if (c + q < d) e[q] = __bfloat16_as_ushort(row[c + q]);
-    r.x = e[0] | (e[1] << 16);
-    r.y = e[2] | (e[3] << 16);
-  }
-  return r;
-}
-__device__ __forceinline__ float4 as_float4(float4 v) { return v; }
-__device__ __forceinline__ float4 as_float4(uint2 v) {
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 __device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
@@ -227,9 +195,9 @@ flash_attention_kernel(HeadsT<T> q, HeadsT<T> k, HeadsT<T> v, const float* __res
   const T* kbase = k.p + b * k.bs + hd * d;
   const T* vbase = v.p + b * v.bs + hd * d;
   if constexpr (kDirect) {
-    constexpr int KS = Raw4<T>::kKeys;
+    constexpr int KS = kSub;
     for (int j0 = kbeg; j0 < kend; j0 += KS) {
-      typename Raw4<T>::type kk[KS][F4], vv[KS][F4];
+      float4 kk[KS][F4], vv[KS][F4];
       float a[KS];
 #pragma unroll
       for (int c = 0; c < KS; ++c) {
@@ -243,8 +211,8 @@ flash_attention_kernel(HeadsT<T> q, HeadsT<T> k, HeadsT<T> v, const float* __res
         if (j0 + c < kend) a[c] = mask ? (mask[(long long)b * lk + key] - 1.f) * kNeg : 0.f;
       }
       softmax_step<F4, G, KS>(
-          qr, o, m, l, [&](int c, int i) { return as_float4(kk[c][i]); },
-          [&](int c, int i) { return as_float4(vv[c][i]); }, [&](int c) { return a[c]; });
+          qr, o, m, l, [&](int c, int i) { return kk[c][i]; },
+          [&](int c, int i) { return vv[c][i]; }, [&](int c) { return a[c]; });
     }
   } else {
     for (int c0 = kbeg; c0 < kend; c0 += KC) {
@@ -556,9 +524,13 @@ cudaError_t launch_flash_dp(HeadsT<T> q, HeadsT<T> k, HeadsT<T> v, const float* 
                             float* part, int b, int lq, int lk, int h, int d, int splits,
                             cudaStream_t stream, int* report) {
   if (report && (lq <= 4 || DP > 64)) return cudaErrorInvalidValue;
-  if (lq <= 4)
-    return launch_flash<T, DP, GW, true>(q, k, v, mask, out, part, b, lq, lk, h, d, splits,
-                                         stream);
+  if (lq <= 4) {  // bfloat16 class tokens take flash_token_bf16_kernel (below)
+    if constexpr (std::is_same<T, float>::value)
+      return launch_flash<T, DP, GW, true>(q, k, v, mask, out, part, b, lq, lk, h, d, splits,
+                                           stream);
+    else
+      return cudaErrorInvalidValue;
+  }
   if constexpr (DP <= 64)
     return launch_flash_mma_t<DP>(q, k, v, mask, out, part, b, lq, lk, h, d, splits, stream,
                                   report);
@@ -587,6 +559,316 @@ cudaError_t launch_flash_d(HeadsT<T> q, HeadsT<T> k, HeadsT<T> v, const float* m
                                       report);
   return launch_flash_dp<T, 128, 32>(q, k, v, mask, out, part, b, lq, lk, h, d, splits, stream,
                                      report);
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16 class tokens: flash_token_bf16_kernel
+// ---------------------------------------------------------------------------
+//
+// At most 4 query rows in bfloat16 (MDMA's class token: path C, B=32, Lq=1,
+// Lk=6000, 2 heads of 128). The work is reading K and V once (197 MB at
+// path C, 0.059 ms at 3.35 TB/s): bound by bytes, so the design keeps enough
+// bytes in flight on every SM and does the rest in the same launch.
+//   * A lane reads 16 bytes (8 values) of a K row and of a V row at a time;
+//     a group of G = DP / 8 lanes covers a key's head dim (a half-warp at
+//     head dim 128), so a warp load reads 32 / G keys. Each lane loads its
+//     K and V pieces of 8 keys (at one query row; 8 / Lq at more) before
+//     the first is used: 16 warps an SM keep 128 KB in flight. (Eight warps
+//     a block, two blocks an SM, measured 2% faster than four and four and
+//     than three blocks of 12 keys in flight: PERF.md.)
+//   * Each lane group is a softmax stream of its own over the keys it
+//     reads (running maximum from -1e9, running sum, accumulator of its 8
+//     columns, q scaled first: the Pallas kernel's float32 arithmetic on the
+//     upcast values); the groups of a warp, then the warps of the block, are
+//     merged as the splits are: M = max m_i, l = sum l_i e^(m_i - M), acc =
+//     sum acc_i e^(m_i - M).
+//   * The keys of a (set, head) are cut into `splits` equal ranges, one per
+//     block, so that the blocks fill the SMs' resident slots in whole waves
+//     (ops/flash_attention.py::token_splits). A block writes its partial
+//     (m, l, acc) to scratch, then takes a ticket from the (set, head)'s
+//     counter after a __threadfence; the block that takes the last ticket
+//     merges the splits, writes the output and sets the counter back to 0
+//     for the next launch. One launch: no second merge kernel.
+// Operands offset from 16 bytes, strides that are not multiples of 8
+// elements, or head dims not a multiple of 8 take element loads (`wide`
+// false) in the same layout.
+
+constexpr int kTokWarps = 8;                 // warps of a block
+constexpr int kTokThreads = 32 * kTokWarps;
+constexpr int kTokBlocksPerSm = 2;           // resident blocks an SM (launch bounds)
+constexpr int kTokMaxRows = 4;               // query rows (DIRECT_MAX_ROWS)
+// keys a lane group loads before using them, for LQ query rows: 8 at one row
+__host__ __device__ constexpr int tok_unroll(int lq) { return 8 / lq; }
+
+// 8 values of a bfloat16 row from column c (a streaming load: K and V are
+// read once); zeros from column d on.
+__device__ __forceinline__ uint4 load8_raw(const bf16* row, int c, int d, bool wide) {
+  if (wide) return c < d ? __ldcs(reinterpret_cast<const uint4*>(row + c)) : make_uint4(0u, 0u, 0u, 0u);
+  uint32_t e[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) e[i] = c + i < d ? __bfloat16_as_ushort(row[c + i]) : 0u;
+  return make_uint4(e[0] | (e[1] << 16), e[2] | (e[3] << 16), e[4] | (e[5] << 16),
+                    e[6] | (e[7] << 16));
+}
+
+__device__ __forceinline__ void unpack8(uint4 r, float (&f)[8]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// (m, l, acc) of one stream merged into another's
+__device__ __forceinline__ void merge_stream(float& m, float& l, float (&o)[8], float m2, float l2,
+                                             const float (&o2)[8]) {
+  const float mn = fmaxf(m, m2);
+  const float e1 = exp_neg(m - mn), e2 = exp_neg(m2 - mn);
+  l = l * e1 + l2 * e2;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) o[i] = o[i] * e1 + o2[i] * e2;
+  m = mn;
+}
+
+// Grid: x = (set, head), y = split of the keys. `part` (splits, B, Lq, H, D)
+// accumulators then (splits, B, Lq, H, 2) pairs (m, l), and `counters` (B H
+// ints, zero), are used when splits > 1. LQ: 1, 2 or 4, at least lq.
+template <int DP, int LQ>
+__global__ void __launch_bounds__(kTokThreads, kTokBlocksPerSm)
+flash_token_bf16_kernel(HeadsT<bf16> q, HeadsT<bf16> k, HeadsT<bf16> v,
+                        const float* __restrict__ mask, bf16* __restrict__ out,
+                        float* __restrict__ part, int* __restrict__ counters, int lq, int lk,
+                        int h, int d, int keys_per_split, float scale, bool wide) {
+  constexpr int G = DP / 8;   // lanes of a key
+  constexpr int KW = 32 / G;  // keys of a warp load
+  constexpr int kTokUnroll = tok_unroll(LQ);
+  constexpr int KS = KW * kTokUnroll;
+  __shared__ float sm_o[kTokWarps][LQ][DP];
+  __shared__ float sm_ml[kTokWarps][LQ][2];
+  __shared__ int sm_last;
+
+  const int pair = blockIdx.x, b = pair / h, hd = pair % h;
+  const int split = blockIdx.y, splits = gridDim.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int grp = lane / G, c = 8 * (lane % G);
+  const int kbeg = split * keys_per_split;
+  const int kend = min(lk, kbeg + keys_per_split);
+  const int per_warp = (kend - kbeg + kTokWarps - 1) / kTokWarps;
+  const int wbeg = kbeg + warp * per_warp, wend = min(kend, wbeg + per_warp);
+
+  float qr[LQ][8], o[LQ][8], m[LQ], l[LQ];
+#pragma unroll
+  for (int r = 0; r < LQ; ++r) {
+    float f[8];
+    unpack8(load8_raw(q.p + b * q.bs + min(r, lq - 1) * q.ld + hd * d, c, d, wide), f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      qr[r][i] = f[i] * scale;
+      o[r][i] = 0.f;
+    }
+    m[r] = -kNeg;
+    l[r] = 0.f;
+  }
+
+  const bf16* kb = k.p + b * k.bs + hd * d;
+  const bf16* vb = v.p + b * v.bs + hd * d;
+  for (int j0 = wbeg; j0 < wend; j0 += KS) {
+    uint4 kk[kTokUnroll], vv[kTokUnroll];
+    float a[kTokUnroll];
+#pragma unroll
+    for (int u = 0; u < kTokUnroll; ++u) {
+      const int key = j0 + u * KW + grp;
+      const int kc = min(key, wend - 1);  // past the range: a row to read, no weight
+      kk[u] = load8_raw(kb + kc * k.ld, c, d, wide);
+      vv[u] = load8_raw(vb + kc * v.ld, c, d, wide);
+      a[u] = key < wend ? (mask ? (mask[(long long)b * lk + kc] - 1.f) * kNeg : 0.f)
+                        : -CUDART_INF_F;
+    }
+#pragma unroll
+    for (int r = 0; r < LQ; ++r) {
+      if (r >= lq) break;
+      float s[kTokUnroll];
+      float cm = -CUDART_INF_F;
+#pragma unroll
+      for (int u = 0; u < kTokUnroll; ++u) {
+        float kf[8];
+        unpack8(kk[u], kf);
+        float dot = 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) dot = fmaf(qr[r][i], kf[i], dot);
+#pragma unroll
+        for (int off = G / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        s[u] = dot + a[u];
+        cm = fmaxf(cm, s[u]);
+      }
+      const float mn = fmaxf(m[r], cm);
+      const float corr = exp_neg(m[r] - mn);
+      l[r] *= corr;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) o[r][i] *= corr;
+#pragma unroll
+      for (int u = 0; u < kTokUnroll; ++u) {
+        const float p = exp_neg(s[u] - mn);
+        float vf[8];
+        unpack8(vv[u], vf);
+        l[r] += p;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) o[r][i] = fmaf(p, vf[i], o[r][i]);
+      }
+      m[r] = mn;
+    }
+  }
+
+  // the warp's streams into one: lanes that share a column range, across groups
+#pragma unroll
+  for (int r = 0; r < LQ; ++r) {
+#pragma unroll
+    for (int off = G; off < 32; off <<= 1) {
+      float o2[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) o2[i] = __shfl_xor_sync(0xffffffffu, o[r][i], off);
+      const float m2 = __shfl_xor_sync(0xffffffffu, m[r], off);
+      const float l2 = __shfl_xor_sync(0xffffffffu, l[r], off);
+      merge_stream(m[r], l[r], o[r], m2, l2, o2);
+    }
+    if (lane < G) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) sm_o[warp][r][c + i] = o[r][i];
+      if (lane == 0) {
+        sm_ml[warp][r][0] = m[r];
+        sm_ml[warp][r][1] = l[r];
+      }
+    }
+  }
+  __syncthreads();
+
+  // the block's warps into one, a thread per (row, column)
+  const long long n_rows = (long long)gridDim.x * lq;  // (set, row, head) triples
+  for (int e = threadIdx.x; e < lq * d; e += kTokThreads) {
+    const int r = e / d, col = e % d;
+    float mx = -CUDART_INF_F;
+#pragma unroll
+    for (int w = 0; w < kTokWarps; ++w) mx = fmaxf(mx, sm_ml[w][r][0]);
+    float acc = 0.f, sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kTokWarps; ++w) {
+      const float wt = exp_neg(sm_ml[w][r][0] - mx);
+      sum = fmaf(sm_ml[w][r][1], wt, sum);
+      acc = fmaf(sm_o[w][r][col], wt, acc);
+    }
+    const long long rowid = ((long long)b * lq + r) * h + hd;
+    if (splits == 1) {
+      out[rowid * d + col] = __float2bfloat16_rn(acc / fmaxf(sum, kMinSum));
+    } else {
+      const long long slot = (long long)split * n_rows + rowid;
+      part[slot * d + col] = acc;
+      if (col == 0) {
+        float* ml = part + (long long)splits * n_rows * d + slot * 2;
+        ml[0] = mx;
+        ml[1] = sum;
+      }
+    }
+  }
+  if (splits == 1) return;
+
+  // the last block of the (set, head) to finish merges the splits
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) sm_last = atomicAdd(counters + pair, 1) == splits - 1;
+  __syncthreads();
+  if (!sm_last) return;
+  __threadfence();
+  const float* ml = part + (long long)splits * n_rows * d;
+  for (int e = threadIdx.x; e < lq * d; e += kTokThreads) {
+    const int r = e / d, col = e % d;
+    const long long rowid = ((long long)b * lq + r) * h + hd;
+    float mx = -CUDART_INF_F;
+    for (int s = 0; s < splits; ++s) mx = fmaxf(mx, __ldcg(ml + (s * n_rows + rowid) * 2));
+    float acc = 0.f, sum = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      const float wt = exp_neg(__ldcg(ml + (s * n_rows + rowid) * 2) - mx);
+      sum = fmaf(__ldcg(ml + (s * n_rows + rowid) * 2 + 1), wt, sum);
+      acc = fmaf(__ldcg(part + (s * n_rows + rowid) * d + col), wt, acc);
+    }
+    out[rowid * d + col] = __float2bfloat16_rn(acc / fmaxf(sum, kMinSum));
+  }
+  if (threadIdx.x == 0) counters[pair] = 0;  // ready for the next launch
+}
+
+// `report` (4 ints): blocks of the grid, warps of a block, resident blocks an
+// SM at these launch bounds, registers per thread. Launches nothing then.
+template <int DP, int LQ>
+cudaError_t launch_token_bf16_lq(HeadsT<bf16> q, HeadsT<bf16> k, HeadsT<bf16> v,
+                                 const float* mask, bf16* out, float* part, int* counters, int b,
+                                 int lq, int lk, int h, int d, int splits, cudaStream_t stream,
+                                 int* report) {
+  const Splits sp = count_splits(lk, splits);
+  if (sp.n > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(b * h, sp.n);
+  if (report) {
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, flash_token_bf16_kernel<DP, LQ>);
+    if (err != cudaSuccess) return err;
+    int resident = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident,
+                                                        flash_token_bf16_kernel<DP, LQ>,
+                                                        kTokThreads, 0);
+    if (err != cudaSuccess) return err;
+    report[0] = (int)(grid.x * grid.y);
+    report[1] = kTokWarps;
+    report[2] = resident;
+    report[3] = attr.numRegs;
+    return cudaSuccess;
+  }
+  if (sp.n > 1 && (part == nullptr || counters == nullptr)) return cudaErrorInvalidValue;
+  // 16-byte loads where every row starts on 16 bytes
+  const bool wide = d % 8 == 0 && q.bs % 8 == 0 && q.ld % 8 == 0 && k.bs % 8 == 0 &&
+                    k.ld % 8 == 0 && v.bs % 8 == 0 && v.ld % 8 == 0 &&
+                    reinterpret_cast<uintptr_t>(q.p) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(k.p) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(v.p) % 16 == 0;
+  flash_token_bf16_kernel<DP, LQ><<<grid, kTokThreads, 0, stream>>>(
+      q, k, v, mask, out, sp.n > 1 ? part : nullptr, counters, lq, lk, h, d, sp.keys_per_split,
+      1.f / sqrtf((float)d), wide);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_token_bf16_dp(HeadsT<bf16> q, HeadsT<bf16> k, HeadsT<bf16> v,
+                                 const float* mask, bf16* out, float* part, int* counters, int b,
+                                 int lq, int lk, int h, int d, int splits, cudaStream_t stream,
+                                 int* report) {
+  if (lq == 1)
+    return launch_token_bf16_lq<DP, 1>(q, k, v, mask, out, part, counters, b, lq, lk, h, d,
+                                       splits, stream, report);
+  if (lq == 2)
+    return launch_token_bf16_lq<DP, 2>(q, k, v, mask, out, part, counters, b, lq, lk, h, d,
+                                       splits, stream, report);
+  return launch_token_bf16_lq<DP, 4>(q, k, v, mask, out, part, counters, b, lq, lk, h, d, splits,
+                                     stream, report);
+}
+
+cudaError_t launch_token_bf16(HeadsT<bf16> q, HeadsT<bf16> k, HeadsT<bf16> v, const float* mask,
+                              bf16* out, float* part, int* counters, int b, int lq, int lk, int h,
+                              int d, int splits, cudaStream_t stream, int* report) {
+  if (b <= 0 || h <= 0 || lq <= 0 || lq > kTokMaxRows || lk <= 0 || d <= 0 || d > 128 ||
+      splits <= 0)
+    return cudaErrorInvalidValue;
+  if (d <= 8)
+    return launch_token_bf16_dp<8>(q, k, v, mask, out, part, counters, b, lq, lk, h, d, splits,
+                                   stream, report);
+  if (d <= 16)
+    return launch_token_bf16_dp<16>(q, k, v, mask, out, part, counters, b, lq, lk, h, d, splits,
+                                    stream, report);
+  if (d <= 32)
+    return launch_token_bf16_dp<32>(q, k, v, mask, out, part, counters, b, lq, lk, h, d, splits,
+                                    stream, report);
+  if (d <= 64)
+    return launch_token_bf16_dp<64>(q, k, v, mask, out, part, counters, b, lq, lk, h, d, splits,
+                                    stream, report);
+  return launch_token_bf16_dp<128>(q, k, v, mask, out, part, counters, b, lq, lk, h, d, splits,
+                                   stream, report);
 }
 
 }  // namespace
@@ -619,19 +901,35 @@ extern "C" int flash_masked_attention_geometry(int lq, int d, int* report) {
 extern "C" const char* attention_mma_instruction() { return MMA_TF32_INSTRUCTION; }
 
 // The bfloat16 kernel: q, k, v and the output in bfloat16, the mask and the
-// scratch in float32; arguments as flash_masked_attention_f32's. More than 4
-// query rows at head dims up to 64 go to the bfloat16 tensor-core variant;
-// the other shapes run the float32 arithmetic of the CUDA-core variants on
-// bfloat16 loads and stores, which is what the Pallas kernel computes (it
-// upcasts q, k and v).
+// scratch in float32; arguments as flash_masked_attention_f32's, and
+// `counters` (B * H ints, zero, left zero) when splits > 1. At most 4 query
+// rows (class tokens) go to flash_token_bf16_kernel; more, at head dims up to
+// 64, to the bfloat16 tensor-core variant; the rest run the float32
+// arithmetic of the staged CUDA-core variant on bfloat16 loads and stores,
+// which is what the Pallas kernel computes (it upcasts q, k and v).
 extern "C" int flash_masked_attention_bf16(
     const bf16* q, const bf16* k, const bf16* v, const float* mask, bf16* out,
-    float* scratch, int b, int lq, int lk, int h, int d, int splits,
+    float* scratch, int* counters, int b, int lq, int lk, int h, int d, int splits,
     long long q_bs, long long q_ld, long long k_bs, long long k_ld,
     long long v_bs, long long v_ld, void* stream_ptr) {
-  return (int)launch_flash_d(heads(q, q_bs, q_ld, d), heads(k, k_bs, k_ld, d),
-                             heads(v, v_bs, v_ld, d), mask, out, scratch, b, lq, lk, h, d, splits,
-                             static_cast<cudaStream_t>(stream_ptr), nullptr);
+  const HeadsT<bf16> hq = heads(q, q_bs, q_ld, d), hk = heads(k, k_bs, k_ld, d),
+                     hv = heads(v, v_bs, v_ld, d);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (lq <= kTokMaxRows)
+    return (int)launch_token_bf16(hq, hk, hv, mask, out, scratch, counters, b, lq, lk, h, d,
+                                  splits, stream, nullptr);
+  return (int)launch_flash_d(hq, hk, hv, mask, out, scratch, b, lq, lk, h, d, splits, stream,
+                             nullptr);
+}
+
+// What the launcher gives flash_token_bf16_kernel for these shapes, into
+// `report` (4 ints: blocks, warps of a block, resident blocks an SM,
+// registers per thread). Launches nothing.
+extern "C" int flash_token_bf16_geometry(int b, int lq, int lk, int h, int d, int splits,
+                                         int* report) {
+  const HeadsT<bf16> none{};
+  return (int)launch_token_bf16(none, none, none, nullptr, nullptr, nullptr, nullptr, b, lq, lk,
+                                h, d, splits, nullptr, report);
 }
 
 extern "C" const char* attention_mma_bf16_instruction() { return MMA_BF16_INSTRUCTION; }

@@ -1,7 +1,7 @@
 // bfloat16 on mma.sync.aligned.m16n8k16 for sm_90a: what the bfloat16
 // tensor-core kernels of this directory share (epic_layer.cu, the EPiC
-// layer's local products; attention_mma.cuh, the bfloat16 tile step of the
-// packed and flash kernels).
+// layer's per-set products and roundings; attention_mma.cuh, the bfloat16
+// tile step of the packed and flash kernels).
 //
 // A bfloat16 product is exact in float32 and the instruction accumulates in
 // float32, so one instruction computes what the Pallas kernels' bfloat16

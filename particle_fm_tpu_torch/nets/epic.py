@@ -79,8 +79,9 @@ class EPiCLayer(nn.Module):
     @torch.no_grad()
     def fold(self) -> None:
         """Fold weight norm (in float32) and cut the weights into the fused
-        layer's layout (`ops/epic_layer.py`), cast to `dtype` when it is set,
-        once."""
+        layer's layout (`ops/epic_layer.py`), cast to `dtype` when it is set
+        (then also laying them out as the bfloat16 kernels read them:
+        `bf16_weight_image`), once."""
         if self.activation != "leaky_relu":
             raise NotImplementedError(f"the fused EPiC layer computes leaky_relu, not {self.activation}")
         fcs = (self.fc_global1, self.fc_global2, self.fc_local1, self.fc_local2)
@@ -97,6 +98,9 @@ class EPiCLayer(nn.Module):
         )
         if self.dtype is not None:
             weights = {k: w.to(self.dtype) for k, w in weights.items()}
+            # the bfloat16 kernels' image of the weights, laid out once
+            weights["weight_image"] = epic_layer_ops.bf16_weight_image(
+                *(weights[k] for k in ("wg1", "wg2", "w1s", "w2s", "w1x", "w2x")))
         self._kernel_weights = weights
 
     def unfold(self) -> None:
@@ -133,7 +137,7 @@ class EPiCLayer(nn.Module):
                 w["wg1"], w["bg1"], w["wg2"], w["bg2"],
                 w["w1x"], w["w1s"], w["b1"], w["w2x"], w["w2s"], w["b2"],
                 sum_scale=self.sum_scale, tg_dim=self.tg, tl_dim=self.tl, cg_dim=self.gc,
-                cl_dim=self.lc,
+                cl_dim=self.lc, weight_image=w.get("weight_image"),
             )
             return x_global, x_local
 

@@ -25,10 +25,13 @@ takes one width for both; jetclass_cond feeds cond to the global path only.
 `epic_layer` runs the plain version for a tensor on the CPU and launches
 `csrc/epic_layer.cu` for a CUDA tensor; it never falls back from one to the
 other. The CUDA library is built with nvcc at first use (ops/_build.py). The
-kernel runs the two local matmuls on the tensor cores, each float32 product
-as three TF32 products (csrc/mma_tf32.cuh); `epic_layer_tf32` models that
-arithmetic on any device, and `launch_report` asks the built library what its
-launcher gives the kernel at a shape.
+float32 kernel runs the two local matmuls on the tensor cores, each float32
+product as three TF32 products (csrc/mma_tf32.cuh); `epic_layer_tf32` models
+that arithmetic on any device, and `launch_report` asks the built library
+what its launcher gives the kernel at a shape. The bfloat16 kernels (the
+per-set part over several sets a block, then the local products on wgmma,
+csrc/wgmma_bf16.cuh) have `bf16_launch_report`, which `bf16_geometry`
+mirrors.
 """
 
 from __future__ import annotations
@@ -45,6 +48,13 @@ from particle_fm_tpu_torch.ops.tf32 import product_tf32
 
 SOURCE = _build.CSRC_DIR / "epic_layer.cu"
 MAX_WIDTH = 512  # the largest H and L the kernel takes
+# the bfloat16 kernels' constants (csrc/epic_layer.cu, bfloat16 section)
+BF16_SETS_PER_BLOCK = 4  # kSetsPerBlock: sets of a per-set block, at most
+BF16_CHUNK_BYTES, BF16_CHUNK_STAGES = 24576, 3  # kChunkBytes, kChunkStages: per-set weight chunks
+BF16_TILE_ROWS = 64  # kTileRows: rows of a warpgroup's tile
+BF16_SLICE_K = 32  # kSliceK: k rows of a weight slice
+BF16_RING = 6  # kRing: slots of the streamed weights
+MAX_SMEM = 232448  # kMaxSmem: bytes of shared memory a block may use
 
 
 def _act(x: torch.Tensor) -> torch.Tensor:
@@ -60,10 +70,13 @@ def epic_layer_reference(
     cg_dim: int = 0,
     cl_dim: int = 0,
     local_matmul=torch.matmul,
+    weight_image=None,
 ):
     """Plain PyTorch version of the fused layer. Returns (x_local, x_global)
     in x_local's dtype. `local_matmul(x, w)` computes the two H x H local
-    products.
+    products. `weight_image`, the bfloat16 kernels' layout of the same
+    weights (`bf16_weight_image`), is taken and not used, so that the plain
+    version stands in for `epic_layer` wherever a caller passes it.
 
     In bfloat16 it keeps the Pallas kernel's arithmetic: every product in
     float32 on the bfloat16 values (a bfloat16 product is exact in float32,
@@ -126,11 +139,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.epic_layer_mma_instruction.restype = ctypes.c_char_p
     if hasattr(lib, "epic_layer_fwd_bf16"):  # an earlier source, timed beside, may lack it
         fn = lib.epic_layer_fwd_bf16
-        fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.epic_layer_bf16_mma_instruction.argtypes = []
         lib.epic_layer_bf16_mma_instruction.restype = ctypes.c_char_p
+    if hasattr(lib, "epic_layer_bf16_geometry"):
+        geometry = lib.epic_layer_bf16_geometry
+        geometry.argtypes = [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_int)]
+        geometry.restype = ctypes.c_int
 
 
 def launch_report(b: int, n: int, h: int, l: int, s: int, tg: int = 0, tl: int = 0,
@@ -150,6 +167,111 @@ def launch_report(b: int, n: int, h: int, l: int, s: int, tg: int = 0, tl: int =
     return dict(zip(names, report), instruction=lib.epic_layer_mma_instruction().decode())
 
 
+BF16_REPORT = ("blocks", "warps", "tile_rows", "stages", "smem_bytes", "registers_per_thread",
+               "weights_resident", "column_block", "set_blocks", "sets_per_block")
+
+
+def _sets_smem_bytes(h: int, l: int, sets: int, tg: int, tl: int, cg: int, cl: int) -> int:
+    """A block's shared memory of the per-set kernel (SetsLayout in the
+    source): the four dots' float32 inputs and results, the inputs split into
+    three bfloat16 pieces, the weight chunks."""
+    k = (tg + 2 * h + l + cg, tg + h + cg, tl + l + cl, tl + cl)
+    kmax = -(-max(k[:3]) // 16) * 16
+    res = -(-(sets * sum(k)) // 4) * 4
+    wide = -(-max(h, l) // 16) * 16 + 8
+    floats = -(-(res + sets * wide) // 4) * 4
+    return 4 * (floats + 3 * (sets + 1) * (kmax + 8) // 2) + BF16_CHUNK_STAGES * BF16_CHUNK_BYTES
+
+
+def _local_widths(h: int) -> tuple[int, int, int, int, bool]:
+    """(hp, nb, ncb, kp, regs) of the local kernels at width h: H padded to
+    16, the column block (a wgmma's N) and their count, k padded (to the
+    column block where x and x1 live in registers, H <= 128; else to 32)."""
+    hp = -(-h // 16) * 16
+    regs = hp <= 128
+    nb = 64 if hp <= 64 else 128 if (hp <= 128 or 152 < hp <= 256 or hp > 304) else 152
+    return hp, nb, -(-hp // nb), nb if regs else -(-h // 32) * 32, regs
+
+
+def bf16_local_slices(w1x: torch.Tensor, w2x: torch.Tensor) -> torch.Tensor:
+    """w1x and w2x (H, H), bfloat16, as the local kernels stage them: per
+    weight, column block and k slice of 32 rows, the slice's core matrices
+    (8 rows of k by 8 columns, 128 bytes each, column blocks of 8 outer) one
+    after another, zeros past H, so that a slice is one contiguous copy. The
+    last part of `bf16_weight_image`."""
+    h = w1x.shape[0]
+    _, nb, ncb, kp, _ = _local_widths(h)
+    out = []
+    for w in (w1x, w2x):
+        wp = w.new_zeros(kp, ncb * nb)
+        wp[:h, :h] = w
+        # k = 32 ks + 8 rg + ri, n = nb cb + 8 cg + ci -> (cb, ks, cg, rg, ri, ci)
+        out.append(wp.view(kp // 32, 4, 8, ncb, nb // 8, 8).permute(3, 0, 4, 1, 2, 5).reshape(-1))
+    return torch.cat(out)
+
+
+def bf16_weight_image(wg1, wg2, w1s, w2s, w1x, w2x) -> torch.Tensor:
+    """The bfloat16 kernels' image of a layer's weights (ImageLayout in the
+    source), one bfloat16 vector: the per-set weights wg1, wg2, w1s and w2s,
+    each with its rows padded with zeros to a multiple of 16 at a row
+    distance of its width rounded up to 16 plus 8 (rows on 16 bytes, read by
+    ldmatrix without bank conflicts), so that a chunk of rows is one
+    contiguous copy; then `bf16_local_slices(w1x, w2x)`. `EPiCLayer.fold`
+    lays it out once; `epic_layer_bf16` does at the call where it is given
+    none."""
+    parts = []
+    for w in (wg1, wg2, w1s, w2s):
+        k, m = w.shape
+        wp = w.new_zeros(-(-k // 16) * 16, -(-m // 16) * 16 + 8)
+        wp[:k, :m] = w
+        parts.append(wp.reshape(-1))
+    return torch.cat(parts + [bf16_local_slices(w1x, w2x)])
+
+
+def bf16_geometry(b: int, n: int, h: int, l: int, sms: int, tg: int = 0, tl: int = 0,
+                  cg: int = 0, cl: int = 0) -> dict:
+    """What the launcher of `epic_layer_fwd_bf16` gives its kernels for b
+    sets of n particles at widths h and l on a card of `sms` SMs (the
+    library's report but the registers): the local kernel's persistent
+    blocks, warps (one or two warpgroups of 4), the rows its warpgroups take
+    at a time (64 each), the weight slices (32 rows of k by a column block)
+    staged at once, a block's shared memory, whether x and x1 live in
+    registers with both weights staged once (H <= 128; wider layers stage x
+    and x1 in shared memory and stream the weights through a ring), the
+    column block (the wgmma's N: H is padded to 16 and cut into blocks of 64,
+    128 or 152 columns); the per-set kernel's blocks and sets a block (4, or
+    fewer until its shared memory fits). The pool kernel before it takes one
+    set a block."""
+    hp, nb, ncb, kp, regs = _local_widths(h)
+    tc = nb + 8 if regs else max(kp, ncb * nb)  # columns of a tile in shared memory
+    slices, slice_bytes = 2 * ncb * (kp // BF16_SLICE_K), 2 * BF16_SLICE_K * nb
+    slots = slices if regs else BF16_RING
+    biases = (2 if regs else 1) * 4 * 2 * 2 * ncb * nb  # bytes of a warpgroup's bias buffers
+    smem = lambda wgs: wgs * (2 * 2 * BF16_TILE_ROWS * tc + biases) + slots * slice_bytes
+    wgs = 2 if smem(2) <= MAX_SMEM else 1
+    unit = wgs * BF16_TILE_ROWS
+    sets = BF16_SETS_PER_BLOCK
+    while sets > 1 and _sets_smem_bytes(h, l, sets, tg, tl, cg, cl) > MAX_SMEM:
+        sets //= 2
+    return {"blocks": min(-(-(b * n) // unit), sms), "warps": 4 * wgs, "tile_rows": unit,
+            "stages": slots, "smem_bytes": smem(wgs), "weights_resident": int(regs),
+            "column_block": nb, "set_blocks": -(-b // sets), "sets_per_block": sets}
+
+
+def bf16_launch_report(b: int, n: int, h: int, l: int, s: int, tg: int = 0, tl: int = 0,
+                       cg: int = 0, cl: int = 0) -> dict:
+    """What the built library's launcher gives the two bfloat16 kernels at
+    this shape (needs a CUDA device): `BF16_REPORT`, and the instruction of
+    the local products with N the column block."""
+    report = (ctypes.c_int * len(BF16_REPORT))()
+    err = load_library().epic_layer_bf16_geometry(b, n, h, l, s, tg, tl, cg, cl, report)
+    if err != 0:
+        raise RuntimeError(f"epic_layer_bf16_geometry failed: cudaError {err}")
+    out = dict(zip(BF16_REPORT, report))
+    out["instruction"] = bf16_instruction().replace("m64nNk16", f"m64n{out['column_block']}k16")
+    return out
+
+
 def build_library(source: Path | None = None) -> Path:
     """Compile `source` (default csrc/epic_layer.cu); see ops/_build.py."""
     return _build.build_library(source or SOURCE)
@@ -163,7 +285,8 @@ def load_library(source: Path | None = None) -> ctypes.CDLL:
 
 def bf16_instruction() -> str:
     """The tensor-core instruction of the bfloat16 kernel's local products,
-    as the built library names it (needs the library; no device)."""
+    as the built library names it, N standing for the column block (needs
+    the library; no device)."""
     return load_library().epic_layer_bf16_mma_instruction().decode()
 
 
@@ -216,11 +339,14 @@ def epic_layer_bf16(
     tl_dim: int = 0,
     cg_dim: int = 0,
     cl_dim: int = 0,
+    weight_image=None,
 ):
     """The bfloat16 kernel on CUDA tensors (`epic_layer_fwd_bf16`): every
     tensor bfloat16 but the float32 mask; arguments as in
-    `epic_layer_reference`, whose bfloat16 arithmetic it computes. Counts
-    its launches in `epic_layer_bf16.launches`."""
+    `epic_layer_reference`, whose bfloat16 arithmetic it computes, and
+    `weight_image`, the weights as `bf16_weight_image` lays them out (laid
+    out here when not given; the kernels read the weights from it only).
+    Counts its launches in `epic_layer_bf16.launches`."""
     args = (x_local, x_global, mask, set_feat, wg1, bg1, wg2, bg2, w1x, w1s, b1, w2x, w2s, b2)
     dims = dict(tg_dim=tg_dim, tl_dim=tl_dim, cg_dim=cg_dim, cl_dim=cl_dim)
     if x_local.device.type != "cuda" or x_local.dtype != torch.bfloat16:
@@ -228,19 +354,27 @@ def epic_layer_bf16(
                          f"{x_local.device}")
     b, n, h, l, s = _check_shapes(args, dims, torch.bfloat16)
     dev = x_local.device
+    if weight_image is None:
+        weight_image = bf16_weight_image(wg1, wg2, w1s, w2s, w1x, w2x)
+    _, nb, ncb, kp, _ = _local_widths(h)
+    size = 2 * kp * ncb * nb + sum(-(-w.shape[0] // 16) * 16 * (-(-w.shape[1] // 16) * 16 + 8)
+                                   for w in (wg1, wg2, w1s, w2s))
+    _check("weight_image", weight_image, (size,), dev, dtype=torch.bfloat16)
     xo = torch.empty_like(x_local)
     go = torch.empty_like(x_global)
     if b == 0:
         return xo, go
-    # the per-set biases of the two local products, float32, between the
-    # library's two kernels
-    biases = torch.empty((b, 2, h), dtype=torch.float32, device=dev)
+    # scratch between the library's three kernels, float32: the per-set
+    # biases of the two local products (B, 2, H), the pooled sums (B, H), the
+    # counts (B)
+    biases = torch.empty(b * (3 * h + 1), dtype=torch.float32, device=dev)
     lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.epic_layer_fwd_bf16(
             *(t.data_ptr() for t in args), xo.data_ptr(), go.data_ptr(), biases.data_ptr(),
-            b, n, h, l, s, tg_dim, tl_dim, cg_dim, cl_dim, float(sum_scale), stream,
+            weight_image.data_ptr(), b, n, h, l, s, tg_dim, tl_dim, cg_dim, cl_dim,
+            float(sum_scale), stream,
         )
     if err != 0:
         raise RuntimeError(f"epic_layer_bf16 kernel launch failed: cudaError {err}")
@@ -259,10 +393,12 @@ def epic_layer(
     tl_dim: int = 0,
     cg_dim: int = 0,
     cl_dim: int = 0,
+    weight_image=None,
 ):
     """One EPiC layer: for CUDA tensors the float32 kernel, or the bfloat16
-    one (`epic_layer_bf16`) for bfloat16 tensors; the plain version for CPU
-    tensors. Arguments as in `epic_layer_reference`."""
+    one (`epic_layer_bf16`, which takes `weight_image`) for bfloat16
+    tensors; the plain version for CPU tensors. Arguments as in
+    `epic_layer_reference`."""
     args = (x_local, x_global, mask, set_feat, wg1, bg1, wg2, bg2, w1x, w1s, b1, w2x, w2s, b2)
     dims = dict(sum_scale=sum_scale, tg_dim=tg_dim, tl_dim=tl_dim, cg_dim=cg_dim,
                 cl_dim=cl_dim)
@@ -271,7 +407,7 @@ def epic_layer(
     if x_local.device.type != "cuda":
         raise ValueError(f"epic_layer runs on cuda or cpu, got {x_local.device}")
     if x_local.dtype == torch.bfloat16:
-        return epic_layer_bf16(*args, **dims)
+        return epic_layer_bf16(*args, **dims, weight_image=weight_image)
 
     dev = x_local.device
     b, n, h, l, s = _check_shapes(args, dims, torch.float32)

@@ -21,12 +21,17 @@ counts its launches in `flash_masked_attention.launches`. With more than 4
 query rows and head dims up to 64 the kernel runs on the tensor cores
 (`csrc/attention_mma.cuh`, three TF32 products per float32 product;
 `mma_geometry` mirrors its launcher and `mma_launch_report` asks the built
-library for the same numbers), else on the CUDA cores.
+library for the same numbers), else on the CUDA cores. In bfloat16, at most
+`DIRECT_MAX_ROWS` query rows (class tokens) take a kernel of their own that
+splits the keys over one wave of resident blocks (`token_splits`;
+`token_geometry` mirrors its launch, `token_launch_report` asks the library)
+and merges the splits in the same launch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -45,6 +50,11 @@ ROWS_PER_BLOCK = 128  # most query rows of a block (kRowsPerBlock in csrc/flash_
 # head, query tile) triples than this the keys are split over several blocks
 _MIN_BLOCKS = 2048
 _MIN_KEYS_PER_SPLIT = 256
+# bfloat16 class tokens (at most `DIRECT_MAX_ROWS` query rows):
+# flash_token_bf16_kernel in csrc/flash_attention.cu
+TOKEN_WARPS = 8  # kTokWarps
+TOKEN_BLOCKS_PER_SM = 2  # kTokBlocksPerSm, the kernel's launch bounds
+_TOKEN_MIN_KEYS_PER_SPLIT = 128
 
 
 def flash_masked_attention_reference(q, k, v, kv_mask=None, block_k: int = BLOCK_K):
@@ -107,6 +117,62 @@ def key_splits(b: int, lq: int, lk: int, h: int) -> int:
     return max(1, min(-(-_MIN_BLOCKS // blocks), lk // _MIN_KEYS_PER_SPLIT))
 
 
+def token_splits(b: int, h: int, lk: int, sms: int) -> int:
+    """Over how many blocks the bfloat16 class-token kernel splits one
+    head's keys: as many as fit one wave of resident blocks
+    (`TOKEN_BLOCKS_PER_SM` on each of `sms` SMs) beside the other (set,
+    head) pairs, each with at least `_TOKEN_MIN_KEYS_PER_SPLIT` keys; 1 when
+    the pairs alone fill a wave."""
+    pairs = b * h
+    wave = sms * TOKEN_BLOCKS_PER_SM
+    if pairs >= wave:
+        return 1
+    return max(1, min(wave // pairs, lk // _TOKEN_MIN_KEYS_PER_SPLIT))
+
+
+def token_geometry(b: int, lk: int, h: int, sms: int) -> dict:
+    """What the launcher gives the bfloat16 class-token kernel: blocks (one
+    per (set, head) and split, the splits counted again from the keys each
+    takes, so that none is empty), warps of a block, the resident blocks an
+    SM that the split count assumed, and the keys of a split."""
+    splits = token_splits(b, h, lk, sms)
+    per_split = -(-lk // splits)
+    blocks = b * h * -(-lk // per_split)
+    return {"blocks": blocks, "warps": TOKEN_WARPS,
+            "resident_blocks_per_sm": TOKEN_BLOCKS_PER_SM, "keys_per_split": per_split}
+
+
+def token_launch_report(b: int, lq: int, lk: int, h: int, d: int) -> dict:
+    """What the built library's launcher gives the bfloat16 class-token
+    kernel at this shape (needs a CUDA device): blocks, warps of a block,
+    resident blocks an SM (CUDA's occupancy calculator), registers per
+    thread; `token_geometry` mirrors the first three."""
+    sms = _sm_count(torch.device("cuda", torch.cuda.current_device()))
+    report = (ctypes.c_int * 4)()
+    err = load_library().flash_token_bf16_geometry(b, lq, lk, h, d, token_splits(b, h, lk, sms),
+                                                   report)
+    if err != 0:
+        raise RuntimeError(f"flash_token_bf16_geometry failed: cudaError {err}")
+    names = ("blocks", "warps", "resident_blocks_per_sm", "registers_per_thread")
+    return dict(zip(names, report))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+_counters: dict[torch.device, torch.Tensor] = {}
+
+
+def _token_counters(dev: torch.device, n: int) -> torch.Tensor:
+    """The class-token kernel's tickets, one int per (set, head): zeroed
+    once per device and size, and left at zero by every launch."""
+    if dev not in _counters or _counters[dev].numel() < n:
+        _counters[dev] = torch.zeros(n, dtype=torch.int32, device=dev)
+    return _counters[dev]
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.flash_masked_attention_f32
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
@@ -119,9 +185,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.attention_mma_instruction.restype = ctypes.c_char_p
     if hasattr(lib, "flash_masked_attention_bf16"):  # an earlier source, timed beside, may lack it
         fn = lib.flash_masked_attention_bf16
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        geometry = lib.flash_token_bf16_geometry
+        geometry.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+        geometry.restype = ctypes.c_int
         lib.attention_mma_bf16_instruction.argtypes = []
         lib.attention_mma_bf16_instruction.restype = ctypes.c_char_p
 
@@ -160,16 +229,22 @@ def _launch(entry: str, q, k, v, kv_mask) -> torch.Tensor:
     out = torch.empty((b, lq, h, d), dtype=dtype, device=dev)
     if b == 0 or h == 0:
         return out
-    splits = key_splits(b, lq, lk, h)
+    token = dtype == torch.bfloat16 and lq <= DIRECT_MAX_ROWS
+    if token:
+        splits = token_splits(b, h, lk, _sm_count(dev))
+    else:
+        splits = key_splits(b, lq, lk, h)
     scratch = None
     if splits > 1:  # per split an accumulator (B, Lq, H, D) and a pair (m, l), float32
         scratch = torch.empty(splits * b * lq * h * (d + 2), dtype=torch.float32, device=dev)
+    counters = () if dtype == torch.float32 else (
+        _token_counters(dev, b * h).data_ptr() if token and splits > 1 else None,)
     fn = getattr(load_library(), entry)
     with torch.cuda.device(dev):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if kv_mask is None else kv_mask.data_ptr(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), b, lq, lk, h, d, splits,
+            None if scratch is None else scratch.data_ptr(), *counters, b, lq, lk, h, d, splits,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
             torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -207,8 +282,10 @@ def flash_masked_attention_bf16(q, k, v, kv_mask=None) -> torch.Tensor:
     """The bfloat16 kernel on CUDA tensors: q, k, v bfloat16, the mask
     float32, the result bfloat16, as `flash_masked_attention_reference`
     computes it on bfloat16 inputs (Q . K^T as bfloat16 products with the
-    scale applied to S, P kept in float32). Forward only. Counts its launches
-    in `flash_masked_attention_bf16.launches`."""
+    scale applied to S, P kept in float32; with at most `DIRECT_MAX_ROWS`
+    query rows float32 arithmetic on the upcast values, in one launch that
+    merges its own splits). Forward only. Counts its launches in
+    `flash_masked_attention_bf16.launches`."""
     if q.device.type != "cuda" or q.dtype != torch.bfloat16:
         raise ValueError(f"flash_masked_attention_bf16 takes bfloat16 CUDA tensors, got "
                          f"{q.dtype} on {q.device}")

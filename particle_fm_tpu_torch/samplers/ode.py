@@ -220,10 +220,12 @@ def _error_ratio(err, x, x_new, rtol, atol, dims):
 
 
 def _dopri5_start(x0, t0, t1, init_dt, shape=()):
+    """(direction, t, dt) at the start, t and dt in the state's dtype as in
+    the JAX loop (a float64 state is integrated in float64 time)."""
     direction = 1.0 if t1 > t0 else -1.0
     dt0 = direction * (init_dt if init_dt is not None else abs(t1 - t0) / 50.0)
-    t = torch.full(shape, t0, dtype=torch.float32).to(x0.device)
-    dt = torch.full(shape, dt0, dtype=torch.float32).to(x0.device)
+    t = torch.full(shape, t0, dtype=x0.dtype).to(x0.device)
+    dt = torch.full(shape, dt0, dtype=x0.dtype).to(x0.device)
     return direction, t, dt
 
 

@@ -15,6 +15,13 @@ fraction of that. Every test needs an NVIDIA GPU and skips without one.
 This file imports no JAX, so it runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_bf16_kernels.py
+
+The EPiC kernel's local products run on wgmma and its per-set part takes
+several sets a block; the flash kernel's class-token variant splits the keys
+over whole waves of blocks and merges them in the same launch. Their edges
+(tiles that span sets, padded and streamed widths, one and many splits,
+key counts off every step, a fully masked set, offset operands) and their
+launch reports against the wrappers' mirrors are tested here too.
 """
 
 from __future__ import annotations
@@ -88,6 +95,46 @@ def test_epic_bf16_kernel_matches_plain_version(cuda, b, n, h, lat, tg, tl, cg, 
     assert_within(go, rg)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [3, 48, 300, 512])
+@pytest.mark.parametrize("n", [1, 17])
+def test_epic_bf16_kernel_at_the_edges_of_its_tiles_and_widths(cuda, n, h):
+    """64-row tiles that span sets (N=17: a tile holds parts of five sets;
+    N=1: 64 sets), widths padded to 16 (3), to a column block (48: 64; 300:
+    two blocks of 152, weights streamed) and the cap (512: one warpgroup)."""
+    args, dims = _epic_args(7, n, h, 16, 32, 32, 12, 0 if h == 300 else 12, n + h, cuda)
+    xo, go = ops.epic_layer(*args, **dims)
+    rx, rg = ops.epic_layer_reference(*args, **dims)
+    assert_within(xo, rx)
+    assert_within(go, rg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,h", [(5, 150, 128), (1000, 17, 128), (2048, 30, 300), (300, 1, 48)])
+def test_epic_bf16_kernel_with_few_and_many_sets(cuda, b, n, h):
+    """B below and far above the card's 132 SMs: the per-set kernel takes
+    up to 8 sets a block, the persistent local blocks walk many tiles."""
+    args, dims = _epic_args(b, n, h, 10, 32, 32, 2, 2, b + n, cuda)
+    xo, go = ops.epic_layer(*args, **dims)
+    rx, rg = ops.epic_layer_reference(*args, **dims)
+    assert_within(xo, rx)
+    assert_within(go, rg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,h,lat,cg,cl", [
+    (640, 150, 128, 10, 2, 2), (512, 128, 300, 16, 12, 0), (128, 558, 256, 256, 10, 10),
+    (2, 70, 512, 512, 12, 12), (4, 70, 3, 16, 1, 1), (3, 33, 140, 7, 3, 3),
+])
+def test_epic_bf16_launch_report_matches_its_mirror(cuda, b, n, h, lat, cg, cl):
+    report = ops.bf16_launch_report(b, n, h, lat, 32 + max(cg, cl), 32, 32, cg, cl)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    mirror = ops.bf16_geometry(b, n, h, lat, sms, 32, 32, cg, cl)
+    assert {k: report[k] for k in mirror} == mirror
+    assert report["instruction"] == (
+        f"wgmma.mma_async.sync.aligned.m64n{mirror['column_block']}k16.f32.bf16.bf16")
+
+
 def _attention_inputs(b, lq, lk, h, d, seed, device, masked=True, bias=False, fused_qkv=False):
     gen = torch.Generator().manual_seed(seed)
     if fused_qkv:
@@ -151,9 +198,64 @@ def test_flash_bf16_kernel_matches_plain_version(cuda, b, lq, lk, h, d, masked, 
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,lk,h,d", [
+    (32, 1, 6001, 2, 128), (3, 2, 997, 3, 64), (5, 3, 37, 2, 32), (2, 4, 1, 3, 16),
+    (4, 4, 300, 3, 8), (3, 1, 129, 2, 12), (700, 1, 150, 1, 128),
+])
+def test_flash_bf16_class_token_kernel(cuda, b, lq, lk, h, d):
+    """Class tokens (Lq 1-4) on key counts that are no multiple of a split
+    or of a warp step, head dims 8 to 128 (12: element loads), from one
+    split (700 (set, head) pairs fill the card) to many."""
+    q, k, v, mask, _ = _attention_inputs(b, lq, lk, h, d, lq + lk + d, cuda)
+    before = fa.flash_masked_attention_bf16.launches
+    with torch.no_grad():
+        out = fa.flash_masked_attention(q, k, v, mask)
+        again = fa.flash_masked_attention(q, k, v, mask)  # the tickets were left at zero
+    assert fa.flash_masked_attention_bf16.launches == before + 2
+    assert_within(out, fa.flash_masked_attention_reference(q, k, v, mask))
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+def test_flash_bf16_class_token_fully_masked_set_and_offset_operands(cuda):
+    """A set with no real key keeps the port's known behaviour (its weights
+    spread over its Lk keys, as the plain version's); operands offset by one
+    element from 16 bytes take element loads."""
+    q, k, v, mask, _ = _attention_inputs(6, 1, 3000, 2, 128, 5, cuda)
+    mask[2] = 0.0
+    with torch.no_grad():
+        out = fa.flash_masked_attention(q, k, v, mask)
+    want = fa.flash_masked_attention_reference(q, k, v, mask)
+    assert_within(out, want)
+    gen = torch.Generator().manual_seed(6)
+    flat = torch.randn(3 * 2 * 64 + 1, generator=gen).to(cuda, BF16)
+    qo = flat[1:].view(3, 1, 2, 64)
+    kv = torch.randn(2 * 3 * 500 * 2 * 64 + 1, generator=gen).to(cuda, BF16)
+    ko = kv[1:1 + 3 * 500 * 128].view(3, 500, 2, 64)
+    vo = kv[1 + 3 * 500 * 128:].view(3, 500, 2, 64)
+    m = (torch.arange(500)[None, :] < torch.tensor([[500], [7], [260]])).float().to(cuda)
+    with torch.no_grad():
+        got = fa.flash_masked_attention(qo, ko, vo, m)
+    assert_within(got, fa.flash_masked_attention_reference(qo, ko, vo, m))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,lk,h,d", [(32, 1, 6000, 2, 128), (3, 4, 900, 3, 64),
+                                         (700, 1, 150, 1, 128)])
+def test_flash_bf16_token_launch_report_matches_its_mirror(cuda, b, lq, lk, h, d):
+    report = fa.token_launch_report(b, lq, lk, h, d)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    mirror = fa.token_geometry(b, lk, h, sms)
+    assert report["blocks"] == mirror["blocks"] and report["warps"] == mirror["warps"]
+    # the split count assumes this many resident blocks on each SM
+    assert report["resident_blocks_per_sm"] == mirror["resident_blocks_per_sm"]
+
+
+@pytest.mark.cuda
 def test_bf16_libraries_name_the_bf16_instruction(cuda):
-    for lib_instruction in (ops.bf16_instruction, sa.bf16_instruction, fa.bf16_instruction):
+    for lib_instruction in (sa.bf16_instruction, fa.bf16_instruction):
         assert lib_instruction() == "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"
+    assert ops.bf16_instruction() == "wgmma.mma_async.sync.aligned.m64nNk16.f32.bf16.bf16"
 
 
 @pytest.mark.cuda
