@@ -65,18 +65,27 @@
    128, and its class-token variant at 1 to 4 query rows, key counts off
    every step and split, a fully masked set, twice in a row; each attention
    kernel at the edges of its tiles at head dims 8, 12, 32 and 64 and offset
-   by one element. The two kernels redesigned for this card (`epic_layer_bf16`
-   and the flash class token) are timed in TURN_ROUNDS rounds of in-turn
-   readings (plain, kernel, library, library, kernel, plain), medians
-   reported, the flash one's beside bf16 `scaled_dot_product_attention` in
-   the same turns. Beside each: one bf16 `scaled_dot_product_attention`
+   by one element. The kernels redesigned for this card (`epic_layer_bf16`,
+   the flash class token, flash with more than 4 query rows at path D and
+   the fused pair, each half apart) are timed in TURN_ROUNDS rounds of
+   in-turn readings (plain, kernel, library, library, kernel, plain),
+   medians reported, the attention ones beside bf16
+   `scaled_dot_product_attention` in the same turns. Flash at path D and the
+   fused halves stop at each set's last real key: beside their bound over
+   every key they report the bound over the keys the data needs and their
+   device time (torch.profiler), the run fails if either median reads below
+   that bound, and they are checked on masks of every kind (a prefix, holes,
+   only the last key real, every key masked, fractional values only), with
+   their launch reports against the wrappers' mirrors
+   (`mma_bf16_geometry`, `fused_bf16_geometry`) and two launches alike. Beside each: one bf16 `scaled_dot_product_attention`
    call (the port never calls it; it must agree within 4 ulps) and the bound,
    bytes at 2 per value and each bfloat16 product once at 989 TFLOP/s (the
    flash kernel's P . V twice in TF32; the EPiC layer's per-set products,
    float32 inputs in three bfloat16 pieces, three times). The run fails
-   unless the attention libraries name mma.sync.m16n8k16 bf16 and the EPiC
-   library wgmma.mma_async m64nNk16 bf16 as the instruction of their
-   bfloat16 products, and unless the EPiC and class-token launch reports
+   unless the attention libraries name mma.sync.m16n8k16 bf16 (and flash
+   mma.sync.m16n8k8 TF32, twice, for P . V) and the EPiC library
+   wgmma.mma_async m64nNk16 bf16 as the instruction of their bfloat16
+   products, and unless the EPiC and class-token launch reports
    agree with the wrappers' mirrors (`bf16_geometry`, `token_geometry`).
 3. Serving phases through `make_serve_fn`/`serve_batches`, midpoint,
    ode_steps=51 (100 network evaluations), float32, seeded random weights
@@ -258,6 +267,8 @@ BF16_INSTRUCTION = "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"
 EPIC_BF16_INSTRUCTION = "wgmma.mma_async.sync.aligned.m64nNk16.f32.bf16.bf16"
 EPIC_BF16_SET_PRODUCTS = 3
 FLASH_BF16_PV_TF32_PRODUCTS = 2  # the flash bf16 kernel's P . V: P's head and remainder in TF32
+TF32_INSTRUCTION = "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32"  # csrc/mma_tf32.cuh
+DEVICE_READINGS = 3  # device-time readings (torch.profiler) of a redesigned kernel: the median
 BF16_KERNEL_ULPS = 2  # a bf16 kernel against its plain version: bfloat16 ulps of the largest |out|
 BF16_LIBRARY_ULPS = 4  # the bf16 yardstick (scaled_dot_product_attention) rounds elsewhere
 # NFE 100 bf16 vs f32: per-feature mean and std, over the f32 std. Set after the first
@@ -802,16 +813,25 @@ def epic_bf16_design(torch, ops) -> dict:
 
 def attention_bf16_measure(torch, name, fn, ref, case, bf16_products: float = 0.0,
                            tf32_flops: float = 0.0, tf32_products: int = 1,
-                           in_turns_with_library: bool = False) -> dict:
+                           in_turns_with_library: bool = False, real_keys: bool = False) -> dict:
     """One bf16 attention kernel at one shape: check, time in turns with its
     plain version, time bf16 `scaled_dot_product_attention` on the same
     tensors (with `in_turns_with_library`, in the same turns, the medians of
     TURN_ROUNDS rounds), count the bound (`bf16_products`: the operations it
     runs as bfloat16 products; `tf32_flops` those it runs `tf32_products`
-    times in TF32; the rest on the CUDA cores)."""
+    times in TF32; the rest on the CUDA cores). With `real_keys` (a kernel
+    that stops at each set's last real key): the bound over the keys the
+    data needs too (`real_keys_bound_ms`: K and V rows, scores and products
+    up to each set's extent, `short_attention.real_key_extents`), the
+    kernel's device time (`device_ms`, torch.profiler, the median of
+    DEVICE_READINGS readings), and the run fails if a median reads below that
+    bound: an impossible reading."""
+    import statistics
+
     import torch.nn.functional as F
 
-    from particle_fm_tpu_torch.utils.timing import cuda_ms
+    from particle_fm_tpu_torch.ops.short_attention import real_key_extents
+    from particle_fm_tpu_torch.utils.timing import cuda_ms, device_ms
 
     q, k, v, mask, ab = case
     b, lq, h, d = q.shape
@@ -834,10 +854,25 @@ def attention_bf16_measure(torch, name, fn, ref, case, bf16_products: float = 0.
     else:
         times = {**timed_in_turns(lambda: fn(q, k, v, mask, ab), lambda: ref(q, k, v, mask, ab)),
                  "library_ms": cuda_ms(library)}
-    return {"max_abs_err": err, "max_abs_err_library": lib_err, **times,
-            **bound(n_bytes, flops, tf32_flops, tf32_products, bf16_flops=bf16_products),
-            "shape": {"B": b, "Lq": lq, "Lk": lk, "H": h, "D": d, "masked": mask is not None,
-                      "dtype": "bfloat16"}}
+    out = {"max_abs_err": err, "max_abs_err_library": lib_err, **times,
+           **bound(n_bytes, flops, tf32_flops, tf32_products, bf16_flops=bf16_products),
+           "shape": {"B": b, "Lq": lq, "Lk": lk, "H": h, "D": d, "masked": mask is not None,
+                     "dtype": "bfloat16"}}
+    if real_keys:
+        keys = int(real_key_extents(mask, b, lk).sum())  # over the sets; every head alike
+        share = keys / (b * lk)
+        real = bound(n_bytes - 2 * (k.numel() + v.numel()) * (1 - share), flops * share,
+                     tf32_flops * share, tf32_products, bf16_flops=bf16_products * share)
+        dev_ms = statistics.median(device_ms(lambda: fn(q, k, v, mask, ab))
+                                   for _ in range(DEVICE_READINGS))
+        out.update(real_keys_share=share, real_keys_bound_ms=real["bound_ms"],
+                   real_keys_bound_by=real["bound_by"], real_keys_bytes=real["bytes"],
+                   real_keys_flops=real["flops"], device_ms=dev_ms)
+        for key in ("ms", "device_ms"):
+            if out[key] < real["bound_ms"]:
+                fail(f"{name}: {key} {out[key]} reads below the bound over the real keys "
+                     f"({real['bound_ms']} ms): an impossible reading")
+    return out
 
 
 def bf16_case(torch, case):
@@ -866,6 +901,59 @@ def bf16_edges(torch, dev, name, fn, ref, lengths, pairs=(), bias_dims=()) -> di
             "max_abs_err_offset_by_one_element": unaligned}
 
 
+MASK_CASES = ("prefix", "holes", "only the last key", "all masked", "fractional only")
+
+
+def mask_case(torch, kind: str, b: int, lk: int, dev):
+    """A (B, Lk) key mask of one kind, the set's extent (the keys the bf16
+    flash and fused kernels step over) then ends at: a prefix of real keys
+    (of 1 to Lk), holes (every third key of a prefix), only the last key
+    real, every key masked (all Lk keys count), fractional values only (all
+    Lk count). Set 0 has every key masked in all but the last kind."""
+    gen = torch.Generator().manual_seed(lk + len(kind))
+    counts = torch.randint(1, lk + 1, (b, 1), generator=gen)
+    keys = torch.arange(lk)[None, :]
+    m = (keys < counts).float()
+    if kind == "holes":
+        m = m * (keys % 3 == 0).float()
+    elif kind == "only the last key":
+        m = (keys == lk - 1).float().expand(b, lk).clone()
+    elif kind == "all masked":
+        m = torch.zeros(b, lk)
+    elif kind == "fractional only":
+        m = 0.5 * m
+    if kind not in ("all masked", "fractional only"):
+        m[0] = 0.0
+    return m.to(dev)
+
+
+def mask_checks(torch, dev, name, fn, ref, shapes) -> dict:
+    """A bf16 kernel against its plain version on every MASK_CASES mask at
+    `shapes` (Lq, Lk, D), 3 sets of 3 heads."""
+    errs = {}
+    for lq, lk, d in shapes:
+        q, k, v, _, _ = bf16_case(torch, attention_case(torch, dev, lq + lk + d, 3, lq, lk, 3, d,
+                                                        masked=False))
+        for kind in MASK_CASES:
+            mask = mask_case(torch, kind, 3, lk, dev)
+            errs[f"{kind}: Lq={lq} Lk={lk} D={d}"] = check_bf16_kernel(
+                torch, f"{name} ({kind}, Lq={lq}, Lk={lk}, D={d})", fn(q, k, v, mask, None),
+                ref(q, k, v, mask, None))
+    return {"max_abs_err_mask_cases": max(errs.values()), "mask_cases": len(errs)}
+
+
+def bf16_design(name, report, mirror, **want) -> dict:
+    """A redesigned bf16 kernel's launch report against the wrapper's mirror
+    and the instructions and products its bound counts; fails on any
+    difference."""
+    if {k: report[k] for k in mirror} != mirror:
+        fail(f"{name}: the library's launch {report} is not the wrapper's mirror {mirror}")
+    for key, value in want.items():
+        if report[key] != value:
+            fail(f"{name}: the library reports {key}={report[key]}, the bound counts {value}")
+    return report
+
+
 def packed_bf16_phase(torch, sa, dev) -> dict:
     fn, ref = sa.packed_short_attention, sa.packed_short_attention_reference
     main = bf16_case(torch, attention_case(torch, dev, 60, 640, 150, 150, 16, 16, masked=True,
@@ -888,33 +976,61 @@ def packed_bf16_phase(torch, sa, dev) -> dict:
 
 
 def fused_bf16_phase(torch, sa, dev) -> dict:
+    """The bf16 fused kernels (redesigned: "from" stops at each set's last
+    real key) at path B's two halves, each timed in TURN_ROUNDS rounds of
+    in-turn readings with bf16 SDPA and read on the device, with its bound
+    over all keys and over the real keys; the pair is their sum. Then the
+    launch reports against the wrapper's mirror, a bias, the edges, the mask
+    cases, and two launches alike."""
     fn, ref = sa.fused_short_attention, sa.fused_short_attention_reference
     shapes = {
         "from": attention_bf16_measure(
             torch, "fused_short_attention_bf16 (from)", fn, ref,
-            bf16_case(torch, attention_case(torch, dev, 62, 640, 4, 150, 16, 8, masked=True))),
+            bf16_case(torch, attention_case(torch, dev, 62, 640, 4, 150, 16, 8, masked=True)),
+            in_turns_with_library=True, real_keys=True),
         "to": attention_bf16_measure(
             torch, "fused_short_attention_bf16 (to)", fn, ref,
-            bf16_case(torch, attention_case(torch, dev, 63, 640, 150, 4, 16, 8, masked=False))),
+            bf16_case(torch, attention_case(torch, dev, 63, 640, 150, 4, 16, 8, masked=False)),
+            in_turns_with_library=True, real_keys=True),
     }
     case = bf16_case(torch, attention_case(torch, dev, 64, 64, 37, 150, 16, 8, masked=True,
                                            bias=True))
     bias_err = check_bf16_kernel(torch, "fused_short_attention_bf16 (bias)", fn(*case), ref(*case))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    design = {f"Lq={lq} Lk={lk}": bf16_design(
+        f"fused_short_attention_bf16 (Lq={lq}, Lk={lk})",
+        sa.fused_bf16_launch_report(b, lq, lk, 16, 8, biased),
+        sa.fused_bf16_geometry(b, lq, lk, 16, 8, sms))
+        for b, lq, lk, biased in ((640, 4, 150, False), (640, 150, 4, False), (64, 37, 150, True))}
+    with torch.no_grad():
+        out, again = fn(*case), fn(*case)
+    if not torch.equal(out, again):
+        fail("fused_short_attention_bf16: a second launch differs")
     pair = lambda key: sum(x[key] for x in shapes.values())
     return {"name": "fused_short_attention_bf16", "route": "cuda",
             "source": "particle_fm_tpu_torch/csrc/short_attention.cu",
             "replaces": "particle_fm_tpu/ops/pallas/short_attention.py:74", "launches": None,
             "max_abs_err": max(x["max_abs_err"] for x in shapes.values()),
-            "per": "one 'from' launch plus one 'to' launch",
-            "ms": pair("ms"), "plain_ms": pair("plain_ms"),
+            "per": "one 'from' launch plus one 'to' launch (each half under `shapes`)",
+            "ms": pair("ms"), "plain_ms": pair("plain_ms"), "device_ms": pair("device_ms"),
             **bound(pair("bytes"), pair("flops")), "library_ms": pair("library_ms"),
+            "real_keys_bound_ms": pair("real_keys_bound_ms"),
             "tolerance": f"{BF16_KERNEL_ULPS} bf16 ulps of the largest |out|",
-            "shapes": shapes, "max_abs_err_with_bias": bias_err,
+            "shapes": shapes, "launch": design, "max_abs_err_with_bias": bias_err,
+            **mask_checks(torch, dev, "fused_short_attention_bf16", fn, ref,
+                          [(4, 150, 8), (4, 17, 12), (3, 512, 64)]),
             **bf16_edges(torch, dev, "fused_short_attention_bf16", fn, ref, (1, 5, 17, 512),
                          pairs=[(4, 17), (4, 512), (17, 4), (512, 4)], bias_dims=(12, 64))}
 
 
 def flash_bf16_phase(torch, fa, dev) -> dict:
+    """The bf16 flash kernel at paths C (class token) and D (redesigned:
+    K and V staged once per (set, head), stopping at each set's last real
+    key), in turns with bf16 SDPA; path D read on the device too, with its
+    bound over all keys and over the real keys. Then the launch reports
+    against the wrappers' mirrors, the instructions of both products, the
+    class-token checks, 1500 keys at head dim 128, the mask cases, the edges,
+    and two launches alike."""
     fn = lambda q, k, v, mask, ab: fa.flash_masked_attention(q, k, v, mask)
     ref = lambda q, k, v, mask, ab: fa.flash_masked_attention_reference(q, k, v, mask)
     path_d = bf16_case(torch, attention_case(torch, dev, 65, 256, 279, 279, 16, 16, masked=True,
@@ -929,13 +1045,25 @@ def flash_bf16_phase(torch, fa, dev) -> dict:
         "path D": attention_bf16_measure(
             torch, "flash_masked_attention_bf16 (279 particles)", fn, ref, path_d,
             bf16_products=half, tf32_flops=half, tf32_products=FLASH_BF16_PV_TF32_PRODUCTS,
-            in_turns_with_library=True),
+            in_turns_with_library=True, real_keys=True),
     }
+    design = {f"B={bb} Lq={lq} Lk={lk} H={hh} D={dd}": bf16_design(
+        f"flash_masked_attention_bf16 (B={bb}, Lq={lq}, Lk={lk}, D={dd})",
+        fa.mma_bf16_launch_report(bb, lq, lk, hh, dd), fa.mma_bf16_geometry(bb, lq, lk, hh, dd),
+        instruction=BF16_INSTRUCTION, pv_instruction=TF32_INSTRUCTION,
+        pv_tf32_products=FLASH_BF16_PV_TF32_PRODUCTS)
+        for bb, lq, lk, hh, dd in ((256, 279, 279, 16, 16), (3, 558, 558, 3, 64),
+                                   (3, 17, 17, 3, 8), (4, 1500, 1500, 4, 32))}
     token = token_bf16_checks(torch, fa, dev)
     long_err = check_bf16_kernel(
         torch, "flash_masked_attention_bf16 (1500 keys, head dim 128)",
         *(f(*bf16_case(torch, attention_case(torch, dev, 67, 4, 1500, 1500, 4, 128, masked=True)))
           for f in (fn, ref)))
+    case = bf16_case(torch, attention_case(torch, dev, 68, 3, 558, 558, 3, 32, masked=True, lo=1))
+    with torch.no_grad():
+        out, again = fn(*case), fn(*case)
+    if not torch.equal(out, again):
+        fail("flash_masked_attention_bf16 (558 keys, a ring of two stages): a second launch differs")
     main = shapes["path C"]
     return {"name": "flash_masked_attention_bf16", "route": "cuda",
             "source": "particle_fm_tpu_torch/csrc/flash_attention.cu",
@@ -947,12 +1075,16 @@ def flash_bf16_phase(torch, fa, dev) -> dict:
             "instruction": bf16_instruction_checked("flash_masked_attention_bf16",
                                                     fa.bf16_instruction),
             "tolerance": f"{BF16_KERNEL_ULPS} bf16 ulps of the largest |out|",
-            "shapes": shapes, "max_abs_err_long_head_dim_128": long_err,
+            "shapes": shapes, "launch_more_than_4_rows": design,
+            "max_abs_err_long_head_dim_128": long_err,
             # a timing, so reported and not failed on: run-to-run spread is a few percent
             "path_c_kernel_over_library": main["ms"] / main["library_ms"],
             "class_token": token,
+            **mask_checks(torch, dev, "flash_masked_attention_bf16", fn, ref,
+                          [(279, 279, 16), (37, 600, 32), (5, 17, 64), (17, 300, 8),
+                           (2, 900, 128)]),
             **bf16_edges(torch, dev, "flash_masked_attention_bf16", fn, ref, (5, 17, 558),
-                         pairs=[(3, 900)])}
+                         pairs=[(3, 900), (33, 1500), (300, 20)])}
 
 
 def token_bf16_checks(torch, fa, dev) -> dict:

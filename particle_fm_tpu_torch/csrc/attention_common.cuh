@@ -83,8 +83,71 @@ __device__ __forceinline__ void stage_head(float* dst, int stride, const T* src,
   }
 }
 
+// 8 bfloat16 values as floats (exact)
+__device__ __forceinline__ void unpack8(uint4 r, float (&f)[8]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
 // exp(x) for x <= 0 (or -inf)
 __device__ __forceinline__ float exp_neg(float x) { return exp2f(x * kLog2e); }
+
+// 8 values of a bfloat16 row from column c; zeros from column d on. kStream:
+// a streaming load (evict first), for rows read once.
+template <bool kStream = true>
+__device__ __forceinline__ uint4 load8_raw(const __nv_bfloat16* row, int c, int d, bool wide) {
+  if (wide) {
+    if (c >= d) return make_uint4(0u, 0u, 0u, 0u);
+    const uint4* p = reinterpret_cast<const uint4*>(row + c);
+    return kStream ? __ldcs(p) : *p;
+  }
+  uint32_t e[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) e[i] = c + i < d ? __bfloat16_as_ushort(row[c + i]) : 0u;
+  return make_uint4(e[0] | (e[1] << 16), e[2] | (e[3] << 16), e[4] | (e[5] << 16),
+                    e[6] | (e[7] << 16));
+}
+
+// (m, l, acc) of one stream merged into another's
+__device__ __forceinline__ void merge_stream(float& m, float& l, float (&o)[8], float m2, float l2,
+                                             const float (&o2)[8]) {
+  const float mn = fmaxf(m, m2);
+  const float e1 = exp_neg(m - mn), e2 = exp_neg(m2 - mn);
+  l = l * e1 + l2 * e2;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) o[i] = o[i] * e1 + o2[i] * e2;
+  m = mn;
+}
+
+// The keys of a set that the bfloat16 flash (more than 4 query rows) and
+// fused ("from") kernels step over: up to the set's last key with a nonzero
+// mask when one of its keys has a mask of exactly 1, else all lk (no mask, a
+// set whose keys are all masked, masks with fractional values only). The keys
+// after that last key score about 1e9 below the running maximum, so exp gives
+// exactly 0 for them and the rescale exactly 1: skipping them changes
+// nothing (ops/short_attention.py::real_key_extents mirrors this). The
+// block reads its mask row once; every thread calls this, `last` is a shared
+// int.
+__device__ __forceinline__ int real_key_extent(const float* mask_row, int lk, int* last) {
+  if (threadIdx.x == 0) *last = -1;
+  __syncthreads();
+  int one = 0;
+  if (mask_row) {
+    int mine = -1;
+    for (int j = threadIdx.x; j < lk; j += blockDim.x) {
+      const float mv = mask_row[j];
+      if (mv != 0.f) mine = j;
+      one |= mv == 1.f;
+    }
+    mine = __reduce_max_sync(0xffffffffu, mine);
+    if ((threadIdx.x & 31) == 0 && mine >= 0) atomicMax(last, mine);
+  }
+  return __syncthreads_or(one) ? *last + 1 : lk;
+}
 
 template <typename T>
 HeadsT<T> heads(const T* p, long long bs, long long ld, int d) {

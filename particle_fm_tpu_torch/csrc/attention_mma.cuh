@@ -286,17 +286,14 @@ __device__ __forceinline__ void stage_mask(float* madd, const float* mask_row, i
 //     1 are A's columns 0..7 and 8..15). That is the Pallas `_packed_kernel`
 //     on bfloat16 (short_attention.py:187-206): the softmax over the whole row
 //     before P is rounded, the normalisation after PV.
-//   flash (`flash_bf16_step`): the streaming softmax over steps of 16 keys, P
+//   flash (flash_attention.cu, `flash_bf16_step`): the streaming softmax, P
 //     kept in float32 as the Pallas flash kernel keeps it
-//     (flash_attention.py:31-54): O += P . V as two TF32 products on
-//     m16n8k8, the head and the remainder of P, V exact in TF32 (a bfloat16
-//     has 8 bits of mantissa). The dropped part is the remainder's last bits,
-//     2^-21 of P.
+//     (flash_attention.py:31-54), O += P . V as two TF32 products on
+//     m16n8k8.
 
 using bf16 = __nv_bfloat16;
 
 constexpr int kBfKeys = 16;  // keys of a step
-constexpr int kBfTf32Products = 2;  // TF32 products of P . V in the flash variant
 
 // The head dim a bfloat16 variant is compiled for: 16, 32 or 64.
 __host__ __device__ constexpr int bf16_head_dim(int dp) { return dp < 16 ? 16 : dp; }
@@ -420,58 +417,6 @@ __device__ __forceinline__ void packed_bf16_keys(MmaTileBf16<DP>& t, const bf16*
       ldmatrix_x4_trans(b, vrow + key0 * ST + 16 * np);
       mma_bf16(t.o[2 * np], a, b[0], b[1]);
       mma_bf16(t.o[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// One step of the flash kernel's streaming softmax over the 16 staged keys
-// from key0 on (the step's first key is a key of the range, so its maximum is
-// finite).
-template <int DP>
-__device__ __forceinline__ void flash_bf16_step(MmaTileBf16<DP>& t, const bf16* ks,
-                                                const bf16* vs, const float* madd, int key0,
-                                                float scale) {
-  constexpr int ST = DP + 8;
-  const int g = (threadIdx.x & 31) >> 2, tt = threadIdx.x & 3;
-  float s[2][4];
-  mma_scores_bf16(s, t, ks, madd, key0, scale, NoBias{});
-  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-  for (int kt = 0; kt < 2; ++kt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], s[kt][i]);
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const float x = fmaxf(quad_max(mx[half]), t.m[half]);
-    const float corr = exp2_neg((t.m[half] - x) * kLog2e);
-    t.m[half] = x;
-    t.l[half] *= corr;
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      t.o[n][2 * half] *= corr;
-      t.o[n][2 * half + 1] *= corr;
-    }
-  }
-#pragma unroll
-  for (int kt = 0; kt < 2; ++kt) {
-    uint32_t p_hi[4], p_lo[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float p = exp2_neg((s[kt][i] - t.m[i >> 1]) * kLog2e);
-      t.l[i >> 1] += p;
-      // C's (row, key 2t | 2t+1) is A's (row, column t | t+4): c0 c1 c2 c3 -> a0 a2 a1 a3
-      const int a = (i >> 1) + 2 * (i & 1);
-      const Tf32 x = split_tf32(p);
-      p_hi[a] = x.hi;
-      p_lo[a] = x.lo;
-    }
-    const bf16* v0 = vs + (key0 + 8 * kt + 2 * tt) * ST + g;
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {  // bfloat16 -> float32 is exact, and exact in TF32
-      const uint32_t b0 = __float_as_uint(__bfloat162float(v0[8 * n]));
-      const uint32_t b1 = __float_as_uint(__bfloat162float(v0[ST + 8 * n]));
-      mma_tf32(t.o[n], p_lo, b0, b1);
-      mma_tf32(t.o[n], p_hi, b0, b1);
     }
   }
 }

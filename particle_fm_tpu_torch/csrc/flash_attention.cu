@@ -63,22 +63,53 @@
 //
 // bfloat16 (`flash_masked_attention_bf16`): the Pallas kernel upcasts q, k and
 // v and keeps P in float32 (flash_attention.py:31-54), so the bfloat16 kernel
-// computes that function. More than 4 query rows at head dims up to 64:
-// flash_mma_bf16_kernel, K and V staged as bfloat16 (half the bytes of a
-// float32 tile), Q . K^T as bfloat16 products on mma.sync.m16n8k16 (exact: a
-// bfloat16 product is exact in float32), the scale applied to S (where the
-// Pallas kernel scales q first: at head dim 16 the scale is a power of two and
-// the two agree bit for bit), and P . V with P kept in float32, as two TF32
-// products (P's head and remainder; V in bfloat16 is exact in TF32). Rounding
-// P to bfloat16 for a bfloat16 P . V was the other choice; it would change the
-// function. At most 4 query rows: flash_token_bf16_kernel, at the end of this
-// file with its own note (16-byte loads, splits that fill whole waves, the
-// merge in the same launch). More than 4 rows at head dim 128 run the staged
-// CUDA-core variant on bfloat16 loads and float32 arithmetic. Bound at
-// path D's shape (B=256, Lq=Lk=279, 16 heads of 16): 147 MB, 0.044 ms; Q . K^T
-// 10.2 GFLOP in bfloat16, 0.010 ms, and P . V twice in TF32, 0.041 ms: bound
-// by tensor operations, 0.075 ms with the 5 operations a score on the CUDA
-// cores.
+// computes that function. At most 4 query rows: flash_token_bf16_kernel, at
+// the end of this file with its own note. More than 4 rows at head dim 128
+// run the staged CUDA-core variant on bfloat16 loads and float32 arithmetic.
+// More than 4 query rows at head dims up to 64: flash_mma_bf16_kernel, whose
+// served shape is path D (lhco/jets_transformer: B=256, Lq=Lk=279, 16 heads
+// of 16, q, k and v slices of one (B, L, 768) projection, 30-279 real keys):
+//   * One block per (set, head, split) takes all of the set's query tiles:
+//     a warp per tile of 16 rows, 6 warps a block, the tiles in passes (279
+//     rows: 3 passes). K and V of the head are staged once per block, by
+//     cp.async in 16-byte pieces (a head is 32 bytes of a 1,536-byte row),
+//     in tiles of fb_tile_keys keys: path D's whole head (288 keys at head
+//     dim 16, 42.6 KB with the float32 V below) is one tile, staged before
+//     the first pass, with no loop and no barrier between the steps. Longer
+//     sets (the tests' 558 and 1,500 keys) stream their tiles through a ring
+//     of two stages, the copies of tile i + 1 in flight while tile i is used.
+//     Q's fragments of a warp's first tile are loaded before the mask is read,
+//     and those of its next pass's tile while it computes this one.
+//   * It stops at the set's last real key. The block reads its mask row once;
+//     when a key has a mask of exactly 1, the keys after the last key with a
+//     nonzero mask score about 1e9 below the running maximum, so exp gives
+//     exactly 0 for them and the rescale exactly 1: they are neither staged
+//     nor stepped over, and the output is the same bit for bit. Otherwise (a
+//     set whose keys are all masked, masks with fractional values only) all
+//     Lk keys count. Keys past the extent, rounded up to the step of 16,
+//     take a mask of -inf.
+//   * Q . K^T as bfloat16 products on mma.sync.m16n8k16 (exact: a bfloat16
+//     product is exact in float32), the scale applied to S (at head dim 16 a
+//     power of two: the Pallas kernel's scaled q agrees bit for bit). Steps of
+//     32 keys up to head dim 32 (16 at 64): one update of the maxima and one
+//     rescale of O per step.
+//   * P . V with P in float32 as two TF32 products, P's head and remainder
+//     (the dropped part, the remainder's last bits, is 2^-21 of P), on
+//     m16n8k8; P goes from the accumulator's C layout to the A operand without
+//     an exchange. V is staged once per block as float32 laid out as the B
+//     fragments read it (exact: a bfloat16 has 8 bits of mantissa), so a step
+//     reads one float4 per 16 columns and 8 keys and converts nothing. (P in
+//     three exact bfloat16 pieces on m16n8k16, V read by ldmatrix.trans, was
+//     the other choice: 5.5 operations a score to split P against 3, for a
+//     quarter fewer tensor operations; it measured 6% slower.)
+// Times, alternatives and knock-outs (scripts/attention_bf16_variants.py):
+// PERF.md. 3 or 5 blocks an SM and steps of 16 keys measured slower than
+// this; so did (design calls) two tiles of 16 rows a warp, and two or four
+// heads a block with the next head's K and V copied while these were used.
+// What bounds it at path D (H100 SXM): the bytes are 147 MB, 0.044 ms at
+// 3.35 TB/s; over the keys the data needs (each set's extent) Q . K^T and
+// P . V (twice in TF32) come to about 0.042 ms, and the exponentials, one an
+// SFU operation (16 a clock an SM), to a floor of about 0.045 ms.
 
 #include <type_traits>
 
@@ -413,91 +444,326 @@ cudaError_t launch_flash_mma(Heads q, Heads k, Heads v, const float* mask, float
   return launch_merge(cudaGetLastError(), part, out, b, lq, h, d, sp.n, stream);
 }
 
-// The variant by shape: at most 4 query rows (a class token) read K and V
-// directly, the whole head dim spread over GW lanes; more rows go to the
-// tensor cores up to head dim 64, and at head dim 128 to 8 lanes a row (16
-// floats of q and of the accumulator per lane). `report` is for the
-// tensor-core variant only.
-// The bfloat16 tensor-core variant (attention_mma.cuh: Q . K^T as bfloat16
-// products, P in float32 through two TF32 products): blocks, warps and splits
-// as launch_flash_mma's; K and V staged as bfloat16 at a row stride of DP + 8,
-// tiles of the same number of keys.
+// ---------------------------------------------------------------------------
+// bfloat16, more than 4 query rows, head dims up to 64: flash_mma_bf16_kernel
+// ---------------------------------------------------------------------------
+//
+// The design is in the note at the top of this file.
+
+constexpr int kFbWarps = 6;         // most warps of a block, a tile of 16 query rows each
+constexpr int kFbBlocksPerSm = 4;   // resident blocks an SM (launch bounds)
+constexpr int kFbPvProducts = 2;    // TF32 products of P . V: P's head and remainder
+
+// Keys of a staged tile: path D's 279 keys at head dim 16 fit one.
+__host__ __device__ constexpr int fb_tile_keys(int dp) {
+  return dp <= 16 ? 288 : dp <= 32 ? 256 : 128;
+}
+// Keys of a softmax step (they share one update of the maxima and one rescale)
+__host__ __device__ constexpr int fb_step_keys(int dp) { return dp <= 32 ? 32 : 16; }
+
+// Bytes of shared memory of a block: V as float32 in the B fragments' layout
+// and the additive mask, once; then per stage K at a row stride of DP + 8 and
+// V as copied, both bfloat16.
+__host__ __device__ constexpr size_t fb_smem(int dp, int stages) {
+  return 4 * ((size_t)fb_tile_keys(dp) * dp + fb_tile_keys(dp)) +
+         2 * (size_t)stages * fb_tile_keys(dp) * (2 * dp + 8);
+}
+
+// 16 bytes from device memory to shared memory without registers (cp.async;
+// zeros where !in, and nothing is read then).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src),
+               "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// One step of the streaming softmax over the NT staged tiles of 8 keys from
+// key0 on, for a warp's 16 query rows (the step's first key is a key of the
+// range, so its maximum is finite): S as bfloat16 products (mma_scores_bf16,
+// 16 keys a call, scale and mask on the accumulator), one update of the rows'
+// maxima and one rescale, p = exp(s - m) split into a TF32 head and remainder
+// (split_tf32), and O += P . V as two TF32 products per tile of 8 keys. C's
+// (row, key 2t | 2t+1) is A's (row, column t | t+4), so P goes from the
+// accumulator to the A operand without an exchange; V's B fragments come
+// from `vf`, one float4 per 16 columns.
+template <int DP, int NT>
+__device__ __forceinline__ void flash_bf16_step(MmaTileBf16<DP>& t, const bf16* ks,
+                                                const float* vf, const float* madd, int key0,
+                                                float scale) {
+  const int lane = threadIdx.x & 31;
+  float s[NT / 2][2][4];
+#pragma unroll
+  for (int i = 0; i < NT / 2; ++i)
+    mma_scores_bf16(s[i], t, ks, madd, key0 + 16 * i, scale, NoBias{});
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+  for (int kt = 0; kt < NT; ++kt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], s[kt >> 1][kt & 1][i]);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const float x = fmaxf(quad_max(mx[half]), t.m[half]);
+    const float corr = exp2_neg((t.m[half] - x) * kLog2e);
+    t.m[half] = x;
+    t.l[half] *= corr;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      t.o[n][2 * half] *= corr;
+      t.o[n][2 * half + 1] *= corr;
+    }
+  }
+  const float4* vrow = reinterpret_cast<const float4*>(vf) + (key0 / 8) * (DP / 16) * 32 + lane;
+#pragma unroll
+  for (int kt = 0; kt < NT; ++kt) {
+    uint32_t p_hi[4], p_lo[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float p = exp2_neg((s[kt >> 1][kt & 1][i] - t.m[i >> 1]) * kLog2e);
+      t.l[i >> 1] += p;
+      const int a = (i >> 1) + 2 * (i & 1);  // c0 c1 c2 c3 -> a0 a2 a1 a3
+      const Tf32 x = split_tf32(p);
+      p_hi[a] = x.hi;
+      p_lo[a] = x.lo;
+    }
+#pragma unroll
+    for (int c = 0; c < DP / 16; ++c) {
+      const float4 w = vrow[(kt * (DP / 16) + c) * 32];
+      const uint32_t b[4] = {__float_as_uint(w.x), __float_as_uint(w.y), __float_as_uint(w.z),
+                             __float_as_uint(w.w)};
+      mma_tf32(t.o[2 * c], p_lo, b[0], b[1]);
+      mma_tf32(t.o[2 * c + 1], p_lo, b[2], b[3]);
+      mma_tf32(t.o[2 * c], p_hi, b[0], b[1]);
+      mma_tf32(t.o[2 * c + 1], p_hi, b[2], b[3]);
+    }
+  }
+}
+
+// Q's bfloat16 A fragments for rows row0 .. row0 + 15 of one head (rows past
+// last_row repeat it; columns from d on are zero), as mma_tile_init_bf16
+// packs them. `pairs`: two neighbouring values are one aligned 32-bit load,
+// so the registers are loaded here and used only where the tile starts.
 template <int DP>
-__global__ void __launch_bounds__(32 * kRowsPerBlock / kMmaRows)
+__device__ __forceinline__ void load_q_bf16(uint32_t (&r)[DP / 16][4], const bf16* qhead,
+                                            long long ld, int row0, int last_row, int d,
+                                            bool pairs) {
+  const int g = (threadIdx.x & 31) >> 2, tt = threadIdx.x & 3;
+  const bf16 zero = __float2bfloat16_rn(0.f);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const bf16* qrow = qhead + min(row0 + 8 * half + g, last_row) * ld;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 16 * kk + 8 * c + 2 * tt;
+        r[kk][half + 2 * c] =
+            pairs ? (col < d ? *reinterpret_cast<const uint32_t*>(qrow + col) : 0u)
+                  : pack_raw_bf16(col < d ? qrow[col] : zero, col + 1 < d ? qrow[col + 1] : zero);
+      }
+  }
+}
+
+// The staged keys 0 .. n_p - 1 (n_p a multiple of 16): steps of
+// fb_step_keys, then one of 16.
+template <int DP>
+__device__ __forceinline__ void flash_bf16_keys(MmaTileBf16<DP>& t, const bf16* ks,
+                                                const float* vf, const float* madd, int n_p,
+                                                float scale) {
+  constexpr int KS = fb_step_keys(DP);
+  int key0 = 0;
+  for (; key0 + KS <= n_p; key0 += KS) flash_bf16_step<DP, KS / 8>(t, ks, vf, madd, key0, scale);
+  if constexpr (KS > kBfKeys) {
+    if (key0 < n_p) flash_bf16_step<DP, kBfKeys / 8>(t, ks, vf, madd, key0, scale);
+  }
+}
+
+// Grid: x = (set, head), z = split of the keys; block: one warp per tile of
+// 16 query rows, the block's warps taking the set's tiles in passes (a warp
+// past the last tile idles in the last pass; rows past the set's end inside
+// its last tile repeat the last row and are not stored). `part` as
+// flash_mma_kernel's. `stages`: 1 when a split's keys fit one staged tile,
+// else 2 (a ring). `wide`: K and V rows may be copied in 16-byte pieces.
+template <int DP>
+__global__ void __launch_bounds__(32 * kFbWarps, kFbBlocksPerSm)
 flash_mma_bf16_kernel(HeadsT<bf16> q, HeadsT<bf16> k, HeadsT<bf16> v,
                       const float* __restrict__ mask, bf16* __restrict__ out,
                       float* __restrict__ part, int lq, int lk, int h, int d, int keys_per_split,
-                      float scale) {
-  constexpr int ST = DP + 8, KC = flash_mma_tile_keys(DP);
-  static_assert(KC % kBfKeys == 0, "a staged tile is a whole number of steps");
+                      int stages, float scale, bool wide) {
+  constexpr int ST = DP + 8, KC = fb_tile_keys(DP), Q8 = DP / 8;
+  static_assert(KC % fb_step_keys(DP) == 0, "a staged tile is a whole number of steps");
   extern __shared__ float4 smem4[];
-  bf16* ks = reinterpret_cast<bf16*>(smem4);
-  bf16* vs = ks + KC * ST;
-  float* madd = reinterpret_cast<float*>(vs + KC * ST);
+  float* vf = reinterpret_cast<float*>(smem4);
+  float* madd = vf + KC * DP;
+  bf16* ks0 = reinterpret_cast<bf16*>(madd + KC);
+  bf16* vr0 = ks0 + stages * KC * ST;
+  __shared__ int sm_last;
 
   const int b = blockIdx.x / h, hd = blockIdx.x % h;
-  const int g = (threadIdx.x & 31) >> 2;
-  const int row0 = (blockIdx.y * (blockDim.x >> 5) + (threadIdx.x >> 5)) * kMmaRows;
+  const int tid = threadIdx.x, nthreads = blockDim.x, warp = tid >> 5;
+  const float* mrow = mask ? mask + (long long)b * lk : nullptr;
+  // Q of the warp's first tile, in flight while the mask is read and K and V staged
+  const bf16* qhead = q.p + b * q.bs + hd * d;
+  const bool qpairs = d % 2 == 0 && ((reinterpret_cast<uintptr_t>(q.p) |
+                                      static_cast<uintptr_t>((q.ld | q.bs) * 2)) & 3) == 0;
+  uint32_t qn[DP / 16][4];
+  load_q_bf16<DP>(qn, qhead, q.ld, min(warp * kMmaRows, lq - 1), lq - 1, d, qpairs);
+
   const int kbeg = blockIdx.z * keys_per_split;
-  const int kend = min(lk, kbeg + keys_per_split);
-
-  MmaTileBf16<DP> t;
-  mma_tile_init_bf16(t, q.p + b * q.bs + hd * d, q.ld, row0, lq - 1, d, -kNeg);
-
+  const int kend = min(min(lk, kbeg + keys_per_split), real_key_extent(mrow, lk, &sm_last));
+  const int tiles = kend > kbeg ? (kend - kbeg + KC - 1) / KC : 0;  // 0: nothing to add
   const bf16* kbase = k.p + b * k.bs + hd * d;
   const bf16* vbase = v.p + b * v.bs + hd * d;
-  for (int c0 = kbeg; c0 < kend; c0 += KC) {
-    const int n = min(KC, kend - c0);
-    const int np = (n + kBfKeys - 1) / kBfKeys * kBfKeys;  // <= KC
-    __syncthreads();  // the previous tile has been used
-    stage_head_bf16<DP>(ks, kbase + c0 * k.ld, k.ld, n, np, d);
-    stage_head_bf16<DP>(vs, vbase + c0 * v.ld, v.ld, n, np, d);
-    stage_mask(madd, mask ? mask + (long long)b * lk + c0 : nullptr, n, np);
-    __syncthreads();
-    for (int key0 = 0; key0 < np; key0 += kBfKeys) flash_bf16_step(t, ks, vs, madd, key0, scale);
-  }
+  auto keys_of = [&](int i) { return min(KC, kend - kbeg - i * KC); };
+  auto padded = [](int n) { return (n + kBfKeys - 1) / kBfKeys * kBfKeys; };
 
-  const long long n_rows = (long long)gridDim.x * lq;
+  // Tile i of the split's keys into stage `slot`: K and V as they lie, rows
+  // past the keys and columns past d zero.
+  auto stage = [&](int i, int slot) {
+    const int c0 = kbeg + i * KC, n = keys_of(i), np = padded(n);
+    bf16* ks = ks0 + slot * KC * ST;
+    bf16* vr = vr0 + slot * KC * DP;
+    if (wide) {
+      for (int e = tid; e < np * Q8; e += nthreads) {
+        const int r = e / Q8, c = (e % Q8) * 8;
+        const bool in = r < n && c < d;
+        cp_async16(ks + r * ST + c, kbase + (in ? (c0 + r) * k.ld + c : 0), in);
+        cp_async16(vr + r * DP + c, vbase + (in ? (c0 + r) * v.ld + c : 0), in);
+      }
+      cp_async_commit();
+    } else {
+      const bf16 zero = __float2bfloat16_rn(0.f);
+      for (int e = tid; e < np * DP; e += nthreads) {
+        const int r = e / DP, c = e % DP;
+        const bool in = r < n && c < d;
+        ks[r * ST + c] = in ? kbase[(c0 + r) * k.ld + c] : zero;
+        vr[r * DP + c] = in ? vbase[(c0 + r) * v.ld + c] : zero;
+      }
+    }
+  };
+  // V of tile i (in stage `slot`) into `vf` as float32 in the B fragments'
+  // layout: the float4 (tile of 8 keys j, 16 columns c, lane 4g + t) holds V
+  // at (8j + 2t, 16c + g), (8j + 2t + 1, 16c + g), (8j + 2t, 16c + 8 + g),
+  // (8j + 2t + 1, 16c + 8 + g); and the tile's additive mask into `madd`.
+  auto convert = [&](int i, int slot) {
+    const int c0 = kbeg + i * KC, n = keys_of(i), np = padded(n);
+    const bf16* vr = vr0 + slot * KC * DP;
+    for (int e = tid; e < np * Q8; e += nthreads) {
+      const int r = e / Q8, nn = e % Q8;  // key r, columns 8 nn .. 8 nn + 7
+      float f[8];
+      unpack8(*reinterpret_cast<const uint4*>(vr + r * DP + 8 * nn), f);
+      float* dst = vf + (((r >> 3) * (DP / 16) + (nn >> 1)) * 32 + ((r & 7) >> 1)) * 4 +
+                   2 * (nn & 1) + (r & 1);
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    float sum = t.l[half];  // over the four lanes that share the row; every lane shuffles
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    const int row = row0 + 8 * half + g;
-    if (row >= lq) continue;
-    const long long rowid = ((long long)b * lq + row) * h + hd;
-    if (part == nullptr) {
-      mma_store_row_bf16(t, half, 1.f / fmaxf(sum, kMinSum), out + rowid * d, d);
-    } else {  // partial result of this split, not normalised
-      const long long slot = (long long)blockIdx.z * n_rows + rowid;
-      mma_store_row_bf16(t, half, 1.f, part + slot * d, d);
-      if ((threadIdx.x & 3) == 0) {
-        float* ml = part + (long long)gridDim.z * n_rows * d + slot * 2;
-        ml[0] = t.m[half];
-        ml[1] = sum;
+      for (int g = 0; g < 8; ++g) dst[16 * g] = f[g];
+    }
+    stage_mask(madd, mrow ? mrow + c0 : nullptr, n, np);
+  };
+
+  if (tiles == 1) {  // staged once for every pass
+    stage(0, 0);
+    cp_async_wait_all();
+    __syncthreads();
+    convert(0, 0);
+    __syncthreads();
+  }
+  const int g = (tid & 31) >> 2;
+  const long long n_rows = (long long)gridDim.x * lq;
+  for (int row0 = warp * kMmaRows; row0 - warp * kMmaRows < lq; row0 += nthreads / 2) {
+    const bool active = row0 < lq;  // warp-uniform
+    MmaTileBf16<DP> t;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) t.q[kk][i] = qn[kk][i];
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) t.o[n][i] = 0.f;
+    t.m[0] = t.m[1] = -kNeg;
+    t.l[0] = t.l[1] = 0.f;
+    const int next = row0 + nthreads / 2;  // the next pass's Q, in flight during this one
+    if (next - warp * kMmaRows < lq)
+      load_q_bf16<DP>(qn, qhead, q.ld, min(next, lq - 1), lq - 1, d, qpairs);
+    if (tiles == 1) {
+      if (active) flash_bf16_keys(t, ks0, vf, madd, padded(keys_of(0)), scale);
+    } else if (tiles > 1) {  // the ring: tile i + 1 is copied while tile i is used
+      stage(0, 0);
+      for (int i = 0; i < tiles; ++i) {
+        cp_async_wait_all();
+        __syncthreads();  // tile i is in; every warp is done with tile i - 1
+        if (i + 1 < tiles) stage(i + 1, (i + 1) & 1);
+        convert(i, i & 1);
+        __syncthreads();
+        if (active)
+          flash_bf16_keys(t, ks0 + (i & 1) * KC * ST, vf, madd, padded(keys_of(i)), scale);
+      }
+      __syncthreads();  // the next pass stages into slot 0
+    }
+    if (!active) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float sum = t.l[half];  // over the four lanes that share the row; every lane shuffles
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const int row = row0 + 8 * half + g;
+      if (row >= lq) continue;
+      const long long rowid = ((long long)b * lq + row) * h + hd;
+      if (part == nullptr) {
+        mma_store_row_bf16(t, half, 1.f / fmaxf(sum, kMinSum), out + rowid * d, d);
+      } else {  // partial result of this split, not normalised
+        const long long slot = (long long)blockIdx.z * n_rows + rowid;
+        mma_store_row_bf16(t, half, 1.f, part + slot * d, d);
+        if ((tid & 3) == 0) {
+          float* ml = part + (long long)gridDim.z * n_rows * d + slot * 2;
+          ml[0] = t.m[half];
+          ml[1] = sum;
+        }
       }
     }
   }
 }
 
+// With `report` (8 ints), nothing is launched: blocks, warps of a block,
+// passes (the query tiles each warp takes in turn), keys of a staged tile,
+// stages, bytes of shared memory, registers per thread, TF32 products of
+// P . V.
 template <int DP>
 cudaError_t launch_flash_mma_bf16(HeadsT<bf16> q, HeadsT<bf16> k, HeadsT<bf16> v,
                                   const float* mask, bf16* out, float* part, int b, int lq, int lk,
-                                  int h, int d, int splits, cudaStream_t stream) {
-  constexpr int KC = flash_mma_tile_keys(DP);
-  const size_t smem = sizeof(bf16) * (size_t)2 * KC * (DP + 8) + sizeof(float) * KC;
-  const int tiles = (lq + kMmaRows - 1) / kMmaRows;
-  const int blocks = (tiles + kRowsPerBlock / kMmaRows - 1) / (kRowsPerBlock / kMmaRows);
-  const int warps = (tiles + blocks - 1) / blocks;
+                                  int h, int d, int splits, cudaStream_t stream, int* report) {
+  constexpr int KC = fb_tile_keys(DP);
+  const Splits sp = count_splits(lk, splits);
+  const int stages = sp.keys_per_split <= KC ? 1 : 2;
+  const size_t smem = fb_smem(DP, stages);
+  const int row_tiles = (lq + kMmaRows - 1) / kMmaRows;
+  const int passes = (row_tiles + kFbWarps - 1) / kFbWarps;
+  const int warps = (row_tiles + passes - 1) / passes;
+  if (report) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, flash_mma_bf16_kernel<DP>);
+    if (err != cudaSuccess) return err;
+    const int r[8] = {b * h * sp.n, warps, passes, KC, stages, (int)smem, attr.numRegs,
+                      kFbPvProducts};
+    for (int i = 0; i < 8; ++i) report[i] = r[i];
+    return cudaSuccess;
+  }
   cudaError_t err = allow_smem(flash_mma_bf16_kernel<DP>, smem);
   if (err != cudaSuccess) return err;
-  const Splits sp = count_splits(lk, splits);
-  if (blocks > 65535 || sp.n > 65535 || (sp.n > 1 && part == nullptr))
-    return cudaErrorInvalidValue;
-  const dim3 grid(b * h, blocks, sp.n);
+  if (sp.n > 65535 || (sp.n > 1 && part == nullptr)) return cudaErrorInvalidValue;
+  const bool wide = d % 8 == 0 && k.bs % 8 == 0 && k.ld % 8 == 0 && v.bs % 8 == 0 &&
+                    v.ld % 8 == 0 && reinterpret_cast<uintptr_t>(k.p) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(v.p) % 16 == 0;
+  const dim3 grid(b * h, 1, sp.n);
   flash_mma_bf16_kernel<DP><<<grid, 32 * warps, smem, stream>>>(
-      q, k, v, mask, out, sp.n > 1 ? part : nullptr, lq, lk, h, d, sp.keys_per_split,
-      1.f / sqrtf((float)d));
+      q, k, v, mask, out, sp.n > 1 ? part : nullptr, lq, lk, h, d, sp.keys_per_split, stages,
+      1.f / sqrtf((float)d), wide);
   return launch_merge(cudaGetLastError(), part, out, b, lq, h, d, sp.n, stream);
 }
 
@@ -514,11 +780,15 @@ template <int DP>
 cudaError_t launch_flash_mma_t(HeadsT<bf16> q, HeadsT<bf16> k, HeadsT<bf16> v, const float* mask,
                                bf16* out, float* part, int b, int lq, int lk, int h, int d,
                                int splits, cudaStream_t stream, int* report) {
-  if (report) return cudaErrorInvalidValue;
   return launch_flash_mma_bf16<bf16_head_dim(DP)>(q, k, v, mask, out, part, b, lq, lk, h, d,
-                                                   splits, stream);
+                                                   splits, stream, report);
 }
 
+// The variant by shape: at most 4 query rows (a class token) read K and V
+// directly, the whole head dim spread over GW lanes; more rows go to the
+// tensor cores up to head dim 64, and at head dim 128 to 8 lanes a row (16
+// floats of q and of the accumulator per lane). `report` is for the
+// tensor-core variants only.
 template <typename T, int DP, int GW>
 cudaError_t launch_flash_dp(HeadsT<T> q, HeadsT<T> k, HeadsT<T> v, const float* mask, T* out,
                             float* part, int b, int lq, int lk, int h, int d, int splits,
@@ -599,37 +869,6 @@ constexpr int kTokBlocksPerSm = 2;           // resident blocks an SM (launch bo
 constexpr int kTokMaxRows = 4;               // query rows (DIRECT_MAX_ROWS)
 // keys a lane group loads before using them, for LQ query rows: 8 at one row
 __host__ __device__ constexpr int tok_unroll(int lq) { return 8 / lq; }
-
-// 8 values of a bfloat16 row from column c (a streaming load: K and V are
-// read once); zeros from column d on.
-__device__ __forceinline__ uint4 load8_raw(const bf16* row, int c, int d, bool wide) {
-  if (wide) return c < d ? __ldcs(reinterpret_cast<const uint4*>(row + c)) : make_uint4(0u, 0u, 0u, 0u);
-  uint32_t e[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) e[i] = c + i < d ? __bfloat16_as_ushort(row[c + i]) : 0u;
-  return make_uint4(e[0] | (e[1] << 16), e[2] | (e[3] << 16), e[4] | (e[5] << 16),
-                    e[6] | (e[7] << 16));
-}
-
-__device__ __forceinline__ void unpack8(uint4 r, float (&f)[8]) {
-  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-// (m, l, acc) of one stream merged into another's
-__device__ __forceinline__ void merge_stream(float& m, float& l, float (&o)[8], float m2, float l2,
-                                             const float (&o2)[8]) {
-  const float mn = fmaxf(m, m2);
-  const float e1 = exp_neg(m - mn), e2 = exp_neg(m2 - mn);
-  l = l * e1 + l2 * e2;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) o[i] = o[i] * e1 + o2[i] * e2;
-  m = mn;
-}
 
 // Grid: x = (set, head), y = split of the keys. `part` (splits, B, Lq, H, D)
 // accumulators then (splits, B, Lq, H, 2) pairs (m, l), and `counters` (B H
@@ -899,6 +1138,16 @@ extern "C" int flash_masked_attention_geometry(int lq, int d, int* report) {
 }
 
 extern "C" const char* attention_mma_instruction() { return MMA_TF32_INSTRUCTION; }
+
+// What the launcher gives the bfloat16 tensor-core variant (more than 4 query
+// rows, head dims up to 64) for these shapes and `splits`, into `report` (8
+// ints, as launch_flash_mma_bf16 lists them). Launches nothing.
+extern "C" int flash_mma_bf16_geometry(int b, int lq, int lk, int h, int d, int splits,
+                                       int* report) {
+  const HeadsT<bf16> none{};
+  return (int)launch_flash_d<bf16>(none, none, none, nullptr, nullptr, nullptr, b, lq, lk, h, d,
+                                   splits, nullptr, report);
+}
 
 // The bfloat16 kernel: q, k, v and the output in bfloat16, the mask and the
 // scratch in float32; arguments as flash_masked_attention_f32's, and

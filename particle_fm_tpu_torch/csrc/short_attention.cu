@@ -87,9 +87,21 @@
 //     softmax cannot give; the two passes cost Q . K^T twice, a third more
 //     mma than one pass. Bound at path A's shape: 197 MB, 0.059 ms, bytes.
 //   fused_short_attention_bf16: the Pallas `_kernel` upcasts q, k and v and
-//     keeps P in float32 (short_attention.py:47-65), so the fused kernels
-//     above are instantiated for bfloat16 loads (8 bytes a lane) and stores
-//     around their float32 arithmetic.
+//     keeps P in float32 (short_attention.py:47-65): float32 arithmetic on
+//     the bfloat16 values, the softmax divided, the output rounded once. Its
+//     own two kernels (below the float32 ones), bound by latency at path B
+//     (B=640, 16 heads of 8; bytes 0.030 ms a pair, about 0.024 over the keys
+//     the data needs): a lane holds 8 values of a head, one 16-byte load (a
+//     whole head at head dim 8, so a dot product needs no shuffle), and a
+//     warp load reads two 256-byte rows.
+//     * "from" (4 queries on 150 masked keys): a block per set stops at the
+//       set's last real key, as the flash kernel does; each lane keeps the 4
+//       query rows and loads its next 2 keys' K and V before it uses the
+//       first, one maximum per group of keys; 4 warps a block, 5 blocks an
+//       SM (20 warps): path B's 640 sets in one wave.
+//     * "to" (150 queries on 4 keys): K and V of the keys in registers, 8
+//       query rows an item (4 loads of two rows each), the items dealt in runs
+//       to a grid that fills the card once.
 
 #include "attention_mma.cuh"
 
@@ -261,16 +273,6 @@ __device__ __forceinline__ void store_slot(float* p, float4 r, int n, bool vec) 
     if (n > 2) p[2] = r.z;
     if (n > 3) p[3] = r.w;
   }
-}
-
-// The same for bfloat16 rows (vec: 8-byte pieces), read into floats and
-// rounded to the nearest bfloat16 on the way out.
-__device__ __forceinline__ float4 load_slot(const __nv_bfloat16* p, int n, bool vec) {
-  return load4(p, 0, vec ? (n ? 4 : 0) : n, vec);
-}
-
-__device__ __forceinline__ void store_slot(__nv_bfloat16* p, float4 r, int n, bool vec) {
-  store4(p, 0, vec ? (n ? 4 : 0) : n, r, vec);
 }
 
 // q . k over the head: this lane's 4 products, summed over the QP lanes of the head
@@ -560,6 +562,405 @@ int fused_entry(const T* q, const T* k, const T* v, const float* mask, const flo
 }
 
 
+// ---------------------------------------------------------------------------
+// fused, bfloat16: lane = 8 values of a head (one 16-byte load)
+// ---------------------------------------------------------------------------
+
+constexpr int kFromWarps = 4;        // warps of a block of the "from" kernel (many keys)
+constexpr int kFromBlocksPerSm = 5;  // its resident blocks an SM (launch bounds)
+constexpr int kFromRows = 4;         // query rows a lane keeps while it streams the keys
+constexpr int kFromKeys = 2;         // keys a lane loads before it uses the first
+constexpr int kToWarps = 8;          // warps of a block of the "to" kernel (at most 8 keys)
+constexpr int kToBlocksPerSm = 2;    // its resident blocks an SM (launch bounds)
+constexpr float kEmptyMax = -1e30f;  // running maximum of a stream that has no key yet
+
+// Query rows of a lane in an item of the "to" kernel, with KR keys in registers
+__host__ __device__ constexpr int to_lane_rows(int kr) { return kr <= 4 ? 4 : 2; }
+
+// Lanes that hold one row of H heads at QP8 lanes a head: the power of two at
+// or above H * QP8, at most a warp (wider rows take several blocks or items,
+// `chunks`); a warp load then reads 32 / lanes rows.
+__host__ __device__ inline int row_lanes(int h, int qp8) {
+  int n = 1;
+  while (n < h * qp8 && n < 32) n *= 2;
+  return n;
+}
+
+// Slot s of a row of H heads of D values: values 8c .. 8c+7 of head hd = s /
+// QP8, c = s % QP8. A slot past the last head or the head dim holds no value
+// (n = 0): it reads zeros, stores nothing, and takes part in the shuffles.
+template <int QP8>
+struct Slot8 {
+  int off;  // offset of its first value in a row
+  int hd;   // its head, at most h - 1
+  int n;    // how many of its 8 values lie in the head
+  __device__ __forceinline__ Slot8(int s, int h, int d) {
+    const int c = s % QP8, head = s / QP8;
+    n = head < h ? max(0, min(8, d - 8 * c)) : 0;
+    hd = min(head, h - 1);
+    off = head * d + 8 * c;
+  }
+};
+
+// 8 floats to the slot's n values of a row, rounded to the nearest bfloat16
+__device__ __forceinline__ void store_slot8(bf16* p, const float (&o)[8], float f, int n,
+                                            bool wide) {
+  if (wide) {
+    if (n)
+      *reinterpret_cast<uint4*>(p) = make_uint4(pack_bf16(o[0] * f, o[1] * f),
+                                                pack_bf16(o[2] * f, o[3] * f),
+                                                pack_bf16(o[4] * f, o[5] * f),
+                                                pack_bf16(o[6] * f, o[7] * f));
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    if (i < n) p[i] = __float2bfloat16_rn(o[i] * f);
+}
+
+// q . k over the head: this lane's 8 products, summed over the QP8 lanes of the head
+template <int QP8>
+__device__ __forceinline__ float head_dot8(const float (&a)[8], const float (&b)[8]) {
+  float x = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) x = fmaf(a[i], b[i], x);
+#pragma unroll
+  for (int off = QP8 / 2; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// The "from" half (more than 8 keys; path B: 4 queries on 150 masked keys).
+// Block: one set and a chunk of 32 slots. The block reads its mask row once
+// and stops at the set's last real key (as flash_mma_bf16_kernel does). A
+// warp load reads 32 / lanes key rows (two at 16 heads of 8), so the block's
+// keys fall into `streams` = warps * 32 / lanes interleaved streams (stream
+// st takes keys st, st + streams, ...). Each lane keeps kFromRows query rows
+// (scaled, float32) and loads its next kFromKeys keys' K and V before it uses
+// the first; a group of keys takes one update of each row's maximum and one
+// rescale. The streams meet by shuffles inside a warp, then once in shared
+// memory; the output is divided by the sum at the end.
+template <int QP8, bool kBias>
+__global__ void __launch_bounds__(32 * kFromWarps, kFromBlocksPerSm)
+fused_from_bf16_kernel(HeadsT<bf16> q, HeadsT<bf16> k, HeadsT<bf16> v,
+                       const float* __restrict__ mask, const float* __restrict__ bias,
+                       bf16* __restrict__ out, int lq, int lk, int h, int d, int chunks,
+                       float scale, bool wide) {
+  constexpr int R = kFromRows, U = kFromKeys;
+  __shared__ float part_o[kFromWarps][R][32][8];
+  __shared__ float2 part_ml[kFromWarps][R][32];
+  __shared__ int sm_last;
+  const int b = blockIdx.x / chunks, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int lanes = row_lanes(h, QP8), sub = lane / lanes;
+  const int streams = kFromWarps * (32 / lanes), st0 = warp * (32 / lanes);
+  const Slot8<QP8> sl(32 * (blockIdx.x % chunks) + lane % lanes, h, d);
+  const float* mb = mask ? mask + (long long)b * lk : nullptr;
+
+  const int ext = real_key_extent(mb, lk, &sm_last);
+
+  const bf16* qb = q.p + b * q.bs + sl.off;
+  const bf16* kb = k.p + b * k.bs + sl.off;
+  const bf16* vb = v.p + b * v.bs + sl.off;
+  const float* bb = kBias ? bias + ((long long)b * h + sl.hd) * lq * lk : nullptr;
+  const bool owide = d % 8 == 0;
+  for (int r0 = 0; r0 < lq; r0 += R) {
+    float qv[R][8], o[R][8], m[R], l[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {  // rows past the last repeat it and store nothing
+      unpack8(load8_raw(qb + min(r0 + i, lq - 1) * q.ld, 0, sl.n, wide), qv[i]);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        qv[i][c] *= scale;
+        o[i][c] = 0.f;
+      }
+      m[i] = kEmptyMax;
+      l[i] = 0.f;
+    }
+    // warp-uniform trips (the shuffles of head_dot8); a stream whose group
+    // holds no key in range adds nothing (its maximum stays kEmptyMax)
+    for (int j0 = st0; j0 < ext; j0 += U * streams) {
+      uint4 kr[U], vr[U];
+      float s[R][U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int key = j0 + sub + u * streams;
+        const bool in = key < ext;
+        kr[u] = load8_raw<false>(kb + (in ? key * k.ld : 0), 0, in ? sl.n : 0, wide);
+        vr[u] = load8_raw<false>(vb + (in ? key * v.ld : 0), 0, in ? sl.n : 0, wide);
+        const float ma = !in ? -CUDART_INF_F : mb ? (mb[key] - 1.f) * kNeg : 0.f;
+#pragma unroll
+        for (int i = 0; i < R; ++i) s[i][u] = ma;
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float kf[8];
+        unpack8(kr[u], kf);
+        const int key = min(j0 + sub + u * streams, ext - 1);
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          float sc = head_dot8<QP8>(qv[i], kf);
+          if (kBias) sc += bb[(long long)min(r0 + i, lq - 1) * lk + key];
+          s[i][u] += sc;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        float cm = s[i][0];
+#pragma unroll
+        for (int u = 1; u < U; ++u) cm = fmaxf(cm, s[i][u]);
+        const float mn = fmaxf(m[i], cm);
+        const float corr = exp_neg(m[i] - mn);
+        l[i] *= corr;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) o[i][c] *= corr;
+        m[i] = mn;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          s[i][u] = exp_neg(s[i][u] - mn);
+          l[i] += s[i][u];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float vf[8];
+        unpack8(vr[u], vf);
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) o[i][c] = fmaf(s[i][u], vf[c], o[i][c]);
+      }
+    }
+    // the warp's streams into one (lanes that hold the same slot), then the warps'
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      for (int off = lanes; off < 32; off <<= 1) {
+        float o2[8];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) o2[c] = __shfl_xor_sync(0xffffffffu, o[i][c], off);
+        const float m2 = __shfl_xor_sync(0xffffffffu, m[i], off);
+        const float l2 = __shfl_xor_sync(0xffffffffu, l[i], off);
+        merge_stream(m[i], l[i], o[i], m2, l2, o2);
+      }
+      if (sub == 0) {
+#pragma unroll
+        for (int c = 0; c < 8; ++c) part_o[warp][i][lane][c] = o[i][c];
+        part_ml[warp][i][lane] = make_float2(m[i], l[i]);
+      }
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < R * lanes; e += blockDim.x) {
+      const int i = e / lanes, sl_lane = e % lanes;
+      const Slot8<QP8> so(32 * (blockIdx.x % chunks) + sl_lane, h, d);
+      if (r0 + i >= lq || so.n == 0) continue;
+      float mx = kEmptyMax;
+#pragma unroll
+      for (int w = 0; w < kFromWarps; ++w) mx = fmaxf(mx, part_ml[w][i][sl_lane].x);
+      float sum = 0.f, acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int w = 0; w < kFromWarps; ++w) {
+        const float2 ml = part_ml[w][i][sl_lane];
+        const float f = exp_neg(ml.x - mx);
+        sum = fmaf(ml.y, f, sum);
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[c] = fmaf(f, part_o[w][i][sl_lane][c], acc[c]);
+      }
+      store_slot8(out + (long long)b * lq * h * d + (long long)(r0 + i) * h * d + so.off, acc,
+                  1.f / sum, so.n, owide);
+    }
+    __syncthreads();
+  }
+}
+
+// The "to" half (at most KR = 4 or 8 keys; path B: 150 queries on 4 keys).
+// Every lane keeps its slot of the set's K and V rows (as floats) and the
+// keys' additive mask in registers; a warp load reads 32 / lanes query rows
+// (two at 16 heads of 8), and an item is RL such loads: (set, chunk, RL * 32
+// / lanes rows), each row read and written once. The items are dealt to a
+// grid that fills the card once (kToBlocksPerSm blocks an SM), in runs of
+// `per_warp` consecutive items, so a warp reloads K and V only where its run
+// crosses into the next set. The softmax is divided before P . V, as the
+// Pallas kernel divides it.
+template <int QP8, int KR, bool kBias>
+__global__ void __launch_bounds__(32 * kToWarps, kToBlocksPerSm)
+fused_to_bf16_kernel(HeadsT<bf16> q, HeadsT<bf16> k, HeadsT<bf16> v,
+                     const float* __restrict__ mask, const float* __restrict__ bias,
+                     bf16* __restrict__ out, int n_sets, int lq, int lk, int h, int d, int chunks,
+                     float scale, int per_warp, bool wide) {
+  constexpr int RL = to_lane_rows(KR);
+  const int lane = threadIdx.x & 31, lanes = row_lanes(h, QP8), sub = lane / lanes;
+  const int rows = RL * (32 / lanes);  // of an item
+  const int groups = (lq + rows - 1) / rows;
+  const long long total = (long long)n_sets * chunks * groups;
+  long long it = ((long long)blockIdx.x * kToWarps + (threadIdx.x >> 5)) * per_warp;
+  const long long end = min(it + per_warp, total);
+  const bool owide = d % 8 == 0;
+  int held = -1;  // the (set, chunk) whose K and V the registers hold
+  Slot8<QP8> sl(0, h, d);
+  float kf[KR][8], vf[KR][8], madd[KR];
+  const bf16* qb = nullptr;
+  const float* bb = nullptr;
+  bf16* ob = nullptr;
+  for (; it < end; ++it) {
+    const int bc = (int)(it / groups), r0 = (int)(it % groups) * rows;
+    if (bc != held) {  // warp-uniform
+      held = bc;
+      const int b = bc / chunks;
+      sl = Slot8<QP8>(32 * (bc % chunks) + lane % lanes, h, d);
+#pragma unroll
+      for (int j = 0; j < KR; ++j) {
+        const bool in = j < lk;
+        const long long row = in ? j : 0;
+        unpack8(load8_raw(k.p + b * k.bs + row * k.ld + sl.off, 0, in ? sl.n : 0, wide), kf[j]);
+        unpack8(load8_raw(v.p + b * v.bs + row * v.ld + sl.off, 0, in ? sl.n : 0, wide), vf[j]);
+        madd[j] = !in ? -CUDART_INF_F : mask ? (mask[(long long)b * lk + j] - 1.f) * kNeg : 0.f;
+      }
+      qb = q.p + b * q.bs + sl.off;
+      ob = out + (long long)b * lq * h * d + sl.off;
+      bb = kBias ? bias + ((long long)b * h + sl.hd) * lq * lk : nullptr;
+    }
+    uint4 qr[RL];
+#pragma unroll
+    for (int i = 0; i < RL; ++i)  // rows past the last repeat it and store nothing
+      qr[i] = load8_raw(qb + min(r0 + sub + i * (32 / lanes), lq - 1) * q.ld, 0, sl.n, wide);
+#pragma unroll
+    for (int i = 0; i < RL; ++i) {
+      const int row = r0 + sub + i * (32 / lanes);
+      float qf[8];
+      unpack8(qr[i], qf);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) qf[c] *= scale;
+      float s[KR], mx = -CUDART_INF_F;
+#pragma unroll
+      for (int j = 0; j < KR; ++j) {
+        float sc = head_dot8<QP8>(qf, kf[j]);
+        if (kBias && j < lk) sc += bb[(long long)min(row, lq - 1) * lk + j];
+        s[j] = sc + madd[j];
+        mx = fmaxf(mx, s[j]);
+      }
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < KR; ++j) {
+        s[j] = exp_neg(s[j] - mx);
+        sum += s[j];
+      }
+      const float inv = 1.f / sum;
+      float o[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < KR; ++j) {
+        const float p = s[j] * inv;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) o[c] = fmaf(p, vf[j][c], o[c]);
+      }
+      if (row < lq) store_slot8(ob + (long long)row * h * d, o, 1.f, sl.n, owide);
+    }
+  }
+}
+
+// With `report` (8 ints), nothing is launched: blocks, warps of a block,
+// query rows (of a lane: "from"; of an item: "to"), keys a lane loads at a
+// time ("from") or holds ("to"), items a warp takes ("to"; 0 for "from"),
+// bytes of static shared memory, registers per thread, resident blocks an SM
+// (CUDA's occupancy calculator; "to" deals its items for the launch bounds').
+template <int QP8, int KR, bool kBias>
+cudaError_t launch_to_bf16(HeadsT<bf16> q, HeadsT<bf16> k, HeadsT<bf16> v, const float* mask,
+                           const float* bias, bf16* out, int b, int lq, int lk, int h, int d,
+                           int chunks, bool wide, cudaStream_t stream, int* report) {
+  constexpr int RL = to_lane_rows(KR);
+  int dev = 0, sms = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  const int rows = RL * (32 / row_lanes(h, QP8));
+  const long long items = (long long)b * chunks * ((lq + rows - 1) / rows);
+  const long long warps = (long long)sms * kToBlocksPerSm * kToWarps;
+  const int per_warp = (int)((items + warps - 1) / warps);
+  const int grid = (int)((items + (long long)per_warp * kToWarps - 1) / (per_warp * kToWarps));
+  auto kernel = fused_to_bf16_kernel<QP8, KR, kBias>;
+  if (report) {
+    cudaFuncAttributes attr;
+    if ((err = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess) return err;
+    int resident = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, 32 * kToWarps, 0);
+    if (err != cudaSuccess) return err;
+    const int r[8] = {grid, kToWarps, rows, KR, per_warp, (int)attr.sharedSizeBytes,
+                      attr.numRegs, resident};
+    for (int i = 0; i < 8; ++i) report[i] = r[i];
+    return cudaSuccess;
+  }
+  fused_to_bf16_kernel<QP8, KR, kBias><<<grid, 32 * kToWarps, 0, stream>>>(
+      q, k, v, mask, bias, out, b, lq, lk, h, d, chunks, 1.f / sqrtf((float)d), per_warp, wide);
+  return cudaGetLastError();
+}
+
+template <int QP8, bool kBias>
+cudaError_t launch_from_bf16(HeadsT<bf16> q, HeadsT<bf16> k, HeadsT<bf16> v, const float* mask,
+                             const float* bias, bf16* out, int b, int lq, int lk, int h, int d,
+                             int chunks, bool wide, cudaStream_t stream, int* report) {
+  auto kernel = fused_from_bf16_kernel<QP8, kBias>;
+  if (report) {
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    int resident = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, 32 * kFromWarps, 0);
+    if (err != cudaSuccess) return err;
+    const int r[8] = {b * chunks, kFromWarps, kFromRows, kFromKeys, 0, (int)attr.sharedSizeBytes,
+                      attr.numRegs, resident};
+    for (int i = 0; i < 8; ++i) report[i] = r[i];
+    return cudaSuccess;
+  }
+  fused_from_bf16_kernel<QP8, kBias><<<b * chunks, 32 * kFromWarps, 0, stream>>>(
+      q, k, v, mask, bias, out, lq, lk, h, d, chunks, 1.f / sqrtf((float)d), wide);
+  return cudaGetLastError();
+}
+
+template <int QP8, bool kBias>
+cudaError_t launch_fused_bf16_b(HeadsT<bf16> q, HeadsT<bf16> k, HeadsT<bf16> v, const float* mask,
+                                const float* bias, bf16* out, int b, int lq, int lk, int h, int d,
+                                cudaStream_t stream, int* report) {
+  const int chunks = (h * QP8 + 31) / 32;
+  // 16-byte loads where every slot starts on 16 bytes
+  const bool wide = d % 8 == 0 && q.bs % 8 == 0 && q.ld % 8 == 0 && k.bs % 8 == 0 &&
+                    k.ld % 8 == 0 && v.bs % 8 == 0 && v.ld % 8 == 0 &&
+                    reinterpret_cast<uintptr_t>(q.p) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(k.p) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(v.p) % 16 == 0;
+  if (lk <= 4)
+    return launch_to_bf16<QP8, 4, kBias>(q, k, v, mask, bias, out, b, lq, lk, h, d, chunks, wide,
+                                         stream, report);
+  if (lk <= kFusedRegKeys)
+    return launch_to_bf16<QP8, kFusedRegKeys, kBias>(q, k, v, mask, bias, out, b, lq, lk, h, d,
+                                                     chunks, wide, stream, report);
+  return launch_from_bf16<QP8, kBias>(q, k, v, mask, bias, out, b, lq, lk, h, d, chunks, wide,
+                                      stream, report);
+}
+
+template <int QP8>
+cudaError_t launch_fused_bf16_qp(HeadsT<bf16> q, HeadsT<bf16> k, HeadsT<bf16> v, const float* mask,
+                                 const float* bias, bf16* out, int b, int lq, int lk, int h,
+                                 int d, cudaStream_t stream, int* report) {
+  if (bias != nullptr)
+    return launch_fused_bf16_b<QP8, true>(q, k, v, mask, bias, out, b, lq, lk, h, d, stream,
+                                          report);
+  return launch_fused_bf16_b<QP8, false>(q, k, v, mask, bias, out, b, lq, lk, h, d, stream,
+                                         report);
+}
+
+cudaError_t launch_fused_bf16(HeadsT<bf16> q, HeadsT<bf16> k, HeadsT<bf16> v, const float* mask,
+                              const float* bias, bf16* out, int b, int lq, int lk, int h, int d,
+                              cudaStream_t stream, int* report) {
+  if (b <= 0 || h <= 0 || lq <= 0 || lq > kMaxFusedLen || lk <= 0 || lk > kMaxFusedLen ||
+      d <= 0 || d > kMaxHeadDim)
+    return cudaErrorInvalidValue;
+  if (d <= 8)
+    return launch_fused_bf16_qp<1>(q, k, v, mask, bias, out, b, lq, lk, h, d, stream, report);
+  if (d <= 16)
+    return launch_fused_bf16_qp<2>(q, k, v, mask, bias, out, b, lq, lk, h, d, stream, report);
+  if (d <= 32)
+    return launch_fused_bf16_qp<4>(q, k, v, mask, bias, out, b, lq, lk, h, d, stream, report);
+  return launch_fused_bf16_qp<8>(q, k, v, mask, bias, out, b, lq, lk, h, d, stream, report);
+}
+
 }  // namespace
 
 // Both take the same arguments (the packed one wants lq == lk) and return the
@@ -624,15 +1025,27 @@ extern "C" int fused_short_attention_f32(
                      v_ld, stream_ptr);
 }
 
-// The bfloat16 instantiation of the fused kernel: q, k, v and the output in
-// bfloat16, read into and written from the float32 arithmetic above, which
-// is what the Pallas kernel computes on bfloat16 inputs (it upcasts q, k and
-// v and keeps P in float32: short_attention.py:47-65).
+// The bfloat16 fused kernels ("from" above 8 keys, "to" up to 8): q, k, v
+// and the output in bfloat16, float32 arithmetic on their values, which is
+// what the Pallas kernel computes on bfloat16 inputs (it upcasts q, k and v
+// and keeps P in float32: short_attention.py:47-65).
 extern "C" int fused_short_attention_bf16(
     const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v, const float* mask,
     const float* bias, __nv_bfloat16* out, int b, int lq, int lk, int h, int d,
     long long q_bs, long long q_ld, long long k_bs, long long k_ld,
     long long v_bs, long long v_ld, void* stream_ptr) {
-  return fused_entry(q, k, v, mask, bias, out, b, lq, lk, h, d, q_bs, q_ld, k_bs, k_ld, v_bs,
-                     v_ld, stream_ptr);
+  return (int)launch_fused_bf16(heads(q, q_bs, q_ld, d), heads(k, k_bs, k_ld, d),
+                                heads(v, v_bs, v_ld, d), mask, bias, out, b, lq, lk, h, d,
+                                static_cast<cudaStream_t>(stream_ptr), nullptr);
+}
+
+// What the bfloat16 fused kernels' launcher gives these shapes, with or
+// without a bias, into `report` (8 ints, as launch_to_bf16 lists them; the
+// kernel is "from" when lk > 8). Launches nothing.
+extern "C" int fused_short_attention_bf16_geometry(int b, int lq, int lk, int h, int d,
+                                                   int biased, int* report) {
+  const HeadsT<bf16> none{};
+  const float one = 0.f;
+  return (int)launch_fused_bf16(none, none, none, nullptr, biased ? &one : nullptr, nullptr, b, lq,
+                                lk, h, d, nullptr, report);
 }

@@ -43,6 +43,7 @@ from particle_fm_tpu_torch.losses.flow_matching import CRITERIA, get_loss_fn
 from particle_fm_tpu_torch.models.cnf import CNFStack
 from particle_fm_tpu_torch.nets.common import WNDense, check_compute_dtype
 from particle_fm_tpu_torch.nets.epic import EPiCLayer
+from particle_fm_tpu_torch.ops.attention import forward_mode_ad
 from particle_fm_tpu_torch.samplers.ode import (FIXED_SOLVERS, odeint_dopri5,
                                                 odeint_dopri5_per_sample, odeint_fixed,
                                                 odeint_fixed_sc)
@@ -50,7 +51,6 @@ from particle_fm_tpu_torch.samplers.sde import ddim_sampler, euler_maruyama_samp
 from particle_fm_tpu_torch.utils.device import resolve_device
 
 SOLVERS = FIXED_SOLVERS + ("dopri5", "dopri5_zuko", "dopri5_per_sample", "em", "ddim")
-_KERNEL_ATTENTION = ("packed", "fused", "flash")
 
 
 _DTYPE_NAMES = {"float32": None, "bfloat16": torch.bfloat16}
@@ -298,7 +298,12 @@ class FlowMatchingModel:
 
         Forward-mode differentiation runs on the unfolded module path: the
         kernels' autograd Functions have no forward-mode rule, so a folded
-        network or an attention kernel raises."""
+        network raises, and so does attention wherever it would launch a
+        kernel (`ops.attention.forward_mode_ad`: a CUDA tensor at a shape the
+        kernel takes). Where `attn_impl` names a kernel but the dispatcher
+        takes the einsum path (`packed` on the CPU, for cross-attention shapes
+        or longer sets) or a kernel's plain version (`fused`, `flash` on the
+        CPU), it computes, as the JAX package's does for `packed`."""
         if self.loss_type == "droid" and self.droid_t_max != 1.0:
             raise NotImplementedError(
                 "log_prob is not defined for the droid VE prior (t_max != 1): "
@@ -311,13 +316,6 @@ class FlowMatchingModel:
             )
         if is_folded(net):
             raise RuntimeError("log_prob needs the unfolded network (call unfold_weight_norm)")
-        kernels = {getattr(m, "attn_impl", None) for m in net.modules()} & set(_KERNEL_ATTENTION)
-        if kernels:
-            raise NotImplementedError(
-                f"log_prob differentiates forward through the network, which the attention "
-                f"kernels ({', '.join(sorted(kernels))}) do not support: build the model with "
-                "attn_impl='einsum'"
-            )
         from torch.func import jacfwd, jvp, vmap
 
         sched = VPDiffusionSchedule(**dict(self.diff_config)) if self.loss_type == "diffusion" else None
@@ -350,7 +348,7 @@ class FlowMatchingModel:
         grid = torch.stack([ts, ts + 0.5 * dt], dim=1).to(x.device)
         z = x
         ladj = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
-        with torch.no_grad():
+        with torch.no_grad(), forward_mode_ad():
             for k in range(self.n_transforms):
                 for t, t_half in grid:
                     dx1 = vmap(lambda xi, ci, mi, ei: vf_single(k, t, xi, ci, mi),

@@ -15,6 +15,7 @@ and the blockwise one of ops/flash_attention.py (sets of any length).
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -98,6 +99,32 @@ def class_token_attention(
     return out.to(q.dtype)
 
 
+_forward_mode = [0]  # depth of `forward_mode_ad` blocks
+
+
+@contextlib.contextmanager
+def forward_mode_ad():
+    """A block that differentiates the network forward (`log_prob`): inside
+    it `attention` raises NotImplementedError where it would launch an
+    attention kernel (a CUDA tensor at a shape the kernel takes), since the
+    kernels' autograd Functions have no forward-mode rule. Where the
+    dispatcher takes the einsum path, or a kernel's plain version for CPU
+    tensors, it computes as anywhere else."""
+    _forward_mode[0] += 1
+    try:
+        yield
+    finally:
+        _forward_mode[0] -= 1
+
+
+def _kernel_launches(impl: str) -> None:
+    if _forward_mode[0]:
+        raise NotImplementedError(
+            f"log_prob differentiates forward through the network, and the {impl} attention "
+            "kernel, which would launch here (a CUDA tensor at a shape it takes), has no "
+            "forward-mode rule: build the model with attn_impl='einsum'")
+
+
 def auto_picks_flash(on_accel: bool, lk: int, d: int, has_bias: bool) -> bool:
     """The JAX package's rule for `impl="auto"`: long sets with head dims that
     are multiples of 128, on an accelerator, without bias."""
@@ -144,12 +171,17 @@ def attention(
         impl = "flash" if auto_picks_flash(on_accel, lk, d, attn_bias is not None) else "einsum"
     if impl == "packed":
         if on_accel and lq == lk and lk <= short_attention.MAX_PACKED_LEN:
+            _kernel_launches(impl)
             return short_attention.packed_short_attention(q, k, v, kv_mask, attn_bias)
         impl = "einsum"
     if impl == "flash":
         if attn_bias is not None:
             raise ValueError("impl='flash' takes no attn_bias; use 'einsum', 'packed' or 'fused'")
+        if on_accel:
+            _kernel_launches(impl)
         return flash_attention.flash_masked_attention(q, k, v, kv_mask)
     if impl == "fused":
+        if on_accel:
+            _kernel_launches(impl)
         return short_attention.fused_short_attention(q, k, v, kv_mask, attn_bias)
     return masked_attention(q, k, v, kv_mask, attn_bias, scores_dtype)

@@ -25,7 +25,9 @@ library for the same numbers), else on the CUDA cores. In bfloat16, at most
 `DIRECT_MAX_ROWS` query rows (class tokens) take a kernel of their own that
 splits the keys over one wave of resident blocks (`token_splits`;
 `token_geometry` mirrors its launch, `token_launch_report` asks the library)
-and merges the splits in the same launch.
+and merges the splits in the same launch; more rows at head dims up to 64 a
+kernel that stages each (set, head)'s K and V once and stops at the set's
+last real key (`mma_bf16_geometry`, `mma_bf16_launch_report`).
 """
 
 from __future__ import annotations
@@ -55,6 +57,10 @@ _MIN_KEYS_PER_SPLIT = 256
 TOKEN_WARPS = 8  # kTokWarps
 TOKEN_BLOCKS_PER_SM = 2  # kTokBlocksPerSm, the kernel's launch bounds
 _TOKEN_MIN_KEYS_PER_SPLIT = 128
+# bfloat16, more than `DIRECT_MAX_ROWS` query rows at head dims up to 64:
+# flash_mma_bf16_kernel in csrc/flash_attention.cu
+BF16_WARPS = 6  # kFbWarps: most warps of a block, a tile of 16 query rows each
+BF16_PV_PRODUCTS = 2  # kFbPvProducts: TF32 products of P . V (P's head and remainder)
 
 
 def flash_masked_attention_reference(q, k, v, kv_mask=None, block_k: int = BLOCK_K):
@@ -104,6 +110,48 @@ def mma_launch_report(lq: int, d: int) -> dict:
     lib = load_library()
     return launch_report(lib.flash_masked_attention_geometry, lib.attention_mma_instruction,
                          "tile_keys", lq, d)
+
+
+def bf16_tile_keys(dp: int) -> int:
+    """Keys of a staged tile of the bfloat16 tensor-core variant at padded head
+    dim `dp` (fb_tile_keys): path D's 279 keys at head dim 16 fit one."""
+    return 288 if dp <= 16 else 256 if dp <= 32 else 128
+
+
+def mma_bf16_geometry(b: int, lq: int, lk: int, h: int, d: int) -> dict:
+    """What `launch_flash_mma_bf16` of csrc/flash_attention.cu gives the
+    bfloat16 tensor-core variant (more than 4 query rows, head dim <= 64):
+    one block per (set, head, split) (`key_splits`, counted again from the
+    keys each split takes), its warps (one per tile of 16 query rows, at most
+    `BF16_WARPS`, equal passes over the set's tiles), the keys of a staged
+    tile, its stages (2, a ring, when a split's keys exceed one tile) and the
+    bytes of shared memory: V as float32 and the mask once, K and V as
+    bfloat16 per stage (K at a row stride of D + 8)."""
+    dp = max(16, padded_head_dim(d))
+    per_split = -(-lk // key_splits(b, lq, lk, h))
+    tile_keys = bf16_tile_keys(dp)
+    stages = 1 if per_split <= tile_keys else 2
+    tiles = -(-lq // MMA_ROWS)
+    passes = -(-tiles // BF16_WARPS)
+    return {"blocks": b * h * -(-lk // per_split), "warps": -(-tiles // passes), "passes": passes,
+            "tile_keys": tile_keys, "stages": stages,
+            "smem_bytes": 4 * (tile_keys * dp + tile_keys) + 2 * stages * tile_keys * (2 * dp + 8)}
+
+
+def mma_bf16_launch_report(b: int, lq: int, lk: int, h: int, d: int) -> dict:
+    """What the built library's launcher gives the bfloat16 tensor-core
+    variant at this shape (needs a CUDA device): `mma_bf16_geometry`'s
+    numbers, the registers per thread and the TF32 products of P . V, and
+    the instructions of its two products."""
+    lib = load_library()
+    report = (ctypes.c_int * 8)()
+    err = lib.flash_mma_bf16_geometry(b, lq, lk, h, d, key_splits(b, lq, lk, h), report)
+    if err != 0:
+        raise RuntimeError(f"flash_mma_bf16_geometry failed: cudaError {err}")
+    names = ("blocks", "warps", "passes", "tile_keys", "stages", "smem_bytes",
+             "registers_per_thread", "pv_tf32_products")
+    return {**dict(zip(names, report)), "instruction": bf16_instruction(),
+            "pv_instruction": lib.attention_mma_instruction().decode()}
 
 
 def key_splits(b: int, lq: int, lk: int, h: int) -> int:
@@ -189,6 +237,10 @@ def _declare(lib: ctypes.CDLL) -> None:
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         geometry = lib.flash_token_bf16_geometry
+        geometry.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+        geometry.restype = ctypes.c_int
+    if hasattr(lib, "flash_mma_bf16_geometry"):
+        geometry = lib.flash_mma_bf16_geometry
         geometry.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
         geometry.restype = ctypes.c_int
         lib.attention_mma_bf16_instruction.argtypes = []

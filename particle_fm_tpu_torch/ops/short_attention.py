@@ -50,6 +50,12 @@ MAX_SMEM = 232448  # bytes of shared memory a block may use on sm_90
 # takes the staged keys 8 at a time
 MMA_ROWS, MMA_KEYS = 16, 8
 MMA_PRODUCTS = 3  # TF32 products per float32 product (head and remainder of each operand)
+# the bfloat16 fused kernels (csrc/short_attention.cu): "from" (more than
+# FUSED_REG_KEYS keys) and "to" (at most FUSED_REG_KEYS, in registers)
+FUSED_REG_KEYS = 8  # kFusedRegKeys
+FROM_WARPS, FROM_BLOCKS_PER_SM = 4, 5  # kFromWarps, kFromBlocksPerSm
+FROM_ROWS, FROM_KEYS = 4, 2  # kFromRows (query rows of a lane), kFromKeys (keys loaded at once)
+TO_WARPS, TO_BLOCKS_PER_SM = 8, 2  # kToWarps, kToBlocksPerSm
 
 
 def mask_add(kv_mask: torch.Tensor | None, b: int, lk: int, like: torch.Tensor) -> torch.Tensor:
@@ -57,6 +63,21 @@ def mask_add(kv_mask: torch.Tensor | None, b: int, lk: int, like: torch.Tensor) 
     if kv_mask is None:
         return torch.zeros(b, lk, dtype=torch.float32, device=like.device)
     return (kv_mask.to(torch.float32) - 1.0) * (-NEG)
+
+
+def real_key_extents(kv_mask: torch.Tensor | None, b: int, lk: int) -> torch.Tensor:
+    """How many keys of each set the bfloat16 fused ("from") and flash kernels
+    step over, (B,) int64: up to the set's last key with a nonzero mask when
+    one of its keys has a mask of exactly 1 (the keys after it score about
+    1e9 below the running maximum: exp gives exactly 0 for them, and the
+    result is the same bit for bit), else all `lk` (a set whose keys are all
+    masked, masks with fractional values only). None: all `lk`."""
+    if kv_mask is None:
+        return torch.full((b,), lk, dtype=torch.int64)
+    m = kv_mask.to(torch.float32)
+    nonzero = m != 0
+    last = lk - 1 - nonzero.flip(-1).to(torch.int64).argmax(-1)
+    return torch.where((m == 1).any(-1), last + 1, torch.full_like(last, lk))
 
 
 def padded_head_dim(d: int) -> int:
@@ -75,6 +96,55 @@ def packed_geometry(l: int, d: int) -> dict:
     keys = -(-l // MMA_KEYS) * MMA_KEYS
     return {"warps": min(-(-l // MMA_ROWS), max_warps), "keys": keys,
             "smem_bytes": 4 * (2 * keys * (dp + 4) + keys)}
+
+
+def _row_lanes(h: int, qp8: int) -> int:
+    """Lanes that hold one row of `h` heads at `qp8` lanes a head (row_lanes)."""
+    n = 1
+    while n < h * qp8 and n < 32:
+        n *= 2
+    return n
+
+
+def fused_bf16_geometry(b: int, lq: int, lk: int, h: int, d: int, sms: int) -> dict:
+    """What `launch_fused_bf16` of csrc/short_attention.cu gives the bfloat16
+    fused kernels: a lane holds 8 values of a head, a head spans `qp8`
+    lanes, a row `_row_lanes` lanes (wider rows take `chunks` of 32).
+    "from" (more than FUSED_REG_KEYS keys): a block per (set, chunk), each
+    lane keeping FROM_ROWS query rows and loading FROM_KEYS keys at a time,
+    the warps' partial results meeting in static shared memory. "to": an
+    item is 32 / lanes query rows a load times 4 (2 with 5 to 8 keys), the
+    items dealt in equal runs to TO_BLOCKS_PER_SM blocks on each of `sms`
+    SMs. (The "from" kernel's static shared memory is the compiler's layout:
+    the library reports it.)"""
+    qp8 = next(p for p in (1, 2, 4, 8) if d <= 8 * p)
+    chunks = -(-h * qp8 // 32)
+    if lk > FUSED_REG_KEYS:
+        return {"kernel": "from", "blocks": b * chunks, "warps": FROM_WARPS, "rows": FROM_ROWS,
+                "keys": FROM_KEYS, "items_per_warp": 0,
+                "resident_blocks_per_sm": FROM_BLOCKS_PER_SM}
+    keys = 4 if lk <= 4 else FUSED_REG_KEYS
+    rows = (4 if keys == 4 else 2) * (32 // _row_lanes(h, qp8))
+    items = b * chunks * -(-lq // rows)
+    per_warp = -(-items // (sms * TO_BLOCKS_PER_SM * TO_WARPS))
+    return {"kernel": "to", "blocks": -(-items // (per_warp * TO_WARPS)), "warps": TO_WARPS,
+            "rows": rows, "keys": keys, "items_per_warp": per_warp,
+            "resident_blocks_per_sm": TO_BLOCKS_PER_SM}
+
+
+def fused_bf16_launch_report(b: int, lq: int, lk: int, h: int, d: int,
+                             biased: bool = False) -> dict:
+    """What the built library's launcher gives the bfloat16 fused kernels at
+    this shape (needs a CUDA device): `fused_bf16_geometry`'s numbers (the
+    resident blocks an SM from CUDA's occupancy calculator) and the
+    registers per thread."""
+    report = (ctypes.c_int * 8)()
+    err = load_library().fused_short_attention_bf16_geometry(b, lq, lk, h, d, int(biased), report)
+    if err != 0:
+        raise RuntimeError(f"fused_short_attention_bf16_geometry failed: cudaError {err}")
+    names = ("blocks", "warps", "rows", "keys", "items_per_warp", "smem_bytes",
+             "registers_per_thread", "resident_blocks_per_sm")
+    return {"kernel": "from" if lk > FUSED_REG_KEYS else "to", **dict(zip(names, report))}
 
 
 def launch_report(geometry_fn, instruction_fn, keys_name: str, *shape: int) -> dict:
@@ -153,6 +223,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         names += ["packed_short_attention_bf16", "fused_short_attention_bf16"]
         lib.attention_mma_bf16_instruction.argtypes = []
         lib.attention_mma_bf16_instruction.restype = ctypes.c_char_p
+    if hasattr(lib, "fused_short_attention_bf16_geometry"):
+        geometry = lib.fused_short_attention_bf16_geometry
+        geometry.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+        geometry.restype = ctypes.c_int
     for name in names:
         fn = getattr(lib, name)
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 6
@@ -334,8 +408,9 @@ fused_short_attention.launches = 0
 
 
 def fused_short_attention_bf16(q, k, v, kv_mask=None, attn_bias=None) -> torch.Tensor:
-    """The bfloat16 fused kernel on CUDA tensors: bfloat16 loads and stores
-    around the float32 arithmetic of `fused_short_attention_reference`.
+    """The bfloat16 fused kernels on CUDA tensors: the float32 arithmetic of
+    `fused_short_attention_reference` on the bfloat16 values, 16-byte loads,
+    keys past a set's last real key skipped (`fused_bf16_geometry`).
     Forward only. Counts its launches in `fused_short_attention_bf16.launches`."""
     if q.device.type != "cuda" or q.dtype != torch.bfloat16:
         raise ValueError(f"fused_short_attention_bf16 takes bfloat16 CUDA tensors, got "

@@ -26,3 +26,26 @@ def cuda_ms(fn: Callable[[], object], warmup: int = 5, reps: int = 20, rounds: i
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def device_ms(fn: Callable[[], object], calls: int = 20, warmup: int = 3) -> float:
+    """Milliseconds of device time of one call of `fn`, which launches one
+    CUDA kernel: the median duration of its launches over `calls` calls, as
+    torch.profiler records them. The host's time to issue a call is not in
+    it (`cuda_ms` includes it where the host is slower than the device). A
+    recording may lose launches (and did, late in a long process): the
+    median is taken over those it has. Raises unless the recorded launches
+    are of one kernel, at most one a call."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = {e.name for e in events}
+    if not events or len(names) != 1 or len(events) > calls:
+        raise RuntimeError(f"device_ms times one kernel a call; torch.profiler recorded "
+                           f"{len(events)} launches of {sorted(names)} in {calls} calls")
+    return statistics.median(e.device_time_total for e in events) / 1e3

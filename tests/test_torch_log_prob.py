@@ -4,8 +4,12 @@ Hutchinson's estimator with the JAX package's e handed in, on EPiC at a
 small width with the sincos time embedding (the compiled JAX function is
 the reference; see tests/test_torch_samplers_adaptive.py for why the cosine
 embedding is not), for FM-OT, for diffusion's probability-flow drift and
-for two flow transforms; and the guards that raise where the JAX function
-raises.
+for two flow transforms; the narrow droid transformer with a kernel
+`attn_impl` on the CPU, where no kernel runs (`packed`: the einsum path in
+both packages; `fused`, `flash`: JAX's Pallas kernels refuse the CPU outside
+interpret mode, the port runs their plain versions, a known difference); and
+the guards that raise where the JAX function raises. On the card, log_prob
+raises where an attention kernel would launch: tests/test_torch_train_cuda.py.
 
 Tolerance: log_prob rtol 1e-4.
 """
@@ -80,7 +84,56 @@ def test_log_prob_guards():
         fm.log_prob(net, x)
     fm.unfold_weight_norm(net)
     assert torch.isfinite(fm.log_prob(net, x, ode_steps=3)).all()
-    _, port_cfg = droid_configs(port_mha={"attn_impl": "packed"})["transformer"]
-    droid = FlowMatchingModel(**port_cfg)
-    with pytest.raises(NotImplementedError, match="packed"):
-        droid.log_prob(droid.init(device="cpu"), torch.zeros(1, 16, 3))
+
+
+def _droid_configs(impl: str):
+    """(JAX config with `attn_impl=impl`, JAX config on the einsum path, port
+    config with `attn_impl=impl`) of the narrow droid transformer, with the
+    sincos time embedding (see the module's note on the cosine one)."""
+    with_impl = droid_configs(jax_mha={"attn_impl": impl}, port_mha={"attn_impl": impl},
+                              t_emb="sincos")["transformer"]
+    return with_impl[0], droid_configs(t_emb="sincos")["transformer"][0], with_impl[1]
+
+
+def _droid_pair(impl: str):
+    """The JAX model with `attn_impl=impl`, the JAX weights of the same network
+    (initialised on the einsum path, which every impl shares: the attention
+    has no parameters), the port's model and network with `attn_impl=impl`,
+    and the JAX model on the einsum path."""
+    jax_impl, jax_einsum, port_cfg = _droid_configs(impl)
+    jm, variables, pm, net = model_pair(jax_einsum, port_cfg=port_cfg, fill=0.1)
+    return type(jm)(**jax_impl), variables, pm, net, jm
+
+
+def _jax_log_prob(jm, variables, x, mask, cond):
+    return np.asarray(jm.log_prob(variables, jnp.asarray(x), jnp.asarray(cond),
+                                  jnp.asarray(mask), ode_steps=4, exact=True))
+
+
+def test_log_prob_with_packed_attention_matches_jax_on_the_cpu():
+    """attn_impl="packed" on CPU tensors: both dispatchers take the einsum
+    path (no kernel runs), and log_prob computes in both packages."""
+    jm, variables, pm, net, _ = _droid_pair("packed")
+    x, mask, cond, _ = cloud(b=2, n=16, seed=4)
+    ref = _jax_log_prob(jm, variables, x, mask, cond)
+    out = pm.log_prob(net, t(x), t(cond), t(mask), ode_steps=4, exact=True).numpy()
+    assert np.isfinite(ref).all()
+    np.testing.assert_allclose(out, ref, rtol=1e-4)
+
+
+@pytest.mark.parametrize("impl", ["fused", "flash"])
+def test_log_prob_with_fused_or_flash_attention_on_the_cpu_known_difference(impl):
+    """The JAX dispatcher calls the Pallas kernels for these whatever the
+    backend, without interpret mode, and JAX's log_prob raises a ValueError
+    on the CPU (its forward-mode pass through the kernel's call fails; a
+    plain forward pass fails too: Pallas runs on the CPU only in interpret
+    mode). The port runs the kernels' plain versions for CPU tensors, so its
+    log_prob computes, and agrees with JAX's log_prob of the same network on
+    the einsum path."""
+    jm, variables, pm, net, jm_einsum = _droid_pair(impl)
+    x, mask, cond, _ = cloud(b=2, n=16, seed=4)
+    with pytest.raises(ValueError):
+        _jax_log_prob(jm, variables, x, mask, cond)
+    ref = _jax_log_prob(jm_einsum, variables, x, mask, cond)
+    out = pm.log_prob(net, t(x), t(cond), t(mask), ode_steps=4, exact=True).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-4)

@@ -10,6 +10,13 @@ reports: tests/test_torch_port_bf16_kernels.py, chip_smoke.py).
   blocks covering the padded width.
 - `ops/flash_attention.py::token_splits`/`token_geometry`: the class-token
   kernel's split of the keys into whole waves of resident blocks.
+- `ops/flash_attention.py::mma_bf16_geometry`: flash with more than 4 query
+  rows in bfloat16, a block per (set, head, split) taking the set's query
+  tiles in passes, K and V staged once (one tile) or through a ring of two
+  stages, within the card's shared memory.
+- `ops/short_attention.py::fused_bf16_geometry`: the bfloat16 fused kernels'
+  blocks, rows and keys a lane holds, and the "to" kernel's runs of items
+  over one wave of resident blocks.
 - The per-set products' split of a float32 input into three bfloat16
   pieces, whose sum is the input exactly, so that three bfloat16 products
   with float32 accumulation compute the float32 product on bfloat16 weights.
@@ -23,6 +30,7 @@ import torch
 
 from particle_fm_tpu_torch.ops import epic_layer as ops
 from particle_fm_tpu_torch.ops import flash_attention as fa
+from particle_fm_tpu_torch.ops import short_attention as sa
 
 SMS = 132  # the H100 SXM's SMs
 
@@ -82,6 +90,68 @@ def test_token_splits_fill_whole_waves(b, h, lk, want):
     if splits > 1:  # within one wave of resident blocks
         assert geo["blocks"] <= SMS * fa.TOKEN_BLOCKS_PER_SM
         assert geo["keys_per_split"] >= 128
+
+
+@pytest.mark.parametrize("b,lq,lk,h,d,want", [
+    # path D: one block per (set, head), 18 query tiles in 3 passes of 6 warps, the whole
+    # head (279 keys) one staged tile
+    (256, 279, 279, 16, 16, dict(blocks=4096, warps=6, passes=3, tile_keys=288, stages=1,
+                                 smem_bytes=42624)),
+    # head dim 8 runs at 16; 17 rows: 2 tiles, one pass
+    (3, 17, 17, 3, 8, dict(blocks=9, warps=2, passes=1, tile_keys=288, stages=1)),
+    # 558 keys at head dim 64: split in 2 (few sets), each split's 279 keys a ring of 128-key
+    # tiles
+    (3, 558, 558, 3, 64, dict(blocks=18, warps=6, passes=6, tile_keys=128, stages=2,
+                              smem_bytes=102912)),
+    # the tests' 1,500 keys at head dim 32: 5 splits of 300 keys through the ring
+    (4, 1500, 1500, 4, 32, dict(blocks=80, warps=6, passes=16, tile_keys=256, stages=2)),
+    # 5 rows, the fewest the variant takes: one warp
+    (1, 5, 40, 1, 12, dict(blocks=1, warps=1, passes=1, stages=1)),
+])
+def test_flash_bf16_geometry_at_served_and_edge_shapes(b, lq, lk, h, d, want):
+    geo = fa.mma_bf16_geometry(b, lq, lk, h, d)
+    assert {k: geo[k] for k in want} == want
+    assert geo["smem_bytes"] <= sa.MAX_SMEM
+    assert geo["warps"] * geo["passes"] * sa.MMA_ROWS >= lq  # every query row in a tile
+    assert (geo["warps"] - 1) * geo["passes"] * sa.MMA_ROWS < lq  # no warp idle throughout
+
+
+@pytest.mark.parametrize("lq", [5, 16, 17, 96, 97, 279, 558, 1500])
+@pytest.mark.parametrize("d", [1, 8, 12, 16, 17, 32, 33, 64])
+def test_flash_bf16_geometry_fits_every_shape(lq, d):
+    for b, lk in ((1, 5), (3, lq), (256, 279), (2, 6000)):
+        geo = fa.mma_bf16_geometry(b, lq, lk, 2, d)
+        splits = fa.key_splits(b, lq, lk, 2)
+        per_split = -(-lk // splits)
+        assert geo["blocks"] == b * 2 * -(-lk // per_split)
+        assert geo["stages"] == (1 if per_split <= geo["tile_keys"] else 2)
+        assert geo["tile_keys"] % 32 == 0 and geo["smem_bytes"] <= sa.MAX_SMEM
+        assert 1 <= geo["warps"] <= fa.BF16_WARPS
+
+
+@pytest.mark.parametrize("b,lq,lk,h,d,want", [
+    # path B's first half: a block per set, 4 query rows and 2 keys at a time a lane
+    (640, 4, 150, 16, 8, dict(kernel="from", blocks=640, warps=4, rows=4, keys=2)),
+    # its second half: 8 rows an item (two 256-byte rows a load, 4 loads), runs of 6 items
+    # over one wave of 2 blocks of 8 warps on each of 132 SMs
+    (640, 150, 4, 16, 8, dict(kernel="to", blocks=254, warps=8, rows=8, keys=4,
+                              items_per_warp=6)),
+    # 5 to 8 keys: 2 loads an item; 33 heads of 8 take two chunks of 32 lanes
+    (5, 9, 7, 33, 8, dict(kernel="to", rows=2, keys=8)),
+    # head dim 64: 8 lanes a head, 3 heads in 32 lanes, one row a load
+    (3, 17, 4, 3, 64, dict(kernel="to", rows=4, keys=4)),
+    (3, 4, 17, 3, 12, dict(kernel="from", blocks=3, rows=4, keys=2)),
+    (2, 4, 150, 16, 64, dict(kernel="from", blocks=8)),  # 16 heads of 64: 4 chunks
+])
+def test_fused_bf16_geometry_at_served_and_edge_shapes(b, lq, lk, h, d, want):
+    geo = sa.fused_bf16_geometry(b, lq, lk, h, d, SMS)
+    assert {k: geo[k] for k in want} == want
+    if geo["kernel"] == "to":  # every item dealt, within one wave of resident blocks
+        rows, per_warp = geo["rows"], geo["items_per_warp"]
+        chunks = -(-h * {8: 1, 12: 2, 16: 2, 64: 8}[d] // 32)
+        items = b * chunks * -(-lq // rows)
+        assert geo["blocks"] * sa.TO_WARPS * per_warp >= items
+        assert geo["blocks"] <= SMS * sa.TO_BLOCKS_PER_SM
 
 
 def test_three_bfloat16_pieces_sum_to_the_float32_input():

@@ -267,3 +267,119 @@ def test_bf16_wrappers_refuse_float32_and_no_float32_kernel_takes_bf16(cuda):
         sa._launch("packed_short_attention_f32", q, k, v, mask, None, sa.MAX_PACKED_LEN)
     with pytest.raises(TypeError, match="bfloat16"):
         fa._launch("flash_masked_attention_bf16", q.float(), k.float(), v.float(), mask)
+
+
+# The two kernels redesigned to stop at each set's last real key (flash with
+# more than 4 query rows, the fused pair): masks of every kind, tiles and
+# steps left ragged, head dims 8 to 64, offset operands, the launch reports.
+
+MASK_KINDS = ("prefix", "holes", "only the last key", "all masked", "fractional only")
+
+
+def _mask_of(kind: str, b: int, lk: int, device) -> torch.Tensor:
+    """A (B, Lk) mask of one kind; set 0 has every key masked but in the last
+    two kinds (every key masked, fractional values only: all Lk keys count)."""
+    gen = torch.Generator().manual_seed(lk)
+    keys = torch.arange(lk)[None, :]
+    m = (keys < torch.randint(1, lk + 1, (b, 1), generator=gen)).float()
+    if kind == "holes":
+        m = m * (keys % 3 == 0).float()
+    elif kind == "only the last key":
+        m = (keys == lk - 1).float().expand(b, lk).clone()
+    elif kind == "all masked":
+        m = torch.zeros(b, lk)
+    elif kind == "fractional only":
+        m = 0.5 * m
+    if kind not in ("all masked", "fractional only"):
+        m[0] = 0.0
+    return m.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", MASK_KINDS)
+@pytest.mark.parametrize("kernel,lq,lk,d", [
+    ("flash", 279, 279, 16), ("flash", 37, 600, 32), ("flash", 5, 17, 64),
+    ("fused", 4, 150, 8), ("fused", 4, 17, 12), ("fused", 3, 512, 64),
+])
+def test_bf16_kernels_stop_at_the_last_real_key(cuda, kind, kernel, lq, lk, d):
+    q, k, v, _, _ = _attention_inputs(3, lq, lk, 3, d, lq + lk, cuda, masked=False)
+    mask = _mask_of(kind, 3, lk, cuda)
+    fn, ref = ((fa.flash_masked_attention, fa.flash_masked_attention_reference)
+               if kernel == "flash" else
+               (sa.fused_short_attention, sa.fused_short_attention_reference))
+    with torch.no_grad():
+        out = fn(q, k, v, mask)
+        again = fn(q, k, v, mask)
+    assert_within(out, ref(q, k, v, mask))
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 12, 16, 32, 64])
+@pytest.mark.parametrize("lq,lk", [(5, 5), (16, 31), (17, 33), (33, 290), (300, 20), (558, 558)])
+def test_flash_bf16_off_every_tile_and_step(cuda, lq, lk, d):
+    """Query rows off the 16-row tiles and the passes of a block, keys off the
+    16- and 32-key steps and the staged tile (288, 256 or 128 keys: 290 and
+    558 keys take the ring of two stages, and with few sets the keys split)."""
+    q, k, v, mask, _ = _attention_inputs(2, lq, lk, 3, d, lq + lk + d, cuda)
+    with torch.no_grad():
+        out = fa.flash_masked_attention(q, k, v, mask)
+    assert_within(out, fa.flash_masked_attention_reference(q, k, v, mask))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 12, 16, 32, 64])
+@pytest.mark.parametrize("lq,lk,bias", [(4, 150, False), (150, 4, False), (37, 150, True),
+                                        (7, 9, True), (9, 7, False), (1, 512, True)])
+def test_fused_bf16_head_dims_and_bias(cuda, lq, lk, bias, d):
+    q, k, v, mask, ab = _attention_inputs(3, lq, lk, 5, d, lq + lk + d, cuda, bias=bias)
+    with torch.no_grad():
+        out = sa.fused_short_attention(q, k, v, mask, ab)
+    assert_within(out, sa.fused_short_attention_reference(q, k, v, mask, ab))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,lq,lk", [("flash", 37, 300), ("fused", 4, 150),
+                                          ("fused", 150, 4)])
+def test_redesigned_bf16_kernels_on_offset_operands(cuda, kernel, lq, lk):
+    """Operands one element off 16 bytes take element loads."""
+    gen = torch.Generator().manual_seed(lq + lk)
+    h, d = 16, 8
+    n = lambda l: 3 * l * h * d
+    flat = torch.randn(n(lq) + 2 * n(lk) + 1, generator=gen).to(cuda, BF16)
+    q = flat[1:1 + n(lq)].view(3, lq, h, d)
+    k = flat[1 + n(lq):1 + n(lq) + n(lk)].view(3, lk, h, d)
+    v = flat[1 + n(lq) + n(lk):].view(3, lk, h, d)
+    mask = (torch.arange(lk)[None, :] < torch.tensor([[lk], [2], [lk // 2 + 1]])).float().to(cuda)
+    fn, ref = ((fa.flash_masked_attention, fa.flash_masked_attention_reference)
+               if kernel == "flash" else
+               (sa.fused_short_attention, sa.fused_short_attention_reference))
+    with torch.no_grad():
+        out = fn(q, k, v, mask)
+    assert_within(out, ref(q, k, v, mask))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,lk,h,d", [(256, 279, 279, 16, 16), (3, 558, 558, 3, 64),
+                                         (3, 17, 17, 3, 8), (4, 1500, 1500, 4, 32),
+                                         (2, 33, 290, 3, 12)])
+def test_flash_bf16_launch_report_matches_its_mirror(cuda, b, lq, lk, h, d):
+    report = fa.mma_bf16_launch_report(b, lq, lk, h, d)
+    mirror = fa.mma_bf16_geometry(b, lq, lk, h, d)
+    assert {key: report[key] for key in mirror} == mirror
+    assert report["smem_bytes"] <= sa.MAX_SMEM
+    assert report["pv_tf32_products"] == fa.BF16_PV_PRODUCTS
+    assert report["instruction"] == "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"
+    assert report["pv_instruction"] == "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,lk,h,d,biased", [
+    (640, 4, 150, 16, 8, False), (640, 150, 4, 16, 8, False), (64, 37, 150, 16, 8, True),
+    (3, 17, 4, 3, 64, False), (3, 4, 17, 3, 12, True), (5, 9, 7, 33, 8, False),
+])
+def test_fused_bf16_launch_report_matches_its_mirror(cuda, b, lq, lk, h, d, biased):
+    report = sa.fused_bf16_launch_report(b, lq, lk, h, d, biased)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    mirror = sa.fused_bf16_geometry(b, lq, lk, h, d, sms)
+    assert {key: report[key] for key in mirror} == mirror

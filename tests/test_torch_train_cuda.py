@@ -10,6 +10,7 @@ The file imports no JAX, so that the card's machine runs it:
   packed kernel in the forward pass against the wrapper replaced by its
   plain version, within the same tolerances, and one packed launch per layer
   per step; then a train step on the card.
+- log_prob raises where the packed kernel would launch (no forward-mode rule).
 """
 
 from __future__ import annotations
@@ -103,3 +104,18 @@ def test_packed_training_matches_the_plain_attention(cuda):
     step = pstep.make_train_step(model, pstep.make_optimizer())
     loss = step(state, torch.Generator(cuda).manual_seed(0), *batch)
     assert torch.isfinite(loss) and state.step == 1
+
+
+@pytest.mark.cuda
+def test_log_prob_raises_where_an_attention_kernel_would_launch(cuda):
+    """log_prob differentiates forward; the packed kernel's autograd Function
+    has no forward-mode rule, so on CUDA tensors at a shape the kernel takes
+    log_prob raises (on the CPU, where the dispatcher takes the einsum path,
+    it computes: tests/test_torch_log_prob.py)."""
+    model = FlowMatchingModel(**TRANSFORMER)
+    net = model.init(seed=0, device=cuda)
+    x, mask, cond = (a.to(cuda) for a in _batch(b=2))
+    before = sa.packed_short_attention.launches
+    with pytest.raises(NotImplementedError, match="packed attention kernel"):
+        model.log_prob(net, x, cond, mask, ode_steps=3)
+    assert sa.packed_short_attention.launches == before
