@@ -955,22 +955,42 @@ def bf16_design(name, report, mirror, **want) -> dict:
 
 
 def packed_bf16_phase(torch, sa, dev) -> dict:
+    """The bf16 packed kernel (redesigned: one pass over Q . K^T for a group
+    of heads, stopping at each set's last real key) at path A, in
+    TURN_ROUNDS rounds of in-turn readings with bf16 SDPA and read on the
+    device, with its bound over all keys and over the real keys. Then the
+    launch reports against the wrapper's mirror, a bias, the mask cases, the
+    edges, and two launches alike."""
     fn, ref = sa.packed_short_attention, sa.packed_short_attention_reference
     main = bf16_case(torch, attention_case(torch, dev, 60, 640, 150, 150, 16, 16, masked=True,
                                            fused_qkv=True))
     b, l, h, d = main[0].shape
     entry = attention_bf16_measure(torch, "packed_short_attention_bf16", fn, ref, main,
-                                   bf16_products=4 * d * b * h * l * l)
+                                   bf16_products=4 * d * b * h * l * l,
+                                   in_turns_with_library=True, real_keys=True)
     case = bf16_case(torch, attention_case(torch, dev, 61, 64, 150, 150, 16, 16, masked=True,
                                            bias=True))
     bias_err = check_bf16_kernel(torch, "packed_short_attention_bf16 (bias)", fn(*case), ref(*case))
+    design = {f"B={bb} L={ll} H={hh} D={dd}" + (" bias" if biased else ""): bf16_design(
+        f"packed_short_attention_bf16 (B={bb}, L={ll}, H={hh}, D={dd}, bias={biased})",
+        sa.packed_bf16_launch_report(bb, ll, hh, dd, biased),
+        sa.packed_bf16_geometry(bb, ll, hh, dd, biased), instruction=BF16_INSTRUCTION)
+        for bb, ll, hh, dd, biased in ((640, 150, 16, 16, False), (64, 150, 16, 16, True),
+                                       (3, 256, 3, 64, False), (3, 17, 3, 12, True),
+                                       (4, 37, 3, 33, False))}
+    with torch.no_grad():
+        out, again = fn(*main), fn(*main)
+    if not torch.equal(out, again):
+        fail("packed_short_attention_bf16: a second launch differs")
     return {"name": "packed_short_attention_bf16", "route": "cuda",
             "source": "particle_fm_tpu_torch/csrc/short_attention.cu",
             "replaces": "particle_fm_tpu/ops/pallas/short_attention.py:308", "launches": None,
-            **entry, "max_abs_err_with_bias": bias_err,
+            **entry, "launch": design, "max_abs_err_with_bias": bias_err,
             "instruction": bf16_instruction_checked("packed_short_attention_bf16",
                                                     sa.bf16_instruction),
             "tolerance": f"{BF16_KERNEL_ULPS} bf16 ulps of the largest |out|",
+            **mask_checks(torch, dev, "packed_short_attention_bf16", fn, ref,
+                          [(150, 150, 16), (17, 17, 12), (256, 256, 64), (33, 33, 32)]),
             **bf16_edges(torch, dev, "packed_short_attention_bf16", fn, ref, (1, 15, 16, 17, 256),
                          bias_dims=(12, 64))}
 

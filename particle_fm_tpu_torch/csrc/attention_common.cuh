@@ -1,7 +1,7 @@
 // What the attention kernels of this directory share (short_attention.cu,
 // flash_attention.cu): the (B, L, H, D) operand with its row and set
-// distances, the staging of one head's rows into shared memory, and the
-// masking constants. Operands in float32 or bfloat16 (read into float32),
+// distances, the staging of one head's rows into shared memory, cp.async,
+// the real-key extent of a set, and the masking constants. Operands in float32 or bfloat16 (read into float32),
 // sm_90a.
 //
 // -1e9 is added to the score of a masked key, never -inf, so a set whose keys
@@ -147,6 +147,46 @@ __device__ __forceinline__ int real_key_extent(const float* mask_row, int lk, in
     if ((threadIdx.x & 31) == 0 && mine >= 0) atomicMax(last, mine);
   }
   return __syncthreads_or(one) ? *last + 1 : lk;
+}
+
+// The same extent (the rule above), from the one read of the mask row that
+// also stages the set's additive mask into shared memory: madd[j] is 0 for a
+// real key, -1e9 for a masked one (mask_row null: every key real), -inf for
+// the keys j = n .. n_p - 1 past the set's end. Every thread calls this;
+// `last` is a shared int. The closing barrier makes madd visible.
+__device__ __forceinline__ int stage_mask_extent(float* madd, const float* mask_row, int n,
+                                                 int n_p, int* last) {
+  if (threadIdx.x == 0) *last = -1;
+  __syncthreads();
+  int one = 0, mine = -1;
+  for (int j = threadIdx.x; j < n_p; j += blockDim.x) {
+    float a = -CUDART_INF_F;
+    if (j < n) {
+      const float mv = mask_row ? mask_row[j] : 1.f;
+      a = mask_row ? (mv - 1.f) * kNeg : 0.f;
+      if (mv != 0.f) mine = j;
+      one |= mv == 1.f;
+    }
+    madd[j] = a;
+  }
+  mine = __reduce_max_sync(0xffffffffu, mine);
+  if ((threadIdx.x & 31) == 0 && mine >= 0) atomicMax(last, mine);
+  return __syncthreads_or(one) ? *last + 1 : n;
+}
+
+// 16 bytes from device memory to shared memory without registers (cp.async;
+// zeros where !in, and nothing is read then).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src),
+               "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
 template <typename T>

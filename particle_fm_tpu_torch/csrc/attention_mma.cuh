@@ -274,17 +274,19 @@ __device__ __forceinline__ void stage_mask(float* madd, const float* mask_row, i
 //   S (16 x 16)  = Q (16 x DP) . K^T      DP / 16 steps, 2 mma each (two n8 key tiles)
 //   s            = S * scale + madd (+ bias), float32 on the accumulator
 //
-// K and V sit in shared memory as bfloat16 rows at a stride of DP + 8
-// elements (DP: the head dim padded to 16, 32 or 64; rows 16 bytes beyond a
-// multiple of 32 bytes apart), read by ldmatrix: K without .trans (its rows
-// are B's columns), V with .trans. What follows S differs by kernel:
-//   packed (`packed_bf16_keys`): two passes over the keys, the first for the
-//     rows' maxima, the second recomputing S (the same instructions in the
-//     same order: the same values) for p = exp(s - max), the sum of the
-//     unrounded p, and O += bf16(P) . V as bfloat16 products, P taken from the
-//     accumulator's registers as A without any exchange (C's key tiles 0 and
-//     1 are A's columns 0..7 and 8..15). That is the Pallas `_packed_kernel`
-//     on bfloat16 (short_attention.py:187-206): the softmax over the whole row
+// K and V sit in shared memory as bfloat16 rows 16 bytes beyond a multiple
+// of 32 bytes apart (flash: DP + 8 elements, DP the head dim padded to 16, 32
+// or 64; packed: a group of heads 32 or DP columns wide, + 8), read by
+// ldmatrix: K without .trans (its rows are B's columns), V with .trans. What
+// follows S differs by kernel:
+//   packed (`packed_bf16_rows`): one pass over Q . K^T. A warp keeps the
+//     scores of its 16 rows for every step of the set's keys in registers (8
+//     floats a lane a step), takes the rows' maxima from them, then from the
+//     same registers p = exp(s - max), the sum of the unrounded p, and O +=
+//     bf16(P) . V as bfloat16 products, P taken from the accumulator's
+//     registers as A without any exchange (C's key tiles 0 and 1 are A's
+//     columns 0..7 and 8..15). That is the Pallas `_packed_kernel` on
+//     bfloat16 (short_attention.py:187-206): the softmax over the whole row
 //     before P is rounded, the normalisation after PV.
 //   flash (flash_attention.cu, `flash_bf16_step`): the streaming softmax, P
 //     kept in float32 as the Pallas flash kernel keeps it
@@ -307,36 +309,6 @@ struct MmaTileBf16 {
 
 __device__ __forceinline__ uint32_t pack_raw_bf16(bf16 lo, bf16 hi) {
   return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-// Rows row0 .. row0 + 15 of one head of q (row distance ld, d wide) as A
-// fragments; rows past last_row repeat it.
-template <int DP>
-__device__ __forceinline__ void mma_tile_init_bf16(MmaTileBf16<DP>& t, const bf16* qhead,
-                                                   long long ld, int row0, int last_row, int d,
-                                                   float m_init) {
-  const int g = (threadIdx.x & 31) >> 2, tt = threadIdx.x & 3;
-  const bf16 zero = __float2bfloat16_rn(0.f);
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const bf16* qrow = qhead + min(row0 + 8 * half + g, last_row) * ld;
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int col = 16 * kk + 8 * c + 2 * tt;
-        t.q[kk][half + 2 * c] =
-            pack_raw_bf16(col < d ? qrow[col] : zero, col + 1 < d ? qrow[col + 1] : zero);
-      }
-    }
-    t.m[half] = m_init;
-    t.l[half] = 0.f;
-  }
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) t.o[n][i] = 0.f;
-  }
 }
 
 // s[kt][i] = the scores of keys key0 + 8 kt + 2 tt + (i & 1) for row g + 8 (i >> 1)
@@ -377,47 +349,135 @@ __device__ __forceinline__ float quad_max(float x) {
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
-// The packed kernel's softmax over the staged keys 0 .. n_p - 1 (n_p a
-// multiple of 16): the rows' maxima, then p, its sum and O += bf16(P) . V.
-template <int DP, typename Bias>
-__device__ __forceinline__ void packed_bf16_keys(MmaTileBf16<DP>& t, const bf16* ks,
-                                                 const bf16* vs, const float* madd, int n_p,
-                                                 float scale, Bias bias) {
-  constexpr int ST = DP + 8;
-  const int lane = threadIdx.x & 31;
-  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
-  for (int key0 = 0; key0 < n_p; key0 += kBfKeys) {
-    float s[2][4];
-    mma_scores_bf16(s, t, ks, madd, key0, scale, bias);
-#pragma unroll
-    for (int kt = 0; kt < 2; ++kt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], s[kt][i]);
-  }
-  t.m[0] = quad_max(mx[0]);
-  t.m[1] = quad_max(mx[1]);
+// Steps of 16 keys that the packed kernel's tile takes as straight-line
+// code: their loads, products and exponentials may overlap.
+constexpr int kPackedStepGroup = 4;
 
-  const bf16* vrow = vs + (lane & 15) * ST + 8 * (lane >> 4);
-  for (int key0 = 0; key0 < n_p; key0 += kBfKeys) {
-    float s[2][4];
-    mma_scores_bf16(s, t, ks, madd, key0, scale, bias);
-    float p[2][4];
+// f(j) for the steps j = 0 .. n - 1 (n <= NS), j a constant in each call:
+// whole groups of kPackedStepGroup steps without a test between them, the
+// steps of the group that ends past n each behind one.
+template <int NS, typename F>
+__device__ __forceinline__ void for_steps(int n, F f) {
+#pragma unroll
+  for (int j0 = 0; j0 < NS; j0 += kPackedStepGroup) {
+    constexpr int U = kPackedStepGroup;
+    if (j0 + U <= n || (j0 + U > NS && NS <= n)) {  // warp-uniform
+#pragma unroll
+      for (int j = j0; j < j0 + U && j < NS; ++j) f(j);
+    } else {
+#pragma unroll
+      for (int j = j0; j < j0 + U && j < NS; ++j)
+        if (j < n) f(j);
+    }
+  }
+}
+
+// The scores of one step of 16 keys (from key 16 j on: `krow` and `madd` at
+// that key, `krow` this lane's ldmatrix row) for a warp's 16 query rows,
+// scaled, masked and biased: s[kt][i] is row g + 8 (i >> 1), key 16 j + 8 kt
+// + 2 tt + (i & 1).
+template <int DP, typename Bias>
+__device__ __forceinline__ void packed_bf16_scores(float (&s)[2][4], const uint32_t (&q)[DP / 16][4],
+                                                   const bf16* krow, const float* madd, int key0,
+                                                   float scale, Bias bias) {
+  const int tt = threadIdx.x & 3;
+#pragma unroll
+  for (int kt = 0; kt < 2; ++kt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[kt][i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    uint32_t b[4];
+    ldmatrix_x4(b, krow + 16 * kk);
+    mma_bf16(s[0], q[kk], b[0], b[1]);
+    mma_bf16(s[1], q[kk], b[2], b[3]);
+  }
+#pragma unroll
+  for (int kt = 0; kt < 2; ++kt) {
+    const float2 ma = *reinterpret_cast<const float2*>(madd + 8 * kt + 2 * tt);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float sc = fmaf(s[kt][i], scale, (i & 1) ? ma.y : ma.x);
+      if (Bias::kOn) sc += bias(8 * (i >> 1), key0 + 8 * kt + 2 * tt + (i & 1));
+      s[kt][i] = sc;
+    }
+  }
+}
+
+// One step's p = exp(s - m) (m: the rows' maxima), their sums into l, and O
+// += bf16(P) . V (`vrow`: this lane's ldmatrix row of the step's V).
+template <int DP>
+__device__ __forceinline__ void packed_bf16_pv(float (&o)[DP / 8][4], float (&l)[2],
+                                               const float (&s)[2][4], const float (&m)[2],
+                                               const bf16* vrow) {
+  float p[2][4];
+#pragma unroll
+  for (int kt = 0; kt < 2; ++kt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      p[kt][i] = exp2_neg((s[kt][i] - m[i >> 1]) * kLog2e);
+      l[i >> 1] += p[kt][i];
+    }
+  const uint32_t a[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
+                         pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
+#pragma unroll
+  for (int np = 0; np < DP / 16; ++np) {
+    uint32_t b[4];
+    ldmatrix_x4_trans(b, vrow + 16 * np);
+    mma_bf16(o[2 * np], a, b[0], b[1]);
+    mma_bf16(o[2 * np + 1], a, b[2], b[3]);
+  }
+}
+
+// A warp's tile of 16 query rows of the packed kernel, in one pass over
+// Q . K^T. `qs`, `ks`, `vs`: the warp's head in the staged Q (from the tile's
+// first row), K and V (from key 0), bfloat16 rows `sw` elements apart;
+// `madd`: the keys' additive mask. The scores of the first `n_steps` steps of
+// 16 keys (at most NS) are computed once, into registers; the rows' maxima
+// come from them, then, from the same registers and in the order of the
+// first version's two passes (the same values), p = exp(s - max), the sum
+// of the unrounded p and O += bf16(P) . V. The rows, divided by their sums
+// and rounded to bfloat16, go to `os` (the tile's place in the staged Q,
+// read before) at the same stride.
+template <int DP, int NS, typename Bias>
+__device__ __forceinline__ void packed_bf16_rows(const bf16* qs, const bf16* ks, const bf16* vs,
+                                                 int sw, const float* madd, int n_steps,
+                                                 float scale, Bias bias, bf16* os) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tt = lane & 3;
+  uint32_t q[DP / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+    ldmatrix_x4(q[kk], qs + (lane & 15) * sw + 8 * (lane >> 4) + 16 * kk);
+  const bf16* krow = ks + ((lane & 7) + 8 * (lane >> 4)) * sw + 8 * ((lane >> 3) & 1);
+  float s[NS][2][4];
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  for_steps<NS>(n_steps, [&](int j) {
+    packed_bf16_scores<DP>(s[j], q, krow + 16 * j * sw, madd + 16 * j, 16 * j, scale, bias);
 #pragma unroll
     for (int kt = 0; kt < 2; ++kt)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        p[kt][i] = exp2_neg((s[kt][i] - t.m[i >> 1]) * kLog2e);
-        t.l[i >> 1] += p[kt][i];
-      }
-    const uint32_t a[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
-                           pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
+      for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], s[j][kt][i]);
+  });
+  const float m[2] = {quad_max(mx[0]), quad_max(mx[1])};
+
+  float o[DP / 8][4], l[2] = {0.f, 0.f};
 #pragma unroll
-    for (int np = 0; np < DP / 16; ++np) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, vrow + key0 * ST + 16 * np);
-      mma_bf16(t.o[2 * np], a, b[0], b[1]);
-      mma_bf16(t.o[2 * np + 1], a, b[2], b[3]);
-    }
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
+  const bf16* vrow = vs + (lane & 15) * sw + 8 * (lane >> 4);
+  for_steps<NS>(n_steps, [&](int j) { packed_bf16_pv<DP>(o, l, s[j], m, vrow + 16 * j * sw); });
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float sum = l[half];  // over the four lanes that share the row
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float f = 1.f / sum;
+    bf16* orow = os + (8 * half + g) * sw + 2 * tt;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n)
+      *reinterpret_cast<uint32_t*>(orow + 8 * n) = pack_bf16(o[n][2 * half] * f,
+                                                             o[n][2 * half + 1] * f);
   }
 }
 
@@ -429,31 +489,6 @@ __device__ __forceinline__ void mma_store_row_bf16(const MmaTileBf16<DP>& t, int
 #pragma unroll
   for (int n = 0; n < DP / 8; ++n)
     store2(orow, 8 * n + 2 * tt, d, t.o[n][2 * half] * f, t.o[n][2 * half + 1] * f);
-}
-
-// Stage `rows` rows of one bfloat16 head (d wide) at a row stride of DP + 8
-// elements; columns d..DP-1 and rows rows..rows_p-1 become zero. 16-byte
-// pieces where d % 8 == 0 and the rows allow it, else elements.
-template <int DP>
-__device__ __forceinline__ void stage_head_bf16(bf16* dst, const bf16* src, long long ld,
-                                                int rows, int rows_p, int d) {
-  constexpr int ST = DP + 8;
-  const bool vec = d % 8 == 0 && ld % 8 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0;
-  if (vec) {
-    constexpr int Q = DP / 8;
-    for (int i = threadIdx.x; i < rows_p * Q; i += blockDim.x) {
-      const int r = i / Q, c = (i % Q) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (r < rows && c < d) val = *reinterpret_cast<const uint4*>(src + r * ld + c);
-      *reinterpret_cast<uint4*>(dst + r * ST + c) = val;
-    }
-  } else {
-    const bf16 zero = __float2bfloat16_rn(0.f);
-    for (int i = threadIdx.x; i < rows_p * DP; i += blockDim.x) {
-      const int r = i / DP, c = i % DP;
-      dst[r * ST + c] = r < rows && c < d ? src[r * ld + c] : zero;
-    }
-  }
 }
 
 }  // namespace

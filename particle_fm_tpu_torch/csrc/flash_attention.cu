@@ -469,21 +469,6 @@ __host__ __device__ constexpr size_t fb_smem(int dp, int stages) {
          2 * (size_t)stages * fb_tile_keys(dp) * (2 * dp + 8);
 }
 
-// 16 bytes from device memory to shared memory without registers (cp.async;
-// zeros where !in, and nothing is read then).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src),
-               "r"(in ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;" ::: "memory");
-}
-
 // One step of the streaming softmax over the NT staged tiles of 8 keys from
 // key0 on, for a warp's 16 query rows (the step's first key is a key of the
 // range, so its maximum is finite): S as bfloat16 products (mma_scores_bf16,
@@ -546,8 +531,8 @@ __device__ __forceinline__ void flash_bf16_step(MmaTileBf16<DP>& t, const bf16* 
 }
 
 // Q's bfloat16 A fragments for rows row0 .. row0 + 15 of one head (rows past
-// last_row repeat it; columns from d on are zero), as mma_tile_init_bf16
-// packs them. `pairs`: two neighbouring values are one aligned 32-bit load,
+// last_row repeat it; columns from d on are zero), in mma_bf16.cuh's A
+// layout. `pairs`: two neighbouring values are one aligned 32-bit load,
 // so the registers are loaded here and used only where the tile starts.
 template <int DP>
 __device__ __forceinline__ void load_q_bf16(uint32_t (&r)[DP / 16][4], const bf16* qhead,

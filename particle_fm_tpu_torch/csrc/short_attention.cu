@@ -76,16 +76,43 @@
 // (the mask and the bias stay float32).
 //   packed_short_attention_bf16: the Pallas `_packed_kernel` on bfloat16
 //     (short_attention.py:187-206): Q . K^T as bfloat16 products with float32
-//     accumulation, the softmax over the whole row in float32, P rounded to
-//     bfloat16 for a bfloat16 P . V, the normalisation after PV, the output
-//     rounded once. A block per (set, head) stages K and V as bfloat16 rows
-//     (keys padded to 16) and each warp runs attention_mma.cuh's bfloat16 tile
-//     step (`packed_bf16_keys`) over 16 keys at a time: a first pass over the
-//     keys for the rows' maxima, a second that recomputes S (the same
-//     instructions: the same values) for P. P must be rounded against the
-//     row's final maximum to be the Pallas kernel's P, which a streaming
-//     softmax cannot give; the two passes cost Q . K^T twice, a third more
-//     mma than one pass. Bound at path A's shape: 197 MB, 0.059 ms, bytes.
+//     accumulation, the softmax over the whole row in float32 (the row's
+//     maximum before any exponential), P rounded to bfloat16 for a bfloat16
+//     P . V, the sum of the unrounded p, the normalisation after PV, the
+//     output rounded once. Its served shape is path A (fm_droid_transformer:
+//     B=640, L=150, 16 heads of 16, q, k and v slices of one (B, L, 768)
+//     projection, 30-150 real keys). Bound there by bytes: 197 MB, 0.059 ms
+//     over all keys; over the keys the data needs (each set's extent, 60%
+//     of them) about 0.047. The exponentials, one SFU operation a score (16
+//     a clock an SM), come to a floor of about 0.04 ms over those keys.
+//     The first version (a block per (set, head), two passes over the keys
+//     to round P against the row's final maximum, every key of every set, K
+//     and V staged through registers, Q by 2-byte loads) took 0.215 ms
+//     (NVIDIA H100 80GB HBM3, 700 W; scripts/bf16_attention_readings.py).
+//     This design (packed_attention_bf16_kernel):
+//     * One pass over Q . K^T: a warp keeps its 16 rows' scores for all the
+//       steps of 16 keys it takes in registers (attention_mma.cuh,
+//       `packed_bf16_rows`; at most 16 steps, 8 floats a lane each), takes
+//       the rows' maxima from them, then P, the sums and P . V from the same
+//       registers in the same order: the first version's values, bit for
+//       bit. The register bound NS is a template parameter (4, 10 or 16
+//       steps for L up to 64, 160, 256); the steps run in straight-line
+//       groups of 4, so that their loads, products and exponentials overlap.
+//     * It stops at the set's last real key (attention_common.cuh,
+//       `stage_mask_extent`, from one read of the mask row: keys past it
+//       take p = 0 exactly), rounded up to a step of 16. Every query row is
+//       computed and written.
+//     * A block takes one set's group of heads, 32 columns wide (2 heads at
+//       head dim 16: rows of 64 contiguous bytes in place of 32; one head
+//       at head dims above 16), stages the group's Q, K and V by cp.async
+//       (K and V only up to the extent), reads Q's fragments by ldmatrix,
+//       and writes the output in 16-byte pieces through its Q tile's place
+//       in shared memory. 4 warps take the group's (head, row tile) pairs in
+//       turn; the launch bounds ask for 16 warps an SM (four blocks at path
+//       A, 39 KB of shared memory and 128 registers a thread each), so that
+//       the staging of some blocks overlaps the steps of others.
+//     Times, alternatives and knock-outs (scripts/attention_bf16_variants.py):
+//     PERF.md.
 //   fused_short_attention_bf16: the Pallas `_kernel` upcasts q, k and v and
 //     keeps P in float32 (short_attention.py:47-65): float32 arithmetic on
 //     the bfloat16 values, the softmax divided, the output rounded once. Its
@@ -178,51 +205,124 @@ packed_attention_kernel(Heads q, Heads k, Heads v, const float* __restrict__ mas
 }
 
 // ---------------------------------------------------------------------------
-// packed, bfloat16: block = (set, head), warp = tiles of 16 query rows
+// packed, bfloat16: block = (set, group of heads), warp = (head, tile of 16
+// query rows) in turn
 // ---------------------------------------------------------------------------
 
-constexpr int kPackedBf16Warps = kMaxPackedLen / kMmaRows;  // 16: a tile of each at L=256
+constexpr int kPackedBf16Warps = 4;   // warps of a block
+constexpr int kPackedBf16Cols = 32;   // columns of a block's group of heads, at least
 
-// As the float32 kernel, with the head's K and V staged as bfloat16 (keys
-// padded to a multiple of 16) and attention_mma.cuh's bfloat16 tile step
-// (`packed_bf16_keys`: the rows' maxima first, then bf16(P) . V).
-template <int DP, bool kBias>
-__global__ void __launch_bounds__(32 * kPackedBf16Warps)
+// The columns of a block's group: kPackedBf16Cols / DP heads, or one head of
+// DP columns where that is wider. Staged rows lie 8 more elements apart.
+__host__ __device__ constexpr int packed_bf16_cols(int dp) {
+  return dp < kPackedBf16Cols ? kPackedBf16Cols : dp;
+}
+
+// The steps of 16 keys whose scores a warp keeps in registers, at most: the
+// template's bound on the set's steps (L up to 64, 160, 256).
+__host__ __device__ constexpr int packed_bf16_steps(int l) {
+  return l <= 64 ? 4 : l <= 160 ? 10 : 16;
+}
+
+// Resident blocks an SM that the launch bounds ask for: 16 warps an SM (at
+// most 128 registers a thread) where the scores (8 floats a step), Q's
+// fragments, O and a bias's rows leave room for the rest, else 8 (up to 255).
+__host__ __device__ constexpr int packed_bf16_min_blocks(int dp, int ns, bool bias) {
+  return ((ns * 8 + dp + (bias ? 16 : 0) <= 96 ? 16 : 8) + kPackedBf16Warps - 1) /
+         kPackedBf16Warps;
+}
+
+// Rows 0 .. rows_p - 1 of a group of nh heads (d wide, at most C / DP) into
+// shared memory, C + 8 elements apart (C = packed_bf16_cols(DP)), head j at
+// column j * DP; rows from `rows` on, heads from nh on and columns from d on
+// zero. `wide`: by cp.async in 16-byte pieces (not committed), else element
+// by element.
+template <int DP>
+__device__ __forceinline__ void stage_group_bf16(bf16* dst, const bf16* src, long long ld,
+                                                 int rows, int rows_p, int nh, int d, bool wide) {
+  constexpr int C = packed_bf16_cols(DP), SW = C + 8;
+  if (wide) {
+    for (int e = threadIdx.x; e < rows_p * (C / 8); e += blockDim.x) {
+      const int r = e / (C / 8), j = (e % (C / 8)) / (DP / 8), c = (e % (DP / 8)) * 8;
+      const bool in = r < rows && j < nh && c < d;
+      cp_async16(dst + r * SW + j * DP + c, src + (in ? r * ld + j * d + c : 0), in);
+    }
+  } else {
+    const bf16 zero = __float2bfloat16_rn(0.f);
+    for (int e = threadIdx.x; e < rows_p * C; e += blockDim.x) {
+      const int r = e / C, j = (e % C) / DP, c = e % DP;
+      dst[r * SW + j * DP + c] = r < rows && j < nh && c < d ? src[r * ld + j * d + c] : zero;
+    }
+  }
+}
+
+// The bfloat16 packed kernel: a block per item (set, group of G heads, C =
+// packed_bf16_cols(DP) columns). It copies the group's Q for every row (rows past the set's end
+// zero) by cp.async, reads the set's mask row once for the additive mask and
+// the extent of its real keys (`stage_mask_extent`), copies
+// K and V up to that extent, rounded up to a step of 16, then its warps take
+// the item's (head, row tile) pairs in turn (`packed_bf16_rows`: one pass
+// over Q . K^T for the extent's steps), each writing its normalised rows,
+// rounded to bfloat16, over its tile of the staged Q; after a barrier the
+// block writes the group's rows out, 16-byte pieces of G * d contiguous
+// elements. Blocks of 4 warps, four of them an SM at path A (each 39 KB of
+// shared memory): the blocks' staging, steps and stores overlap across them.
+template <int DP, int NS, bool kBias>
+__global__ void __launch_bounds__(32 * kPackedBf16Warps, packed_bf16_min_blocks(DP, NS, kBias))
 packed_attention_bf16_kernel(HeadsT<bf16> q, HeadsT<bf16> k, HeadsT<bf16> v,
                              const float* __restrict__ mask, const float* __restrict__ bias,
-                             bf16* __restrict__ out, int l, int h, int d, float scale) {
-  constexpr int ST = DP + 8;
+                             bf16* __restrict__ out, int l, int h, int d, float scale,
+                             bool wide) {
+  constexpr int C = packed_bf16_cols(DP), G = C / DP, SW = C + 8;
   extern __shared__ float4 smem4[];
-  const int lp = (l + kBfKeys - 1) / kBfKeys * kBfKeys;
-  bf16* ks = reinterpret_cast<bf16*>(smem4);
-  bf16* vs = ks + lp * ST;
-  float* madd = reinterpret_cast<float*>(vs + lp * ST);
-  const int b = blockIdx.x / h, hd = blockIdx.x % h;
+  __shared__ int sm_last;
+  const int lp = (l + kBfKeys - 1) / kBfKeys * kBfKeys;  // rows of whole tiles, keys of whole steps
+  bf16* qs = reinterpret_cast<bf16*>(smem4);
+  bf16* ks = qs + lp * SW;
+  bf16* vs = ks + lp * SW;
+  float* madd = reinterpret_cast<float*>(vs + lp * SW);
+  const int groups = (h + G - 1) / G;
+  const int b = blockIdx.x / groups, h0 = (blockIdx.x % groups) * G, nh = min(G, h - h0);
+  const long long col0 = (long long)h0 * d;
 
-  stage_head_bf16<DP>(ks, k.p + b * k.bs + hd * d, k.ld, l, lp, d);
-  stage_head_bf16<DP>(vs, v.p + b * v.bs + hd * d, v.ld, l, lp, d);
-  stage_mask(madd, mask ? mask + (long long)b * l : nullptr, l, lp);
+  stage_group_bf16<DP>(qs, q.p + b * q.bs + col0, q.ld, l, lp, nh, d, wide);
+  const int ext = stage_mask_extent(madd, mask ? mask + (long long)b * l : nullptr, l, lp,
+                                    &sm_last);
+  const int kp = min(lp, (ext + kBfKeys - 1) / kBfKeys * kBfKeys);
+  stage_group_bf16<DP>(ks, k.p + b * k.bs + col0, k.ld, l, kp, nh, d, wide);
+  stage_group_bf16<DP>(vs, v.p + b * v.bs + col0, v.ld, l, kp, nh, d, wide);
+  cp_async_commit();
+  cp_async_wait_all();
   __syncthreads();
 
-  const int g = (threadIdx.x & 31) >> 2;
-  const bf16* qhead = q.p + b * q.bs + hd * d;
-  for (int row0 = (threadIdx.x >> 5) * kMmaRows; row0 < l; row0 += (blockDim.x >> 5) * kMmaRows) {
-    MmaTileBf16<DP> t;
-    mma_tile_init_bf16(t, qhead, q.ld, row0, l - 1, d, -CUDART_INF_F);
+  const int tiles = lp / kMmaRows;
+  for (int task = threadIdx.x >> 5; task < nh * tiles; task += blockDim.x >> 5) {
+    const int hd = task / tiles, row0 = (task % tiles) * kMmaRows;
+    bf16* qt = qs + row0 * SW + hd * DP;
     if constexpr (kBias) {
-      const PackedBias bs{bias + ((long long)b * h + hd) * l * l, l, row0};
-      packed_bf16_keys(t, ks, vs, madd, lp, scale, bs);
+      const PackedBias bs{bias + ((long long)b * h + h0 + hd) * l * l, l, row0};
+      packed_bf16_rows<DP, NS>(qt, ks + hd * DP, vs + hd * DP, SW, madd, kp / kBfKeys, scale,
+                               bs, qt);
     } else {
-      packed_bf16_keys(t, ks, vs, madd, lp, scale, NoBias{});
+      packed_bf16_rows<DP, NS>(qt, ks + hd * DP, vs + hd * DP, SW, madd, kp / kBfKeys, scale,
+                               NoBias{}, qt);
     }
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float sum = t.l[half];  // over the four lanes that share the row; every lane shuffles
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      const int row = row0 + 8 * half + g;
-      if (row < l)
-        mma_store_row_bf16(t, half, 1.f / sum, out + (((long long)b * l + row) * h + hd) * d, d);
+  }
+  __syncthreads();
+
+  bf16* ob = out + (long long)b * l * h * d + col0;
+  const long long ld = (long long)h * d;
+  if (d % 8 == 0) {
+    for (int e = threadIdx.x; e < l * (C / 8); e += blockDim.x) {
+      const int r = e / (C / 8), j = (e % (C / 8)) / (DP / 8), c = (e % (DP / 8)) * 8;
+      if (j < nh && c < d)
+        *reinterpret_cast<uint4*>(ob + r * ld + j * d + c) =
+            *reinterpret_cast<const uint4*>(qs + r * SW + j * DP + c);
+    }
+  } else {
+    for (int e = threadIdx.x; e < l * C; e += blockDim.x) {
+      const int r = e / C, j = (e % C) / DP, c = e % DP;
+      if (j < nh && c < d) ob[r * ld + j * d + c] = qs[r * SW + j * DP + c];
     }
   }
 }
@@ -480,27 +580,82 @@ cudaError_t launch_packed_d(Heads q, Heads k, Heads v, const float* mask, const 
   return launch_packed_dp<64>(q, k, v, mask, bias, out, b, l, h, d, stream, biased, report);
 }
 
-template <int DP, bool kBias>
+// With `report` (8 ints), nothing is launched: blocks, warps of a block, heads
+// of a block, steps of 16 keys a warp keeps scores for (NS), bytes of shared
+// memory, registers per thread, resident blocks an SM (CUDA's occupancy
+// calculator), the resident blocks the launch bounds ask for.
+template <int DP, int NS, bool kBias>
 cudaError_t launch_packed_bf16(HeadsT<bf16> q, HeadsT<bf16> k, HeadsT<bf16> v, const float* mask,
                                const float* bias, bf16* out, int b, int l, int h, int d,
-                               cudaStream_t stream) {
+                               cudaStream_t stream, int* report) {
+  constexpr int G = packed_bf16_cols(DP) / DP;
   const int lp = (l + kBfKeys - 1) / kBfKeys * kBfKeys;
-  const size_t smem = sizeof(bf16) * (size_t)2 * lp * (DP + 8) + sizeof(float) * lp;
-  const int warps = min((l + kMmaRows - 1) / kMmaRows, kPackedBf16Warps);
-  cudaError_t err = allow_smem(packed_attention_bf16_kernel<DP, kBias>, smem);
+  const size_t smem = sizeof(bf16) * (size_t)3 * lp * (packed_bf16_cols(DP) + 8) +
+                      sizeof(float) * lp;
+  const int group = min(G, h);
+  const int warps = min(kPackedBf16Warps, group * (lp / kMmaRows));
+  const int blocks = b * ((h + G - 1) / G);
+  auto kernel = packed_attention_bf16_kernel<DP, NS, kBias>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  packed_attention_bf16_kernel<DP, kBias><<<b * h, 32 * warps, smem, stream>>>(
-      q, k, v, mask, bias, out, l, h, d, 1.f / sqrtf((float)d));
+  if (report) {
+    cudaFuncAttributes attr;
+    if ((err = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess) return err;
+    int resident = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, 32 * warps, smem);
+    if (err != cudaSuccess) return err;
+    const int r[8] = {blocks, warps, group, NS, (int)smem, attr.numRegs, resident,
+                      packed_bf16_min_blocks(DP, NS, kBias)};
+    for (int i = 0; i < 8; ++i) report[i] = r[i];
+    return cudaSuccess;
+  }
+  // 16-byte pieces where every head's rows start on 16 bytes
+  const bool wide = d % 8 == 0 && q.bs % 8 == 0 && q.ld % 8 == 0 && k.bs % 8 == 0 &&
+                    k.ld % 8 == 0 && v.bs % 8 == 0 && v.ld % 8 == 0 &&
+                    reinterpret_cast<uintptr_t>(q.p) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(k.p) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(v.p) % 16 == 0;
+  packed_attention_bf16_kernel<DP, NS, kBias><<<blocks, 32 * warps, smem, stream>>>(
+      q, k, v, mask, bias, out, l, h, d, 1.f / sqrtf((float)d), wide);
   return cudaGetLastError();
+}
+
+template <int DP, bool kBias>
+cudaError_t launch_packed_bf16_ns(HeadsT<bf16> q, HeadsT<bf16> k, HeadsT<bf16> v,
+                                  const float* mask, const float* bias, bf16* out, int b, int l,
+                                  int h, int d, cudaStream_t stream, int* report) {
+  switch (packed_bf16_steps(l)) {
+    case packed_bf16_steps(64):
+      return launch_packed_bf16<DP, packed_bf16_steps(64), kBias>(q, k, v, mask, bias, out, b, l,
+                                                                  h, d, stream, report);
+    case packed_bf16_steps(160):
+      return launch_packed_bf16<DP, packed_bf16_steps(160), kBias>(q, k, v, mask, bias, out, b, l,
+                                                                   h, d, stream, report);
+    default:
+      return launch_packed_bf16<DP, packed_bf16_steps(kMaxPackedLen), kBias>(
+          q, k, v, mask, bias, out, b, l, h, d, stream, report);
+  }
 }
 
 template <int DP>
 cudaError_t launch_packed_bf16_dp(HeadsT<bf16> q, HeadsT<bf16> k, HeadsT<bf16> v,
                                   const float* mask, const float* bias, bf16* out, int b, int l,
-                                  int h, int d, cudaStream_t stream) {
+                                  int h, int d, cudaStream_t stream, int* report) {
   if (bias != nullptr)
-    return launch_packed_bf16<DP, true>(q, k, v, mask, bias, out, b, l, h, d, stream);
-  return launch_packed_bf16<DP, false>(q, k, v, mask, bias, out, b, l, h, d, stream);
+    return launch_packed_bf16_ns<DP, true>(q, k, v, mask, bias, out, b, l, h, d, stream, report);
+  return launch_packed_bf16_ns<DP, false>(q, k, v, mask, bias, out, b, l, h, d, stream, report);
+}
+
+cudaError_t launch_packed_bf16_d(HeadsT<bf16> q, HeadsT<bf16> k, HeadsT<bf16> v,
+                                 const float* mask, const float* bias, bf16* out, int b, int l,
+                                 int h, int d, cudaStream_t stream, int* report) {
+  if (b <= 0 || h <= 0 || l <= 0 || l > kMaxPackedLen || d <= 0 || d > kMaxHeadDim)
+    return cudaErrorInvalidValue;
+  if (d <= 16)
+    return launch_packed_bf16_dp<16>(q, k, v, mask, bias, out, b, l, h, d, stream, report);
+  if (d <= 32)
+    return launch_packed_bf16_dp<32>(q, k, v, mask, bias, out, b, l, h, d, stream, report);
+  return launch_packed_bf16_dp<64>(q, k, v, mask, bias, out, b, l, h, d, stream, report);
 }
 
 template <typename T, int QP, int KR>
@@ -1000,17 +1155,21 @@ extern "C" int packed_short_attention_bf16(
     const float* bias, __nv_bfloat16* out, int b, int lq, int lk, int h, int d,
     long long q_bs, long long q_ld, long long k_bs, long long k_ld,
     long long v_bs, long long v_ld, void* stream_ptr) {
-  if (lk != lq || b <= 0 || h <= 0 || lq <= 0 || lq > kMaxPackedLen || d <= 0 ||
-      d > kMaxHeadDim)
-    return (int)cudaErrorInvalidValue;
-  const HeadsT<bf16> qh = heads(q, q_bs, q_ld, d), kh = heads(k, k_bs, k_ld, d),
-                     vh = heads(v, v_bs, v_ld, d);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (d <= 16)
-    return (int)launch_packed_bf16_dp<16>(qh, kh, vh, mask, bias, out, b, lq, h, d, stream);
-  if (d <= 32)
-    return (int)launch_packed_bf16_dp<32>(qh, kh, vh, mask, bias, out, b, lq, h, d, stream);
-  return (int)launch_packed_bf16_dp<64>(qh, kh, vh, mask, bias, out, b, lq, h, d, stream);
+  if (lk != lq) return (int)cudaErrorInvalidValue;
+  return (int)launch_packed_bf16_d(heads(q, q_bs, q_ld, d), heads(k, k_bs, k_ld, d),
+                                   heads(v, v_bs, v_ld, d), mask, bias, out, b, lq, h, d,
+                                   static_cast<cudaStream_t>(stream_ptr), nullptr);
+}
+
+// What the bfloat16 packed kernel's launcher gives B sets of `l` particles at
+// H heads of `d`, with or without a bias, into `report` (8 ints, as
+// launch_packed_bf16 lists them). Launches nothing.
+extern "C" int packed_short_attention_bf16_geometry(int b, int l, int h, int d, int biased,
+                                                    int* report) {
+  const HeadsT<bf16> none{};
+  const float one = 0.f;
+  return (int)launch_packed_bf16_d(none, none, none, nullptr, biased ? &one : nullptr, nullptr,
+                                   b, l, h, d, nullptr, report);
 }
 
 extern "C" const char* attention_mma_bf16_instruction() { return MMA_BF16_INSTRUCTION; }

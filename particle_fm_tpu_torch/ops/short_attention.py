@@ -28,7 +28,10 @@ product as three TF32 products (`csrc/attention_mma.cuh`; the arithmetic is
 modelled in `ops/attention_tf32.py`). `packed_geometry` mirrors what its
 launcher gives a block, and the wrapper refuses a shape whose bytes would not
 fit one; `packed_launch_report` asks the built library for the same numbers,
-and the kernel tests and chip_smoke.py hold the mirror against it.
+and the kernel tests and chip_smoke.py hold the mirror against it. The
+bfloat16 variants have their own mirrors: `packed_bf16_geometry` (against
+`packed_bf16_launch_report`) and `fused_bf16_geometry` (against
+`fused_bf16_launch_report`).
 """
 
 from __future__ import annotations
@@ -56,6 +59,9 @@ FUSED_REG_KEYS = 8  # kFusedRegKeys
 FROM_WARPS, FROM_BLOCKS_PER_SM = 4, 5  # kFromWarps, kFromBlocksPerSm
 FROM_ROWS, FROM_KEYS = 4, 2  # kFromRows (query rows of a lane), kFromKeys (keys loaded at once)
 TO_WARPS, TO_BLOCKS_PER_SM = 8, 2  # kToWarps, kToBlocksPerSm
+# the bfloat16 packed kernel: a block per (set, group of heads at least
+# PACKED_BF16_COLS wide), its rows staged 8 elements more apart
+PACKED_BF16_WARPS, PACKED_BF16_COLS = 4, 32  # kPackedBf16Warps, kPackedBf16Cols
 
 
 def mask_add(kv_mask: torch.Tensor | None, b: int, lk: int, like: torch.Tensor) -> torch.Tensor:
@@ -66,8 +72,8 @@ def mask_add(kv_mask: torch.Tensor | None, b: int, lk: int, like: torch.Tensor) 
 
 
 def real_key_extents(kv_mask: torch.Tensor | None, b: int, lk: int) -> torch.Tensor:
-    """How many keys of each set the bfloat16 fused ("from") and flash kernels
-    step over, (B,) int64: up to the set's last key with a nonzero mask when
+    """How many keys of each set the bfloat16 packed, fused ("from") and flash
+    kernels step over, (B,) int64: up to the set's last key with a nonzero mask when
     one of its keys has a mask of exactly 1 (the keys after it score about
     1e9 below the running maximum: exp gives exactly 0 for them, and the
     result is the same bit for bit), else all `lk` (a set whose keys are all
@@ -96,6 +102,52 @@ def packed_geometry(l: int, d: int) -> dict:
     keys = -(-l // MMA_KEYS) * MMA_KEYS
     return {"warps": min(-(-l // MMA_ROWS), max_warps), "keys": keys,
             "smem_bytes": 4 * (2 * keys * (dp + 4) + keys)}
+
+
+def packed_bf16_steps(l: int) -> int:
+    """The steps of 16 keys whose scores a warp of the bfloat16 packed kernel
+    keeps in registers, at most (`packed_bf16_steps`): 4, 10 or 16 for sets
+    of up to 64, 160 or 256 particles."""
+    return 4 if l <= 64 else 10 if l <= 160 else 16
+
+
+def packed_bf16_geometry(b: int, l: int, h: int, d: int, biased: bool = False) -> dict:
+    """What `launch_packed_bf16` of csrc/short_attention.cu gives the bfloat16
+    packed kernel for B sets of `l` particles at H heads of `d`: a block per
+    (set, group of heads; DP the head dim padded to 16, 32 or 64, a group
+    PACKED_BF16_COLS / DP heads or one head where DP is wider), its warps (at
+    most PACKED_BF16_WARPS, taking the group's (head, tile of 16 query rows)
+    pairs in turn), the heads of a group, the steps of 16 keys a warp keeps
+    scores for (`packed_bf16_steps`), the bytes of shared memory (Q, K and V
+    of the group for every row, rows 8 elements more apart than the group is
+    wide, and the additive mask) and the resident blocks an SM its launch
+    bounds ask for (16 warps where the scores, Q's fragments, O and, with a
+    bias, its rows leave room in 128 registers a thread, else 8)."""
+    dp = max(16, padded_head_dim(d))
+    cols = max(PACKED_BF16_COLS, dp)
+    group = cols // dp
+    heads, rows = min(group, h), -(-l // MMA_ROWS) * MMA_ROWS
+    steps = packed_bf16_steps(l)
+    warps_per_sm = 16 if steps * 8 + dp + (16 if biased else 0) <= 96 else 8
+    return {"blocks": b * -(-h // group), "warps": min(PACKED_BF16_WARPS, heads * rows // MMA_ROWS),
+            "heads": heads, "register_steps": steps,
+            "smem_bytes": 2 * 3 * rows * (cols + 8) + 4 * rows,
+            "min_blocks_per_sm": -(-warps_per_sm // PACKED_BF16_WARPS)}
+
+
+def packed_bf16_launch_report(b: int, l: int, h: int, d: int, biased: bool = False) -> dict:
+    """What the built library's launcher gives the bfloat16 packed kernel at
+    this shape (needs a CUDA device): `packed_bf16_geometry`'s numbers, the
+    registers per thread, the resident blocks an SM (CUDA's occupancy
+    calculator) and the instruction of its products."""
+    lib = load_library()
+    report = (ctypes.c_int * 8)()
+    err = lib.packed_short_attention_bf16_geometry(b, l, h, d, int(biased), report)
+    if err != 0:
+        raise RuntimeError(f"packed_short_attention_bf16_geometry failed: cudaError {err}")
+    names = ("blocks", "warps", "heads", "register_steps", "smem_bytes", "registers_per_thread",
+             "resident_blocks_per_sm", "min_blocks_per_sm")
+    return {**dict(zip(names, report)), "instruction": bf16_instruction()}
 
 
 def _row_lanes(h: int, qp8: int) -> int:
@@ -223,10 +275,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         names += ["packed_short_attention_bf16", "fused_short_attention_bf16"]
         lib.attention_mma_bf16_instruction.argtypes = []
         lib.attention_mma_bf16_instruction.restype = ctypes.c_char_p
-    if hasattr(lib, "fused_short_attention_bf16_geometry"):
-        geometry = lib.fused_short_attention_bf16_geometry
-        geometry.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
-        geometry.restype = ctypes.c_int
+    for name, n_ints in (("fused_short_attention_bf16_geometry", 6),
+                         ("packed_short_attention_bf16_geometry", 5)):
+        if hasattr(lib, name):
+            geometry = getattr(lib, name)
+            geometry.argtypes = [ctypes.c_int] * n_ints + [ctypes.POINTER(ctypes.c_int)]
+            geometry.restype = ctypes.c_int
     for name in names:
         fn = getattr(lib, name)
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 6
@@ -302,8 +356,10 @@ def _launch(entry: str, q, k, v, kv_mask, attn_bias, max_len: int) -> torch.Tens
 
 def packed_short_attention_bf16(q, k, v, kv_mask=None, attn_bias=None) -> torch.Tensor:
     """The bfloat16 packed kernel on CUDA tensors: q, k, v bfloat16, the mask
-    and the bias float32; the result bfloat16, as `_packed_lowp` computes it.
-    Forward only. Counts its launches in `packed_short_attention_bf16.launches`."""
+    and the bias float32; the result bfloat16, as `_packed_lowp` computes it
+    (one pass over Q . K^T, keys past a set's last real key skipped,
+    `packed_bf16_geometry`). Forward only. Counts its launches in
+    `packed_short_attention_bf16.launches`."""
     if q.device.type != "cuda" or q.dtype != torch.bfloat16:
         raise ValueError(f"packed_short_attention_bf16 takes bfloat16 CUDA tensors, got "
                          f"{q.dtype} on {q.device}")

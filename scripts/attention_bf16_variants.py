@@ -1,15 +1,48 @@
 #!/usr/bin/env python3
-"""Time design variants of the two bfloat16 attention kernels redesigned for
-the H100 (flash at path D, the fused pair at path B) against the committed
-ones, in turns, at their served shapes.
+"""Time design variants of the three bfloat16 attention kernels redesigned for
+the H100 (packed at path A, flash at path D, the fused pair at path B)
+against the committed ones, in turns, at their served shapes.
 
-    python3 scripts/attention_bf16_variants.py [--rounds 3]
+    python3 scripts/attention_bf16_variants.py [--rounds 3] [--kernels packed,flash,fused]
         [--out build/measurements/attention_bf16_variants.json]
 
-A variant is a copy of csrc/flash_attention.cu or csrc/short_attention.cu
-under build/variants/attn_<name>/ with lines replaced (the script fails if a
-line it wants to replace is no longer there once):
+A variant is a copy of csrc/short_attention.cu or csrc/flash_attention.cu
+under build/variants/attn_<name>/ with lines replaced (and, where a variant
+replaces lines of a header, a copy of the header beside it, which the
+compiler then takes); the script fails if a line it wants to replace is no
+longer there once:
 
+  packed: all_keys            every key of a set stepped over, no extent
+          two_passes          Q . K^T computed again for P (the first
+                              version's two passes; the scores no longer
+                              kept in registers)
+          step_group_1, step_group_2   steps of 16 keys a straight-line
+                              group (4 as committed; 1: a test before every
+                              step)
+          stage_all_keys      K and V of every key copied with Q, before
+                              the mask is read (the extent then bounds the
+                              steps only)
+          ko_exp              knock-out (wrong results, for timing): p = s -
+                              m, no exponential
+          ko_qk_mma, ko_pv_mma   knock-outs: no tensor product for Q . K^T,
+                              or for P . V (an integer operation on the same
+                              registers in its place)
+          ko_staging          knock-out: Q, K and V not staged (the steps
+                              read whatever shared memory holds)
+          ko_steps            knock-out: no warp computes a tile (what is
+                              left: staging, the mask read, the output
+                              written from shared memory)
+          heads_4_warps_8     4 heads and 8 warps a block at head dim 16,
+                              two blocks an SM (2 and 4 as committed, four
+                              blocks an SM; the launch bounds ask for 16
+                              warps an SM throughout)
+          heads_4_warps_4, heads_2_warps_8, heads_1_warps_2   likewise
+          warps_5_blocks_3    5 warps a block, three blocks an SM (at most
+                              136 registers a thread)
+          blocks_2, blocks_3  launch bounds of two or three blocks an SM (8
+                              or 12 warps, up to 255 or 168 registers a
+                              thread)
+          step_group_8_blocks_3   groups of 8 steps, three blocks an SM
   flash: blocks_3, blocks_5   resident blocks an SM of the launch bounds (4
                               as committed: at most 85 registers a thread;
                               3: 113; 5: 68)
@@ -32,17 +65,19 @@ line it wants to replace is no longer there once):
          from_streaming_loads K and V loaded with the evict-first hint
          to_warps_4_blocks_4  the "to" kernel in blocks of 4 warps, 4 an SM
 
-Each version is called through the wrapper (`flash_masked_attention`,
-`fused_short_attention`), its module's SOURCE pointed at the variant, on the
-served shapes: path D (B=256, Lq=Lk=279, 16 heads of 16, slices of one QKV
-projection, 30-279 real keys), path B's "from" (B=640, 4 queries on 150
-masked keys) and "to" (150 queries on 4 keys). Times: `cuda_ms`
-(utils/timing.py, through the wrapper: the host's time to issue a call is in
-it where the host is slower) and `device_ms` (the kernels' device time from
-torch.profiler), each the median over `--rounds` rounds in turns (forwards,
-then backwards through the versions). The maximum error against the plain
-version is printed, not asserted. One JSON line per shape, with the card's
-name and power limit, also written to --out.
+Each version is called through the wrapper (`packed_short_attention`,
+`flash_masked_attention`, `fused_short_attention`), its module's SOURCE
+pointed at the variant, on the served shapes: path A (B=640, L=150, 16 heads
+of 16, slices of one QKV projection, 30-150 real keys), path D (B=256,
+Lq=Lk=279, 16 heads of 16, slices of one QKV projection, 30-279 real keys),
+path B's "from" (B=640, 4 queries on 150 masked keys) and "to" (150 queries
+on 4 keys). Times: `cuda_ms` (utils/timing.py, through the wrapper: the
+host's time to issue a call is in it where the host is slower) and
+`device_ms` (the kernels' device time from torch.profiler), each the median
+over `--rounds` rounds in turns (forwards, then backwards through the
+versions). The maximum error against the plain version is printed, not
+asserted. One JSON line per shape, with the card's name and power limit,
+also written to --out.
 """
 
 from __future__ import annotations
@@ -138,6 +173,65 @@ FROM_BLOCKS = "constexpr int kFromBlocksPerSm = 5;"
 FROM_KEYS = "constexpr int kFromKeys = 2;"
 TO_BLOCKS = "constexpr int kToBlocksPerSm = 2;"
 TO_WARPS = "constexpr int kToWarps = 8;"
+PK_EXTENT = "  const int kp = min(lp, (ext + kBfKeys - 1) / kBfKeys * kBfKeys);"
+PK_PV = ("  for_steps<NS>(n_steps, [&](int j) { packed_bf16_pv<DP>(o, l, s[j], m, vrow + 16 * j * sw); "
+         "});")
+PK_TWO_PASSES = """  for_steps<NS>(n_steps, [&](int j) {
+    float sj[2][4];
+    packed_bf16_scores<DP>(sj, q, krow + 16 * j * sw, madd + 16 * j, 16 * j, scale, bias);
+    packed_bf16_pv<DP>(o, l, sj, m, vrow + 16 * j * sw);
+  });"""
+PK_EXP = "      p[kt][i] = exp2_neg((s[kt][i] - m[i >> 1]) * kLog2e);"
+PK_GROUP = "constexpr int kPackedStepGroup = 4;"
+PK_TASKS = "  for (int task = threadIdx.x >> 5; task < nh * tiles; task += blockDim.x >> 5) {"
+PK_WARPS = "constexpr int kPackedBf16Warps = 4;"
+PK_COLS = "constexpr int kPackedBf16Cols = 32;"
+PK_STAGE_ORDER = """  stage_group_bf16<DP>(qs, q.p + b * q.bs + col0, q.ld, l, lp, nh, d, wide);
+  const int ext = stage_mask_extent(madd, mask ? mask + (long long)b * l : nullptr, l, lp,
+                                    &sm_last);
+  const int kp = min(lp, (ext + kBfKeys - 1) / kBfKeys * kBfKeys);
+  stage_group_bf16<DP>(ks, k.p + b * k.bs + col0, k.ld, l, kp, nh, d, wide);
+  stage_group_bf16<DP>(vs, v.p + b * v.bs + col0, v.ld, l, kp, nh, d, wide);"""
+PK_STAGE_ALL = """  stage_group_bf16<DP>(qs, q.p + b * q.bs + col0, q.ld, l, lp, nh, d, wide);
+  stage_group_bf16<DP>(ks, k.p + b * k.bs + col0, k.ld, l, lp, nh, d, wide);
+  stage_group_bf16<DP>(vs, v.p + b * v.bs + col0, v.ld, l, lp, nh, d, wide);
+  const int ext = stage_mask_extent(madd, mask ? mask + (long long)b * l : nullptr, l, lp,
+                                    &sm_last);
+  const int kp = min(lp, (ext + kBfKeys - 1) / kBfKeys * kBfKeys);"""
+PK_MIN_BLOCKS = "  return ((ns * 8 + dp + (bias ? 16 : 0) <= 96 ? 16 : 8) + kPackedBf16Warps - 1) /"
+PK_QK_MMA = ("    mma_bf16(s[0], q[kk], b[0], b[1]);\n"
+             "    mma_bf16(s[1], q[kk], b[2], b[3]);\n")
+PK_PV_MMA = ("    mma_bf16(o[2 * np], a, b[0], b[1]);\n"
+             "    mma_bf16(o[2 * np + 1], a, b[2], b[3]);\n")
+MMA = "attention_mma.cuh"  # a replacement in the header beside the source
+MIN_BLOCKS_AS = lambda n: ("  return %d + 0 * ((ns * 8 + dp + (bias ? 16 : 0) <= 96 ? 16 : 8) + "
+                           "kPackedBf16Warps - 1) /" % n)
+PACKED_VARIANTS = {
+    "committed": [],
+    "all_keys": [(PK_EXTENT, "  const int kp = lp + 0 * ext;")],
+    "two_passes": [(PK_PV, PK_TWO_PASSES, MMA)],
+    "step_group_1": [(PK_GROUP, PK_GROUP.replace("4;", "1;"), MMA)],
+    "step_group_2": [(PK_GROUP, PK_GROUP.replace("4;", "2;"), MMA)],
+    "stage_all_keys": [(PK_STAGE_ORDER, PK_STAGE_ALL)],
+    "ko_exp": [(PK_EXP, PK_EXP.replace("exp2_neg(", "("), MMA)],
+    "ko_qk_mma": [(PK_QK_MMA, "    s[0][0] += __uint_as_float(q[kk][0] & b[0]);\n"
+                              "    s[1][0] += __uint_as_float(q[kk][1] & b[2]);\n", MMA)],
+    "ko_pv_mma": [(PK_PV_MMA, "    o[2 * np][0] += __uint_as_float(a[0] & b[0]);\n"
+                              "    o[2 * np + 1][0] += __uint_as_float(a[1] & b[2]);\n", MMA)],
+    "ko_staging": [(PK_STAGE_ORDER, "\n".join(PK_STAGE_ORDER.splitlines()[1:4]))],
+    "ko_steps": [(PK_TASKS, PK_TASKS.replace("task < nh", "task < 0 * nh"))],
+    "heads_4_warps_8": [(PK_COLS, PK_COLS.replace("32;", "64;")),
+                        (PK_WARPS, PK_WARPS.replace("4;", "8;"))],
+    "heads_4_warps_4": [(PK_COLS, PK_COLS.replace("32;", "64;"))],
+    "heads_2_warps_8": [(PK_WARPS, PK_WARPS.replace("4;", "8;"))],
+    "heads_1_warps_2": [(PK_COLS, PK_COLS.replace("32;", "16;")),
+                        (PK_WARPS, PK_WARPS.replace("4;", "2;"))],
+    "warps_5_blocks_3": [(PK_WARPS, PK_WARPS.replace("4;", "5;")), (PK_MIN_BLOCKS, MIN_BLOCKS_AS(3))],
+    "blocks_2": [(PK_MIN_BLOCKS, MIN_BLOCKS_AS(2))],
+    "blocks_3": [(PK_MIN_BLOCKS, MIN_BLOCKS_AS(3))],
+    "step_group_8_blocks_3": [(PK_GROUP, PK_GROUP.replace("4;", "8;"), MMA),
+                              (PK_MIN_BLOCKS, MIN_BLOCKS_AS(3))],
+}
 FLASH_VARIANTS = {
     "committed": [],
     "blocks_3": [(FB_BLOCKS, FB_BLOCKS.replace("4;", "3;"))],
@@ -166,15 +260,21 @@ FUSED_VARIANTS = {
 
 
 def variant_source(source: Path, name: str, reps) -> Path:
-    text = source.read_text()
-    for old, new in reps:
-        if text.count(old) != 1:
-            raise SystemExit(f"variant {name}: the line to replace is not in {source.name} once")
-        text = text.replace(old, new)
-    out = ROOT / "build" / "variants" / f"attn_{name}" / source.name
-    out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(text)
-    return out
+    """The variant's copy of `source` (and of any header a replacement names,
+    beside it) with each (old, new[, header]) replacement made once."""
+    out = ROOT / "build" / "variants" / f"attn_{name}"
+    out.mkdir(parents=True, exist_ok=True)
+    texts = {source.name: source.read_text()}
+    for old, new, *header in reps:
+        fname = header[0] if header else source.name
+        if fname not in texts:
+            texts[fname] = (source.parent / fname).read_text()
+        if texts[fname].count(old) != 1:
+            raise SystemExit(f"variant {name}: the line to replace is not in {fname} once")
+        texts[fname] = texts[fname].replace(old, new)
+    for fname, text in texts.items():
+        (out / fname).write_text(text)
+    return out / source.name
 
 
 def in_turns(fns: dict, rounds: int, reading=cuda_ms) -> dict:
@@ -189,6 +289,8 @@ def in_turns(fns: dict, rounds: int, reading=cuda_ms) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--kernels", default="packed,flash,fused",
+                    help="comma-separated: which kernels' variants to build and time")
     ap.add_argument("--out", default=str(ROOT / "build" / "measurements" /
                                          "attention_bf16_variants.json"))
     args = ap.parse_args()
@@ -199,24 +301,28 @@ def main() -> None:
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    flash_src = {k: variant_source(fa.SOURCE, k, r) for k, r in FLASH_VARIANTS.items()}
-    fused_src = {k: variant_source(sa.SOURCE, k, r) for k, r in FUSED_VARIANTS.items()}
-    _build.build_libraries(list(flash_src.values()) + list(fused_src.values()))
+    kernels = set(args.kernels.split(","))
     bf = lambda c: (*(x.to(torch.bfloat16) for x in c[:3]), c[3])
-    shapes = {
-        "flash, path D": (fa, flash_src, fa.flash_masked_attention,
-                          fa.flash_masked_attention_reference,
-                          bf(attention_case(torch, dev, 65, 256, 279, 279, 16, 16, masked=True,
-                                            fused_qkv=True))),
-        "fused from, path B": (sa, fused_src, sa.fused_short_attention,
-                               sa.fused_short_attention_reference,
-                               bf(attention_case(torch, dev, 62, 640, 4, 150, 16, 8,
-                                                 masked=True))),
-        "fused to, path B": (sa, fused_src, sa.fused_short_attention,
-                             sa.fused_short_attention_reference,
-                             bf(attention_case(torch, dev, 63, 640, 150, 4, 16, 8,
-                                               masked=False))),
-    }
+    shapes = {}
+    if "packed" in kernels:
+        shapes["packed, path A"] = (
+            sa, {k: variant_source(sa.SOURCE, f"packed_{k}", r) for k, r in PACKED_VARIANTS.items()},
+            sa.packed_short_attention, sa.packed_short_attention_reference,
+            bf(attention_case(torch, dev, 60, 640, 150, 150, 16, 16, masked=True, fused_qkv=True)))
+    if "flash" in kernels:
+        shapes["flash, path D"] = (
+            fa, {k: variant_source(fa.SOURCE, k, r) for k, r in FLASH_VARIANTS.items()},
+            fa.flash_masked_attention, fa.flash_masked_attention_reference,
+            bf(attention_case(torch, dev, 65, 256, 279, 279, 16, 16, masked=True, fused_qkv=True)))
+    if "fused" in kernels:
+        fused_src = {k: variant_source(sa.SOURCE, k, r) for k, r in FUSED_VARIANTS.items()}
+        shapes["fused from, path B"] = (
+            sa, fused_src, sa.fused_short_attention, sa.fused_short_attention_reference,
+            bf(attention_case(torch, dev, 62, 640, 4, 150, 16, 8, masked=True)))
+        shapes["fused to, path B"] = (
+            sa, fused_src, sa.fused_short_attention, sa.fused_short_attention_reference,
+            bf(attention_case(torch, dev, 63, 640, 150, 4, 16, 8, masked=False)))
+    _build.build_libraries(sorted({src for x in shapes.values() for src in x[1].values()}))
     lines = []
     with torch.no_grad():
         for shape, (module, sources, fn, ref, inputs) in shapes.items():

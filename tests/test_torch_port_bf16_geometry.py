@@ -1,4 +1,4 @@
-"""PyTorch port, the Python mirrors of the two redesigned bfloat16 kernels'
+"""PyTorch port, the Python mirrors of the redesigned bfloat16 kernels'
 launch geometry, on the CPU (the card holds them against the libraries' own
 reports: tests/test_torch_port_bf16_kernels.py, chip_smoke.py).
 
@@ -17,6 +17,11 @@ reports: tests/test_torch_port_bf16_kernels.py, chip_smoke.py).
 - `ops/short_attention.py::fused_bf16_geometry`: the bfloat16 fused kernels'
   blocks, rows and keys a lane holds, and the "to" kernel's runs of items
   over one wave of resident blocks.
+- `ops/short_attention.py::packed_bf16_geometry`: the bfloat16 packed
+  kernel, a block per (set, group of heads at least 32 columns wide), its
+  warps taking the group's (head, row tile) pairs in turn, the steps of 16 keys whose scores a
+  warp keeps in registers, Q, K and V of the group for every row within the
+  card's shared memory, and the resident blocks its launch bounds ask for.
 - The per-set products' split of a float32 input into three bfloat16
   pieces, whose sum is the input exactly, so that three bfloat16 products
   with float32 accumulation compute the float32 product on bfloat16 weights.
@@ -152,6 +157,39 @@ def test_fused_bf16_geometry_at_served_and_edge_shapes(b, lq, lk, h, d, want):
         items = b * chunks * -(-lq // rows)
         assert geo["blocks"] * sa.TO_WARPS * per_warp >= items
         assert geo["blocks"] <= SMS * sa.TO_BLOCKS_PER_SM
+
+
+def test_packed_bf16_geometry_at_path_a():
+    """640 sets of 150 at 16 heads of 16: 2 heads a block (rows of 64 bytes),
+    5,120 blocks of 4 warps, 10 steps of scores in registers (80 floats a
+    lane), four blocks an SM (16 warps at 128 registers a thread, 39 KB of
+    shared memory each)."""
+    assert sa.packed_bf16_geometry(640, 150, 16, 16) == dict(
+        blocks=5120, warps=4, heads=2, register_steps=10, smem_bytes=39040, min_blocks_per_sm=4)
+
+
+@pytest.mark.parametrize("biased", [False, True])
+@pytest.mark.parametrize("d", [8, 16, 32, 64])
+@pytest.mark.parametrize("l", [1, 15, 16, 17, 150, 256])
+def test_packed_bf16_geometry_at_the_edges(l, d, biased):
+    for b, h in ((3, 3), (640, 16), (2, 5)):
+        geo = sa.packed_bf16_geometry(b, l, h, d, biased)
+        dp = max(16, sa.padded_head_dim(d))
+        cols = max(32, dp)  # rows of at least 64 bytes: 2 heads at head dim 16, else one
+        group = cols // dp
+        tiles = -(-l // 16)
+        assert geo["heads"] == min(group, h)
+        assert geo["blocks"] == b * -(-h // group)  # every head in one group
+        assert geo["warps"] == min(4, geo["heads"] * tiles)  # no warp without a tile
+        steps = geo["register_steps"]
+        assert 16 * steps >= l and steps in (4, 10, 16)  # the registers hold every step
+        assert steps == 4 or 16 * {10: 4, 16: 10}[steps] < l  # the smallest bound that does
+        assert geo["smem_bytes"] == 2 * 3 * 16 * tiles * (cols + 8) + 4 * 16 * tiles
+        # 16 warps an SM (128 registers a thread) where the scores, Q, O and a bias leave room
+        room = 8 * steps + dp + (16 if biased else 0) <= 96
+        assert geo["min_blocks_per_sm"] == (4 if room else 2)
+        # the blocks the launch bounds ask for fit an SM's 228 KB, 1 KB a block reserved
+        assert geo["min_blocks_per_sm"] * (geo["smem_bytes"] + 1024) <= 233472
 
 
 def test_three_bfloat16_pieces_sum_to_the_float32_input():

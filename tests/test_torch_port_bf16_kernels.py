@@ -21,7 +21,10 @@ several sets a block; the flash kernel's class-token variant splits the keys
 over whole waves of blocks and merges them in the same launch. Their edges
 (tiles that span sets, padded and streamed widths, one and many splits,
 key counts off every step, a fully masked set, offset operands) and their
-launch reports against the wrappers' mirrors are tested here too.
+launch reports against the wrappers' mirrors are tested here too. So are the
+packed kernel's (one pass over Q . K^T for a group of heads, stopping at each
+set's last real key): every mask kind at L up to 256, a bias, slices of one
+fused QKV projection, offset operands, its launch report.
 """
 
 from __future__ import annotations
@@ -155,6 +158,10 @@ def _attention_inputs(b, lq, lk, h, d, seed, device, masked=True, bias=False, fu
     (640, 150, 16, 16, False, True), (64, 150, 16, 16, True, False),
     (3, 1, 3, 8, False, False), (3, 15, 3, 12, True, False), (3, 16, 3, 32, False, False),
     (3, 17, 3, 64, True, False), (3, 256, 3, 64, False, False), (4, 37, 3, 33, False, False),
+    # path A's slices of one QKV projection with a bias; the longest sets, 5 heads of 16 (a
+    # group of 4 and one of 1), fused; 65 particles (10 register steps), unaligned d
+    (8, 150, 16, 16, True, True), (4, 256, 5, 16, True, True), (5, 65, 6, 32, False, True),
+    (3, 256, 2, 24, True, False), (2, 161, 4, 8, False, True), (3, 100, 3, 64, True, True),
 ])
 def test_packed_bf16_kernel_matches_plain_version(cuda, b, l, h, d, bias, fused_qkv):
     q, k, v, mask, ab = _attention_inputs(b, l, l, h, d, l + d, cuda, bias=bias,
@@ -295,18 +302,23 @@ def _mask_of(kind: str, b: int, lk: int, device) -> torch.Tensor:
     return m.to(device)
 
 
+KERNELS = {"flash": (fa.flash_masked_attention, fa.flash_masked_attention_reference),
+           "fused": (sa.fused_short_attention, sa.fused_short_attention_reference),
+           "packed": (sa.packed_short_attention, sa.packed_short_attention_reference)}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", MASK_KINDS)
 @pytest.mark.parametrize("kernel,lq,lk,d", [
     ("flash", 279, 279, 16), ("flash", 37, 600, 32), ("flash", 5, 17, 64),
     ("fused", 4, 150, 8), ("fused", 4, 17, 12), ("fused", 3, 512, 64),
+    ("packed", 150, 150, 16), ("packed", 17, 17, 12), ("packed", 256, 256, 64),
+    ("packed", 33, 33, 32),
 ])
 def test_bf16_kernels_stop_at_the_last_real_key(cuda, kind, kernel, lq, lk, d):
     q, k, v, _, _ = _attention_inputs(3, lq, lk, 3, d, lq + lk, cuda, masked=False)
     mask = _mask_of(kind, 3, lk, cuda)
-    fn, ref = ((fa.flash_masked_attention, fa.flash_masked_attention_reference)
-               if kernel == "flash" else
-               (sa.fused_short_attention, sa.fused_short_attention_reference))
+    fn, ref = KERNELS[kernel]
     with torch.no_grad():
         out = fn(q, k, v, mask)
         again = fn(q, k, v, mask)
@@ -340,7 +352,8 @@ def test_fused_bf16_head_dims_and_bias(cuda, lq, lk, bias, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel,lq,lk", [("flash", 37, 300), ("fused", 4, 150),
-                                          ("fused", 150, 4)])
+                                          ("fused", 150, 4), ("packed", 150, 150),
+                                          ("packed", 17, 17)])
 def test_redesigned_bf16_kernels_on_offset_operands(cuda, kernel, lq, lk):
     """Operands one element off 16 bytes take element loads."""
     gen = torch.Generator().manual_seed(lq + lk)
@@ -351,9 +364,7 @@ def test_redesigned_bf16_kernels_on_offset_operands(cuda, kernel, lq, lk):
     k = flat[1 + n(lq):1 + n(lq) + n(lk)].view(3, lk, h, d)
     v = flat[1 + n(lq) + n(lk):].view(3, lk, h, d)
     mask = (torch.arange(lk)[None, :] < torch.tensor([[lk], [2], [lk // 2 + 1]])).float().to(cuda)
-    fn, ref = ((fa.flash_masked_attention, fa.flash_masked_attention_reference)
-               if kernel == "flash" else
-               (sa.fused_short_attention, sa.fused_short_attention_reference))
+    fn, ref = KERNELS[kernel]
     with torch.no_grad():
         out = fn(q, k, v, mask)
     assert_within(out, ref(q, k, v, mask))
@@ -383,3 +394,17 @@ def test_fused_bf16_launch_report_matches_its_mirror(cuda, b, lq, lk, h, d, bias
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     mirror = sa.fused_bf16_geometry(b, lq, lk, h, d, sms)
     assert {key: report[key] for key in mirror} == mirror
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,h,d,biased", [
+    (640, 150, 16, 16, False), (64, 150, 16, 16, True), (3, 256, 3, 64, False),
+    (3, 256, 3, 64, True), (3, 1, 3, 8, False), (3, 17, 3, 12, True), (4, 37, 3, 33, False),
+    (2, 65, 5, 32, False), (4, 256, 5, 16, True),
+])
+def test_packed_bf16_launch_report_matches_its_mirror(cuda, b, l, h, d, biased):
+    report = sa.packed_bf16_launch_report(b, l, h, d, biased)
+    mirror = sa.packed_bf16_geometry(b, l, h, d, biased)
+    assert {key: report[key] for key in mirror} == mirror
+    assert report["resident_blocks_per_sm"] >= report["min_blocks_per_sm"]
+    assert report["instruction"] == "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"

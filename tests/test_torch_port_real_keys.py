@@ -1,7 +1,7 @@
-"""PyTorch port, the real-keys extent that the bfloat16 flash and fused
-("from") kernels stop at (`ops/short_attention.py::real_key_extents`): the
-keys up to a set's last key with a nonzero mask when one of its keys has a
-mask of exactly 1, else all Lk.
+"""PyTorch port, the real-keys extent that the bfloat16 packed, flash and
+fused ("from") kernels stop at (`ops/short_attention.py::real_key_extents`):
+the keys up to a set's last key with a nonzero mask when one of its keys has
+a mask of exactly 1, else all Lk.
 
 - The skip is exact: each kernel's plain version over a set's keys cut at its
   extent equals the plain version over all keys (float32: 1e-6, torch's
@@ -15,7 +15,9 @@ mask of exactly 1, else all Lk.
   a set whose keys are all masked where Lk is no multiple of 8: the Pallas
   kernels spread its weight over Lk padded to 8 (fused) or to the chunk
   (flash), the port over its Lk keys (ROADMAP Queue 3, a known difference;
-  test_torch_port_flash.py::test_fully_masked_set_known_difference).
+  test_torch_port_flash.py::test_fully_masked_set_known_difference). The
+  packed Pallas kernel pads L to 16 and differs likewise where L is no
+  multiple of 16.
 """
 
 from __future__ import annotations
@@ -35,7 +37,9 @@ from tests.torch_port_helpers import t
 
 KINDS = ("prefix", "holes", "only the last key", "all masked", "fractional only")
 PLAIN = {"flash": lambda q, k, v, m: pflash.flash_masked_attention_reference(q, k, v, m),
-         "fused": lambda q, k, v, m: pshort.fused_short_attention_reference(q, k, v, m)}
+         "fused": lambda q, k, v, m: pshort.fused_short_attention_reference(q, k, v, m),
+         "packed": lambda q, k, v, m: pshort.packed_short_attention_reference(q, k, v, m)}
+QUERY_ROWS = {"flash": 6, "fused": 4, "packed": 150}  # packed: self-attention, Lq = Lk
 
 
 def _mask(kind: str, b: int, lk: int, seed: int) -> np.ndarray:
@@ -95,7 +99,7 @@ def test_a_fractional_key_past_a_real_one_counts():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kind", KINDS)
 def test_plain_versions_over_the_real_keys_equal_them_over_all_keys(kernel, dtype, kind):
-    b, lq, lk, h, d = 4, 6 if kernel == "flash" else 4, 150, 2, 16
+    b, lq, lk, h, d = 4, QUERY_ROWS[kernel], 150, 2, 16
     q, k, v = (t(a).to(dtype) for a in _qkv(b, lq, lk, h, d, seed=len(kind)))
     mask = t(_mask(kind, b, lk, seed=len(kind) + 1))
     full = PLAIN[kernel](q, k, v, mask)
@@ -143,3 +147,18 @@ def test_mask_kinds_through_the_pallas_kernels(kind, lq, lk, d):
             assert not np.allclose(ours[name], pallas[name], atol=2e-5)
         else:
             np.testing.assert_allclose(ours[name], pallas[name], atol=2e-5)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("l,d", [(40, 16), (37, 8), (19, 12), (32, 32)])
+def test_mask_kinds_through_the_pallas_packed_kernel(kind, l, d):
+    b, h = 3, 2
+    q, k, v = _qkv(b, l, l, h, d, seed=l + d)
+    mask = _mask(kind, b, l, seed=l)
+    pallas = np.asarray(jshort.packed_short_attention(*(jnp.asarray(a) for a in (q, k, v, mask)),
+                                                      interpret=True))
+    ours = pshort.packed_short_attention_reference(*(t(a) for a in (q, k, v, mask))).numpy()
+    if kind == "all masked" and l % 16:  # the Pallas kernel's padded keys take weight too
+        assert not np.allclose(ours, pallas, atol=2e-5)
+    else:
+        np.testing.assert_allclose(ours, pallas, atol=2e-5)
