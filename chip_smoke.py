@@ -136,17 +136,36 @@
      after 5 of warm-up as steps/s and jets/s, and the peak memory;
    - train path A (fm_droid_transformer, attn_impl=packed, scores_dtype=null,
      every parameter re-drawn): one step's loss and gradients with the packed
-     kernel in the forward pass (its backward the plain version, as the JAX
-     custom_vjp) against the wrapper replaced by its plain version, on a full
-     batch with pinned draws, same tolerances; then 4 steps a turn, in turns
-     (kernel, plain, plain, kernel): exactly 3 packed launches a kernel step,
-     jets/s and peak memory of each path;
+     kernel in the forward pass (its backward recomputes `packed_ref_math`,
+     as the JAX custom_vjp recomputes `_ref_math`) against the kernel
+     replaced by its plain version, on a full batch with pinned draws, same
+     tolerances; then 4 steps a turn, in turns (kernel, plain, plain,
+     kernel): exactly 3 packed launches a kernel step, jets/s and peak
+     memory of each path;
    - train CLI: particle_fm_tpu_torch.train.main with
      experiment=jetnet/fm_tops150_cond data.synthetic=true
      data.synthetic_num_jets=4096 trainer=smoke callbacks=none: a finite
      val_loss, the `last` and best checkpoints, a resume from `last` that
-     continues at its step, then the EMA weights serve 7 jets at NFE 100 with
-     exactly 6 x 100 EPiC launches, within atol 1e-3 of the plain path.
+     continues at its step, the checkpoints' parameters, EMA weights and
+     AdamW moments float32, then the EMA weights serve 7 jets at NFE 100
+     with exactly 6 x 100 EPiC launches, within atol 1e-3 of the plain path.
+   Then the same three in bfloat16 (model.dtype=bfloat16: float32 master
+   weights, bfloat16 compute, float32 gradients, AdamW and EMA), each held
+   by the bf16 gate |x - plain bf16| < |plain bf16 - plain float32| on the
+   loss and on all gradients as one vector (Frobenius norm):
+   - train EPiC bf16: one step on the card against the CPU in bfloat16 (64
+     jets, pinned draws), 30 steps that lower the loss with no kernel
+     launched, the median step, jets/s and peak memory beside float32's;
+     then jets/s at bench.py's train batch 320, float32 and bfloat16 in
+     turns;
+   - train path A bf16: the packed bf16 kernel's forward against the kernel
+     replaced by its plain version, then 4 steps a turn in turns, exactly 3
+     packed_short_attention_bf16 launches a kernel step and none of a
+     float32 kernel; jets/s and peak memory beside float32's;
+   - train CLI bf16: as train CLI (float32 checkpoints too); the EMA weights
+     serve in bfloat16 with exactly 6 x 100 epic_layer_bf16 launches and no
+     epic_layer launch, and after 4 midpoint steps the kernel path closer to
+     the plain bf16 path than that is to float32.
 5. Eval phases at full width (`eval_cli_phase`, `eval_timing_phase`):
    - eval CLI: particle_fm_tpu_torch.train.main with
      experiment=jetnet/fm_tops150_cond data.synthetic=true
@@ -237,6 +256,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -1469,20 +1489,73 @@ def train_setup(torch, model, dm, cfg, dev, lr: float = 1e-3):
     return trainer, create_train_state(model, opt, seed=0, device=dev)
 
 
-def train_epic_phase(torch, ops, dev, counted, data_overrides=()) -> dict:
-    """fm_tops150_cond: one step's loss and gradients on the card against
-    the CPU (64 jets, pinned draws), then TRAIN_STEPS steps at constant lr
-    1e-3 that must lower the loss and launch no EPiC kernel (training runs
-    the module path: the kernel is forward-only)."""
+# bfloat16 training phases: float32 master weights, bfloat16 compute
+TRAIN_TURN_STEPS = 8  # steps a turn of the batch-320 reading
+BENCH_TRAIN_BATCH = 320  # bench.py's train batch
+
+
+def float32_twin(torch, model, net, device):
+    """The float32 model (dtype None) and a network of it holding `net`'s weights."""
+    model32 = dataclasses.replace(model, dtype=None)
+    net32 = model32.init(seed=0, device=device)
+    net32.load_state_dict(net.state_dict())
+    return model32, net32
+
+
+def frob_pairs(a, b) -> float:
+    """Frobenius norm of the difference of two lists of tensors, in float64."""
+    return float(np.sqrt(sum(float(((x.double() - y.double()) ** 2).sum())
+                             for x, y in zip(a, b, strict=True))))
+
+
+def bf16_gate(torch, name: str, got, want, f32) -> dict:
+    """Loss and gradients (pinned_loss_and_grads) of a bfloat16 computation
+    against a bfloat16 reference, closer than the reference is to float32:
+    |got - want| < |want - f32| on the loss and on all gradients as one
+    vector; every gradient float32."""
+    if not all(g.dtype == torch.float32 for g in got[1] + want[1]):
+        fail(f"{name}: a gradient of a float32 parameter is not float32")
+    loss = (abs(got[0] - want[0]), abs(want[0] - f32[0]))
+    grads = (frob_pairs(got[1], want[1]), frob_pairs(want[1], f32[1]))
+    if not (np.isfinite(got[0]) and loss[0] < loss[1] and grads[0] < grads[1]):
+        fail(f"{name}: |bf16 - plain bf16| against |plain bf16 - float32|: loss {loss}, "
+             f"gradients {grads}")
+    return {"loss": got[0], "loss_vs_plain_bf16": loss[0], "plain_bf16_loss_vs_f32": loss[1],
+            "grads_vs_plain_bf16_frobenius": grads[0],
+            "plain_bf16_grads_vs_f32_frobenius": grads[1], "n_params": len(got[1])}
+
+
+def agreement(torch, name: str, model, got, want, want32) -> dict:
+    """`held_against` in float32; in bfloat16 `bf16_gate`, with `want32()`
+    the same reference computed in float32."""
+    if model.compute_dtype is None:
+        return held_against(name, got, want)
+    return bf16_gate(torch, name, got, want, want32())
+
+
+def float32_state(torch, state) -> None:
+    if not all(p.dtype == torch.float32 for p in [*state.params(), *state.ema_params]):
+        fail("training: a parameter or EMA weight is not float32")
+
+
+def train_epic_phase(torch, ops, dev, counted, overrides=()) -> dict:
+    """fm_tops150_cond (with `overrides`, such as model.dtype=bfloat16): one
+    step's loss and gradients on the card against the CPU (64 jets, pinned
+    draws; `agreement`), then TRAIN_STEPS steps at constant lr 1e-3 that
+    must lower the loss and launch no EPiC kernel (training runs the module
+    path: the kernel is forward-only)."""
     model, dm, cfg = compose_training(["experiment=jetnet/fm_tops150_cond", "data.synthetic=true",
-                                       *data_overrides])
+                                       *overrides])
     dm.setup()
     trainer, state = train_setup(torch, model, dm, cfg, dev)
     split = dm.train
     batch = [torch.from_numpy(a[:64]) for a in (split.x, split.mask, split.cond)]
+    cpu_net = copy.deepcopy(state.net).cpu()
     card = pinned_loss_and_grads(torch, model, state.net, [a.to(dev) for a in batch], 5)
-    cpu = pinned_loss_and_grads(torch, model, copy.deepcopy(state.net).cpu(), batch, 5)
-    agree = held_against("train EPiC, card against CPU", card, cpu)
+    cpu = pinned_loss_and_grads(torch, model, cpu_net, batch, 5)
+    agree = agreement(torch, "train EPiC, card against CPU", model, card, cpu,
+                      lambda: pinned_loss_and_grads(
+                          torch, *float32_twin(torch, model, cpu_net, "cpu"), batch, 5))
 
     reset(counted)
     if dev.type == "cuda":
@@ -1495,37 +1568,85 @@ def train_epic_phase(torch, ops, dev, counted, data_overrides=()) -> dict:
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     if not (np.isfinite(losses).all() and last < first):
         fail(f"train EPiC: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    float32_state(torch, state)
     median = float(np.median(secs[5:]))
     return {"config": "fm_tops150_cond (configs/), synthetic JetNet-150, AdamW lr 1e-3 constant, "
-                      "clip 0.5, EMA 0.999", "batch": dm.batch_size, "train_jets": len(split),
-            "steps": TRAIN_STEPS, "card_vs_cpu_64_jets": agree, "loss_first_5": first,
-            "loss_last_5": last, "median_step_ms": 1e3 * median, "steps_per_s": 1.0 / median,
-            "jets_per_s": dm.batch_size / median, "peak_memory_bytes": peak,
-            "kernel_launches": got}
+                      "clip 0.5, EMA 0.999", "overrides": list(overrides), "batch": dm.batch_size,
+            "train_jets": len(split), "steps": TRAIN_STEPS, "card_vs_cpu_64_jets": agree,
+            "loss_first_5": first, "loss_last_5": last, "median_step_ms": 1e3 * median,
+            "steps_per_s": 1.0 / median, "jets_per_s": dm.batch_size / median,
+            "peak_memory_bytes": peak, "kernel_launches": got}
 
 
-def train_path_a_phase(torch, sa, dev, counted, data_overrides=()) -> dict:
-    """fm_droid_transformer (attn_impl=packed, scores_dtype=null) on the
-    JetNet-150 cond data, every parameter re-drawn: one step's loss and
-    gradients with the packed kernel against the wrapper replaced by its
-    plain version (pinned draws, a full batch), then steps in turns (kernel,
-    plain, plain, kernel), the kernel turns launching 3 packed kernels a step."""
+def bench_batch_turns(torch, dev) -> dict:
+    """jets/s of fm_tops150_cond's train step at bench.py's batch 320,
+    float32 and bfloat16 in turns (f32, bf16, bf16, f32), TRAIN_TURN_STEPS
+    steps a turn after 3 of warm-up: the median step of each."""
+    runs = {}
+    for name, extra in (("float32", []), ("bfloat16", ["model.dtype=bfloat16"])):
+        model, dm, cfg = compose_training(["experiment=jetnet/fm_tops150_cond",
+                                           "data.synthetic=true",
+                                           f"data.batch_size={BENCH_TRAIN_BATCH}", *extra])
+        dm.setup()
+        trainer, state = train_setup(torch, model, dm, cfg, dev)
+        data = trainer._place_train_split()
+        run_steps(torch, trainer, state, data, 3)
+        runs[name] = (trainer, state, data, [])
+    for name in ("float32", "bfloat16", "bfloat16", "float32"):
+        trainer, state, data, secs = runs[name]
+        losses, turn = run_steps(torch, trainer, state, data, TRAIN_TURN_STEPS)
+        if not np.isfinite(losses).all():
+            fail(f"train EPiC at batch {BENCH_TRAIN_BATCH}, {name}: non-finite loss {losses}")
+        secs += turn
+    ms = {name: 1e3 * float(np.median(r[3])) for name, r in runs.items()}
+    return {"batch": BENCH_TRAIN_BATCH, "steps_per_turn": TRAIN_TURN_STEPS, "median_step_ms": ms,
+            "jets_per_s": {k: BENCH_TRAIN_BATCH / (v / 1e3) for k, v in ms.items()},
+            "step_s": {name: r[3] for name, r in runs.items()}}
+
+
+def train_path_a_phase(torch, sa, dev, counted, overrides=()) -> dict:
+    """fm_droid_transformer (attn_impl=packed, scores_dtype=null; with
+    `overrides`, such as model.dtype=bfloat16) on the JetNet-150 cond data,
+    every parameter re-drawn: one step's loss and gradients with the packed
+    kernel (float32 or bf16, by the model's type) in the forward pass
+    against the kernel replaced by its plain version (`_packed_forward`: the
+    backward recomputes `packed_ref_math` either way), pinned draws, a full
+    batch (`agreement`), then steps in turns (kernel, plain, plain, kernel),
+    the kernel turns launching 3 packed kernels a step and no other."""
     model, dm, cfg = compose_training([
         "experiment=jetnet/fm_tops150_cond", "model=fm_droid_transformer", "data.synthetic=true",
         "model.net_config.te_config.mha_config.attn_impl=packed",
-        "model.net_config.te_config.mha_config.scores_dtype=null", *data_overrides])
+        "model.net_config.te_config.mha_config.scores_dtype=null", *overrides])
     dm.setup()
     trainer, state = train_setup(torch, model, dm, cfg, dev)
     redraw_parameters(torch, state.net, seed=4)
     with torch.no_grad():
         for e, p in zip(state.ema_params, state.params()):
             e.copy_(p)
+    wrapper = "packed_short_attention" if model.compute_dtype is None else \
+        "packed_short_attention_bf16"
+
+    def plain():
+        return mock.patch.object(sa, "_packed_forward", sa.packed_short_attention_reference)
+
+    def plain32():
+        with plain():
+            return pinned_loss_and_grads(torch, *float32_twin(torch, model, state.net, dev),
+                                         batch, 6)
+
     split = dm.train
     batch = [torch.from_numpy(a[:dm.batch_size]).to(dev) for a in (split.x, split.mask, split.cond)]
+    reset(counted)
     kernel = pinned_loss_and_grads(torch, model, state.net, batch, 6)
-    with mock.patch.object(sa, "packed_short_attention", sa.packed_short_attention_reference):
-        plain = pinned_loss_and_grads(torch, model, state.net, batch, 6)
-    agree = held_against("train path A, kernel against plain", kernel, plain)
+    want = {w.__name__: 0 for w in counted}
+    want[wrapper] = 3 if dev.type == "cuda" else 0
+    if launched(counted) != want:
+        fail(f"train path A: one loss and its gradients launched {launched(counted)}, "
+             f"expected {want}")
+    with plain():
+        reference = pinned_loss_and_grads(torch, model, state.net, batch, 6)
+    agree = agreement(torch, "train path A, kernel against plain", model, kernel, reference,
+                      plain32)
 
     per_turn = 4
     data = trainer._place_train_split()
@@ -1535,10 +1656,7 @@ def train_path_a_phase(torch, sa, dev, counted, data_overrides=()) -> dict:
     for path in ("kernel", "plain", "plain", "kernel"):
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
-        if path == "plain":
-            with mock.patch.object(sa, "packed_short_attention", sa.packed_short_attention_reference):
-                losses, secs = run_steps(torch, trainer, state, data, per_turn)
-        else:
+        with plain() if path == "plain" else contextlib.nullcontext():
             losses, secs = run_steps(torch, trainer, state, data, per_turn)
         if not np.isfinite(losses).all():
             fail(f"train path A: non-finite loss {losses}")
@@ -1546,33 +1664,49 @@ def train_path_a_phase(torch, sa, dev, counted, data_overrides=()) -> dict:
         if dev.type == "cuda":
             peak[path] = max(peak[path], torch.cuda.max_memory_allocated(dev))
     got = launched(counted)
-    want = {w.__name__: 0 for w in counted}
-    want["packed_short_attention"] = 3 * 2 * per_turn if dev.type == "cuda" else 0
+    want[wrapper] = 3 * 2 * per_turn if dev.type == "cuda" else 0
     if got != want:
         fail(f"train path A: launches {got}, expected {want}")
+    float32_state(torch, state)
     ms = {k: 1e3 * float(np.median(v)) for k, v in turns.items()}
     return {"config": "fm_droid_transformer (configs/) on fm_tops150_cond's data, attn_impl=packed, "
                       "scores_dtype=null, every parameter re-drawn, AdamW lr 1e-3 constant",
-            "batch": dm.batch_size, "kernel_vs_plain": agree, "steps_per_turn": per_turn,
-            "median_step_ms": ms, "jets_per_s": {k: dm.batch_size / (v / 1e3) for k, v in ms.items()},
+            "overrides": list(overrides), "batch": dm.batch_size, "kernel_vs_plain": agree,
+            "steps_per_turn": per_turn, "median_step_ms": ms,
+            "jets_per_s": {k: dm.batch_size / (v / 1e3) for k, v in ms.items()},
             "step_s": turns, "peak_memory_bytes": peak, "kernel_launches": got,
-            "launches": got["packed_short_attention"]}
+            "launches": got[wrapper]}
 
 
-def train_cli_phase(torch, ops, dev, counted, extra=()) -> dict:
+def float32_checkpoint(torch, path: Path) -> None:
+    """Fail unless the checkpoint's parameters, EMA weights and AdamW
+    moments are all float32."""
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    tensors = [*sd["params"].values(), *sd["ema_params"]]
+    tensors += [v for s in sd["opt_state"]["state"].values() for v in s.values() if v.ndim]
+    if not tensors or any(a.dtype != torch.float32 for a in tensors):
+        fail(f"train CLI: {path.name} holds a tensor that is not float32")
+
+
+def train_cli_phase(torch, ops, dev, counted, overrides=()) -> dict:
     """The training entry point on fm_tops150_cond with 4096 synthetic jets
-    and trainer=smoke: a finite val_loss, the `last` and best checkpoints, a
-    resume from `last` that continues at its step, then the EMA weights serve
-    7 jets at NFE 100 with 6 x 100 EPiC launches, agreeing with the plain path."""
+    and trainer=smoke (and `overrides`, such as model.dtype=bfloat16): a
+    finite val_loss, the `last` and best checkpoints with float32
+    parameters, EMA weights and AdamW moments, a resume from `last` that
+    continues at its step, then the EMA weights serve 7 jets at NFE 100 in
+    the model's type with 6 x 100 launches of its EPiC kernel and no other:
+    in float32 within PATH_TOL of the plain path; in bfloat16, after 4
+    midpoint steps, the kernel path closer to the plain path than that is
+    to float32."""
     import shutil
 
     from particle_fm_tpu_torch import train as ptrain
     from particle_fm_tpu_torch.serving import make_serve_fn, serve_batches
 
-    out_root = ROOT / "build" / "train_smoke"
+    out_root = ROOT / "build" / ("train_smoke" + "".join(f"_{o.split('=')[-1]}" for o in overrides))
     shutil.rmtree(out_root, ignore_errors=True)
     args = ["experiment=jetnet/fm_tops150_cond", "data.synthetic=true",
-            "data.synthetic_num_jets=4096", "trainer=smoke", "callbacks=none", *extra]
+            "data.synthetic_num_jets=4096", "trainer=smoke", "callbacks=none", *overrides]
     t0 = time.perf_counter()
     metrics, objs = ptrain.main(args + [f"output_dir={out_root / 'first'}"])
     first_s = time.perf_counter() - t0
@@ -1583,6 +1717,8 @@ def train_cli_phase(torch, ops, dev, counted, extra=()) -> dict:
     best = sorted((Path(out) / "checkpoints" / "val_loss").glob("step_*_metric_*.pt"))
     if not last.exists() or len(best) != 1:
         fail(f"train CLI: checkpoints missing: last {last.exists()}, best {best}")
+    for path in (last, best[0]):
+        float32_checkpoint(torch, path)
     saved_step = trainer.state.step
     epochs = len(trainer.metrics_history)
     metrics2, objs2 = ptrain.main(args + [f"output_dir={out_root / 'resumed'}",
@@ -1595,6 +1731,7 @@ def train_cli_phase(torch, ops, dev, counted, extra=()) -> dict:
              f"({resumed.metrics_history}, step {resumed.state.step})")
 
     dm, model = objs2["datamodule"], objs2["model"]
+    wrapper = "epic_layer" if model.compute_dtype is None else "epic_layer_bf16"
     net = resumed.state.ema_network()
     fn = make_serve_fn(model, net, batch_size=7, ode_steps=ODE_STEPS, has_cond=True,
                        has_mask=True, means=dm.means, stds=dm.stds)
@@ -1603,25 +1740,43 @@ def train_cli_phase(torch, ops, dev, counted, extra=()) -> dict:
     served = serve_batches(fn, fn.meta, 7, cond=cond, mask=mask, seed=3)
     got = launched(counted)
     want = {w.__name__: 0 for w in counted}
-    want["epic_layer"] = model.layers * 2 * (ODE_STEPS - 1) if dev.type == "cuda" else 0
+    want[wrapper] = model.layers * 2 * (ODE_STEPS - 1) if dev.type == "cuda" else 0
     if got != want:
         fail(f"train CLI: serving the EMA weights launched {got}, expected {want}")
     with mock.patch.object(ops, "epic_layer", ops.epic_layer_reference):
         plain = serve_batches(fn, fn.meta, 7, cond=cond, mask=mask, seed=3)
     err = float(np.abs(served - plain).max())
-    if not (np.isfinite(served).all() and err <= PATH_TOL):
-        fail(f"train CLI: the EMA weights served on the kernel path disagree with the plain "
-             f"path: {err}")
+    if not np.isfinite(served).all():
+        fail("train CLI: the served samples are not finite")
     if np.abs(served[mask[..., 0] == 0]).max(initial=0.0) != 0.0:
         fail("train CLI: padded rows of the served samples are not zero")
+    ema_served = {"jets": 7, "ode_steps": ODE_STEPS, "launches": got,
+                  "max_abs_diff_kernel_vs_plain": err}
+    if model.compute_dtype is None:
+        if err > PATH_TOL:
+            fail(f"train CLI: the EMA weights served on the kernel path disagree with the "
+                 f"plain path: {err}")
+    else:
+        m, c = (torch.from_numpy(a).to(dev) for a in (mask, cond))
+        z = torch.randn(m.shape[0], model.num_particles, model.features,
+                        generator=torch.Generator().manual_seed(3)).to(dev) * m
+        k16 = model.integrate(net, z, c, m, "midpoint", BF16_CHECK_STEPS)
+        with mock.patch.object(ops, "epic_layer", ops.epic_layer_reference):
+            p16 = model.integrate(net, z, c, m, "midpoint", BF16_CHECK_STEPS)
+        model32, net32 = float32_twin(torch, model, net, dev)
+        x32 = model32.integrate(net32, z, c, m, "midpoint", BF16_CHECK_STEPS)
+        ours, theirs = frob((k16 - p16).cpu()), frob((p16 - x32).cpu())
+        if not ours < theirs:
+            fail(f"train CLI: the EMA weights' kernel path and plain path after 4 steps "
+                 f"|{ours}| are not closer than plain bf16 is to float32 |{theirs}|")
+        ema_served["four_steps"] = {"kernel_vs_plain_frobenius": ours,
+                                    "plain_bf16_vs_f32_frobenius": theirs}
     return {"args": args, "val_loss": metrics["val_loss"], "train_loss": metrics["train_loss"],
             "steps_per_epoch": per_epoch, "saved_step": saved_step,
             "resumed_at_epoch": resumed.metrics_history[0]["epoch"],
             "step_after_resume": resumed.state.step, "first_run_s": first_s,
             "checkpoints": [str(last.relative_to(ROOT)), str(best[0].relative_to(ROOT))],
-            "ema_served": {"jets": 7, "ode_steps": ODE_STEPS, "launches": got,
-                           "max_abs_diff_kernel_vs_plain": err},
-            "launches": got["epic_layer"]}
+            "ema_served": ema_served, "launches": got[wrapper]}
 
 
 # eval phase: the shipped JetNet callbacks in the training entry point, then
@@ -2730,6 +2885,7 @@ def main() -> None:
     print(json.dumps({"bf16_serving_phases_s": time.perf_counter() - t0}), flush=True)
 
     t0 = time.perf_counter()
+    bf16 = ("model.dtype=bfloat16",)
     epic_train = train_epic_phase(torch, ops, dev, counted)
     print(json.dumps({"training": "train EPiC", **epic_train}), flush=True)
     path_a = train_path_a_phase(torch, sa, dev, counted)
@@ -2737,8 +2893,24 @@ def main() -> None:
     cli = train_cli_phase(torch, ops, dev, counted)
     print(json.dumps({"training": "train CLI", **cli}), flush=True)
     print(json.dumps({"training_phases_s": time.perf_counter() - t0}), flush=True)
-    for kernel_name, path, run in (("packed_short_attention", "train path A", path_a),
-                                   ("epic_layer", "train CLI (EMA weights served)", cli)):
+    t0 = time.perf_counter()
+    epic16 = train_epic_phase(torch, ops, dev, counted, bf16)
+    epic16[f"batch_{BENCH_TRAIN_BATCH}_in_turns"] = bench_batch_turns(torch, dev)
+    print(json.dumps({"training": "train EPiC bf16", **epic16, "f32": {
+        k: epic_train[k] for k in ("median_step_ms", "jets_per_s", "peak_memory_bytes")}}),
+          flush=True)
+    path_a16 = train_path_a_phase(torch, sa, dev, counted, bf16)
+    print(json.dumps({"training": "train path A bf16", **path_a16, "f32": {
+        k: path_a[k] for k in ("median_step_ms", "jets_per_s", "peak_memory_bytes")}}),
+          flush=True)
+    cli16 = train_cli_phase(torch, ops, dev, counted, bf16)
+    print(json.dumps({"training": "train CLI bf16", **cli16}), flush=True)
+    print(json.dumps({"training_bf16_phases_s": time.perf_counter() - t0}), flush=True)
+    for kernel_name, path, run in (
+            ("packed_short_attention", "train path A", path_a),
+            ("epic_layer", "train CLI (EMA weights served)", cli),
+            ("packed_short_attention_bf16", "train path A (bf16)", path_a16),
+            ("epic_layer_bf16", "train CLI bf16 (EMA weights served)", cli16)):
         kernels[kernel_name]["launches"] += run["launches"]
         kernels[kernel_name]["launches_by_path"][path] = run["launches"]
 

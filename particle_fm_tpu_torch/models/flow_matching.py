@@ -20,8 +20,13 @@ bfloat16).
 config `model.dtype=bfloat16`) keeps the parameters in float32 and computes
 every Dense and LayerNorm, and the kernels, in bfloat16, while the time
 embedding, the solver's state, the noise, cond and mask stay float32.
-`sample`, `integrate` and serving run in it; `loss` raises (training in
-bfloat16 is the next slice of the port).
+`sample`, `integrate`, serving and `loss` run in it. In training the loss
+runs the unfolded bfloat16 network on the float32 parameters: t, the noises,
+cond, the mask and the targets stay float32, the bfloat16 field meets the
+float32 target by type promotion (the transformers end in a bfloat16 Dense,
+EPiC and MDMA in a product with the float32 mask), and autograd through the
+casts hands every parameter a float32 gradient, so that clipping, AdamW and
+the EMA run in float32 as in the JAX package.
 
 `integrate` takes the starting point `z` explicitly (the prior draw, scaled
 by `droid_t_max` for droid and masked), so a test can hand it the noise the
@@ -211,18 +216,10 @@ class FlowMatchingModel:
     def vector_field(self, net: CNFStack, t, x, cond=None, mask=None) -> torch.Tensor:
         return net(t, x, cond=cond, mask=mask)
 
-    def _refuse_training(self, what: str) -> None:
-        if self.compute_dtype is not None:
-            raise NotImplementedError(
-                f"{what} in {self.compute_dtype} is not ported yet: the port samples and serves "
-                "in bfloat16; training in it (float32 master weights, bfloat16 compute) is the "
-                "next slice. Train with dtype=None and sample with the weights in bfloat16.")
-
     def loss_accum_weight(self, x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
         """Gradient-accumulation weight of one microbatch: its loss
         normalisation mass, so that weighted microbatch gradients add up to
         the big-batch gradient."""
-        self._refuse_training("loss_accum_weight")
         if mask is None:
             return torch.tensor(float(x.shape[0] * x.shape[1]), device=x.device)
         return torch.sum(mask).to(torch.float32)
@@ -244,7 +241,6 @@ class FlowMatchingModel:
         (tm = droid_t_max for droid, else 1), masked, which the trained pass
         reads for a Bernoulli(0.5) half of the sets (drawn next), zeros for
         the others. Then t and the noises, as the loss family draws them."""
-        self._refuse_training("loss")
         if is_folded(net):
             raise RuntimeError(
                 "loss needs the unfolded network: folded weights carry no gradient to "

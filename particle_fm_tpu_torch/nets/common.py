@@ -16,6 +16,9 @@ the parameters' float32; bfloat16 keeps the parameters float32 and casts the
 input, the weight and the bias to bfloat16 before the product and the bias
 add, which then run in bfloat16 (the product accumulated in float32 and
 rounded once). With a `dtype`, `fold()` keeps the weight and the bias cast.
+Unfolded, as training runs it, the weight norm is computed in float32 and
+cast once, as in the JAX module; the casts' backward hands `v`, `g` and the
+bias float32 gradients.
 `LayerNorm` is `flax.linen.LayerNorm(epsilon=1e-5, dtype=...)` on float32
 parameters.
 """
@@ -34,9 +37,14 @@ def leaky_relu(x: torch.Tensor, negative_slope: float) -> torch.Tensor:
     is a weakly typed constant that JAX rounds to bfloat16 before the
     product (0.01 becomes 0.010009765625); torch's leaky_relu multiplies by
     the slope as given, so it is handed the rounded one (the product of two
-    bfloat16 values is exact in float32, rounded once, as in JAX)."""
+    bfloat16 values is exact in float32, rounded once, as in JAX). Under
+    autograd it is written as JAX writes it, whose derivative at x = 0 is 1
+    (torch's leaky_relu takes the slope there); in bfloat16 a sum cancels to
+    exactly 0 often enough for that to show in the gradients."""
     if x.dtype == torch.bfloat16:
         negative_slope = float(torch.tensor(negative_slope, dtype=torch.bfloat16))
+    if torch.is_grad_enabled() and x.requires_grad:
+        return torch.where(x >= 0, x, negative_slope * x)
     return F.leaky_relu(x, negative_slope=negative_slope)
 
 
@@ -239,7 +247,12 @@ class LayerNorm(nn.LayerNorm):
     scale and bias in float32, then one cast to `dtype` (torch's LayerNorm
     on a bfloat16 tensor returns its own rounding of the same). flax takes
     the variance as E[x^2] - E[x]^2 and torch in two passes: the two differ
-    in float32's last bits, below one bfloat16 rounding."""
+    in float32's last bits, below one bfloat16 rounding. Under autograd
+    torch rounds a bfloat16 x's gradient once. JAX's autodiff of flax's
+    LayerNorm rounds two parts of it to bfloat16 before adding them (the
+    part through the centring x - mean and the part through the
+    statistics: flax casts x to float32 for each), and these nearly cancel,
+    so its bfloat16 gradient is further from float32 than the port's."""
 
     def __init__(self, normalized_shape: int, eps: float = 1e-5,
                  dtype: torch.dtype | None = None):

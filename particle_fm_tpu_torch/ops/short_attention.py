@@ -227,6 +227,14 @@ def packed_short_attention_reference(q, k, v, kv_mask=None, attn_bias=None):
     arithmetic (`_packed_lowp`)."""
     if q.dtype == torch.bfloat16:
         return _packed_lowp(q, k, v, kv_mask, attn_bias)
+    return packed_ref_math(q, k, v, kv_mask, attn_bias)
+
+
+def packed_ref_math(q, k, v, kv_mask=None, attn_bias=None):
+    """The JAX package's `_ref_math` in q's type, which the packed kernel's
+    backward differentiates in every type: Q . K^T in q's type (in bfloat16
+    the scores are rounded before the float32 cast), the scale, mask, bias
+    and softmax in float32, the weights cast to q's type for the PV product."""
     b, d = q.shape[0], q.shape[-1]
     madd = mask_add(kv_mask, b, k.shape[1], q)
     s = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32)
@@ -395,7 +403,9 @@ def _packed_forward(q, k, v, kv_mask, attn_bias) -> torch.Tensor:
 
 
 class _PackedAttention(torch.autograd.Function):
-    """Forward through the kernel; backward through the plain version."""
+    """Forward through the kernel (its plain version on CPU tensors); backward
+    through `packed_ref_math` recomputed in the input type, as the JAX
+    `custom_vjp` recomputes `_ref_math`."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, attn_bias):
@@ -409,7 +419,7 @@ class _PackedAttention(torch.autograd.Function):
         with torch.enable_grad():
             inputs = [None if t is None else t.detach().requires_grad_(n)
                       for t, n in zip((q, k, v, attn_bias), need)]
-            out = packed_short_attention_reference(*inputs[:3], kv_mask, inputs[3])
+            out = packed_ref_math(*inputs[:3], kv_mask, inputs[3])
             wanted = [i for i, n in enumerate(need) if n]
             grads = dict(zip(wanted, torch.autograd.grad(out, [inputs[i] for i in wanted],
                                                          grad_out)))
@@ -418,7 +428,8 @@ class _PackedAttention(torch.autograd.Function):
 
 def packed_short_attention(q, k, v, kv_mask=None, attn_bias=None) -> torch.Tensor:
     """Whole-set self-attention (Lq == Lk <= 256): the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors, the plain version for CPU tensors. Differentiable in float32 and
+    bfloat16: the backward recomputes `packed_ref_math`."""
     lq, lk = q.shape[1], k.shape[1]
     if lk != lq:
         raise ValueError(
@@ -429,10 +440,6 @@ def packed_short_attention(q, k, v, kv_mask=None, attn_bias=None) -> torch.Tenso
         attn_bias = attn_bias.to(torch.float32)
     tensors = [t for t in (q, k, v, attn_bias) if t is not None]
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        if q.dtype != torch.float32:
-            raise NotImplementedError(
-                f"packed_short_attention trains in float32 only: its {q.dtype} backward comes "
-                "with bfloat16 training")
         return _PackedAttention.apply(q, k, v, kv_mask, attn_bias)
     return _packed_forward(q, k, v, kv_mask, attn_bias)
 

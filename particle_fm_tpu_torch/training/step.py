@@ -13,6 +13,10 @@ divides by norm + 1e-6 always, so it is not used). AdamW is
 decoupled and applied to every parameter, eps outside the square root,
 bias correction by the step count. The learning rate of an update is the
 schedule at the number of optimizer steps taken before it.
+
+With a bfloat16 model (`dtype`) the parameters stay float32 and so do their
+gradients (autograd through the networks' casts), the accumulator, the clip,
+AdamW's moments and the EMA: bfloat16 is the networks' compute type only.
 """
 
 from __future__ import annotations

@@ -44,7 +44,7 @@ def load_run(run_dir: str, ckpt: str = "best", ema: bool = True, device="cuda", 
     """Returns (cfg, datamodule, model, net): the network of the best
     checkpoint of the run's first monitor (else `last`), or of `last`, with
     the EMA weights when `ema`. `dtype` (a name such as "bfloat16") replaces
-    the run's `model.dtype`: float32 weights served in bfloat16."""
+    the run's `model.dtype`: a run trained in either type is served in either."""
     from particle_fm_tpu_torch.config.core import load_config
     from particle_fm_tpu_torch.training.checkpoint import CheckpointManager
     from particle_fm_tpu_torch.training.step import create_train_state

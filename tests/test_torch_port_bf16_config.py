@@ -2,10 +2,12 @@
 config (configs/model/flow_matching.yaml, fm_droid_transformer.yaml,
 fm_droid_crossattention.yaml, flow_matching_mdma.yaml, narrowed as
 tests/test_torch_train_configs.py narrows them) builds, samples on the CPU
-and refuses to train, at the loss and so through train.py; float32 and null
+and trains (a finite loss, float32 gradients for the float32 parameters),
+also through train.py; float16 refuses at the model; float32 and null
 compute in float32; the names and types a model takes; and a run trained in
 float32 is evaluated in bfloat16 by `evaluate.py` (model.dtype=bfloat16) and
-`eval_ckpt.py` (--dtype bfloat16).
+`eval_ckpt.py` (--dtype bfloat16). (Two test names keep the words of the
+time before bfloat16 trained: what they check is said in their docstrings.)
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from tests.torch_port_helpers import cloud, t
 
 @pytest.mark.parametrize("config", list(train_configs.NARROW))
 def test_model_dtype_bfloat16_composes_samples_and_refuses_to_train(config):
+    """bfloat16 composes, samples and trains (a finite loss, float32
+    gradients); the model refuses float16."""
     block = train_configs.model_block(config, "model.dtype=bfloat16")
     assert block["dtype"] == "bfloat16"  # the composed config keeps the name
     pm = pfm.FlowMatchingModel(**block)
@@ -35,8 +39,13 @@ def test_model_dtype_bfloat16_composes_samples_and_refuses_to_train(config):
     out = pm.sample(net, torch.Generator().manual_seed(0), cond=t(cond), mask=t(mask),
                     ode_steps=3)
     assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    loss = pm.loss(net, torch.Generator(), t(x), t(mask), t(cond), train=True)
+    grads = torch.autograd.grad(loss, list(net.parameters()), allow_unused=True,
+                                materialize_grads=True)
+    assert loss.dtype == torch.float32 and torch.isfinite(loss)
+    assert all(g.dtype == torch.float32 and torch.isfinite(g).all() for g in grads)
     with pytest.raises(NotImplementedError, match="bfloat16"):
-        pm.loss(net, torch.Generator(), t(x), t(mask), t(cond), train=True)
+        pfm.FlowMatchingModel(**train_configs.model_block(config, "model.dtype=float16"))
     for name in ("float32", "null"):
         block = train_configs.model_block(config, f"model.dtype={name}")
         assert pfm.FlowMatchingModel(**block).compute_dtype is None
@@ -53,14 +62,18 @@ def test_dtype_names_and_types():
 
 
 def test_train_cli_with_bfloat16_raises_at_the_loss(tmp_path):
-    """train.py composes, builds the data and the model, and stops at the
-    first loss: training in bfloat16 is the next slice."""
+    """train.py with model.dtype=bfloat16 trains: a finite val_loss, float32
+    parameters (the resume and the checkpoints: tests/test_torch_train_bf16_cli.py)."""
     args = ["experiment=jetnet/fm_tops30_cond", "data.synthetic=true",
             "data.synthetic_num_jets=256", "trainer=smoke", "model.scheduler.name=constant",
             "device=cpu", "callbacks=none", "model.hidden_dim=8", "model.latent=4",
-            "model.layers=1", "data.batch_size=64", f"output_dir={tmp_path}"]
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ptrain.main(args + ["model.dtype=bfloat16"])
+            "model.layers=1", "data.batch_size=64", "trainer.max_epochs=1",
+            f"output_dir={tmp_path}"]
+    metrics, objs = ptrain.main(args + ["model.dtype=bfloat16"])
+    trainer = objs["trainer"]
+    assert trainer.model.compute_dtype == torch.bfloat16 and trainer.state.step > 0
+    assert np.isfinite(metrics["val_loss"])
+    assert all(p.dtype == torch.float32 for p in trainer.state.params())
 
 
 def test_evaluate_and_eval_ckpt_sample_a_float32_run_in_bfloat16(tmp_path, monkeypatch):

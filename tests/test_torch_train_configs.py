@@ -101,7 +101,7 @@ def test_shipped_model_configs_sample_as_jax(name):
 
 @pytest.mark.parametrize("override,error", [
     ("model.dropout=0.1", NotImplementedError),
-    ("model.dtype=bfloat16", NotImplementedError),
+    ("model.dtype=float16", NotImplementedError),
     ("model.criterion=l1", ValueError),
     ("model.loss_type=bogus", NotImplementedError),
 ])
@@ -109,9 +109,9 @@ def test_fields_raise_only_for_what_the_port_lacks(override, error):
     pflow.FlowMatchingModel(**model_block("flow_matching"))  # the shipped values build
     x, mask, cond, _ = cloud(b=2, n=16, seed=0)
     with pytest.raises(error):
+        # float16 raises at the model (bfloat16 builds, samples and trains:
+        # tests/test_torch_port_bf16_config.py)
         pm = pflow.FlowMatchingModel(**model_block("flow_matching", override))
-        # bfloat16 builds and samples (tests/test_torch_port_bf16_models.py); training in
-        # it is not ported, so its loss raises
         pm.loss(pm.init(device="cpu"), torch.Generator(), t(x), t(mask), t(cond), train=True)
 
 

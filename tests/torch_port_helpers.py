@@ -289,13 +289,14 @@ def bf16_gaps(port, jax16, jax32, name: str) -> tuple[float, float]:
     return ours, theirs
 
 
-def bf16_triple(cfg: dict, fill=True):
+def bf16_triple(cfg: dict, fill=True, port_cfg: dict | None = None):
     """(JAX float32 model, JAX bfloat16 model, variables, port bfloat16 model,
     its network) with the same seeded parameters (`model_pair`'s `fill`) and
-    the JAX cosine table; the port's parameters stay float32."""
-    jm, variables, _, net = model_pair(cfg, fill=fill)
+    the JAX cosine table; the port's parameters stay float32. `port_cfg`
+    as in `model_pair`."""
+    jm, variables, _, net = model_pair(cfg, fill=fill, port_cfg=port_cfg)
     jm16 = JaxModel(**dict(cfg, dtype="bfloat16"))
-    pm16 = PortModel(**dict(cfg, dtype="bfloat16"))
+    pm16 = PortModel(**dict(port_cfg or cfg, dtype="bfloat16"))
     net16 = pm16.init(device="cpu")
     net16.load_state_dict(net.state_dict())
     for mine, theirs in zip(net16.flows, net.flows):
@@ -303,3 +304,162 @@ def bf16_triple(cfg: dict, fill=True):
     assert pm16.compute_dtype == torch.bfloat16
     assert all(p.dtype == torch.float32 for p in net16.parameters())
     return jm, jm16, variables, pm16, net16
+
+
+# ---------------------------------------------------------------- bfloat16 training
+
+
+def pin_bernoullis(monkeypatch, keep: np.ndarray | None = None,
+                   use: np.ndarray | None = None) -> None:
+    """Make both packages' losses take the cond-dropout draw `keep` (B, 1)
+    (which sets keep their cond) and the self-conditioning draw `use`
+    (B, 1, 1) from these boolean arrays: JAX's `jax.random.bernoulli` by the
+    shape asked, the port's `_keep` and `_use_sc`."""
+    from particle_fm_tpu_torch.models import flow_matching as pflow
+
+    bernoulli = jax.random.bernoulli
+
+    def jax_draw(key, p=0.5, shape=None):
+        for a in (keep, use):
+            if a is not None and tuple(shape or ()) == a.shape:
+                return jnp.asarray(a)
+        return bernoulli(key, p, shape)
+
+    monkeypatch.setattr(jax.random, "bernoulli", jax_draw)
+    if keep is not None:
+        monkeypatch.setattr(pflow, "_keep",
+                            lambda _g, p, shape, dev: torch.from_numpy(keep).to(dev))
+    if use is not None:
+        monkeypatch.setattr(pflow, "_use_sc", lambda _g, shape, dev: torch.from_numpy(use).to(dev))
+
+
+def jax_loss_and_grads(monkeypatch, jm, params, batch, draw_kw: dict):
+    """(loss, {port name: gradient}) of the JAX model's training loss, op by
+    op (`jax.disable_jit`: under jit XLA keeps excess bfloat16 precision),
+    with t and the noises pinned to `draws(**draw_kw)`."""
+    pin_draws(monkeypatch, **draw_kw)
+    x, mask, cond = (None if a is None else jnp.asarray(a) for a in batch)
+    with jax.disable_jit():
+        loss, grads = jax.value_and_grad(
+            lambda p: jm.loss({"params": p}, jax.random.PRNGKey(0), x, mask, cond,
+                              train=True)[0])(params)
+    return float(loss), grads_by_name(grads)
+
+
+def port_loss_and_grads(monkeypatch, pm, net, batch, draw_kw: dict):
+    """The same for the port's model, checking that the loss and every
+    gradient are float32 (float32 master weights, whatever the compute type)."""
+    pin_draws(monkeypatch, **draw_kw)
+    loss = pm.loss(net, torch.Generator(), *(None if a is None else t(a) for a in batch),
+                   train=True)
+    names = [n for n, _ in net.named_parameters()]
+    grads = torch.autograd.grad(loss, list(net.parameters()), allow_unused=True,
+                                materialize_grads=True)
+    assert loss.dtype == torch.float32
+    assert all(p.dtype == torch.float32 for p in net.parameters())
+    assert all(g.dtype == torch.float32 for g in grads)
+    return float(loss.detach()), {n: g.numpy() for n, g in zip(names, grads)}
+
+
+# a gradient or parameter tensor with at least this many entries is gated on its own
+GATED_SIZE = 1000
+
+
+def hold_bf16(name: str, port, jax16, jax32, min_size: int = GATED_SIZE) -> None:
+    """The bfloat16 gate on (loss, {name: tensor}) triples: the port's
+    bfloat16 closer to JAX's bfloat16 than that is to JAX's float32 —
+    |port - jax_bf16| < |jax_bf16 - jax_f32| in Frobenius norms — for the
+    loss, for all tensors as one vector, and for every tensor of at least
+    `min_size` entries."""
+    (pl, pt_), (l16, t16), (l32, t32) = port, jax16, jax32
+    assert sorted(pt_) == sorted(t16) == sorted(t32)
+    ours, theirs = bf16_gaps(pl, l16, l32, f"{name} loss")
+    assert ours < theirs, f"{name} loss"
+    names = sorted(pt_)
+    flat = [np.concatenate([np.ravel(d[n]) for n in names]) for d in (pt_, t16, t32)]
+    ours, theirs = bf16_gaps(*flat, f"{name} all tensors")
+    assert ours < theirs, f"{name} all tensors"
+    gated = [n for n in names if np.size(pt_[n]) >= min_size]
+    assert gated
+    for n in gated:
+        ours, theirs = bf16_gaps(pt_[n], t16[n], t32[n], f"{name} {n}")
+        assert ours < theirs, f"{name} {n}"
+
+
+def flax_layer_norm_rounds_once(monkeypatch) -> None:
+    """Hand flax's LayerNorm its input cast to float32 once. The forward is
+    the same bit for bit; under autodiff the input's cotangent is then
+    rounded to bfloat16 once, as torch's LayerNorm backward (and the port's)
+    rounds it, where flax on a bfloat16 input rounds two nearly cancelling
+    parts of it first (`nets/common.py::LayerNorm`;
+    tests/test_torch_train_bf16_layers.py pins the difference)."""
+    import flax.linen as nn
+
+    call = nn.LayerNorm.__call__
+
+    def upcast_call(self, x, *args, **kwargs):
+        return call(self, x.astype(jnp.promote_types(x.dtype, jnp.float32)), *args, **kwargs)
+
+    monkeypatch.setattr(nn.LayerNorm, "__call__", upcast_call)
+
+
+def jax_reductions_in_float32(monkeypatch) -> None:
+    """Make JAX's op-by-op `reduce_sum` of a bfloat16 array accumulate in
+    float32 and round once, as torch's sum does. Run op by op on the CPU,
+    XLA adds bfloat16 elements one at a time, rounding after each; autodiff
+    reduces in bfloat16 wherever a forward broadcast (a bias, the per-set
+    segments of `WNDenseSplit`) is transposed, and the error of the
+    one-at-a-time sums is as large as the whole bfloat16 computation's
+    (tests/test_torch_train_bf16_layers.py pins the difference)."""
+    from jax._src.lax import lax as jlax
+
+    impl = jlax.reduce_sum_p.impl
+
+    def float32_sum(x, **params):
+        if x.dtype == jnp.bfloat16:
+            return impl(x.astype(jnp.float32), **params).astype(jnp.bfloat16)
+        return impl(x, **params)
+
+    monkeypatch.setattr(jlax.reduce_sum_p, "impl", float32_sum)
+
+
+def jax_packed_route(monkeypatch) -> None:
+    """Send the JAX transformers' attn_impl=packed self-attention through the
+    Pallas packed kernel in interpret mode (its custom VJP recomputing
+    `_ref_math`), as its dispatcher does on a TPU; on the CPU it takes the
+    einsum path."""
+    from particle_fm_tpu.nets import transformer as jtrans
+    from particle_fm_tpu.ops.pallas.short_attention import packed_short_attention
+
+    dispatch = jtrans.attention
+
+    def attention(q, k, v, kv_mask=None, attn_bias=None, impl="auto", scores_dtype=None):
+        if impl == "packed" and q.shape[1] == k.shape[1]:
+            return packed_short_attention(q, k, v, kv_mask, attn_bias, interpret=True)
+        return dispatch(q, k, v, kv_mask, attn_bias, impl, scores_dtype)
+
+    monkeypatch.setattr(jtrans, "attention", attention)
+
+
+def check_bf16_step(monkeypatch, cfg: dict, b: int = 6, n_normals: int = 1, fill=True,
+                    port_cfg: dict | None = None, keep=None, use=None, seed: int = 7) -> None:
+    """One training loss and its gradients: the port in bfloat16 against JAX
+    in bfloat16 and float32 from the same parameters, batch and pinned draws
+    (`pin_bernoullis` for `keep` and `use`), under `hold_bf16`. JAX rounds
+    where torch rounds in two places where its op-by-op arithmetic on the
+    CPU rounds more often: its bfloat16 sums accumulate in float32
+    (`jax_reductions_in_float32`) and its LayerNorm rounds its input's
+    gradient once (`flax_layer_norm_rounds_once`)."""
+    jax_reductions_in_float32(monkeypatch)
+    flax_layer_norm_rounds_once(monkeypatch)
+    jm, jm16, variables, pm16, net16 = bf16_triple(cfg, fill=fill, port_cfg=port_cfg)
+    x, mask, cond, _ = cloud(b=b, n=pm16.num_particles, feats=pm16.features,
+                             cond_dim=max(pm16.global_cond_dim, 1), seed=seed)
+    batch = (x, mask, cond if pm16.conditioned else None)
+    draw_kw = dict(b=b, shape=x.shape, n_normals=n_normals, steps=1, seed=seed + 1)
+    pin_bernoullis(monkeypatch, keep, use)
+    j32 = jax_loss_and_grads(monkeypatch, jm, variables["params"], batch, draw_kw)
+    j16 = jax_loss_and_grads(monkeypatch, jm16, variables["params"], batch, draw_kw)
+    port = port_loss_and_grads(monkeypatch, pm16, net16, batch, draw_kw)
+    assert np.isfinite(port[0]) and max(np.abs(g).max() for g in port[1].values()) > 0
+    hold_bf16(f"{cfg.get('model', 'epic')} {cfg.get('loss_type')}", port, j16, j32)
