@@ -244,9 +244,43 @@
      test pass on 64 test showers in one batch of 64; then one streamed
      epoch timed and one profiled for the device's busy share, and the
      peak device memory of training.
-8. Prints the `kernels` JSON line (the launches of the training, eval,
-   family and dataset phases under `launches_by_path` too), the card line
-   again, and as the last line {"ok": true, "device": {...}}.
+8. Classifier phases (the gen-vs-real classifier test), each with its
+   `classifier` line, and their total:
+   - classifier EPiC (kernel): 4,096 synthetic lhco/x_jet sets (279
+     particles) against 4,096 generated by a seeded-weight lhco/x_jet
+     generator on the EPiC kernel (midpoint, 20 steps), in an in-memory
+     GenVsRealDataModule; configs/model/epic_classifier.yaml at its widths
+     (hidden 128, latent 10, 3 layers), 2 epochs at batch 256 (the module
+     path: no launch); the test split predicted on a folded copy (the fused
+     EPiC layer with a 0-wide per-set feature: exactly 3 `epic_layer`
+     launches a batch) and on the unfolded network, every probability and
+     the AUROC within 1e-4 and every logit within 1e-4 of the largest
+     |logit| (at least 1), predict ms a batch of both, the medians of 3
+     rounds in turns; then in bfloat16 on the same weights: exactly 3
+     `epic_layer_bf16` launches a batch and none of `epic_layer`, the
+     kernel's logits closer to the plain bf16 path than that is to float32
+     and within 2 bf16 ulps of the largest |logit|; on classifiers trained
+     from three more seeds the 2-ulp limit again, the Frobenius ratio read
+     ungated;
+   - ParT (`jetclass_classifier`, 8 layers, 8 heads of 16, embed
+     128-512-128, pair MLP 64 x 3) and ParticleNet
+     (`jetclass_classifier_particlenet`, EdgeConv 64/128/256 with k 16,
+     grad_clip 0.02) through train.main on 6,000 synthetic gen/sim jets of
+     128 particles (`data.used_flavor=QCD`), batch 256, `trainer=smoke`, 2
+     epochs: median step, jets/s, peak memory, accuracy and AUROC; one
+     step's loss and gradients on the card against the CPU on 32 jets
+     (rel 1e-4, 1e-4 of the largest gradient; ParticleNet on the CPU's kNN
+     indices, the card's own disagreements counted and printed); no kernel
+     on these paths (ParT's attention takes its pair bias on the einsum
+     path, as in the JAX package);
+   - the HL-MLP (`jetclass_classifier_hl`): a finite AUROC.
+   The kernel phases also time the EPiC layer at the classifier's shape
+   (B=256, N=279, no time, no cond) in both types and check it at the edges
+   with a 0-wide per-set feature (EPiCDiscriminator3's jet trunk: 2 sets a
+   row, no mask).
+9. Prints the `kernels` JSON line (the launches of the training, eval,
+   family, dataset and classifier phases under `launches_by_path` too), the
+   card line again, and as the last line {"ok": true, "device": {...}}.
 
 Every failure exits non-zero before the last line. The script needs the
 repository beside it and a CUDA device; it imports nothing of JAX.
@@ -394,27 +428,29 @@ def bound(n_bytes: float, flops: float, tensor_flops: float = 0.0, tf32_products
             "tensor_flops_issued": tensor_flops * tf32_products + issued}
 
 
-def epic_case(torch, dev, seed, b, n, h, lat, c, local=True, x_scale=1.0, lo=30):
-    """Inputs of one EPiC layer on the card, t=32 on both paths, cond C wide on
-    the global MLPs and, when `local`, on the local biases too; weights of
-    scale 1/sqrt(fan_in), sets with `lo`..N real particles."""
+def epic_case(torch, dev, seed, b, n, h, lat, c, local=True, x_scale=1.0, lo=30, t=T):
+    """Inputs of one EPiC layer on the card, time embedding `t` wide on both
+    paths (t=0, c=0: a 0-wide per-set feature, as the EPiC discriminators
+    run it), cond C wide on the global MLPs and, when `local`, on the local
+    biases too; weights of scale 1/sqrt(fan_in), sets with `lo`..N real
+    particles."""
     gen = torch.Generator().manual_seed(seed)
     cl = c if local else 0
 
     def lin(fan_in, *shape):
-        return (torch.rand(*shape, generator=gen) * 2 - 1) * fan_in ** -0.5
+        return (torch.rand(*shape, generator=gen) * 2 - 1) * max(fan_in, 1) ** -0.5
 
-    k1, k2, k3, k4 = T + 2 * h + lat + c, T + h + c, T + lat + cl, T + cl
+    k1, k2, k3, k4 = t + 2 * h + lat + c, t + h + c, t + lat + cl, t + cl
     mask = torch.from_numpy(ragged_mask(np.random.RandomState(seed), b, n, lo=min(lo, n)))
     inputs = [
         torch.randn(b, n, h, generator=gen) * x_scale, torch.randn(b, lat, generator=gen), mask,
-        torch.randn(b, T + c, generator=gen),
+        torch.randn(b, t + c, generator=gen),
         lin(k1, k1, h), lin(k1, h), lin(k2, k2, lat), lin(k2, lat),
         lin(k3, h, h), lin(k3, k3, h), lin(k3, h),
         lin(k4, h, h), lin(k4, k4, h), lin(k4, h),
     ]
     return ([a.to(dev).contiguous() for a in inputs],
-            dict(sum_scale=1e-2, tg_dim=T, tl_dim=T, cg_dim=c, cl_dim=cl))
+            dict(sum_scale=1e-2, tg_dim=t, tl_dim=t, cg_dim=c, cl_dim=cl))
 
 
 def epic_measure(torch, ops, args, dims) -> dict:
@@ -436,7 +472,7 @@ def epic_measure(torch, ops, args, dims) -> dict:
             **timed_in_turns(lambda: ops.epic_layer(*args, **dims),
                              lambda: ops.epic_layer_reference(*args, **dims)),
             **bound(n_bytes, flops, 4 * b * n * h * h, EPIC_TF32_PRODUCTS),
-            "shape": {"B": b, "N": n, "H": h, "L": lat, "t": T, "cg": dims["cg_dim"],
+            "shape": {"B": b, "N": n, "H": h, "L": lat, "t": dims["tg_dim"], "cg": dims["cg_dim"],
                       "cl": dims["cl_dim"], "dtype": "float32"}}
 
 
@@ -459,6 +495,10 @@ def kernel_phase(torch, ops, dev) -> dict:
             torch, ops, *epic_case(torch, dev, 5, 256, 279, 128, 10, 4)),
         "jetclass/jetclass_cond generation": epic_measure(
             torch, ops, *epic_case(torch, dev, 6, 1000, 128, 300, 16, 12, local=False)),
+        # configs/experiment/lhco/epic_classifier.yaml predicting a batch of 256: hidden 128,
+        # latent 10, no time and no cond (a 0-wide per-set feature)
+        CLASSIFIER_SHAPE: epic_measure(torch, ops, *epic_case(torch, dev, 7, 256, 279, 128, 10, 0,
+                                                              t=0)),
     }
     # the edges of the row tiles, the widths around the padding and the
     # weights' two homes, and x times 4 (split-precision TF32's error grows
@@ -471,6 +511,11 @@ def kernel_phase(torch, ops, dev) -> dict:
     errs = {}
     for i, (key, (b, n, h, lat, c, local)) in enumerate(edges.items()):
         args, dims = epic_case(torch, dev, 10 + i, b, n, h, lat, c, local, lo=1)
+        xo, go = ops.epic_layer(*args, **dims)
+        rx, rg = ops.epic_layer_reference(*args, **dims)
+        errs[key] = max(check_kernel(torch, f"epic_layer ({key})", xo, rx),
+                        check_kernel(torch, f"epic_layer ({key})", go, rg))
+    for key, (args, dims) in no_set_feature_edges(torch, dev).items():
         xo, go = ops.epic_layer(*args, **dims)
         rx, rg = ops.epic_layer_reference(*args, **dims)
         errs[key] = max(check_kernel(torch, f"epic_layer ({key})", xo, rx),
@@ -497,6 +542,19 @@ def kernel_phase(torch, ops, dev) -> dict:
         "shapes": shapes, "max_abs_err_edges": max(errs.values()), "edge_cases": len(errs),
         "max_abs_err_x_times_4": scaled,
     }
+
+
+CLASSIFIER_SHAPE = "lhco/epic_classifier predict (S=0)"
+
+
+def no_set_feature_edges(torch, dev) -> dict:
+    """Edge cases of the EPiC layer with a 0-wide per-set feature (the
+    discriminators' layers): EPiCDiscriminator3's jet trunk (2 sets a row,
+    no mask: all real), one particle, and a width off 16."""
+    cases = {"S=0, N=2 (jet trunk, no mask)": (8, 2, 128, 10, 2),
+             "S=0, N=1": (4, 1, 128, 10, 1), "S=0, N=17, H=48": (5, 17, 48, 4, 1)}
+    return {key: epic_case(torch, dev, 60 + i, b, n, h, lat, 0, lo=lo, t=0)
+            for i, (key, (b, n, h, lat, lo)) in enumerate(cases.items())}
 
 
 def epic_design(ops) -> dict:
@@ -765,7 +823,7 @@ def epic_bf16_measure(torch, ops, args, dims) -> dict:
                               lambda: ops.epic_layer_reference(*args, **dims)),
             **bound(n_bytes, flops, bf16_flops=4 * b * n * h * h + per_set,
                     bf16_issued=4 * b * n * h * h + EPIC_BF16_SET_PRODUCTS * per_set),
-            "shape": {"B": b, "N": n, "H": h, "L": lat, "t": T, "cg": dims["cg_dim"],
+            "shape": {"B": b, "N": n, "H": h, "L": lat, "t": dims["tg_dim"], "cg": dims["cg_dim"],
                       "cl": dims["cl_dim"], "dtype": "bfloat16"}}
 
 
@@ -779,6 +837,8 @@ def epic_bf16_phase(torch, ops, dev) -> dict:
         "flagship": epic_bf16_measure(torch, ops, *bf(epic_case(torch, dev, 40, B, N, H, L, C))),
         "path E (jetclass/jetclass_cond)": epic_bf16_measure(
             torch, ops, *bf(epic_case(torch, dev, 41, 512, 128, 300, 16, 12, local=False))),
+        CLASSIFIER_SHAPE: epic_bf16_measure(
+            torch, ops, *bf(epic_case(torch, dev, 42, 256, 279, 128, 10, 0, t=0))),
     }
     errs = {}
     for i, (key, (b, n, h, lat, c, local)) in enumerate({
@@ -791,13 +851,19 @@ def epic_bf16_phase(torch, ops, dev) -> dict:
         rx, rg = ops.epic_layer_reference(*args, **dims)
         errs[key] = max(check_bf16_kernel(torch, f"epic_layer_bf16 ({key})", xo, rx),
                         check_bf16_kernel(torch, f"epic_layer_bf16 ({key})", go, rg))
+    for key, case in no_set_feature_edges(torch, dev).items():
+        args, dims = bf(case)
+        xo, go = ops.epic_layer(*args, **dims)
+        rx, rg = ops.epic_layer_reference(*args, **dims)
+        errs[key] = max(check_bf16_kernel(torch, f"epic_layer_bf16 ({key})", xo, rx),
+                        check_bf16_kernel(torch, f"epic_layer_bf16 ({key})", go, rg))
     main = shapes["flagship"]
     return {
         "name": "epic_layer_bf16", "route": "cuda",
         "source": "particle_fm_tpu_torch/csrc/epic_layer.cu",
         "replaces": "particle_fm_tpu/ops/pallas/epic_layer.py:113", "launches": None,
         "max_abs_err": max(s["max_abs_err"] for s in shapes.values()),
-        "per": "one launch at the flagship's shape; path E's under `shapes`",
+        "per": "one launch at the flagship's shape; path E's and the classifier's under `shapes`",
         **{key: main[key] for key in ("ms", "plain_ms", "turns_ms", "bound_ms", "bound_by", "bytes",
                                       "flops", "tensor_flops_issued", "shape")},
         "library_ms": None,  # no single PyTorch call computes an EPiC layer
@@ -2738,6 +2804,332 @@ def calo_phase(torch, dev, counted) -> dict:
                                "device_busy_share": busy if busy is not None else "not measured"}}
 
 
+# ---------------------------------------------------------------- classifier phases
+
+CLASSIFIER_SETS = 4096  # real and generated sets of the EPiC classifier phase
+CLASSIFIER_GEN_STEPS = 20  # the generator's midpoint steps
+CLASSIFIER_GEN_BATCH = 1024
+CLASSIFIER_PROB_TOL = 1e-4  # kernel against plain: probabilities, AUROC, logits over the largest
+CLASSIFIER_GATE_SEEDS = (1, 2, 3)  # more training seeds, read for the bf16 gate's margin
+CLASSIFIER_CHECK_JETS = 32  # the ParT and ParticleNet step, card against CPU
+CLASSIFIER_STEP_TOL = 1e-4  # its loss (relative) and gradients (over the largest)
+
+
+def shipped_model(name: str, **extra):
+    """A model of configs/model/<name>.yaml, built by the port's instantiate
+    with `extra` fields replaced (the optimizer and scheduler dropped)."""
+    from particle_fm_tpu_torch.config.core import instantiate, load_config
+
+    cfg = load_config(str(ROOT / "configs" / "model" / f"{name}.yaml"))
+    return instantiate({k: v for k, v in {**cfg, **extra}.items()
+                        if k not in ("optimizer", "scheduler")})
+
+
+def timed_steps(torch, dev, trainer_module):
+    """A patch of the Trainer's step factory that times every train step
+    (synchronised on both sides), and the list of their seconds."""
+    secs = []
+    make = trainer_module.make_train_step
+
+    def factory(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def timed(*a):
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            out = step(*a)
+            sync(torch, dev)
+            secs.append(time.perf_counter() - t0)
+            return out
+        return timed
+
+    return mock.patch.object(trainer_module, "make_train_step", factory), secs
+
+
+def median_step(secs, batch: int) -> dict:
+    import statistics
+
+    warm = secs[2:] or secs
+    ms = 1e3 * statistics.median(warm)
+    return {"steps": len(secs), "median_step_ms": ms, "jets_per_s": batch / ms * 1e3}
+
+
+def classifier_epic_phase(torch, ops, dev, counted) -> dict:
+    """The classifier test at its own shape: CLASSIFIER_SETS synthetic
+    lhco/x_jet sets (279 particles, normalised; the datamodule's splits in
+    turn) as the real sample, as many
+    generated by a seeded-weight lhco/x_jet generator on the EPiC kernel
+    (midpoint, CLASSIFIER_GEN_STEPS steps) as the generated one, in an
+    in-memory GenVsRealDataModule; configs/model/epic_classifier.yaml at its
+    widths (hidden 128, latent 10, 3 layers) trained 2 epochs at batch 256
+    on the card (the module path: no launch); then the test split predicted
+    on a folded copy (the fused EPiC layer, exactly 3 launches a batch) and
+    on the unfolded network (the module path): every probability and the
+    AUROC within CLASSIFIER_PROB_TOL, every logit within CLASSIFIER_PROB_TOL
+    of the largest |logit|, timed in TURN_ROUNDS rounds of turns; then in
+    bfloat16 on the same weights: exactly 3 epic_layer_bf16 launches a batch
+    and none of epic_layer, and the kernel's logits closer to the plain bf16
+    path than that is to float32, and within 2 bf16 ulps of the largest
+    |logit|. The same bf16 readings are taken on networks trained from
+    CLASSIFIER_GATE_SEEDS: the 2-ulp limit gated, the Frobenius ratio read
+    to show its margin."""
+    from particle_fm_tpu_torch.data.classifier import GenVsRealDataModule
+    from particle_fm_tpu_torch.models.classifiers import binary_metrics
+    from particle_fm_tpu_torch.training import trainer as ptrainer
+    from particle_fm_tpu_torch.training.step import make_optimizer
+
+    gen_model, xdm, _ = compose_training(["experiment=lhco/x_jet", "data.synthetic=true",
+                                          "data.synthetic_num_events=12000"])
+    xdm.setup()
+    n = CLASSIFIER_SETS
+    splits = (xdm.train, xdm.val, xdm.test)
+    real, real_mask, real_cond = (np.concatenate([getattr(sp, k) for sp in splits])[:n]
+                                  for k in ("x", "mask", "cond"))
+    if len(real) < n:
+        fail(f"classifier EPiC: the x_jet splits hold {len(real)} sets, not {n}")
+    gen_net = gen_model.init(seed=0, device=dev)
+    mask = torch.from_numpy(real_mask).to(dev)
+    cond = torch.from_numpy(real_cond).to(dev)
+    g = torch.Generator(dev).manual_seed(5)
+    reset(counted)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        gen = torch.cat([gen_model.sample(gen_net, g, cond=cond[i:i + CLASSIFIER_GEN_BATCH],
+                                          mask=mask[i:i + CLASSIFIER_GEN_BATCH],
+                                          ode_solver="midpoint", ode_steps=CLASSIFIER_GEN_STEPS)
+                         * mask[i:i + CLASSIFIER_GEN_BATCH]
+                         for i in range(0, n, CLASSIFIER_GEN_BATCH)])
+    sync(torch, dev)
+    gen_s = time.perf_counter() - t0
+    gen_launches = launched(counted)
+    expect("classifier EPiC (generation)", gen_launches, epic_layer=gen_model.layers * 2 * (
+        CLASSIFIER_GEN_STEPS - 1) * -(-n // CLASSIFIER_GEN_BATCH))
+    if not bool(torch.isfinite(gen).all()):
+        fail("classifier EPiC: the generator gave non-finite sets")
+
+    dm = GenVsRealDataModule(real=real, real_mask=real_mask, gen=gen.cpu().numpy(),
+                             gen_mask=real_mask.copy(), batch_size=256)
+    dm.setup()
+    model = shipped_model("epic_classifier")
+    if ((model.num_particles, model.features, model.net_config["hid_dim"],
+         model.net_config["latent_dim"], model.net_config["equiv_layers"])
+            != (279, 3, 128, 10, 3)):
+        fail(f"classifier EPiC: not configs/model/epic_classifier.yaml: {model}")
+    def train(seed, patch=contextlib.nullcontext()):
+        with patch:
+            trainer = ptrainer.Trainer(model, dm, make_optimizer(lr=1e-3, weight_decay=5e-5),
+                                       max_epochs=2, seed=seed, device=dev, verbose=False)
+        reset(counted)
+        trainer.fit()
+        expect("classifier EPiC (training runs the module path)", launched(counted))
+        finite_history("classifier EPiC", trainer.metrics_history, ("train_loss", "val_loss"))
+        return trainer
+
+    patch, secs = timed_steps(torch, dev, ptrainer)
+    trainer = train(12345, patch)
+    net = trainer.state.net
+    folded = model.inference_network(copy.deepcopy(net))
+    batches = [(torch.as_tensor(x, device=dev), torch.as_tensor(m, device=dev))
+               for x, m, _ in dm.test_batches()]
+    labels = dm.test.cond
+
+    def predict_all(m, nett):
+        return torch.cat([m.predict(nett, x, mm) for x, mm in batches])
+
+    def logits_all(m, nett):
+        with torch.no_grad():
+            return torch.cat([m.logits(nett, x, mm).float() for x, mm in batches])
+
+    reset(counted)
+    probs = predict_all(model, folded)  # the main path: the fused layer
+    sync(torch, dev)
+    got = launched(counted)
+    expect("classifier EPiC (predict)", got, epic_layer=3 * len(batches))
+    plain = predict_all(model, net)
+    diff = float((probs - plain).abs().max())
+    kernel_m = binary_metrics(probs.cpu().numpy(), labels)
+    plain_m = binary_metrics(plain.cpu().numpy(), labels)
+    k32, p32 = logits_all(model, folded), logits_all(model, net)
+    logit_diff = float((k32 - p32).abs().max())
+    logit_limit = CLASSIFIER_PROB_TOL * max(1.0, float(p32.abs().max()))
+    spread = {"min": float(p32.min()), "max": float(p32.max()), "std": float(p32.std())}
+    if not (diff <= CLASSIFIER_PROB_TOL
+            and abs(kernel_m["auroc"] - plain_m["auroc"]) <= CLASSIFIER_PROB_TOL
+            and logit_diff <= logit_limit):
+        fail(f"classifier EPiC: kernel against plain: probabilities {diff}, AUROC "
+             f"{kernel_m['auroc']} against {plain_m['auroc']} (limit {CLASSIFIER_PROB_TOL}); "
+             f"logits {logit_diff} (limit {logit_limit}, spread {spread})")
+    turns = median_in_turns(lambda: predict_all(model, folded), lambda: predict_all(model, net))
+
+    model16 = dataclasses.replace(model, dtype="bfloat16")
+
+    def bf16_reading(nett):
+        """The bf16 kernel's launches and logits on a folded bf16 copy of
+        `nett`, and the Frobenius gaps |kernel - plain bf16|, |plain bf16 -
+        float32| and |kernel - float32|, with the largest |kernel - plain
+        bf16| in bf16 ulps of the largest |logit|."""
+        net16 = model16.init(seed=0, device=dev)
+        net16.load_state_dict(nett.state_dict())
+        folded16 = model16.inference_network(copy.deepcopy(net16))
+        reset(counted)
+        k16 = logits_all(model16, folded16)
+        sync(torch, dev)
+        got16 = launched(counted)
+        p16, f32 = logits_all(model16, net16), logits_all(model, nett)
+        gaps = {"kernel_vs_plain_bf16": float((k16 - p16).norm()),
+                "plain_bf16_vs_f32": float((p16 - f32).norm()),
+                "kernel_vs_f32": float((k16 - f32).norm()),
+                "max_abs_kernel_vs_plain_bf16_ulps": float(
+                    (k16 - p16).abs().max() / (2.0 ** -7 * f32.abs().max()))}
+        gaps["ratio"] = gaps["kernel_vs_plain_bf16"] / gaps["plain_bf16_vs_f32"]
+        return got16, k16, gaps
+
+    got16, k16, gaps = bf16_reading(net)
+    expect("classifier EPiC (predict, bf16)", got16, epic_layer_bf16=3 * len(batches))
+    if not (bool(torch.isfinite(k16).all()) and gaps["ratio"] < 1):
+        fail(f"classifier EPiC bf16: |kernel - plain bf16| {gaps['kernel_vs_plain_bf16']} "
+             f"against |plain bf16 - float32| {gaps['plain_bf16_vs_f32']} (logits, Frobenius)")
+    sweep = {seed: bf16_reading(train(seed).state.net)[2] for seed in CLASSIFIER_GATE_SEEDS}
+    ulps = {"trained": gaps, **sweep}
+    if any(g["max_abs_kernel_vs_plain_bf16_ulps"] > 2 for g in ulps.values()):
+        fail(f"classifier EPiC bf16: kernel against plain bf16 beyond 2 bf16 ulps of the "
+             f"largest |logit|: {ulps}")
+    return {"config": "configs/model/epic_classifier.yaml (hidden 128, latent 10, 3 layers, "
+            "279 particles, 3 features; seeded init)",
+            "data": f"{n} synthetic lhco/x_jet sets against {n} generated by a seeded-weight "
+            f"lhco/x_jet generator (midpoint, {CLASSIFIER_GEN_STEPS} steps)",
+            "generation_s": gen_s, "generation_launches": gen_launches["epic_layer"],
+            "train_split": len(dm.train), "test_split": len(dm.test), "batch": dm.batch_size,
+            "per_epoch": [{k: m[k] for k in ("epoch", "train_loss", "val_loss", "epoch_time")}
+                          for m in trainer.metrics_history],
+            **median_step(secs, dm.batch_size), "accuracy": kernel_m["accuracy"],
+            "auroc": kernel_m["auroc"], "auroc_plain": plain_m["auroc"],
+            "max_abs_prob_diff": diff, "limit": CLASSIFIER_PROB_TOL,
+            "max_abs_logit_diff": logit_diff, "logit_limit": logit_limit, "logit_spread": spread,
+            "predict_launches": got["epic_layer"], "predict_batches": len(batches),
+            "predict_ms_per_batch": turns["ms"] / len(batches),
+            "predict_plain_ms_per_batch": turns["plain_ms"] / len(batches),
+            "predict_turns_ms": turns["turns_ms"],
+            "predict_launches_bf16": got16["epic_layer_bf16"],
+            "bf16_logits": gaps, "bf16_logits_by_training_seed": sweep}
+
+
+def classifier_step_on_cpu(torch, model, net, batch) -> dict:
+    """One training step's loss and gradients on the card against the CPU
+    from the same weights: the dropout masks drawn from one numpy stream on
+    both sides, the CPU's kNN indices handed to the card (ParticleNet), whose
+    own indices are counted where they differ."""
+    from particle_fm_tpu_torch.nets import common as pcommon
+    from particle_fm_tpu_torch.nets import particlenet as ppn
+
+    knn = ppn.knn_indices
+    cpu_idx, disagree = [], []
+
+    def on_cpu(points, mask, k):
+        cpu_idx.append(knn(points, mask, k))
+        return cpu_idx[-1]
+
+    def on_card(points, mask, k):
+        own = knn(points, mask, k)
+        want = cpu_idx[len(disagree)].to(own.device)
+        real = mask[..., 0] > 0 if mask is not None else torch.ones_like(own[..., 0], dtype=bool)
+        disagree.append(int(((own != want) & real[..., None]).sum()))
+        return want
+
+    def loss_and_grads(nett, dev, knn_fn):
+        rs = np.random.RandomState(3)
+        keep = lambda g, p, shape, d: torch.from_numpy(rs.rand(*shape) < p).to(d)
+        args = [a.to(dev) for a in batch]
+        with mock.patch.object(pcommon, "dropout_keep", keep), \
+                mock.patch.object(ppn, "knn_indices", knn_fn):
+            loss = model.loss(nett, torch.Generator(dev), *args, train=True)
+            grads = torch.autograd.grad(loss, list(nett.parameters()))
+        return float(loss.detach()), [g.detach().cpu() for g in grads]
+
+    cpu_net = copy.deepcopy(net).cpu()
+    want = loss_and_grads(cpu_net, torch.device("cpu"), on_cpu)
+    got = loss_and_grads(net, next(net.parameters()).device, on_card)
+    loss_err = abs(got[0] - want[0]) / abs(want[0])
+    scale = max(float(g.abs().max()) for g in want[1])
+    grad_err = max(float((a - b).abs().max()) for a, b in zip(got[1], want[1])) / scale
+    if not (loss_err <= CLASSIFIER_STEP_TOL and grad_err <= CLASSIFIER_STEP_TOL):
+        fail(f"classifier step card against CPU: loss rel err {loss_err}, gradient err "
+             f"{grad_err} of the largest (limit {CLASSIFIER_STEP_TOL})")
+    out = {"jets": len(batch[0]), "loss": got[0], "loss_rel_err": loss_err,
+           "grad_err_over_largest": grad_err, "limit": CLASSIFIER_STEP_TOL}
+    if disagree:
+        real = int(batch[1].sum()) * cpu_idx[0].shape[-1]
+        out["knn_index_disagreements_card_vs_cpu"] = {
+            "per_block": disagree, "real_query_neighbour_slots_per_block": real}
+    return out
+
+
+def classifier_cli_phase(torch, dev, counted, name: str, experiment: str, overrides: list,
+                         step_check: bool = True) -> dict:
+    """train.main on a JetClass classifier experiment at its shipped width on
+    the synthetic gen/sim pair (one flavour the pair has): the steps timed,
+    the peak memory, accuracy and AUROC of every epoch and the test pass;
+    then (`step_check`) one step's loss and gradients on the card against the
+    CPU on CLASSIFIER_CHECK_JETS train jets."""
+    import shutil
+
+    from particle_fm_tpu_torch import train as ptrain
+    from particle_fm_tpu_torch.training import trainer as ptrainer
+
+    out_root = ROOT / "build" / f"{name}_smoke"
+    shutil.rmtree(out_root, ignore_errors=True)
+    patch, secs = timed_steps(torch, dev, ptrainer)
+    reset(counted)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with patch:
+        metrics, objs = ptrain.main([f"experiment={experiment}", *overrides,
+                                     f"output_dir={out_root}"])  # the main path
+    cli_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    expect(f"{name} CLI (no TPU kernel on this path)", launched(counted))
+    trainer, model, dm = objs["trainer"], objs["model"], objs["datamodule"]
+    finite_history(name, trainer.metrics_history, ("train_loss", "val_loss", "accuracy", "auroc"))
+    if not 0.0 <= metrics.get("auroc", np.nan) <= 1.0:
+        fail(f"{name}: the test pass gave no AUROC: {metrics}")
+    out = {"overrides": overrides, "cli_s": cli_s, "train_split": len(dm.train),
+           "batch": dm.batch_size, **median_step(secs, dm.batch_size),
+           "peak_memory_bytes": peak,
+           "per_epoch": [{k: m[k] for k in ("epoch", "train_loss", "val_loss", "accuracy",
+                                           "auroc")} for m in trainer.metrics_history],
+           "test_metrics": {k: metrics[k] for k in ("accuracy", "auroc")}}
+    if step_check:
+        split = dm.train
+        k = CLASSIFIER_CHECK_JETS
+        batch = [torch.as_tensor(a[:k]) for a in (split.x, split.mask, split.cond)]
+        out["one_step_card_vs_cpu"] = classifier_step_on_cpu(torch, model, trainer.state.net,
+                                                              batch)
+    return out
+
+
+def classifier_phases(torch, dev, counted) -> dict:
+    """ParT (jetclass_classifier), ParticleNet (jetclass_classifier_particlenet)
+    and the HL-MLP (jetclass_classifier_hl) through train.main at their
+    shipped widths; none reaches a TPU kernel's counterpart."""
+    synthetic = ["data.synthetic=true", "data.synthetic_num_particles=128", "data.used_flavor=QCD",
+                 "trainer=smoke", "trainer.max_epochs=2"]
+    no_kernel = ("no kernel: the classifier's attention takes its pair bias on the einsum "
+                 "path (impl=auto), as in the JAX package; no TPU kernel on this path")
+    part = classifier_cli_phase(torch, dev, counted, "jetclass_classifier",
+                                "jetclass_classifier",
+                                synthetic + ["data.synthetic_num_jets=6000"])
+    pnet = classifier_cli_phase(torch, dev, counted, "jetclass_classifier_particlenet",
+                                "jetclass_classifier_particlenet",
+                                synthetic + ["data.synthetic_num_jets=6000"])
+    hl = classifier_cli_phase(torch, dev, counted, "jetclass_classifier_hl",
+                              "jetclass_classifier_hl", synthetic, step_check=False)
+    return {"classifier ParT (jetclass_classifier)": {"kernel": None, "note": no_kernel, **part},
+            "classifier ParticleNet (jetclass_classifier_particlenet)": {
+                "kernel": None, "note": "no kernel: kNN EdgeConv in PyTorch; no TPU kernel on "
+                "this path", **pnet},
+            "classifier HL (jetclass_classifier_hl)": {"kernel": None, **hl}}
+
+
 def main() -> None:
     import torch
 
@@ -2967,6 +3359,20 @@ def main() -> None:
             kernels[kernel_name]["launches"] += res["launches"]
             kernels[kernel_name]["launches_by_path"][path] = res["launches"]
     print(json.dumps({"dataset_phases_s": time.perf_counter() - t0}), flush=True)
+
+    t0 = time.perf_counter()
+    clf = classifier_epic_phase(torch, ops, dev, counted)
+    print(json.dumps({"classifier": "classifier EPiC (kernel)", **clf}), flush=True)
+    for kernel_name, path, key in (
+            ("epic_layer", "classifier EPiC (generating the generated sample)",
+             "generation_launches"),
+            ("epic_layer", "classifier EPiC (predict)", "predict_launches"),
+            ("epic_layer_bf16", "classifier EPiC (predict, bf16)", "predict_launches_bf16")):
+        kernels[kernel_name]["launches"] += clf[key]
+        kernels[kernel_name]["launches_by_path"][path] = clf[key]
+    for path, res in classifier_phases(torch, dev, counted).items():
+        print(json.dumps({"classifier": path, **res}), flush=True)
+    print(json.dumps({"classifier_phases_s": time.perf_counter() - t0}), flush=True)
 
     kernels = list(kernels.values())
     print(json.dumps({"kernels": kernels}))

@@ -85,6 +85,9 @@ class ArrayDataModule:
     def val_batches(self) -> Iterator[tuple]:
         return self._batches(self.val, None, drop_last=self.drop_last)
 
+    def test_batches(self) -> Iterator[tuple]:
+        return self._batches(self.test, None, drop_last=False)
+
     @property
     def steps_per_epoch(self) -> int:
         return len(self.train) // self.batch_size

@@ -166,3 +166,14 @@ def get_jet_data(consts: np.ndarray) -> np.ndarray:
     """(.., N, [pt, y, phi]) constituents -> jet (pt, y, phi, m)."""
     sum_p4 = np.sum(p4s_from_ptyphims(consts[..., :3]), axis=-2)
     return ptyphims_from_p4s(sum_p4, phi_ref=0)
+
+
+def import_h5py():
+    """h5py, or an ImportError that names it: reading and writing h5 files
+    needs it, and the port has no other route to them."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError("h5py is not installed: reading or writing h5 files needs it "
+                          "(hand the datamodule in-memory arrays instead)") from e
+    return h5py

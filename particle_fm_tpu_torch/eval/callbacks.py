@@ -16,10 +16,15 @@ with `use_ema`, else a copy of the live one) with its own generators, so it
 leaves the training run as it found it: the live network unfolded, its
 parameters and the optimizer untouched.
 
+`ClassifierEvalCallback` serves the gen-vs-real classifiers
+(models/classifiers.py): accuracy and AUROC of the test split's
+probabilities, computed on the host without sklearn; an EPiC
+discriminator's copy is folded once, so its predictions run the fused EPiC
+kernel on the card.
+
 Not ported: the plots (`make_plots=True` raises until eval/plotting.py is
 ported) and the other callbacks of the JAX module (flat, gen-challenge,
-classifier, device stats): a config that names one raises through
-config/core.py.
+device stats): a config that names one raises through config/core.py.
 """
 
 from __future__ import annotations
@@ -480,3 +485,39 @@ class CaloEvalCallback:
             nb, lo, hi = self.response_hist
             out["w1_response"] = _hist_cdf_w1(resp_r, resp_g, np.linspace(lo, hi, int(nb) + 1))
         return out
+
+
+@dataclass
+class ClassifierEvalCallback:
+    """Accuracy and AUROC on the test split for the classifier models (the
+    gen-vs-real classifier test). Binary probabilities give both; a
+    two-class softmax gives both on P(class 1); more classes give the
+    accuracy only. `batch_size` is kept for the config and unused: the test
+    split is taken in the datamodule's batches, as in the JAX package."""
+
+    every_n_epochs: int | str = 1
+    batch_size: int = 1024
+    on_test: bool = True
+    use_ema: bool = False
+
+    def __call__(self, trainer) -> Optional[dict]:
+        if not should_log(self.every_n_epochs, trainer.epoch):
+            return None
+        import torch
+
+        from particle_fm_tpu_torch.models.classifiers import binary_metrics
+
+        model, dev = trainer.model, trainer.device
+        net = model.inference_network(eval_network(trainer, self.use_ema))
+        probs, labels = [], []
+        for x, mask, cond in trainer.datamodule.test_batches():
+            p = model.predict(net, torch.as_tensor(x, device=dev),
+                              None if mask is None else torch.as_tensor(mask, device=dev))
+            probs.append(p.float().cpu().numpy())
+            labels.append(np.asarray(cond).reshape(-1))
+        probs, labels = np.concatenate(probs), np.concatenate(labels)
+        if probs.ndim > 1 and probs.shape[-1] == 2:
+            return binary_metrics(probs[:, 1], labels)
+        if probs.ndim > 1:
+            return {"accuracy": float((probs.argmax(-1) == labels).mean())}
+        return binary_metrics(probs, labels)

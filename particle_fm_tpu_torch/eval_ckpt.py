@@ -3,6 +3,7 @@ scripts/eval_ckpt.py.
 
     python -m particle_fm_tpu_torch.eval_ckpt --run_dir <run> [--ckpt best|last]
         [--n_samples N] [--ode_steps K] [--no-cache] [--device cpu] [--dtype bfloat16]
+        [--write_classifier_h5]
 
 Reload the run's saved config.yaml, restore the checkpoint's EMA weights
 (served in `--dtype` when given, else in the run's `model.dtype`),
@@ -14,9 +15,13 @@ fewer than 3 slots), then
 compute W1M/W1P/W1EFP, the substructure W1s (tau21, tau32, D2; 40 bootstrap
 batches) and the reverse KLD per feature, and write eval_metrics.yaml into
 the run directory. Generation, the EFPs and the energy correlators run on
-the card unless `--device cpu` is given; without CUDA it raises.
+the card unless `--device cpu` is given; without CUDA it raises. With
+`--write_classifier_h5` the generated and the kept test sets, their masks
+and cond, and their substructure are written as the classifier test's input
+(`write_classifier_h5`, the JAX package's schema, read by
+data/jetclass_classifier.py); it needs h5py and raises at once without it.
 
-Not ported: `--write_classifier_h5` (raises) and the comparison plot.
+Not ported: the comparison plot.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import os
 import numpy as np
 import yaml
 
+from particle_fm_tpu_torch.data.utils import import_h5py
 from particle_fm_tpu_torch.models.flow_matching import SOLVERS
 
 VARIABLES_TO_CLIP = ["part_etarel", "part_dphi", "part_ptrel"]
@@ -64,6 +70,33 @@ def postprocess(data_gen, mask_gen, cond_gen, names_part_features=None,
     return data_gen[keep], mask_gen[keep], (cond_gen[keep] if cond_gen is not None else None)
 
 
+def write_classifier_h5(path: str, dm, gen, mask_gen, cond_gen, real, mask_real, cond_real,
+                        hl_gen: dict, hl_real: dict) -> None:
+    """The classifier test's input in the JAX package's schema: `path` with
+    part_data_{gen,sim} and cond_data_{gen,sim} (each with a `names`
+    attribute), part_mask_{gen,sim}; its `_substructure.h5` twin with
+    {tau1,tau2,tau3,tau21,tau32,d2}_{gen,sim}."""
+    h5py = import_h5py()
+    names_part = [n.decode() if isinstance(n, bytes) else str(n) for n in (
+        getattr(dm, "names_particle_features", None)
+        or ["part_etarel", "part_dphi", "part_ptrel"])]
+    names_cond = [str(n) for n in (getattr(dm, "names_conditioning", None) or [])]
+    cond_gen = cond_gen if cond_gen is not None else np.zeros((len(gen), 0))
+    with h5py.File(path, "w") as f:
+        for key, arr, names in (("part_data_gen", gen, names_part),
+                                ("part_data_sim", real, names_part),
+                                ("cond_data_gen", cond_gen, names_cond),
+                                ("cond_data_sim", cond_real, names_cond)):
+            f.create_dataset(key, data=np.asarray(arr, np.float32)).attrs["names"] = names
+        f.create_dataset("part_mask_gen", data=np.asarray(mask_gen, np.float32))
+        f.create_dataset("part_mask_sim", data=np.asarray(mask_real, np.float32))
+    with h5py.File(path.replace(".h5", "_substructure.h5"), "w") as f:
+        for key in ("tau1", "tau2", "tau3", "tau21", "tau32", "d2"):
+            f.create_dataset(f"{key}_gen", data=np.asarray(hl_gen[key], np.float32))
+            f.create_dataset(f"{key}_sim", data=np.asarray(hl_real[key], np.float32))
+    print(f"[eval_ckpt] wrote {path} (+_substructure.h5)")
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--run_dir", required=True)
@@ -81,7 +114,8 @@ def parse_args(argv=None):
         "cond_dropout > 0); None/1.0 = plain conditional sampling",
     )
     ap.add_argument("--write_classifier_h5", action="store_true",
-                    help="not ported: raises")
+                    help="also write classifier_data.h5 and classifier_data_substructure.h5 "
+                    "(the classifier test's input; needs h5py)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dtype", default=None,
                     help="compute type to sample in (float32 or bfloat16); default: the run's "
@@ -92,7 +126,7 @@ def parse_args(argv=None):
 def main(argv: list[str] | None = None) -> dict:
     args = parse_args(argv)
     if args.write_classifier_h5:
-        raise NotImplementedError("--write_classifier_h5 is not ported")
+        import_h5py()  # before the generation: raise at once where h5py is missing
 
     from particle_fm_tpu_torch.eval.generation import generate_data
     from particle_fm_tpu_torch.eval.metrics import (
@@ -171,6 +205,11 @@ def main(argv: list[str] | None = None) -> dict:
             num_eval_samples=min(n_eval, 5000), num_batches=40,
         )
         metrics[f"rkld_feature_{f}"] = kld
+
+    if args.write_classifier_h5:
+        cond_sim = cond[:n][keep_real] if cond is not None else np.zeros((len(real_k), 0))
+        write_classifier_h5(os.path.join(args.run_dir, "classifier_data.h5"), dm, gen, mask_gen,
+                            cond_gen, real_k, mask_k, cond_sim, hl_g, hl_r)
 
     out = os.path.join(args.run_dir, "eval_metrics.yaml")
     with open(out, "w") as fh:

@@ -5,7 +5,9 @@ The port carries the EPiC branch, the two PC-Droid transformer branches
 last three configured through `net_config`, with the parameter-free time
 embeddings (sincos, cosine), self-conditioning (the field reads cat(x,
 x1_hat), x1_hat its own endpoint estimate, zeros when none is given), and the
-in-model normalisers of `CNFStack` with frozen statistics. The
+in-model normalisers of `CNFStack` with frozen statistics. The EPiC
+branch takes `dropout`, which the JAX CNF hands its EPiC encoder; the
+flow-matching loss runs the network deterministic there, as here. The
 cosine ladder's frequency table is a non-persistent buffer built on the CPU
 the reference's way (see nets/time_emb.py); a test may overwrite it with the
 JAX package's table.
@@ -56,6 +58,7 @@ class CNF(nn.Module):
         add_time_to_input: bool = True,
         t_emb: str = "sincos",
         sum_scale: float = 1e-2,
+        dropout: float = 0.0,
         net_config: Mapping[str, Any] | None = None,
         self_cond: bool = False,
         generator: torch.Generator | None = None,
@@ -109,6 +112,7 @@ class CNF(nn.Module):
             activation=activation,
             use_weight_norm=use_weight_norm,
             sum_scale=sum_scale,
+            dropout=dropout,
             generator=generator,
             dtype=dtype,
         )

@@ -12,8 +12,10 @@ configuration bundle that takes every field of the shipped model configs:
 package's solvers (the fixed-step ones, `dopri5`/`dopri5_zuko`,
 `dopri5_per_sample`, and for diffusion `em`/`ddim`), and `log_prob` is the
 density by the augmented ODE. A field raises only where its value asks for
-what the port lacks (`dropout > 0`, a `dtype` other than float32 and
-bfloat16).
+what the port lacks (a `dtype` other than float32 and bfloat16).
+`dropout` builds the EPiC encoder's dropout, which the loss does not draw:
+the JAX model's loss applies its network deterministic, and so does the
+port's.
 
 `dtype` is the networks' compute type, as in the JAX package: None or
 "float32" computes in float32; "bfloat16" (or `torch.bfloat16`; from a
@@ -156,8 +158,6 @@ class FlowMatchingModel:
             if self.n_transforms != 1:
                 raise ValueError("self_cond supports n_transforms=1")
         self.compute_dtype = compute_dtype(self.dtype)
-        if self.dropout > 0.0:
-            raise NotImplementedError("dropout is not ported")
         if self.criterion not in CRITERIA:
             raise ValueError(f"criterion {self.criterion} not supported")
         self._loss_fn = get_loss_fn(
@@ -191,6 +191,7 @@ class FlowMatchingModel:
             add_time_to_input=self.add_time_to_input,
             t_emb=self.t_emb,
             sum_scale=self.sum_scale,
+            dropout=self.dropout,
             net_config=dict(self.net_config),
             self_cond=self.self_cond,
             dtype=self.compute_dtype,

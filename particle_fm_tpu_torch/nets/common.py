@@ -21,10 +21,18 @@ cast once, as in the JAX module; the casts' backward hands `v`, `g` and the
 bias float32 gradients.
 `LayerNorm` is `flax.linen.LayerNorm(epsilon=1e-5, dtype=...)` on float32
 parameters.
+
+Dropout is flax's `nn.Dropout`: a `Dropout` module is the identity unless a
+generator is set on it, which `dropout_generator(net, generator)` does for
+every `Dropout` of a network for the length of a `with` block (a classifier's
+training loss); outside such a block, as in every evaluation, the network is
+deterministic. The keep mask is drawn by `dropout_keep`, the one draw a test
+replaces to hand both packages the same masks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Sequence
 
@@ -264,6 +272,59 @@ class LayerNorm(nn.LayerNorm):
         if self.compute_dtype is None:
             return super().forward(x)
         return super().forward(x.to(torch.float32)).to(self.compute_dtype)
+
+
+def dropout_keep(generator: torch.Generator, keep: float, shape: tuple[int, ...],
+                 device: torch.device) -> torch.Tensor:
+    """Bernoulli(keep) draw of a dropout keep mask."""
+    return torch.rand(shape, generator=generator, device=device) < keep
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """flax's nn.Dropout: x unchanged without a generator or at rate 0, zeros
+    at rate 1, else where(keep mask, x / keep, 0) with inverted scaling. In
+    bfloat16 x is divided by keep rounded to bfloat16, as JAX rounds the
+    weakly typed constant."""
+    if generator is None or rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    mask = dropout_keep(generator, keep, tuple(x.shape), x.device)
+    scale = float(torch.tensor(keep, dtype=x.dtype)) if x.dtype == torch.bfloat16 else keep
+    return torch.where(mask, x / scale, torch.zeros_like(x))
+
+
+class Dropout(nn.Module):
+    """Dropout at `rate`, drawn from `generator` while one is set
+    (`dropout_generator`), else the identity."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator: torch.Generator | None = None
+
+    @property
+    def active(self) -> bool:
+        return self.generator is not None and self.rate > 0.0
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dropout(x, self.rate, self.generator)
+
+
+@contextlib.contextmanager
+def dropout_generator(net: nn.Module, generator: torch.Generator | None):
+    """Inside the block every `Dropout` of `net` draws from `generator`, in
+    the order the forward reaches them (None: the network stays
+    deterministic); after it, none draws."""
+    drops = [m for m in net.modules() if isinstance(m, Dropout)]
+    for m in drops:
+        m.generator = generator
+    try:
+        yield
+    finally:
+        for m in drops:
+            m.generator = None
 
 
 def cat(*parts: torch.Tensor | None) -> torch.Tensor | None:

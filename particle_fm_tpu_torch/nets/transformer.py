@@ -10,9 +10,10 @@ utils/from_jax.py maps one parameter tree onto the other by name.
 Differences from the flax modules, all of form: a module is given its input
 width at construction (flax infers it at the first call); the time embedding
 reaches the full encoders as the per-set (B, T) tensor, where the JAX
-modules take (B, N, T) and slice its first particle; dropout is not ported
-(`drp > 0` raises), since serving is deterministic, and the mixture-of-experts
-dense block is not ported (`moe_config` raises). All attention goes through
+modules take (B, N, T) and slice its first particle; the mixture-of-experts
+dense block is not ported (`moe_config` raises). Dropout (`drp`) sits where
+the JAX modules put it and draws only inside
+`nets/common.py::dropout_generator`. All attention goes through
 `ops.attention.attention`; LayerNorms use eps 1e-5.
 
 `dtype` (None or bfloat16) is the compute type of every Dense and
@@ -27,16 +28,11 @@ from typing import Any, Mapping, Sequence
 import torch
 from torch import nn
 
-from particle_fm_tpu_torch.nets.common import LayerNorm, WNDense, WNDenseSplit, cat, get_act
+from particle_fm_tpu_torch.nets.common import (Dropout, LayerNorm, WNDense, WNDenseSplit, cat,
+                                               get_act)
 from particle_fm_tpu_torch.ops import attention as attention_ops
 
 _LN_EPS = 1e-5
-
-
-def _no_dropout(drp: float) -> None:
-    if drp > 0:
-        raise NotImplementedError(
-            f"dropout (drp={drp}) is not ported: the port trains and samples without it")
 
 
 def _broadcast_ctxt(ctxt: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -47,8 +43,8 @@ def _broadcast_ctxt(ctxt: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 class MLPBlock(nn.Module):
-    """Linear -> act -> (norm), `n_layers` deep, optional residual. Context is
-    concatenated to the input of the first layer only."""
+    """Linear -> act -> (norm) -> (dropout), `n_layers` deep, optional
+    residual. Context is concatenated to the input of the first layer only."""
 
     def __init__(
         self,
@@ -65,7 +61,6 @@ class MLPBlock(nn.Module):
         dtype: torch.dtype | None = None,
     ):
         super().__init__()
-        _no_dropout(drp)
         if nrm not in ("none", "layer"):
             raise ValueError(f"No normalisation with name: {nrm}")
         self.inpt_dim, self.outp_dim, self.ctxt_dim = inpt_dim, outp_dim, ctxt_dim
@@ -88,6 +83,7 @@ class MLPBlock(nn.Module):
             self.add_module(f"lin_{n}", lin)
             if nrm == "layer":
                 self.add_module(f"nrm_{n}", LayerNorm(outp_dim, eps=_LN_EPS, dtype=dtype))
+        self.drop = Dropout(drp)
 
     def forward(self, x: torch.Tensor, ctxt: torch.Tensor | None = None) -> torch.Tensor:
         inpt = x
@@ -109,6 +105,7 @@ class MLPBlock(nn.Module):
                 x = act(x)
             if self.nrm == "layer":
                 x = getattr(self, f"nrm_{n}")(x)
+            x = self.drop(x)
         if self.do_res:
             x = x + inpt
         return x
@@ -141,7 +138,6 @@ class DenseNetwork(nn.Module):
         dtype: torch.dtype | None = None,
     ):
         super().__init__()
-        _no_dropout(drp)
         if ctxt_dim and not (ctxt_in_inpt or ctxt_in_hddn):
             raise ValueError("Network has context inputs but nowhere to use them!")
         hddn = num_blocks * [hddn_dim] if isinstance(hddn_dim, int) else list(hddn_dim)
@@ -149,19 +145,21 @@ class DenseNetwork(nn.Module):
         self.out_dim = (outp_dim or inpt_dim) if do_out else hddn[-1]
         self.input_block = MLPBlock(
             inpt_dim, hddn[0], ctxt_dim=ctxt_dim if ctxt_in_inpt else 0, act=act_h, nrm=nrm,
-            generator=generator, dtype=dtype,
+            drp=drp, generator=generator, dtype=dtype,
         )
         self.num_hidden = len(hddn) - 1
         for i, (h1, h2) in enumerate(zip(hddn[:-1], hddn[1:])):
             self.add_module(
                 f"hidden_block_{i}",
                 MLPBlock(h1, h2, ctxt_dim=ctxt_dim if ctxt_in_hddn else 0, n_layers=n_lyr_pbk,
-                         act=act_h, nrm=nrm, do_res=do_res, generator=generator, dtype=dtype),
+                         act=act_h, nrm=nrm, drp=drp, do_res=do_res, generator=generator,
+                         dtype=dtype),
             )
         if do_out:
             self.output_block = MLPBlock(
                 hddn[-1], self.out_dim, act=act_o, init_zeros=output_init_zeros,
-                nrm=nrm if nrm_on_output else "none", generator=generator, dtype=dtype,
+                nrm=nrm if nrm_on_output else "none", drp=drp if drp_on_output else 0.0,
+                generator=generator, dtype=dtype,
             )
 
     def forward(self, x: torch.Tensor, ctxt: torch.Tensor | None = None) -> torch.Tensor:
@@ -198,7 +196,6 @@ class MultiHeadedAttentionBlock(nn.Module):
         dtype: torch.dtype | None = None,
     ):
         super().__init__()
-        _no_dropout(drp)
         if model_dim % num_heads:
             raise ValueError("Model dimension must be divisible by number of heads!")
         self.model_dim, self.num_heads = model_dim, num_heads
@@ -212,6 +209,7 @@ class MultiHeadedAttentionBlock(nn.Module):
             self.q_linear = WNDense(model_dim, model_dim, **dense)
             self.k_linear = WNDense(model_dim, model_dim, **dense)
             self.v_linear = WNDense(model_dim, model_dim, **dense)
+        self.drop = Dropout(drp)
         self.layer_norm = LayerNorm(model_dim, eps=_LN_EPS, dtype=dtype) if do_layer_norm else None
         self.out_linear = WNDense(model_dim, model_dim, init_zeros=init_zeros, **dense)
 
@@ -233,7 +231,7 @@ class MultiHeadedAttentionBlock(nn.Module):
             split_heads(q_out), split_heads(k_out), split_heads(v_out), kv_mask, attn_bias,
             impl=self.attn_impl, scores_dtype=self.scores_dtype,
         )
-        a_out = a_out.reshape(*a_out.shape[:-2], self.model_dim)
+        a_out = self.drop(a_out.reshape(*a_out.shape[:-2], self.model_dim))
         if self.layer_norm is not None:
             a_out = self.layer_norm(a_out)
         return self.out_linear(a_out)

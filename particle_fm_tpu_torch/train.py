@@ -13,8 +13,10 @@ an epoch-denominated schedule with the optimizer steps of an epoch, runs
 Training and evaluation run on the card unless `device=cpu` is given;
 without CUDA they raise.
 
-The JetNet, LHCO (`lhco`, `lhco_whole_event`) and CaloChallenge (`calo`)
-eval callbacks are ported; a callback the port lacks raises through
+The JetNet, LHCO (`lhco`, `lhco_whole_event`), CaloChallenge (`calo`) and
+classifier (`classifier`) eval callbacks are ported, and the classifier
+models train as the generators do (labels in `cond`); a callback the port
+lacks raises through
 config/core.py. An entry without a `_target_`, as an experiment overlay
 leaves after `callbacks=none`, is skipped, as in the JAX package. A trainer
 key the port's Trainer does not declare (the JAX trainer's `scan_epochs`,

@@ -6,9 +6,11 @@ the port's `state_dict`. Names map one to one, with `flows_{k}` becoming the
 ModuleList entry `flows.{k}`; a weight-norm Dense's `kernel (in, out)`
 becomes `weight_v (out, in)` (a plain Dense's becomes `weight`), a
 LayerNorm's `scale` becomes `weight`, and `g`, `bias` and bare parameters
-such as `global_tokens` are copied. The module names of the transformer
-family (`lin_0`, `nrm_0`, `layer_0`, ...) and of MDMA (`embed`, `block_0`,
-`ln`, ...) are the same on both sides. The flax "norm_stats" collection of a
+such as `global_tokens` and ParT's `cls_token` are copied. The module names
+of the transformer family (`lin_0`, `nrm_0`, `layer_0`, ...), of MDMA
+(`embed`, `block_0`, `ln`, ...), of the classifiers (`fc_d1`, `pair_embed`,
+`cls_layer_0`, ...) and flax's automatic names in ParticleNet
+(`EdgeConvBlock_0.Dense_0`, `LayerNorm_0`, ...) are the same on both sides. The flax "norm_stats" collection of a
 model with `use_normaliser` (`normaliser` and `ctxt_normaliser`, each with
 `means`, `m2`, `vars`, `n`) becomes the buffers of the same names. The
 mapping is shape-checked both ways: every flax leaf must land on a parameter

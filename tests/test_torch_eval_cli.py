@@ -3,7 +3,8 @@ width: the training CLI on experiment=jetnet/fm_tops30_cond with the shipped
 `callbacks: jetnet` and `test: true` (fewer jets and ODE steps, every
 epoch) logs w1m_mean/w1p_mean each epoch, feeds a `w1m_mean` checkpoint
 monitor, and writes the test metrics; `evaluate` and `eval_ckpt` run on its
-run directory; a callback leaves the training run as it was (parameters and
+run directory (with `--write_classifier_h5` writing the classifier test's
+input in the JAX package's schema, and naming h5py where it is missing); a callback leaves the training run as it was (parameters and
 EMA equal with and without it); a callback the port lacks raises; and
 importing the entry points loads no JAX.
 """
@@ -14,6 +15,7 @@ import glob
 import os
 import subprocess
 import sys
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -83,8 +85,25 @@ def test_evaluate_and_eval_ckpt_on_the_run(run):
     assert len(cache) == 1
     again = eval_ckpt.main(argv)  # the cached samples: the same generation time
     assert again["generation_time"] == first["generation_time"]
-    with pytest.raises(NotImplementedError, match="classifier"):
-        eval_ckpt.main(argv + ["--write_classifier_h5"])
+    # the classifier test's input, in the schema the JAX datamodule reads
+    import h5py
+
+    eval_ckpt.main(argv + ["--write_classifier_h5"])
+    with h5py.File(os.path.join(out, "classifier_data.h5"), "r") as f:
+        assert sorted(f) == sorted(f"{k}_{tag}" for k in ("part_data", "part_mask", "cond_data")
+                                   for tag in ("gen", "sim"))
+        for tag in ("gen", "sim"):
+            part, mask, cond = (f[f"{k}_{tag}"] for k in ("part_data", "part_mask", "cond_data"))
+            assert part.dtype == np.float32 and part.shape[:2] == mask.shape[:2]
+            # JetNet's datamodule names no cond columns: the JAX package writes []
+            assert len(cond) == len(part) and "names" in cond.attrs
+            assert len(part.attrs["names"]) == part.shape[-1]
+    with h5py.File(os.path.join(out, "classifier_data_substructure.h5"), "r") as f:
+        assert sorted(f) == sorted(f"{k}_{tag}" for k in ("tau1", "tau2", "tau3", "tau21",
+                                                           "tau32", "d2") for tag in ("gen", "sim"))
+    with mock.patch.dict(sys.modules, {"h5py": None}):
+        with pytest.raises(ImportError, match="h5py"):
+            eval_ckpt.main(argv + ["--write_classifier_h5"])
 
 
 def test_evaluate_takes_its_device_from_the_call(run, monkeypatch):

@@ -1,5 +1,6 @@
 """PyTorch port, a guard over every shipped experiment: composed from
-`configs/experiment/` with `data.synthetic=true` and `device=cpu`, each
+`configs/experiment/` with `data.synthetic=true` (the LHCO classifiers:
+with small h5 files) and `device=cpu`, each
 either builds its callbacks, datamodule (set up), model, optimizer,
 Trainer and network in the port, or raises NotImplementedError that names
 what the port lacks; never another error. The expected list below says
@@ -9,7 +10,9 @@ Then the card machine's installation, checked here: in a subprocess where
 `sklearn` and `h5py` cannot be imported, the CaloChallenge datamodule (with
 its scaler, fitted, and the rotation) builds and its scaler round-trips the
 hits, the JetClass datamodule builds from its in-memory synthetic splits,
-the training and evaluation entry points import, and no module of jax,
+so does the JetClass classifier datamodule, whose EPiC discriminator
+predicts and whose AUROC is computed without sklearn, the training and
+evaluation entry points import, and no module of jax,
 flax, optax or the JAX package is loaded.
 """
 
@@ -34,13 +37,24 @@ NOT_PORTED = {
     "gen_challenge/gen_challenge": "GenChallengeEvalCallback",  # and data/gen_challenge.py
     "lhco/jet_features": "FlatEvalCallback",  # and models/flow_matching_flat.py
     "jetnet/fm_moe_transformer": "mixture-of-experts",
-    "jetclass_classifier": "ClassifierEvalCallback",
-    "jetclass_classifier_epic": "ClassifierEvalCallback",
-    "jetclass_classifier_hl": "ClassifierEvalCallback",
-    "jetclass_classifier_particlenet": "ClassifierEvalCallback",
-    "lhco/epic_classifier": "ClassifierEvalCallback",
-    "lhco/hl_classifier": "ClassifierEvalCallback",
 }
+# the synthetic gen/sim pair of the JetClass classifier data has 3 flavours
+# (the experiments pick Tbqq); the LHCO classifiers read h5 files, which
+# `_overrides` writes, as the JAX package has no synthetic mode there
+JETCLASS_CLASSIFIERS = ("jetclass_classifier", "jetclass_classifier_epic",
+                        "jetclass_classifier_hl", "jetclass_classifier_particlenet")
+LHCO_CLASSIFIERS = ("lhco/epic_classifier", "lhco/hl_classifier")
+
+
+def _overrides(experiment: str, tmp_path) -> list[str]:
+    if experiment in LHCO_CLASSIFIERS:
+        from tests.torch_port_helpers import write_gen_vs_real_h5
+
+        return write_gen_vs_real_h5(tmp_path, flat=experiment == "lhco/hl_classifier")
+    extra = ["data.synthetic=true"]
+    if experiment in JETCLASS_CLASSIFIERS:
+        extra.append("data.used_flavor=QCD")
+    return extra
 
 
 def test_the_list_covers_every_experiment():
@@ -48,9 +62,9 @@ def test_the_list_covers_every_experiment():
 
 
 @pytest.mark.parametrize("experiment", EXPERIMENTS)
-def test_experiment_builds_or_names_what_is_missing(experiment):
+def test_experiment_builds_or_names_what_is_missing(experiment, tmp_path):
     cfg = compose(ptrain.CONFIG_DIR, "train",
-                  [f"experiment={experiment}", "data.synthetic=true", "device=cpu"])
+                  [f"experiment={experiment}", "device=cpu"] + _overrides(experiment, tmp_path))
 
     def build():
         trainer = ptrain.build_trainer(cfg)
@@ -91,6 +105,17 @@ jets = JetClassDataModule(synthetic=True, synthetic_num_jets=64, synthetic_num_p
                           conditioning_jet_type_all=True)
 jets.setup()
 assert jets.train.x.shape == (64, 16, 3) and jets.train.cond.shape == (64, 12)
+import torch
+from particle_fm_tpu_torch.data.jetclass_classifier import JetClassClassifierDataModule
+from particle_fm_tpu_torch.models.classifiers import SetClassifierModel, binary_metrics
+clf = JetClassClassifierDataModule(synthetic=True, synthetic_num_jets=200,
+                                   synthetic_num_particles=16, used_flavor="QCD")
+clf.setup()
+model = SetClassifierModel(features=clf.train.x.shape[-1], num_particles=16,
+                           net_config=dict(hid_dim=8, latent_dim=2, equiv_layers=1))
+net = model.init(device="cpu")
+probs = model.predict(net, torch.as_tensor(clf.test.x), torch.as_tensor(clf.test.mask))
+assert 0.0 <= binary_metrics(probs.numpy(), clf.test.cond)["auroc"] <= 1.0
 bad = [m for m, mod in sys.modules.items() if mod is not None
        and m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "particle_fm_tpu", "sklearn",
                                "h5py")]

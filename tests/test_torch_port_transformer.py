@@ -20,6 +20,7 @@ import torch
 
 from particle_fm_tpu.nets import transformer as jtr
 from particle_fm_tpu_torch.nets import transformer as ptr
+from particle_fm_tpu_torch.nets.common import dropout_generator
 from particle_fm_tpu_torch.utils.from_jax import load_flax_params
 from tests.torch_port_helpers import cloud, droid_net_config, filled, t
 
@@ -246,10 +247,17 @@ def test_unported_options_raise():
         ptr.TransformerEncoderLayer(32, MHA, DENSE, moe_config={"num_experts": 2})
     with pytest.raises(NotImplementedError, match="moe_config"):
         ptr.FullTransformerEncoder(35, 3, te_config=dict(model_dim=32, moe_config={}))
-    for build in (lambda: ptr.MLPBlock(8, 8, drp=0.1), lambda: ptr.DenseNetwork(8, drp=0.1),
-                  lambda: ptr.MultiHeadedAttentionBlock(8, drp=0.1)):
-        with pytest.raises(NotImplementedError, match="dropout"):
-            build()
+    # dropout is ported: the three blocks build with drp=0.1 and draw it only
+    # inside `dropout_generator` (nets/common.py)
+    x = torch.ones(2, 5, 8)
+    for block, call in ((ptr.MLPBlock(8, 8, drp=0.1), lambda m: m(x)),
+                        (ptr.DenseNetwork(8, drp=0.1, drp_on_output=True), lambda m: m(x)),
+                        (ptr.MultiHeadedAttentionBlock(8, drp=0.1, do_selfattn=True),
+                         lambda m: m(x))):
+        quiet = call(block)
+        with dropout_generator(block, torch.Generator().manual_seed(0)):
+            dropped = call(block)
+        assert torch.equal(call(block), quiet) and not torch.equal(dropped, quiet)
     with pytest.raises(ValueError, match="normalisation"):
         ptr.MLPBlock(8, 8, nrm="batch")
     with pytest.raises(ValueError, match="nowhere"):

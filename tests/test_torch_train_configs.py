@@ -100,7 +100,7 @@ def test_shipped_model_configs_sample_as_jax(name):
 
 
 @pytest.mark.parametrize("override,error", [
-    ("model.dropout=0.1", NotImplementedError),
+    ("model.t_emb=gaussian", NotImplementedError),
     ("model.dtype=float16", NotImplementedError),
     ("model.criterion=l1", ValueError),
     ("model.loss_type=bogus", NotImplementedError),
@@ -113,6 +113,24 @@ def test_fields_raise_only_for_what_the_port_lacks(override, error):
         # tests/test_torch_port_bf16_config.py)
         pm = pflow.FlowMatchingModel(**model_block("flow_matching", override))
         pm.loss(pm.init(device="cpu"), torch.Generator(), t(x), t(mask), t(cond), train=True)
+
+
+def test_dropout_builds_and_trains_deterministic_as_in_jax():
+    """`model.dropout` reaches the EPiC encoder's dropout; the flow-matching
+    loss runs the network deterministic, as the JAX model's loss does, so
+    the loss and its gradients equal those without dropout."""
+    x, mask, cond, _ = cloud(b=2, n=16, seed=0)
+    losses = []
+    for override in ("model.dropout=0.1", "model.dropout=0.0"):
+        pm = pflow.FlowMatchingModel(**model_block("flow_matching", override))
+        net = pm.init(device="cpu")
+        loss = pm.loss(net, torch.Generator().manual_seed(0), t(x), t(mask), t(cond), train=True)
+        losses.append((float(loss), torch.autograd.grad(loss, list(net.parameters()))))
+    rates = {m.rate for m in pflow.FlowMatchingModel(**model_block(
+        "flow_matching", "model.dropout=0.1")).init(device="cpu").modules()
+        if hasattr(m, "rate")}
+    assert rates == {0.1} and np.isfinite(losses[0][0]) and losses[0][0] == losses[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(losses[0][1], losses[1][1]))
 
 
 def test_loss_refuses_what_it_cannot_train():

@@ -11,8 +11,13 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from particle_fm_tpu.models import classifiers as jcls
 from particle_fm_tpu.models.flow_matching import FlowMatchingModel as JaxModel
+from particle_fm_tpu.nets import particlenet as jpn
+from particle_fm_tpu_torch.models import classifiers as pcls
 from particle_fm_tpu_torch.models.flow_matching import FlowMatchingModel as PortModel
+from particle_fm_tpu_torch.nets import common as pcommon
+from particle_fm_tpu_torch.nets import particlenet as ppn
 from particle_fm_tpu_torch.utils.from_jax import load_flax_params
 
 # small stand-ins of the two flagship variants: the yaml flagship
@@ -463,3 +468,147 @@ def check_bf16_step(monkeypatch, cfg: dict, b: int = 6, n_normals: int = 1, fill
     port = port_loss_and_grads(monkeypatch, pm16, net16, batch, draw_kw)
     assert np.isfinite(port[0]) and max(np.abs(g).max() for g in port[1].values()) > 0
     hold_bf16(f"{cfg.get('model', 'epic')} {cfg.get('loss_type')}", port, j16, j32)
+
+
+# ---------------------------------------------------------------- classifiers
+
+
+def write_gen_vs_real_h5(directory, flat: bool, n: int = 160, parts: int = 16) -> list[str]:
+    """real.h5 and gen.h5 (datasets x and, for sets, mask), the generated
+    ones shifted; the overrides that point configs/data/classifier.yaml at
+    them."""
+    import h5py
+
+    rs = np.random.RandomState(0)
+    for name, shift in (("real", 0.0), ("gen", 0.3)):
+        with h5py.File(directory / f"{name}.h5", "w") as f:
+            if flat:
+                f["x"] = (rs.randn(n, 4) + shift).astype(np.float32)
+                continue
+            counts = rs.randint(3, parts + 1, size=(n, 1))
+            mask = (np.arange(parts)[None, :] < counts).astype(np.float32)[..., None]
+            f["x"] = ((rs.randn(n, parts, 3) + shift) * mask).astype(np.float32)
+            f["mask"] = mask
+    return [f"data.real_file={directory / 'real.h5'}", f"data.gen_file={directory / 'gen.h5'}"]
+
+
+CLASSIFIER_RTOL = 1e-5
+CLASSIFIER_GRAD_TOL = 1e-5
+
+# narrow stand-ins of the shipped classifier configs
+CLASSIFIER_EPIC17 = dict(arch="epic", n_classes=1, num_particles=10, features=17,
+                         net_config=dict(hid_dim=16, latent_dim=4, equiv_layers=2))
+CLASSIFIER_CONFIGS = {
+    "epic": CLASSIFIER_EPIC17,
+    "epic_sup_sets": dict(arch="epic", n_classes=1, num_particles=10, features=3,
+                          net_config=dict(hid_dim=16, latent_dim=4, equiv_layers=2,
+                                          num_sup_sets=2)),
+    "epic_two_logits": dict(arch="epic", n_classes=2, num_particles=10, features=3,
+                            net_config=dict(hid_dim=16, latent_dim=4, equiv_layers=1)),
+    "transformer": dict(arch="transformer", n_classes=3, num_particles=10, features=3,
+                        net_config=dict(te_config={"model_dim": 16, "num_layers": 1,
+                                                   "mha_config": {"num_heads": 4}})),
+    "part": dict(arch="part", n_classes=2, num_particles=10, features=7,
+                 net_config=dict(embed_dims=[16, 32, 16], num_heads=2, num_layers=2,
+                                 num_cls_layers=1, pair_embed_dims=[8, 8])),
+    "particlenet": dict(arch="particlenet", n_classes=2, num_particles=10, features=7,
+                        net_config=dict(point_indices=[0, 1], conv_params=[[4, [8, 8]],
+                                                                           [4, [16, 16]]],
+                                        fc_params=[[16, 0.1]], use_fusion=False)),
+}
+
+
+def classifier_batch(cfg, b=8, seed=0, labels="binary"):
+    """Ragged numpy (x, mask, labels) for a classifier config: labels
+    "binary" (one per super-set event), "onehot" or integer ("int")."""
+    rs = np.random.RandomState(seed)
+    n, f = cfg["num_particles"], cfg["features"]
+    counts = rs.randint(3, n + 1, size=(b, 1))
+    mask = (np.arange(n)[None, :] < counts).astype(np.float32)[..., None]
+    x = rs.randn(b, n, f).astype(np.float32) * 0.5 * mask
+    if labels == "binary":
+        y = rs.randint(0, 2, (b, 1)).astype(np.float32)
+        s = cfg.get("net_config", {}).get("num_sup_sets", 1)
+        y = np.repeat(y[::s], s, axis=0)  # one label per event
+    elif labels == "onehot":
+        y = np.eye(cfg["n_classes"], dtype=np.float32)[rs.randint(0, cfg["n_classes"], b)]
+    else:
+        y = rs.randint(0, cfg["n_classes"], (b, 1)).astype(np.float32)
+    return x, mask, y
+
+
+def classifier_pair(cfg, seed=0, scale=0.3):
+    """(JAX model, its filled params, port model, port network carrying them)."""
+    jm = jcls.SetClassifierModel(**cfg)
+    params = filled(jm.init(jax.random.PRNGKey(seed))["params"], seed, scale)
+    pm = pcls.SetClassifierModel(**cfg)
+    net = pm.init(seed=seed, device="cpu")
+    load_flax_params(net, params)
+    return jm, params, pm, net
+
+
+def pin_knn(monkeypatch, jm, params, x, mask):
+    """Record JAX's neighbour indices of one forward pass and hand them to
+    every forward pass of the port, in the same order."""
+    seen = []
+    orig = jpn.knn_indices
+    monkeypatch.setattr(jpn, "knn_indices",
+                        lambda p, m, k: seen.append(orig(p, m, k)) or seen[-1])
+    jm.logits({"params": params}, jnp.asarray(x), jnp.asarray(mask))
+    monkeypatch.setattr(jpn, "knn_indices", orig)
+    calls = iter(range(10**6))
+    monkeypatch.setattr(ppn, "knn_indices", lambda p, m, k: torch.from_numpy(
+        np.asarray(seen[next(calls) % len(seen)]).astype(np.int64)))
+
+
+def pin_dropout(monkeypatch, seed=0):
+    """Both packages' dropout masks from one numpy stream: JAX's
+    `jax.random.bernoulli` (flax's Dropout draws there) hands out fresh
+    numpy masks and records them; the port's `dropout_keep` replays them
+    in order."""
+    rs = np.random.RandomState(seed)
+    masks = []
+
+    def jax_bernoulli(key, p=0.5, shape=None):
+        masks.append(rs.rand(*shape) < p)
+        return jnp.asarray(masks[-1])
+
+    monkeypatch.setattr(jax.random, "bernoulli", jax_bernoulli)
+    replay = iter(range(10**6))
+
+    def port_keep(generator, keep, shape, device):
+        m = masks[next(replay)]
+        assert m.shape == tuple(shape)
+        return torch.from_numpy(m).to(device)
+
+    monkeypatch.setattr(pcommon, "dropout_keep", port_keep)
+    return masks
+
+
+def jax_classifier_loss_grads(jm, params, batch, train=False):
+    x, mask, y = (jnp.asarray(a) for a in batch)
+    loss, grads = jax.value_and_grad(
+        lambda p: jm.loss({"params": p}, jax.random.PRNGKey(1), x, mask, y, train=train)[0]
+    )(params)
+    return float(loss), grads_by_name(grads)
+
+
+def port_classifier_loss_grads(pm, net, batch, train=False):
+    loss = pm.loss(net, torch.Generator().manual_seed(0), *(t(a) for a in batch), train=train)
+    names = [n for n, _ in net.named_parameters()]
+    grads = torch.autograd.grad(loss, list(net.parameters()), allow_unused=True,
+                                materialize_grads=True)
+    return float(loss.detach()), {n: g.numpy() for n, g in zip(names, grads)}
+
+
+def hold_loss_grads(port, ref):
+    """Loss rtol CLASSIFIER_RTOL, every gradient within CLASSIFIER_GRAD_TOL
+    of the largest."""
+    (pl, pg), (jl, jg) = port, ref
+    np.testing.assert_allclose(pl, jl, rtol=CLASSIFIER_RTOL)
+    assert sorted(pg) == sorted(jg)
+    scale = max(np.abs(g).max() for g in jg.values())
+    assert scale > 0
+    for name in jg:
+        np.testing.assert_allclose(pg[name], jg[name], rtol=CLASSIFIER_RTOL,
+                                   atol=CLASSIFIER_GRAD_TOL * scale, err_msg=name)
