@@ -278,9 +278,41 @@
    (B=256, N=279, no time, no cond) in both types and check it at the edges
    with a 0-wide per-set feature (EPiCDiscriminator3's jet trunk: 2 sets a
    row, no mask).
-9. Prints the `kernels` JSON line (the launches of the training, eval,
-   family, dataset and classifier phases under `launches_by_path` too), the
-   card line again, and as the last line {"ok": true, "device": {...}}.
+9. The phases of the flat models, the LHCO chain, the MoE transformer and
+   the gaussian time with normaliser training (`slice16` lines, then their
+   total), each composed from configs/:
+   - lhco/jet_features CLI: train.main on 20,000 synthetic events,
+     trainer=smoke (2 epochs, batch 1024), the shipped FlatEvalCallback
+     (ode_steps 100, batch 1024, EMA weights) in the test pass: the median
+     step, the generation time, finite W1s; 4 steps card against the CPU
+     (pinned draws, each loss within 1e-4 relative). Its run is stage 1
+     below;
+   - gen_challenge CLI: 2 epochs on the synthetic folds, both shipped
+     callbacks (sideband and `sr_`, ode_steps 200) with their plots off:
+     finite W1s; whether matplotlib imports on the machine;
+   - LHCO two-stage chain (particle_fm_tpu_torch/lhco_chain.py): stage 1
+     loaded from that run, stage 2 lhco/x_jet and lhco/y_jet at full width
+     (EPiC, 279 particles, 6 layers, cond 4) with seeded weights; 2,048
+     events at batch 1024, midpoint, 100 steps, reclustered: exactly 6 x 198
+     x 2 x 2 EPiC launches, then the plain layer: constituents within 1e-3;
+   - fm_moe_transformer at full width (2 heads of 64, 4 experts), every
+     parameter re-drawn: 4 steps card against the CPU in float32 (1e-4), one
+     step's loss and gradients in bfloat16 closer to the CPU's bf16 than that
+     is to float32 (the 4 bf16 steps read beside), the card on the CPU's
+     expert choices (its own counted where they differ), 8 timed
+     steps at batch 1024 in each type, then its EMA weights served with
+     attn_impl=packed, scores_dtype=null, batch 1024, NFE 100, float32 and
+     bfloat16, as the serving phases serve (3 packed launches an
+     evaluation);
+   - flagship with model.t_emb=gaussian model.use_normaliser=true (max_n
+     1,000,000: fitted, updated, then frozen): 20 steps at batch 1024, both
+     normalisers' statistics against the CPU's updates
+     from the same batches (1e-5 of each statistic's largest magnitude),
+     then 1,024 jets at NFE 100 on the EPiC kernel against the plain layer
+     (1e-3), exactly 6 x 100 launches.
+10. Prints the `kernels` JSON line (the launches of the training, eval,
+   family, dataset, classifier and slice phases under `launches_by_path`
+   too), the card line again, and as the last line {"ok": true, "device": {...}}.
 
 Every failure exits non-zero before the last line. The script needs the
 repository beside it and a CUDA device; it imports nothing of JAX.
@@ -1297,15 +1329,16 @@ def serving_phase(torch, dev, name, config, model, net, wrapper_owner, wrapper_n
     # a small input against the CPU, with the same noise and weights
     gen = torch.Generator().manual_seed(2)
     mask = torch.from_numpy(ragged_mask(rs, cpu_batch, n, mask_lo)[..., None])
-    cond = torch.randn(cpu_batch, cond_dim, generator=gen)
+    cond = torch.randn(cpu_batch, cond_dim, generator=gen) if cond_dim else None
     z = torch.randn(cpu_batch, n, feats, generator=gen) * mask
+    cond_dev = None if cond is None else cond.to(dev)
     with torch.no_grad():
         field = model.vector_field(net, torch.full((cpu_batch,), 0.5, device=dev), z.to(dev),
-                                   cond.to(dev), mask.to(dev))
+                                   cond_dev, mask.to(dev))
     field_max = float(field.abs().max())
     if not (np.isfinite(field_max) and field_max > 0.0):
         fail(f"{name}: the vector field is identically zero or not finite (max abs {field_max})")
-    gpu = model.integrate(net, z.to(dev), cond.to(dev), mask.to(dev), "midpoint", 5).cpu()
+    gpu = model.integrate(net, z.to(dev), cond_dev, mask.to(dev), "midpoint", 5).cpu()
     cpu_net = copy.deepcopy(net).cpu()
     cpu = model.integrate(cpu_net, z, cond, mask, "midpoint", 5)
     cpu_err = float((gpu - cpu).abs().max())
@@ -1329,13 +1362,14 @@ def serving_phase(torch, dev, name, config, model, net, wrapper_owner, wrapper_n
 
 
 def serving_proto(model, batch: int) -> dict:
-    """The serving protocol of the serving phases: midpoint, cond and mask,
-    the datamodule's z-score undone with per-feature means and stds."""
+    """The serving protocol of the serving phases: midpoint, cond (where the
+    model takes one) and mask, the datamodule's z-score undone with
+    per-feature means and stds."""
     feats = model.features
     means = ([0.0, 0.0, 0.05, 0.0] + [0.0] * 9)[:feats]
     stds = ([0.1, 0.1, 0.06, 0.2] + [0.5] * 9)[:feats]
-    return dict(batch_size=batch, ode_solver="midpoint", has_cond=True, has_mask=True,
-                means=means, stds=stds)
+    return dict(batch_size=batch, ode_solver="midpoint", has_cond=bool(model.global_cond_dim),
+                has_mask=True, means=means, stds=stds)
 
 
 def frob(x) -> float:
@@ -1401,6 +1435,7 @@ def bf16_serving_phase(torch, dev, name, config, model, net, wrapper_owner, wrap
 
     # 4 midpoint steps on a full batch: kernel against plain, and plain bf16 against float32
     m, c = (torch.from_numpy(a[:batch]).to(dev) for a in reqs[0])
+    c = c if model.global_cond_dim else None
     z = torch.randn(m.shape[0], model.num_particles, model.features,
                     generator=torch.Generator().manual_seed(3)).to(dev) * m
     k16 = model16.integrate(net16, z, c, m, "midpoint", BF16_CHECK_STEPS)
@@ -3130,6 +3165,449 @@ def classifier_phases(torch, dev, counted) -> dict:
             "classifier HL (jetclass_classifier_hl)": {"kernel": None, **hl}}
 
 
+# slice 16: the flat models, the LHCO chain, the MoE transformer, gaussian time and normaliser
+SLICE_CHECK_STEPS = 4  # train steps of the card-against-CPU checks
+SLICE_CPU_BATCH = 256  # sets a step there
+SLICE_TRAIN_STEPS = 8  # timed train steps of the MoE transformer, each type
+STEP_LOSS_RTOL = 1e-4
+CHAIN_EVENTS = 2048
+CHAIN_BATCH = 1024
+CHAIN_ODE_STEPS = 100  # 198 evaluations
+NORM_STEPS = 20
+NORM_MAX_N = 1_000_000  # real particles before the normalisers freeze: some 8 batches
+NORM_STATS_TOL = 1e-5  # of each statistic's largest magnitude, card against CPU
+
+
+def pinned_steps(torch, model, net, batches, where, seed, lr=1e-3):
+    """`len(batches)` steps of the port's train step from a copy of `net` on
+    `where` with a fresh AdamW at constant lr, t and the noise pinned to
+    numpy draws from `seed`; (losses, the network after them)."""
+    from particle_fm_tpu_torch.losses import flow_matching as ploss
+    from particle_fm_tpu_torch.training.step import (TrainState, _build_step_fn,
+                                                     make_optimizer)
+
+    rs = np.random.RandomState(seed)
+    net = copy.deepcopy(net).to(where)
+    opt = make_optimizer(lr=lr)
+    params = list(net.parameters())
+    state = TrainState(net=net, ema_params=[p.detach().clone() for p in params],
+                       opt_state=opt.init(params))
+    step = _build_step_fn(model, opt)
+    losses = []
+    for batch in batches:
+        x = batch[0]
+        t = torch.from_numpy(rs.rand(x.shape[0]).astype(np.float32)).to(where)
+        z = torch.from_numpy(rs.randn(*x.shape).astype(np.float32)).to(where)
+        with mock.patch.multiple(ploss, _sample_t=lambda g, b, d: t, _normal=lambda g, s, d: z):
+            losses.append(float(step(state, torch.Generator(where),
+                                     *[None if a is None else a.to(where) for a in batch])))
+    return losses, net
+
+
+def params_gap(torch, a, b) -> float:
+    """Largest |difference| of two networks' parameters and buffers over the largest |value|."""
+    sa, sb = a.state_dict(), b.state_dict()
+    scale = max(float(v.float().abs().max()) for v in sb.values() if v.numel())
+    return max(float((sa[k].float().cpu() - sb[k].float().cpu()).abs().max())
+               for k in sb if sb[k].numel()) / scale
+
+
+def cpu_expert_choice(torch):
+    """Patches of nets/moe.py::expert_choice: (record, replay, moved). Under
+    `record` the CPU's choices are kept; under `replay` the card takes them
+    in the same order, and `moved` gets, call by call, the number of tokens
+    the card's own choice would have routed otherwise (a choice is discrete:
+    scores that nearly tie at the C-th place fall either way on the last
+    bits)."""
+    from particle_fm_tpu_torch.nets import moe as pmoe
+
+    choice, kept, moved = pmoe.expert_choice, [], []
+
+    def on_cpu(scores, c):
+        kept.append(choice(scores, c))
+        return kept[-1]
+
+    def on_card(scores, c):
+        own, want = choice(scores, c), kept[len(moved)].to(scores.device)
+        picked = [torch.nn.functional.one_hot(i, scores.shape[-1]).sum(-2) for i in (own, want)]
+        moved.append(int((picked[0] != picked[1]).sum()) // 2)
+        return want
+
+    return (mock.patch.object(pmoe, "expert_choice", on_cpu),
+            mock.patch.object(pmoe, "expert_choice", on_card), moved)
+
+
+def card_against_cpu_steps(torch, name, model, net, batches, dev, seed) -> dict:
+    """SLICE_CHECK_STEPS pinned steps on the CPU and on the card from the
+    same weights, the card on the CPU's expert choices where the network
+    routes (the MoE): every step's loss within STEP_LOSS_RTOL relative."""
+    record, replay, moved = cpu_expert_choice(torch)
+    with record:
+        cpu, cpu_net = pinned_steps(torch, model, net, batches, torch.device("cpu"), seed)
+    with replay:
+        card, card_net = pinned_steps(torch, model, net, batches, dev, seed)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    if not (np.isfinite(card).all() and rel <= STEP_LOSS_RTOL):
+        fail(f"{name}: {len(batches)} steps, card against CPU, losses {card} vs {cpu} "
+             f"(rel {rel}, limit {STEP_LOSS_RTOL})")
+    return {"steps": len(batches), "sets_a_step": int(batches[0][0].shape[0]),
+            "losses_card": card, "losses_cpu": cpu, "max_loss_rel_err": rel,
+            "params_gap_over_largest": params_gap(torch, card_net, cpu_net),
+            **({"tokens_the_card_would_route_otherwise": moved} if moved else {}),
+            "_cpu_net": cpu_net, "_card_net": card_net}
+
+
+def split_batches(torch, split, n: int, b: int):
+    """The first n batches of b sets of a split, as CPU tensors (x, mask, cond)."""
+    return [tuple(None if a is None else torch.from_numpy(np.ascontiguousarray(a[i * b:(i + 1) * b]))
+                  for a in (split.x, split.mask, split.cond)) for i in range(n)]
+
+
+def flat_cli(torch, dev, counted, name, experiment, overrides):
+    """train.main on a flat experiment with every train step timed; the
+    run's objects, seconds, launches (none: the flat MLP has no kernel) and
+    the median step."""
+    from particle_fm_tpu_torch.training import trainer as ptrainer
+
+    patch, secs = timed_steps(torch, dev, ptrainer)
+    with patch:
+        metrics, objs, cli_s, got, _ = dataset_cli(torch, name, experiment, overrides, counted)
+    expect(f"{experiment} CLI", got)
+    trainer = objs["trainer"]
+    finite_history(experiment, trainer.metrics_history, ("train_loss", "val_loss"))
+    return metrics, objs, cli_s, got, median_step(secs, trainer.datamodule.batch_size)
+
+
+def jet_features_phase(torch, dev, counted) -> dict:
+    """lhco/jet_features (LHCO stage 1: the flat model on 10 dijet features,
+    cond mjj) through train.main, trainer=smoke (2 epochs at batch 1024) on
+    20,000 synthetic events, and the shipped FlatEvalCallback in the test
+    pass (EMA weights, ode_steps 100, batch 1024) on the whole test split;
+    finite W1s; then SLICE_CHECK_STEPS steps card against CPU. The run
+    directory is stage 1 of the chain phase."""
+    from particle_fm_tpu_torch.eval.callbacks import FlatEvalCallback
+    from particle_fm_tpu_torch.models.flow_matching_flat import FlatFlowMatchingModel
+
+    overrides = ["data.synthetic=true", "data.synthetic_num_events=20000", "trainer=smoke"]
+    metrics, objs, cli_s, got, step = flat_cli(torch, dev, counted, "lhco_jet_features",
+                                               "lhco/jet_features", overrides)
+    trainer, model, dm = objs["trainer"], objs["model"], objs["datamodule"]
+    (cb,) = trainer.callbacks
+    if (not isinstance(model, FlatFlowMatchingModel) or type(cb) is not FlatEvalCallback
+            or (model.features, model.cond_dim, cb.ode_steps, cb.generation_batch_size)
+            != (10, 1, 100, 1024) or dm.batch_size != 1024):
+        fail(f"lhco/jet_features: not the shipped experiment: {model}, {cb}")
+    keys = [f"w1_feature_{f}_mean" for f in range(10)] + ["w1_features_mean"]
+    if not (all(np.isfinite(metrics.get(k, np.nan)) for k in keys)
+            and metrics.get("generation_time", 0) > 0):
+        fail(f"lhco/jet_features: the test pass gave no finite W1s or no time: {metrics}")
+    check = card_against_cpu_steps(torch, "lhco/jet_features", model, model.init(device=dev),
+                                   split_batches(torch, dm.train, SLICE_CHECK_STEPS, 1024), dev, 21)
+    return {"overrides": overrides, "cli_s": cli_s, "train_events": len(dm.train),
+            "test_vectors": len(dm.tensor_test), "train_step": step,
+            "generation_time_s": metrics["generation_time"],
+            "generated": min(cb.num_samples, len(dm.tensor_test)),
+            "test_metrics": {k: metrics[k] for k in keys},
+            "card_vs_cpu": {k: v for k, v in check.items() if not k.startswith("_")},
+            "launches": 0, "_run_dir": objs["out_dir"]}
+
+
+def gen_challenge_phase(torch, dev, counted) -> dict:
+    """gen_challenge/gen_challenge through train.main on the synthetic folds
+    (4,000 events), trainer=smoke and 2 epochs (the experiment's 500 cut),
+    both shipped callbacks (sideband `val` and signal-region `val_sr`, ode
+    steps 200, EMA weights) at epoch 0 and in the test pass with their plots
+    off; finite W1s of both, whether matplotlib imports here."""
+    import importlib.util
+
+    overrides = ["data.synthetic=true", "trainer=smoke", "trainer.max_epochs=2",
+                 "callbacks.gen_challenge_eval.make_plots=false",
+                 "callbacks.gen_challenge_eval_sr.make_plots=false"]
+    metrics, objs, cli_s, got, step = flat_cli(torch, dev, counted, "gen_challenge",
+                                               "gen_challenge/gen_challenge", overrides)
+    trainer, dm = objs["trainer"], objs["datamodule"]
+    cbs = trainer.callbacks
+    if [(cb.split, cb.metric_prefix, cb.ode_steps, cb.make_plots) for cb in cbs] != [
+            ("val", "", 200, False), ("val_sr", "sr_", 200, False)]:
+        fail(f"gen_challenge: not the shipped callbacks: {cbs}")
+    keys = [f"{p}w1_{f}_mean" for p in ("", "sr_")
+            for f in ("mj1", "delta_mj", "tau41_j1", "tau41_j2", "features")]
+    if not all(np.isfinite(metrics.get(k, np.nan)) for k in keys):
+        fail(f"gen_challenge: the test pass gave no finite W1s: {metrics}")
+    return {"overrides": overrides, "cli_s": cli_s, "train_events": len(dm.train),
+            "train_step": step, "matplotlib_imports": importlib.util.find_spec("matplotlib")
+            is not None, "test_metrics": {k: metrics[k] for k in keys},
+            "generation_time_s": {p: metrics[f"{p}generation_time"] for p in ("", "sr_")},
+            "launches": 0}
+
+
+def lhco_chain_phase(torch, ops, dev, counted, stage1_dir: str) -> dict:
+    """The LHCO two-stage chain (particle_fm_tpu_torch/lhco_chain.py) in
+    memory: stage 1 the jet_features run loaded from its directory (best
+    checkpoint, EMA weights), stage 2 lhco/x_jet and lhco/y_jet at their
+    shipped width (EPiC, 279 particles, hidden 128, 6 layers, cond 4 on both
+    paths) with seeded weights on their synthetic datamodules; CHAIN_EVENTS
+    events at batch CHAIN_BATCH, midpoint, CHAIN_ODE_STEPS steps, anti-kt
+    reclustered: exactly 6 x 198 x 2 x 2 EPiC launches; then the same chain
+    with the plain EPiC layer: the constituents of both jets within PATH_TOL."""
+    from particle_fm_tpu_torch import lhco_chain
+
+    stage1 = lhco_chain.load_stage(stage1_dir, device=dev)
+    stages = []
+    for seed, experiment in ((0, "lhco/x_jet"), (1, "lhco/y_jet")):
+        model, dm, _ = compose_training([f"experiment={experiment}", "data.synthetic=true"])
+        dm.setup()
+        if (model.num_particles, model.hidden_dim, model.layers, model.global_cond_dim,
+                model.local_cond_dim) != (279, 128, 6, 4, 4):
+            fail(f"LHCO chain: {experiment} is not at its shipped width: {model}")
+        stages.append(lhco_chain.Stage(model, model.init(seed=seed, device=dev), dm))
+
+    def run():
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        out = lhco_chain.generate_lhco_events(stage1, *stages, n_samples=CHAIN_EVENTS,
+                                              ode_steps=CHAIN_ODE_STEPS, batch_size=CHAIN_BATCH,
+                                              recluster=True)
+        return out, time.perf_counter() - t0
+
+    reset(counted)
+    (payload, timings), secs = run()  # the main path
+    got = launched(counted)
+    evals = 2 * (CHAIN_ODE_STEPS - 1)
+    n_batches = -(-CHAIN_EVENTS // CHAIN_BATCH)
+    expect("LHCO chain", got, epic_layer=stages[0].model.layers * evals * n_batches * 2)
+    with mock.patch.object(ops, "epic_layer", ops.epic_layer_reference):
+        (plain, plain_timings), plain_secs = run()
+    for k in ("mask", "mask_y", "jet_features", "mjj_cond"):
+        if not np.array_equal(payload[k], plain[k]):
+            fail(f"LHCO chain: {k} differs between the kernel and the plain run")
+    errs = {k: float(np.abs(payload[k] - plain[k]).max()) for k in ("constituents",
+                                                                    "constituents_y")}
+    for k in ("constituents", "constituents_y"):
+        m = payload["mask" if k == "constituents" else "mask_y"]
+        if not (np.isfinite(payload[k]).all() and errs[k] <= PATH_TOL
+                and np.abs(payload[k][m[..., 0] == 0]).max(initial=0.0) == 0.0):
+            fail(f"LHCO chain: {k} not finite, padding not zero, or kernel against plain "
+                 f"{errs[k]} (limit {PATH_TOL})")
+    if payload["clustered_jets"].shape != (CHAIN_EVENTS, 2, 4):
+        fail(f"LHCO chain: clustered jets of shape {payload['clustered_jets'].shape}")
+    return {"config": "stage 1: the lhco/jet_features run above; stage 2: lhco/x_jet and "
+                      "lhco/y_jet (seeded weights), recluster", "events": CHAIN_EVENTS,
+            "batch": CHAIN_BATCH, "ode_steps": CHAIN_ODE_STEPS, "evaluations": evals,
+            "kernel_s": secs, "plain_s": plain_secs, "kernel_timings": timings,
+            "plain_timings": plain_timings, "max_abs_diff_kernel_vs_plain": errs,
+            "limit": PATH_TOL, "mean_multiplicity": {
+                "x": float(payload["mask"].sum(axis=(1, 2)).mean()),
+                "y": float(payload["mask_y"].sum(axis=(1, 2)).mean())},
+            "launches": got["epic_layer"]}
+
+
+def moe_transformer_phase(torch, sa, dev, counted) -> dict:
+    """jetnet/fm_moe_transformer at its shipped width (model_dim 128, 3
+    layers, 2 heads of 64, 4 experts of 256, capacity 15 of 30 tokens; the
+    einsum attention with bf16 scores, as shipped) on 8,192 synthetic
+    JetNet-30 jets, every parameter re-drawn: SLICE_CHECK_STEPS steps card
+    against CPU (SLICE_CPU_BATCH sets) in float32 and, in bfloat16, one
+    step's loss and gradients on the card closer to the CPU's bfloat16 than
+    that is to float32 (`bf16_gate`; the 4 bf16 steps read beside, ungated);
+    in both the card takes the CPU's expert choices and counts where its own
+    differ; SLICE_TRAIN_STEPS steps at
+    batch 1024 in each type (no kernel launch); then the float32 EMA weights
+    served with attn_impl=packed, scores_dtype=null (path A's setting) at
+    batch 1024, NFE 100, float32 and bfloat16 (serving_phase,
+    bf16_serving_phase): 3 packed launches an evaluation, 300 a batch."""
+    base = ["experiment=jetnet/fm_moe_transformer", "data.synthetic=true",
+            "data.synthetic_num_jets=8192"]
+    model, dm, cfg = compose_training(base)
+    dm.setup()
+    te = model.net_config["te_config"]
+    if (te["model_dim"], te["num_layers"], te["mha_config"]["num_heads"], te["moe_config"],
+            model.num_particles, dm.batch_size) != (128, 3, 2, dict(
+                num_experts=4, hddn_dim=256, capacity_factor=2.0), 30, 1024):
+        fail(f"MoE transformer: not the shipped experiment: {model.net_config}")
+    trainer, state = train_setup(torch, model, dm, cfg, dev)
+    redraw_parameters(torch, state.net, seed=13)
+    with torch.no_grad():
+        for e, p in zip(state.ema_params, state.params()):
+            e.copy_(p)
+    start = copy.deepcopy(state.net)
+    batches = split_batches(torch, dm.train, SLICE_CHECK_STEPS, SLICE_CPU_BATCH)
+    f32 = card_against_cpu_steps(torch, "MoE transformer", model, start, batches, dev, 31)
+    model16 = dataclasses.replace(model, dtype="bfloat16")
+    net16 = model16.init(device=dev)
+    net16.load_state_dict(start.state_dict())
+    # bf16: one step's loss and gradients gated (bf16_gate), the card on the CPU's
+    # expert choice (its own counted where it differs: a choice is discrete, and
+    # bf16 rounding moves near-tied scores across the C-th place); over 4 AdamW
+    # steps the entries with gradients near 0 move by +-lr on the sign of their
+    # rounding, so the 4-step readings are printed, not gated
+    cpu = torch.device("cpu")
+    first = list(batches[0])
+    record, replay, moved = cpu_expert_choice(torch)
+    with record:
+        cpu16 = pinned_loss_and_grads(torch, model16, copy.deepcopy(net16).to(cpu), first, 31)
+    with replay:
+        card16 = pinned_loss_and_grads(torch, model16, net16,
+                                       [None if a is None else a.to(dev) for a in first], 31)
+    gate16 = bf16_gate(torch, "MoE transformer bf16, card against CPU", card16, cpu16,
+                       pinned_loss_and_grads(torch, model, copy.deepcopy(start).to(cpu), first,
+                                             31))
+    gate16["tokens_the_card_would_route_otherwise"] = {
+        "per_layer": moved, "slots_per_layer": SLICE_CPU_BATCH * 4 * 15}
+    card16, card16_net = pinned_steps(torch, model16, net16, batches, dev, 31)
+    cpu16, cpu16_net = pinned_steps(torch, model16, net16, batches, cpu, 31)
+    if not np.isfinite(card16).all():
+        fail(f"MoE transformer bf16: non-finite losses {card16}")
+    gap = (frob(np.subtract(card16, cpu16)), frob(np.subtract(cpu16, f32["losses_cpu"])))
+    pgap = (params_gap(torch, card16_net, cpu16_net), params_gap(torch, cpu16_net,
+                                                                 f32["_cpu_net"]))
+
+    data = trainer._place_train_split()
+    timed = {}
+    for name, tr, st in (("float32", trainer, state),
+                         ("bfloat16", *train_setup(torch, model16, dm, cfg, dev))):
+        if name == "bfloat16":
+            st.net.load_state_dict(start.state_dict())
+        reset(counted)
+        losses, secs = run_steps(torch, tr, st, data, SLICE_TRAIN_STEPS)
+        expect(f"MoE transformer training ({name})", launched(counted))
+        if not np.isfinite(losses).all():
+            fail(f"MoE transformer ({name}): non-finite loss {losses}")
+        timed[name] = {"losses": losses, "median_step_ms": 1e3 * float(np.median(secs[2:])),
+                       "jets_per_s": dm.batch_size / float(np.median(secs[2:]))}
+
+    served, _, _ = compose_training(base + [
+        "model.net_config.te_config.mha_config.attn_impl=packed",
+        "model.net_config.te_config.mha_config.scores_dtype=null"])
+    net = served.init(device=dev)
+    net.load_state_dict(state.ema_network().state_dict())
+    run = dict(name="MoE transformer", config="jetnet/fm_moe_transformer, attn_impl=packed, "
+               "scores_dtype=null, the EMA weights of the float32 run (every parameter "
+               "re-drawn before it)", model=served, net=net, wrapper_owner=sa,
+               wrapper_name="packed_short_attention", launches_per_eval=3,
+               requests=(1024, 7), batch=1024, mask_lo=10)
+    serving = serving_phase(torch, dev, counted=counted, **run)
+    serving16 = bf16_serving_phase(torch, dev, counted=counted, f32=serving, **run)
+    return {"card_vs_cpu_f32": {k: v for k, v in f32.items() if not k.startswith("_")},
+            "card_vs_cpu_bf16_one_step": gate16,
+            "card_vs_cpu_bf16_4_steps_read": {"losses_card": card16, "losses_cpu": cpu16,
+                                              "loss_gap_vs_cpu_bf16_to_f32": gap,
+                                              "params_gap_vs_cpu_bf16_to_f32": pgap},
+            "train_batch_1024": timed,
+            "serving": {k: v for k, v in serving.items() if not k.startswith("_")},
+            "serving_bf16": serving16, "launches": serving["launches"],
+            "launches_bf16": serving16["launches"]}
+
+
+def gaussian_normaliser_phase(torch, ops, dev, counted) -> dict:
+    """fm_tops150_cond with model.t_emb=gaussian model.use_normaliser=true
+    (max_n NORM_MAX_N) on synthetic JetNet-150: NORM_STEPS train steps at
+    batch 1024 (no kernel launch), the feature statistics fitted, updated and
+    frozen within them; the statistics of both normalisers against the CPU's updates
+    from the same batches within NORM_STATS_TOL of each statistic's largest
+    magnitude; then 1,024 jets from the EMA weights (the folded route takes
+    the gaussian embedding), NFE 100, on the EPiC kernel against the plain
+    layer within PATH_TOL, with exactly 6 x 100 launches."""
+    # max_n 1,000,000 in place of the config's 2,000, which the first batch of 1024
+    # jets (some 128,000 particles) passes: the fit, then Welford updates, then frozen
+    model, dm, cfg = compose_training(["experiment=jetnet/fm_tops150_cond", "data.synthetic=true",
+                                       "model.t_emb=gaussian", "model.use_normaliser=true",
+                                       f"model.normaliser_config.max_n={NORM_MAX_N}"])
+    dm.setup()
+    trainer, state = train_setup(torch, model, dm, cfg, dev)
+    cpu_net = copy.deepcopy(state.net).cpu()
+    w0 = state.net.flows[0].gfp.W.detach().clone()
+    data = trainer._place_train_split()
+    from particle_fm_tpu_torch.training.trainer import step_seed
+
+    gen, seen, losses, secs, epoch = torch.Generator(dev), [], [], [], 0
+    reset(counted)
+    while len(losses) < NORM_STEPS:
+        for batch in trainer._epoch_batches(data, epoch):
+            gen.manual_seed(step_seed(trainer.seed, state.step))
+            seen.append([a.cpu() for a in batch])
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            losses.append(float(trainer.train_step(state, gen, *batch)))
+            sync(torch, dev)
+            secs.append(time.perf_counter() - t0)
+            if len(losses) == NORM_STEPS:
+                break
+        epoch += 1
+    expect("gaussian + normaliser training", launched(counted))
+    if not np.isfinite(losses).all():
+        fail(f"gaussian + normaliser: non-finite loss {losses}")
+    for x, m, c in seen:
+        cpu_net.normalise(x, m, update_stats=True)
+        cpu_net.normalise_cond(c, update_stats=True)
+    stats = {}
+    for name in ("normaliser", "ctxt_normaliser"):
+        for leaf in ("means", "m2", "vars", "n"):
+            card = getattr(getattr(state.net, name), leaf).cpu()
+            cpu = getattr(getattr(cpu_net, name), leaf)
+            stats[f"{name}.{leaf}"] = float((card - cpu).abs().max() / cpu.abs().max())
+    want_n = 0.0
+    for _, m, _ in seen:  # the counts of the batches before the statistics froze
+        want_n += float(m.sum()) if want_n < NORM_MAX_N else 0.0
+    updates = sum(1 for i in range(len(seen)) if sum(float(m.sum()) for _, m, _ in seen[:i])
+                  < NORM_MAX_N)
+    if max(stats.values()) > NORM_STATS_TOL or float(state.net.normaliser.n) != want_n or not (
+            1 < updates < NORM_STEPS):
+        fail(f"gaussian + normaliser: statistics card against CPU {stats} (limit "
+             f"{NORM_STATS_TOL}), n {float(state.net.normaliser.n)} (expected {want_n}), "
+             f"{updates} updates")
+    w_shrink = float((1 - state.net.flows[0].gfp.W.detach() / w0).abs().max())
+
+    mask, cond = test_inputs(torch, dm, 1024, dev)
+    ema = state.ema_network()
+
+    def sample():
+        return model.sample(ema, torch.Generator(dev).manual_seed(17), cond=cond, mask=mask,
+                            ode_solver="midpoint", ode_steps=ODE_STEPS)
+
+    reset(counted)
+    x, k_s, _, p_s, err = kernel_against_plain(torch, dev, "gaussian + normaliser", ops,
+                                               "epic_layer", sample)
+    n_eval = 2 * (ODE_STEPS - 1)
+    expect("gaussian + normaliser sampling", launched(counted), epic_layer=model.layers * n_eval)
+    return {"config": "fm_tops150_cond, model.t_emb=gaussian, model.use_normaliser=true, "
+                      f"model.normaliser_config.max_n={NORM_MAX_N}", "steps": NORM_STEPS, "losses": losses,
+            "median_step_ms": 1e3 * float(np.median(secs[2:])),
+            "stats_card_vs_cpu_over_largest": stats, "limit": NORM_STATS_TOL,
+            "normaliser_n": float(state.net.normaliser.n), "max_n": NORM_MAX_N,
+            "updates_before_frozen": updates,
+            "gaussian_W_largest_relative_change": w_shrink,
+            "sampling": {"jets": 1024, "nfe": n_eval, "kernel_s": k_s, "plain_s": p_s,
+                         "max_abs_diff_kernel_vs_plain": err, "largest_abs_x":
+                             float(x.abs().max())},
+            "launches": model.layers * n_eval}
+
+
+def slice16_phases(torch, ops, sa, dev, counted) -> dict:
+    """The five phases of the flat models, the LHCO chain, the MoE
+    transformer and the gaussian time with normaliser training, in order;
+    {path: result}, each printed as it ends."""
+    out = {}
+
+    def run(path, fn):
+        t1 = time.perf_counter()
+        res = fn()
+        print(json.dumps({"slice16": path, "phase_s": time.perf_counter() - t1,
+                          **{k: v for k, v in res.items() if not k.startswith("_")}}),
+              flush=True)
+        out[path] = res
+        return res
+
+    flat = run("lhco/jet_features CLI", lambda: jet_features_phase(torch, dev, counted))
+    run("gen_challenge CLI", lambda: gen_challenge_phase(torch, dev, counted))
+    run("LHCO two-stage chain", lambda: lhco_chain_phase(torch, ops, dev, counted,
+                                                          flat["_run_dir"]))
+    run("fm_moe_transformer", lambda: moe_transformer_phase(torch, sa, dev, counted))
+    run("flagship, gaussian time + normaliser",
+        lambda: gaussian_normaliser_phase(torch, ops, dev, counted))
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -3373,6 +3851,21 @@ def main() -> None:
     for path, res in classifier_phases(torch, dev, counted).items():
         print(json.dumps({"classifier": path, **res}), flush=True)
     print(json.dumps({"classifier_phases_s": time.perf_counter() - t0}), flush=True)
+
+    t0 = time.perf_counter()
+    res = slice16_phases(torch, ops, sa, dev, counted)
+    for kernel_name, path, launches in (
+            ("epic_layer", "LHCO two-stage chain (stage 2, x and y jets)",
+             res["LHCO two-stage chain"]["launches"]),
+            ("packed_short_attention", "fm_moe_transformer (MoE transformer)",
+             res["fm_moe_transformer"]["launches"]),
+            ("packed_short_attention_bf16", "fm_moe_transformer (MoE transformer, bf16)",
+             res["fm_moe_transformer"]["launches_bf16"]),
+            ("epic_layer", "flagship, gaussian time + normaliser (sampling)",
+             res["flagship, gaussian time + normaliser"]["launches"])):
+        kernels[kernel_name]["launches"] += launches
+        kernels[kernel_name]["launches_by_path"][path] = launches
+    print(json.dumps({"slice16_phases_s": time.perf_counter() - t0}), flush=True)
 
     kernels = list(kernels.values())
     print(json.dumps({"kernels": kernels}))

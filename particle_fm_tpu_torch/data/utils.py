@@ -1,6 +1,7 @@
 """Data preprocessing and jet kinematics (host-side numpy); the functions of
-particle_fm_tpu/data/utils.py that data/jetnet.py, the metrics and the
-substructure use, with the p4 helpers they rest on.
+particle_fm_tpu/data/utils.py that data/jetnet.py, the metrics, the
+substructure, the plots and the LHCO chain use, with the p4 helpers they
+rest on.
 """
 
 from __future__ import annotations
@@ -166,6 +167,28 @@ def get_jet_data(consts: np.ndarray) -> np.ndarray:
     """(.., N, [pt, y, phi]) constituents -> jet (pt, y, phi, m)."""
     sum_p4 = np.sum(p4s_from_ptyphims(consts[..., :3]), axis=-2)
     return ptyphims_from_p4s(sum_p4, phi_ref=0)
+
+
+def get_nonrel_consts(jets: np.ndarray, particles: np.ndarray) -> np.ndarray:
+    """Relative (ptrel, etarel, phirel) constituents of jets (B, [pt, eta,
+    phi, ...]) -> absolute (pt, eta, phi), phi wrapped into [-pi, pi];
+    particles with pt 0 keep eta and phi 0."""
+    pt = jets[..., 0:1]
+    eta = jets[..., 1:2]
+    phi = jets[..., 2:3]
+    mask = (particles[..., 0] > 0).astype(particles.dtype)[..., None]
+    nr_eta = particles[..., 1:2] + eta[:, None, :]
+    nr_phi = particles[..., 2:3] + phi[:, None, :]
+    nr_phi = np.where(nr_phi > np.pi, nr_phi - 2 * np.pi, nr_phi)
+    nr_phi = np.where(nr_phi < -np.pi, nr_phi + 2 * np.pi, nr_phi)
+    nr_pt = particles[..., 0:1] * pt[:, None, :]
+    return np.concatenate([nr_pt, nr_eta * mask, nr_phi * mask], axis=-1)
+
+
+def get_pt_of_selected_particles(particle_data, selected_particles=(1, 3, 10)):
+    """pT of the k-th hardest particle of each jet, for each k: (K, B)."""
+    sorted_pt = np.sort(particle_data[:, :, 2])[:, ::-1]
+    return np.array([sorted_pt[:, k - 1] for k in selected_particles])
 
 
 def import_h5py():

@@ -22,9 +22,18 @@ probabilities, computed on the host without sklearn; an EPiC
 discriminator's copy is folded once, so its predictions run the fused EPiC
 kernel on the card.
 
-Not ported: the plots (`make_plots=True` raises until eval/plotting.py is
-ported) and the other callbacks of the JAX module (flat, gen-challenge,
-device stats): a config that names one raises through config/core.py.
+`FlatEvalCallback` and `GenChallengeEvalCallback` evaluate the flat models
+(models/flow_matching_flat.py: LHCO stage 1, GenChallenge): the W1 of each
+feature and their mean between generated and held-out vectors, under
+`metric_prefix` (`sr_` for a signal-region twin), and the generation time;
+batch i draws its noise from a generator seeded `serving.chunk_seed(seed,
+i)`, as `generate_data` seeds a batch.
+
+With `make_plots` the callbacks draw the JAX callbacks' figures through
+eval/plotting.py, which is imported only then: where matplotlib is missing,
+plotting raises an ImportError that names it, and a run never skips its
+plots without saying so. Not ported: `DeviceStatsCallback`; a config that
+names it raises through config/core.py.
 """
 
 from __future__ import annotations
@@ -264,8 +273,10 @@ class FinalEvalCallback(JetNetEvalCallback):
     substructure W1 (tau21/tau32/d2), FPD/KPD on the EFPs, saved arrays.
 
     Parity: callbacks/jetnet_final_eval.py:37-438 (the on_test_end skeleton:
-    best/last EMA checkpoint selection happens in trainer.test()). The plots
-    are not ported: `make_plots=True` raises.
+    best/last EMA checkpoint selection happens in trainer.test()). With
+    `make_plots`: the substructure, the master comparison grid, the
+    single-jet grids of both samples and, where the datamodule has one-hot
+    labels, one grid per jet type, beside the saved arrays.
     """
 
     every_n_epochs: int | str = 1_000_000_000  # effectively test-only
@@ -275,12 +286,6 @@ class FinalEvalCallback(JetNetEvalCallback):
     compute_fpd_kpd: bool = True
     make_plots: bool = True
     on_test: bool = True
-
-    def __post_init__(self):
-        if self.make_plots:
-            raise NotImplementedError(
-                "FinalEvalCallback(make_plots=True): the plots (eval/plotting.py) are not "
-                "ported; pass make_plots=False")
 
     def __call__(self, trainer) -> Optional[dict]:
         if not getattr(trainer, "testing", False) and not should_log(
@@ -318,6 +323,10 @@ class FinalEvalCallback(JetNetEvalCallback):
                 )
                 metrics[f"w1_{key}_mean"] = mean
                 metrics[f"w1_{key}_std"] = std
+            if self.make_plots:
+                from particle_fm_tpu_torch.eval.plotting import plot_substructure
+
+                plot_substructure(hlvs_real, hlvs_gen, os.path.join(out_dir, "substructure.png"))
         if self.compute_fpd_kpd:
             # FPD/KPD on the EFP feature set
             e_real = efps(real[:n], device=device)
@@ -329,6 +338,21 @@ class FinalEvalCallback(JetNetEvalCallback):
             kpd_med, kpd_std = kpd(e_real, e_gen)
             metrics["kpd_median"] = kpd_med
             metrics["kpd_std"] = kpd_std
+
+        if self.make_plots:
+            from particle_fm_tpu_torch.eval.plotting import (plot_data, plot_data_per_type,
+                                                             plot_single_jets)
+
+            plot_data(real[:n], gen, os.path.join(out_dir, "final_comparison.png"))
+            plot_single_jets(gen, save_path=os.path.join(out_dir, "single_jets_gen.png"))
+            plot_single_jets(real[:n], color="#1A52E2",
+                             save_path=os.path.join(out_dir, "single_jets_real.png"))
+            dm = trainer.datamodule
+            labels = getattr(dm, f"labels_{self.split}", None)
+            if labels is not None and len(labels) >= n:
+                plot_data_per_type(real[:n], gen, labels[:n],
+                                   type_names=getattr(dm, "used_jet_types", None),
+                                   save_dir=out_dir)
 
         with open(os.path.join(out_dir, "final_eval_metrics.yml"), "w") as f:
             yaml.safe_dump({k: float(v) for k, v in metrics.items()}, f)
@@ -393,8 +417,9 @@ class CaloEvalCallback:
     absolute CDF difference, plus energy-weighted z/alpha/R variants and the
     sum(E)/E_inc response on Regular(100, 0.6, 1.1). Metric names:
     features_E, features_z, features_alpha, features_R, features_*_weighted,
-    weighted_z, w1p_mean, w1_response, generation_time. The plots are not
-    ported: `make_plots=True` raises."""
+    weighted_z, w1p_mean, w1_response, generation_time. With `make_plots`,
+    point-cloud grids of the generated and the real showers under
+    `callback_images/`."""
 
     every_n_epochs: int | str = 10
     num_showers: int = 2000
@@ -411,12 +436,6 @@ class CaloEvalCallback:
     int_bins: tuple = (45, 16, 9)  # z, alpha, R integer axes
     response_hist: tuple = (100, 0.6, 1.1)
     make_plots: bool = False
-
-    def __post_init__(self):
-        if self.make_plots:
-            raise NotImplementedError(
-                "CaloEvalCallback(make_plots=True): the plots (eval/plotting.py) are not "
-                "ported; pass make_plots=False")
 
     def __call__(self, trainer) -> Optional[dict]:
         if not getattr(trainer, "testing", False):
@@ -484,7 +503,123 @@ class CaloEvalCallback:
             resp_g = (gen_raw[..., 0] * mask[:n, :, 0]).sum(axis=1) / e_inc
             nb, lo, hi = self.response_hist
             out["w1_response"] = _hist_cdf_w1(resp_r, resp_g, np.linspace(lo, hi, int(nb) + 1))
+        if self.make_plots:
+            from particle_fm_tpu_torch.eval.plotting import plot_calo_showers
+
+            out_dir = os.path.join(trainer.artifacts_dir, "callback_images")
+            plot_calo_showers(gen_raw, mask[:n], save_path=os.path.join(
+                out_dir, f"showers_gen_epoch{trainer.epoch}.png"))
+            plot_calo_showers(np.asarray(real_raw), mask[:n], save_path=os.path.join(
+                out_dir, f"showers_real_epoch{trainer.epoch}.png"))
         return out
+
+
+@dataclass
+class FlatEvalCallback:
+    """Eval for the flat models (LHCO stage-1 jet features, GenChallenge):
+    the W1 of each feature between generated and held-out vectors, each
+    logged as `<prefix>w1_<label>_mean`/`_std`, their mean
+    `<prefix>w1_features_mean`, and `<prefix>generation_time`, the clock
+    started after the first batch. The generated vectors are un-normalised
+    with the datamodule's statistics and `normalize_sigma`. With
+    `make_plots`, per-feature histograms with ratio panels, the cond columns
+    first (un-normalised) when `plot_cond` is set."""
+
+    every_n_epochs: int | str = 10
+    num_samples: int = 10000
+    generation_batch_size: int = 1024
+    w1_num_batches: int = 40
+    use_ema: bool = True
+    ode_steps: int = 100
+    split: str = "test"
+    on_test: bool = False
+    seed: int = 9999
+    log_epoch_zero: bool = False
+    log_times: bool = True
+    make_plots: bool = False
+    plot_cond: bool = False
+    feature_labels: Optional[tuple] = None
+    metric_prefix: str = ""  # e.g. "sr_" for signal-region twins
+
+    def __call__(self, trainer) -> Optional[dict]:
+        if not getattr(trainer, "testing", False):
+            if trainer.epoch == 0 and not self.log_epoch_zero:
+                return None
+            if not should_log(self.every_n_epochs, trainer.epoch):
+                return None
+        import time
+
+        import torch
+
+        from particle_fm_tpu_torch.data.utils import inverse_normalize_tensor
+        from particle_fm_tpu_torch.serving import chunk_seed
+
+        dm = trainer.datamodule
+        real = getattr(dm, f"tensor_{self.split}")
+        cond = getattr(dm, f"tensor_conditioning_{self.split}")
+        n = min(self.num_samples, len(real))
+        net = eval_network(trainer, self.use_ema)
+        dev = next(net.parameters()).device
+        chunks = []
+        t0 = None  # the clock starts after the first (warm-up) batch
+        for i, lo in enumerate(range(0, n, self.generation_batch_size)):
+            hi = min(lo + self.generation_batch_size, n)
+            c = None if cond is None else torch.as_tensor(cond[lo:hi], device=dev)
+            gen = torch.Generator(dev).manual_seed(chunk_seed(self.seed, i))
+            out = trainer.model.sample(net, gen, n_samples=hi - lo, cond=c,
+                                       ode_steps=self.ode_steps)
+            chunks.append(out.cpu().numpy())  # the copy to the host is the fence
+            if t0 is None:
+                t0 = time.perf_counter()
+        gen_time = (time.perf_counter() - t0) if t0 is not None else 0.0
+        gen = np.concatenate(chunks, axis=0)
+        if dm.means is not None:
+            gen = inverse_normalize_tensor(gen, dm.means, dm.stds,
+                                           getattr(dm, "normalize_sigma", 5))
+        n_eval = min(n, len(real))
+        labels = self.feature_labels or [f"feature_{f}" for f in range(real.shape[-1])]
+        p = self.metric_prefix
+        metrics, w1s = {}, []
+        for f in range(real.shape[-1]):
+            mean, std = wasserstein_distance_batched(
+                real[:n, f], gen[:, f], num_eval_samples=min(n_eval, 5000),
+                num_batches=self.w1_num_batches)
+            metrics[f"{p}w1_{labels[f]}_mean"] = mean
+            metrics[f"{p}w1_{labels[f]}_std"] = std
+            w1s.append(mean)
+        metrics[f"{p}w1_features_mean"] = float(np.mean(w1s))
+        if self.log_times:
+            metrics[f"{p}generation_time"] = gen_time
+        if self.make_plots:
+            from particle_fm_tpu_torch.eval.plotting import plot_feature_ratios
+
+            real_p, gen_p, lab_p = real[:n], gen, list(labels)
+            if self.plot_cond and cond is not None:
+                cond_true = np.asarray(cond[:n])
+                if getattr(dm, "cond_means", None) is not None:
+                    cond_true = inverse_normalize_tensor(cond_true, dm.cond_means, dm.cond_stds,
+                                                         getattr(dm, "normalize_sigma", 5))
+                # [cond | features]: panel 0 is the conditioning variable
+                real_p = np.concatenate([cond_true, real_p], axis=1)
+                gen_p = np.concatenate([cond_true, gen_p], axis=1)
+                lab_p = [f"cond_{i}" for i in range(cond_true.shape[1])] + lab_p
+            plot_feature_ratios(real_p, gen_p, os.path.join(
+                trainer.artifacts_dir, "callback_images", f"{p}features_epoch{trainer.epoch}.png"),
+                labels=lab_p)
+        return metrics
+
+
+@dataclass
+class GenChallengeEvalCallback(FlatEvalCallback):
+    """GenChallenge eval: dijet features generated conditioned on mjj
+    against the held-out sideband split, or with split='<split>_sr' and
+    metric_prefix='sr_' against its signal-region twin (the mjj window the
+    model never trained on). Plots by default, the mjj panel first."""
+
+    make_plots: bool = True
+    plot_cond: bool = True
+    split: str = "val"
+    feature_labels: Optional[tuple] = ("mj1", "delta_mj", "tau41_j1", "tau41_j2")
 
 
 @dataclass

@@ -2,10 +2,12 @@
 
 The port carries the EPiC branch, the two PC-Droid transformer branches
 (`droid_fulltransformer`, `droid_fullcrossattention`) and MDMA (`mdma`), the
-last three configured through `net_config`, with the parameter-free time
-embeddings (sincos, cosine), self-conditioning (the field reads cat(x,
+last three configured through `net_config`, with the three time embeddings
+(sincos, cosine, and gaussian: the random projection `gfp` through the
+Dense layers `gfp_dense` and `gfp_out` with the activation between, always
+in float32 as the flax CNF's Dense layers have no dtype), self-conditioning (the field reads cat(x,
 x1_hat), x1_hat its own endpoint estimate, zeros when none is given), and the
-in-model normalisers of `CNFStack` with frozen statistics. The EPiC
+in-model normalisers of `CNFStack`. The EPiC
 branch takes `dropout`, which the JAX CNF hands its EPiC encoder; the
 flow-matching loss runs the network deterministic there, as here. The
 cosine ladder's frequency table is a non-persistent buffer built on the CPU
@@ -31,11 +33,13 @@ from typing import Any, Mapping
 import torch
 from torch import nn
 
+from particle_fm_tpu_torch.nets.common import WNDense, get_act
 from particle_fm_tpu_torch.nets.epic import EPiCEncoder
 from particle_fm_tpu_torch.nets.mdma import MDMA
 from particle_fm_tpu_torch.nets.norm_layer import IterativeNormLayer
 from particle_fm_tpu_torch.nets.transformer import FullCrossAttentionEncoder, FullTransformerEncoder
-from particle_fm_tpu_torch.nets.time_emb import cosine_frequencies, time_embedding
+from particle_fm_tpu_torch.nets.time_emb import (GaussianFourierProjection, cosine_frequencies,
+                                                 time_embedding)
 
 
 class CNF(nn.Module):
@@ -65,13 +69,19 @@ class CNF(nn.Module):
         dtype: torch.dtype | None = None,
     ):
         super().__init__()
-        if t_emb not in ("sincos", "cosine"):
-            raise NotImplementedError(f"t_emb={t_emb} is not ported")
+        if t_emb not in ("sincos", "cosine", "gaussian"):
+            raise NotImplementedError(f"Unknown time embedding t_emb={t_emb}")
         self.frequencies = frequencies
         self.t_emb = t_emb
+        self.activation = activation
         self.add_time_to_input = add_time_to_input
         self.self_cond = self_cond
         t_dim = 2 * frequencies
+        if t_emb == "gaussian":
+            self.gfp = GaussianFourierProjection(hidden_dim, generator=generator)
+            self.gfp_dense = WNDense(hidden_dim // 2 * 2, hidden_dim, use_weight_norm=False,
+                                     generator=generator)
+            self.gfp_out = WNDense(hidden_dim, t_dim, use_weight_norm=False, generator=generator)
         point_feats = 2 * features if self_cond else features
         in_feats = point_feats + t_dim if add_time_to_input else point_feats
         freqs = cosine_frequencies(t_dim) if t_emb == "cosine" else torch.empty(0)
@@ -117,6 +127,16 @@ class CNF(nn.Module):
             dtype=dtype,
         )
 
+    def time_embedding(self, t: torch.Tensor) -> torch.Tensor:
+        """t scalar or (B,) -> the per-set embedding (B, 2*frequencies), in t's type."""
+        if self.t_emb == "gaussian":
+            if t.ndim == 0:
+                t = t[None]
+            emb = get_act(self.activation)(self.gfp_dense(self.gfp(t)))
+            return self.gfp_out(emb)
+        freqs = self.cos_freqs if self.t_emb == "cosine" else None
+        return time_embedding(t, self.t_emb, self.frequencies, freqs)
+
     def forward(
         self,
         t: torch.Tensor,
@@ -130,8 +150,7 @@ class CNF(nn.Module):
         if self.self_cond:
             x = torch.cat([x, torch.zeros_like(x) if x_sc is None else x_sc], dim=-1)
         b, n, _ = x.shape
-        freqs = self.cos_freqs if self.t_emb == "cosine" else None
-        emb = time_embedding(t, self.t_emb, self.frequencies, freqs).to(x.dtype)
+        emb = self.time_embedding(t).to(x.dtype)
         # scalar sampling times give batch-1 embeddings; broadcast to x's batch
         emb = emb.expand(b, emb.shape[-1])
         if self.add_time_to_input:
@@ -142,7 +161,7 @@ class CNF(nn.Module):
 class CNFStack(nn.Module):
     """`n_transforms` CNFs applied in sequence, and the optional in-model
     normalisers (`normaliser` for the features, `ctxt_normaliser` for the
-    global cond) with frozen statistics."""
+    global cond), whose statistics the training loss updates."""
 
     def __init__(self, n_transforms: int = 1, features: int = 3, global_cond_dim: int = 0,
                  use_normaliser: bool = False, normaliser_config: Mapping[str, Any] | None = None,
@@ -169,11 +188,11 @@ class CNFStack(nn.Module):
         """Apply a single flow transform (for per-flow ODE integration)."""
         return self.flows[k](t, x, cond=cond, mask=mask, x_sc=x_sc)
 
-    def normalise(self, x, mask=None):
-        return self.normaliser(x, mask)
+    def normalise(self, x, mask=None, update_stats: bool = False):
+        return self.normaliser(x, mask, update_stats=update_stats)
 
-    def normalise_cond(self, cond):
-        return self.ctxt_normaliser(cond)
+    def normalise_cond(self, cond, update_stats: bool = False):
+        return self.ctxt_normaliser(cond, update_stats=update_stats)
 
     def reverse_norm(self, x, mask=None):
         return self.normaliser.reverse(x, mask)

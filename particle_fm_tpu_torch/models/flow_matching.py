@@ -235,7 +235,9 @@ class FlowMatchingModel:
         train: bool = False,
     ) -> torch.Tensor:
         """Masked training (`train=True`) or validation loss of the unfolded
-        network, with every draw from `generator`. In training,
+        network, with every draw from `generator`. With `use_normaliser`, x
+        and cond are normalised in the model; in training the normalisers'
+        statistics are updated from this batch first. In training,
         `cond_dropout` sets whole sets' cond to the null token (zeros),
         drawn first. With `self_cond` the field is the two-pass one: a pass
         without gradient gives the endpoint estimate x1_hat = y - tm*t*v
@@ -248,14 +250,11 @@ class FlowMatchingModel:
                 "weight norm's v and g (call unfold_weight_norm first)"
             )
         if self.use_normaliser:
-            if train:
-                raise NotImplementedError(
-                    "training with use_normaliser is not ported: the running statistics' "
-                    "update is not"
-                )
-            x = net.normalise(x, mask)
+            # in training the statistics are updated first (x's, then cond's) and
+            # each input normalised with what its layer has just learned
+            x = net.normalise(x, mask, update_stats=train)
             if self.conditioned and cond is not None:
-                cond = net.normalise_cond(cond)
+                cond = net.normalise_cond(cond, update_stats=train)
         if train and self.cond_dropout > 0.0 and self.conditioned and cond is not None:
             keep = _keep(generator, 1.0 - self.cond_dropout, (cond.shape[0], 1), cond.device)
             cond = torch.where(keep, cond, torch.zeros_like(cond))

@@ -1,4 +1,4 @@
-"""Parameter-free time embeddings; counterpart of particle_fm_tpu/nets/time_emb.py.
+"""Time embeddings; counterpart of particle_fm_tpu/nets/time_emb.py.
 
 The cosine ladder uses frequencies exp(k) for k up to 2*frequencies-1
 (about 2.9e13 at 16 frequencies), so one ulp in a frequency or in t changes
@@ -7,6 +7,13 @@ way (`exp(arange)` in float32; `cosine_frequencies`) and the float32
 operations run in the reference's order, left to right:
 ((x + min) * freqs) * pi / (max + min). Callers that hold the table (CNF
 keeps it as a buffer) pass it in, so a test can substitute the JAX table.
+
+`GaussianFourierProjection` is the gaussian embedding's random projection.
+Its `W` is a parameter that the forward pass detaches, as the flax module
+holds it under `stop_gradient`: it gets a zero gradient, and AdamW's
+decoupled weight decay still shrinks it and the EMA still tracks it, as
+optax's adamw and the JAX EMA do. A buffer, or `requires_grad=False`, would
+leave it unchanged and drift from the JAX run after the first step.
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch import nn
 
 
 def sincos_embedding(t: torch.Tensor, frequencies: int) -> torch.Tensor:
@@ -55,10 +63,23 @@ def cosine_encoding(
     return torch.cos((x + min_value) * freqs * math.pi / (max_value + min_value))
 
 
+class GaussianFourierProjection(nn.Module):
+    """t (...,) -> cat(sin, cos)(2 pi t W), (..., embed_dim); W ~ N(0, scale^2)."""
+
+    def __init__(self, embed_dim: int, scale: float = 30.0,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.W = nn.Parameter(torch.randn(embed_dim // 2, generator=generator) * scale)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x_proj = x[..., None] * self.W.detach() * 2 * math.pi
+        return torch.cat([torch.sin(x_proj), torch.cos(x_proj)], dim=-1)
+
+
 def time_embedding(
     t: torch.Tensor, t_emb: str, frequencies: int, freqs: torch.Tensor | None = None
 ) -> torch.Tensor:
-    """Per-set time embedding: t scalar or (B,) -> (B, 2*frequencies)."""
+    """Per-set parameter-free time embedding: t scalar or (B,) -> (B, 2*frequencies)."""
     if t.ndim == 0:
         t = t[None]
     if t_emb == "sincos":

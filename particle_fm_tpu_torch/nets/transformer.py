@@ -10,8 +10,9 @@ utils/from_jax.py maps one parameter tree onto the other by name.
 Differences from the flax modules, all of form: a module is given its input
 width at construction (flax infers it at the first call); the time embedding
 reaches the full encoders as the per-set (B, T) tensor, where the JAX
-modules take (B, N, T) and slice its first particle; the mixture-of-experts
-dense block is not ported (`moe_config` raises). Dropout (`drp`) sits where
+modules take (B, N, T) and slice its first particle. With `moe_config` an
+encoder layer's dense block is the expert-choice mixture of experts
+(nets/moe.py), named `moe` as in the flax module. Dropout (`drp`) sits where
 the JAX modules put it and draws only inside
 `nets/common.py::dropout_generator`. All attention goes through
 `ops.attention.attention`; LayerNorms use eps 1e-5.
@@ -30,6 +31,7 @@ from torch import nn
 
 from particle_fm_tpu_torch.nets.common import (Dropout, LayerNorm, WNDense, WNDenseSplit, cat,
                                                get_act)
+from particle_fm_tpu_torch.nets.moe import ExpertChoiceMoE
 from particle_fm_tpu_torch.ops import attention as attention_ops
 
 _LN_EPS = 1e-5
@@ -238,7 +240,8 @@ class MultiHeadedAttentionBlock(nn.Module):
 
 
 class TransformerEncoderLayer(nn.Module):
-    """Pre-LN residual self-attention + residual ctxt-conditioned dense."""
+    """Pre-LN residual self-attention + residual ctxt-conditioned dense; with
+    `moe_config` the dense block is an ExpertChoiceMoE (`moe`)."""
 
     def __init__(
         self,
@@ -251,20 +254,24 @@ class TransformerEncoderLayer(nn.Module):
         dtype: torch.dtype | None = None,
     ):
         super().__init__()
-        if moe_config is not None:
-            raise NotImplementedError("the mixture-of-experts dense block (moe_config) is not ported")
         self.norm1 = LayerNorm(model_dim, eps=_LN_EPS, dtype=dtype)
         self.self_attn = MultiHeadedAttentionBlock(
             model_dim, do_selfattn=True, generator=generator, dtype=dtype, **dict(mha_config or {})
         )
         self.norm2 = LayerNorm(model_dim, eps=_LN_EPS, dtype=dtype)
-        self.dense = DenseNetwork(
-            model_dim, outp_dim=model_dim, ctxt_dim=ctxt_dim, generator=generator, dtype=dtype,
-            **dict(dense_config or {}),
-        )
+        if moe_config is not None:
+            self.moe = ExpertChoiceMoE(model_dim, model_dim, ctxt_dim=ctxt_dim,
+                                       generator=generator, dtype=dtype, **dict(moe_config))
+        else:
+            self.dense = DenseNetwork(
+                model_dim, outp_dim=model_dim, ctxt_dim=ctxt_dim, generator=generator,
+                dtype=dtype, **dict(dense_config or {}),
+            )
 
     def forward(self, x, mask=None, ctxt=None, attn_bias=None) -> torch.Tensor:
         x = x + self.self_attn(self.norm1(x), kv_mask=mask, attn_bias=attn_bias)
+        if hasattr(self, "moe"):
+            return x + self.moe(self.norm2(x), mask=mask, ctxt=ctxt)
         return x + self.dense(self.norm2(x), ctxt)
 
 

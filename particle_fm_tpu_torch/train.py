@@ -13,10 +13,11 @@ an epoch-denominated schedule with the optimizer steps of an epoch, runs
 Training and evaluation run on the card unless `device=cpu` is given;
 without CUDA they raise.
 
-The JetNet, LHCO (`lhco`, `lhco_whole_event`), CaloChallenge (`calo`) and
-classifier (`classifier`) eval callbacks are ported, and the classifier
-models train as the generators do (labels in `cond`); a callback the port
-lacks raises through
+The JetNet, LHCO (`lhco`, `lhco_whole_event`), CaloChallenge (`calo`),
+classifier (`classifier`), flat (`flat_eval`) and GenChallenge
+(`gen_challenge`) eval callbacks are ported; the classifier models train as
+the generators do (labels in `cond`), and the flat models on (B, F) batches
+without a mask. A callback the port lacks (`device_stats`) raises through
 config/core.py. An entry without a `_target_`, as an experiment overlay
 leaves after `callbacks=none`, is skipped, as in the JAX package. A trainer
 key the port's Trainer does not declare (the JAX trainer's `scan_epochs`,

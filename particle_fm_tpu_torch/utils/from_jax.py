@@ -9,8 +9,13 @@ LayerNorm's `scale` becomes `weight`, and `g`, `bias` and bare parameters
 such as `global_tokens` and ParT's `cls_token` are copied. The module names
 of the transformer family (`lin_0`, `nrm_0`, `layer_0`, ...), of MDMA
 (`embed`, `block_0`, `ln`, ...), of the classifiers (`fc_d1`, `pair_embed`,
-`cls_layer_0`, ...) and flax's automatic names in ParticleNet
-(`EdgeConvBlock_0.Dense_0`, `LayerNorm_0`, ...) are the same on both sides. The flax "norm_stats" collection of a
+`cls_layer_0`, ...), of the flat model (`flow_0.net.mlp1.lin_0`, ...) and
+flax's automatic names in ParticleNet (`EdgeConvBlock_0.Dense_0`,
+`LayerNorm_0`, ...) are the same on both sides. The mixture of experts keeps
+its stacked `w1`/`b1`/`w2`/`b2` in their (E, ...) layouts (bare leaves are
+copied); only its `router` Dense kernel is transposed. The gaussian time
+embedding's `gfp.W` is copied, its `gfp_dense` and `gfp_out` are Dense
+layers. The flax "norm_stats" collection of a
 model with `use_normaliser` (`normaliser` and `ctxt_normaliser`, each with
 `means`, `m2`, `vars`, `n`) becomes the buffers of the same names. The
 mapping is shape-checked both ways: every flax leaf must land on a parameter

@@ -8,10 +8,13 @@ one seed. `JetNetEvalCallback` (W1M/W1P/W1EFP over a ragged last batch) and
 the EFPs, the saved samples and metrics): every metric within 1e-4
 relative. Also the epoch gates, `_tile_to`, the cond_path conditioning, that
 the callback samples a copy (the trainer's network stays unfolded and
-untouched), and that the plots raise.
+untouched), and that `FinalEvalCallback` with its plots on writes the JAX
+callback's figures.
 """
 
 from __future__ import annotations
+
+import os
 
 import types
 
@@ -120,9 +123,23 @@ def test_final_callback_matches_jax(setup, tmp_path, monkeypatch):
     assert saved == pytest.approx({k: float(v) for k, v in got.items()})
 
 
-def test_final_callback_plots_raise():
-    with pytest.raises(NotImplementedError, match="plots"):
-        pcb.FinalEvalCallback()
+def test_final_callback_plots_raise(setup, tmp_path, monkeypatch):
+    """The plots are ported and raise no more: with make_plots (the
+    default) the callback gives the JAX callback's metrics and writes the
+    same figures beside the same arrays."""
+    jt, pt = trainers(setup, tmp_path, testing=True)
+    replay_noise(monkeypatch, 9999)
+    pin_bootstrap(monkeypatch)
+    kw = dict(KW, calculate_efps=False, compute_fpd_kpd=False)
+    assert pcb.FinalEvalCallback().make_plots
+    with jax.disable_jit():
+        want = jcb.FinalEvalCallback(**kw)(jt)
+    got = pcb.FinalEvalCallback(**kw)(pt)
+    assert_metrics_close(got, want)
+    files = [sorted(os.listdir(tmp_path / side)) for side in ("port", "jax")]
+    assert files[0] == files[1] == sorted([
+        "final_comparison.png", "final_eval_metrics.yml", "final_generated_data.npy",
+        "single_jets_gen.png", "single_jets_real.png", "substructure.png"])
 
 
 @pytest.mark.parametrize("every,zero", [(3, False), (3, True), ("custom1", False)])

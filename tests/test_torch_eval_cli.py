@@ -25,7 +25,7 @@ import yaml
 from particle_fm_tpu_torch import eval_ckpt, evaluate
 from particle_fm_tpu_torch import train as ptrain
 from particle_fm_tpu_torch.config.core import compose, instantiate
-from particle_fm_tpu_torch.eval.callbacks import JetNetEvalCallback
+from particle_fm_tpu_torch.eval.callbacks import FlatEvalCallback, JetNetEvalCallback
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARGS = ["experiment=jetnet/fm_tops30_cond", "data.synthetic=true", "data.synthetic_num_jets=512",
@@ -138,8 +138,13 @@ def test_shipped_callbacks_build_as_the_port():
                                           {"num_eval_samples": 10000, "num_batches": 40})
     assert ptrain.build_callbacks({"jetnet_eval": {"every_n_epochs": 3}}) == []
     flat = compose(os.path.join(ROOT, "configs"), "train", ["callbacks=flat_eval"])
-    with pytest.raises(NotImplementedError, match="FlatEvalCallback is not ported"):
-        instantiate(flat["callbacks"]["flat_eval"])
+    cb = instantiate(flat["callbacks"]["flat_eval"])
+    assert isinstance(cb, FlatEvalCallback)
+    assert (cb.every_n_epochs, cb.num_samples, cb.generation_batch_size, cb.ode_steps, cb.split,
+            cb.on_test) == (100, 10000, 1024, 100, "test", True)
+    stats = compose(os.path.join(ROOT, "configs"), "train", ["callbacks=device_stats"])
+    with pytest.raises(NotImplementedError, match="DeviceStatsCallback is not ported"):
+        instantiate(stats["callbacks"]["device_stats"])
 
 
 def test_importing_the_eval_entry_points_loads_no_jax():

@@ -16,6 +16,8 @@ against the JAX package on the CPU.
 
 from __future__ import annotations
 
+import os
+
 from types import SimpleNamespace
 
 import numpy as np
@@ -192,6 +194,24 @@ def test_calo_callback_matches_jax(monkeypatch):
     assert sum(h[1].sum() for h in hists["port"]) > 0
 
 
-def test_calo_callback_plots_raise():
-    with pytest.raises(NotImplementedError, match="plots"):
-        pcb.CaloEvalCallback(make_plots=True)
+def test_calo_callback_plots_raise(monkeypatch, tmp_path):
+    """The plots are ported and raise no more: with make_plots the callback
+    gives the JAX callback's metrics and writes its two shower grids."""
+    dms = []
+    for mod, scalers in ((jcalo, jsc), (pcalo, psc)):
+        dm = mod.CaloChallengeDataModule(synthetic=True, scaler=scalers.default_calo_scaler(),
+                                         synthetic_num_showers=120, max_hits=48,
+                                         bucket_multiple=16, batch_size=32)
+        dm.setup()
+        dms.append(dm)
+    jdm, pdm = dms
+    n = len(pdm.tensor_test)
+    jt, pt = trainers(jdm, pdm)
+    jt.artifacts_dir, pt.artifacts_dir = str(tmp_path / "jax"), str(tmp_path / "port")
+    pin_generation(monkeypatch, pdm.tensor_train[:n] * 1.1)
+    kw = dict(num_showers=n, generation_batch_size=16, make_plots=True)
+    got, want = run_both(monkeypatch, lambda: jcb.CaloEvalCallback(**kw)(jt),
+                         lambda: pcb.CaloEvalCallback(**kw)(pt))
+    assert_metrics(got, want)
+    images = [sorted(os.listdir(tmp_path / side / "callback_images")) for side in ("port", "jax")]
+    assert images[0] == images[1] == ["showers_gen_epoch1.png", "showers_real_epoch1.png"]

@@ -1,13 +1,13 @@
 """PyTorch port, a guard over every shipped experiment: composed from
 `configs/experiment/` with `data.synthetic=true` (the LHCO classifiers:
 with small h5 files) and `device=cpu`, each
-either builds its callbacks, datamodule (set up), model, optimizer,
-Trainer and network in the port, or raises NotImplementedError that names
-what the port lacks; never another error. The expected list below says
-which are ported.
+builds its callbacks, datamodule (set up), model, optimizer, Trainer and
+network in the port: every one of them is ported.
 
 Then the card machine's installation, checked here: in a subprocess where
-`sklearn` and `h5py` cannot be imported, the CaloChallenge datamodule (with
+`sklearn`, `h5py` and `matplotlib` cannot be imported, the GenChallenge
+experiment builds and its callback, which plots by default, raises an
+ImportError that names matplotlib when it comes to plot, the CaloChallenge datamodule (with
 its scaler, fitted, and the rotation) builds and its scaler round-trips the
 hits, the JetClass datamodule builds from its in-memory synthetic splits,
 so does the JetClass classifier datamodule, whose EPiC discriminator
@@ -33,11 +33,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXPERIMENTS = sorted(os.path.relpath(p, os.path.join(ROOT, "configs", "experiment"))[:-5]
                      for p in glob.glob(os.path.join(ROOT, "configs", "experiment", "**", "*.yaml"),
                                         recursive=True))
-NOT_PORTED = {
-    "gen_challenge/gen_challenge": "GenChallengeEvalCallback",  # and data/gen_challenge.py
-    "lhco/jet_features": "FlatEvalCallback",  # and models/flow_matching_flat.py
-    "jetnet/fm_moe_transformer": "mixture-of-experts",
-}
 # the synthetic gen/sim pair of the JetClass classifier data has 3 flavours
 # (the experiments pick Tbqq); the LHCO classifiers read h5 files, which
 # `_overrides` writes, as the JAX package has no synthetic mode there
@@ -58,7 +53,9 @@ def _overrides(experiment: str, tmp_path) -> list[str]:
 
 
 def test_the_list_covers_every_experiment():
-    assert len(EXPERIMENTS) == 36 and set(NOT_PORTED) < set(EXPERIMENTS)
+    assert len(EXPERIMENTS) == 36
+    assert {"gen_challenge/gen_challenge", "lhco/jet_features",
+            "jetnet/fm_moe_transformer"} < set(EXPERIMENTS)
 
 
 @pytest.mark.parametrize("experiment", EXPERIMENTS)
@@ -66,16 +63,8 @@ def test_experiment_builds_or_names_what_is_missing(experiment, tmp_path):
     cfg = compose(ptrain.CONFIG_DIR, "train",
                   [f"experiment={experiment}", "device=cpu"] + _overrides(experiment, tmp_path))
 
-    def build():
-        trainer = ptrain.build_trainer(cfg)
-        state = create_train_state(trainer.model, trainer.optimizer, device="cpu")
-        return trainer, state
-
-    if experiment in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match=f"{NOT_PORTED[experiment]}.* not ported"):
-            build()
-        return
-    trainer, state = build()
+    trainer = ptrain.build_trainer(cfg)
+    state = create_train_state(trainer.model, trainer.optimizer, device="cpu")
     dm = trainer.datamodule
     assert len(dm.train) > 0 and trainer.device.type == "cpu"
     assert sum(p.numel() for p in state.net.parameters()) > 0
@@ -84,9 +73,11 @@ def test_experiment_builds_or_names_what_is_missing(experiment, tmp_path):
 
 CARD_INSTALLATION = r"""
 import sys
-sys.modules["sklearn"] = None  # as on the card's machine: neither is installed
+sys.modules["sklearn"] = None  # as on the card's machine: none of the three is installed
 sys.modules["h5py"] = None
+sys.modules["matplotlib"] = None
 import numpy as np
+import pytest
 from particle_fm_tpu_torch.data.calo import CaloChallengeDataModule
 from particle_fm_tpu_torch.data.calo_scalers import default_calo_scaler
 from particle_fm_tpu_torch.data.jetclass import JetClassDataModule
@@ -116,15 +107,30 @@ model = SetClassifierModel(features=clf.train.x.shape[-1], num_particles=16,
 net = model.init(device="cpu")
 probs = model.predict(net, torch.as_tensor(clf.test.x), torch.as_tensor(clf.test.mask))
 assert 0.0 <= binary_metrics(probs.numpy(), clf.test.cond)["auroc"] <= 1.0
+from particle_fm_tpu_torch import train as ptrain
+from particle_fm_tpu_torch.config.core import compose
+from particle_fm_tpu_torch.training.step import create_train_state
+cfg = compose(ptrain.CONFIG_DIR, "train", [
+    "experiment=gen_challenge/gen_challenge", "data.synthetic=true", "device=cpu",
+    "data.synthetic_num_events=500", "callbacks.gen_challenge_eval.num_samples=8",
+    "callbacks.gen_challenge_eval.ode_steps=2"])
+trainer = ptrain.build_trainer(cfg)
+trainer.state = create_train_state(trainer.model, trainer.optimizer, device="cpu")
+trainer.testing = True
+cb = trainer.callbacks[0]
+assert cb.make_plots and cb.split == "val"
+with pytest.raises(ImportError, match="matplotlib"):
+    cb(trainer)
 bad = [m for m, mod in sys.modules.items() if mod is not None
        and m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "particle_fm_tpu", "sklearn",
-                               "h5py")]
+                               "h5py", "matplotlib")]
 assert not bad, bad
 print("ok")
 """
 
 
 def test_the_data_paths_need_neither_sklearn_nor_h5py():
+    """... nor matplotlib, until a run plots."""
     out = subprocess.run([sys.executable, "-c", CARD_INSTALLATION], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-3000:]

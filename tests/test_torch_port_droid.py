@@ -122,12 +122,17 @@ def test_bf16_scores_configuration_matches_jax():
 
 
 def test_unported_models_and_options_raise():
-    for bad, what in ((dict(model="part"), "part"), (dict(model="epic", net_config={"x": 1}), "net_config"),
-                      (dict(model="droid_fulltransformer",
-                            net_config=dict(te_config=dict(model_dim=8, moe_config={}))), "moe_config"),
-                      (dict(model="droid_fullcrossattention", t_emb="gaussian"), "gaussian")):
+    for bad, what in ((dict(model="part"), "part"), (dict(model="epic", net_config={"x": 1}), "net_config")):
         with pytest.raises(NotImplementedError, match=what):
             pfm.FlowMatchingModel(hidden_dim=8, latent=4, layers=1, **bad).init(device="cpu")
+    # the mixture of experts and the gaussian time embedding are ported: both build
+    # (tests/test_torch_moe.py and test_torch_train_gaussian_normaliser.py hold them against JAX)
+    moe = pfm.FlowMatchingModel(hidden_dim=8, model="droid_fulltransformer", net_config=dict(
+        te_config=dict(model_dim=8, moe_config={}))).init(device="cpu")
+    assert hasattr(moe.flows[0].net.te.layer_0, "moe")
+    gauss = pfm.FlowMatchingModel(hidden_dim=8, model="droid_fullcrossattention",
+                                  t_emb="gaussian").init(device="cpu")
+    assert gauss.flows[0].gfp.W.shape == (4,)
     # dropout is ported: a droid model with drp builds (it draws only inside
     # nets/common.py::dropout_generator, which the flow-matching loss never opens)
     drp = dict(model="droid_fullcrossattention",

@@ -4,7 +4,8 @@ sampler, held against the JAX package with carried statistics.
 
 The statistics are fitted the JAX package's way (one masked Welford update of
 the flax "norm_stats" collection on seeded data) and carried into the port's
-buffers with utils/from_jax.py; the port only applies them.
+buffers with utils/from_jax.py; these tests hold how the port applies them
+(tests/test_torch_train_gaussian_normaliser.py holds the port's own update).
 
 Tolerances: `forward`/`reverse` atol 1e-6; `sample` and serving atol 1e-4.
 """
@@ -84,16 +85,21 @@ def test_forward_and_reverse_match_flax(masked):
 
 
 def test_fresh_layer_is_the_identity_and_update_raises():
+    """A fresh layer is the identity. The update no longer raises: it is
+    ported, and its first call fits the batch as the JAX layer does
+    (tests/test_torch_train_gaussian_normaliser.py holds later updates)."""
     layer = IterativeNormLayer(3)
     x = torch.randn(4, 5, 3)
     torch.testing.assert_close(layer(x), x, atol=1e-6, rtol=0)  # mean 0, var 1, eps 1e-8
     assert set(layer.state_dict()) == {"means", "m2", "vars", "n"}
     assert layer.n.shape == () and layer.max_n == 500_000
-    with pytest.raises(NotImplementedError, match="statistics"):
-        layer(x, update_stats=True)
+    jlayer, stats = _fitted_layer(3, x.numpy(), None)
+    layer(x, update_stats=True)
+    for k, v in stats["norm_stats"].items():
+        np.testing.assert_allclose(getattr(layer, k).numpy(), v, rtol=1e-6, atol=0, err_msg=k)
     net = pfm.FlowMatchingModel(**EPIC).init(device="cpu")
-    with pytest.raises(NotImplementedError, match="statistics"):
-        net.normaliser(x, update_stats=True)
+    net.normaliser(x, update_stats=True)
+    assert float(net.normaliser.n) == 20.0
 
 
 @pytest.mark.parametrize("cfg", [EPIC, MDMA], ids=["epic", "mdma"])

@@ -243,10 +243,11 @@ def test_transplant_catches_a_missing_leaf(name, dropped):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="moe_config"):
-        ptr.TransformerEncoderLayer(32, MHA, DENSE, moe_config={"num_experts": 2})
-    with pytest.raises(NotImplementedError, match="moe_config"):
-        ptr.FullTransformerEncoder(35, 3, te_config=dict(model_dim=32, moe_config={}))
+    # moe_config is ported (tests/test_torch_moe.py): the dense block becomes the MoE
+    layer = ptr.TransformerEncoderLayer(32, MHA, DENSE, moe_config={"num_experts": 2})
+    assert layer.moe.w1.shape == (2, 32, 64) and not hasattr(layer, "dense")
+    full = ptr.FullTransformerEncoder(35, 3, te_config=dict(model_dim=32, moe_config={}))
+    assert full.te.layer_0.moe.num_experts == 4
     # dropout is ported: the three blocks build with drp=0.1 and draw it only
     # inside `dropout_generator` (nets/common.py)
     x = torch.ones(2, 5, 8)

@@ -76,7 +76,7 @@ def test_cli_without_cuda_raises(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("override,match", [
-    ("callbacks=flat_eval", "FlatEvalCallback is not ported"),
+    ("callbacks=device_stats", "DeviceStatsCallback is not ported"),
     ("trainer.strategy=fsdp", "strategy"),
     ("+trainer.fuse_epochs=2", "fused epochs"),
     ("+trainer.scan_epochs=true", "scan_epochs"),

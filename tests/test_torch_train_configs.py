@@ -100,7 +100,7 @@ def test_shipped_model_configs_sample_as_jax(name):
 
 
 @pytest.mark.parametrize("override,error", [
-    ("model.t_emb=gaussian", NotImplementedError),
+    ("model.t_emb=gaussian", None),  # ported: builds and trains (test_torch_train_gaussian_normaliser.py)
     ("model.dtype=float16", NotImplementedError),
     ("model.criterion=l1", ValueError),
     ("model.loss_type=bogus", NotImplementedError),
@@ -108,6 +108,11 @@ def test_shipped_model_configs_sample_as_jax(name):
 def test_fields_raise_only_for_what_the_port_lacks(override, error):
     pflow.FlowMatchingModel(**model_block("flow_matching"))  # the shipped values build
     x, mask, cond, _ = cloud(b=2, n=16, seed=0)
+    if error is None:
+        pm = pflow.FlowMatchingModel(**model_block("flow_matching", override))
+        loss = pm.loss(pm.init(device="cpu"), torch.Generator(), t(x), t(mask), t(cond), train=True)
+        assert torch.isfinite(loss)
+        return
     with pytest.raises(error):
         # float16 raises at the model (bfloat16 builds, samples and trains:
         # tests/test_torch_port_bf16_config.py)
@@ -147,9 +152,12 @@ def test_loss_refuses_what_it_cannot_train():
     assert torch.isfinite(pm.loss(net, *args, train=True))
     normed = pflow.FlowMatchingModel(**model_block("flow_matching", "model.use_normaliser=true"))
     net = normed.init(device="cpu")
-    with pytest.raises(NotImplementedError, match="use_normaliser"):
-        normed.loss(net, *args, train=True)
-    assert torch.isfinite(normed.loss(net, *args, train=False))  # frozen statistics
+    assert torch.isfinite(normed.loss(net, *args, train=False))  # the statistics stay as they are
+    assert float(net.normaliser.n) == 0.0
+    # normaliser training is ported: the training loss updates the statistics first
+    # (tests/test_torch_train_gaussian_normaliser.py holds them against JAX)
+    assert torch.isfinite(normed.loss(net, *args, train=True))
+    assert float(net.normaliser.n) == float(mask.sum()) and float(net.ctxt_normaliser.n) == 2.0
 
 
 @pytest.mark.parametrize("name", list(EXPERIMENTS))

@@ -121,6 +121,10 @@ def test_instantiate_maps_targets_to_the_port():
     from particle_fm_tpu_torch.eval.callbacks import JetNetEvalCallback
 
     assert isinstance(instantiate(cfg["callbacks"]["jetnet_eval"]), JetNetEvalCallback)
+    from particle_fm_tpu_torch.eval.callbacks import FlatEvalCallback
+
     flat = {"_target_": "particle_fm_tpu.eval.callbacks.FlatEvalCallback"}
-    with pytest.raises(NotImplementedError, match="FlatEvalCallback is not ported"):
-        instantiate(flat)
+    assert isinstance(instantiate(flat), FlatEvalCallback)
+    stats = {"_target_": "particle_fm_tpu.eval.callbacks.DeviceStatsCallback"}
+    with pytest.raises(NotImplementedError, match="DeviceStatsCallback is not ported"):
+        instantiate(stats)
