@@ -73,7 +73,8 @@
    `scaled_dot_product_attention` in the same turns. Flash at path D and the
    fused halves stop at each set's last real key: beside their bound over
    every key they report the bound over the keys the data needs and their
-   device time (torch.profiler), the run fails if either median reads below
+   device time (torch.profiler, or CUDA events where its recordings hold no
+   launch), the run fails if either median reads below
    that bound, and they are checked on masks of every kind (a prefix, holes,
    only the last key real, every key masked, fractional values only), with
    their launch reports against the wrappers' mirrors
@@ -176,7 +177,7 @@
      the restored best checkpoint, exactly 6 x 2 x 199 x 2 EPiC launches per
      pass; then the same evaluation with the plain EPiC layer: jets within
      1e-3, W1M and W1P within 1e-3 absolute;
-   - eval timing: 10,000 jets generated against 10,000 synthetic test jets
+   - eval timing: 5,000 jets generated against 5,000 synthetic test jets
      (N = 150), each stage timed: generation (exact EPiC launches), EFPs and
      energy correlators on the card, the native clustering (tau1-3, d12/d23),
      W1M, W1P, W1EFP and W1(tau21); then the EFPs and correlators on the card
@@ -310,7 +311,35 @@
      from the same batches (1e-5 of each statistic's largest magnitude),
      then 1,024 jets at NFE 100 on the EPiC kernel against the plain layer
      (1e-3), exactly 6 x 100 launches.
-10. Prints the `kernels` JSON line (the launches of the training, eval,
+10. The phases of the kernels as custom ops, the served artifact, its HTTP
+   server and distillation (`slice17` lines, then their total):
+   - ten artifacts exported first, each in a process of its own, all
+     together (particle_fm_tpu_torch/serving.py::export_sampler; tracing is
+     host work): the flagship (fm_tops150_cond, B=640, midpoint NFE 100) and
+     paths A, B, C (the class token) and D at their serving shapes (euler,
+     one evaluation), each in float32 and bf16, with the serving phases'
+     weights;
+   - meanwhile `torch.library.opcheck` of the eight custom ops and the bf16
+     class-token route, at small shapes, each in its type;
+   - distillation on the flagship teacher: 4,096 reflow pairs at NFE 100,
+     batch 1024 (exactly 2,400 EPiC launches); a student trained 2 epochs
+     through train.py (`data=reflow_pairs`, from the teacher's weights, no
+     launch); straightness, teacher then student; distill_direct 20 steps
+     at B=256 (the folded teacher's solves: exactly 1,920 launches);
+     consistency_sample at 1 and 2 steps on 1,024 sets against its plain
+     path (1e-3; exactly 6 and 12 launches); the student exported at euler
+     4 evaluations and served over HTTP (1,000 sets; 120 launches);
+   - each artifact loaded and held against make_serve_fn on the same
+     weights and request, bit for bit, with the exact launches of its
+     kernel and none of another; the flagship's also in a process that
+     imports no model code (bit for bit, 600 launches counted there), and
+     its sets/s against make_serve_fn in turns (8 batches a reading behind
+     one sync);
+   - make_server on the flagship artifact at 127.0.0.1:0: /healthz, /meta,
+     one /sample of 1,000 sets with cond and a num_points list, equal to
+     serve_batches on the same artifact; the request's seconds, and the
+     sampling's alone.
+11. Prints the `kernels` JSON line (the launches of the training, eval,
    family, dataset, classifier and slice phases under `launches_by_path`
    too), the card line again, and as the last line {"ok": true, "device": {...}}.
 
@@ -941,15 +970,17 @@ def attention_bf16_measure(torch, name, fn, ref, case, bf16_products: float = 0.
     that stops at each set's last real key): the bound over the keys the
     data needs too (`real_keys_bound_ms`: K and V rows, scores and products
     up to each set's extent, `short_attention.real_key_extents`), the
-    kernel's device time (`device_ms`, torch.profiler, the median of
-    DEVICE_READINGS readings), and the run fails if a median reads below that
+    kernel's device time (`device_ms`, the median of DEVICE_READINGS
+    readings of `timing.device_reading`: torch.profiler, or CUDA events where
+    its recordings hold no launch; `device_ms_read_by` says which), and the
+    run fails if a median reads below that
     bound: an impossible reading."""
     import statistics
 
     import torch.nn.functional as F
 
     from particle_fm_tpu_torch.ops.short_attention import real_key_extents
-    from particle_fm_tpu_torch.utils.timing import cuda_ms, device_ms
+    from particle_fm_tpu_torch.utils.timing import cuda_ms, device_reading
 
     q, k, v, mask, ab = case
     b, lq, h, d = q.shape
@@ -981,11 +1012,13 @@ def attention_bf16_measure(torch, name, fn, ref, case, bf16_products: float = 0.
         share = keys / (b * lk)
         real = bound(n_bytes - 2 * (k.numel() + v.numel()) * (1 - share), flops * share,
                      tf32_flops * share, tf32_products, bf16_flops=bf16_products * share)
-        dev_ms = statistics.median(device_ms(lambda: fn(q, k, v, mask, ab))
-                                   for _ in range(DEVICE_READINGS))
+        readings = [device_reading(lambda: fn(q, k, v, mask, ab))
+                    for _ in range(DEVICE_READINGS)]
         out.update(real_keys_share=share, real_keys_bound_ms=real["bound_ms"],
                    real_keys_bound_by=real["bound_by"], real_keys_bytes=real["bytes"],
-                   real_keys_flops=real["flops"], device_ms=dev_ms)
+                   real_keys_flops=real["flops"],
+                   device_ms=statistics.median(ms for ms, _ in readings),
+                   device_ms_read_by=sorted({by for _, by in readings}))
         for key in ("ms", "device_ms"):
             if out[key] < real["bound_ms"]:
                 fail(f"{name}: {key} {out[key]} reads below the bound over the real keys "
@@ -1881,9 +1914,10 @@ def train_cli_phase(torch, ops, dev, counted, overrides=()) -> dict:
 
 
 # eval phase: the shipped JetNet callbacks in the training entry point, then
-# the evaluation stages timed at 10,000 jets
+# the evaluation stages timed at 5,000 jets: some 40 s shorter than at
+# 10,000, time that the later phases need under the run's limit
 EVAL_JETS = 2000  # the callback's num_jet_samples: 2 batches of 1000
-EVAL_TIMING_JETS = 10_000
+EVAL_TIMING_JETS = 5_000
 EVAL_W1_TOL = 1e-3  # W1M and W1P, kernel path against plain path
 EVAL_CPU_JETS = 256
 EVAL_CPU_RTOL = 1e-4
@@ -3608,64 +3642,540 @@ def slice16_phases(torch, ops, sa, dev, counted) -> dict:
     return out
 
 
-def main() -> None:
+# slice 17: the kernels as custom ops, the served artifact, its HTTP server,
+# ReFlow and consistency distillation
+SLICE17_DIR = ROOT / "build" / "slice17"
+ARTIFACT_BATCHES = 8  # batches of a sets/s reading, behind one sync
+ARTIFACT_TURNS = 2  # rounds of artifact, live, live, artifact readings
+ATTENTION_STEPS = 2  # euler ode_steps of the attention artifacts: one evaluation
+REFLOW_PAIRS = 4096
+REFLOW_BATCH = 1024
+DIRECT_STEPS = 20
+DIRECT_BATCH = 256
+CONSISTENCY_BATCH = 1024
+STUDENT_STEPS = 5  # euler ode_steps of the served reflow student: 4 evaluations
+HTTP_JETS = 1000
+# what a loader process runs: the artifact loaded with no model code, one batch,
+# the launches counted there
+LOADER = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np, torch
+from particle_fm_tpu_torch import serving
+from particle_fm_tpu_torch.ops import epic_layer as ops
+t0 = time.perf_counter()
+fn, meta = serving.load_exported(sys.argv[2])
+load_s = time.perf_counter() - t0
+req = np.load(sys.argv[3])
+ops.epic_layer.launches = ops.epic_layer_bf16.launches = 0
+x = fn(int(req["seed"]), req["cond"], req["mask"])
+torch.cuda.synchronize()
+np.save(sys.argv[4], x.cpu().numpy())
+model_code = sorted(m for m in sys.modules if m.startswith(tuple(
+    "particle_fm_tpu_torch." + p for p in ("models", "nets", "config", "training"))))
+print(json.dumps({"load_s": load_s, "model_modules": model_code,
+                  "launches": {"epic_layer": ops.epic_layer.launches,
+                               "epic_layer_bf16": ops.epic_layer_bf16.launches}}))
+"""
+
+
+def op_nodes(exported) -> dict:
+    """The custom-op nodes of an exported program, its loop's graphs included,
+    by op, and the program's nodes in all."""
+    ops_, total = {}, 0
+    for gm in exported.graph_module.modules():
+        if hasattr(gm, "graph"):
+            for node in gm.graph.nodes:
+                total += 1
+                name = str(node.target)
+                if node.op == "call_function" and name.startswith("particle_fm."):
+                    key = name.split(".")[1]
+                    ops_[key] = ops_.get(key, 0) + 1
+    return {"op_nodes": ops_, "graph_nodes": total}
+
+
+def export_worker(job_path: str) -> None:
+    """Export one artifact (a job `start_exports` wrote): the model from its
+    fields and weights, `export_sampler` timed; prints one JSON line."""
     import torch
 
-    if not torch.cuda.is_available():
-        fail("CUDA is not available; this script runs on an NVIDIA GPU")
     sys.path.insert(0, str(ROOT))
-    try:
-        import particle_fm_tpu_torch
-        from particle_fm_tpu_torch.models.flow_matching import FlowMatchingModel
-        from particle_fm_tpu_torch.ops import _build
-        from particle_fm_tpu_torch.ops import epic_layer as ops
-        from particle_fm_tpu_torch.ops import flash_attention as fa
-        from particle_fm_tpu_torch.ops import short_attention as sa
-    except ImportError as e:
-        fail(f"the port is not beside this script ({e})")
-    if Path(particle_fm_tpu_torch.__file__).resolve().parent.parent != ROOT:
-        fail(f"imported the port from {particle_fm_tpu_torch.__file__}, not from {ROOT}")
+    from particle_fm_tpu_torch.models.flow_matching import FlowMatchingModel
+    from particle_fm_tpu_torch.serving import ARTIFACT_NAME, export_sampler
 
-    card = card_line()
-    print(card, flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
+    job = torch.load(job_path, weights_only=False)
+    model = FlowMatchingModel(**job["fields"])
+    net = model.init(seed=0, device=job["device"])
+    net.load_state_dict(job["state"])
+    t0 = time.perf_counter()
+    exported, _ = export_sampler(model, net, **job["kwargs"], out_dir=job["out_dir"])
+    secs = time.perf_counter() - t0
+    print(json.dumps({"export_s": secs, "bytes": (Path(job["out_dir"]) / ARTIFACT_NAME).stat()
+                      .st_size, **op_nodes(exported)}), flush=True)
+
+
+def start_exports(torch, jobs: dict) -> dict:
+    """Write each job (the model's fields, its weights, export_sampler's
+    arguments) and start one exporting process for each, all together:
+    tracing is host work, and the card's machine has cores to spare."""
+    procs = {}
+    for name, (model, net, kwargs) in jobs.items():
+        out = SLICE17_DIR / name
+        out.mkdir(parents=True, exist_ok=True)
+        fields = {f.name: getattr(model, f.name) for f in dataclasses.fields(model)}
+        torch.save({"fields": fields, "state": net.state_dict(), "kwargs": kwargs,
+                    "out_dir": str(out / "exported"),
+                    "device": str(next(net.parameters()).device)},
+                   out / "job.pt")
+        code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+                f"chip_smoke.export_worker({str(out / 'job.pt')!r})")
+        procs[name] = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                       text=True)
+    return procs
+
+
+def finish_exports(procs: dict) -> dict:
+    """Wait for every exporting process; {name: its JSON line}."""
+    out = {}
+    for name, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            fail(f"exporting {name} failed ({proc.returncode}):\n{stderr[-4000:]}")
+        out[name] = json.loads(stdout.strip().splitlines()[-1])
+    return out
+
+
+def opcheck_phase(torch, ops, dev) -> dict:
+    """torch.library.opcheck of the eight custom ops (and the bfloat16 flash
+    op's class-token route) at small shapes on the card, each in its type:
+    schema, fake implementation, autograd registration, AOT dispatch."""
+    gen = torch.Generator().manual_seed(0)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    b, n, h, lat, t, c = 4, 16, 32, 8, 4, 2
+    mask = torch.ones(b, n, device=dev)
+    mask[0, 10:] = 0
+    epic = [r(b, n, h), r(b, lat), mask, r(b, t + c), r(t + 2 * h + lat + c, h, scale=0.1), r(h),
+            r(t + h + c, lat, scale=0.1), r(lat), r(h, h, scale=0.1), r(t + lat + c, h, scale=0.1),
+            r(h), r(h, h, scale=0.1), r(t + c, h, scale=0.1), r(h)]
+    dims = (0.01, t, t, c, c)
+    e16 = [a if i == 2 else a.to(torch.bfloat16) for i, a in enumerate(epic)]
+    image = ops.bf16_weight_image(e16[4], e16[6], e16[9], e16[12], e16[8], e16[11])
+    q, k, v = r(b, n, 2, 16), r(b, n, 2, 16), r(b, n, 2, 16)
+    bias = r(b, 2, n, n)
+    b16 = [x.to(torch.bfloat16) for x in (q, k, v)]
+    tq, tk, tv = r(b, 1, 2, 128), r(b, 600, 2, 128), r(b, 600, 2, 128)
+    pf = torch.ops.particle_fm
+    cases = {
+        "epic_layer": (pf.epic_layer, (*epic, *dims)),
+        "epic_layer_bf16": (pf.epic_layer_bf16, (*e16, *dims, image)),
+        "packed_short_attention": (pf.packed_short_attention, (q, k, v, mask, bias)),
+        "packed_short_attention_bf16": (pf.packed_short_attention_bf16, (*b16, mask, None)),
+        "fused_short_attention": (pf.fused_short_attention, (q, k, v, mask, bias)),
+        "fused_short_attention_bf16": (pf.fused_short_attention_bf16, (*b16, mask, None)),
+        "flash_masked_attention": (pf.flash_masked_attention, (q, k, v, mask)),
+        "flash_masked_attention_bf16": (pf.flash_masked_attention_bf16, (*b16, mask)),
+        "flash_masked_attention_bf16 (class token)": (
+            pf.flash_masked_attention_bf16,
+            (*(x.to(torch.bfloat16) for x in (tq, tk, tv)), torch.ones(b, 600, device=dev))),
+    }
+    out = {}
+    for name, (op, args) in cases.items():
+        t0 = time.perf_counter()
+        try:
+            torch.library.opcheck(op, args)
+        except Exception as e:  # noqa: BLE001 (report which op, then fail)
+            fail(f"opcheck of {name}: {type(e).__name__}: {e}")
+        out[name] = {"passed": True, "s": time.perf_counter() - t0}
+    return out
+
+
+def artifact_inputs(model, batch: int, seed: int):
+    """(seed, cond, mask) numpy request of one batch: ragged masks, cond
+    where the model takes one."""
+    rs = np.random.RandomState(seed)
+    mask = ragged_mask(rs, batch, model.num_particles, min(30, model.num_particles))[..., None]
+    cond = rs.randn(batch, model.global_cond_dim).astype(np.float32)
+    return 1000 + seed, cond, mask
+
+
+def twin(model, net, dtype, dev):
+    """The model and a network with the same weights in `dtype` (None: the
+    float32 ones themselves)."""
+    if dtype is None:
+        return model, net
+    model16 = dataclasses.replace(model, dtype=dtype)
+    net16 = model16.init(seed=0, device=dev)
+    net16.load_state_dict(net.state_dict())
+    return model16, net16
+
+
+def check_artifact(torch, dev, name, model, net, art, counted, counter, per_batch, proto,
+                   steps, solver, seed) -> dict:
+    """The artifact loaded in this process against make_serve_fn on the same
+    weights and request: bit for bit, exactly `per_batch` launches of
+    `counter` and none of another kernel."""
+    from particle_fm_tpu_torch.serving import load_exported, make_serve_fn
 
     t0 = time.perf_counter()
-    libs = _build.build_libraries([ops.SOURCE, sa.SOURCE, fa.SOURCE])
-    for module in (ops, sa, fa):
-        module.load_library()
-    print(json.dumps({"build_s": time.perf_counter() - t0, "libraries": [p.name for p in libs]}),
-          flush=True)
-    for lib in libs:
-        for line in lib.with_suffix(".log").read_text().splitlines():
-            if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
-                print(f"ptxas ({lib.name}):", line.strip())
+    fn, meta = load_exported(str(art))
+    load_s = time.perf_counter() - t0
+    live = make_serve_fn(model, net, **{**proto, "ode_solver": solver}, ode_steps=steps)
+    s, cond, mask = artifact_inputs(model, proto["batch_size"], seed)
+    reset(counted)
+    got = fn(s, cond, mask)
+    sync(torch, dev)
+    launches = launched(counted)
+    expect(f"{name} artifact", launches, **{counter.__name__: per_batch})
+    want = live(s, cond, mask)
+    if not torch.equal(got, want):
+        fail(f"{name}: the artifact differs from make_serve_fn: "
+             f"{float((got - want).abs().max())}")
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{name}: the artifact's samples are not finite")
+    return {"load_s": load_s, "equal_to_make_serve_fn": True, "launches": per_batch,
+            "kernel": counter.__name__, "_fn": fn, "_live": live, "_meta": meta,
+            "_request": (s, cond, mask)}
 
-    kernels = {k["name"]: k for k in (kernel_phase(torch, ops, dev),
-                                      packed_phase(torch, sa, dev),
-                                      fused_phase(torch, sa, dev),
-                                      flash_phase(torch, fa, sa, dev),
-                                      epic_bf16_phase(torch, ops, dev),
-                                      packed_bf16_phase(torch, sa, dev),
-                                      fused_bf16_phase(torch, sa, dev),
-                                      flash_bf16_phase(torch, fa, dev))}
-    # on these lines only: the `kernels` line below holds what this run timed and counted
-    designs = {
-        "packed_short_attention": tensor_core_design(
-            sa.MMA_PRODUCTS, sa.packed_launch_report, sa.packed_geometry, 150, 16),
-        "flash_masked_attention": tensor_core_design(
-            sa.MMA_PRODUCTS, fa.mma_launch_report, fa.mma_geometry, 279, 16),
-        "epic_layer": epic_design(ops),
-        "epic_layer_bf16": epic_bf16_design(torch, ops),
-    }
-    for k in kernels.values():
-        line = {"kernel_phase": k}
-        if k["name"] in designs:
-            line["tensor_core_design_at_the_served_shape"] = designs[k["name"]]
-        print(json.dumps(line), flush=True)
 
+def sets_in_turns(torch, dev, fn, live, request, batch: int) -> dict:
+    """sets/s through the artifact and through make_serve_fn, in turns
+    (artifact, live, live, artifact, ARTIFACT_TURNS times), each reading
+    ARTIFACT_BATCHES batches behind one sync."""
+    _, cond, mask = request
+    turns = {"artifact": [], "make_serve_fn": []}
+    for _ in range(ARTIFACT_TURNS):
+        for key in ("artifact", "make_serve_fn", "make_serve_fn", "artifact"):
+            f = fn if key == "artifact" else live
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            for i in range(ARTIFACT_BATCHES):
+                f(i, cond, mask)
+            sync(torch, dev)
+            turns[key].append(ARTIFACT_BATCHES * batch / (time.perf_counter() - t0))
+    return {"sets_per_s": {k: float(np.median(v)) for k, v in turns.items()},
+            "sets_per_s_turns": turns}
+
+
+def start_loader(model, art):
+    """Start a process that loads the flagship artifact with no model code and
+    samples one batch of `artifact_inputs(model, B, 0)`: (process, request,
+    the path of its samples, its start time)."""
+    s, cond, mask = artifact_inputs(model, B, 0)
+    req, got_path = art.parent / "request.npz", art.parent / "loader_x.npy"
+    np.savez(req, seed=s, cond=cond, mask=mask)
+    proc = subprocess.Popen([sys.executable, "-c", LOADER, str(ROOT), str(art), str(req),
+                             str(got_path)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return proc, (s, cond, mask), got_path, time.perf_counter()
+
+
+def flagship_artifact(torch, dev, name, model, net, art, counted, counter, exported,
+                      loader) -> dict:
+    """The flagship artifact: in this process against make_serve_fn, then
+    the loader's process (`start_loader`; no model code there): bit for bit,
+    600 launches counted there; then sets/s in turns."""
+    proto = serving_proto(model, B)
+    res = check_artifact(torch, dev, name, model, net, art, counted, counter,
+                         model.layers * 2 * (ODE_STEPS - 1), proto, ODE_STEPS, "midpoint", 0)
+    proc, (s, cond, mask), got_path, t0 = loader
+    stdout, stderr = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        fail(f"{name}: the loader process failed:\n{stderr[-4000:]}")
+    sub = json.loads(stdout.strip().splitlines()[-1])
+    sub["process_s"] = time.perf_counter() - t0
+    want = res["_live"](s, cond, mask).cpu().numpy()
+    if sub["model_modules"]:
+        fail(f"{name}: the loader imported model code: {sub['model_modules']}")
+    if sub["launches"][counter.__name__] != res["launches"] or sum(sub["launches"].values()) != \
+            res["launches"]:
+        fail(f"{name}: the loader counted {sub['launches']}, expected {res['launches']} "
+             f"{counter.__name__}")
+    if not np.array_equal(np.load(got_path), want):
+        fail(f"{name}: the loader's samples differ from make_serve_fn")
+    return {**{k: v for k, v in res.items() if not k.startswith("_")}, "loader": sub,
+            "export": exported, **sets_in_turns(torch, dev, res["_fn"], res["_live"],
+                                                res["_request"], B)}
+
+
+def http_request(url: str, body=None):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=None if body is None else json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"},
+                                 method="GET" if body is None else "POST")
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+def http_phase(torch, dev, art, n: int, seed: int) -> dict:
+    """make_server on an artifact at 127.0.0.1:0: /healthz, /meta, one
+    /sample of `n` sets with cond and a num_points list; the samples against
+    serve_batches on the same artifact, bit for bit; the request's seconds,
+    and the sampling's alone (serve_batches on the same request)."""
+    import threading
+
+    from particle_fm_tpu_torch.serving import serve_batches
+    from particle_fm_tpu_torch.server import make_server
+
+    t0 = time.perf_counter()
+    srv = make_server(str(art), port=0)
+    start_s = time.perf_counter() - t0
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        host, port = srv.server_address[:2]
+        url = f"http://{host}:{port}"
+        meta = srv.service.meta
+        if http_request(f"{url}/healthz")[1]["status"] != "ok" or \
+                http_request(f"{url}/meta")[1] != meta:
+            fail("http: /healthz or /meta answered wrong")
+        rs = np.random.RandomState(seed)
+        npts = meta["num_points"]
+        mult = rs.randint(min(30, npts), npts + 1, size=n)
+        cond = rs.randn(n, meta["cond_dim"]).astype(np.float32)
+        body = {"n_samples": n, "seed": seed, "num_points": mult.tolist()}
+        if meta["cond_dim"]:
+            body["cond"] = cond.tolist()
+        t0 = time.perf_counter()
+        status, out = http_request(f"{url}/sample", body)
+        request_s = time.perf_counter() - t0
+        mask = (np.arange(npts)[None, :] < mult[:, None]).astype(np.float32)[..., None]
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        want = serve_batches(srv.service.fn, meta, n, cond=cond if meta["cond_dim"] else None,
+                             mask=mask, seed=seed)
+        sampling_s = time.perf_counter() - t0
+        got = np.asarray(out["samples"], np.float32)
+        if status != 200 or out["shape"] != [n, npts, meta["features"]] or \
+                not np.array_equal(got, want):
+            fail(f"http: /sample answered {status}, shape {out.get('shape')}, equal "
+                 f"{np.array_equal(got, want)}")
+    finally:
+        srv.shutdown()
+        thread.join(timeout=30)
+        srv.server_close()
+    return {"sets": n, "server_start_s": start_s, "request_s": request_s,
+            "sampling_s": sampling_s, "json_and_http_s": request_s - sampling_s,
+            "equal_to_serve_batches": True}
+
+
+def distillation_phase(torch, ops, dev, counted, model, net) -> dict:
+    """The flagship teacher (seeded weights): REFLOW_PAIRS reflow pairs at
+    NFE 100 on the EPiC kernel (exact launches); a student trained 2 epochs
+    through train.py (data=reflow_pairs) from the teacher's weights;
+    straightness, teacher then student, on the pairs' validation split;
+    distill_direct DIRECT_STEPS steps at DIRECT_BATCH (the folded teacher's
+    solves on the kernel, exact launches); consistency_sample at 1 and 2
+    steps (6 and 12 launches a batch) against its plain path within
+    PATH_TOL; the reflow student exported at euler 4 evaluations and served
+    once over HTTP (`student_http_phase`, later)."""
+    from particle_fm_tpu_torch import train as ptrain
+    from particle_fm_tpu_torch.config.core import compose
+    from particle_fm_tpu_torch.training import consistency, reflow
+    from particle_fm_tpu_torch.training.step import create_train_state
+
+    out = {}
+    rs = np.random.RandomState(17)
+    mask_pool = ragged_mask(rs, REFLOW_PAIRS, N)[..., None]
+    cond_pool = rs.randn(REFLOW_PAIRS, C).astype(np.float32)
+    reset(counted)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    x1, x0, m, c = reflow.generate_pairs(model, net, REFLOW_PAIRS, mask=mask_pool, cond=cond_pool,
+                                         batch_size=REFLOW_BATCH, ode_steps=ODE_STEPS)
+    sync(torch, dev)
+    pairs_launches = model.layers * 2 * (ODE_STEPS - 1) * (REFLOW_PAIRS // REFLOW_BATCH)
+    expect("reflow pairs", launched(counted), epic_layer=pairs_launches)
+    if not (np.isfinite(x1).all() and np.abs(x1[m[..., 0] == 0]).max(initial=0.0) == 0.0):
+        fail("reflow pairs: non-finite samples or padded rows not zero")
+    out["pairs"] = {"pairs": REFLOW_PAIRS, "batch": REFLOW_BATCH, "nfe": 2 * (ODE_STEPS - 1),
+                    "s": time.perf_counter() - t0, "launches": pairs_launches}
+    SLICE17_DIR.mkdir(parents=True, exist_ok=True)
+    pairs = SLICE17_DIR / "pairs.npz"
+    np.savez(pairs, x1=x1, x0=x0, mask=m, cond=c)
+
+    cfg = compose(ptrain.CONFIG_DIR, "train", [
+        "data=reflow_pairs", f"data.pairs_path={pairs}", f"data.batch_size={REFLOW_BATCH}",
+        "model.loss_type=reflow", f"model.num_particles={N}", f"model.global_cond_dim={C}",
+        f"model.local_cond_dim={C}", "model.scheduler.name=constant", "trainer=smoke",
+        "callbacks=none", "test=false", f"device={dev.type}"])
+    trainer = ptrain.build_trainer(cfg)
+    trainer.verbose = False
+    student = trainer.model
+    state = create_train_state(student, trainer.optimizer, device=dev)
+    state.net.load_state_dict(net.state_dict())
+    with torch.no_grad():
+        for e, p in zip(state.ema_params, state.net.parameters()):
+            e.copy_(p)
+    reset(counted)
+    t0 = time.perf_counter()
+    state = trainer.fit(initial_state=state)
+    sync(torch, dev)
+    expect("reflow student training", launched(counted))
+    history = [float(h["val_loss"]) for h in trainer.metrics_history]
+    if not np.isfinite(history).all():
+        fail(f"reflow student: non-finite validation losses {history}")
+    pdm = trainer.datamodule
+    val = (pdm.tensor_val, pdm.val.x[..., model.features:], pdm.mask_val,
+           pdm.tensor_conditioning_val)
+    s_teacher = reflow.straightness(model, net, *val)
+    s_student = reflow.straightness(student, state.net, *val)
+    out["student"] = {"epochs": len(history), "steps": state.step, "val_loss": history,
+                      "train_s": time.perf_counter() - t0,
+                      "straightness_teacher": s_teacher, "straightness_student": s_student}
+
+    reset(counted)
+    t0 = time.perf_counter()
+    direct = consistency.distill_direct(model, net, x1, m, c, steps=DIRECT_STEPS,
+                                        batch_size=DIRECT_BATCH, lr=1e-4, warmup=5)
+    sync(torch, dev)
+    direct_launches = DIRECT_STEPS * 2 * 8 * model.layers  # 8 midpoint steps a target
+    expect("distill_direct", launched(counted), epic_layer=direct_launches)
+    if not np.isfinite(direct.losses).all():
+        fail(f"distill_direct: non-finite losses {direct.losses}")
+    out["distill_direct"] = {"steps": DIRECT_STEPS, "batch": DIRECT_BATCH,
+                             "s": time.perf_counter() - t0, "losses": direct.losses.tolist(),
+                             "launches": direct_launches}
+
+    mask_t = torch.from_numpy(mask_pool[:CONSISTENCY_BATCH]).to(dev)
+    cond_t = torch.from_numpy(cond_pool[:CONSISTENCY_BATCH]).to(dev)
+    sample_launches = 0
+    for steps in (1, 2):
+        def sample():
+            return consistency.consistency_sample(model, direct.net, torch.Generator(dev)
+                                                  .manual_seed(5), cond=cond_t, mask=mask_t,
+                                                  steps=steps)
+
+        reset(counted)
+        got, k_s, _, p_s, err = kernel_against_plain(torch, dev, f"consistency_sample {steps}",
+                                                     ops, "epic_layer", sample)
+        expect(f"consistency_sample {steps}", launched(counted), epic_layer=model.layers * steps)
+        sample_launches += model.layers * steps
+        out[f"consistency_sample_{steps}"] = {"sets": CONSISTENCY_BATCH, "kernel_s": k_s,
+                                              "plain_s": p_s, "max_abs_diff_kernel_vs_plain": err,
+                                              "launches": model.layers * steps}
+
+    # the student's artifact (euler, 4 evaluations), exported in a process of its own
+    out["_student_export"] = start_exports(torch, {"reflow_student": (student, state.net, dict(
+        batch_size=B, num_points=N, features=model.features, cond_dim=C, ode_solver="euler",
+        ode_steps=STUDENT_STEPS, **{k: v for k, v in serving_proto(model, B).items()
+                                     if k in ("means", "stds")}))})
+    out["launches"] = pairs_launches + direct_launches + sample_launches
+    return out
+
+
+def student_http_phase(torch, dev, counted, model, procs) -> dict:
+    """The reflow student's artifact (exported during the distillation
+    phase) served over HTTP once: 1,000 sets, the warm-up's batch, the
+    request's 2 batches and serve_batches' 2 (6 launches an evaluation)."""
+    export = finish_exports(procs)["reflow_student"]
+    reset(counted)
+    http = http_phase(torch, dev, SLICE17_DIR / "reflow_student" / "exported", HTTP_JETS, seed=3)
+    want = model.layers * (STUDENT_STEPS - 1) * 5
+    expect("reflow student served over HTTP", launched(counted), epic_layer=want)
+    return {"ode_solver": "euler", "ode_steps": STUDENT_STEPS, "export": export, **http,
+            "launches": want}
+
+
+def slice17_phases(torch, ops, sa, fa, dev, counted, runs) -> dict:
+    """The custom ops' opchecks; the artifacts of the flagship (float32 and
+    bf16, NFE 100) and of paths A, B, C and D (float32 and bf16, euler, one
+    evaluation), exported in processes of their own started first; the
+    distillation phase meanwhile; then each artifact against make_serve_fn
+    (the flagship's also in a process without model code, started before
+    the attention checks, and its sets/s in turns once that process is
+    done), the HTTP server on the flagship artifact and on the reflow
+    student's. {path: result}, each printed as it ends."""
+    import shutil
+
+    from particle_fm_tpu_torch.serving import ARTIFACT_NAME
+
+    shutil.rmtree(SLICE17_DIR, ignore_errors=True)
+    by_name = {r["name"]: r for r in runs}
+    jobs, checks = {}, {}
+    for dtype in (None, "bfloat16"):
+        suffix = "" if dtype is None else " bf16"
+        run = by_name["epic"]
+        model, net = twin(run["model"], run["net"], dtype, dev)
+        jobs["flagship" + suffix.replace(" ", "_")] = (model, net, dict(
+            num_points=N, features=3, cond_dim=C, ode_steps=ODE_STEPS,
+            **{k: v for k, v in serving_proto(model, B).items()
+               if k not in ("has_cond", "has_mask")}))
+        for path in ("path A", "path B", "path C", "path D"):
+            run = by_name[path]
+            model, net = twin(run["model"], run["net"], dtype, dev)
+            batch = run.get("batch", 640)
+            proto = serving_proto(model, batch)
+            name = (path + suffix).replace(" ", "_")
+            kwargs = {k: v for k, v in proto.items() if k not in ("has_cond", "has_mask")}
+            kwargs.update(num_points=model.num_particles, features=model.features,
+                          cond_dim=model.global_cond_dim, ode_solver="euler",
+                          ode_steps=ATTENTION_STEPS)
+            jobs[name] = (model, net, kwargs)
+            checks[name] = (path + suffix, model, net, run, proto)
+    t0 = time.perf_counter()
+    procs = start_exports(torch, jobs)
+    out = {}
+
+    def emit(path, res, t1):
+        print(json.dumps({"slice17": path, "phase_s": time.perf_counter() - t1,
+                          **{k: v for k, v in res.items() if not k.startswith("_")}}),
+              flush=True)
+        out[path] = res
+
+    t1 = time.perf_counter()
+    emit("opcheck", opcheck_phase(torch, ops, dev), t1)
+    t1 = time.perf_counter()
+    epic = by_name["epic"]
+    emit("distillation", distillation_phase(torch, ops, dev, counted, epic["model"], epic["net"]),
+         t1)
+    exports = finish_exports(procs)
+    exports_s = time.perf_counter() - t0
+    # the loaders' processes start first and run beside the attention checks
+    flagships = {}
+    for dtype, counter in ((None, ops.epic_layer), ("bfloat16", ops.epic_layer_bf16)):
+        suffix = "" if dtype is None else "_bf16"
+        model, net = twin(epic["model"], epic["net"], dtype, dev)
+        art = SLICE17_DIR / ("flagship" + suffix) / "exported"
+        flagships[suffix] = (model, net, art, counter, start_loader(model, art))
+    for name, (label, model, net, run, proto) in checks.items():
+        owner, wrapper = run["wrapper_owner"], run["wrapper_name"]
+        counter = getattr(owner, wrapper + ("_bf16" if name.endswith("bf16") else ""))
+        t1 = time.perf_counter()
+        res = check_artifact(torch, dev, label, model, net, SLICE17_DIR / name / "exported",
+                             counted, counter, run["launches_per_eval"] * (ATTENTION_STEPS - 1),
+                             proto, ATTENTION_STEPS, "euler", 1)
+        emit(label + " artifact", {**res, "export": exports[name]}, t1)
+    for suffix, (model, net, art, counter, loader) in flagships.items():
+        t1 = time.perf_counter()
+        emit("flagship artifact" + suffix.replace("_", " "),
+             flagship_artifact(torch, dev, "flagship artifact" + suffix, model, net, art,
+                               counted, counter, exports["flagship" + suffix], loader), t1)
+    t1 = time.perf_counter()
+    reset(counted)
+    http = http_phase(torch, dev, SLICE17_DIR / "flagship" / "exported", HTTP_JETS, seed=4)
+    # the warm-up's batch, then two batches for the request and two for serve_batches
+    http["launches"] = launched(counted)["epic_layer"]
+    expect("HTTP", launched(counted), epic_layer=5 * epic["model"].layers * 2 * (ODE_STEPS - 1))
+    emit("HTTP (flagship artifact)", http, t1)
+    t1 = time.perf_counter()
+    emit("reflow student artifact over HTTP",
+         student_http_phase(torch, dev, counted, epic["model"],
+                            out["distillation"]["_student_export"]), t1)
+    out["exports_s"] = exports_s
+    out["bytes"] = {k: (SLICE17_DIR / k / "exported" / ARTIFACT_NAME).stat().st_size
+                    for k in [*jobs, "reflow_student"]}
+    return out
+
+
+def serving_runs(torch, dev, FlowMatchingModel, ops, sa, fa) -> list[dict]:
+    """The six served models at full width with their seeded weights, as the
+    serving phases serve them (one dict a path: name, config, model, net,
+    the wrapper that counts and its launches an evaluation, requests)."""
     jets = dict(features=3, frequencies=16, t_emb="cosine", loss_type="FM-OT")
     jetnet = dict(jets, num_particles=150, global_cond_dim=2)
     # configs/experiment/jetnet/fm_tops150_cond.yaml on configs/model/flow_matching.yaml
@@ -3731,6 +4241,69 @@ def main() -> None:
              wrapper_owner=ops, wrapper_name="epic_layer", launches_per_eval=jetclass.layers,
              requests=(512, 7), batch=512, cpu_batch=4),
     ]
+    return runs
+
+def main() -> None:
+    started = time.perf_counter()
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("CUDA is not available; this script runs on an NVIDIA GPU")
+    sys.path.insert(0, str(ROOT))
+    try:
+        import particle_fm_tpu_torch
+        from particle_fm_tpu_torch.models.flow_matching import FlowMatchingModel
+        from particle_fm_tpu_torch.ops import _build
+        from particle_fm_tpu_torch.ops import epic_layer as ops
+        from particle_fm_tpu_torch.ops import flash_attention as fa
+        from particle_fm_tpu_torch.ops import short_attention as sa
+    except ImportError as e:
+        fail(f"the port is not beside this script ({e})")
+    if Path(particle_fm_tpu_torch.__file__).resolve().parent.parent != ROOT:
+        fail(f"imported the port from {particle_fm_tpu_torch.__file__}, not from {ROOT}")
+
+    card = card_line()
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    t0 = time.perf_counter()
+    libs = _build.build_libraries([ops.SOURCE, sa.SOURCE, fa.SOURCE])
+    for module in (ops, sa, fa):
+        module.load_library()
+    print(json.dumps({"build_s": time.perf_counter() - t0, "libraries": [p.name for p in libs]}),
+          flush=True)
+    for lib in libs:
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
+                print(f"ptxas ({lib.name}):", line.strip())
+
+    kernels = {k["name"]: k for k in (kernel_phase(torch, ops, dev),
+                                      packed_phase(torch, sa, dev),
+                                      fused_phase(torch, sa, dev),
+                                      flash_phase(torch, fa, sa, dev),
+                                      epic_bf16_phase(torch, ops, dev),
+                                      packed_bf16_phase(torch, sa, dev),
+                                      fused_bf16_phase(torch, sa, dev),
+                                      flash_bf16_phase(torch, fa, dev))}
+    # on these lines only: the `kernels` line below holds what this run timed and counted
+    designs = {
+        "packed_short_attention": tensor_core_design(
+            sa.MMA_PRODUCTS, sa.packed_launch_report, sa.packed_geometry, 150, 16),
+        "flash_masked_attention": tensor_core_design(
+            sa.MMA_PRODUCTS, fa.mma_launch_report, fa.mma_geometry, 279, 16),
+        "epic_layer": epic_design(ops),
+        "epic_layer_bf16": epic_bf16_design(torch, ops),
+    }
+    for k in kernels.values():
+        line = {"kernel_phase": k}
+        if k["name"] in designs:
+            line["tensor_core_design_at_the_served_shape"] = designs[k["name"]]
+        print(json.dumps(line), flush=True)
+
+    runs = serving_runs(torch, dev, FlowMatchingModel, ops, sa, fa)
+    epic = runs[0]["model"]
     counted = [ops.epic_layer, sa.packed_short_attention, sa.fused_short_attention,
                fa.flash_masked_attention, ops.epic_layer_bf16, sa.packed_short_attention_bf16,
                sa.fused_short_attention_bf16, fa.flash_masked_attention_bf16]
@@ -3867,7 +4440,36 @@ def main() -> None:
         kernels[kernel_name]["launches_by_path"][path] = launches
     print(json.dumps({"slice16_phases_s": time.perf_counter() - t0}), flush=True)
 
+    t0 = time.perf_counter()
+    res = slice17_phases(torch, ops, sa, fa, dev, counted, runs)
+    distilled = res["distillation"]
+    for kernel_name, path, launches in (
+            ("epic_layer", "slice17 reflow pairs (4,096 at NFE 100)",
+             distilled["pairs"]["launches"]),
+            ("epic_layer", "slice17 distill_direct (the teacher's solves)",
+             distilled["distill_direct"]["launches"]),
+            ("epic_layer", "slice17 consistency_sample (1 and 2 steps)",
+             distilled["consistency_sample_1"]["launches"]
+             + distilled["consistency_sample_2"]["launches"]),
+            ("epic_layer", "slice17 reflow student artifact over HTTP",
+             res["reflow student artifact over HTTP"]["launches"]),
+            ("epic_layer", "slice17 flagship artifact (here and in the loader)",
+             res["flagship artifact"]["launches"] + res["flagship artifact"]["loader"]
+             ["launches"]["epic_layer"]),
+            ("epic_layer_bf16", "slice17 flagship artifact bf16 (here and in the loader)",
+             res["flagship artifact bf16"]["launches"] + res["flagship artifact bf16"]["loader"]
+             ["launches"]["epic_layer_bf16"]),
+            ("epic_layer", "slice17 HTTP on the flagship artifact",
+             res["HTTP (flagship artifact)"]["launches"]),
+            *((res[f"{path}{suffix} artifact"]["kernel"], f"slice17 {path}{suffix} artifact",
+               res[f"{path}{suffix} artifact"]["launches"])
+              for path in ("path A", "path B", "path C", "path D") for suffix in ("", " bf16"))):
+        kernels[kernel_name]["launches"] += launches
+        kernels[kernel_name]["launches_by_path"][path] = launches
+    print(json.dumps({"slice17_phases_s": time.perf_counter() - t0}), flush=True)
+
     kernels = list(kernels.values())
+    print(json.dumps({"smoke_s": time.perf_counter() - started}), flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

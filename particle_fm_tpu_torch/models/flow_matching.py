@@ -429,6 +429,28 @@ class FlowMatchingModel:
         normalisation of the result, as the JAX `sample` places them. `em`
         draws its noise from `generator`; the DOPRI5 solvers append their
         statistics of each flow to `stats` when it is given."""
+        self.fold_weight_norm(net)
+        try:
+            return self.integrate_folded(net, z, cond, mask, ode_solver, ode_steps,
+                                         guidance_scale, generator, stats)
+        finally:
+            self.unfold_weight_norm(net)
+
+    @torch.no_grad()
+    def integrate_folded(
+        self,
+        net: CNFStack,
+        z: torch.Tensor,
+        cond: torch.Tensor | None = None,
+        mask: torch.Tensor | None = None,
+        ode_solver: str = "midpoint",
+        ode_steps: int = 100,
+        guidance_scale: float | None = None,
+        generator: torch.Generator | None = None,
+        stats: list | None = None,
+    ) -> torch.Tensor:
+        """`integrate` on a network whose weight norm is folded already: the
+        body of the program that serving.py exports."""
         if ode_solver not in SOLVERS:
             raise NotImplementedError(f"Solver {ode_solver} not implemented")
         if ode_solver in ("em", "ddim") and self.loss_type != "diffusion":
@@ -439,17 +461,13 @@ class FlowMatchingModel:
             raise NotImplementedError("guidance_scale with self_cond")
         if cond is not None and self.use_normaliser and self.conditioned:
             cond = net.normalise_cond(cond)
-        self.fold_weight_norm(net)
-        try:
-            if self.self_cond:
-                x = self._integrate_sc(net, z, cond, mask, ode_solver, ode_steps)
-            else:
-                x = z
-                for k in reversed(range(self.n_transforms)):
-                    x = self._integrate_flow(net, k, x, cond, mask, ode_solver, ode_steps,
-                                             guidance_scale, generator, stats)
-        finally:
-            self.unfold_weight_norm(net)
+        if self.self_cond:
+            x = self._integrate_sc(net, z, cond, mask, ode_solver, ode_steps)
+        else:
+            x = z
+            for k in reversed(range(self.n_transforms)):
+                x = self._integrate_flow(net, k, x, cond, mask, ode_solver, ode_steps,
+                                         guidance_scale, generator, stats)
         if self.use_normaliser:
             x = net.reverse_norm(x, mask)
         return x

@@ -40,6 +40,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+
+def _to_bf16(v: float) -> float:
+    """v rounded to bfloat16, as a Python float."""
+    return float(torch.tensor(v, dtype=torch.bfloat16))
+
+
+# the slopes of the shipped activations, rounded once: a traced program
+# (serving.py) holds them as numbers, not as tensors made at each call
+_BF16_SLOPES = {v: _to_bf16(v) for v in (0.01, 0.1)}
+
+
 def leaky_relu(x: torch.Tensor, negative_slope: float) -> torch.Tensor:
     """jax.nn.leaky_relu: where(x >= 0, x, slope * x). In bfloat16 the slope
     is a weakly typed constant that JAX rounds to bfloat16 before the
@@ -50,7 +61,7 @@ def leaky_relu(x: torch.Tensor, negative_slope: float) -> torch.Tensor:
     (torch's leaky_relu takes the slope there); in bfloat16 a sum cancels to
     exactly 0 often enough for that to show in the gradients."""
     if x.dtype == torch.bfloat16:
-        negative_slope = float(torch.tensor(negative_slope, dtype=torch.bfloat16))
+        negative_slope = _BF16_SLOPES.get(negative_slope) or _to_bf16(negative_slope)
     if torch.is_grad_enabled() and x.requires_grad:
         return torch.where(x >= 0, x, negative_slope * x)
     return F.leaky_relu(x, negative_slope=negative_slope)
@@ -136,8 +147,10 @@ class WNDense(nn.Module):
             self.bias = nn.Parameter(b)
         else:
             self.bias = None
-        self._folded: torch.Tensor | None = None
-        self._folded_bias: torch.Tensor | None = None
+        # the folded weight and bias while folded: buffers (not saved), so that
+        # torch.export takes them as the program's inputs (serving.py)
+        self.register_buffer("_folded", None, persistent=False)
+        self.register_buffer("_folded_bias", None, persistent=False)
 
     def effective_weight(self) -> torch.Tensor:
         """The (out, in) weight the layer applies."""

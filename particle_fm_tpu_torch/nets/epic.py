@@ -39,6 +39,12 @@ from particle_fm_tpu_torch.ops import epic_layer as epic_layer_ops
 from particle_fm_tpu_torch.ops.masked import meansum_pool
 
 
+# the fused layer's arguments that `EPiCLayer.fold` lays out (the bfloat16
+# image last, in bfloat16 only)
+KERNEL_WEIGHTS = ("wg1", "bg1", "wg2", "bg2", "w1x", "w1s", "b1", "w2x", "w2s", "b2",
+                  "weight_image")
+
+
 def _split_set_rows(w: torch.Tensor, t: int, h: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(in, out) weight over cat(t, x (h wide), rest) -> (x rows, cat(t rows, rest rows))."""
     return w[t : t + h].contiguous(), torch.cat([w[:t], w[t + h :]], dim=0).contiguous()
@@ -88,7 +94,18 @@ class EPiCLayer(nn.Module):
             [(self.tl, "set"), (h, "particle"), (self.lc, "set")], h, **wn
         )
         self.drop_global, self.drop_local = Dropout(dropout), Dropout(dropout)
-        self._kernel_weights: dict[str, torch.Tensor] | None = None
+        # the fused layer's weights while folded: buffers (not saved), so that
+        # torch.export takes them as the program's inputs (serving.py)
+        for k in KERNEL_WEIGHTS:
+            self.register_buffer(f"_kw_{k}", None, persistent=False)
+
+    @property
+    def _kernel_weights(self) -> dict[str, torch.Tensor] | None:
+        """The fused layer's weights by name while folded, else None."""
+        if self._kw_wg1 is None:
+            return None
+        return {k: getattr(self, f"_kw_{k}") for k in KERNEL_WEIGHTS
+                if getattr(self, f"_kw_{k}") is not None}
 
     @torch.no_grad()
     def fold(self) -> None:
@@ -115,12 +132,14 @@ class EPiCLayer(nn.Module):
             # the bfloat16 kernels' image of the weights, laid out once
             weights["weight_image"] = epic_layer_ops.bf16_weight_image(
                 *(weights[k] for k in ("wg1", "wg2", "w1s", "w2s", "w1x", "w2x")))
-        self._kernel_weights = weights
+        for k, w in weights.items():
+            setattr(self, f"_kw_{k}", w)
 
     def unfold(self) -> None:
         for fc in (self.fc_global1, self.fc_global2, self.fc_local1, self.fc_local2):
             fc.unfold()
-        self._kernel_weights = None
+        for k in KERNEL_WEIGHTS:
+            setattr(self, f"_kw_{k}", None)
 
     def forward(
         self,
@@ -135,7 +154,7 @@ class EPiCLayer(nn.Module):
         g_cond = cond if self.gc else None
         l_cond = cond if self.lc else None
 
-        if self._kernel_weights is not None:
+        if self._kw_wg1 is not None:
             if self.drop_global.active:
                 raise RuntimeError("the folded EPiC layer serves inference: it has no dropout")
             b, n, _ = x_local.shape
@@ -146,14 +165,13 @@ class EPiCLayer(nn.Module):
             elif self.dtype is not None:
                 set_feat = set_feat.to(self.dtype)
             m = x_local.new_ones(b, n, dtype=torch.float32) if mask is None else mask[..., 0]
-            w = self._kernel_weights
             x_local, x_global = epic_layer_ops.epic_layer(
                 x_local.contiguous(), x_global.contiguous(), m.contiguous(),
                 set_feat.contiguous(),
-                w["wg1"], w["bg1"], w["wg2"], w["bg2"],
-                w["w1x"], w["w1s"], w["b1"], w["w2x"], w["w2s"], w["b2"],
+                self._kw_wg1, self._kw_bg1, self._kw_wg2, self._kw_bg2, self._kw_w1x,
+                self._kw_w1s, self._kw_b1, self._kw_w2x, self._kw_w2s, self._kw_b2,
                 sum_scale=self.sum_scale, tg_dim=self.tg, tl_dim=self.tl, cg_dim=self.gc,
-                cl_dim=self.lc, weight_image=w.get("weight_image"),
+                cl_dim=self.lc, weight_image=self._kw_weight_image,
             )
             return x_global, x_local
 

@@ -8,6 +8,10 @@ finds first, and `csrc/*.cuh`), and loaded with ctypes. The
 compiler's report (registers, shared memory, spills) is kept beside the
 library as `<name>.log`. `build_libraries` starts one nvcc per source, all
 together, so several kernels build in the time of the slowest.
+
+Each kernel entry point is also a `torch.library` custom op in the namespace
+`OPS_NAMESPACE` (registered where its wrapper lives), so that `torch.export`
+can trace a network through it.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "torch_kernels"
+
+OPS_NAMESPACE = "particle_fm"
 
 _libs: dict[Path, ctypes.CDLL] = {}
 

@@ -109,7 +109,10 @@ def forward_mode_ad():
     attention kernel (a CUDA tensor at a shape the kernel takes), since the
     kernels' autograd Functions have no forward-mode rule. Where the
     dispatcher takes the einsum path, or a kernel's plain version for CPU
-    tensors, it computes as anywhere else."""
+    tensors, it computes as anywhere else; the plain version is called
+    directly there, not through the kernel's custom op, which has no
+    forward-mode or batching rule either (torch.func would see its output
+    as constant)."""
     _forward_mode[0] += 1
     try:
         yield
@@ -179,9 +182,13 @@ def attention(
             raise ValueError("impl='flash' takes no attn_bias; use 'einsum', 'packed' or 'fused'")
         if on_accel:
             _kernel_launches(impl)
+        elif _forward_mode[0]:
+            return flash_attention.flash_masked_attention_reference(q, k, v, kv_mask)
         return flash_attention.flash_masked_attention(q, k, v, kv_mask)
     if impl == "fused":
         if on_accel:
             _kernel_launches(impl)
+        elif _forward_mode[0]:
+            return short_attention.fused_short_attention_reference(q, k, v, kv_mask, attn_bias)
         return short_attention.fused_short_attention(q, k, v, kv_mask, attn_bias)
     return masked_attention(q, k, v, kv_mask, attn_bias, scores_dtype)

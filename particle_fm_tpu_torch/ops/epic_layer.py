@@ -24,11 +24,19 @@ takes one width for both; jetclass_cond feeds cond to the global path only.
 
 `epic_layer` runs the plain version for a tensor on the CPU and launches
 `csrc/epic_layer.cu` for a CUDA tensor; it never falls back from one to the
-other. The CUDA library is built with nvcc at first use (ops/_build.py). The
-float32 kernel runs the two local matmuls on the tensor cores, each float32
-product as three TF32 products (csrc/mma_tf32.cuh); `epic_layer_tf32` models
-that arithmetic on any device, and `launch_report` asks the built library
-what its launcher gives the kernel at a shape. The bfloat16 kernels (the
+other. Both go through the custom ops `particle_fm::epic_layer` and
+`particle_fm::epic_layer_bf16` (`torch.library`): a CUDA implementation that
+launches the kernel and counts the launch, a CPU implementation that is the
+plain version, and a fake one that gives the outputs' shapes, so that
+`torch.export` traces a folded network on either device into the same op
+nodes. The wrappers check the arguments before they call the op; the
+CUDA implementations do what needs real tensors (the 16-byte start of
+x_local, the scratch, the stream). The CUDA library is built with nvcc at
+first use (ops/_build.py). The float32 kernel runs the two local matmuls on
+the tensor cores, each float32 product as three TF32 products
+(csrc/mma_tf32.cuh); `epic_layer_tf32` models that arithmetic on any
+device, and `launch_report` asks the built library what its launcher gives
+the kernel at a shape. The bfloat16 kernels (the
 per-set part over several sets a block, then the local products on wgmma,
 csrc/wgmma_bf16.cuh) have `bf16_launch_report`, which `bf16_geometry`
 mirrors.
@@ -43,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from particle_fm_tpu_torch.ops import _build
+from particle_fm_tpu_torch.ops._build import OPS_NAMESPACE
 from particle_fm_tpu_torch.ops._build import check_tensor as _check
 from particle_fm_tpu_torch.ops.tf32 import product_tf32
 
@@ -326,9 +335,12 @@ def _check_shapes(args, dims, dtype: torch.dtype) -> tuple[int, int, int, int, i
     ):
         # the mask stays float32 in both kernels, as in the Pallas kernel
         _check(name, t, shape, dev, dtype=torch.float32 if name == "mask" else dtype)
+    return b, n, h, l, s
+
+
+def _check_start(x_local: torch.Tensor) -> None:
     if x_local.data_ptr() % 16:
         raise ValueError("x_local must start on 16 bytes (the kernel reads it in 16-byte pieces)")
-    return b, n, h, l, s
 
 
 def epic_layer_bf16(
@@ -352,34 +364,15 @@ def epic_layer_bf16(
     if x_local.device.type != "cuda" or x_local.dtype != torch.bfloat16:
         raise ValueError(f"epic_layer_bf16 takes bfloat16 CUDA tensors, got {x_local.dtype} on "
                          f"{x_local.device}")
-    b, n, h, l, s = _check_shapes(args, dims, torch.bfloat16)
-    dev = x_local.device
+    _, _, h, _, _ = _check_shapes(args, dims, torch.bfloat16)
     if weight_image is None:
         weight_image = bf16_weight_image(wg1, wg2, w1s, w2s, w1x, w2x)
     _, nb, ncb, kp, _ = _local_widths(h)
     size = 2 * kp * ncb * nb + sum(-(-w.shape[0] // 16) * 16 * (-(-w.shape[1] // 16) * 16 + 8)
                                    for w in (wg1, wg2, w1s, w2s))
-    _check("weight_image", weight_image, (size,), dev, dtype=torch.bfloat16)
-    xo = torch.empty_like(x_local)
-    go = torch.empty_like(x_global)
-    if b == 0:
-        return xo, go
-    # scratch between the library's three kernels, float32: the per-set
-    # biases of the two local products (B, 2, H), the pooled sums (B, H), the
-    # counts (B)
-    biases = torch.empty(b * (3 * h + 1), dtype=torch.float32, device=dev)
-    lib = load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.epic_layer_fwd_bf16(
-            *(t.data_ptr() for t in args), xo.data_ptr(), go.data_ptr(), biases.data_ptr(),
-            weight_image.data_ptr(), b, n, h, l, s, tg_dim, tl_dim, cg_dim, cl_dim,
-            float(sum_scale), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"epic_layer_bf16 kernel launch failed: cudaError {err}")
-    epic_layer_bf16.launches += 1
-    return xo, go
+    _check("weight_image", weight_image, (size,), x_local.device, dtype=torch.bfloat16)
+    return torch.ops.particle_fm.epic_layer_bf16(*args, float(sum_scale), tg_dim, tl_dim, cg_dim,
+                                                 cl_dim, weight_image)
 
 
 epic_layer_bf16.launches = 0
@@ -400,32 +393,89 @@ def epic_layer(
     tensors; the plain version for CPU tensors. Arguments as in
     `epic_layer_reference`."""
     args = (x_local, x_global, mask, set_feat, wg1, bg1, wg2, bg2, w1x, w1s, b1, w2x, w2s, b2)
-    dims = dict(sum_scale=sum_scale, tg_dim=tg_dim, tl_dim=tl_dim, cg_dim=cg_dim,
-                cl_dim=cl_dim)
+    dims = (float(sum_scale), tg_dim, tl_dim, cg_dim, cl_dim)
     if x_local.device.type == "cpu":
-        return epic_layer_reference(*args, **dims)
+        if x_local.dtype == torch.bfloat16:
+            return torch.ops.particle_fm.epic_layer_bf16(*args, *dims, weight_image)
+        return torch.ops.particle_fm.epic_layer(*args, *dims)
     if x_local.device.type != "cuda":
         raise ValueError(f"epic_layer runs on cuda or cpu, got {x_local.device}")
     if x_local.dtype == torch.bfloat16:
-        return epic_layer_bf16(*args, **dims, weight_image=weight_image)
-
-    dev = x_local.device
-    b, n, h, l, s = _check_shapes(args, dims, torch.float32)
-    xo = torch.empty_like(x_local)
-    go = torch.empty_like(x_global)
-    if b == 0:
-        return xo, go
-    lib = load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.epic_layer_fwd_f32(
-            *(t.data_ptr() for t in args), xo.data_ptr(), go.data_ptr(),
-            b, n, h, l, s, tg_dim, tl_dim, cg_dim, cl_dim, float(sum_scale), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"epic_layer kernel launch failed: cudaError {err}")
-    epic_layer.launches += 1
-    return xo, go
+        return epic_layer_bf16(*args, sum_scale=sum_scale, tg_dim=tg_dim, tl_dim=tl_dim,
+                               cg_dim=cg_dim, cl_dim=cl_dim, weight_image=weight_image)
+    _check_shapes(args, dict(tg_dim=tg_dim, tl_dim=tl_dim, cg_dim=cg_dim, cl_dim=cl_dim),
+                  torch.float32)
+    return torch.ops.particle_fm.epic_layer(*args, *dims)
 
 
 epic_layer.launches = 0
+
+
+# The custom ops. Their CUDA implementations launch the kernels on the current
+# stream and count the launch in the public wrapper's `launches`, wherever the
+# op is called from: the wrapper, or an exported program (serving.py).
+
+_ARGS = ("Tensor x_local, Tensor x_global, Tensor mask, Tensor set_feat, Tensor wg1, Tensor bg1, "
+         "Tensor wg2, Tensor bg2, Tensor w1x, Tensor w1s, Tensor b1, Tensor w2x, Tensor w2s, "
+         "Tensor b2, float sum_scale, int tg_dim, int tl_dim, int cg_dim, int cl_dim")
+_LIB = torch.library.Library(OPS_NAMESPACE, "FRAGMENT")
+_LIB.define(f"epic_layer({_ARGS}) -> (Tensor, Tensor)")
+_LIB.define(f"epic_layer_bf16({_ARGS}, Tensor? weight_image) -> (Tensor, Tensor)")
+
+
+def _plain(*args):
+    """The CPU implementation of both ops: the plain version."""
+    sum_scale, tg, tl, cg, cl = args[14:19]
+    return epic_layer_reference(*args[:14], sum_scale=sum_scale, tg_dim=tg, tl_dim=tl, cg_dim=cg,
+                                cl_dim=cl)
+
+
+def _fake(*args):
+    return torch.empty_like(args[0]), torch.empty_like(args[1])
+
+
+def _run(bf16: bool, *args) -> tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA implementation of either op: the library's launch on the
+    current stream (the arguments as the wrapper checked them)."""
+    x_local, x_global = args[:2]
+    sum_scale, tg, tl, cg, cl = args[14:19]
+    xo, go = torch.empty_like(x_local), torch.empty_like(x_global)
+    b, n, h = x_local.shape
+    if b == 0:
+        return xo, go
+    _check_start(x_local)
+    dev = x_local.device
+    lib = load_library()
+    if bf16:
+        # scratch between the library's three kernels, float32: the per-set
+        # biases of the two local products (B, 2, H), the pooled sums (B, H),
+        # the counts (B)
+        biases = torch.empty(b * (3 * h + 1), dtype=torch.float32, device=dev)
+        entry, extra = lib.epic_layer_fwd_bf16, (biases.data_ptr(), args[19].data_ptr())
+    else:
+        entry, extra = lib.epic_layer_fwd_f32, ()
+    with torch.cuda.device(dev):
+        err = entry(
+            *(t.data_ptr() for t in args[:14]), xo.data_ptr(), go.data_ptr(), *extra,
+            b, n, h, x_global.shape[-1], args[3].shape[-1], tg, tl, cg, cl, sum_scale,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"epic_layer{'_bf16' if bf16 else ''} kernel launch failed: "
+                           f"cudaError {err}")
+    return xo, go
+
+
+def _register(name: str, wrapper, bf16: bool) -> None:
+    def launch(*args):
+        out = _run(bf16, *args)
+        wrapper.launches += 1
+        return out
+
+    _LIB.impl(name, launch, "CUDA")
+    _LIB.impl(name, _plain, "CPU")
+    torch.library.register_fake(f"{OPS_NAMESPACE}::{name}", _fake, lib=_LIB)
+
+
+_register("epic_layer", epic_layer, bf16=False)
+_register("epic_layer_bf16", epic_layer_bf16, bf16=True)

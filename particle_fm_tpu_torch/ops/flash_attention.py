@@ -15,8 +15,13 @@ agree.)
 `flash_masked_attention` runs its plain version
 (`flash_masked_attention_reference`) for tensors on the CPU and launches
 `csrc/flash_attention.cu` for CUDA tensors; it never falls back from one to
-the other. The kernel takes float32 and reads q, k and v where they lie, as
-long as the last two axes (H, D) are packed, and head dims up to 128. It
+the other. Both go through the custom ops `particle_fm::flash_masked_attention`
+and `particle_fm::flash_masked_attention_bf16` (`torch.library`; as in
+ops/short_attention.py): the launch geometry, the splits' scratch and the
+class-token kernel's tickets are taken in the CUDA implementation, at the
+call, so that an exported program builds its own in the process that runs
+it. The kernel takes float32 and reads q, k and v where they lie, as long
+as the last two axes (H, D) are packed, and head dims up to 128. It
 counts its launches in `flash_masked_attention.launches`. With more than 4
 query rows and head dims up to 64 the kernel runs on the tensor cores
 (`csrc/attention_mma.cuh`, three TF32 products per float32 product;
@@ -38,6 +43,7 @@ import functools
 import torch
 
 from particle_fm_tpu_torch.ops import _build
+from particle_fm_tpu_torch.ops._build import OPS_NAMESPACE
 from particle_fm_tpu_torch.ops.short_attention import (MMA_KEYS, MMA_ROWS, check_heads,
                                                        launch_report, mask_add, padded_head_dim)
 
@@ -259,8 +265,8 @@ def bf16_instruction() -> str:
 
 
 def _launch(entry: str, q, k, v, kv_mask) -> torch.Tensor:
-    """Checks, then the launch of `entry`, which takes q's type (`*_f32`
-    float32, `*_bf16` bfloat16) and writes its output in it."""
+    """Checks, then the op of `entry`, which takes q's type (`*_f32` float32,
+    `*_bf16` bfloat16) and writes its output in it."""
     dev = q.device
     dtype = torch.bfloat16 if entry.endswith("_bf16") else torch.float32
     if q.ndim != 4 or k.ndim != 4:
@@ -277,7 +283,18 @@ def _launch(entry: str, q, k, v, kv_mask) -> torch.Tensor:
     if kv_mask is not None:
         kv_mask = kv_mask.to(torch.float32).contiguous()
         _build.check_tensor("kv_mask", kv_mask, (b, lk), dev)
+    return _OPS[entry](q, k, v, kv_mask)
 
+
+def _run(entry: str, q, k, v, kv_mask) -> torch.Tensor:
+    """The CUDA implementation of the op of `entry`: the splits (from the
+    card's SMs for class tokens in bfloat16), their scratch, the tickets,
+    and the launch on the current stream (the arguments as `_launch`
+    checked them)."""
+    dev = q.device
+    dtype = q.dtype
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
     out = torch.empty((b, lq, h, d), dtype=dtype, device=dev)
     if b == 0 or h == 0:
         return out
@@ -317,14 +334,14 @@ def flash_masked_attention(q, k, v, kv_mask=None) -> torch.Tensor:
         )
     dev = q.device
     if dev.type == "cpu":
-        return flash_masked_attention_reference(q, k, v, kv_mask)
+        bf16 = q.dtype == torch.bfloat16
+        return (torch.ops.particle_fm.flash_masked_attention_bf16 if bf16
+                else torch.ops.particle_fm.flash_masked_attention)(q, k, v, kv_mask)
     if dev.type != "cuda":
         raise ValueError(f"flash_masked_attention runs on cuda or cpu, got {dev}")
     if q.dtype == torch.bfloat16:
         return flash_masked_attention_bf16(q, k, v, kv_mask)
-    out = _launch("flash_masked_attention_f32", q, k, v, kv_mask)
-    flash_masked_attention.launches += 1
-    return out
+    return _launch("flash_masked_attention_f32", q, k, v, kv_mask)
 
 
 flash_masked_attention.launches = 0
@@ -341,9 +358,37 @@ def flash_masked_attention_bf16(q, k, v, kv_mask=None) -> torch.Tensor:
     if q.device.type != "cuda" or q.dtype != torch.bfloat16:
         raise ValueError(f"flash_masked_attention_bf16 takes bfloat16 CUDA tensors, got "
                          f"{q.dtype} on {q.device}")
-    out = _launch("flash_masked_attention_bf16", q, k, v, kv_mask)
-    flash_masked_attention_bf16.launches += 1
-    return out
+    return _launch("flash_masked_attention_bf16", q, k, v, kv_mask)
 
 
 flash_masked_attention_bf16.launches = 0
+
+
+# The custom ops, as in ops/short_attention.py: the CUDA implementation
+# launches and counts in the wrapper's `launches`.
+
+_LIB = torch.library.Library(OPS_NAMESPACE, "FRAGMENT")
+
+
+def _register(op: str, entry: str, wrapper) -> None:
+    _LIB.define(f"{op}(Tensor q, Tensor k, Tensor v, Tensor? kv_mask) -> Tensor")
+
+    def launch(q, k, v, kv_mask):
+        out = _run(entry, q, k, v, kv_mask)
+        wrapper.launches += 1
+        return out
+
+    def plain(q, k, v, kv_mask):
+        return flash_masked_attention_reference(q, k, v, kv_mask).contiguous()
+
+    _LIB.impl(op, launch, "CUDA")
+    _LIB.impl(op, plain, "CPU")
+    torch.library.register_fake(f"{OPS_NAMESPACE}::{op}",
+                                lambda q, k, v, kv_mask: q.new_empty(q.shape), lib=_LIB)
+
+
+_register("flash_masked_attention", "flash_masked_attention_f32", flash_masked_attention)
+_register("flash_masked_attention_bf16", "flash_masked_attention_bf16", flash_masked_attention_bf16)
+# by library entry, as `_launch` takes them
+_OPS = {"flash_masked_attention_f32": torch.ops.particle_fm.flash_masked_attention,
+        "flash_masked_attention_bf16": torch.ops.particle_fm.flash_masked_attention_bf16}

@@ -21,7 +21,14 @@ and launches `csrc/short_attention.cu` for CUDA tensors; it never falls back
 from one to the other. The kernels take float32 and read q, k and v where
 they lie, as long as the last two axes (H, D) are packed: a slice of a fused
 QKV projection needs no copy. Each wrapper counts its launches in
-`<wrapper>.launches`.
+`<wrapper>.launches`. Each goes through a custom op of its own
+(`torch.library`: `particle_fm::packed_short_attention`,
+`particle_fm::fused_short_attention` and their `_bf16` twins) with a CUDA
+implementation that launches the kernel and counts the launch, a CPU
+implementation that is the plain version (its output made contiguous, as the
+kernel writes it) and a fake one that gives the output's shape; the wrappers
+check the arguments before they call the op. The packed op's gradient stays
+with `_PackedAttention` around the op.
 
 The packed kernel does its two products on the tensor cores, each float32
 product as three TF32 products (`csrc/attention_mma.cuh`; the arithmetic is
@@ -42,6 +49,7 @@ import math
 import torch
 
 from particle_fm_tpu_torch.ops import _build
+from particle_fm_tpu_torch.ops._build import OPS_NAMESPACE
 
 SOURCE = _build.CSRC_DIR / "short_attention.cu"
 NEG = -1e9
@@ -322,8 +330,8 @@ def check_heads(name: str, t: torch.Tensor, shape: tuple[int, ...], device: torc
 
 
 def _launch(entry: str, q, k, v, kv_mask, attn_bias, max_len: int) -> torch.Tensor:
-    """Checks shared by the wrappers, then the launch of `entry`, which takes
-    q's type (`*_f32` float32, `*_bf16` bfloat16) and writes its output in it."""
+    """Checks shared by the wrappers, then the op of `entry`, which takes q's
+    type (`*_f32` float32, `*_bf16` bfloat16) and writes its output in it."""
     dev = q.device
     dtype = torch.bfloat16 if entry.endswith("_bf16") else torch.float32
     if q.ndim != 4:
@@ -343,8 +351,16 @@ def _launch(entry: str, q, k, v, kv_mask, attn_bias, max_len: int) -> torch.Tens
         _build.check_tensor("kv_mask", kv_mask, (b, lk), dev)
     if attn_bias is not None:
         _build.check_tensor("attn_bias", attn_bias, (b, h, lq, lk), dev)
+    return _OPS[entry](q, k, v, kv_mask, attn_bias)
 
-    out = torch.empty((b, lq, h, d), dtype=dtype, device=dev)
+
+def _run(entry: str, q, k, v, kv_mask, attn_bias) -> torch.Tensor:
+    """The CUDA implementation of the op of `entry`: the launch on the
+    current stream (the arguments as `_launch` checked them)."""
+    dev = q.device
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    out = torch.empty((b, lq, h, d), dtype=q.dtype, device=dev)
     if b == 0 or h == 0:
         return out
     fn = getattr(load_library(), entry)
@@ -373,9 +389,7 @@ def packed_short_attention_bf16(q, k, v, kv_mask=None, attn_bias=None) -> torch.
                          f"{q.dtype} on {q.device}")
     if k.shape[1] != q.shape[1]:
         raise ValueError("packed_short_attention_bf16 requires Lq == Lk")
-    out = _launch("packed_short_attention_bf16", q, k, v, kv_mask, attn_bias, MAX_PACKED_LEN)
-    packed_short_attention_bf16.launches += 1
-    return out
+    return _launch("packed_short_attention_bf16", q, k, v, kv_mask, attn_bias, MAX_PACKED_LEN)
 
 
 packed_short_attention_bf16.launches = 0
@@ -383,7 +397,7 @@ packed_short_attention_bf16.launches = 0
 
 def _packed_forward(q, k, v, kv_mask, attn_bias) -> torch.Tensor:
     if q.device.type == "cpu":
-        return packed_short_attention_reference(q, k, v, kv_mask, attn_bias)
+        return _cpu_op("packed_short_attention", q)(q, k, v, kv_mask, attn_bias)
     if q.device.type != "cuda":
         raise ValueError(f"packed_short_attention runs on cuda or cpu, got {q.device}")
     if q.dtype == torch.bfloat16:
@@ -397,9 +411,7 @@ def _packed_forward(q, k, v, kv_mask, attn_bias) -> torch.Tensor:
                 f"L={l} at head dim {d} needs {smem} bytes of {MAX_SMEM}: use the einsum path or "
                 "attn_impl='flash'"
             )
-    out = _launch("packed_short_attention_f32", q, k, v, kv_mask, attn_bias, MAX_PACKED_LEN)
-    packed_short_attention.launches += 1
-    return out
+    return _launch("packed_short_attention_f32", q, k, v, kv_mask, attn_bias, MAX_PACKED_LEN)
 
 
 class _PackedAttention(torch.autograd.Function):
@@ -457,14 +469,12 @@ def fused_short_attention(q, k, v, kv_mask=None, attn_bias=None) -> torch.Tensor
             "call it under torch.no_grad(), or use attn_impl='packed' or 'auto' to train"
         )
     if q.device.type == "cpu":
-        return fused_short_attention_reference(q, k, v, kv_mask, attn_bias)
+        return _cpu_op("fused_short_attention", q)(q, k, v, kv_mask, attn_bias)
     if q.device.type != "cuda":
         raise ValueError(f"fused_short_attention runs on cuda or cpu, got {q.device}")
     if q.dtype == torch.bfloat16:
         return fused_short_attention_bf16(q, k, v, kv_mask, attn_bias)
-    out = _launch("fused_short_attention_f32", q, k, v, kv_mask, attn_bias, MAX_FUSED_LEN)
-    fused_short_attention.launches += 1
-    return out
+    return _launch("fused_short_attention_f32", q, k, v, kv_mask, attn_bias, MAX_FUSED_LEN)
 
 
 fused_short_attention.launches = 0
@@ -478,9 +488,53 @@ def fused_short_attention_bf16(q, k, v, kv_mask=None, attn_bias=None) -> torch.T
     if q.device.type != "cuda" or q.dtype != torch.bfloat16:
         raise ValueError(f"fused_short_attention_bf16 takes bfloat16 CUDA tensors, got "
                          f"{q.dtype} on {q.device}")
-    out = _launch("fused_short_attention_bf16", q, k, v, kv_mask, attn_bias, MAX_FUSED_LEN)
-    fused_short_attention_bf16.launches += 1
-    return out
+    return _launch("fused_short_attention_bf16", q, k, v, kv_mask, attn_bias, MAX_FUSED_LEN)
 
 
 fused_short_attention_bf16.launches = 0
+
+
+# The custom ops: each entry point of the library under the name of its
+# wrapper. The CUDA implementation launches the kernel on the current stream
+# and counts the launch in the wrapper's `launches`, wherever the op is called
+# from: the wrapper, or an exported program (serving.py).
+
+_LIB = torch.library.Library(OPS_NAMESPACE, "FRAGMENT")
+_ENTRIES = {  # op -> (library entry, wrapper that counts, plain version)
+    "packed_short_attention": ("packed_short_attention_f32", packed_short_attention,
+                               packed_short_attention_reference),
+    "packed_short_attention_bf16": ("packed_short_attention_bf16", packed_short_attention_bf16,
+                                    packed_short_attention_reference),
+    "fused_short_attention": ("fused_short_attention_f32", fused_short_attention,
+                              fused_short_attention_reference),
+    "fused_short_attention_bf16": ("fused_short_attention_bf16", fused_short_attention_bf16,
+                                   fused_short_attention_reference),
+}
+
+
+def _register(op: str, entry: str, wrapper, plain) -> None:
+    _LIB.define(f"{op}(Tensor q, Tensor k, Tensor v, Tensor? kv_mask, Tensor? attn_bias) -> Tensor")
+
+    def launch(q, k, v, kv_mask, attn_bias):
+        out = _run(entry, q, k, v, kv_mask, attn_bias)
+        wrapper.launches += 1
+        return out
+
+    def fake(q, k, v, kv_mask, attn_bias):
+        return q.new_empty(q.shape)
+
+    _LIB.impl(op, launch, "CUDA")
+    _LIB.impl(op, lambda *a: plain(*a).contiguous(), "CPU")
+    torch.library.register_fake(f"{OPS_NAMESPACE}::{op}", fake, lib=_LIB)
+
+
+for _op, (_entry, _wrapper, _plain) in _ENTRIES.items():
+    _register(_op, _entry, _wrapper, _plain)
+# by library entry, as `_launch` takes them
+_OPS = {entry: getattr(torch.ops.particle_fm, op) for op, (entry, _, _) in _ENTRIES.items()}
+
+
+def _cpu_op(name: str, q: torch.Tensor):
+    """The op of a CPU call: the `_bf16` one for bfloat16 tensors (both run the
+    plain version there)."""
+    return getattr(torch.ops.particle_fm, name + ("_bf16" if q.dtype == torch.bfloat16 else ""))

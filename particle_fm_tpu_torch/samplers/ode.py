@@ -14,6 +14,16 @@ tensors, so the loop never waits on the host.
 `odeint_fixed_sc` is the fixed-step loop of self-conditioned fields, which
 carry the data-endpoint estimate from one evaluation to the next.
 
+Inside `exported_loops()` (serving.py's program, as `torch.export` traces
+it) the Euler, midpoint, Heun and RK4 loops are one `while_loop` whose body
+is one step, as the JAX package's exported scan is: the program holds one
+step's graph whatever the step count, so that it exports and loads in
+seconds. The loop's test reads a step counter on the host (no device read
+a step), and the step's times are computed from a float32 step index on the
+state's device in the operations and order of `time_grid`, so the exported
+loop computes what the Python loop computes, bit for bit. The Adams loops,
+DDIM's and the self-conditioned loop are exported unrolled.
+
 A network that computes in bfloat16 may return a bfloat16 field while the
 state stays float32. Its promotion follows JAX's: a Python float (the fixed
 steppers' dt) keeps the product in bfloat16 before it meets the float32
@@ -36,6 +46,7 @@ with per-set times (B,).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import warnings
 from typing import Callable
@@ -103,6 +114,8 @@ def odeint_fixed(
     if method in ("ab2", "ab3"):
         return _odeint_adams(f, x0, t0, t1, ode_steps, order=int(method[-1]))
     stepper = _STEPPERS[method]
+    if _exporting[0]:
+        return _exported_loop(stepper, f, x0, t0, (t1 - t0) / (ode_steps - 1), ode_steps - 1)
     ts, dt = time_grid(t0, t1, ode_steps)
     # the stage times t + 0.5*dt and t + dt, rounded as the JAX steppers round them
     grid = torch.stack([ts, ts + _f32(0.5 * dt), ts + _f32(dt)], dim=1).to(x0.device)
@@ -110,6 +123,43 @@ def odeint_fixed(
     for t, t_half, t_next in grid:
         x = stepper(f, t, t_half, t_next, dt, x)
     return x
+
+
+_exporting = [0]  # depth of `exported_loops` blocks
+
+
+@contextlib.contextmanager
+def exported_loops():
+    """A block in which `odeint_fixed` builds its loop as one `while_loop`,
+    the form of an exported program (serving.py)."""
+    _exporting[0] += 1
+    try:
+        yield
+    finally:
+        _exporting[0] -= 1
+
+
+def _exported_loop(stepper, f: Drift, x0: torch.Tensor, t0: float, dt: float, n: int):
+    """`odeint_fixed`'s loop as one `while_loop` of an exported program:
+    carried (step on the host, the same step as a float32 on the device, x);
+    t_k = t0 + k * dt and its stages as `time_grid` and the grid compute them."""
+    from torch._higher_order_ops.while_loop import while_loop
+
+    dev = x0.device
+    # the times as ops of the program (a tensor made from data would be a
+    # constant inside the loop's graph)
+    start, step, half = (torch.full((), v, dtype=torch.float32, device=dev)
+                         for v in (t0, dt, 0.5 * dt))
+
+    def cond(i, k, x):
+        return i < n
+
+    def body(i, k, x):
+        t = start + k * step
+        return i + 1, k + 1, stepper(f, t, t + half, t + step, dt, x)
+
+    carried = (torch.zeros((), dtype=torch.int64), torch.zeros((), device=dev), x0)
+    return while_loop(cond, body, carried)[2]
 
 
 def _odeint_adams(f: Drift, x0, t0, t1, ode_steps: int, order: int):

@@ -76,3 +76,21 @@ def build_lr(optimizer_cfg: dict, scheduler_cfg: dict | None, steps_per_epoch: i
     if name in (None, "none", "constant"):
         return lr
     raise ValueError(f"unknown scheduler {name}")
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_steps: int,
+                                 decay_steps: int, end_value: float = 0.0):
+    """optax.warmup_cosine_decay_schedule over optimizer steps: linear from
+    `init_value` to `peak_value` over `warmup_steps`, then a cosine from the
+    peak to `end_value` at `decay_steps` (counted from step 0), flat after."""
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    span = decay_steps - warmup_steps
+
+    def schedule(step):
+        if step < warmup_steps:
+            frac = 1.0 - max(step, 0) / warmup_steps
+            return (init_value - peak_value) * frac + peak_value
+        c = min(step - warmup_steps, span)
+        return peak_value * ((1.0 - alpha) * 0.5 * (1.0 + math.cos(math.pi * c / span)) + alpha)
+
+    return schedule
