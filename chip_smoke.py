@@ -114,8 +114,10 @@
    exact number of launches of its kernel and none of another path's; then
    the same requests run with the kernel's wrapper replaced by its plain
    version and must agree within atol 1e-3, and a small batch must agree
-   with the CPU within atol 1e-4. Prints jets/s of both paths, each the mean
-   of two runs taken in turns (kernel, plain, plain, kernel).
+   with the CPU within atol 1e-4. Prints jets/s of both paths, the kernel
+   path's the mean of two runs, the plain path's of one between them on the
+   first (full-batch) request, where the two paths are compared (kernel,
+   plain, kernel).
    Then the same six models, weights and requests with model.dtype=bfloat16
    (`serving_bf16` lines): the exact launches of the bfloat16 kernel and of
    no other (no float32 kernel takes a cast tensor), sets/s of the kernel
@@ -180,8 +182,9 @@
    - eval timing: 5,000 jets generated against 5,000 synthetic test jets
      (N = 150), each stage timed: generation (exact EPiC launches), EFPs and
      energy correlators on the card, the native clustering (tau1-3, d12/d23),
-     W1M, W1P, W1EFP and W1(tau21); then the EFPs and correlators on the card
-     against the CPU on 256 jets (rtol 1e-4).
+     W1M, W1P (on 5 of its 40 bootstrap batches, to keep the run inside its
+     time limit), W1EFP and W1(tau21); then the EFPs and
+     correlators on the card against the CPU on 256 jets (rtol 1e-4).
 6. Family phases (the other loss families and solvers), each composed from
    configs/ and on the card, one `family` line each and their total:
    - diffusion CLI, the full-width path of PC-JeDi: train.main with
@@ -339,9 +342,36 @@
      one /sample of 1,000 sets with cond and a num_points list, equal to
      serve_batches on the same artifact; the request's seconds, and the
      sampling's alone.
-11. Prints the `kernels` JSON line (the launches of the training, eval,
-   family, dataset, classifier and slice phases under `launches_by_path`
-   too), the card line again, and as the last line {"ok": true, "device": {...}}.
+11. The data-parallel phases (`ddp` lines, then their total): two torchrun
+   launches of this script as workers (`--ddp-worker`, each within 420 s;
+   torchrun takes every rank down when one fails):
+   - W=1 on NCCL: path A (fm_droid_transformer, packed, 4,096 synthetic
+     jets, batch 1024) trained by dp, float32 and bf16, by fsdp (FSDP2),
+     and the flagship EPiC by dp; each against the single-process step in
+     the same process, in turns (one process, dp, dp, one process; 4 steps
+     a turn, each path on a state of its own from the same seed): float32
+     losses and the first step's gradient within 1e-5, 99% of the parameter
+     and EMA entries within 1e-5 and every entry within Adam's reach of
+     2 x 8 steps x lr; bf16 closer to one process than bf16 is to float32
+     (Frobenius, the bf16 training gate); fsdp against dp at rtol 1e-3, atol 1e-5 on
+     the losses and on 99% of the entries; exactly 3 packed (or packed bf16)
+     launches a step; step ms of both in turns;
+   - W=2 on gloo, both ranks on the one card: path A at a global batch of
+     512 against one process on the same global batches (rank 0 first):
+     losses and the first step's summed gradient within 1e-4, 99% of the
+     entries within 1e-4, every one within Adam's reach; both ranks equal;
+     12 packed launches a rank; steps/s, and the all-reduce's share of a
+     step by torch.profiler (the `particle_fm.all_reduce` ranges) beside
+     the all-reduce alone at the gradient's size; the flagship sampled
+     rank-split (640 sets, 320 a rank, NFE 100) against local sampling
+     (1e-4, exactly 600 EPiC launches a rank); the training CLI
+     (fm_tops150_cond, trainer=smoke, trainer.strategy=dp) on both ranks;
+   - that 2-rank checkpoint loaded in this process (`load_run`) and served
+     through make_serve_fn/serve_batches: 64 sets, exactly 600 launches.
+12. Prints the `kernels` JSON line (the launches of the training, eval,
+   family, dataset, classifier, slice and ddp phases under
+   `launches_by_path` too), the card line again, and as the last line
+   {"ok": true, "device": {...}}.
 
 Every failure exits non-zero before the last line. The script needs the
 repository beside it and a CUDA device; it imports nothing of JAX.
@@ -1323,11 +1353,11 @@ def serving_phase(torch, dev, name, config, model, net, wrapper_owner, wrapper_n
     n_batches = sum(-(-r // batch) for r in requests)
     want_launches = launches_per_eval * 2 * (ODE_STEPS - 1) * n_batches
 
-    def answer(f):
+    def answer(f, n_reqs=len(reqs)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         outs = [serve_batches(f, f.meta, len(m), cond=c, mask=m, seed=10 + i)
-                for i, (m, c) in enumerate(reqs)]
+                for i, (m, c) in enumerate(reqs[:n_reqs])]
         torch.cuda.synchronize()
         return outs, time.perf_counter() - t0
 
@@ -1349,11 +1379,12 @@ def serving_phase(torch, dev, name, config, model, net, wrapper_owner, wrapper_n
     if sum(w.launches for w in counted) != launches:
         fail(f"{name}: a kernel of another path was launched on this one")
 
-    # then in turns with the kernel's plain version: plain, plain, kernel
+    # then in turns with the kernel's plain version: plain, kernel; one plain
+    # reading, of the first request (the full batch) only: path C's plain path
+    # takes about 28 s a reading of both requests on an H100
     with mock.patch.object(wrapper_owner, wrapper_name, plain):
-        answer(warm)
-        plain_outs, plain_secs = answer(fn)
-        plain_secs2 = answer(fn)[1]
+        answer(warm, 1)
+        plain_outs, plain_secs = answer(fn, 1)
     secs2 = answer(fn)[1]
     path_err = max(float(np.abs(a - b).max()) for a, b in zip(outs, plain_outs))
     if not path_err <= PATH_TOL:
@@ -1382,11 +1413,12 @@ def serving_phase(torch, dev, name, config, model, net, wrapper_owner, wrapper_n
     return {
         "config": config, "requests": list(requests), "batch": batch, "batches": n_batches,
         "ode_solver": "midpoint", "ode_steps": ODE_STEPS, "nfe": 2 * (ODE_STEPS - 1),
-        "kernel_path_s": [secs, secs2], "plain_path_s": [plain_secs, plain_secs2],
+        "kernel_path_s": [secs, secs2], "plain_path_s": [plain_secs],
         "kernel_path_jets_per_s": 2 * jets / (secs + secs2),
-        "plain_path_jets_per_s": 2 * jets / (plain_secs + plain_secs2),
+        "plain_path_jets_per_s": requests[0] / plain_secs,
+        "plain_path_request": requests[0],
         "kernel_path_batch_jets_per_s": 2 * n_batches * batch / (secs + secs2),
-        "plain_path_batch_jets_per_s": 2 * n_batches * batch / (plain_secs + plain_secs2),
+        "plain_path_batch_jets_per_s": -(-requests[0] // batch) * batch / plain_secs,
         "kernel": wrapper_name, "launches": launches, "vector_field_max_abs": field_max,
         "max_abs_diff_kernel_vs_plain": path_err, "max_abs_diff_card_vs_cpu": cpu_err,
         "cpu_batch": cpu_batch,
@@ -1437,11 +1469,11 @@ def bf16_serving_phase(torch, dev, name, config, model, net, wrapper_owner, wrap
     n_batches = sum(-(-r // batch) for r in requests)
     want_launches = launches_per_eval * 2 * (ODE_STEPS - 1) * n_batches
 
-    def answer(f):
+    def answer(f, n_reqs=len(reqs)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         outs = [serve_batches(f, f.meta, len(m), cond=c, mask=m, seed=10 + i)
-                for i, (m, c) in enumerate(reqs)]
+                for i, (m, c) in enumerate(reqs[:n_reqs])]
         torch.cuda.synchronize()
         return outs, time.perf_counter() - t0
 
@@ -1460,10 +1492,9 @@ def bf16_serving_phase(torch, dev, name, config, model, net, wrapper_owner, wrap
         fail(f"{name} bf16: another kernel (a float32 one?) was launched on this path: "
              f"{launched(counted)}")
 
-    with mock.patch.object(wrapper_owner, wrapper_name, plain):  # plain, plain, kernel
-        answer(warm)
-        plain_outs, plain_secs = answer(fn)
-        plain_secs2 = answer(fn)[1]
+    with mock.patch.object(wrapper_owner, wrapper_name, plain):  # plain (first request), kernel
+        answer(warm, 1)
+        plain_outs, plain_secs = answer(fn, 1)
     secs2 = answer(fn)[1]
 
     # 4 midpoint steps on a full batch: kernel against plain, and plain bf16 against float32
@@ -1502,11 +1533,12 @@ def bf16_serving_phase(torch, dev, name, config, model, net, wrapper_owner, wrap
         "config": config + ", model.dtype=bfloat16", "requests": list(requests), "batch": batch,
         "batches": n_batches, "nfe": 2 * (ODE_STEPS - 1), "kernel": counter.__name__,
         "launches": launches,
-        "kernel_path_s": [secs, secs2], "plain_path_s": [plain_secs, plain_secs2],
+        "kernel_path_s": [secs, secs2], "plain_path_s": [plain_secs],
         "kernel_path_jets_per_s": 2 * jets / (secs + secs2),
-        "plain_path_jets_per_s": 2 * jets / (plain_secs + plain_secs2),
+        "plain_path_jets_per_s": requests[0] / plain_secs,
+        "plain_path_request": requests[0],
         "kernel_path_batch_jets_per_s": 2 * n_batches * batch / (secs + secs2),
-        "plain_path_batch_jets_per_s": 2 * n_batches * batch / (plain_secs + plain_secs2),
+        "plain_path_batch_jets_per_s": -(-requests[0] // batch) * batch / plain_secs,
         "f32_kernel_path_batch_jets_per_s": f32["kernel_path_batch_jets_per_s"],
         "nfe100_vs_f32": {"max_mean_diff_over_std": float(d_mean.max()),
                           "max_std_diff_over_std": float(d_std.max()),
@@ -1918,6 +1950,9 @@ def train_cli_phase(torch, ops, dev, counted, overrides=()) -> dict:
 # 10,000, time that the later phases need under the run's limit
 EVAL_JETS = 2000  # the callback's num_jet_samples: 2 batches of 1000
 EVAL_TIMING_JETS = 5_000
+# W1P's bootstrap timed on this many of the callback's 40 batches (its seconds
+# scale with the batches: about 92 s for all 40 at 5,000 jets on an H100)
+W1P_TIMING_BATCHES = 5
 EVAL_W1_TOL = 1e-3  # W1M and W1P, kernel path against plain path
 EVAL_CPU_JETS = 256
 EVAL_CPU_RTOL = 1e-4
@@ -2096,7 +2131,8 @@ def eval_timing_phase(torch, ops, dev, counted, cli: dict) -> dict:
     pmetrics._rng = np.random.default_rng(EVAL_RNG_SEED)
     boot = (cb.w1_kwargs["num_eval_samples"], cb.w1_kwargs["num_batches"])
     w1m = timed("w1m_s", lambda: pmetrics.w1m(real, gen, *boot))
-    w1p = timed("w1p_s", lambda: pmetrics.w1p(real, gen, None, None, *boot))
+    w1p = timed("w1p_s", lambda: pmetrics.w1p(real, gen, None, None, boot[0],
+                                              W1P_TIMING_BATCHES))
     w1efp = timed("w1efp_s", lambda: pmetrics.w1efp(real, gen, *boot, device=dev))
     tau21 = {key: c[0][1] / np.maximum(c[0][0], 1e-30) for key, c in clustered.items()}
     w1_tau21 = timed("w1_tau21_s", lambda: pmetrics.wasserstein_distance_batched(
@@ -2116,6 +2152,7 @@ def eval_timing_phase(torch, ops, dev, counted, cli: dict) -> dict:
         fail(f"eval timing: card against CPU on {EVAL_CPU_JETS} jets: EFPs {efp_err}, "
              f"e2/e3 {ecf_err} (limit {EVAL_CPU_RTOL})")
     return {"jets": n, "real": f"synthetic JetNet-150 test split, {n} jets", "stages_s": stages,
+            "w1p_bootstrap_batches": W1P_TIMING_BATCHES,
             "generation_jets_per_s": n / stages["generation_s"], "launches": got,
             "w1": {"w1m": list(w1m), "w1p": [float(np.mean(w1p[0])), float(np.mean(w1p[1]))],
                    "w1efp": [float(np.mean(w1efp[0])), float(np.mean(w1efp[1]))],
@@ -3646,7 +3683,7 @@ def slice16_phases(torch, ops, sa, dev, counted) -> dict:
 # ReFlow and consistency distillation
 SLICE17_DIR = ROOT / "build" / "slice17"
 ARTIFACT_BATCHES = 8  # batches of a sets/s reading, behind one sync
-ARTIFACT_TURNS = 2  # rounds of artifact, live, live, artifact readings
+ARTIFACT_TURNS = 1  # rounds of artifact, live, live, artifact readings
 ATTENTION_STEPS = 2  # euler ode_steps of the attention artifacts: one evaluation
 REFLOW_PAIRS = 4096
 REFLOW_BATCH = 1024
@@ -4172,6 +4209,488 @@ def slice17_phases(torch, ops, sa, fa, dev, counted, runs) -> dict:
     return out
 
 
+# phases of data parallelism across processes (parallel/): path A trained by
+# dp and fsdp at W=1 on NCCL, by dp at W=2 on gloo (two ranks on the one
+# card: NCCL refuses two ranks a device), the flagship's rank-split sampling
+# and a 2-rank checkpoint served in one process
+DDP_DIR = ROOT / "build" / "ddp_smoke"
+DDP_STEPS = 4  # steps a turn
+DDP_TIMEOUT_S = 420  # a torchrun launch
+DDP_PROFILED_STEPS = 2  # dp steps under torch.profiler at W=2, for the all-reduce share
+DDP_F32_TOL = 1e-5  # W=1 against one process, parameters and losses (relative)
+DDP2_TOL = 1e-4  # W=2 against one process: losses (relative) over DDP_STEPS steps, the
+# first step's summed gradient (of the largest), DDP2_QUANTILE of the parameter and EMA entries
+DDP2_QUANTILE = 0.99
+FSDP_RTOL, FSDP_ATOL = 1e-3, 1e-5  # fsdp against dp (tests/test_fsdp_sp.py's tolerance)
+SPLIT_TOL = 1e-4  # rank-split sampling against local sampling
+DDP_JETS = 4096  # synthetic JetNet-150 jets of the train phases
+DDP2_BATCH = 512  # the global batch at W=2 (256 a rank: two ranks share the card)
+PATH_A = ["experiment=jetnet/fm_tops150_cond", "model=fm_droid_transformer",
+          "data.synthetic=true", f"data.synthetic_num_jets={DDP_JETS}",
+          "model.net_config.te_config.mha_config.attn_impl=packed",
+          "model.net_config.te_config.mha_config.scores_dtype=null"]
+EPIC = ["experiment=jetnet/fm_tops150_cond", "data.synthetic=true",
+        f"data.synthetic_num_jets={DDP_JETS}"]
+
+
+def ddp_state(torch, model, opt, dev):
+    """A fresh state from seed 0, every parameter re-drawn (seed 4), its EMA a copy."""
+    from particle_fm_tpu_torch.training.step import create_train_state
+
+    state = create_train_state(model, opt, seed=0, device=dev)
+    redraw_parameters(torch, state.net, seed=4)
+    with torch.no_grad():
+        for e, p in zip(state.ema_params, state.params()):
+            e.copy_(p)
+    return state
+
+
+def global_batches(torch, trainer, data, n: int) -> list:
+    """The first n global batches of the trainer's epochs (its shuffle),
+    whole: what one process trains on. Trainer._epoch_batches gives each
+    rank its rows of these."""
+    bs, x = trainer.datamodule.batch_size, data[0]
+    out, epoch = [], 0
+    while len(out) < n:
+        n_use, k = trainer._usable_batches(x.shape[0], bs, 1)
+        perm = torch.from_numpy(trainer._epoch_perm(x.shape[0], n_use, epoch)).to(x.device)
+        for i in range(k):
+            out.append(tuple(None if a is None else a.index_select(0, perm[i * bs:(i + 1) * bs])
+                             for a in data))
+        epoch += 1
+    return out[:n]
+
+
+def local_batches(trainer, data, n: int) -> list:
+    out, epoch = [], 0
+    while len(out) < n:
+        out.extend(trainer._epoch_batches(data, epoch))
+        epoch += 1
+    return out[:n]
+
+
+def ddp_steps(torch, step, trainer, state, batches) -> tuple[list, list]:
+    """Steps over `batches`, each generator seeded from the step as the
+    Trainer seeds it; (losses, wall seconds a step)."""
+    from particle_fm_tpu_torch.training.trainer import step_seed
+
+    dev = trainer.device
+    gen = torch.Generator(dev)
+    losses, secs = [], []
+    for batch in batches:
+        gen.manual_seed(step_seed(trainer.seed, state.step))
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        losses.append(float(step(state, gen, *batch)))
+        sync(torch, dev)
+        secs.append(time.perf_counter() - t0)
+    return losses, secs
+
+
+def first_gradients(torch, model, state, batch, shard, seed: int):
+    """The gradients of one training loss at `state` (summed over the ranks
+    with a `shard`), every draw from a generator seeded `seed`; on the host."""
+    from particle_fm_tpu_torch.parallel import dist
+
+    gen = torch.Generator(batch[0].device).manual_seed(seed)
+    kw = {} if shard is None else {"shard": shard}
+    loss = model.loss(state.net, gen, *batch, train=True, **kw)
+    grads = list(torch.autograd.grad(loss, state.params()))
+    if shard is not None:
+        grads = dist.all_reduce_tensors_(grads)
+    return [g.detach().cpu() for g in grads]
+
+
+def whole_params(state) -> dict:
+    """The state's parameters and EMA, whole, on the host (every rank calls)."""
+    sd = state.state_dict()
+    names = [n for n, _ in state.net.named_parameters()]
+    return {"params": {n: sd["params"][n].detach().cpu() for n in names},
+            "ema": [e.detach().cpu() for e in sd["ema_params"]]}
+
+
+def ddp_train_case(torch, dev, counted, case) -> dict:
+    """One model trained by this rank's strategy. At W=1 against the
+    single-process step in the same process, in turns (single, dp, dp,
+    single), each path on a state of its own, and one more single-process
+    run of the first turn's steps (the card's run-to-run spread); at W=2
+    rank 0 first trains one process's steps on the global batches, then
+    every rank the dp steps, then DDP_PROFILED_STEPS more under
+    torch.profiler. Both: the first step's gradient (summed over the ranks)
+    against one process's."""
+    from particle_fm_tpu_torch.parallel import dist
+    from particle_fm_tpu_torch.training.step import make_optimizer, make_train_step
+    from particle_fm_tpu_torch.training.trainer import Trainer
+
+    model, dm, cfg = compose_training(case["overrides"])
+    dm.setup()
+    opt = make_optimizer(lr=1e-3, weight_decay=cfg["model"]["optimizer"]["weight_decay"],
+                         grad_clip=cfg["trainer"]["grad_clip"])
+    trainer = Trainer(model, dm, opt, seed=cfg["seed"], device=dev, verbose=False,
+                      ema_decay=cfg["trainer"]["ema"]["decay"], strategy=case["strategy"])
+    single_step = make_train_step(model, opt, ema_decay=trainer.ema_decay)
+    data = trainer._place_train_split()
+    world, steps, rank0 = dist.world_size(), DDP_STEPS, dist.rank() == 0
+    out = {"config": " ".join(case["overrides"]), "strategy": case["strategy"], "world": world,
+           "backend": dist.backend(), "global_batch": dm.batch_size,
+           "rank_batch": dm.batch_size // world}
+    turns = ("single", "ddp", "ddp", "single") if world == 1 else ("single", "ddp")
+    n_ddp = steps * turns.count("ddp")
+    glob_b = global_batches(torch, trainer, data, n_ddp)
+    mine = local_batches(trainer, data, n_ddp)
+    states = {"single": ddp_state(torch, model, opt, dev)}
+    states["ddp"] = trainer._place_state(ddp_state(torch, model, opt, dev))
+    if case["strategy"] == "fsdp" and states["ddp"].sharding is None:
+        fail("fsdp: the state was not sharded")
+    out["grad_err_over_largest"] = None  # a sharded state's gradients come from FSDP2
+    if case["strategy"] == "dp":
+        g_dp = first_gradients(torch, model, states["ddp"], mine[0], trainer.shard, 5)
+        if rank0:
+            g_one = first_gradients(torch, model, states["single"], glob_b[0], None, 5)
+            scale = max(float(g.abs().max()) for g in g_one)
+            out["grad_err_over_largest"] = max(float((a - b).abs().max())
+                                               for a, b in zip(g_dp, g_one)) / scale
+    secs = {"single": [], "ddp": []}
+    losses = {"single": [], "ddp": []}
+    done = {"single": 0, "ddp": 0}
+    ddp_launches = {w.__name__: 0 for w in counted}
+    first_turn = None
+    for path in turns:
+        if path == "single" and not rank0:
+            continue
+        i = done[path]
+        batches = (mine if path == "ddp" else glob_b)[i:i + steps]
+        reset(counted)
+        step = trainer.train_step if path == "ddp" else single_step
+        got_l, got_s = ddp_steps(torch, step, trainer, states[path], batches)
+        if path == "ddp":
+            for k, v in launched(counted).items():
+                ddp_launches[k] += v
+        elif first_turn is None and world == 1:
+            first_turn = whole_params(states["single"])
+        losses[path] += got_l
+        secs[path] += got_s
+        done[path] += steps
+    if not np.isfinite(losses["ddp"]).all():
+        fail(f"{case['name']}: non-finite loss {losses['ddp']}")
+    out.update(losses=losses, launches=ddp_launches,
+               median_step_ms={k: 1e3 * float(np.median(v)) for k, v in secs.items() if v},
+               step_s=secs, ddp=whole_params(states["ddp"]))
+    if rank0:
+        out["single"] = whole_params(states["single"])
+    if first_turn is not None:  # the same steps once more, in one process
+        again = ddp_state(torch, model, opt, dev)
+        ddp_steps(torch, single_step, trainer, again, glob_b[:steps])
+        out["run_to_run_max_abs"] = params_err(whole_params(again), first_turn)
+    if world > 1:
+        from torch.profiler import ProfilerActivity, profile
+
+        extra = local_batches(trainer, data, n_ddp + DDP_PROFILED_STEPS)[n_ddp:]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, p_secs = ddp_steps(torch, trainer.train_step, trainer, states["ddp"], extra)
+            wall = time.perf_counter() - t0
+        ranges = [e for e in prof.key_averages() if e.key == dist.ALL_REDUCE_RANGE]
+        out["profiled"] = {"steps": DDP_PROFILED_STEPS, "wall_s": wall, "step_s": p_secs,
+                           "all_reduce_s": sum(e.cpu_time_total for e in ranges) / 1e6,
+                           "all_reduce_calls": sum(e.count for e in ranges)}
+        # the all-reduce a step makes, at its size, alone (the cross-check)
+        n_grad = sum(p.numel() for p in states["ddp"].params()) + 1
+        buf = torch.ones(n_grad, device=dev)
+        times = []
+        for _ in range(5):
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            torch.distributed.all_reduce(buf)
+            sync(torch, dev)
+            times.append(time.perf_counter() - t0)
+        out["all_reduce_alone_ms"] = 1e3 * float(np.median(times))
+        out["gradient_floats"] = n_grad
+    return out
+
+
+def ddp_sample_case(torch, dev, counted, case) -> dict:
+    """The flagship (seeded weights) sampled rank-split and locally from the
+    same generator seed; the split call's launches."""
+    from particle_fm_tpu_torch.parallel import dist
+
+    model, _, _ = compose_training(EPIC)
+    net = model.init(seed=0, device=dev)
+    rs = np.random.RandomState(11)
+    b, n = case["batch"], model.num_particles
+    mask = torch.from_numpy(ragged_mask(rs, b, n)[..., None]).to(dev)
+    cond = torch.from_numpy(rs.randn(b, model.global_cond_dim).astype(np.float32)).to(dev)
+    out = {}
+    for name, split in (("split", True), ("local", False)):
+        gen = torch.Generator(dev).manual_seed(7)
+        reset(counted)
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        x = model.sample(net, gen, cond=cond, mask=mask, ode_steps=ODE_STEPS, rank_split=split)
+        sync(torch, dev)
+        out[name] = {"s": time.perf_counter() - t0, "launches": launched(counted), "x": x.cpu()}
+    err = float((out["split"]["x"] - out["local"]["x"]).abs().max())
+    if not (err <= SPLIT_TOL and torch.isfinite(out["split"]["x"]).all()):
+        fail(f"rank-split sampling: {err} from local sampling (limit {SPLIT_TOL})")
+    return {"batch": b, "rank_rows": b // dist.world_size(), "max_abs_err_vs_local": err,
+            "split_s": out["split"]["s"], "local_s": out["local"]["s"],
+            "launches": out["split"]["launches"], "local_launches": out["local"]["launches"],
+            "largest_abs": float(out["local"]["x"].abs().max())}
+
+
+def ddp_cli_case(torch, dev, counted, case) -> dict:
+    """The training CLI under the process group (every rank runs train.main;
+    rank 0 names and writes the run); the run directory."""
+    from particle_fm_tpu_torch import train as ptrain
+
+    metrics, objs = ptrain.main(case["argv"] + [f"output_dir={DDP_DIR / 'cli'}"])
+    return {"run_dir": objs["out_dir"], "metrics": {k: float(v) for k, v in metrics.items()
+                                                    if isinstance(v, (int, float))}}
+
+
+DDP_CASES = {"train": ddp_train_case, "sample": ddp_sample_case, "cli": ddp_cli_case}
+
+
+def ddp_worker(job_path: str) -> None:
+    """One rank of a torchrun launch (`ddp_launch`): joins the process group
+    of its backend, runs the job's cases on its card and writes its
+    results beside the job."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from particle_fm_tpu_torch.ops import epic_layer as ops
+    from particle_fm_tpu_torch.ops import short_attention as sa
+    from particle_fm_tpu_torch.parallel import dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    job = torch.load(job_path, weights_only=False)
+    if not dist.maybe_initialize_distributed(device="cuda"):
+        fail("ddp worker: no process group")
+    for module in (ops, sa):
+        module.load_library()
+    dev = dist.rank_device(torch.device("cuda"))
+    counted = [ops.epic_layer, sa.packed_short_attention, ops.epic_layer_bf16,
+               sa.packed_short_attention_bf16]
+    results = {}
+    for case in job["cases"]:
+        t0 = time.perf_counter()
+        results[case["name"]] = DDP_CASES[case["kind"]](torch, dev, counted, case)
+        results[case["name"]]["case_s"] = time.perf_counter() - t0
+    torch.save(results, Path(job_path).with_name(f"rank{dist.rank()}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def ddp_launch(torch, name: str, nproc: int, backend: str, cases: list) -> list[dict]:
+    """`torchrun --nproc_per_node nproc chip_smoke.py --ddp-worker job` with
+    PFM_DIST_BACKEND=backend, within DDP_TIMEOUT_S (torchrun takes every rank
+    down when one fails); each rank's results."""
+    import os
+    import socket
+
+    out = DDP_DIR / name
+    out.mkdir(parents=True, exist_ok=True)
+    for old in out.glob("rank*.pt"):
+        old.unlink()
+    job = out / "job.pt"
+    torch.save({"cases": cases}, job)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PFM_DIST_BACKEND=backend, OMP_NUM_THREADS="2")
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(nproc),
+             "--master_addr", "localhost", "--master_port", str(port),
+             str(ROOT / "chip_smoke.py"), "--ddp-worker", str(job)],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=DDP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"{name}: the torchrun launch ran past {DDP_TIMEOUT_S} s")
+    if proc.returncode != 0:
+        fail(f"{name}: torchrun exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+             f"{proc.stderr[-5000:]}")
+    ranks = [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(nproc)]
+    ranks[0]["launch_s"] = time.perf_counter() - t0
+    return ranks
+
+
+def params_err(a: dict, b: dict, rtol: float = 0.0) -> float:
+    """Largest |a - b| - rtol |b| over the parameters and the EMA."""
+    errs = [float(((a["params"][k] - v).abs() - rtol * v.abs()).max())
+            for k, v in b["params"].items()]
+    errs += [float(((x - y).abs() - rtol * y.abs()).max()) for x, y in zip(a["ema"], b["ema"])]
+    return max(errs)
+
+
+def params_frob(a: dict, b: dict) -> float:
+    return frob_pairs(list(a["params"].values()) + a["ema"], list(b["params"].values()) + b["ema"])
+
+
+def losses_err(a, b) -> float:
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def held_by_entries(name: str, got: dict, want: dict, got_losses, want_losses, grad_err,
+                    atol: float | None, rtol: float, adam_steps: int) -> dict:
+    """A trained state against a reference: the losses within rtol (atol
+    where rtol is 0), the first step's gradient within atol of the largest,
+    DDP2_QUANTILE of the parameter and EMA entries within atol + rtol |want|,
+    and every entry within Adam's reach (lr a step: a gradient near 0 that
+    two computations round apart moves its entry by up to that, whatever
+    its size). With atol None only read, not held."""
+    diffs = np.concatenate([((a - b).abs() - rtol * b.abs()).numpy().ravel() for a, b in zip(
+        list(got["params"].values()) + got["ema"], list(want["params"].values()) + want["ema"])])
+    res = {"loss_rel_err": losses_err(got_losses, want_losses), "first_grad_err": grad_err,
+           "quantile": DDP2_QUANTILE, "quantile_err": float(np.quantile(diffs, DDP2_QUANTILE)),
+           "max_err": float(diffs.max()), "adam_reach": adam_steps * 1e-3}
+    if atol is None:
+        return res
+    loss_tol = rtol or atol
+    if not (res["loss_rel_err"] <= loss_tol and (grad_err is None or grad_err <= atol)
+            and res["quantile_err"] <= atol and res["max_err"] <= res["adam_reach"]):
+        fail(f"{name}: {res} (limits: losses {loss_tol}, gradient and quantile {atol}, "
+             f"rtol {rtol})")
+    return res
+
+
+def expect_launches(name: str, got: dict, wrapper: str, n: int) -> None:
+    want = {k: 0 for k in got}
+    want[wrapper] = n
+    if got != want:
+        fail(f"{name}: launches {got}, expected {want}")
+
+
+def ddp_phases(torch, dev, counted) -> dict:
+    """The two torchrun launches (W=1 on NCCL, W=2 on gloo) and their checks,
+    then the 2-rank checkpoint served in this process; prints a `ddp` line
+    for each and returns them, with the kernels' launches under "_launches"."""
+    from particle_fm_tpu_torch.serving import make_serve_fn, serve_batches
+    from particle_fm_tpu_torch.utils.run_io import load_run
+
+    bf16 = "model.dtype=bfloat16"
+    w1 = ddp_launch(torch, "w1_nccl", 1, "nccl", [
+        dict(kind="train", name="path A", overrides=PATH_A, strategy="dp"),
+        dict(kind="train", name="path A bf16", overrides=PATH_A + [bf16], strategy="dp"),
+        dict(kind="train", name="path A fsdp", overrides=PATH_A, strategy="fsdp"),
+        dict(kind="train", name="EPiC", overrides=EPIC, strategy="dp")])[0]
+    out = {"ddp_path_a_launch_s": w1["launch_s"]}
+    for name, wrapper in (("path A", "packed_short_attention"),
+                          ("path A bf16", "packed_short_attention_bf16"),
+                          ("path A fsdp", "packed_short_attention"), ("EPiC", None)):
+        r = w1[name]
+        if r["backend"] != "nccl" or r["world"] != 1:
+            fail(f"{name}: ran on {r['backend']} at W={r['world']}, expected nccl at W=1")
+        n_ddp = len(r["losses"]["ddp"])
+        expect_launches(f"ddp {name}", r["launches"], wrapper or "epic_layer",
+                        3 * n_ddp if wrapper else 0)
+        line = {k: r[k] for k in ("config", "strategy", "world", "backend", "global_batch",
+                                  "median_step_ms", "launches", "losses", "case_s",
+                                  "grad_err_over_largest", "run_to_run_max_abs")}
+        line["ddp_over_one_process_step"] = (r["median_step_ms"]["ddp"]
+                                             / r["median_step_ms"]["single"])
+        if name == "path A bf16":  # the bf16 training gate: closer to one process than bf16 to f32
+            gaps = (params_frob(r["ddp"], r["single"]),
+                    params_frob(r["single"], w1["path A"]["single"]))
+            if not gaps[0] < gaps[1]:
+                fail(f"ddp path A bf16: |ddp - one process| {gaps[0]} against "
+                     f"|bf16 - f32| {gaps[1]}")
+            line["frobenius_vs_one_process_and_bf16_vs_f32"] = gaps
+        elif name == "path A fsdp":
+            line["vs_dp"] = held_by_entries(
+                f"fsdp {name} against dp", r["ddp"], w1["path A"]["ddp"], r["losses"]["ddp"],
+                w1["path A"]["losses"]["ddp"], None, FSDP_ATOL, FSDP_RTOL, 2 * n_ddp)
+        if name != "path A fsdp":
+            line["vs_one_process"] = held_by_entries(
+                f"ddp {name} against one process", r["ddp"], r["single"], r["losses"]["ddp"],
+                r["losses"]["single"], r["grad_err_over_largest"],
+                None if name == "path A bf16" else DDP_F32_TOL, 0.0, 2 * n_ddp)
+        out[f"ddp {name} (W=1, nccl)"] = line
+        print(json.dumps({"ddp": f"ddp {name} (W=1, nccl)", **line}), flush=True)
+
+    w2 = ddp_launch(torch, "w2_gloo", 2, "gloo", [
+        dict(kind="train", name="path A", overrides=PATH_A + [f"data.batch_size={DDP2_BATCH}"],
+             strategy="dp"),
+        dict(kind="sample", name="sample", batch=640),
+        dict(kind="cli", name="cli", argv=EPIC[:2] + [
+            "data.synthetic_num_jets=2049", "trainer=smoke", "trainer.max_epochs=1",
+            "callbacks=none", "trainer.strategy=dp"])])
+    out["ddp2_launch_s"] = w2[0]["launch_s"]
+    r0, r1 = w2[0]["path A"], w2[1]["path A"]
+    if not (r0["backend"] == "gloo" and r0["world"] == 2):
+        fail(f"ddp2 path A: ran on {r0['backend']} at W={r0['world']}")
+    if params_err(r0["ddp"], r1["ddp"]) != 0.0 or r0["losses"]["ddp"] != r1["losses"]["ddp"]:
+        fail("ddp2 path A: the ranks' states differ")
+    held = held_by_entries("ddp2 path A against one process", r0["ddp"], r0["single"],
+                           r0["losses"]["ddp"], r0["losses"]["single"],
+                           r0["grad_err_over_largest"], DDP2_TOL, 0.0, 2 * DDP_STEPS)
+    for r, res in enumerate((r0, r1)):
+        expect_launches(f"ddp2 path A rank {r}", res["launches"], "packed_short_attention",
+                        3 * DDP_STEPS)
+    prof = r0["profiled"]
+    reduce_s = prof["all_reduce_s"]
+    if not (reduce_s > 0.0 and prof["all_reduce_calls"] >= 2 * DDP_PROFILED_STEPS):
+        fail(f"ddp2 path A: torch.profiler recorded {prof['all_reduce_calls']} all-reduce ranges "
+             f"({reduce_s} s) in {DDP_PROFILED_STEPS} steps")
+    step_ms = r0["median_step_ms"]["ddp"]
+    out["ddp2 path A (W=2, gloo, one card)"] = {
+        "config": r0["config"], "global_batch": r0["global_batch"], "rank_batch": r0["rank_batch"],
+        "median_step_ms": r0["median_step_ms"], "rank1_median_step_ms": r1["median_step_ms"],
+        "steps_per_s": 1e3 / step_ms, "jets_per_s": r0["global_batch"] / (step_ms / 1e3),
+        "vs_one_process": held, "all_reduce_share_profiled": reduce_s / prof["wall_s"],
+        "profiled": prof,
+        "all_reduce_alone_ms": r0["all_reduce_alone_ms"],
+        "all_reduce_alone_share": r0["all_reduce_alone_ms"] / step_ms,
+        "gradient_floats": r0["gradient_floats"], "launches": [r0["launches"], r1["launches"]]}
+    print(json.dumps({"ddp": "ddp2 path A (W=2, gloo, one card)",
+                      **out["ddp2 path A (W=2, gloo, one card)"]}), flush=True)
+    for r in range(2):
+        s = w2[r]["sample"]
+        expect_launches(f"ddp sample flagship rank {r}", s["launches"], "epic_layer",
+                        6 * 2 * (ODE_STEPS - 1))
+    out["ddp sample flagship (W=2, gloo)"] = {
+        k: [w2[r]["sample"][k] for r in range(2)] for k in (
+            "batch", "rank_rows", "max_abs_err_vs_local", "split_s", "local_s", "launches",
+            "largest_abs")}
+    print(json.dumps({"ddp": "ddp sample flagship (W=2, gloo)",
+                      **out["ddp sample flagship (W=2, gloo)"]}), flush=True)
+
+    # the 2-rank checkpoint in this process, through serving.py's sampler
+    run_dir = w2[0]["cli"]["run_dir"]
+    if w2[1]["cli"]["run_dir"] != run_dir or not Path(run_dir, "checkpoints", "last.pt").exists():
+        fail(f"ddp CLI: the ranks' run directories {run_dir}, {w2[1]['cli']['run_dir']}")
+    cfg, dm, model, net = load_run(run_dir, "last", ema=True, device=dev)
+    fn = make_serve_fn(model, net, batch_size=64, ode_steps=ODE_STEPS, has_cond=True,
+                       has_mask=True)
+    rs = np.random.RandomState(5)
+    mask = ragged_mask(rs, 64, model.num_particles)[..., None]
+    cond = rs.randn(64, model.global_cond_dim).astype(np.float32)
+    reset(counted)
+    x = serve_batches(fn, fn.meta, 64, cond=cond, mask=mask, seed=3)
+    got = launched(counted)
+    expect_launches("2-rank checkpoint served", got, "epic_layer", 6 * 2 * (ODE_STEPS - 1))
+    if not (np.isfinite(x).all() and x.shape == (64, model.num_particles, model.features)):
+        fail(f"2-rank checkpoint served: shape {x.shape}, finite {np.isfinite(x).all()}")
+    out["2-rank checkpoint served (serve_batches, one process)"] = {
+        "run_dir": str(Path(run_dir).relative_to(ROOT)), "cli_metrics": w2[0]["cli"]["metrics"],
+        "sets": 64, "launches": got}
+    print(json.dumps({"ddp": "2-rank checkpoint served (serve_batches, one process)",
+                      **out["2-rank checkpoint served (serve_batches, one process)"]}), flush=True)
+    print(json.dumps({k: v for k, v in out.items() if k.endswith("launch_s")}), flush=True)
+    out["_launches"] = {
+        "packed_short_attention": ("ddp path A, fsdp path A (W=1, nccl); ddp2 path A (both "
+                                   "ranks)", sum(w1[n]["launches"]["packed_short_attention"]
+                                                 for n in ("path A", "path A fsdp"))
+                                   + 2 * 3 * DDP_STEPS),
+        "packed_short_attention_bf16": ("ddp path A bf16 (W=1, nccl)",
+                                        w1["path A bf16"]["launches"]
+                                        ["packed_short_attention_bf16"]),
+        "epic_layer": ("ddp sample flagship (both ranks); 2-rank checkpoint served",
+                       sum(w2[r]["sample"]["launches"]["epic_layer"] for r in range(2))
+                       + got["epic_layer"])}
+    return out
+
+
 def serving_runs(torch, dev, FlowMatchingModel, ops, sa, fa) -> list[dict]:
     """The six served models at full width with their seeded weights, as the
     serving phases serve them (one dict a path: name, config, model, net,
@@ -4468,6 +4987,13 @@ def main() -> None:
         kernels[kernel_name]["launches_by_path"][path] = launches
     print(json.dumps({"slice17_phases_s": time.perf_counter() - t0}), flush=True)
 
+    t0 = time.perf_counter()
+    res = ddp_phases(torch, dev, counted)  # prints its lines
+    for kernel_name, (path, launches) in res["_launches"].items():
+        kernels[kernel_name]["launches"] += launches
+        kernels[kernel_name]["launches_by_path"][path] = launches
+    print(json.dumps({"ddp_phases_s": time.perf_counter() - t0}), flush=True)
+
     kernels = list(kernels.values())
     print(json.dumps({"smoke_s": time.perf_counter() - started}), flush=True)
     print(json.dumps({"kernels": kernels}))
@@ -4478,4 +5004,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--ddp-worker"]:
+        ddp_worker(sys.argv[2])
+    else:
+        main()

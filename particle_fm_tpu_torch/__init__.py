@@ -13,7 +13,9 @@ and single-device training of FM-OT and CFM models (`train.py`,
 `training/`, `losses/`, `data/`, `config/`). Later slices added every loss
 family, dataset and experiment, evaluation, the classifiers, the served
 artifact with its HTTP server (`serving.py`, `server.py`) and ReFlow and
-consistency distillation (`training/reflow.py`, `training/consistency.py`).
+consistency distillation (`training/reflow.py`, `training/consistency.py`),
+and training across processes under torchrun (`parallel/`: the `dp` and
+`fsdp` strategies).
 
 Entry points run on the card (`device="cuda"`) unless the caller passes
 `device="cpu"`; without CUDA they raise rather than move work to the CPU.

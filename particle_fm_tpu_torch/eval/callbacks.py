@@ -16,6 +16,11 @@ with `use_ema`, else a copy of the live one) with its own generators, so it
 leaves the training run as it found it: the live network unfolded, its
 parameters and the optimizer untouched.
 
+Across processes every rank calls every callback: `generate_data` samples
+rank-split and gathers, so each rank computes the same metrics; files and
+plots are written where `trainer.artifacts_dir` is set, which is rank 0
+only (a `save_dir` too).
+
 `ClassifierEvalCallback` serves the gen-vs-real classifiers
 (models/classifiers.py): accuracy and AUROC of the test split's
 probabilities, computed on the host without sklearn; an EPiC
@@ -80,8 +85,14 @@ def _hist_cdf_w1(real_vals, gen_vals, edges, weights_real=None, weights_gen=None
 
 
 def eval_network(trainer, use_ema: bool):
-    """A copy of the network to sample with: the EMA weights, or the live ones."""
-    return trainer.state.ema_network() if use_ema else copy.deepcopy(trainer.state.net)
+    """A copy of the network to sample with: the EMA weights, or the live
+    ones (gathered whole where the state is sharded over ranks)."""
+    state = trainer.state
+    if use_ema:
+        return state.ema_network()
+    if getattr(state, "sharding", None) is not None:
+        return state.network_copy(ema=False)
+    return copy.deepcopy(state.net)
 
 
 @dataclass
@@ -304,9 +315,12 @@ class FinalEvalCallback(JetNetEvalCallback):
         real = self._arrays(trainer.datamodule)[0]
         n = max(int(len(real) * self.num_samples_factor), 1)
         real, gen, gen_time = self._generate(trainer, n)
-        out_dir = self.save_dir or trainer.artifacts_dir
-        os.makedirs(out_dir, exist_ok=True)
-        np.save(os.path.join(out_dir, "final_generated_data.npy"), gen)
+        # files on rank 0 only (artifacts_dir is None on the others)
+        out_dir = (self.save_dir or trainer.artifacts_dir
+                   if trainer.artifacts_dir is not None else None)
+        if out_dir is not None:
+            os.makedirs(out_dir, exist_ok=True)
+            np.save(os.path.join(out_dir, "final_generated_data.npy"), gen)
 
         metrics = calculate_all_wasserstein_metrics(
             real[:n], gen, calculate_efps=self.calculate_efps, device=device, **self.w1_kwargs
@@ -323,7 +337,7 @@ class FinalEvalCallback(JetNetEvalCallback):
                 )
                 metrics[f"w1_{key}_mean"] = mean
                 metrics[f"w1_{key}_std"] = std
-            if self.make_plots:
+            if self.make_plots and out_dir is not None:
                 from particle_fm_tpu_torch.eval.plotting import plot_substructure
 
                 plot_substructure(hlvs_real, hlvs_gen, os.path.join(out_dir, "substructure.png"))
@@ -339,7 +353,7 @@ class FinalEvalCallback(JetNetEvalCallback):
             metrics["kpd_median"] = kpd_med
             metrics["kpd_std"] = kpd_std
 
-        if self.make_plots:
+        if self.make_plots and out_dir is not None:
             from particle_fm_tpu_torch.eval.plotting import (plot_data, plot_data_per_type,
                                                              plot_single_jets)
 
@@ -354,8 +368,9 @@ class FinalEvalCallback(JetNetEvalCallback):
                                    type_names=getattr(dm, "used_jet_types", None),
                                    save_dir=out_dir)
 
-        with open(os.path.join(out_dir, "final_eval_metrics.yml"), "w") as f:
-            yaml.safe_dump({k: float(v) for k, v in metrics.items()}, f)
+        if out_dir is not None:
+            with open(os.path.join(out_dir, "final_eval_metrics.yml"), "w") as f:
+                yaml.safe_dump({k: float(v) for k, v in metrics.items()}, f)
         return metrics
 
 
@@ -503,7 +518,7 @@ class CaloEvalCallback:
             resp_g = (gen_raw[..., 0] * mask[:n, :, 0]).sum(axis=1) / e_inc
             nb, lo, hi = self.response_hist
             out["w1_response"] = _hist_cdf_w1(resp_r, resp_g, np.linspace(lo, hi, int(nb) + 1))
-        if self.make_plots:
+        if self.make_plots and trainer.artifacts_dir is not None:
             from particle_fm_tpu_torch.eval.plotting import plot_calo_showers
 
             out_dir = os.path.join(trainer.artifacts_dir, "callback_images")
@@ -590,7 +605,7 @@ class FlatEvalCallback:
         metrics[f"{p}w1_features_mean"] = float(np.mean(w1s))
         if self.log_times:
             metrics[f"{p}generation_time"] = gen_time
-        if self.make_plots:
+        if self.make_plots and trainer.artifacts_dir is not None:
             from particle_fm_tpu_torch.eval.plotting import plot_feature_ratios
 
             real_p, gen_p, lab_p = real[:n], gen, list(labels)

@@ -8,6 +8,11 @@ re-applies the mask, and measures wall-clock excluding the first batch
 The remainder batch is padded up to `batch_size` with copies of its first
 row (and the extra samples discarded), as in the JAX package, so every batch
 has one shape.
+
+In a process group (torchrun) every rank calls it with the same arguments
+and each batch is sampled rank-split (`FlowMatchingModel.sample`'s
+`rank_split`): each rank integrates its rows of the batch's noise and every
+rank returns the whole sample, equal to one process's.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import numpy as np
 import torch
 
 from particle_fm_tpu_torch.data.utils import inverse_normalize_tensor
+from particle_fm_tpu_torch.parallel import dist
 from particle_fm_tpu_torch.serving import chunk_seed
 from particle_fm_tpu_torch.utils.device import resolve_device
 
@@ -118,6 +124,7 @@ def generate_data(
             ode_steps=ode_steps,
             num_points=num_points,
             guidance_scale=guidance_scale,
+            rank_split=dist.is_initialized(),
         )
         batch = out.cpu().numpy()[:n_real]  # the copy to the host is the fence
 

@@ -22,6 +22,10 @@ and cond, and their substructure are written as the classifier test's input
 data/jetclass_classifier.py); it needs h5py and raises at once without it.
 
 Not ported: the comparison plot.
+
+Under torchrun every rank runs the same command (parallel/dist.py): the
+generation is rank-split over the ranks' devices, every rank computes the
+metrics, and rank 0 writes the files and prints.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import yaml
 
 from particle_fm_tpu_torch.data.utils import import_h5py
 from particle_fm_tpu_torch.models.flow_matching import SOLVERS
+from particle_fm_tpu_torch.parallel import dist
 
 VARIABLES_TO_CLIP = ["part_etarel", "part_dphi", "part_ptrel"]
 
@@ -138,10 +143,13 @@ def main(argv: list[str] | None = None) -> dict:
     from particle_fm_tpu_torch.utils.device import resolve_device
     from particle_fm_tpu_torch.utils.run_io import load_run
 
-    device = resolve_device(args.device)
+    dist.maybe_initialize_distributed(device=args.device)
+    device = dist.rank_device(resolve_device(args.device))
+    rank0 = dist.is_rank_zero()
     cfg, dm, model, net = load_run(args.run_dir, args.ckpt, ema=True, device=device,
                                    dtype=args.dtype)
-    print(f"[eval_ckpt] restored {args.ckpt} checkpoint from {args.run_dir}")
+    if rank0:
+        print(f"[eval_ckpt] restored {args.ckpt} checkpoint from {args.run_dir}")
 
     real = dm.tensor_test
     mask = dm.mask_test
@@ -155,8 +163,9 @@ def main(argv: list[str] | None = None) -> dict:
     if model.compute_dtype is not None:
         gtag += "_bf16"
     cache = os.path.join(args.run_dir, f"generated_{args.ckpt}_{n}{gtag}.npz")
-    if os.path.exists(cache) and not args.no_cache:
-        print(f"[eval_ckpt] reusing cached samples {cache}")
+    if dist.broadcast_object(os.path.exists(cache) and not args.no_cache):
+        if rank0:
+            print(f"[eval_ckpt] reusing cached samples {cache}")
         z = np.load(cache)
         gen, gen_time = z["gen"], float(z["time"])
     else:
@@ -177,7 +186,8 @@ def main(argv: list[str] | None = None) -> dict:
             guidance_scale=args.guidance_scale,
             device=device,
         )
-        np.savez_compressed(cache, gen=gen, time=gen_time)
+        if rank0:
+            np.savez_compressed(cache, gen=gen, time=gen_time)
 
     mask_gen = (np.abs(gen).sum(-1, keepdims=True) > 0).astype(np.float32)
     gen, mask_gen, cond_gen = postprocess(
@@ -206,6 +216,8 @@ def main(argv: list[str] | None = None) -> dict:
         )
         metrics[f"rkld_feature_{f}"] = kld
 
+    if not rank0:
+        return metrics
     if args.write_classifier_h5:
         cond_sim = cond[:n][keep_real] if cond is not None else np.zeros((len(real_k), 0))
         write_classifier_h5(os.path.join(args.run_dir, "classifier_data.h5"), dm, gen, mask_gen,

@@ -11,6 +11,9 @@ final_eval_metrics.yaml into the run directory. The overrides are read as
 the training CLI reads its own. Runs on the card unless this call gives
 `device=cpu`, whatever device the run was trained on; without CUDA it
 raises.
+
+Under torchrun every rank runs the same call (parallel/dist.py): the
+generation is rank-split and rank 0 writes final_eval_metrics.yaml.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import sys
 import yaml
 
 from particle_fm_tpu_torch.config.core import load_config, set_overrides
+from particle_fm_tpu_torch.parallel import dist
 from particle_fm_tpu_torch.train import build_trainer
 
 
@@ -30,11 +34,14 @@ def evaluate(run_dir: str, ckpt: str = "best", overrides: dict | None = None) ->
     # the device is this call's, never the one the run was trained on
     cfg["device"] = overrides.pop("device", "cuda")
     set_overrides(cfg, overrides.items())
+    dist.maybe_initialize_distributed((cfg.get("trainer") or {}).get("multihost"),
+                                      cfg["device"])
     trainer = build_trainer(cfg, run_dir)
     monitor = "w1m_mean" if "w1m_mean" in trainer.ckpt_monitors else None
     results = trainer.test(ckpt=ckpt, monitor=monitor)
-    with open(os.path.join(run_dir, "final_eval_metrics.yaml"), "w") as f:
-        yaml.safe_dump({k: float(v) for k, v in results.items()}, f)
+    if dist.is_rank_zero():
+        with open(os.path.join(run_dir, "final_eval_metrics.yaml"), "w") as f:
+            yaml.safe_dump({k: float(v) for k, v in results.items()}, f)
     return results
 
 

@@ -188,11 +188,11 @@ class CNFStack(nn.Module):
         """Apply a single flow transform (for per-flow ODE integration)."""
         return self.flows[k](t, x, cond=cond, mask=mask, x_sc=x_sc)
 
-    def normalise(self, x, mask=None, update_stats: bool = False):
-        return self.normaliser(x, mask, update_stats=update_stats)
+    def normalise(self, x, mask=None, update_stats: bool = False, shard=None):
+        return self.normaliser(x, mask, update_stats=update_stats, shard=shard)
 
-    def normalise_cond(self, cond, update_stats: bool = False):
-        return self.ctxt_normaliser(cond, update_stats=update_stats)
+    def normalise_cond(self, cond, update_stats: bool = False, shard=None):
+        return self.ctxt_normaliser(cond, update_stats=update_stats, shard=shard)
 
     def reverse_norm(self, x, mask=None):
         return self.normaliser.reverse(x, mask)

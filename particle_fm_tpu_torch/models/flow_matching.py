@@ -34,6 +34,13 @@ the EMA run in float32 as in the JAX package.
 by `droid_t_max` for droid and masked), so a test can hand it the noise the
 JAX package drew; Euler-Maruyama draws its per-step noise from the
 `generator` it is given, after `sample` has drawn z from it.
+
+Data parallelism (parallel/dist.py): `loss(..., shard=...)` computes this
+rank's share of the global batch's loss (every draw made for the global
+batch and sliced, the normalisers' statistics and the mask count summed
+over the ranks), and `sample(..., rank_split=True)` integrates this rank's
+rows of the global noise and gathers every rank's, which equals sampling
+the whole batch in one process.
 """
 
 from __future__ import annotations
@@ -51,6 +58,8 @@ from particle_fm_tpu_torch.models.cnf import CNFStack
 from particle_fm_tpu_torch.nets.common import WNDense, check_compute_dtype
 from particle_fm_tpu_torch.nets.epic import EPiCLayer
 from particle_fm_tpu_torch.ops.attention import forward_mode_ad
+from particle_fm_tpu_torch.parallel import dist
+from particle_fm_tpu_torch.parallel.dist import BatchShard, local_draw
 from particle_fm_tpu_torch.samplers.ode import (FIXED_SOLVERS, odeint_dopri5,
                                                 odeint_dopri5_per_sample, odeint_fixed,
                                                 odeint_fixed_sc)
@@ -217,13 +226,16 @@ class FlowMatchingModel:
     def vector_field(self, net: CNFStack, t, x, cond=None, mask=None) -> torch.Tensor:
         return net(t, x, cond=cond, mask=mask)
 
-    def loss_accum_weight(self, x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    def loss_accum_weight(self, x: torch.Tensor, mask: torch.Tensor | None,
+                          shard: BatchShard | None = None) -> torch.Tensor:
         """Gradient-accumulation weight of one microbatch: its loss
-        normalisation mass, so that weighted microbatch gradients add up to
-        the big-batch gradient."""
+        normalisation mass (of the global microbatch, with a `shard`), so
+        that weighted microbatch gradients add up to the big-batch gradient."""
         if mask is None:
-            return torch.tensor(float(x.shape[0] * x.shape[1]), device=x.device)
-        return torch.sum(mask).to(torch.float32)
+            w = torch.tensor(float(x.shape[0] * x.shape[1]), device=x.device)
+        else:
+            w = torch.sum(mask).to(torch.float32)
+        return w if shard is None else shard.total(w)
 
     def loss(
         self,
@@ -233,6 +245,7 @@ class FlowMatchingModel:
         mask: torch.Tensor | None = None,
         cond: torch.Tensor | None = None,
         train: bool = False,
+        shard: BatchShard | None = None,
     ) -> torch.Tensor:
         """Masked training (`train=True`) or validation loss of the unfolded
         network, with every draw from `generator`. With `use_normaliser`, x
@@ -243,7 +256,9 @@ class FlowMatchingModel:
         without gradient gives the endpoint estimate x1_hat = y - tm*t*v
         (tm = droid_t_max for droid, else 1), masked, which the trained pass
         reads for a Bernoulli(0.5) half of the sets (drawn next), zeros for
-        the others. Then t and the noises, as the loss family draws them."""
+        the others. Then t and the noises, as the loss family draws them.
+        With a `shard`, x is this rank's rows and the loss is its share of the
+        global batch's (module docstring)."""
         if is_folded(net):
             raise RuntimeError(
                 "loss needs the unfolded network: folded weights carry no gradient to "
@@ -252,16 +267,18 @@ class FlowMatchingModel:
         if self.use_normaliser:
             # in training the statistics are updated first (x's, then cond's) and
             # each input normalised with what its layer has just learned
-            x = net.normalise(x, mask, update_stats=train)
+            x = net.normalise(x, mask, update_stats=train, shard=shard)
             if self.conditioned and cond is not None:
-                cond = net.normalise_cond(cond, update_stats=train)
+                cond = net.normalise_cond(cond, update_stats=train, shard=shard)
         if train and self.cond_dropout > 0.0 and self.conditioned and cond is not None:
-            keep = _keep(generator, 1.0 - self.cond_dropout, (cond.shape[0], 1), cond.device)
+            keep = local_draw(shard, lambda g, shape, dev: _keep(g, 1.0 - self.cond_dropout,
+                                                                 shape, dev),
+                              generator, (cond.shape[0], 1), cond.device)
             cond = torch.where(keep, cond, torch.zeros_like(cond))
         if not self.self_cond:
             return self._loss_fn(lambda t, y, c, m: net(t, y, cond=c, mask=m), generator, x,
-                                 mask, cond)
-        use = _use_sc(generator, (x.shape[0], 1, 1), x.device)
+                                 mask, cond, shard=shard)
+        use = local_draw(shard, _use_sc, generator, (x.shape[0], 1, 1), x.device)
         sc_tm = self.droid_t_max if self.loss_type == "droid" else 1.0
 
         def vf(t, y, c, m):
@@ -271,7 +288,7 @@ class FlowMatchingModel:
                     x1_hat = x1_hat * m
             return net(t, y, cond=c, mask=m, x_sc=torch.where(use, x1_hat, 0.0))
 
-        return self._loss_fn(vf, generator, x, mask, cond)
+        return self._loss_fn(vf, generator, x, mask, cond, shard=shard)
 
     def log_prob(
         self,
@@ -512,11 +529,19 @@ class FlowMatchingModel:
         num_points: int | None = None,
         guidance_scale: float | None = None,
         stats: list | None = None,
+        rank_split: bool = False,
     ) -> torch.Tensor:
         """Generate samples: z ~ N(0, 1) from `generator` (on the network's
         device), times `droid_t_max` for droid, masked, then `integrate`
         (which draws Euler-Maruyama's noise from the same generator). The
-        mask's particle axis wins over `num_points`, as in the JAX package."""
+        mask's particle axis wins over `num_points`, as in the JAX package.
+
+        With `rank_split` in a process group, every rank draws the whole z,
+        integrates its rows of it (and of cond and mask) and gathers the
+        ranks' rows: each rank returns what one process returns. Every rank
+        must make the call; `n_samples` must split evenly over the ranks.
+        Euler-Maruyama's per-step noise would need the same treatment and
+        raises there."""
         if n_samples is None:
             n_samples = cond.shape[0] if cond is not None else mask.shape[0]
         if mask is not None:
@@ -529,5 +554,13 @@ class FlowMatchingModel:
             z = z * self.droid_t_max
         if mask is not None:
             z = z * mask
-        return self.integrate(net, z, cond, mask, ode_solver, ode_steps, guidance_scale,
-                              generator, stats)
+        if not (rank_split and dist.is_initialized()):
+            return self.integrate(net, z, cond, mask, ode_solver, ode_steps, guidance_scale,
+                                  generator, stats)
+        if ode_solver == "em":
+            raise NotImplementedError("rank-split sampling with the em solver")
+        rows = dist.local_rows(n_samples)
+        x = self.integrate(net, z[rows], None if cond is None else cond[rows],
+                           None if mask is None else mask[rows], ode_solver, ode_steps,
+                           guidance_scale, generator, stats)
+        return dist.gather_rows(x)

@@ -22,6 +22,16 @@ config/core.py. An entry without a `_target_`, as an experiment overlay
 leaves after `callbacks=none`, is skipped, as in the JAX package. A trainer
 key the port's Trainer does not declare (the JAX trainer's `scan_epochs`,
 `ckpt_async`, `model_axis_size`, ...) raises NotImplementedError.
+
+Across processes, every rank runs the same command:
+
+    torchrun --nproc_per_node=W -m particle_fm_tpu_torch.train trainer.strategy=dp ...
+
+The process group starts (parallel/dist.py: torchrun's environment,
+`trainer.multihost=true` or PFM_MULTIHOST=1; NCCL on the card, gloo with
+`device=cpu`) before the Trainer is built; `trainer.strategy` is `dp` or
+`fsdp`. Rank 0 names the run directory and writes the config, the logs,
+the checkpoints and `final_metrics.yaml`; every rank trains and evaluates.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ import sys
 import time
 
 from particle_fm_tpu_torch.config.core import compose, instantiate, save_config
+from particle_fm_tpu_torch.parallel import dist
 from particle_fm_tpu_torch.training.trainer import Trainer
 from particle_fm_tpu_torch.utils.device import resolve_device
 from particle_fm_tpu_torch.utils.run_io import build_run
@@ -57,10 +68,8 @@ def build_trainer(cfg: dict, out_dir: str | None = None) -> Trainer:
     set up, its model and optimizer built; checkpoints and logs under
     `out_dir` (None: none, and nothing is written)."""
     device = resolve_device(cfg.get("device", "cuda"))
-    if cfg.get("debug") or (cfg.get("trainer") or {}).get("multihost") or cfg.get(
-            "load_weights_from"):
-        raise NotImplementedError(
-            "the debug presets, multi-host runs and load_weights_from are not ported")
+    if cfg.get("debug") or cfg.get("load_weights_from"):
+        raise NotImplementedError("the debug presets and load_weights_from are not ported")
     trainer_cfg = dict(cfg.get("trainer") or {})
     for key in ("multihost", "grad_clip"):
         trainer_cfg.pop(key, None)
@@ -89,11 +98,17 @@ def build_trainer(cfg: dict, out_dir: str | None = None) -> Trainer:
 
 
 def train(cfg: dict) -> tuple[dict, dict]:
-    """Returns (metrics, objects) like the JAX package's train()."""
-    out_dir = os.path.join(cfg.get("output_dir", "runs/train"), time.strftime("%Y-%m-%d_%H-%M-%S"))
+    """Returns (metrics, objects) like the JAX package's train(). In a
+    process group, rank 0 names the run directory and writes its files."""
+    dist.maybe_initialize_distributed((cfg.get("trainer") or {}).get("multihost"),
+                                      cfg.get("device", "cuda"))
+    out_dir = dist.broadcast_object(os.path.join(
+        cfg.get("output_dir", "runs/train"), time.strftime("%Y-%m-%d_%H-%M-%S")))
     trainer = build_trainer(cfg, out_dir)
-    save_config(cfg, os.path.join(out_dir, "config.yaml"))
-    print(f"[train] run dir: {out_dir}", flush=True)
+    rank0 = dist.is_rank_zero()
+    if rank0:
+        save_config(cfg, os.path.join(out_dir, "config.yaml"))
+        print(f"[train] run dir: {out_dir}", flush=True)
     dm, model = trainer.datamodule, trainer.model
 
     metrics = {}
@@ -104,10 +119,11 @@ def train(cfg: dict) -> tuple[dict, dict]:
     if cfg.get("test", False):
         monitor = "w1m_mean" if "w1m_mean" in trainer.ckpt_monitors else None
         metrics.update(trainer.test(ckpt="best", monitor=monitor))
-    save_config(
-        {k: float(v) for k, v in metrics.items() if isinstance(v, (int, float))},
-        os.path.join(out_dir, "final_metrics.yaml"),
-    )
+    if rank0:
+        save_config(
+            {k: float(v) for k, v in metrics.items() if isinstance(v, (int, float))},
+            os.path.join(out_dir, "final_metrics.yaml"),
+        )
     return metrics, {"trainer": trainer, "model": model, "datamodule": dm, "out_dir": out_dir}
 
 

@@ -8,6 +8,12 @@ metric's value in the file name, as in the JAX package:
 
     {dir}/last.pt                                   always the latest state
     {dir}/{monitor}/step_{s}_metric_{v}.pt          top-k of each monitor
+
+In a process group every rank makes the same calls: rank 0 decides whether
+a metric's checkpoint is kept (and tells the others), every rank builds
+the state dict (a sharded state gathers its tensors whole, so the file is
+the single-device format), rank 0 writes and prunes, and a barrier ends the
+save; every rank restores.
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from particle_fm_tpu_torch.parallel import dist
 
 
 def _sanitize(v: float) -> str:
@@ -41,10 +49,16 @@ class CheckpointManager:
         self.directory = os.path.abspath(self.directory)
         os.makedirs(self.directory, exist_ok=True)
 
-    def _write(self, path: str, state) -> None:
-        tmp = path + ".tmp"
-        torch.save(state.state_dict(), tmp)
-        os.replace(tmp, path)
+    def _write(self, path: str, state, stale: tuple[str, ...] = ()) -> None:
+        """Write `state` to `path` and remove the `stale` files (rank 0)."""
+        sd = state.state_dict()
+        if dist.is_rank_zero():
+            tmp = path + ".tmp"
+            torch.save(sd, tmp)
+            os.replace(tmp, path)
+            for p in stale:
+                os.remove(p)
+        dist.barrier()
 
     def save_last(self, state) -> str:
         path = os.path.join(self.directory, "last.pt")
@@ -61,14 +75,14 @@ class CheckpointManager:
         sign = self._sign(monitor)
         entries = sorted(((_parse(n), n) for n in os.listdir(mdir) if n.endswith(".pt")),
                          key=lambda e: sign * e[0])
-        if len(entries) >= self.top_k and sign * value >= sign * entries[-1][0]:
+        keep = dist.broadcast_object(
+            not (len(entries) >= self.top_k and sign * value >= sign * entries[-1][0]))
+        if not keep:
             return None
         name = f"step_{step}_metric_{_sanitize(value)}.pt"
         path = os.path.join(mdir, name)
-        self._write(path, state)
         entries = sorted(entries + [(value, name)], key=lambda e: sign * e[0])
-        for _, stale in entries[self.top_k:]:
-            os.remove(os.path.join(mdir, stale))
+        self._write(path, state, tuple(os.path.join(mdir, n) for _, n in entries[self.top_k:]))
         return path
 
     def best_path(self, monitor: str) -> str | None:

@@ -1,7 +1,8 @@
 """Metric loggers; the two file backends of particle_fm_tpu/training/loggers.py
 (`jsonl`: metrics.jsonl, `csv`: metrics.csv in the run directory). The
 others log to outside services or need packages the port does not carry:
-asking for one raises.
+asking for one raises. In a process group only rank 0 logs (the Trainer
+builds no logger on the other ranks; one built there writes nothing).
 """
 
 from __future__ import annotations
@@ -9,6 +10,8 @@ from __future__ import annotations
 import csv
 import json
 import os
+
+from particle_fm_tpu_torch.parallel import dist
 
 
 class JsonlLogger:
@@ -66,7 +69,8 @@ class MultiLogger:
             raise NotImplementedError(
                 f"logger backends {unknown} are not ported (the port logs to {sorted(_BACKENDS)})"
             )
-        self.loggers = [_BACKENDS[name](log_dir) for name in backends]
+        self.loggers = ([_BACKENDS[name](log_dir) for name in backends]
+                        if dist.is_rank_zero() else [])
 
     def log_metrics(self, metrics: dict, step: int) -> None:
         for lg in self.loggers:

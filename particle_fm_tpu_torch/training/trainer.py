@@ -34,13 +34,31 @@ best or last checkpoint and runs the callbacks marked `on_test` with
 of the network with its own generators (eval/callbacks.py), and each step's
 generator stays seeded from (seed + 1, step).
 
-Not carried: the scanned and fused epochs, the mesh strategies and the
-JAX trainer's cache and prefetch options (here the constants
-DEVICE_CACHE_LIMIT_MB and PREFETCH_BATCHES); asking for them raises.
+Across processes (parallel/, launched by torchrun) every rank runs this
+loop on the same global batches: `strategy="dp"` replicates the state and
+sums the gradients over the ranks each step, `strategy="fsdp"` shards the
+parameters, their EMA twin and the AdamW moments (parallel/fsdp.py). Rank r
+takes rows [r*B/W, (r+1)*B/W) of each global batch B (`batch_size` is
+global, as in the JAX trainer) from its own device cache, shuffled by the
+same permutation, or from the same streamed batches; the cache is trimmed
+to a multiple of W as the JAX trainer trims it, and so is each validation
+batch. Each rank draws from the same generator at the global batch's size
+and keeps its rows (parallel/dist.py), so the losses and the updates are
+one process's at the same global batch. The state starts from rank 0's.
+Callbacks compute on every rank (generation rank-split, metrics identical
+everywhere, so checkpoint decisions agree); logs, stdout, checkpoints and
+callback files are rank 0's (`artifacts_dir` is None on the others). In
+one process without a process group nothing of this runs.
+
+Not carried: the scanned and fused epochs, the mesh strategies beyond dp
+and fsdp (ROADMAP.md Queue 1 item 7) and the JAX trainer's cache and
+prefetch options (here the constants DEVICE_CACHE_LIMIT_MB and
+PREFETCH_BATCHES); asking for them raises.
 """
 
 from __future__ import annotations
 
+import inspect
 import time
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
@@ -49,6 +67,9 @@ import numpy as np
 import torch
 
 from particle_fm_tpu_torch.data.prefetch import pinned_placer, prefetch_to_device
+from particle_fm_tpu_torch.parallel import dist
+from particle_fm_tpu_torch.parallel.dist import BatchShard
+from particle_fm_tpu_torch.parallel.fsdp import shard_state_fsdp
 from particle_fm_tpu_torch.training.checkpoint import CheckpointManager
 from particle_fm_tpu_torch.training.loggers import MultiLogger
 from particle_fm_tpu_torch.training.step import (
@@ -63,6 +84,8 @@ from particle_fm_tpu_torch.utils.device import resolve_device
 VAL_SEED = 9999  # fixed validation seed, as in the JAX trainer
 DEVICE_CACHE_LIMIT_MB = 2048  # the JAX trainer's default device_cache_limit_mb
 PREFETCH_BATCHES = 2  # streamed batches the worker keeps in flight
+STRATEGIES = ("dp", "fsdp")
+UNPORTED_STRATEGIES = ("dp_tp", "sp", "pp", "dp_pp", "dp_ep")
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -106,25 +129,51 @@ class Trainer:
     testing: bool = False  # set by `test`: scheduled callbacks bypass their epoch gates
 
     def __post_init__(self):
-        if self.strategy != "dp":
+        if self.strategy not in STRATEGIES + UNPORTED_STRATEGIES:
+            raise ValueError(
+                f"unknown trainer.strategy {self.strategy!r} "
+                f"(expected {' | '.join(STRATEGIES + UNPORTED_STRATEGIES)})")
+        if self.strategy in UNPORTED_STRATEGIES:
             raise NotImplementedError(
-                f"trainer.strategy={self.strategy!r} is not ported (single device, 'dp')")
+                f"trainer.strategy={self.strategy!r} is not ported yet (ROADMAP.md Queue 1 "
+                "item 7); the port trains with dp and fsdp")
         if self.fuse_epochs > 1:
             raise NotImplementedError("fused epochs (fuse_epochs > 1) are not ported")
         if self.accumulate_grad_batches < 1:
             raise ValueError("trainer.accumulate_grad_batches must be >= 1")
-        self.device = resolve_device(self.device)
+        self.world = dist.world_size()
+        shard = BatchShard.of_group() if dist.is_initialized() else None
+        if self.strategy == "fsdp" and shard is None:
+            raise NotImplementedError(
+                "trainer.strategy='fsdp' in one process is not ported: it shards over the "
+                "ranks of a process group (launch with torchrun)")
+        if shard is not None:
+            if "shard" not in inspect.signature(self.model.loss).parameters:
+                raise NotImplementedError(
+                    f"{type(self.model).__name__} does not train across processes")
+            if self.datamodule.batch_size % self.world:
+                raise ValueError(f"data.batch_size={self.datamodule.batch_size} does not "
+                                 f"split over {self.world} ranks")
+        self.shard = shard
+        # multi-process: logs and stdout on rank 0 only; every rank makes the
+        # checkpoint manager's calls (its writes are rank 0's)
+        self._rank0 = dist.is_rank_zero()
+        if not self._rank0:
+            self.log_dir = None
+            self.verbose = False
+        self.device = dist.rank_device(resolve_device(self.device))
         self.train_step = make_train_step(
             self.model, self.optimizer, ema_decay=self.ema_decay, ema_every_n=self.ema_every_n,
-            ema_start_step=self.ema_start_step, accum=self.accumulate_grad_batches,
+            ema_start_step=self.ema_start_step, accum=self.accumulate_grad_batches, shard=shard,
         )
-        self.eval_step = make_eval_step(self.model)
+        self.eval_step = make_eval_step(self.model, shard=shard)
         self.ckpt = (CheckpointManager(self.ckpt_dir, self.ckpt_monitors, self.ckpt_top_k)
                      if self.ckpt_dir else None)
         self.logger = (MultiLogger(self.log_dir, backends=tuple(self.logger_backends))
                        if self.log_dir else None)
-        # where callbacks write their files (final_generated_data.npy, ...)
-        self.artifacts_dir = self.log_dir or "."
+        # where callbacks write their files (final_generated_data.npy, ...):
+        # None on every rank but 0
+        self.artifacts_dir = (self.log_dir or ".") if self._rank0 else None
 
     # ------------------------------------------------------------- helpers
     def _log(self, metrics: dict) -> None:
@@ -140,9 +189,27 @@ class Trainer:
     def _to_device(self, batch):
         return tuple(None if a is None else torch.as_tensor(a, device=self.device) for a in batch)
 
+    def _local(self, batch):
+        """This rank's rows of a host batch (the batch in one process)."""
+        if self.shard is None:
+            return batch
+        rows = dist.local_rows(len(batch[0]))
+        return tuple(None if a is None else a[rows] for a in batch)
+
+    def _even(self, batch):
+        """A validation batch trimmed to a multiple of the world size, as the
+        JAX trainer trims it (None: nothing left)."""
+        keep = len(batch[0]) - len(batch[0]) % self.world
+        if keep == 0:
+            return None
+        return batch if keep == len(batch[0]) else tuple(
+            None if a is None else a[:keep] for a in batch)
+
     def _place_train_split(self):
         split = self.datamodule.train
-        return self._to_device((split.x, split.mask, split.cond))
+        n = len(split.x) - len(split.x) % self.world  # evenly over the ranks, as in JAX
+        return self._to_device(tuple(None if a is None else a[:n]
+                                     for a in (split.x, split.mask, split.cond)))
 
     def _maybe_cache_train_data(self):
         """The train split on the device, or None to stream its batches."""
@@ -154,9 +221,10 @@ class Trainer:
         return self._place_train_split() if nbytes < DEVICE_CACHE_LIMIT_MB * 2**20 else None
 
     def _streamed_batches(self, epoch: int):
-        """The epoch's host batches on the device, prefetched; (A, B, ...)
-        groups of A stacked host batches with accumulation."""
-        batches = self.datamodule.train_batches(seed=self.seed + epoch)
+        """The epoch's host batches (this rank's rows) on the device,
+        prefetched; (A, B, ...) groups of A stacked host batches with
+        accumulation."""
+        batches = map(self._local, self.datamodule.train_batches(seed=self.seed + epoch))
         accum = self.accumulate_grad_batches
         if accum > 1:
             def groups(batches=batches):
@@ -202,7 +270,11 @@ class Trainer:
         if accum == 1 and 0 < n < bs:
             bs = n
         n_use, k = self._usable_batches(n, bs, accum)
-        perm = torch.from_numpy(self._epoch_perm(n, n_use, epoch)).to(self.device)
+        perm = self._epoch_perm(n, n_use, epoch)
+        if self.shard is not None:  # this rank's rows of every batch
+            perm = perm.reshape(k, bs)[:, dist.local_rows(bs)].reshape(-1)
+            bs //= self.world
+        perm = torch.from_numpy(perm).to(self.device)
         shuffled = [None if a is None else a.index_select(0, perm) for a in dev_data]
         group = accum * bs
         for i in range(k // accum):
@@ -224,6 +296,7 @@ class Trainer:
             self.ckpt.restore(resume_from, state)
             if self.verbose:
                 print(f"[trainer] resumed from {resume_from} at step {state.step}")
+        state = self._place_state(state)
         self.state = state
         dev_data = self._maybe_cache_train_data()
         gen = torch.Generator(self.device)
@@ -259,13 +332,25 @@ class Trainer:
                     self.ckpt.save_last(state)
         return state
 
+    def _place_state(self, state: TrainState) -> TrainState:
+        """In a process group: rank 0's state on every rank, then sharded
+        under fsdp (the counterpart of the JAX trainer's `_place_state`)."""
+        if self.shard is None:
+            return state
+        dist.broadcast_(list(state.net.parameters()) + list(state.net.buffers())
+                        + list(state.ema_params))
+        return shard_state_fsdp(state) if self.strategy == "fsdp" else state
+
     # ------------------------------------------------------------ validate
     def validate(self) -> float:
         gen = torch.Generator(self.device)
         losses = []
         for batch in self.datamodule.val_batches():
+            batch = self._even(batch)
+            if batch is None:
+                continue
             gen.manual_seed(VAL_SEED)
-            losses.append(self.eval_step(self.state, gen, *self._to_device(batch)))
+            losses.append(self.eval_step(self.state, gen, *self._to_device(self._local(batch))))
         return float(torch.stack(losses).mean()) if losses else float("nan")
 
     def _per_jettype_losses(self) -> dict:
@@ -282,12 +367,13 @@ class Trainer:
             if not str(name).startswith("jet_type_label_"):
                 continue
             sel = np.where(split.cond[:, i] == 1)[0][:10_000]
+            sel = sel[: len(sel) - len(sel) % self.world]
             if len(sel) == 0:
                 continue
             batch = (split.x[sel], split.mask[sel] if split.mask is not None else None,
                      split.cond[sel])
             gen.manual_seed(VAL_SEED)
-            loss = self.eval_step(self.state, gen, *self._to_device(batch))
+            loss = self.eval_step(self.state, gen, *self._to_device(self._local(batch)))
             out[f"val_loss_{str(name).replace('jet_type_label_', '')}"] = float(loss)
         return out
 
@@ -303,10 +389,11 @@ class Trainer:
                     if ckpt == "best" else None)
             path = best or self.ckpt.last_path()
             if path is not None:
-                if self.state is None:
+                if self.state is None or self.state.sharding is not None:
+                    # a sharded state is restored whole, then sharded again
                     self.state = create_train_state(self.model, self.optimizer, seed=self.seed,
                                                     device=self.device)
-                self.state = self.ckpt.restore(path, self.state)
+                self.state = self._place_state(self.ckpt.restore(path, self.state))
         if self.state is None:
             raise FileNotFoundError("Trainer.test: no checkpoint to restore and no trained state")
         results = {}
