@@ -158,9 +158,8 @@
    loss and on all gradients as one vector (Frobenius norm):
    - train EPiC bf16: one step on the card against the CPU in bfloat16 (64
      jets, pinned draws), 30 steps that lower the loss with no kernel
-     launched, the median step, jets/s and peak memory beside float32's;
-     then jets/s at bench.py's train batch 320, float32 and bfloat16 in
-     turns;
+     launched, the median step, jets/s and peak memory beside float32's
+     (bench.py's train batch 320 is read in the slice19 timing, below);
    - train path A bf16: the packed bf16 kernel's forward against the kernel
      replaced by its plain version, then 4 steps a turn in turns, exactly 3
      packed_short_attention_bf16 launches a kernel step and none of a
@@ -179,7 +178,7 @@
      the restored best checkpoint, exactly 6 x 2 x 199 x 2 EPiC launches per
      pass; then the same evaluation with the plain EPiC layer: jets within
      1e-3, W1M and W1P within 1e-3 absolute;
-   - eval timing: 5,000 jets generated against 5,000 synthetic test jets
+   - eval timing: 3,000 jets generated against 3,000 synthetic test jets
      (N = 150), each stage timed: generation (exact EPiC launches), EFPs and
      energy correlators on the card, the native clustering (tau1-3, d12/d23),
      W1M, W1P (on 5 of its 40 bootstrap batches, to keep the run inside its
@@ -368,7 +367,31 @@
      (fm_tops150_cond, trainer=smoke, trainer.strategy=dp) on both ranks;
    - that 2-rank checkpoint loaded in this process (`load_run`) and served
      through make_serve_fn/serve_batches: 64 sets, exactly 600 launches.
-12. Prints the `kernels` JSON line (the launches of the training, eval,
+12. The phases of the training loop's services (`slice19` lines, then
+   their total; `slice19_phases`), the epochs captured as CUDA graphs of one
+   step (particle_fm_tpu_torch/training/epochs.py):
+   - captured against eager: fm_tops150_cond (EPiC) and path A
+     (fm_droid_transformer, attn_impl=packed, every parameter re-drawn),
+     each in float32 and bf16, 5,900 synthetic jets (4 steps of 1,024 an
+     epoch), 2 epochs through Trainer.fit per step, with scan_epochs and
+     with fuse_epochs=2 from the same state: every loss, parameter, EMA
+     weight and AdamW moment equal to the bit, one capture a run; path A's
+     packed kernel counted by the rule under capture (`slice19_phases`) and
+     read over one replay by torch.profiler;
+   - timing with no claim: fm_tops150_cond at bench.py's train batch 320,
+     one epoch of the 13,999-jet split (43 steps) a turn, eager and captured
+     in turns (eager, captured, captured, eager) after an epoch of each, in
+     float32 and bf16: ms a step, jets/s, the device's busy share
+     (torch.profiler over a quarter epoch more), peak memory, capture time;
+   - train.py (trainer=smoke, callbacks=none, 4,096 jets): fuse_epochs=2
+     with an EarlyStopping callback that stops at epoch 3 of 10;
+     load_weights_from its `last` at lr 0 with the device-stats callback
+     (the file's weights, the step from 0, nonzero bytes); debug=profiler
+     (a trace with kernel events).
+   Classifier, flat and classifier-EPiC phases above train per step
+   (`trainer.scan_epochs=false`): they time every step through the step
+   factory, as before.
+13. Prints the `kernels` JSON line (the launches of the training, eval,
    family, dataset, classifier, slice and ddp phases under
    `launches_by_path` too), the card line again, and as the last line
    {"ok": true, "device": {...}}.
@@ -1656,7 +1679,6 @@ def train_setup(torch, model, dm, cfg, dev, lr: float = 1e-3):
 
 
 # bfloat16 training phases: float32 master weights, bfloat16 compute
-TRAIN_TURN_STEPS = 8  # steps a turn of the batch-320 reading
 BENCH_TRAIN_BATCH = 320  # bench.py's train batch
 
 
@@ -1742,32 +1764,6 @@ def train_epic_phase(torch, ops, dev, counted, overrides=()) -> dict:
             "loss_first_5": first, "loss_last_5": last, "median_step_ms": 1e3 * median,
             "steps_per_s": 1.0 / median, "jets_per_s": dm.batch_size / median,
             "peak_memory_bytes": peak, "kernel_launches": got}
-
-
-def bench_batch_turns(torch, dev) -> dict:
-    """jets/s of fm_tops150_cond's train step at bench.py's batch 320,
-    float32 and bfloat16 in turns (f32, bf16, bf16, f32), TRAIN_TURN_STEPS
-    steps a turn after 3 of warm-up: the median step of each."""
-    runs = {}
-    for name, extra in (("float32", []), ("bfloat16", ["model.dtype=bfloat16"])):
-        model, dm, cfg = compose_training(["experiment=jetnet/fm_tops150_cond",
-                                           "data.synthetic=true",
-                                           f"data.batch_size={BENCH_TRAIN_BATCH}", *extra])
-        dm.setup()
-        trainer, state = train_setup(torch, model, dm, cfg, dev)
-        data = trainer._place_train_split()
-        run_steps(torch, trainer, state, data, 3)
-        runs[name] = (trainer, state, data, [])
-    for name in ("float32", "bfloat16", "bfloat16", "float32"):
-        trainer, state, data, secs = runs[name]
-        losses, turn = run_steps(torch, trainer, state, data, TRAIN_TURN_STEPS)
-        if not np.isfinite(losses).all():
-            fail(f"train EPiC at batch {BENCH_TRAIN_BATCH}, {name}: non-finite loss {losses}")
-        secs += turn
-    ms = {name: 1e3 * float(np.median(r[3])) for name, r in runs.items()}
-    return {"batch": BENCH_TRAIN_BATCH, "steps_per_turn": TRAIN_TURN_STEPS, "median_step_ms": ms,
-            "jets_per_s": {k: BENCH_TRAIN_BATCH / (v / 1e3) for k, v in ms.items()},
-            "step_s": {name: r[3] for name, r in runs.items()}}
 
 
 def train_path_a_phase(torch, sa, dev, counted, overrides=()) -> dict:
@@ -1946,10 +1942,11 @@ def train_cli_phase(torch, ops, dev, counted, overrides=()) -> dict:
 
 
 # eval phase: the shipped JetNet callbacks in the training entry point, then
-# the evaluation stages timed at 5,000 jets: some 40 s shorter than at
-# 10,000, time that the later phases need under the run's limit
+# the evaluation stages timed at 3,000 jets (5,000 until the captured-epoch
+# phases came, 10,000 before): the time that the later phases need under the
+# run's limit
 EVAL_JETS = 2000  # the callback's num_jet_samples: 2 batches of 1000
-EVAL_TIMING_JETS = 5_000
+EVAL_TIMING_JETS = 3_000
 # W1P's bootstrap timed on this many of the callback's 40 batches (its seconds
 # scale with the batches: about 92 s for all 40 at 5,000 jets on an H100)
 W1P_TIMING_BATCHES = 5
@@ -2887,8 +2884,8 @@ def calo_phase(torch, dev, counted) -> dict:
 
     streamed_epoch(torch, trainer, 5)  # warm-up: every bucket length once
     steps, tokens, wall = streamed_epoch(torch, trainer, 6)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    # the kernels' device time only: a CPU recording of the epoch's launches is slow to read
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         _, _, profiled = streamed_epoch(torch, trainer, 6)
     device_ms = sum(r["device_ms"] for r in kernel_rows(prof))
     busy = device_ms / (1e3 * wall) if device_ms > 0 else None
@@ -3023,8 +3020,10 @@ def classifier_epic_phase(torch, ops, dev, counted) -> dict:
         fail(f"classifier EPiC: not configs/model/epic_classifier.yaml: {model}")
     def train(seed, patch=contextlib.nullcontext()):
         with patch:
+            # per step: every step timed by the patched step factory
             trainer = ptrainer.Trainer(model, dm, make_optimizer(lr=1e-3, weight_decay=5e-5),
-                                       max_epochs=2, seed=seed, device=dev, verbose=False)
+                                       max_epochs=2, seed=seed, device=dev, verbose=False,
+                                       scan_epochs=False)
         reset(counted)
         trainer.fit()
         expect("classifier EPiC (training runs the module path)", launched(counted))
@@ -3189,7 +3188,9 @@ def classifier_cli_phase(torch, dev, counted, name: str, experiment: str, overri
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     with patch:
+        # per step (trainer.scan_epochs=false): every step timed by the patched factory
         metrics, objs = ptrain.main([f"experiment={experiment}", *overrides,
+                                     "trainer.scan_epochs=false",
                                      f"output_dir={out_root}"])  # the main path
     cli_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
@@ -3341,8 +3342,10 @@ def flat_cli(torch, dev, counted, name, experiment, overrides):
     from particle_fm_tpu_torch.training import trainer as ptrainer
 
     patch, secs = timed_steps(torch, dev, ptrainer)
-    with patch:
-        metrics, objs, cli_s, got, _ = dataset_cli(torch, name, experiment, overrides, counted)
+    with patch:  # per step: every step timed by the patched step factory
+        metrics, objs, cli_s, got, _ = dataset_cli(torch, name, experiment,
+                                                   [*overrides, "trainer.scan_epochs=false"],
+                                                   counted)
     expect(f"{experiment} CLI", got)
     trainer = objs["trainer"]
     finite_history(experiment, trainer.metrics_history, ("train_loss", "val_loss"))
@@ -4691,6 +4694,353 @@ def ddp_phases(torch, dev, counted) -> dict:
     return out
 
 
+# slice 19: the training loop's services, the scanned and fused epochs as captured graphs
+SLICE19_JETS = 5_900  # synthetic JetNet-150 jets: a train split of 4,130, 4 steps of 1,024
+SLICE19_BATCH = 1024
+SLICE19_EPOCHS = 2
+SLICE19_CONFIGS = {
+    "fm_tops150_cond (EPiC)": ["experiment=jetnet/fm_tops150_cond", "data.synthetic=true"],
+    "path A (fm_droid_transformer, packed)": PATH_A,
+}
+TIMING_TURNS = ("eager", "captured", "captured", "eager")
+REPLAY_RECORDINGS = 3
+
+
+def slice19_compose(overrides, batch):
+    """(model, datamodule set up, cfg, overrides) of a composed config at `batch`."""
+    model, dm, cfg = compose_training([*overrides, f"data.batch_size={batch}"])
+    dm.setup()
+    return model, dm, cfg, overrides
+
+
+def slice19_trainer(torch, dev, built, **kw):
+    """A Trainer of a composed config (`slice19_compose`) at a constant lr
+    1e-3 and a fresh state from seed 0 (path A's parameters re-drawn, the
+    EMA a copy), no validation, no checkpoints; `kw` are Trainer fields."""
+    from particle_fm_tpu_torch.training.step import create_train_state, make_optimizer
+    from particle_fm_tpu_torch.training.trainer import Trainer
+
+    model, dm, cfg, overrides = built
+    opt = make_optimizer(lr=1e-3, weight_decay=cfg["model"]["optimizer"]["weight_decay"],
+                         grad_clip=cfg["trainer"]["grad_clip"])
+    trainer = Trainer(model, dm, opt, seed=cfg["seed"], device=dev, verbose=False,
+                      ema_decay=cfg["trainer"]["ema"]["decay"], check_val_every_n_epoch=1000,
+                      **kw)
+    state = create_train_state(model, opt, seed=0, device=dev)
+    if "model=fm_droid_transformer" in overrides:
+        redraw_parameters(torch, state.net, seed=4)
+        with torch.no_grad():
+            for e, p in zip(state.ema_params, state.params()):
+                e.copy_(p)
+    return trainer, state
+
+
+def state_tensors(state) -> list:
+    opt = state.opt_state.state
+    return ([p.detach() for p in state.params()] + list(state.ema_params)
+            + [opt[p][k] for p in state.params() for k in ("exp_avg", "exp_avg_sq")])
+
+
+def ulp_gap(torch, got, want) -> dict:
+    """Tensors that differ, and the largest difference in float32 ulps of the reference."""
+    differ, ulps = 0, 0.0
+    for a, b in zip(got, want, strict=True):
+        if not torch.equal(a, b):
+            differ += 1
+            spacing = torch.abs(torch.nextafter(b, torch.full_like(b, float("inf"))) - b)
+            ulps = max(ulps, float(((a - b).abs() / spacing).max()))
+    return {"tensors_differing": differ, "max_ulps": ulps}
+
+
+def replay_launches(torch, trainer, kernel: str):
+    """Launches of kernels whose names hold `kernel` that torch.profiler
+    records over one replay of the trainer's captured step (one more
+    training step of its state, on the first row of its last run): the most
+    of REPLAY_RECORDINGS recordings (late in a long process a recording can
+    lose launches, utils/timing.py::device_reading), None where none holds a
+    kernel."""
+    from particle_fm_tpu_torch.training.step import begin_run
+    from particle_fm_tpu_torch.training.trainer import step_seed
+
+    runner, state = trainer.train_superepoch.runner, trainer.state
+    best = None
+    for _ in range(REPLAY_RECORDINGS):
+        begin_run(state, trainer.optimizer, 1)  # the position back to the table's first row
+        runner.generator.manual_seed(step_seed(trainer.seed, state.step))
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            runner.graph.replay()
+            torch.cuda.synchronize()
+        state.step += 1
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            n = sum(kernel in e.name for e in events)
+            best = n if best is None else max(best, n)
+    return best
+
+
+def captured_against_eager(torch, sa, dev, counted, name, overrides) -> dict:
+    """SLICE19_EPOCHS epochs at batch SLICE19_BATCH of the per-step path, the
+    scanned epochs and fuse_epochs=2, each from the same state: losses and
+    every parameter, EMA weight and AdamW moment equal to the bit; path A's
+    packed kernel counted at the warm-up step and the capture only (the
+    rule), its launches over one replay read by torch.profiler."""
+    wrapper = ("packed_short_attention_bf16" if "model.dtype=bfloat16" in overrides
+               else "packed_short_attention") if "model=fm_droid_transformer" in overrides else None
+    runs = {}
+    built = slice19_compose([*overrides, f"data.synthetic_num_jets={SLICE19_JETS}"],
+                            SLICE19_BATCH)
+    for mode, kw in (("eager", {"scan_epochs": False}), ("scanned", {}),
+                     ("fused 2", {"fuse_epochs": 2})):
+        trainer, state = slice19_trainer(torch, dev, built, max_epochs=SLICE19_EPOCHS, **kw)
+        reset(counted)
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        trainer.fit(initial_state=state)
+        sync(torch, dev)
+        runs[mode] = (trainer, time.perf_counter() - t0, launched(counted))
+    eager, _, eager_launches = runs["eager"]
+    steps = eager.state.step
+    if steps != SLICE19_EPOCHS * 4:
+        fail(f"slice19 {name}: {steps} steps, expected {SLICE19_EPOCHS} epochs of 4")
+    out = {"config": name, "overrides": overrides, "batch": SLICE19_BATCH,
+           "train_split": len(eager.datamodule.train), "steps": steps}
+    for mode in ("scanned", "fused 2"):
+        trainer, secs, got = runs[mode]
+        runner = trainer.train_superepoch.runner
+        gap = ulp_gap(torch, state_tensors(trainer.state), state_tensors(eager.state))
+        losses = [m["train_loss"] for m in trainer.metrics_history]
+        want_losses = [m["train_loss"] for m in eager.metrics_history
+                       if m["epoch"] in {h["epoch"] for h in trainer.metrics_history}]
+        if trainer.state.step != steps or gap["tensors_differing"] or losses != want_losses:
+            fail(f"slice19 {name}, {mode}: the captured epochs differ from the per-step path: "
+                 f"step {trainer.state.step} vs {steps}, {gap}, losses {losses} vs {want_losses}")
+        if runner.captures != 1:
+            fail(f"slice19 {name}, {mode}: {runner.captures} captures, expected 1")
+        entry = {"fit_s": secs, "captures": runner.captures, "capture_s": runner.capture_s,
+                 "train_loss": losses, "gap_to_eager": gap, "launches": got}
+        if wrapper is not None:
+            per_step = eager_launches[wrapper] // steps
+            if per_step != 3 or got != {**{k: 0 for k in got}, wrapper: 2 * per_step}:
+                fail(f"slice19 {name}, {mode}: launches counted {got}, expected {2 * per_step} "
+                     f"of {wrapper} (the warm-up step and the capture; eager: {eager_launches})")
+            on_device = replay_launches(torch, trainer, "packed_attention")
+            if on_device is not None and on_device > per_step:
+                fail(f"slice19 {name}, {mode}: torch.profiler read {on_device} packed launches "
+                     f"in one replay, more than a step's {per_step}")
+            entry["launch_rule"] = {
+                "counted": got[wrapper], "per_step": per_step,
+                "replays": steps - 1, "on_device_by_rule": per_step * steps,
+                "one_replay_by_profiler": (
+                    on_device if on_device == per_step else
+                    f"{on_device} recorded of {per_step}: the rule alone" if on_device
+                    else "not recorded: the rule alone")}
+        out[mode] = entry
+    out["eager_fit_s"] = runs["eager"][1]
+    out["_launches"] = {wrapper: runs["scanned"][2][wrapper]} if wrapper else {}
+    return out
+
+
+def epoch_wall(torch, dev, fn) -> float:
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    fn()
+    sync(torch, dev)
+    return time.perf_counter() - t0
+
+
+def busy_share(torch, dev, fn, wall: float) -> float | None:
+    """The device's kernel time over `fn` (under torch.profiler's CUDA
+    activity only: a CPU recording of an eager epoch's launches takes tens of
+    seconds to read) over the unprofiled `wall` of the same work."""
+    from scripts.profile_torch_port import kernel_rows
+
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        sync(torch, dev)
+    device_ms = sum(r["device_ms"] for r in kernel_rows(prof))
+    return device_ms / (1e3 * wall) if device_ms > 0 else None
+
+
+PROFILED_STEPS = 11  # steps of the busy-share reading: a quarter epoch (reading a recording is slow)
+
+
+def timing_in_turns(torch, dev, dtype_overrides) -> dict:
+    """fm_tops150_cond at bench.py's train batch 320, one epoch of the
+    13,999-jet split (43 steps) a turn, eager (per step) and captured in
+    turns after a first epoch of each (the capture): ms a step, jets/s,
+    the device's busy share (torch.profiler over PROFILED_STEPS more steps
+    against their share of the turns' median wall), peak memory (and over
+    the memory held before the path's first epoch), capture time. No
+    claim."""
+    from particle_fm_tpu_torch.training.trainer import step_seed
+
+    paths = {}
+    built = slice19_compose(["experiment=jetnet/fm_tops150_cond", "data.synthetic=true",
+                             *dtype_overrides], BENCH_TRAIN_BATCH)
+    for path, kw in (("eager", {"scan_epochs": False}), ("captured", {})):
+        trainer, state = slice19_trainer(torch, dev, built, max_epochs=1, **kw)
+        trainer.state = state
+        data = trainer._place_train_split()
+        gen = torch.Generator(dev)
+
+        def epoch(steps=None, trainer=trainer, state=state, data=data, gen=gen):
+            e = state.step // trainer.datamodule.steps_per_epoch
+            if trainer.scan_epochs:
+                perms = trainer._group_perms(data, e, 1)
+                return trainer.train_superepoch(state, *data, perms[:, :steps])
+            for i, batch in enumerate(trainer._epoch_batches(data, e)):
+                if i == steps:
+                    break
+                gen.manual_seed(step_seed(trainer.seed, state.step))
+                trainer.train_step(state, gen, *batch)
+
+        sync(torch, dev)
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        first = epoch_wall(torch, dev, epoch)
+        peak = torch.cuda.max_memory_allocated(dev)
+        paths[path] = {"trainer": trainer, "epoch": epoch, "first_epoch_s": first, "walls": [],
+                       "peak_memory_bytes": peak, "peak_over_start_bytes": peak - held}
+    for path in TIMING_TURNS:
+        paths[path]["walls"].append(epoch_wall(torch, dev, paths[path]["epoch"]))
+    out = {"batch": BENCH_TRAIN_BATCH, "turns": list(TIMING_TURNS)}
+    for path, p in paths.items():
+        steps = p["trainer"].datamodule.steps_per_epoch
+        wall = float(np.median(p["walls"]))
+        busy = busy_share(torch, dev, lambda p=p: p["epoch"](PROFILED_STEPS),
+                          wall * PROFILED_STEPS / steps)
+        ms = 1e3 * wall / steps
+        out[path] = {"steps_per_epoch": steps, "epoch_s": p["walls"], "ms_per_step": ms,
+                     "jets_per_s": BENCH_TRAIN_BATCH / (ms / 1e3),
+                     "device_busy_share": busy if busy is not None else "not measured",
+                     "busy_share_steps": PROFILED_STEPS,
+                     **{k: p[k] for k in ("peak_memory_bytes", "peak_over_start_bytes",
+                                          "first_epoch_s")}}
+    runner = paths["captured"]["trainer"].train_superepoch.runner
+    out["captured"]["capture_s"] = runner.capture_s
+    if out["captured"]["steps_per_epoch"] != 43 or runner.captures != 1:
+        fail(f"slice19 timing: {out['captured']['steps_per_epoch']} steps an epoch (expected "
+             f"43), {runner.captures} captures (expected 1: the shorter run replays the graph)")
+    return out
+
+
+def slice19_cli(torch, dev, counted) -> dict:
+    """train.main with trainer=smoke, callbacks=none on fm_tops150_cond
+    (4,096 synthetic jets): fuse_epochs=2 with an EarlyStopping callback
+    that stops at its second check (min_delta 1e9: nothing counts as
+    better), so at epoch 3 of 10; then load_weights_from that run's `last`
+    at lr 0 with the device-stats callback (the weights stay the file's;
+    the step starts at 0; nonzero bytes), and debug=profiler (its trace with
+    kernels on the card)."""
+    import shutil
+
+    from particle_fm_tpu_torch import train as ptrain
+    from particle_fm_tpu_torch.config.core import compose
+    from particle_fm_tpu_torch.training.stopping import EarlyStopping
+
+    out_root = ROOT / "build" / "slice19_cli"
+    shutil.rmtree(out_root, ignore_errors=True)
+    args = ["experiment=jetnet/fm_tops150_cond", "data.synthetic=true",
+            "data.synthetic_num_jets=4096", "trainer=smoke", "callbacks=none",
+            "model.scheduler.name=constant"]
+    stop = EarlyStopping(monitor="val_loss", patience=1, min_delta=1e9)
+    cfg = compose(ptrain.CONFIG_DIR, "train", args + [
+        "trainer.fuse_epochs=2", "trainer.max_epochs=10", f"output_dir={out_root / 'stopped'}"])
+    reset(counted)
+    t0 = time.perf_counter()
+    _, objs = ptrain.train(cfg, extra_callbacks=[stop])
+    stopped_s = time.perf_counter() - t0
+    trainer = objs["trainer"]
+    per_epoch = trainer.datamodule.steps_per_epoch
+    if (trainer.epoch != 3 or [m["epoch"] for m in trainer.metrics_history] != [1, 3]
+            or trainer.state.step != 4 * per_epoch or not trainer.should_stop):
+        fail(f"slice19 CLI: EarlyStopping did not stop the fused run at epoch 3: epoch "
+             f"{trainer.epoch}, history {trainer.metrics_history}, step {trainer.state.step}")
+    if trainer.train_superepoch.runner.captures != 1:
+        fail(f"slice19 CLI: {trainer.train_superepoch.runner.captures} captures, expected 1")
+    expect("slice19 CLI (EPiC trains on the module path)", launched(counted))
+    last = Path(objs["out_dir"]) / "checkpoints" / "last.pt"
+    saved = torch.load(last, map_location="cpu", weights_only=True)
+    if saved["step"] != trainer.state.step:
+        fail(f"slice19 CLI: `last` holds step {saved['step']}, not the stop's {trainer.state.step}")
+
+    t0 = time.perf_counter()
+    _, objs = ptrain.main(args + ["callbacks=device_stats", "trainer.max_epochs=1",
+                                  "model.optimizer.lr=0.0", f"load_weights_from={last}",
+                                  f"output_dir={out_root / 'loaded'}"])
+    loaded_s = time.perf_counter() - t0
+    loaded = objs["trainer"]
+    params = dict(loaded.state.net.named_parameters())
+    moved = [k for k, v in saved["params"].items()
+             if k in params and not torch.equal(params[k].detach().cpu(), v)]
+    if moved or loaded.state.step != per_epoch:
+        fail(f"slice19 CLI: load_weights_from at lr 0: parameters {moved[:3]} differ from the "
+             f"file's, or the step {loaded.state.step} did not start at 0")
+    stats = {k: v for k, v in loaded.metrics_history[-1].items() if k.startswith("mem_")}
+    if len(stats) != 3 or not all(v > 0 for v in stats.values()):
+        fail(f"slice19 CLI: DeviceStatsCallback reported {stats}")
+
+    t0 = time.perf_counter()
+    _, objs = ptrain.main(args + ["debug=profiler", "trainer.max_epochs=1",
+                                  f"output_dir={out_root / 'profiled'}"])
+    profiled_s = time.perf_counter() - t0
+    trace = out_root / "profiled" / "profile" / "trace.json"
+    events = json.loads(trace.read_text())["traceEvents"] if trace.exists() else []
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    if not kernels:
+        fail(f"slice19 CLI: debug=profiler wrote no kernel events to {trace}")
+    return {"args": args, "early_stopping": {"fuse_epochs": 2, "max_epochs": 10,
+                                             "stopped_at_epoch": trainer.epoch,
+                                             "logged_epochs": [1, 3], "step": trainer.state.step,
+                                             "cli_s": stopped_s},
+            "load_weights_from": {"step_after_one_epoch": loaded.state.step,
+                                  "parameters_equal_the_file": True, "device_stats": stats,
+                                  "cli_s": loaded_s},
+            "debug_profiler": {"trace": str(trace.relative_to(ROOT)), "events": len(events),
+                               "kernel_events": kernels, "cli_s": profiled_s}}
+
+
+def slice19_phases(torch, sa, dev, counted) -> dict:
+    """The captured-against-eager gates of EPiC and path A in both types, the
+    timing in turns, then the CLI services (each its `slice19` line).
+
+    The launch rule under capture: a wrapper counts where its Python runs,
+    so a captured run of n steps counts a step's launches twice (the eager
+    warm-up step, then the capture) and its n - 1 replays count nothing,
+    while the card runs the kernel a step's launches times n. The gate
+    checks the counted launches (2 x 3 packed a run) and reads one replay's
+    launches with torch.profiler (3 a step; the most of REPLAY_RECORDINGS
+    recordings, since a recording late in a long process can lose launches):
+    more than a step's fail, fewer leave the rule alone. The `kernels` line
+    adds the counted launches."""
+    results, launches = {}, {}
+    for name, overrides in SLICE19_CONFIGS.items():
+        for dtype in ((), ("model.dtype=bfloat16",)):
+            label = f"{name}{' bf16' if dtype else ''}"
+            t0 = time.perf_counter()
+            res = captured_against_eager(torch, sa, dev, counted, label, [*overrides, *dtype])
+            for kernel, n in res.pop("_launches").items():
+                launches[kernel] = (f"slice19 captured epochs, {label}", n)
+            res["phase_s"] = time.perf_counter() - t0
+            print(json.dumps({"slice19": f"captured against eager: {label}", **res}), flush=True)
+            results[label] = res
+    for dtype in ((), ("model.dtype=bfloat16",)):
+        t0 = time.perf_counter()
+        res = timing_in_turns(torch, dev, dtype)
+        res["phase_s"] = time.perf_counter() - t0
+        label = f"timing fm_tops150_cond {'bf16' if dtype else 'f32'}"
+        print(json.dumps({"slice19": label, "card": card_line(), **res}), flush=True)
+        results[label] = res
+    t0 = time.perf_counter()
+    res = slice19_cli(torch, dev, counted)
+    res["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"slice19": "train.py services", **res}), flush=True)
+    results["cli"] = res
+    results["_launches"] = launches
+    return results
+
+
 def serving_runs(torch, dev, FlowMatchingModel, ops, sa, fa) -> list[dict]:
     """The six served models at full width with their seeded weights, as the
     serving phases serve them (one dict a path: name, config, model, net,
@@ -4857,7 +5207,6 @@ def main() -> None:
     print(json.dumps({"training_phases_s": time.perf_counter() - t0}), flush=True)
     t0 = time.perf_counter()
     epic16 = train_epic_phase(torch, ops, dev, counted, bf16)
-    epic16[f"batch_{BENCH_TRAIN_BATCH}_in_turns"] = bench_batch_turns(torch, dev)
     print(json.dumps({"training": "train EPiC bf16", **epic16, "f32": {
         k: epic_train[k] for k in ("median_step_ms", "jets_per_s", "peak_memory_bytes")}}),
           flush=True)
@@ -4993,6 +5342,13 @@ def main() -> None:
         kernels[kernel_name]["launches"] += launches
         kernels[kernel_name]["launches_by_path"][path] = launches
     print(json.dumps({"ddp_phases_s": time.perf_counter() - t0}), flush=True)
+
+    t0 = time.perf_counter()
+    res = slice19_phases(torch, sa, dev, counted)  # prints its lines
+    for kernel_name, (path, launches) in res["_launches"].items():
+        kernels[kernel_name]["launches"] += launches
+        kernels[kernel_name]["launches_by_path"][path] = launches
+    print(json.dumps({"slice19_phases_s": time.perf_counter() - t0}), flush=True)
 
     kernels = list(kernels.values())
     print(json.dumps({"smoke_s": time.perf_counter() - started}), flush=True)

@@ -37,8 +37,14 @@ i)`, as `generate_data` seeds a batch.
 With `make_plots` the callbacks draw the JAX callbacks' figures through
 eval/plotting.py, which is imported only then: where matplotlib is missing,
 plotting raises an ImportError that names it, and a run never skips its
-plots without saying so. Not ported: `DeviceStatsCallback`; a config that
-names it raises through config/core.py.
+plots without saying so.
+
+`DeviceStatsCallback` logs the card's memory each epoch under the JAX
+callback's names: `mem_bytes_d<i>` (bytes allocated now), `mem_peak_bytes_d<i>`
+(the peak since the process began, or the last reset) from
+`torch.cuda.memory_stats`, and `mem_limit_bytes_d<i>` (the card's total) from
+`torch.cuda.mem_get_info`, for the trainer's device i; None on the CPU, as
+the JAX callback returns there.
 """
 
 from __future__ import annotations
@@ -635,6 +641,29 @@ class GenChallengeEvalCallback(FlatEvalCallback):
     plot_cond: bool = True
     split: str = "val"
     feature_labels: Optional[tuple] = ("mj1", "delta_mj", "tau41_j1", "tau41_j2")
+
+
+@dataclass
+class DeviceStatsCallback:
+    """The trainer's card's memory each scheduled epoch (module docstring)."""
+
+    every_n_epochs: int | str = 1
+    on_test: bool = False
+
+    def __call__(self, trainer) -> Optional[dict]:
+        if not getattr(trainer, "testing", False) and not should_log(
+                self.every_n_epochs, trainer.epoch):
+            return None
+        import torch
+
+        dev = torch.device(trainer.device)
+        if dev.type != "cuda":
+            return None
+        i = dev.index if dev.index is not None else torch.cuda.current_device()
+        stats = torch.cuda.memory_stats(i)
+        return {f"mem_bytes_d{i}": float(stats.get("allocated_bytes.all.current", 0)),
+                f"mem_peak_bytes_d{i}": float(stats.get("allocated_bytes.all.peak", 0)),
+                f"mem_limit_bytes_d{i}": float(torch.cuda.mem_get_info(i)[1])}
 
 
 @dataclass

@@ -131,7 +131,7 @@ class SetClassifierModel:
 
     def loss_accum_weight(self, x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
         """A microbatch's weight under gradient accumulation: its size."""
-        return torch.tensor(float(x.shape[0]), device=x.device)
+        return torch.full((), float(x.shape[0]), device=x.device)
 
     def loss(self, net: nn.Module, generator: torch.Generator, x, mask=None, cond=None,
              train: bool = False) -> torch.Tensor:
@@ -192,7 +192,7 @@ class HLClassifierModel:
         return net
 
     def loss_accum_weight(self, x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
-        return torch.tensor(float(x.shape[0]), device=x.device)
+        return torch.full((), float(x.shape[0]), device=x.device)
 
     def loss(self, net: nn.Module, generator: torch.Generator, x, mask=None, cond=None,
              train: bool = False) -> torch.Tensor:

@@ -226,13 +226,19 @@ class FlowMatchingModel:
     def vector_field(self, net: CNFStack, t, x, cond=None, mask=None) -> torch.Tensor:
         return net(t, x, cond=cond, mask=mask)
 
+    def loss_reads_host(self) -> bool:
+        """Whether the training loss reads values back to the host (OT-CFM's
+        exact pairing solves each batch's assignment with scipy): such a
+        step cannot run inside a captured CUDA graph."""
+        return self.loss_type == "CFM-OT" and dict(self.ot_config).get("ot_method") == "exact"
+
     def loss_accum_weight(self, x: torch.Tensor, mask: torch.Tensor | None,
                           shard: BatchShard | None = None) -> torch.Tensor:
         """Gradient-accumulation weight of one microbatch: its loss
         normalisation mass (of the global microbatch, with a `shard`), so
         that weighted microbatch gradients add up to the big-batch gradient."""
         if mask is None:
-            w = torch.tensor(float(x.shape[0] * x.shape[1]), device=x.device)
+            w = torch.full((), float(x.shape[0] * x.shape[1]), device=x.device)
         else:
             w = torch.sum(mask).to(torch.float32)
         return w if shard is None else shard.total(w)

@@ -97,7 +97,7 @@ class FlatFlowMatchingModel:
     def loss_accum_weight(self, x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
         """Gradient-accumulation weight of one microbatch: its batch size,
         the loss's normalisation on flat data."""
-        return torch.tensor(float(x.shape[0]), device=x.device)
+        return torch.full((), float(x.shape[0]), device=x.device)
 
     def loss(self, net: FlatStack, generator: torch.Generator, x: torch.Tensor,
              mask: torch.Tensor | None = None, cond: torch.Tensor | None = None,

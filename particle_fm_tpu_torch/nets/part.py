@@ -165,8 +165,9 @@ class ParTClassifierNet(nn.Module):
         m = torch.ones_like(x[..., 0]) if mask is None else mask[..., 0]
         x_kin = x
         if self.kin is not None:
-            mu = torch.tensor(self.kin[0], dtype=x.dtype, device=x.device)
-            sd = torch.tensor(self.kin[1], dtype=x.dtype, device=x.device)
+            # constants made on the device (a copy from the host cannot be captured)
+            mu, sd = (torch.stack([torch.full((), v, dtype=x.dtype, device=x.device) for v in c])
+                      for c in self.kin)
             x_kin = x * sd + mu
         eta, phi, f_pt = (x_kin[..., i] for i in (self.eta_idx, self.phi_idx, self.pt_idx))
         if self.pt_transform == "log_scaled":

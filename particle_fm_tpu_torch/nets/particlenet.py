@@ -46,7 +46,7 @@ def knn_indices(points: torch.Tensor, mask: torch.Tensor | None, k: int) -> torc
     n = points.shape[1]
     sq = torch.sum(points * points, dim=-1)
     d = sq[:, :, None] + sq[:, None, :] - 2.0 * torch.einsum("bnd,bmd->bnm", points, points)
-    big = torch.tensor(1e9, dtype=d.dtype, device=d.device)
+    big = torch.full((), 1e9, dtype=d.dtype, device=d.device)
     if mask is not None:
         d = torch.where((mask[..., 0] > 0)[:, None, :], d, big)
     d = d + torch.eye(n, dtype=d.dtype, device=d.device) * big
@@ -180,4 +180,7 @@ class ParticleNetClassifierNet(nn.Module):
                                         generator=generator, dtype=dtype, **dict(net_config or {}))
 
     def forward(self, x, mask=None, cond=None) -> torch.Tensor:
-        return self.particle_net(x[..., self.point_indices], x, mask=mask)
+        # columns by slicing: indexing with a list copies an index from the host,
+        # which a captured CUDA graph cannot
+        points = torch.stack([x[..., i] for i in self.point_indices], dim=-1)
+        return self.particle_net(points, x, mask=mask)

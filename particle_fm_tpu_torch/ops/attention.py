@@ -67,11 +67,12 @@ def masked_attention(
 
     sdt = scores_dtype
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).to(sdt)
-    logits = logits * torch.tensor(1.0 / (d ** 0.5), dtype=sdt, device=q.device)
+    # scalars made on the device: a copy from the host cannot be captured in a CUDA graph
+    logits = logits * torch.full((), 1.0 / (d ** 0.5), dtype=sdt, device=q.device)
     if attn_bias is not None:
         logits = logits + attn_bias.to(sdt)
     if keep is not None:
-        logits = torch.where(keep, logits, torch.tensor(NEG_INF, dtype=sdt, device=q.device))
+        logits = torch.where(keep, logits, torch.full((), NEG_INF, dtype=sdt, device=q.device))
     m = logits.max(dim=-1, keepdim=True).values.detach()
     p = torch.exp((logits - m).to(torch.float32)).to(sdt)
     denom = p.sum(dim=-1, keepdim=True, dtype=torch.float32)  # (B, H, Lq, 1)

@@ -8,20 +8,30 @@ the port's), snapshots the resolved config into the run directory, builds
 the datamodule, the model and the callbacks, pops `optimizer`/`scheduler`
 from the model block and `grad_clip`/`ema` from the trainer block, converts
 an epoch-denominated schedule with the optimizer steps of an epoch, runs
-`Trainer.fit`, with `test: true` runs `Trainer.test` on the best checkpoint
-(of `w1m_mean` when it is monitored), and writes `final_metrics.yaml`.
+`Trainer.fit` (from `load_weights_from`'s parameters and EMA when it is
+given), with `test: true` runs `Trainer.test` on the best checkpoint (of
+`w1m_mean` when it is monitored), and writes `final_metrics.yaml`.
 Training and evaluation run on the card unless `device=cpu` is given;
-without CUDA they raise.
+without CUDA they raise. `train(cfg, extra_callbacks=...)` adds callbacks
+that a config cannot name (the hyperparameter search's pruning callback,
+scripts/torch_hparam_search.py).
+
+The `debug` presets (configs/debug/): `debug_nans` runs training under
+`torch.autograd.detect_anomaly` and `disable_jit` on the eager per-step path
+(both turn `scan_epochs` off: anomaly mode reads the host at every
+backward), and `profiler_dir` records the run with `torch.profiler` and
+writes its trace to `<profiler_dir>/trace.json`.
 
 The JetNet, LHCO (`lhco`, `lhco_whole_event`), CaloChallenge (`calo`),
 classifier (`classifier`), flat (`flat_eval`) and GenChallenge
-(`gen_challenge`) eval callbacks are ported; the classifier models train as
-the generators do (labels in `cond`), and the flat models on (B, F) batches
-without a mask. A callback the port lacks (`device_stats`) raises through
-config/core.py. An entry without a `_target_`, as an experiment overlay
-leaves after `callbacks=none`, is skipped, as in the JAX package. A trainer
-key the port's Trainer does not declare (the JAX trainer's `scan_epochs`,
-`ckpt_async`, `model_axis_size`, ...) raises NotImplementedError.
+(`gen_challenge`) eval callbacks and `device_stats` are ported; the
+classifier models train as the generators do (labels in `cond`), and the
+flat models on (B, F) batches without a mask. A callback the port lacks
+raises through config/core.py. An entry without a `_target_`, as an
+experiment overlay leaves after `callbacks=none`, is skipped, as in the JAX
+package. A trainer key the port's Trainer does not declare (the JAX
+trainer's `cache_data_on_device`, `model_axis_size`, ...) raises
+NotImplementedError.
 
 Across processes, every rank runs the same command:
 
@@ -36,6 +46,7 @@ the checkpoints and `final_metrics.yaml`; every rank trains and evaluates.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import sys
@@ -63,14 +74,18 @@ def build_callbacks(callbacks_cfg: dict | None) -> list:
     return out
 
 
-def build_trainer(cfg: dict, out_dir: str | None = None) -> Trainer:
-    """The Trainer of a composed config: its callbacks built, its datamodule
-    set up, its model and optimizer built; checkpoints and logs under
-    `out_dir` (None: none, and nothing is written)."""
+def build_trainer(cfg: dict, out_dir: str | None = None,
+                  extra_callbacks: list | None = None) -> Trainer:
+    """The Trainer of a composed config: its callbacks built (then
+    `extra_callbacks`), its datamodule set up, its model and optimizer
+    built; checkpoints and logs under `out_dir` (None: none, and nothing is
+    written). The debug presets that need the eager path turn
+    `scan_epochs` off."""
     device = resolve_device(cfg.get("device", "cuda"))
-    if cfg.get("debug") or cfg.get("load_weights_from"):
-        raise NotImplementedError("the debug presets and load_weights_from are not ported")
     trainer_cfg = dict(cfg.get("trainer") or {})
+    debug_cfg = cfg.get("debug") or {}
+    if debug_cfg.get("debug_nans") or debug_cfg.get("disable_jit"):
+        trainer_cfg["scan_epochs"] = False
     for key in ("multihost", "grad_clip"):
         trainer_cfg.pop(key, None)
     ema_cfg = trainer_cfg.pop("ema", {})
@@ -78,7 +93,7 @@ def build_trainer(cfg: dict, out_dir: str | None = None) -> Trainer:
     unported = sorted(k for k in trainer_cfg if k not in declared)
     if unported:
         raise NotImplementedError(f"trainer keys {unported} are not ported")
-    callbacks = build_callbacks(cfg.get("callbacks"))
+    callbacks = build_callbacks(cfg.get("callbacks")) + list(extra_callbacks or [])
     dm, model, optimizer = build_run(cfg)
     return Trainer(
         model=model,
@@ -97,14 +112,41 @@ def build_trainer(cfg: dict, out_dir: str | None = None) -> Trainer:
     )
 
 
-def train(cfg: dict) -> tuple[dict, dict]:
-    """Returns (metrics, objects) like the JAX package's train(). In a
-    process group, rank 0 names the run directory and writes its files."""
+@contextlib.contextmanager
+def debug_presets(debug_cfg: dict | None, device):
+    """The `debug` group's anomaly mode and profiler around training."""
+    debug_cfg = debug_cfg or {}
+    profiler_dir = debug_cfg.get("profiler_dir")
+    with contextlib.ExitStack() as stack:
+        if debug_cfg.get("debug_nans"):
+            import torch
+
+            stack.enter_context(torch.autograd.detect_anomaly())
+        prof = None
+        if profiler_dir:
+            import torch
+
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = stack.enter_context(torch.profiler.profile(activities=activities))
+        yield
+    if prof is not None and dist.is_rank_zero():
+        os.makedirs(str(profiler_dir), exist_ok=True)
+        path = os.path.join(str(profiler_dir), "trace.json")
+        prof.export_chrome_trace(path)
+        print(f"[train] profiler trace written to {path}", flush=True)
+
+
+def train(cfg: dict, extra_callbacks: list | None = None) -> tuple[dict, dict]:
+    """Returns (metrics, objects) like the JAX package's train();
+    `extra_callbacks` join the config's. In a process group, rank 0 names the
+    run directory and writes its files."""
     dist.maybe_initialize_distributed((cfg.get("trainer") or {}).get("multihost"),
                                       cfg.get("device", "cuda"))
     out_dir = dist.broadcast_object(os.path.join(
         cfg.get("output_dir", "runs/train"), time.strftime("%Y-%m-%d_%H-%M-%S")))
-    trainer = build_trainer(cfg, out_dir)
+    trainer = build_trainer(cfg, out_dir, extra_callbacks)
     rank0 = dist.is_rank_zero()
     if rank0:
         save_config(cfg, os.path.join(out_dir, "config.yaml"))
@@ -113,7 +155,9 @@ def train(cfg: dict) -> tuple[dict, dict]:
 
     metrics = {}
     if cfg.get("train", True):
-        trainer.fit(resume_from=cfg.get("ckpt_path"))
+        with debug_presets(cfg.get("debug"), trainer.device):
+            trainer.fit(resume_from=cfg.get("ckpt_path"),
+                        load_weights_from=cfg.get("load_weights_from"))
         if trainer.metrics_history:
             metrics.update(trainer.metrics_history[-1])
     if cfg.get("test", False):

@@ -1,8 +1,11 @@
-"""Metric loggers; the two file backends of particle_fm_tpu/training/loggers.py
-(`jsonl`: metrics.jsonl, `csv`: metrics.csv in the run directory). The
-others log to outside services or need packages the port does not carry:
-asking for one raises. In a process group only rank 0 logs (the Trainer
-builds no logger on the other ranks; one built there writes nothing).
+"""Metric loggers; the file backends of particle_fm_tpu/training/loggers.py
+(`jsonl`: metrics.jsonl, `csv`: metrics.csv in the run directory) and
+`tensorboard` (event files under `<log_dir>/tb`, through
+`torch.utils.tensorboard`: where the `tensorboard` package is missing it
+raises an ImportError that names it, where the JAX package skips the
+backend). The others log to outside services: asking for one raises. In a
+process group only rank 0 logs (the Trainer builds no logger on the other
+ranks; one built there writes nothing).
 """
 
 from __future__ import annotations
@@ -57,7 +60,27 @@ class CSVLogger:
         pass
 
 
-_BACKENDS = {"jsonl": JsonlLogger, "csv": CSVLogger}
+class TensorBoardLogger:
+    """One scalar a metric a step, flushed each call."""
+
+    def __init__(self, log_dir: str):
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError as e:
+            raise ImportError("the tensorboard logger backend needs the `tensorboard` package, "
+                              f"which is not installed ({e})") from e
+        self._writer = SummaryWriter(os.path.join(log_dir, "tb"))
+
+    def log_metrics(self, metrics: dict, step: int) -> None:
+        for k, v in metrics.items():
+            self._writer.add_scalar(k, float(v), global_step=step)
+        self._writer.flush()
+
+    def close(self) -> None:
+        self._writer.close()
+
+
+_BACKENDS = {"jsonl": JsonlLogger, "csv": CSVLogger, "tensorboard": TensorBoardLogger}
 
 
 class MultiLogger:

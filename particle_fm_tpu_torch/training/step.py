@@ -6,13 +6,29 @@ counter before its increment, and the increment. `state.step` counts
 optimizer steps; with gradient accumulation one step takes several
 microbatches.
 
+The step body reads no host value that changes from step to step, so that
+it can be captured in a CUDA graph and replayed (training/epochs.py): the
+optimizer step count, the learning rate and the EMA gate are device values
+(`StepScalars`). A run of n steps starts with `begin_run`, which writes the
+device step count from `state.step` and the learning rates of the n steps
+ahead, computed on the host by the schedule (training/lr_schedules.py), into
+a device table; each step reads its entry at the run's device position `k`,
+increments `k` and the device step count, and writes its loss into the
+run's loss table. The host's `state.step` (an int, as in the checkpoints)
+is advanced by the caller, never by the body. The eager step
+(`make_train_step`) is a run of one step of the same body.
+
 Clipping is optax's `clip_by_global_norm`: the gradients are scaled by
 max_norm / norm only when norm >= max_norm (`torch.nn.utils.clip_grad_norm_`
-divides by norm + 1e-6 always, so it is not used). AdamW is
-`torch.optim.AdamW`, which computes optax `adamw`'s update: the decay
-decoupled and applied to every parameter, eps outside the square root,
-bias correction by the step count. The learning rate of an update is the
-schedule at the number of optimizer steps taken before it.
+divides by norm + 1e-6 always, so it is not used). AdamW is optax `adamw`'s
+arithmetic in `_foreach` operations (`Optimizer.apply`): mu = (1 - b1) g +
+b1 mu, nu = (1 - b2) g^2 + b2 nu, the bias corrections 1 - b^(t+1) in
+float32 from the device step, u = mu_hat / (sqrt(nu_hat) + eps) + wd p, p +=
+-lr u, the decay decoupled and applied to every parameter. The moments live
+in a `torch.optim.AdamW` object (`exp_avg`, `exp_avg_sq`), whose
+`state_dict` is the checkpoint's format; its own `step()` is not called.
+The learning rate of an update is the schedule at the number of optimizer
+steps taken before it.
 
 With a bfloat16 model (`dtype`) the parameters stay float32 and so do their
 gradients (autograd through the networks' casts), the accumulator, the clip,
@@ -45,17 +61,44 @@ from particle_fm_tpu_torch.training.ema import ema_update
 
 
 @dataclasses.dataclass
+class StepScalars:
+    """What the step body reads on the device instead of host values: the
+    optimizer step count (`step`, int64), the position in the current run of
+    steps (`k`, int64), each run step's learning rate (`lr`, float32) and
+    loss (`losses`, float32)."""
+
+    step: torch.Tensor
+    k: torch.Tensor
+    lr: torch.Tensor
+    losses: torch.Tensor
+
+    @classmethod
+    def make(cls, device: torch.device, capacity: int) -> "StepScalars":
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        return cls(step=zeros(dtype=torch.int64), k=zeros(dtype=torch.int64),
+                   lr=zeros(capacity), losses=zeros(capacity))
+
+    def at_k(self, table: torch.Tensor) -> torch.Tensor:
+        """The entry of a per-run table at the current position (0-dim)."""
+        return table.index_select(0, self.k.view(1)).squeeze(0)
+
+
+@dataclasses.dataclass
 class TrainState:
     """The network (it holds the parameters), their EMA twin in the order of
     `net.parameters()`, the AdamW state and the optimizer step count;
     `sharding` (parallel/fsdp.py::FSDPSharding) when the state is sharded
-    over ranks, where the EMA twin holds this rank's shards."""
+    over ranks, where the EMA twin holds this rank's shards; `scalars`, the
+    step body's device values (not part of the checkpoint)."""
 
     net: nn.Module
     ema_params: list[torch.Tensor]
     opt_state: torch.optim.AdamW
     step: int = 0
     sharding: object = None
+    scalars: StepScalars | None = None
 
     def params(self) -> list[nn.Parameter]:
         return list(self.net.parameters())
@@ -78,7 +121,10 @@ class TrainState:
 
     def state_dict(self) -> dict:
         """The checkpoint: every tensor whole, also when the state is sharded
-        (then every rank must call)."""
+        (then every rank must call). AdamW's per-parameter step count is
+        `step`, as torch's AdamW keeps it."""
+        for s in self.opt_state.state.values():
+            s["step"] = torch.tensor(float(self.step), dtype=torch.float32)
         if self.sharding is not None:
             return self.sharding.full_state_dict(self)
         return {"params": self.net.state_dict(), "ema_params": list(self.ema_params),
@@ -93,6 +139,21 @@ class TrainState:
                 e.copy_(saved)
         self.opt_state.load_state_dict(sd["opt_state"])
         self.step = int(sd["step"])
+
+
+def begin_run(state: TrainState, optimizer: "Optimizer", n: int) -> StepScalars:
+    """Start a run of `n` steps: the device step count from `state.step`,
+    the position 0, and the learning rates of the n steps ahead."""
+    device = next(state.net.parameters()).device
+    sc = state.scalars
+    if sc is None or sc.lr.device != device or sc.lr.numel() < n:
+        sc = state.scalars = StepScalars.make(device, max(n, 64))
+    lrs = torch.tensor([optimizer.lr_at(state.step + i) for i in range(n)], dtype=torch.float32)
+    with torch.no_grad():
+        sc.step.fill_(state.step)
+        sc.k.zero_()
+        sc.lr[:n].copy_(lrs, non_blocking=True)
+    return sc
 
 
 @torch.no_grad()
@@ -125,24 +186,56 @@ class Optimizer:
         return float(self.lr(step)) if callable(self.lr) else float(self.lr)
 
     def init(self, params: list[nn.Parameter]) -> torch.optim.AdamW:
-        return torch.optim.AdamW(params, lr=self.lr_at(0), betas=(self.b1, self.b2),
-                                 eps=self.eps, weight_decay=self.weight_decay)
+        """The AdamW state, its moments made now (zeros), so that they exist
+        before a step is captured."""
+        opt = torch.optim.AdamW(params, lr=self.lr_at(0), betas=(self.b1, self.b2),
+                                eps=self.eps, weight_decay=self.weight_decay)
+        for p in params:
+            _moments(opt, p)
+        return opt
 
-    def update(self, opt: torch.optim.AdamW, params: list[nn.Parameter],
-               grads: list[torch.Tensor], step: int, sharding=None) -> None:
-        """Clip `grads`, then one AdamW step at lr(step) on `params`; sharded
-        gradients are clipped by the norm over every rank's shards."""
+    @torch.no_grad()
+    def apply(self, opt: torch.optim.AdamW, params: list[nn.Parameter],
+              grads: list[torch.Tensor], sc: StepScalars, sharding=None) -> None:
+        """Clip `grads`, then one AdamW step on `params` at the run's
+        learning rate and the device step count; sharded gradients are
+        clipped by the norm over every rank's shards and the update runs on
+        this rank's shards."""
         if self.grad_clip is not None and sharding is None:
             clip_by_global_norm_(grads, self.grad_clip)
         elif self.grad_clip is not None:
             local = [local_view(g) for g in grads]
             clip_by_global_norm_(local, self.grad_clip, norm=sharding.global_norm(local))
-        for p, g in zip(params, grads, strict=True):
-            p.grad = g
-        for group in opt.param_groups:
-            group["lr"] = self.lr_at(step)
-        opt.step()
-        opt.zero_grad(set_to_none=True)
+        moments = [_moments(opt, p) for p in params]
+        mu = [local_view(m["exp_avg"]) for m in moments]
+        nu = [local_view(m["exp_avg_sq"]) for m in moments]
+        ps = [local_view(p) for p in params]
+        gs = [local_view(g) for g in grads]
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, torch._foreach_mul(gs, 1.0 - self.b1))
+        sq = torch._foreach_mul(gs, gs)
+        torch._foreach_mul_(sq, 1.0 - self.b2)
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_add_(nu, sq)
+        count = (sc.step + 1).to(torch.float32)
+        mu_hat = torch._foreach_div(mu, 1.0 - torch.pow(self.b1, count))
+        denom = torch._foreach_div(nu, 1.0 - torch.pow(self.b2, count))
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        torch._foreach_div_(mu_hat, denom)
+        torch._foreach_add_(mu_hat, torch._foreach_mul(ps, self.weight_decay))
+        torch._foreach_mul_(mu_hat, torch.neg(sc.at_k(sc.lr)))
+        torch._foreach_add_(ps, mu_hat)
+
+
+def _moments(opt: torch.optim.AdamW, p: torch.Tensor) -> dict:
+    """AdamW's state of `p` (made zero where it has none yet)."""
+    s = opt.state[p]
+    if "exp_avg" not in s:
+        s["step"] = torch.tensor(0.0, dtype=torch.float32)
+        s["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+        s["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+    return s
 
 
 def make_optimizer(lr=1e-3, weight_decay: float = 5e-5, grad_clip: float | None = 0.5,
@@ -176,29 +269,37 @@ def _summed(loss: torch.Tensor, grads: list[torch.Tensor], shard: BatchShard | N
     return loss, grads
 
 
-def _apply(state: TrainState, optimizer: Optimizer, grads, ema_decay, ema_every_n,
-           ema_start_step) -> None:
+def _apply(state: TrainState, optimizer: Optimizer, grads, loss, ema_decay, ema_every_n,
+           ema_start_step) -> torch.Tensor:
+    """The update after the gradients: AdamW, the EMA, the loss written at
+    the run's position, the device counters' increments."""
+    sc = state.scalars
     params = state.params()
-    optimizer.update(state.opt_state, params, grads, state.step, sharding=state.sharding)
-    if state.sharding is not None:
-        params = [local_view(p) for p in params]
-    ema_update(state.ema_params, params, state.step, decay=ema_decay, every_n=ema_every_n,
-               start_step=ema_start_step)
-    state.step += 1
+    optimizer.apply(state.opt_state, params, grads, sc, sharding=state.sharding)
+    ema_update(state.ema_params, [local_view(p) for p in params], sc.step, decay=ema_decay,
+               every_n=ema_every_n, start_step=ema_start_step)
+    if state.sharding is not None:  # FSDP2's backward wrote them: the next one starts afresh
+        for p in params:
+            p.grad = None
+    with torch.no_grad():
+        sc.losses.index_copy_(0, sc.k.view(1), loss.detach().reshape(1).to(torch.float32))
+        sc.step.add_(1)
+        sc.k.add_(1)
+    return loss
 
 
 def _loss_kw(shard: BatchShard | None) -> dict:
     return {} if shard is None else {"shard": shard}
 
 
-def _build_step_fn(model, optimizer: Optimizer, ema_decay: float = 0.999,
-                   ema_every_n: int = 1, ema_start_step: int = 0,
-                   shard: BatchShard | None = None) -> Callable:
-    """step(state, generator, x, mask, cond) -> loss; updates `state` in
-    place. With a `shard`, x is this rank's rows and the loss returned is the
-    global batch's."""
+def step_body(model, optimizer: Optimizer, ema_decay: float = 0.999, ema_every_n: int = 1,
+              ema_start_step: int = 0, shard: BatchShard | None = None) -> Callable:
+    """body(state, generator, x, mask, cond) -> loss: one step inside a run
+    (`begin_run`); updates `state`'s tensors in place and reads only device
+    values. With a `shard`, x is this rank's rows and the loss returned is
+    the global batch's."""
 
-    def step_fn(state: TrainState, generator: torch.Generator, x, mask, cond) -> torch.Tensor:
+    def body(state: TrainState, generator: torch.Generator, x, mask, cond) -> torch.Tensor:
         loss = model.loss(state.net, generator, x, mask=mask, cond=cond, train=True,
                           **_loss_kw(shard))
         if state.sharding is not None:
@@ -206,16 +307,15 @@ def _build_step_fn(model, optimizer: Optimizer, ema_decay: float = 0.999,
             loss, grads = state.sharding.reduced_grads(state.params(), loss)
         else:
             loss, grads = _summed(loss.detach(), _grads(loss, state.params()), shard)
-        _apply(state, optimizer, grads, ema_decay, ema_every_n, ema_start_step)
-        return loss
+        return _apply(state, optimizer, grads, loss, ema_decay, ema_every_n, ema_start_step)
 
-    return step_fn
+    return body
 
 
-def _build_accum_step_fn(model, optimizer: Optimizer, ema_decay: float = 0.999,
-                         ema_every_n: int = 1, ema_start_step: int = 0,
-                         shard: BatchShard | None = None) -> Callable:
-    """step(state, generator, xs, ms, cs) -> loss, the data with a leading
+def accum_step_body(model, optimizer: Optimizer, ema_decay: float = 0.999,
+                    ema_every_n: int = 1, ema_start_step: int = 0,
+                    shard: BatchShard | None = None) -> Callable:
+    """body(state, generator, xs, ms, cs) -> loss, the data with a leading
     microbatch axis (A, B, ...): the A microbatch gradients, one after the
     other, averaged with the weights `model.loss_accum_weight` (each
     microbatch's normalisation mass, so the average is the big-batch
@@ -224,7 +324,7 @@ def _build_accum_step_fn(model, optimizer: Optimizer, ema_decay: float = 0.999,
     microbatches' masses and the ranks' sums are reduced once, after the
     last microbatch."""
 
-    def step_fn(state: TrainState, generator: torch.Generator, xs, ms, cs) -> torch.Tensor:
+    def body(state: TrainState, generator: torch.Generator, xs, ms, cs) -> torch.Tensor:
         params = state.params()
         sharding = state.sharding
         gsum = None if sharding is not None else [torch.zeros_like(p) for p in params]
@@ -248,10 +348,52 @@ def _build_accum_step_fn(model, optimizer: Optimizer, ema_decay: float = 0.999,
         else:
             lsum, gsum = _summed(lsum, gsum, shard)
             torch._foreach_div_(gsum, wsum)
-        _apply(state, optimizer, gsum, ema_decay, ema_every_n, ema_start_step)
-        return lsum / wsum
+        return _apply(state, optimizer, gsum, lsum / wsum, ema_decay, ema_every_n,
+                      ema_start_step)
 
+    return body
+
+
+def make_step_body(model, optimizer: Optimizer, ema_decay: float = 0.999, ema_every_n: int = 1,
+                   ema_start_step: int = 0, accum: int = 1,
+                   shard: BatchShard | None = None) -> Callable:
+    """The step body; with `accum` > 1 the accumulation body."""
+    build = accum_step_body if accum > 1 else step_body
+    return build(model, optimizer, ema_decay=ema_decay, ema_every_n=ema_every_n,
+                 ema_start_step=ema_start_step, shard=shard)
+
+
+def _eager(body: Callable, optimizer: Optimizer) -> Callable:
+    """step(state, generator, x, mask, cond) -> loss: a run of one step of
+    `body`, then the host's step count."""
+
+    def step_fn(state: TrainState, generator: torch.Generator, x, mask, cond) -> torch.Tensor:
+        begin_run(state, optimizer, 1)
+        loss = body(state, generator, x, mask, cond)
+        state.step += 1
+        return loss
+
+    step_fn.body = body
     return step_fn
+
+
+def _build_step_fn(model, optimizer: Optimizer, ema_decay: float = 0.999,
+                   ema_every_n: int = 1, ema_start_step: int = 0,
+                   shard: BatchShard | None = None) -> Callable:
+    """step(state, generator, x, mask, cond) -> loss; updates `state` in
+    place. With a `shard`, x is this rank's rows and the loss returned is the
+    global batch's."""
+    return _eager(step_body(model, optimizer, ema_decay, ema_every_n, ema_start_step, shard),
+                  optimizer)
+
+
+def _build_accum_step_fn(model, optimizer: Optimizer, ema_decay: float = 0.999,
+                         ema_every_n: int = 1, ema_start_step: int = 0,
+                         shard: BatchShard | None = None) -> Callable:
+    """step(state, generator, xs, ms, cs) -> loss over (A, B, ...)
+    microbatches (`accum_step_body`); updates `state` in place."""
+    return _eager(accum_step_body(model, optimizer, ema_decay, ema_every_n, ema_start_step,
+                                  shard), optimizer)
 
 
 def make_train_step(model, optimizer: Optimizer, ema_decay: float = 0.999,

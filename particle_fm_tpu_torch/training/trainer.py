@@ -17,7 +17,28 @@ the next pull. With accumulation, each group of streamed batches is stacked
 on the host first, as in the JAX trainer.
 Each step draws from a generator seeded from (seed + 1, step), the
 counterpart of the JAX step's `fold_in(rng, step)`: a run resumed from a
-checkpoint continues as the uninterrupted run would have. Validation runs
+checkpoint continues as the uninterrupted run would have.
+
+With `scan_epochs` (the default, as in the JAX trainer) and the split on
+the device, an epoch is one run of the step body over its shuffle
+(training/epochs.py: a plain loop on the CPU, a captured CUDA graph of one
+step replayed on the card), with no host read inside it; with `fuse_epochs`
+= E > 1 a group of E epochs is one run, its epochs' shuffles gathered on the
+device, the groups aligned to multiples of E (a resumed mid-group start
+runs a short first group). Validation, callbacks, logging and checkpoints
+run at group boundaries, the group's last epoch's `train_loss` reported.
+Both train the same as the per-step path, to the bit. Where the split holds
+no full batch, or is streamed, epochs run per step, as in the JAX trainer.
+Some runs cannot be captured: a process group (dp or fsdp, on gloo or
+NCCL) and a loss that reads the host (OT-CFM with `ot_method=exact`) take
+the per-step path, by a rule decided at construction and said once in the
+log (`per_step_reason`).
+
+A callback may set `should_stop` (training/stopping.py): the loop breaks
+after the epoch's checkpoints, saving `last` first. `load_weights_from`
+starts from a checkpoint's parameters and EMA with a fresh optimizer and
+step. Checkpoints are written on a worker thread (`ckpt_async`), joined at
+the end of `fit` and before any read. Validation runs
 on the current parameters with the generator seeded VAL_SEED for every
 batch, as the JAX trainer hands every batch the same key.
 
@@ -50,10 +71,10 @@ everywhere, so checkpoint decisions agree); logs, stdout, checkpoints and
 callback files are rank 0's (`artifacts_dir` is None on the others). In
 one process without a process group nothing of this runs.
 
-Not carried: the scanned and fused epochs, the mesh strategies beyond dp
-and fsdp (ROADMAP.md Queue 1 item 7) and the JAX trainer's cache and
-prefetch options (here the constants DEVICE_CACHE_LIMIT_MB and
-PREFETCH_BATCHES); asking for them raises.
+Not carried: the mesh strategies beyond dp and fsdp (ROADMAP.md Queue 1
+item 7) and the JAX trainer's cache and prefetch options (here the
+constants DEVICE_CACHE_LIMIT_MB and PREFETCH_BATCHES); asking for them
+raises.
 """
 
 from __future__ import annotations
@@ -71,6 +92,8 @@ from particle_fm_tpu_torch.parallel import dist
 from particle_fm_tpu_torch.parallel.dist import BatchShard
 from particle_fm_tpu_torch.parallel.fsdp import shard_state_fsdp
 from particle_fm_tpu_torch.training.checkpoint import CheckpointManager
+from particle_fm_tpu_torch.training.checkpoint import load_weights_from as _load_weights
+from particle_fm_tpu_torch.training.epochs import make_train_superepoch, step_seed
 from particle_fm_tpu_torch.training.loggers import MultiLogger
 from particle_fm_tpu_torch.training.step import (
     Optimizer,
@@ -88,11 +111,6 @@ STRATEGIES = ("dp", "fsdp")
 UNPORTED_STRATEGIES = ("dp_tp", "sp", "pp", "dp_pp", "dp_ep")
 
 
-def step_seed(seed: int, step: int) -> int:
-    """The seed of one train step's generator."""
-    return int(np.random.SeedSequence([seed + 1, step]).generate_state(1)[0])
-
-
 @dataclass
 class Trainer:
     model: object
@@ -107,6 +125,7 @@ class Trainer:
     ckpt_dir: Optional[str] = None
     ckpt_monitors: dict = field(default_factory=lambda: {"val_loss": "min"})
     ckpt_top_k: int = 1
+    ckpt_async: bool = True  # checkpoints written on a worker thread (training/checkpoint.py)
     save_last_every_n_epoch: int = 10
     log_dir: Optional[str] = None
     logger_backends: tuple = ("jsonl",)
@@ -115,6 +134,9 @@ class Trainer:
     accumulate_grad_batches: int = 1
     loss_per_jettype: bool = False
     loss_per_jettype_every_n: int = 20
+    # an epoch as one run of steps with no host read inside (a captured CUDA
+    # graph on the card); groups of fuse_epochs epochs as one run
+    scan_epochs: bool = True
     fuse_epochs: int = 1
     strategy: str = "dp"
     seed: int = 0
@@ -127,6 +149,9 @@ class Trainer:
     metrics_history: list = field(default_factory=list)
     last_metrics: dict = field(default_factory=dict)
     testing: bool = False  # set by `test`: scheduled callbacks bypass their epoch gates
+    # callbacks may set this (early stopping, trial pruning); the epoch loop
+    # breaks after checkpointing
+    should_stop: bool = False
 
     def __post_init__(self):
         if self.strategy not in STRATEGIES + UNPORTED_STRATEGIES:
@@ -137,8 +162,8 @@ class Trainer:
             raise NotImplementedError(
                 f"trainer.strategy={self.strategy!r} is not ported yet (ROADMAP.md Queue 1 "
                 "item 7); the port trains with dp and fsdp")
-        if self.fuse_epochs > 1:
-            raise NotImplementedError("fused epochs (fuse_epochs > 1) are not ported")
+        if self.fuse_epochs < 1:
+            raise ValueError("trainer.fuse_epochs must be >= 1")
         if self.accumulate_grad_batches < 1:
             raise ValueError("trainer.accumulate_grad_batches must be >= 1")
         self.world = dist.world_size()
@@ -167,13 +192,33 @@ class Trainer:
             ema_start_step=self.ema_start_step, accum=self.accumulate_grad_batches, shard=shard,
         )
         self.eval_step = make_eval_step(self.model, shard=shard)
-        self.ckpt = (CheckpointManager(self.ckpt_dir, self.ckpt_monitors, self.ckpt_top_k)
+        self.per_step_reason = self._per_step_reason() if self.scan_epochs else None
+        if self.per_step_reason is not None:
+            self.scan_epochs = False
+            if self.verbose:
+                print(f"[trainer] scan_epochs off: {self.per_step_reason}; epochs run per step",
+                      flush=True)
+        self.train_superepoch = (make_train_superepoch(
+            self.model, self.optimizer, ema_decay=self.ema_decay, ema_every_n=self.ema_every_n,
+            ema_start_step=self.ema_start_step, accum=self.accumulate_grad_batches,
+            seed=self.seed) if self.scan_epochs else None)
+        self.ckpt = (CheckpointManager(self.ckpt_dir, self.ckpt_monitors, self.ckpt_top_k,
+                                       async_save=self.ckpt_async)
                      if self.ckpt_dir else None)
         self.logger = (MultiLogger(self.log_dir, backends=tuple(self.logger_backends))
                        if self.log_dir else None)
         # where callbacks write their files (final_generated_data.npy, ...):
         # None on every rank but 0
         self.artifacts_dir = (self.log_dir or ".") if self._rank0 else None
+
+    def _per_step_reason(self) -> str | None:
+        """Why epochs cannot run as one captured run, or None."""
+        if self.shard is not None:
+            return f"a process group ({self.strategy} over {self.world} ranks)"
+        reads_host = getattr(self.model, "loss_reads_host", None)
+        if reads_host is not None and reads_host():
+            return "the loss reads the host (OT-CFM with ot_method=exact)"
+        return None
 
     # ------------------------------------------------------------- helpers
     def _log(self, metrics: dict) -> None:
@@ -286,10 +331,14 @@ class Trainer:
             )
 
     # ---------------------------------------------------------------- fit
-    def fit(self, resume_from: str | None = None,
+    def fit(self, resume_from: str | None = None, load_weights_from: str | None = None,
             initial_state: TrainState | None = None) -> TrainState:
         state = initial_state or create_train_state(self.model, self.optimizer, seed=self.seed,
                                                     device=self.device)
+        if load_weights_from:
+            _load_weights(load_weights_from, state)
+            if self.verbose:
+                print(f"[trainer] loaded pretrained weights from {load_weights_from}")
         if resume_from:
             if self.ckpt is None:
                 raise ValueError("resume_from requires ckpt_dir")
@@ -298,25 +347,39 @@ class Trainer:
                 print(f"[trainer] resumed from {resume_from} at step {state.step}")
         state = self._place_state(state)
         self.state = state
+        self.should_stop = False  # a fresh fit() clears any earlier stop request
         dev_data = self._maybe_cache_train_data()
         gen = torch.Generator(self.device)
 
         opt_steps_per_epoch = max(
             self.datamodule.steps_per_epoch // self.accumulate_grad_batches, 1)
-        for epoch in range(state.step // opt_steps_per_epoch, self.max_epochs):
+        epoch = state.step // opt_steps_per_epoch
+        while epoch < self.max_epochs:
             t0 = time.perf_counter()
-            losses = []
-            for batch in self._epoch_batches(dev_data, epoch):
-                gen.manual_seed(step_seed(self.seed, state.step))
-                losses.append(self.train_step(state, gen, *batch))
-            train_loss = float(torch.stack(losses).mean()) if losses else float("nan")
+            # fused groups align to multiples of fuse_epochs (a resumed
+            # mid-group start runs a short first group)
+            group = min(self.fuse_epochs - epoch % self.fuse_epochs, self.max_epochs - epoch)
+            perms = (self._group_perms(dev_data, epoch, group)
+                     if self.scan_epochs and dev_data is not None else None)
+            if perms is not None:
+                losses = self.train_superepoch(state, *dev_data, perms)
+                train_loss = float(losses[-1].mean())  # the group's last epoch
+            else:
+                group = 1  # per step: streamed, a split smaller than one batch, or the rule
+                losses = []
+                for batch in self._epoch_batches(dev_data, epoch):
+                    gen.manual_seed(step_seed(self.seed, state.step))
+                    losses.append(self.train_step(state, gen, *batch))
+                train_loss = float(torch.stack(losses).mean()) if losses else float("nan")
+            epoch += group - 1  # the group's last epoch: all per-epoch work below
             self.epoch = epoch
             metrics = {"train_loss": train_loss, "epoch_time": time.perf_counter() - t0}
             if (epoch + 1) % self.check_val_every_n_epoch == 0:
                 metrics["val_loss"] = self.validate()
             if self.loss_per_jettype and epoch % self.loss_per_jettype_every_n == 0:
                 metrics.update(self._per_jettype_losses())
-            # eval callbacks may add metrics (e.g. w1m_mean) that drive checkpoints
+            # eval callbacks may add metrics (e.g. w1m_mean) that drive
+            # checkpoints; stopping and pruning callbacks read them here
             self.last_metrics = metrics
             for cb in self.callbacks:
                 out = cb(self)
@@ -330,7 +393,29 @@ class Trainer:
                         self.ckpt.save_metric(state, monitor, float(metrics[monitor]), state.step)
                 if (epoch + 1) % self.save_last_every_n_epoch == 0 or epoch == self.max_epochs - 1:
                     self.ckpt.save_last(state)
+            if self.should_stop:
+                if self.ckpt is not None:
+                    self.ckpt.save_last(state)
+                if self.verbose:
+                    print(f"[trainer] stop requested at epoch {epoch}", flush=True)
+                break
+            epoch += 1
+        if self.ckpt is not None:
+            self.ckpt.flush()  # join the queued checkpoint writes
         return state
+
+    def _group_perms(self, dev_data, epoch: int, group: int) -> np.ndarray | None:
+        """The (E, K, B) shuffles of a group of E epochs ((E, K, A, B) with
+        accumulation), each the epoch's `_epoch_perm`; None when the split
+        holds no full batch (the per-step path takes it)."""
+        bs, accum = self.datamodule.batch_size, self.accumulate_grad_batches
+        n = dev_data[0].shape[0]
+        n_use, k = self._usable_batches(n, bs, accum)
+        if n_use == 0:
+            return None
+        row = (k // accum, accum, bs) if accum > 1 else (k, bs)
+        return np.stack([self._epoch_perm(n, n_use, e).reshape(row)
+                         for e in range(epoch, epoch + group)])
 
     def _place_state(self, state: TrainState) -> TrainState:
         """In a process group: rank 0's state on every rank, then sharded

@@ -96,7 +96,9 @@ def _train(case) -> dict:
             grads = pstep._grads(loss, state.params())
             loss, *grads = dist.all_reduce_tensors_([loss.detach()] + grads)
             grads = [g / dist.world_size() for g in grads]
-            pstep._apply(state, state_opt, grads, 0.9, 1, 0)
+            pstep.begin_run(state, state_opt, 1)  # a run of one step of the update
+            pstep._apply(state, state_opt, grads, loss, 0.9, 1, 0)
+            state.step += 1
             return loss / dist.world_size()
         state_opt = pstep.make_optimizer(lr=case["lr"])
     else:

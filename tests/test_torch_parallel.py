@@ -234,6 +234,8 @@ def test_importing_every_module_of_the_port_loads_no_jax():
             "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
             "assert 'particle_fm_tpu_torch.parallel.dist' in mods, mods\n"
             "assert 'particle_fm_tpu_torch.parallel.fsdp' in mods, mods\n"
+            "new = {'training.epochs', 'training.stopping', 'training.hparam'}\n"
+            "assert {'particle_fm_tpu_torch.' + m for m in new} <= set(mods), mods\n"
             "[importlib.import_module(m) for m in mods]\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'particle_fm_tpu')]\n"

@@ -6,8 +6,10 @@ final_metrics.yaml) and the checkpoints (`last` and the best val_loss), and
 the loss falls. Resumed from `last` it continues at the saved step, and ends
 where one uninterrupted run of as many epochs ends, exactly (each step's
 generator is seeded from the step). Without `device=cpu` on a machine
-without CUDA it raises; a callback the port lacks, mesh strategies, fused
-and scanned epochs raise; importing the entry point loads no JAX.
+without CUDA it raises; mesh strategies and the JAX trainer's cache options
+raise; fused and scanned epochs and the device-stats callback run, and a
+run without `scan_epochs` trains to the same bits as one with it; importing
+the entry point loads no JAX.
 """
 
 from __future__ import annotations
@@ -76,16 +78,31 @@ def test_cli_without_cuda_raises(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("override,match", [
-    ("callbacks=device_stats", "DeviceStatsCallback is not ported"),
     ("trainer.strategy=fsdp", "strategy"),
-    ("+trainer.fuse_epochs=2", "fused epochs"),
-    ("+trainer.scan_epochs=true", "scan_epochs"),
     ("+trainer.cache_data_on_device=false", "cache_data_on_device"),
 ])
 def test_cli_raises_for_what_is_not_ported(tmp_path, override, match):
-    args = [a for a in ARGS if a != "callbacks=none"] if override.startswith("callbacks") else ARGS
     with pytest.raises(NotImplementedError, match=match):
-        ptrain.main(args + [override.lstrip("+"), f"output_dir={tmp_path}"])
+        ptrain.main(ARGS + [override.lstrip("+"), f"output_dir={tmp_path}"])
+
+
+@pytest.mark.parametrize("override", [
+    "trainer.fuse_epochs=2", "trainer.scan_epochs=true", "callbacks=device_stats"])
+def test_cli_runs_the_scanned_fused_epochs_and_device_stats(tmp_path, override):
+    """Each key runs through the CLI (3 epochs of 5 steps) and trains the
+    same as the per-step path; on the CPU the device-stats callback logs
+    nothing, as the JAX one there."""
+    _, trainer, _ = run(tmp_path, "key", override, "trainer.max_epochs=3")
+    _, per_step, _ = run(tmp_path, "per_step", "trainer.scan_epochs=false", "trainer.max_epochs=3")
+    assert trainer.state.step == per_step.state.step == 3 * 5
+    fused = override == "trainer.fuse_epochs=2"
+    assert [m["epoch"] for m in trainer.metrics_history] == ([1, 2] if fused else [0, 1, 2])
+    assert not any(k.startswith("mem_") for m in trainer.metrics_history for k in m)
+    assert trainer.scan_epochs and not per_step.scan_epochs
+    for a, b in zip(_params(trainer), _params(per_step)):
+        assert torch.equal(a, b)
+    assert trainer.metrics_history[-1] == {**per_step.metrics_history[-1],
+                                           "epoch_time": trainer.metrics_history[-1]["epoch_time"]}
 
 
 def test_importing_the_entry_point_loads_no_jax():

@@ -11,10 +11,22 @@ The file imports no JAX, so that the card's machine runs it:
   plain version, within the same tolerances, and one packed launch per layer
   per step; then a train step on the card.
 - log_prob raises where the packed kernel would launch (no forward-mode rule).
+- The scanned and fused epochs (training/epochs.py) as a captured CUDA graph
+  of one step against the eager per-step path, EPiC and the transformer
+  with attn_impl=packed, float32 and bfloat16, with and without
+  accumulation: every loss, parameter, EMA weight and AdamW moment equal to
+  the bit; the packed kernel counted at the warm-up step and the capture
+  only. Then the Trainer with fuse_epochs=2 against scan_epochs=False.
+- Every shipped family the Trainer captures by default, composed from
+  configs/ at its widths on synthetic data (the ParT, ParticleNet, HL and
+  EPiC classifiers, the flat model, the MoE transformer, diffusion, droid,
+  self-conditioning, LHCO x_jet, jetclass_cond): 3 captured steps equal the
+  eager ones, to the bit.
 """
 
 from __future__ import annotations
 
+import os
 from unittest import mock
 
 import numpy as np
@@ -24,6 +36,7 @@ import torch
 from particle_fm_tpu_torch.losses import flow_matching as ploss
 from particle_fm_tpu_torch.models.flow_matching import FlowMatchingModel
 from particle_fm_tpu_torch.ops import short_attention as sa
+from particle_fm_tpu_torch.training import epochs as pepochs
 from particle_fm_tpu_torch.training import step as pstep
 
 SMALL = dict(features=3, num_particles=16, frequencies=16, t_emb="cosine", global_cond_dim=2)
@@ -119,3 +132,156 @@ def test_log_prob_raises_where_an_attention_kernel_would_launch(cuda):
     with pytest.raises(NotImplementedError, match="packed attention kernel"):
         model.log_prob(net, x, cond, mask, ode_steps=3)
     assert sa.packed_short_attention.launches == before
+
+
+def _state_tensors(state):
+    opt = state.opt_state.state
+    return ([p.detach() for p in state.params()] + list(state.ema_params)
+            + [opt[p][k] for p in state.params() for k in ("exp_avg", "exp_avg_sq")])
+
+
+def _redraw_state(state, seed=3):
+    _redrawn(state.net, seed)
+    with torch.no_grad():
+        for e, p in zip(state.ema_params, state.params()):
+            e.copy_(p)
+
+
+SCAN_CASES = {
+    "epic": (EPIC, None, 1),
+    "epic bf16": (EPIC, "bfloat16", 1),
+    "epic accum 2": (EPIC, None, 2),
+    "packed": (TRANSFORMER, None, 1),
+    "packed bf16": (TRANSFORMER, "bfloat16", 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SCAN_CASES))
+def test_captured_epochs_equal_the_per_step_path(cuda, case):
+    cfg, dtype, accum = SCAN_CASES[case]
+    model = FlowMatchingModel(**cfg, dtype=dtype)
+    opt = pstep.make_optimizer(lr=lambda s: 1e-3 * (1 + s) / 8)  # a schedule: lr from the table
+    x, mask, cond = (a.to(cuda) for a in _batch(b=64, seed=4))
+    rs = np.random.RandomState(5)
+    e, k, b = 2, 4, 8
+    row = (k, accum, b) if accum > 1 else (k, b)
+    perms = np.stack([rs.permutation(64)[:k * accum * b].reshape(row) for _ in range(e)])
+    states = [pstep.create_train_state(model, opt, seed=2, device=cuda) for _ in range(2)]
+    for st in states:
+        _redraw_state(st)
+    eager = pstep.make_train_step(model, opt, ema_decay=0.9, ema_start_step=2, accum=accum)
+    gen = torch.Generator(cuda)
+    want = []
+    for p in perms.reshape((e * k,) + perms.shape[2:]):
+        idx = torch.from_numpy(p.reshape(-1)).to(cuda)
+        batch = [a.index_select(0, idx).reshape(p.shape + a.shape[1:]) for a in (x, mask, cond)]
+        gen.manual_seed(pepochs.step_seed(7, states[0].step))
+        want.append(eager(states[0], gen, *batch))
+    sa.packed_short_attention.launches = sa.packed_short_attention_bf16.launches = 0
+    run = pepochs.make_train_superepoch(model, opt, ema_decay=0.9, ema_start_step=2,
+                                        accum=accum, seed=7)
+    got = run(states[1], x, mask, cond, perms)
+    graphs = int(cuda.type == "cuda")
+    assert run.runner.captures == graphs and states[1].step == states[0].step == e * k
+    torch.testing.assert_close(got.reshape(-1), torch.stack(want).float(), rtol=0, atol=0)
+    for a, b_ in zip(_state_tensors(states[1]), _state_tensors(states[0])):
+        assert torch.equal(a, b_)
+    counted = sa.packed_short_attention.launches + sa.packed_short_attention_bf16.launches
+    layers = cfg.get("net_config", {}).get("te_config", {}).get("num_layers", 0)
+    # the warm-up step and the capture, not the replays
+    assert counted == 2 * accum * layers * graphs
+    got = run(states[1], x, mask, cond, perms[:1])  # a shorter run: the same graph
+    assert run.runner.captures == graphs and torch.isfinite(got).all()
+
+
+@pytest.mark.cuda
+def test_trainer_fused_epochs_on_the_card_equal_the_per_step_path(cuda):
+    from particle_fm_tpu_torch.data.jetnet import JetNetDataModule
+    from particle_fm_tpu_torch.training.trainer import Trainer
+
+    def fit(**kw):
+        dm = JetNetDataModule(jet_type=("t",), num_particles=16, batch_size=32, synthetic=True,
+                              synthetic_num_jets=400)
+        dm.setup()
+        model = FlowMatchingModel(**dict(EPIC, global_cond_dim=dm.num_cond_features,
+                                         local_cond_dim=dm.num_cond_features))
+        trainer = Trainer(model, dm, pstep.make_optimizer(lr=1e-3), max_epochs=3, device=cuda,
+                          verbose=False, **kw)
+        trainer.fit()
+        return trainer
+
+    fused, per_step = fit(fuse_epochs=2), fit(scan_epochs=False)
+    # groups of 2 and 1 epochs, one graph
+    assert fused.train_superepoch.runner.captures == int(cuda.type == "cuda")
+    assert fused.state.step == per_step.state.step
+    for a, b in zip(_state_tensors(fused.state), _state_tensors(per_step.state)):
+        assert torch.equal(a, b)
+    assert fused.last_metrics["val_loss"] == per_step.last_metrics["val_loss"]
+
+
+CONFIGS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs")
+_JETCLASS = ["data.synthetic=true", "data.synthetic_num_particles=128", "data.used_flavor=QCD",
+             "data.synthetic_num_jets=800"]
+FAMILIES = {
+    "ParT": ["experiment=jetclass_classifier", *_JETCLASS],
+    "ParticleNet": ["experiment=jetclass_classifier_particlenet", *_JETCLASS],
+    "HL-MLP": ["experiment=jetclass_classifier_hl", *_JETCLASS],
+    "flat (jet_features)": ["experiment=lhco/jet_features", "data.synthetic=true",
+                            "data.synthetic_num_events=4000"],
+    "MoE transformer": ["experiment=jetnet/fm_moe_transformer", "data.synthetic=true",
+                        "data.synthetic_num_jets=2000"],
+    "diffusion": ["experiment=jetnet/diffusion_tops150_cond", "data.synthetic=true",
+                  "data.synthetic_num_jets=2000"],
+    "droid": ["experiment=jetnet/droid_tops30", "data.synthetic=true",
+              "data.synthetic_num_jets=2000"],
+    "self-cond": ["experiment=jetnet/fm_selfcond_tops30", "data.synthetic=true",
+                  "data.synthetic_num_jets=2000"],
+    "lhco x_jet": ["experiment=lhco/x_jet", "data.synthetic=true",
+                   "data.synthetic_num_events=2000"],
+    "jetclass_cond": ["experiment=jetclass/jetclass_cond", "data.synthetic=true",
+                      "data.synthetic_num_jets=800"],
+    "EPiC classifier": None,
+}
+
+
+def _family(name, cuda):
+    """(model, optimizer, the train split as device tensors, batch size)."""
+    from particle_fm_tpu_torch.config.core import compose, instantiate, load_config
+    from particle_fm_tpu_torch.utils.run_io import build_run
+
+    if FAMILIES[name] is None:  # configs/model/epic_classifier.yaml on random sets
+        cfg = load_config(os.path.join(CONFIGS, "model", "epic_classifier.yaml"))
+        model = instantiate({k: v for k, v in cfg.items() if k not in ("optimizer", "scheduler")})
+        rs = np.random.RandomState(0)
+        n, parts = 96, model.num_particles
+        mask = (np.arange(parts)[None] < rs.randint(20, parts, (n, 1))).astype(np.float32)[..., None]
+        x = rs.randn(n, parts, model.features).astype(np.float32) * mask
+        split = (x, mask, (rs.rand(n, 1) < 0.5).astype(np.float32))
+        return model, pstep.make_optimizer(), [torch.from_numpy(a).to(cuda) for a in split], 32
+    dm, model, opt = build_run(compose(CONFIGS, "train", FAMILIES[name]))
+    split = [None if a is None else torch.as_tensor(a).to(cuda)
+             for a in (dm.train.x, dm.train.mask, dm.train.cond)]
+    return model, opt, split, min(dm.batch_size, 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(FAMILIES))
+def test_every_shipped_family_captures(cuda, name):
+    model, opt, split, b = _family(name, cuda)
+    n = split[0].shape[0]
+    perms = np.stack([np.random.RandomState(i).permutation(n)[:b] for i in range(3)])[None]
+    states = [pstep.create_train_state(model, opt, seed=1, device=cuda) for _ in range(2)]
+    eager = pstep.make_train_step(model, opt)
+    gen, want = torch.Generator(cuda), []
+    for p in perms[0]:
+        idx = torch.from_numpy(p).to(cuda)
+        gen.manual_seed(pepochs.step_seed(0, states[0].step))
+        want.append(eager(states[0], gen, *[None if a is None else a.index_select(0, idx)
+                                            for a in split]))
+    run = pepochs.make_train_superepoch(model, opt, seed=0)
+    got = run(states[1], *split, perms)
+    assert run.runner.captures == int(cuda.type == "cuda")
+    torch.testing.assert_close(got.reshape(-1), torch.stack(want).float(), rtol=0, atol=0)
+    for a, b_ in zip(_state_tensors(states[1]), _state_tensors(states[0])):
+        assert torch.equal(a, b_)

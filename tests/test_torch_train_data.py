@@ -125,6 +125,9 @@ def test_instantiate_maps_targets_to_the_port():
 
     flat = {"_target_": "particle_fm_tpu.eval.callbacks.FlatEvalCallback"}
     assert isinstance(instantiate(flat), FlatEvalCallback)
+    from particle_fm_tpu_torch.eval.callbacks import DeviceStatsCallback
+
     stats = {"_target_": "particle_fm_tpu.eval.callbacks.DeviceStatsCallback"}
-    with pytest.raises(NotImplementedError, match="DeviceStatsCallback is not ported"):
-        instantiate(stats)
+    assert isinstance(instantiate(stats), DeviceStatsCallback)
+    with pytest.raises(NotImplementedError, match="NoSuchCallback is not ported"):
+        instantiate({"_target_": "particle_fm_tpu.eval.callbacks.NoSuchCallback"})

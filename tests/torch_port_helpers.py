@@ -191,6 +191,26 @@ def pin_draws(monkeypatch, ts=None, zs=None, **draw_kw):
     return ts, zs
 
 
+def pin_fixed_draws(monkeypatch, seed: int = 0) -> None:
+    """Make both packages' losses draw, at every call, the one t and noise
+    array of the call's shape (numpy, from RandomState([seed, kind, *shape])):
+    a jitted JAX step or scanned epoch takes its pinned draws once, at its
+    trace, and every step of the port then takes the same ones."""
+    from particle_fm_tpu.losses import flow_matching as jloss
+    from particle_fm_tpu_torch.losses import flow_matching as ploss
+
+    def fixed(kind, draw, to):
+        def call(_rng, size, where):
+            shape = tuple(size) if isinstance(size, tuple) else (size,)
+            rs = np.random.RandomState([seed, kind, *shape])
+            return to(getattr(rs, draw)(*shape).astype(np.float32), where)
+        return call
+
+    for module, to in ((jloss, lambda a, _: jnp.asarray(a)), (ploss, lambda a, dev: t(a).to(dev))):
+        monkeypatch.setattr(module, "_sample_t", fixed(0, "rand", to))
+        monkeypatch.setattr(module, "_normal", fixed(1, "randn", to))
+
+
 def grads_by_name(flax_tree) -> dict[str, np.ndarray]:
     """A params-shaped flax tree (gradients, Adam moments) under the port's
     parameter names and layouts."""
