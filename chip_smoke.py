@@ -178,7 +178,7 @@
      the restored best checkpoint, exactly 6 x 2 x 199 x 2 EPiC launches per
      pass; then the same evaluation with the plain EPiC layer: jets within
      1e-3, W1M and W1P within 1e-3 absolute;
-   - eval timing: 3,000 jets generated against 3,000 synthetic test jets
+   - eval timing: 1,500 jets generated against 1,500 synthetic test jets
      (N = 150), each stage timed: generation (exact EPiC launches), EFPs and
      energy correlators on the card, the native clustering (tau1-3, d12/d23),
      W1M, W1P (on 5 of its 40 bootstrap batches, to keep the run inside its
@@ -391,7 +391,30 @@
    Classifier, flat and classifier-EPiC phases above train per step
    (`trainer.scan_epochs=false`): they time every step through the step
    factory, as before.
-13. Prints the `kernels` JSON line (the launches of the training, eval,
+13. The model-axis phases (`slice20` lines, then their total;
+   `slice20_phases`): cases of the W=2 gloo launch of the data-parallel
+   phases (11; their time is counted there), both ranks on the one card as
+   a (data 1, model 2) mesh
+   (particle_fm_tpu_torch/parallel/mesh.py), every case at full width with
+   every parameter re-drawn, 4,096 synthetic jets, batch 1024: dp_tp on
+   fm_tops150_cond (each rank 64 of the 128 rows of every fc_local1), sp
+   on fm_tops150_cond (75 particles a rank) and on path A, dp_ep on
+   fm_moe_transformer (attn_impl=packed, scores_dtype=null; 2 of the 4
+   experts a rank) in float32 and bf16. Each: the first step's gradients
+   (summed, gathered whole) and 4 steps against one process on the same
+   global batches in the same launch (PR 18's W=2 gate: losses, first
+   gradient and 99% of the entries within 1e-4, every entry within Adam's
+   reach; bf16 closer to one process than bf16 is to float32), both ranks
+   equal; 2 steps a turn in turns with dp at W=2 (model axis, dp, model
+   axis, dp) for ms a step, the second model-axis turn under torch.profiler for the
+   collectives' share (`particle_fm.model_axis` and `particle_fm.all_reduce`
+   ranges), peak memory a rank; dp_ep exactly 3 packed (or packed bf16)
+   launches a step a rank, and the count of expert slots whose token
+   differs from one process's on the first batch; sp path A none (Lq ≠ Lk
+   takes the einsum path). Then the dp_tp run's gathered checkpoint served
+   in this process (64 sets, NFE 100: exactly 600 `epic_layer` launches,
+   against its plain path 1e-3). One `slice20` timing line, no claim.
+14. Prints the `kernels` JSON line (the launches of the training, eval,
    family, dataset, classifier, slice and ddp phases under
    `launches_by_path` too), the card line again, and as the last line
    {"ok": true, "device": {...}}.
@@ -1942,11 +1965,11 @@ def train_cli_phase(torch, ops, dev, counted, overrides=()) -> dict:
 
 
 # eval phase: the shipped JetNet callbacks in the training entry point, then
-# the evaluation stages timed at 3,000 jets (5,000 until the captured-epoch
-# phases came, 10,000 before): the time that the later phases need under the
-# run's limit
+# the evaluation stages timed at 1,500 jets (3,000 until the model-axis
+# phases came, 5,000 until the captured-epoch phases, 10,000 before): the time
+# that the later phases need under the run's limit
 EVAL_JETS = 2000  # the callback's num_jet_samples: 2 batches of 1000
-EVAL_TIMING_JETS = 3_000
+EVAL_TIMING_JETS = 1_500
 # W1P's bootstrap timed on this many of the callback's 40 batches (its seconds
 # scale with the batches: about 92 s for all 40 at 5,000 jets on an H100)
 W1P_TIMING_BATCHES = 5
@@ -4256,6 +4279,8 @@ def global_batches(torch, trainer, data, n: int) -> list:
     out, epoch = [], 0
     while len(out) < n:
         n_use, k = trainer._usable_batches(x.shape[0], bs, 1)
+        if k == 0:
+            fail(f"a train split of {x.shape[0]} holds no batch of {bs}")
         perm = torch.from_numpy(trainer._epoch_perm(x.shape[0], n_use, epoch)).to(x.device)
         for i in range(k):
             out.append(tuple(None if a is None else a.index_select(0, perm[i * bs:(i + 1) * bs])
@@ -4451,7 +4476,8 @@ def ddp_cli_case(torch, dev, counted, case) -> dict:
                                                     if isinstance(v, (int, float))}}
 
 
-DDP_CASES = {"train": ddp_train_case, "sample": ddp_sample_case, "cli": ddp_cli_case}
+DDP_CASES = {"train": ddp_train_case, "sample": ddp_sample_case, "cli": ddp_cli_case,
+             "model_axis": lambda *a: model_axis_case(*a)}
 
 
 def ddp_worker(job_path: str) -> None:
@@ -4480,6 +4506,8 @@ def ddp_worker(job_path: str) -> None:
         t0 = time.perf_counter()
         results[case["name"]] = DDP_CASES[case["kind"]](torch, dev, counted, case)
         results[case["name"]]["case_s"] = time.perf_counter() - t0
+        print(json.dumps({"ddp_case": case["name"], "rank": dist.rank(),
+                          "case_s": results[case["name"]]["case_s"]}), flush=True)
     torch.save(results, Path(job_path).with_name(f"rank{dist.rank()}.pt"))
     torch.distributed.destroy_process_group()
 
@@ -4508,8 +4536,13 @@ def ddp_launch(torch, name: str, nproc: int, backend: str, cases: list) -> list[
              "--master_addr", "localhost", "--master_port", str(port),
              str(ROOT / "chip_smoke.py"), "--ddp-worker", str(job)],
             cwd=ROOT, env=env, capture_output=True, text=True, timeout=DDP_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        fail(f"{name}: the torchrun launch ran past {DDP_TIMEOUT_S} s")
+    except subprocess.TimeoutExpired as e:
+        def tail(out):  # what the ranks wrote before the limit (bytes on POSIX)
+            out = out.decode(errors="replace") if isinstance(out, bytes) else (out or "")
+            return out[-3000:]
+
+        fail(f"{name}: the torchrun launch ran past {DDP_TIMEOUT_S} s:\n{tail(e.stdout)}\n"
+             f"{tail(e.stderr)}")
     if proc.returncode != 0:
         fail(f"{name}: torchrun exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
              f"{proc.stderr[-5000:]}")
@@ -4611,13 +4644,16 @@ def ddp_phases(torch, dev, counted) -> dict:
         out[f"ddp {name} (W=1, nccl)"] = line
         print(json.dumps({"ddp": f"ddp {name} (W=1, nccl)", **line}), flush=True)
 
+    # the slice20 cases ride this launch (one process start less); slice20_phases reads them
     w2 = ddp_launch(torch, "w2_gloo", 2, "gloo", [
         dict(kind="train", name="path A", overrides=PATH_A + [f"data.batch_size={DDP2_BATCH}"],
              strategy="dp"),
         dict(kind="sample", name="sample", batch=640),
         dict(kind="cli", name="cli", argv=EPIC[:2] + [
             "data.synthetic_num_jets=2049", "trainer=smoke", "trainer.max_epochs=1",
-            "callbacks=none", "trainer.strategy=dp"])])
+            "callbacks=none", "trainer.strategy=dp"])] + [
+        dict(kind="model_axis", name=name, strategy=strategy, overrides=overrides)
+        for name, strategy, overrides in SLICE20_CASES])
     out["ddp2_launch_s"] = w2[0]["launch_s"]
     r0, r1 = w2[0]["path A"], w2[1]["path A"]
     if not (r0["backend"] == "gloo" and r0["world"] == 2):
@@ -4691,6 +4727,7 @@ def ddp_phases(torch, dev, counted) -> dict:
         "epic_layer": ("ddp sample flagship (both ranks); 2-rank checkpoint served",
                        sum(w2[r]["sample"]["launches"]["epic_layer"] for r in range(2))
                        + got["epic_layer"])}
+    out["_w2"] = w2
     return out
 
 
@@ -5041,6 +5078,279 @@ def slice19_phases(torch, sa, dev, counted) -> dict:
     return results
 
 
+# slice 20: tensor, sequence and expert parallelism on a (data, model) mesh
+# (parallel/mesh.py, parallel/tp.py): W=2 on gloo on the one card, data 1 x
+# model 2, each case against one process at the same global batch in the
+# same launch and timed against dp at W=2 (data 2 x model 1) in turns
+SLICE20_BATCH = 1024
+SLICE20_STEPS = 2  # steps a turn: 4 model-axis steps against one process, the second
+# model-axis turn under torch.profiler
+SLICE20_DIR = DDP_DIR / "slice20"
+# JetNet-30 keeps its top jets only: 8,192 synthetic jets give a train split of 1,716
+MOE = ["experiment=jetnet/fm_moe_transformer", "data.synthetic=true",
+       "data.synthetic_num_jets=8192",
+       "model.net_config.te_config.mha_config.attn_impl=packed",
+       "model.net_config.te_config.mha_config.scores_dtype=null"]
+SLICE20_CASES = [  # (name, strategy, overrides)
+    ("dp_tp fm_tops150_cond", "dp_tp", EPIC),
+    ("sp fm_tops150_cond", "sp", EPIC),
+    ("sp path A", "sp", PATH_A),
+    ("dp_ep fm_moe_transformer", "dp_ep", MOE),
+    ("dp_ep fm_moe_transformer bf16", "dp_ep", MOE + ["model.dtype=bfloat16"]),
+]
+
+
+@contextlib.contextmanager
+def expert_choices(box: list):
+    """Every ExpertChoiceMoE's token choice (B, E, C) of the block, appended to `box`."""
+    from particle_fm_tpu_torch.nets import moe
+
+    choose = moe.expert_choice
+
+    def recorded(scores, capacity):
+        idx = choose(scores, capacity)
+        box.append(idx.detach().cpu())
+        return idx
+
+    with mock.patch.object(moe, "expert_choice", recorded):
+        yield
+
+
+def model_axis_case(torch, dev, counted, case) -> dict:
+    """One model trained at its strategy on the (data 1, model 2) mesh: the
+    first step's gradients (summed, gathered whole) against one process's;
+    SLICE20_STEPS steps a turn in turns with dp at W=2 (model axis, dp, model
+    axis, dp), each from the same seeded state, rank 0 also training one
+    process on the same global batches; the second model-axis turn under
+    torch.profiler for the collectives' share; the whole state after (rank 0
+    writes it for dp_tp: the checkpoint served in one process)."""
+    from particle_fm_tpu_torch.parallel import dist, mesh as pmesh
+    from particle_fm_tpu_torch.training.step import make_optimizer, make_train_step
+    from particle_fm_tpu_torch.training.trainer import Trainer
+
+    t_case = time.perf_counter()
+    model, dm, cfg = compose_training(case["overrides"] + [f"data.batch_size={SLICE20_BATCH}"])
+    dm.setup()
+    opt = make_optimizer(lr=1e-3, weight_decay=cfg["model"]["optimizer"]["weight_decay"],
+                         grad_clip=cfg["trainer"]["grad_clip"])
+    kw = dict(seed=cfg["seed"], device=dev, verbose=False, ema_decay=cfg["trainer"]["ema"]["decay"])
+    trainer = Trainer(model, dm, opt, strategy=case["strategy"], model_axis_size=2, **kw)
+    dp = Trainer(model, dm, opt, strategy="dp", **kw)
+    single_step = make_train_step(model, opt, ema_decay=trainer.ema_decay)
+    data = trainer._place_train_split()
+    steps, rank0 = SLICE20_STEPS, dist.rank() == 0
+    glob_b = global_batches(torch, trainer, data, 2 * steps)
+    mine = local_batches(trainer, data, 2 * steps)
+    dp_mine = local_batches(dp, data, 2 * steps)
+    states = {"axis": trainer._place_state(ddp_state(torch, model, opt, dev)),
+              "dp": dp._place_state(ddp_state(torch, model, opt, dev))}
+    if rank0:
+        states["single"] = ddp_state(torch, model, opt, dev)
+    shard = trainer.shard
+    out = {"config": " ".join(case["overrides"]), "strategy": case["strategy"],
+           "world": dist.world_size(), "backend": dist.backend(), "global_batch": dm.batch_size,
+           "mesh": [trainer.mesh.data, trainer.mesh.model], "model_rank": trainer.mesh.model_rank}
+    held = {n: tuple(p.shape) for n, p in states["axis"].net.named_parameters()}
+    out["held_shapes"] = {n: s for n, s in held.items() if "fc_local1.weight_v" in n
+                          or n.endswith("moe.w1")}
+    if case["strategy"] == "sp":
+        x0 = glob_b[0][0]
+        out["rank_particles"] = shard.at_particles(x0.shape[1]).local_particles(x0).shape[1]
+
+    # the first step's gradients, whole, against one process's
+    gen = torch.Generator(dev).manual_seed(5)
+    loss = model.loss(states["axis"].net, gen, *mine[0], train=True, shard=shard)
+    grads = list(torch.autograd.grad(loss, states["axis"].params()))
+    grads = dist.all_reduce_tensors_(grads, shard.group)
+    sharding = states["axis"].sharding
+    placed = sharding.placed if sharding is not None else [None] * len(grads)
+    g_axis = [(g if pl is None else pl.whole(g, sharding.axis)).detach().cpu()
+              for g, pl in zip(grads, placed)]
+    out["grad_err_over_largest"] = None
+    if rank0:
+        g_one = first_gradients(torch, model, states["single"], glob_b[0], None, 5)
+        scale = max(float(g.abs().max()) for g in g_one)
+        out["grad_err_over_largest"] = max(float((a - b).abs().max())
+                                           for a, b in zip(g_axis, g_one)) / scale
+    if case["strategy"] == "dp_ep":  # the experts' token choices against one process's
+        axis_idx, one_idx = [], []
+        gen.manual_seed(6)
+        with torch.no_grad(), expert_choices(axis_idx):
+            model.loss(states["axis"].net, gen, *mine[0], train=False, shard=shard)
+        gen.manual_seed(6)
+        whole = states["axis"].network_copy(ema=False)
+        with torch.no_grad(), expert_choices(one_idx):
+            model.loss(whole, gen, *glob_b[0], train=False)
+        e_loc = axis_idx[0].shape[1]
+        r = trainer.mesh.model_rank
+        out["expert_slots"] = sum(a.numel() for a in axis_idx)
+        out["expert_slots_differing"] = sum(
+            int((a != b[:, r * e_loc:(r + 1) * e_loc]).sum()) for a, b in zip(axis_idx, one_idx))
+
+    from torch.profiler import ProfilerActivity, profile
+
+    losses = {"axis": [], "dp": [], "single": []}
+    secs = {"axis": [], "dp": [], "single": []}
+    peak, profiled = {}, None
+    launches = {w.__name__: 0 for w in counted}
+    done = {"axis": 0, "dp": 0}
+    turns = ("single", "single") if rank0 else ()
+    out["phase_s"] = {"set_up_and_first_gradients": time.perf_counter() - t_case}
+    t0 = time.perf_counter()
+    for path in turns + ("axis", "dp", "axis", "dp"):
+        if path == "single":
+            i = len(losses["single"])
+            batches, step = glob_b[i:i + steps], single_step
+        else:
+            i = done[path]
+            batches = (mine if path == "axis" else dp_mine)[i:i + steps]
+            step = (trainer if path == "axis" else dp).train_step
+            done[path] += steps
+        reset(counted)
+        torch.cuda.reset_peak_memory_stats(dev)
+        start_bytes = torch.cuda.memory_allocated(dev)
+        traced = path == "axis" and i > 0  # the second model-axis turn
+        with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if traced
+              else contextlib.nullcontext()) as prof:
+            got_l, got_s = ddp_steps(torch, step, trainer, states[path], batches)
+        if traced:
+            ranges = {name: [e for e in prof.key_averages() if e.key == name]
+                      for name in (pmesh.MODEL_AXIS_RANGE, dist.ALL_REDUCE_RANGE)}
+            profiled = {"steps": len(batches), "wall_s": sum(got_s), "step_s": got_s,
+                        "collectives_s": {k: sum(e.cpu_time_total for e in r) / 1e6
+                                          for k, r in ranges.items()},
+                        "collective_calls": {k: sum(e.count for e in r)
+                                             for k, r in ranges.items()}}
+        peak[path] = max(peak.get(path, 0), torch.cuda.max_memory_allocated(dev) - start_bytes)
+        if path == "axis":
+            for k, v in launched(counted).items():
+                launches[k] += v
+        losses[path] += got_l
+        secs[path] += got_s
+    out["phase_s"]["turns"] = time.perf_counter() - t0
+    if not np.isfinite(losses["axis"]).all():
+        fail(f"{case['name']}: non-finite loss {losses['axis']}")
+    t0 = time.perf_counter()
+    out["axis"] = whole_params(states["axis"])  # every rank gathers
+    if rank0:
+        out["single"] = whole_params(states["single"])
+    if case["strategy"] == "dp_tp":  # the gathered checkpoint, served in one process
+        sd = states["axis"].state_dict()
+        if rank0:
+            SLICE20_DIR.mkdir(parents=True, exist_ok=True)
+            torch.save(sd, SLICE20_DIR / "dp_tp_flagship.pt")
+    out["phase_s"]["gather_and_save"] = time.perf_counter() - t0
+    out.update(losses=losses, launches=launches, peak_bytes=peak, step_s=secs,
+               median_step_ms={k: 1e3 * float(np.median(v)) for k, v in secs.items() if v},
+               profiled=profiled)
+    return out
+
+
+def slice20_phases(torch, ops, dev, counted, ranks) -> dict:
+    """The model-axis cases' results from the W=2 gloo launch of
+    `ddp_phases` (`ranks`, one card), their checks against one process, the
+    `slice20` lines, and the dp_tp checkpoint served in this process against
+    its plain path; the kernels' launches under "_launches"."""
+    from particle_fm_tpu_torch.serving import make_serve_fn, serve_batches
+
+    out = {"cases_s": sum(ranks[0][name]["case_s"] for name, _, _ in SLICE20_CASES)}
+    timing, launches = {}, {}
+    for name, strategy, _ in SLICE20_CASES:
+        r0, r1 = ranks[0][name], ranks[1][name]
+        if not (r0["backend"] == "gloo" and r0["world"] == 2 and r0["mesh"] == [1, 2]):
+            fail(f"slice20 {name}: ran on {r0['backend']} at W={r0['world']}, mesh {r0['mesh']}")
+        if (params_err(r0["axis"], r1["axis"]) != 0.0
+                or r0["losses"]["axis"] != r1["losses"]["axis"]):
+            fail(f"slice20 {name}: the ranks' states differ")
+        bf16 = name.endswith("bf16")
+        line = {"config": r0["config"], "strategy": strategy, "mesh": r0["mesh"],
+                "global_batch": r0["global_batch"], "steps": 2 * SLICE20_STEPS,
+                "losses": r0["losses"], "vs_one_process": held_by_entries(
+                    f"slice20 {name} against one process", r0["axis"], r0["single"],
+                    r0["losses"]["axis"], r0["losses"]["single"], r0["grad_err_over_largest"],
+                    None if bf16 else DDP2_TOL, 0.0, 2 * 2 * SLICE20_STEPS)}
+        if bf16:  # the bf16 training gate: closer to one process than bf16 to float32
+            gaps = (params_frob(r0["axis"], r0["single"]),
+                    params_frob(r0["single"], ranks[0][name[:-len(" bf16")]]["single"]))
+            if not gaps[0] < gaps[1]:
+                fail(f"slice20 {name}: |model axis - one process| {gaps[0]} against "
+                     f"|bf16 - f32| {gaps[1]}")
+            line["frobenius_vs_one_process_and_bf16_vs_f32"] = gaps
+        shapes = [r["held_shapes"] for r in (r0, r1)]
+        if strategy == "dp_tp":
+            fc = [s for held in shapes for n, s in held.items() if "fc_local1" in n]
+            if len(fc) != 2 * 6 or any(s[0] != 64 for s in fc):
+                fail(f"slice20 {name}: fc_local1 shapes {fc}, expected 64 of 128 rows a rank")
+        if strategy == "dp_ep":
+            w1 = [s for held in shapes for s in held.values()]
+            if len(w1) != 2 * 3 or any(s[0] != 2 for s in w1):
+                fail(f"slice20 {name}: moe.w1 shapes {w1}, expected 2 of 4 experts a rank")
+            line["expert_slots_differing"] = [r["expert_slots_differing"] for r in (r0, r1)]
+            line["expert_slots"] = [r["expert_slots"] for r in (r0, r1)]
+        if "rank_particles" in r0:
+            line["rank_particles"] = [r0["rank_particles"], r1["rank_particles"]]
+            if name == "sp fm_tops150_cond" and line["rank_particles"] != [75, 75]:
+                fail(f"slice20 {name}: particles a rank {line['rank_particles']}, expected 75")
+        wrapper = ("packed_short_attention_bf16" if bf16 else "packed_short_attention")
+        n_packed = 3 * 2 * SLICE20_STEPS if strategy == "dp_ep" else 0
+        for r, res in enumerate((r0, r1)):
+            expect_launches(f"slice20 {name} rank {r}", res["launches"], wrapper, n_packed)
+        if n_packed:
+            launches[wrapper] = (f"slice20 {name} (both ranks)", 2 * n_packed)
+        prof = r0["profiled"]
+        coll = sum(prof["collectives_s"].values())
+        timing[name] = {
+            "ms_a_step": {k: r0["median_step_ms"][k] for k in ("axis", "dp", "single")},
+            "over_dp": r0["median_step_ms"]["axis"] / r0["median_step_ms"]["dp"],
+            "rank1_ms_a_step": {k: r1["median_step_ms"][k] for k in ("axis", "dp")},
+            "collectives_share": coll / prof["wall_s"], "collectives_s": prof["collectives_s"],
+            "collective_calls": prof["collective_calls"], "profiled_wall_s": prof["wall_s"],
+            "peak_bytes_a_rank": {k: [r0["peak_bytes"][k], r1["peak_bytes"].get(k)]
+                                  for k in ("axis", "dp")},
+            "launches": [r0["launches"], r1["launches"]]}
+        line["case_s"], line["phase_s"] = r0["case_s"], r0["phase_s"]
+        out[name] = line
+        print(json.dumps({"slice20": name, **line}), flush=True)
+    print(json.dumps({"slice20": "timing (no claim)", "card": card_line(), **timing}),
+          flush=True)
+
+    # the gathered dp_tp checkpoint served in this process: kernel, then plain
+    sd = torch.load(SLICE20_DIR / "dp_tp_flagship.pt", map_location=dev, weights_only=True)
+    for k, v in sd["params"].items():
+        if k in ranks[0]["dp_tp fm_tops150_cond"]["axis"]["params"] and not torch.equal(
+                v.cpu(), ranks[0]["dp_tp fm_tops150_cond"]["axis"]["params"][k]):
+            fail(f"slice20 served checkpoint: {k} differs from the ranks' gathered state")
+    model, _, _ = compose_training(EPIC)
+    net = model.init(seed=0, device=dev)
+    net.load_state_dict(sd["params"])
+    with torch.no_grad():
+        for p, e in zip(net.parameters(), sd["ema_params"]):
+            p.copy_(e)
+    fn = make_serve_fn(model, net, batch_size=64, ode_steps=ODE_STEPS, has_cond=True,
+                       has_mask=True)
+    rs = np.random.RandomState(7)
+    mask = ragged_mask(rs, 64, model.num_particles)[..., None]
+    cond = rs.randn(64, model.global_cond_dim).astype(np.float32)
+    reset(counted)
+    x = serve_batches(fn, fn.meta, 64, cond=cond, mask=mask, seed=3)
+    got = launched(counted)
+    expect_launches("slice20 dp_tp checkpoint served", got, "epic_layer", 6 * 2 * (ODE_STEPS - 1))
+    with mock.patch.object(ops, "epic_layer", ops.epic_layer_reference):
+        x_plain = serve_batches(fn, fn.meta, 64, cond=cond, mask=mask, seed=3)
+    err = float(np.abs(x - x_plain).max())
+    if not (np.isfinite(x).all() and x.shape == (64, model.num_particles, model.features)
+            and err <= PATH_TOL):
+        fail(f"slice20 dp_tp checkpoint served: shape {x.shape}, against the plain path {err}")
+    served = {"sets": 64, "nfe": 2 * (ODE_STEPS - 1), "launches": got,
+              "launches_an_evaluation": got["epic_layer"] / (2 * (ODE_STEPS - 1)),
+              "max_abs_err_vs_plain": err, "largest_abs": float(np.abs(x).max())}
+    print(json.dumps({"slice20": "dp_tp checkpoint served (one process)", **served}), flush=True)
+    out["served"] = served
+    launches["epic_layer"] = ("slice20 dp_tp checkpoint served (one process)", got["epic_layer"])
+    out["_launches"] = launches
+    return out
+
+
 def serving_runs(torch, dev, FlowMatchingModel, ops, sa, fa) -> list[dict]:
     """The six served models at full width with their seeded weights, as the
     serving phases serve them (one dict a path: name, config, model, net,
@@ -5338,6 +5648,7 @@ def main() -> None:
 
     t0 = time.perf_counter()
     res = ddp_phases(torch, dev, counted)  # prints its lines
+    w2 = res.pop("_w2")
     for kernel_name, (path, launches) in res["_launches"].items():
         kernels[kernel_name]["launches"] += launches
         kernels[kernel_name]["launches_by_path"][path] = launches
@@ -5349,6 +5660,13 @@ def main() -> None:
         kernels[kernel_name]["launches"] += launches
         kernels[kernel_name]["launches_by_path"][path] = launches
     print(json.dumps({"slice19_phases_s": time.perf_counter() - t0}), flush=True)
+
+    t0 = time.perf_counter()
+    res = slice20_phases(torch, ops, dev, counted, w2)  # prints its lines
+    for kernel_name, (path, launches) in res["_launches"].items():
+        kernels[kernel_name]["launches"] += launches
+        kernels[kernel_name]["launches_by_path"][path] = launches
+    print(json.dumps({"slice20_phases_s": time.perf_counter() - t0}), flush=True)
 
     kernels = list(kernels.values())
     print(json.dumps({"smoke_s": time.perf_counter() - started}), flush=True)

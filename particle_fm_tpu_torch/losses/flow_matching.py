@@ -75,7 +75,7 @@ def _t(generator: torch.Generator, x: torch.Tensor, shard: BatchShard | None) ->
 
 
 def _z(generator: torch.Generator, x: torch.Tensor, shard: BatchShard | None) -> torch.Tensor:
-    return local_draw(shard, _normal, generator, x.shape, x.device)
+    return local_draw(shard, _normal, generator, x.shape, x.device, per_particle=True)
 
 
 def _tb(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

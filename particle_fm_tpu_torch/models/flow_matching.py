@@ -40,7 +40,13 @@ rank's share of the global batch's loss (every draw made for the global
 batch and sliced, the normalisers' statistics and the mask count summed
 over the ranks), and `sample(..., rank_split=True)` integrates this rank's
 rows of the global noise and gathers every rank's, which equals sampling
-the whole batch in one process.
+the whole batch in one process. Under sequence parallelism (a shard with
+`seq`, trainer.strategy=sp) the loss keeps this rank's part of every set's
+particles (a mask of ones made first where none is given, the last ranks
+padded with masked particles) and runs the network inside
+`parallel/mesh.py::sequence_parallel`; the cond normaliser's statistics are
+summed over the data group only, since every model rank holds the same
+sets.
 """
 
 from __future__ import annotations
@@ -60,6 +66,7 @@ from particle_fm_tpu_torch.nets.epic import EPiCLayer
 from particle_fm_tpu_torch.ops.attention import forward_mode_ad
 from particle_fm_tpu_torch.parallel import dist
 from particle_fm_tpu_torch.parallel.dist import BatchShard, local_draw
+from particle_fm_tpu_torch.parallel.mesh import ROADMAP_ITEM, sequence_parallel
 from particle_fm_tpu_torch.samplers.ode import (FIXED_SOLVERS, odeint_dopri5,
                                                 odeint_dopri5_per_sample, odeint_fixed,
                                                 odeint_fixed_sc)
@@ -241,7 +248,7 @@ class FlowMatchingModel:
             w = torch.full((), float(x.shape[0] * x.shape[1]), device=x.device)
         else:
             w = torch.sum(mask).to(torch.float32)
-        return w if shard is None else shard.total(w)
+        return w if shard is None else shard.rows_shard().total(w)
 
     def loss(
         self,
@@ -270,29 +277,50 @@ class FlowMatchingModel:
                 "loss needs the unfolded network: folded weights carry no gradient to "
                 "weight norm's v and g (call unfold_weight_norm first)"
             )
+        if shard is not None and shard.seq is not None:
+            if self.loss_type == "CFM-OT":
+                raise NotImplementedError(
+                    f"trainer.strategy='sp' with CFM-OT is not ported ({ROADMAP_ITEM}): the "
+                    "pairing couples each set's particles across the split")
+            if mask is None:
+                mask = torch.ones_like(x[..., :1])
+            n = x.shape[1]
+            shard = shard.at_particles(n)
+            # the padding slots' field is dropped (a transformer's is not masked)
+            real = shard.local_particles(torch.ones_like(x[:1, :, :1]))
+            x, mask = shard.local_particles(x), shard.local_particles(mask)
+            with sequence_parallel(shard.seq):
+                return self._loss(net, generator, x, mask, cond, train, shard,
+                                  lambda *a, **k: net(*a, **k) * real)
+        return self._loss(net, generator, x, mask, cond, train, shard, net)
+
+    def _loss(self, net, generator, x, mask, cond, train, shard, field):
+        """`loss` on these rows and particles; `field` is the network's
+        forward (the normalisers are read from `net`)."""
         if self.use_normaliser:
             # in training the statistics are updated first (x's, then cond's) and
             # each input normalised with what its layer has just learned
             x = net.normalise(x, mask, update_stats=train, shard=shard)
             if self.conditioned and cond is not None:
-                cond = net.normalise_cond(cond, update_stats=train, shard=shard)
+                cond = net.normalise_cond(cond, update_stats=train,
+                                          shard=None if shard is None else shard.rows_shard())
         if train and self.cond_dropout > 0.0 and self.conditioned and cond is not None:
             keep = local_draw(shard, lambda g, shape, dev: _keep(g, 1.0 - self.cond_dropout,
                                                                  shape, dev),
                               generator, (cond.shape[0], 1), cond.device)
             cond = torch.where(keep, cond, torch.zeros_like(cond))
         if not self.self_cond:
-            return self._loss_fn(lambda t, y, c, m: net(t, y, cond=c, mask=m), generator, x,
+            return self._loss_fn(lambda t, y, c, m: field(t, y, cond=c, mask=m), generator, x,
                                  mask, cond, shard=shard)
         use = local_draw(shard, _use_sc, generator, (x.shape[0], 1, 1), x.device)
         sc_tm = self.droid_t_max if self.loss_type == "droid" else 1.0
 
         def vf(t, y, c, m):
             with torch.no_grad():
-                x1_hat = y - sc_tm * t[:, None, None] * net(t, y, cond=c, mask=m)
+                x1_hat = y - sc_tm * t[:, None, None] * field(t, y, cond=c, mask=m)
                 if m is not None:
                     x1_hat = x1_hat * m
-            return net(t, y, cond=c, mask=m, x_sc=torch.where(use, x1_hat, 0.0))
+            return field(t, y, cond=c, mask=m, x_sc=torch.where(use, x1_hat, 0.0))
 
         return self._loss_fn(vf, generator, x, mask, cond, shard=shard)
 

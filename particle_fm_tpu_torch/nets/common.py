@@ -40,6 +40,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from particle_fm_tpu_torch.parallel.mesh import copy_to, gather_from, reduce_from
+
 
 def _to_bf16(v: float) -> float:
     """v rounded to bfloat16, as a Python float."""
@@ -151,6 +153,21 @@ class WNDense(nn.Module):
         # torch.export takes them as the program's inputs (serving.py)
         self.register_buffer("_folded", None, persistent=False)
         self.register_buffer("_folded_bias", None, persistent=False)
+        self.tp = None  # (kind, ModelAxis) of the sharded form (parallel/tp.py)
+
+    def shard(self, kind: str, axis) -> None:
+        """Take the sharded form `kind` ("column" or "row") over the model
+        axis `axis`; the parameters already hold this rank's entries."""
+        if kind != "column":
+            raise NotImplementedError(f"a {type(self).__name__} has no {kind}-parallel form")
+        self.features //= axis.size
+        self.tp = (kind, axis)
+
+    def whole(self, y: torch.Tensor) -> torch.Tensor:
+        """This layer's output `y` whole (a column-parallel one gathered)."""
+        if self.tp is None or self.tp[0] != "column":
+            return y
+        return gather_from(y, self.tp[1], -1)
 
     def effective_weight(self) -> torch.Tensor:
         """The (out, in) weight the layer applies."""
@@ -165,6 +182,9 @@ class WNDense(nn.Module):
         """Keep the normalised weight (computed in float32), cast to `dtype`
         with the bias when there is one; nothing to do for a plain float32
         Dense."""
+        if self.tp is not None:
+            raise RuntimeError("a sharded Dense serves training only: fold a whole copy "
+                               "(TrainState.network_copy)")
         if self.dtype is not None:
             self._folded = self.effective_weight().detach().to(self.dtype)
             if self.bias is not None:
@@ -190,6 +210,8 @@ class WNDense(nn.Module):
         return self.bias.to(self.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            x = copy_to(x, self.tp[1])
         if self.dtype is not None:
             x = x.to(self.dtype)
         y = x @ self.compute_weight().t()
@@ -230,11 +252,24 @@ class WNDenseSplit(WNDense):
             dtype=dtype,
         )
 
+    def shard(self, kind: str, axis) -> None:
+        if kind == "column":
+            return super().shard(kind, axis)
+        k = next(k for k, seg in self.segments if seg == "particle")
+        self.segments = [(k // axis.size if seg == "particle" else w, seg)
+                         for w, seg in self.segments]
+        self.in_features -= k - k // axis.size
+        self.tp = (kind, axis)
+
     def forward(self, segments) -> torch.Tensor:
         segments = [(a, kind) for a, kind in segments if a is not None and a.shape[-1] > 0]
         layout = [(a.shape[-1], kind) for a, kind in segments]
         if layout != self.segments:
             raise ValueError(f"segment layout {layout} != constructed {self.segments}")
+        if self.tp is not None and self.tp[0] == "row":
+            return self._row_parallel(segments)
+        if self.tp is not None:
+            segments = [(copy_to(a, self.tp[1]), kind) for a, kind in segments]
         w = self.compute_weight()
         out = None
         set_parts, set_ws = [], []
@@ -259,6 +294,45 @@ class WNDenseSplit(WNDense):
         if self.bias is not None:
             out = out + self.compute_bias()
         return out
+
+    def _row_parallel(self, segments) -> torch.Tensor:
+        """The row-parallel form (module docstring): products in the compute
+        type, the sum, the scale and the bias in float32, one cast last."""
+        axis = self.tp[1]
+        v = self.weight_v if self.use_weight_norm else self.weight
+        dt = self.dtype
+
+        def mm(a, w):
+            if dt is not None:
+                return (a.to(dt) @ w.to(dt).t()).float()
+            return a @ w.t()
+
+        col, set_parts, set_cols = 0, [], []
+        for a, kind in segments:
+            k = a.shape[-1]
+            if kind == "particle":
+                x_p, v_p = a, v[:, col:col + k]
+            else:
+                set_parts.append(a)
+                set_cols.append(v[:, col:col + k])
+            col += k
+        partial = mm(x_p, v_p)
+        flat = [partial.reshape(-1)]
+        if self.use_weight_norm:
+            flat.append(torch.sum(v_p * v_p, dim=1))
+        summed = reduce_from(torch.cat(flat), axis)
+        out = summed[:partial.numel()].view_as(partial)
+        v_s = torch.cat(set_cols, dim=1) if set_cols else None
+        if set_parts:
+            out = out + mm(torch.cat(set_parts, dim=-1), v_s)[..., None, :]
+        if self.use_weight_norm:
+            sq = summed[partial.numel():]
+            if v_s is not None:
+                sq = sq + torch.sum(v_s * v_s, dim=1)
+            out = out * (self.g / torch.clamp(torch.sqrt(sq), min=1e-12))
+        if self.bias is not None:
+            out = out + self.bias
+        return out if dt is None else out.to(dt)
 
 
 class LayerNorm(nn.LayerNorm):

@@ -27,6 +27,12 @@ The discriminators (`EPiCDiscriminator`, `EPiCDiscriminator2`,
 EPiC layers have no time embedding, and no cond where the classifiers call
 them, so after `fold()` they run the fused layer with a 0-wide per-set
 feature.
+
+Under trainer.strategy=dp_tp (parallel/tp.py) the local MLPs of each
+EPiCLayer and of the EPiCEncoder's input block run column-then-row parallel
+over the model axis (nets/common.py), one all-reduce a layer; the encoder's
+residual after `fc_l2` gathers `fc_l1`'s output. Under sp the pools sum
+over the model axis (ops/masked.py).
 """
 
 from __future__ import annotations
@@ -268,7 +274,8 @@ class EPiCEncoder(nn.Module):
         l_cond = cond if self.lc else None
 
         h = act(self.fc_l1([(t_l, "set"), (x, "particle"), (l_cond, "set")]))
-        h = self.drop(act(self.fc_l2([(t_l, "set"), (h, "particle"), (l_cond, "set")]) + h))
+        h = self.drop(act(self.fc_l2([(t_l, "set"), (h, "particle"), (l_cond, "set")])
+                          + self.fc_l1.whole(h)))
 
         z_mean, z_sum = meansum_pool(h, mask, self.sum_scale)
         g = cat(z_sum, z_mean)

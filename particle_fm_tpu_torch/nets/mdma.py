@@ -29,6 +29,7 @@ from torch import nn
 
 from particle_fm_tpu_torch.nets.common import LayerNorm, WNDense, WNDenseSplit, cat, leaky_relu
 from particle_fm_tpu_torch.ops.attention import attention
+from particle_fm_tpu_torch.parallel.mesh import refuse_under_sp
 
 _LN_EPS = 1e-5
 
@@ -160,6 +161,7 @@ class MDMA(nn.Module):
         self.out = WNDenseSplit([(hidden_dim, "particle"), (c_loc, "set")], out_features, **dense)
 
     def forward(self, t_set, x, cond=None, mask=None) -> torch.Tensor:
+        refuse_under_sp("MDMA")
         if mask is None:
             mask = torch.ones_like(x[..., :1])
         if cond is None and (self.has_cond or self.local_cat_cond):

@@ -21,6 +21,14 @@ The stacked expert parameters keep the flax layouts, `w1` (E, D_in, H),
 (fan_in), 1/sqrt(fan_in)) with the fan-in of the matrix they belong to; the
 router is a Dense (its kernel transposed by utils/from_jax.py) with a zero
 bias. `dtype` is the compute type of the expert MLPs (nets/common.py).
+
+Under trainer.strategy=dp_ep (parallel/tp.py) each model rank holds E/model
+contiguous experts (`shard_experts`): it takes its experts' columns of the
+replicated router's scores, computes their share of the combine in float32
+and sums it over the model group (`reduce_from`); the scores and the
+tokens pass `copy_to` first, so their gradients gather every rank's
+experts. The experts choose tokens within a set, so the block refuses
+sequence parallelism.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import torch
 from torch import nn
 
 from particle_fm_tpu_torch.nets.common import WNDense, _uniform_, cat, check_compute_dtype, get_act
+from particle_fm_tpu_torch.parallel.mesh import copy_to, reduce_from, refuse_under_sp
 
 
 def expert_choice(scores: torch.Tensor, capacity: int) -> torch.Tensor:
@@ -67,9 +76,16 @@ class ExpertChoiceMoE(nn.Module):
             p = torch.empty(shape)
             _uniform_(p, fan_in, generator)
             setattr(self, name, nn.Parameter(p))
+        self.ep = None  # the ModelAxis the experts are split over (dp_ep)
+
+    def shard_experts(self, axis) -> None:
+        """Compute this rank's E/model experts (the parameters already hold
+        them, parallel/tp.py) and sum the combine over `axis`."""
+        self.ep = axis
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
                 ctxt: torch.Tensor | None = None) -> torch.Tensor:
+        refuse_under_sp("the mixture-of-experts block")
         b, n, _ = x.shape
         c = expert_capacity(n, self.num_experts, self.capacity_factor)
         if self.ctxt_dim:
@@ -80,6 +96,10 @@ class ExpertChoiceMoE(nn.Module):
         if mask is not None:
             scores = torch.where(mask[..., None] > 0, scores, -1.0)
         scores = scores.transpose(1, 2)  # (B, E, N)
+        if self.ep is not None:  # this rank's experts
+            e_loc = self.w1.shape[0]
+            scores = copy_to(scores, self.ep)[:, self.ep.rank * e_loc:(self.ep.rank + 1) * e_loc]
+            x = copy_to(x, self.ep)
         idx = expert_choice(scores, c)
         g = torch.clamp(torch.gather(scores, -1, idx), min=0.0)  # (B, E, C)
         dispatch = nn.functional.one_hot(idx, n).to(x.dtype)  # (B, E, C, N)
@@ -91,4 +111,7 @@ class ExpertChoiceMoE(nn.Module):
         h = get_act(self.act)(torch.einsum("becd,edh->bech", x_e, w1) + b1[None, :, None])
         y_e = torch.einsum("bech,ehd->becd", h, w2) + b2[None, :, None]
         weighted = dispatch * g[..., None].to(dispatch.dtype)
-        return torch.einsum("becn,becd->bnd", weighted, y_e)
+        if self.ep is None:
+            return torch.einsum("becn,becd->bnd", weighted, y_e)
+        share = torch.einsum("becn,becd->bnd", weighted.float(), y_e.float())
+        return reduce_from(share, self.ep).to(y_e.dtype)

@@ -20,6 +20,16 @@ the JAX modules put it and draws only inside
 `dtype` (None or bfloat16) is the compute type of every Dense and
 LayerNorm, as the flax modules' `dtype` (nets/common.py); the parameters
 stay float32, and attention takes q, k, v in the projections' type.
+
+Under sequence parallelism (parallel/mesh.py::sequence_parallel) each rank
+holds its part of every set's tokens: the encoder gathers the key mask over
+the model axis once, and each self-attention block gathers its normed input
+(one all-gather, whose backward sums and slices) and projects every token's
+keys and values itself, so this rank's queries attend to every key. Lq then
+differs from Lk and attention takes the einsum path (the packed kernel
+needs Lq = Lk). The cross-attention
+encoder (global tokens) and the mixture of experts couple tokens across the
+split in other ways and refuse it.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ from particle_fm_tpu_torch.nets.common import (Dropout, LayerNorm, WNDense, WNDe
                                                get_act)
 from particle_fm_tpu_torch.nets.moe import ExpertChoiceMoE
 from particle_fm_tpu_torch.ops import attention as attention_ops
+from particle_fm_tpu_torch.parallel.mesh import refuse_under_sp, seq_gather, sequence_axis
 
 _LN_EPS = 1e-5
 
@@ -222,7 +233,13 @@ class MultiHeadedAttentionBlock(nn.Module):
             v = k
         if self.do_selfattn:
             # three views of one projection output: the kernels read them in place
-            q_out, k_out, v_out = self.all_linear(q).chunk(3, dim=-1)
+            seq = sequence_axis()
+            if seq is None:
+                q_out, k_out, v_out = self.all_linear(q).chunk(3, dim=-1)
+            else:  # every rank's tokens, projected here: half the bytes of their keys and values
+                n = q.shape[1]
+                q_out, k_out, v_out = self.all_linear(seq_gather(q, seq)).chunk(3, dim=-1)
+                q_out = q_out[:, seq.rank * n:(seq.rank + 1) * n]
         else:
             q_out, k_out, v_out = self.q_linear(q), self.k_linear(k), self.v_linear(v)
 
@@ -331,6 +348,9 @@ class TransformerEncoder(nn.Module):
         self.final_norm = LayerNorm(model_dim, eps=_LN_EPS, dtype=dtype)
 
     def forward(self, x, mask=None, ctxt=None, attn_bias=None) -> torch.Tensor:
+        seq = sequence_axis()
+        if seq is not None and mask is not None:  # the keys' mask, every rank's
+            mask = seq.all_gather(mask, 1)
         for i in range(self.num_layers):
             x = getattr(self, f"layer_{i}")(x, mask, ctxt, attn_bias)
         return self.final_norm(x)
@@ -430,6 +450,7 @@ class CrossAttentionEncoder(nn.Module):
                 )
 
     def forward(self, seq, mask=None, ctxt=None) -> torch.Tensor:
+        refuse_under_sp("the cross-attention encoder (global tokens)")
         g = self.global_tokens.expand(seq.shape[0], -1, -1).to(seq.dtype)
         for i in range(self.num_layers):
             g = getattr(self, f"from_layer_{i}")(g, seq, mask, ctxt)

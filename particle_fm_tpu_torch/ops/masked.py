@@ -7,11 +7,18 @@ Point clouds are fixed-shape and padded:
 
 The mean has no epsilon, as in the JAX package: a set with no real particle
 gives 0/0. The caller guarantees at least one real particle per set.
+
+Under sequence parallelism (parallel/mesh.py::sequence_parallel) each rank
+holds its part of every set's particles: `meansum_pool` sums its sums and
+counts over the model axis in one all-reduce, whose backward sums too
+(every rank's pooled value reaches every rank's share of the loss).
 """
 
 from __future__ import annotations
 
 import torch
+
+from particle_fm_tpu_torch.parallel.mesh import seq_reduce, sequence_axis
 
 
 def apply_mask(x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
@@ -45,6 +52,14 @@ def meansum_pool(
     x: torch.Tensor, mask: torch.Tensor | None, sum_scale: float = 1e-2
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """EPiC mean+sum pooling over particles: (mean, sum * sum_scale), each (B, F)."""
+    seq = sequence_axis()
+    if seq is not None:
+        if mask is None:
+            mask = torch.ones_like(x[..., :1])
+        s = torch.sum(x * mask, dim=-2)
+        both = seq_reduce(torch.cat([s, torch.sum(mask, dim=-2).to(s.dtype)], dim=-1), seq)
+        s, n = both[..., :-1], both[..., -1:]
+        return s / n, s * sum_scale
     if mask is None:
         s = torch.sum(x, dim=-2)
         m = s / x.shape[-2]

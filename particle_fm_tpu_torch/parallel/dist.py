@@ -22,7 +22,9 @@ every draw is made at the global batch's size and sliced, so W ranks see
 the numbers one process draws; and the normalising sums (the mask count,
 the normaliser's moments) are summed over the ranks, so each rank's loss
 is its share of the global loss and the ranks' gradients add up to the
-global gradient.
+global gradient. On a (data, model) mesh (parallel/mesh.py) the rows split
+over the data axis only, and under sp each set's particles over the model
+axis too (`BatchShard.of_mesh`).
 """
 
 from __future__ import annotations
@@ -129,18 +131,18 @@ def local_rows(global_batch: int, rank_: int | None = None,
     return slice(r * b, (r + 1) * b)
 
 
-def all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
-    """Sum `t` over the ranks, in place; returns it. Each call is a
-    torch.profiler range named ALL_REDUCE_RANGE."""
+def all_reduce_sum_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum `t` over the ranks (of `group`; None: all), in place; returns it.
+    Each call is a torch.profiler range named ALL_REDUCE_RANGE."""
     with torch.profiler.record_function(ALL_REDUCE_RANGE):
-        tdist.all_reduce(t, op=tdist.ReduceOp.SUM)
+        tdist.all_reduce(t, op=tdist.ReduceOp.SUM, group=group)
     return t
 
 
-def all_reduce_tensors_(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
-    """The tensors summed over the ranks in one collective (one flat buffer
-    of their common dtype); returns views of the summed buffer."""
-    flat = all_reduce_sum_(torch.cat([t.reshape(-1) for t in tensors]))
+def all_reduce_tensors_(tensors: list[torch.Tensor], group=None) -> list[torch.Tensor]:
+    """The tensors summed over the ranks (of `group`) in one collective (one
+    flat buffer of their common dtype); returns views of the summed buffer."""
+    flat = all_reduce_sum_(torch.cat([t.reshape(-1) for t in tensors]), group)
     return [part.view(t.shape) for part, t in
             zip(torch.split(flat, [t.numel() for t in tensors]), tensors)]
 
@@ -178,15 +180,42 @@ def gather_rows(local: torch.Tensor, dim: int = 0) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class BatchShard:
     """Rank `rank` of `world` holds its rows of the global batch; `reduce`
-    sums a tensor over the ranks (an all-reduce; a test may emulate it)."""
+    sums a tensor over the ranks that hold distinct data (an all-reduce; a
+    test may emulate it), `group` is their process group (None: every rank).
+
+    On a (data, model) mesh (parallel/mesh.py) `rank` and `world` are the
+    data coordinate and size. Under dp_tp and dp_ep the model ranks of a
+    row hold the same rows, so the sums run over the data group. Under sp
+    (`seq`, the model axis) each rank also holds its part of every set's
+    particles, of a set of `particles` padded to a multiple of the model
+    size with masked particles on the last ranks (`local_particles`); the
+    sums of per-particle quantities run over every rank, and those of
+    per-set quantities (the cond normaliser's) over the data group
+    (`rows_shard`, with `reduce_rows`)."""
 
     rank: int
     world: int
     reduce: Callable[[torch.Tensor], torch.Tensor]
+    group: object = None
+    seq: object = None
+    particles: int = 0
+    reduce_rows: Callable[[torch.Tensor], torch.Tensor] | None = None
 
     @classmethod
     def of_group(cls) -> "BatchShard":
         return cls(rank(), world_size(), lambda t: all_reduce_sum_(t.clone()))
+
+    @classmethod
+    def of_mesh(cls, mesh, sp: bool = False) -> "BatchShard":
+        """The rows of this rank's data coordinate on a ProcessMesh; with
+        `sp` the particles split over its model axis too."""
+        def over(group):
+            return lambda t: all_reduce_sum_(t.clone(), group)
+
+        if not sp:
+            return cls(mesh.data_rank, mesh.data, over(mesh.data_group), mesh.data_group)
+        return cls(mesh.data_rank, mesh.data, over(None), None, seq=mesh.axis,
+                   reduce_rows=over(mesh.data_group))
 
     def global_rows(self, b: int) -> int:
         return b * self.world
@@ -194,6 +223,28 @@ class BatchShard:
     def local(self, a: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a global-batch tensor."""
         return a[local_rows(a.shape[0], self.rank, self.world)]
+
+    def at_particles(self, n: int) -> "BatchShard":
+        """This shard for sets of n particles (sp)."""
+        return dataclasses.replace(self, particles=n)
+
+    def local_particles(self, a: torch.Tensor) -> torch.Tensor:
+        """This model rank's particles (axis 1) of a tensor of whole sets:
+        ceil(n / model) of them, zeros past the last particle."""
+        m = self.seq.size
+        k = -(-self.particles // m)
+        lo = self.seq.rank * k
+        part = a[:, lo:lo + k]
+        if part.shape[1] < k:
+            pad = part.new_zeros((part.shape[0], k - part.shape[1]) + tuple(part.shape[2:]))
+            part = torch.cat([part, pad], dim=1)
+        return part
+
+    def rows_shard(self) -> "BatchShard":
+        """The shard of per-set quantities: its sums over the data group."""
+        if self.seq is None:
+            return self
+        return BatchShard(self.rank, self.world, self.reduce_rows)
 
     def total(self, t: torch.Tensor) -> torch.Tensor:
         """The sum over the ranks of a no-grad tensor."""
@@ -203,12 +254,18 @@ class BatchShard:
 
 
 def local_draw(shard: BatchShard | None, draw: Callable, generator: torch.Generator,
-               shape, device: torch.device) -> torch.Tensor:
+               shape, device: torch.device, per_particle: bool = False) -> torch.Tensor:
     """`draw(generator, shape, device)` for this rank's rows: with a shard,
-    drawn for the global batch (shape[0] * W rows) and sliced."""
+    drawn for the global batch (shape[0] * W rows) and sliced; a
+    `per_particle` draw (B, N, ...) under sp is drawn for the whole sets
+    and this rank's particles kept."""
     if shard is None:
         return draw(generator, shape, device)
     if isinstance(shape, int):
         return shard.local(draw(generator, shard.global_rows(shape), device))
-    return shard.local(draw(generator, (shard.global_rows(shape[0]),) + tuple(shape[1:]),
-                            device))
+    shape = tuple(shape)
+    if per_particle and shard.seq is not None:
+        whole = draw(generator, (shard.global_rows(shape[0]), shard.particles) + shape[2:],
+                     device)
+        return shard.local_particles(shard.local(whole))
+    return shard.local(draw(generator, (shard.global_rows(shape[0]),) + shape[1:], device))

@@ -78,6 +78,8 @@ class FSDPSharding:
     replicated), and a host copy of the unsharded network to build whole
     networks from (`full_network`)."""
 
+    owns_backward = True  # the gradients come from FSDP2's backward (`reduced_grads`)
+
     def __init__(self, net: nn.Module, dims: list[int | None]):
         self.net = net
         self.dims = dims

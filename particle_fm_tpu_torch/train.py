@@ -30,7 +30,7 @@ flat models on (B, F) batches without a mask. A callback the port lacks
 raises through config/core.py. An entry without a `_target_`, as an
 experiment overlay leaves after `callbacks=none`, is skipped, as in the JAX
 package. A trainer key the port's Trainer does not declare (the JAX
-trainer's `cache_data_on_device`, `model_axis_size`, ...) raises
+trainer's `cache_data_on_device`, `pp_microbatches`, ...) raises
 NotImplementedError.
 
 Across processes, every rank runs the same command:
@@ -39,9 +39,14 @@ Across processes, every rank runs the same command:
 
 The process group starts (parallel/dist.py: torchrun's environment,
 `trainer.multihost=true` or PFM_MULTIHOST=1; NCCL on the card, gloo with
-`device=cpu`) before the Trainer is built; `trainer.strategy` is `dp` or
-`fsdp`. Rank 0 names the run directory and writes the config, the logs,
-the checkpoints and `final_metrics.yaml`; every rank trains and evaluates.
+`device=cpu`, or PFM_DIST_BACKEND=gloo for several ranks on one card)
+before the Trainer is built; `trainer.strategy` is `dp`, `fsdp`, or, on a
+(data, model) mesh of W / `trainer.model_axis_size` x model_axis_size
+ranks (default 2, as in the JAX trainer; `configs/` does not set it),
+`dp_tp`, `sp` or `dp_ep` (parallel/mesh.py, parallel/tp.py). `pp` and
+`dp_pp` raise. Rank 0 names the run directory and writes the config, the
+logs, the checkpoints (the single-process format, gathered) and
+`final_metrics.yaml`; every rank trains and evaluates.
 """
 
 from __future__ import annotations

@@ -43,6 +43,14 @@ accumulation the sum is taken once per optimizer step. A state sharded by
 parallel/fsdp.py (`state.sharding`) takes its gradients from FSDP2's
 backward (reduce-scattered) and its clip norm over every rank's shards; the
 EMA and AdamW then update each rank's shards.
+
+On a (data, model) mesh (parallel/mesh.py) the sum runs over the ranks that
+hold distinct data (the shard's `group`): under dp_tp and dp_ep every model
+rank computes the same loss on the same rows, so every gradient, sharded or
+replicated, is summed over the data group; under sp each rank's loss is its
+own share, so the sum runs over every rank. A state split by parallel/tp.py
+(`ModelSharding`) clips by the norm whose sharded squares are summed over
+the model group and whose replicated ones count once.
 """
 
 from __future__ import annotations
@@ -89,8 +97,9 @@ class StepScalars:
 class TrainState:
     """The network (it holds the parameters), their EMA twin in the order of
     `net.parameters()`, the AdamW state and the optimizer step count;
-    `sharding` (parallel/fsdp.py::FSDPSharding) when the state is sharded
-    over ranks, where the EMA twin holds this rank's shards; `scalars`, the
+    `sharding` (parallel/fsdp.py::FSDPSharding, parallel/tp.py::ModelSharding)
+    when the state is sharded over ranks, where the EMA twin holds this
+    rank's shards; `scalars`, the
     step body's device values (not part of the checkpoint)."""
 
     net: nn.Module
@@ -265,7 +274,7 @@ def _summed(loss: torch.Tensor, grads: list[torch.Tensor], shard: BatchShard | N
     process)."""
     if shard is None:
         return loss, grads
-    loss, *grads = dist.all_reduce_tensors_([loss] + grads)
+    loss, *grads = dist.all_reduce_tensors_([loss] + grads, shard.group)
     return loss, grads
 
 
@@ -278,7 +287,7 @@ def _apply(state: TrainState, optimizer: Optimizer, grads, loss, ema_decay, ema_
     optimizer.apply(state.opt_state, params, grads, sc, sharding=state.sharding)
     ema_update(state.ema_params, [local_view(p) for p in params], sc.step, decay=ema_decay,
                every_n=ema_every_n, start_step=ema_start_step)
-    if state.sharding is not None:  # FSDP2's backward wrote them: the next one starts afresh
+    if _owns_backward(state):  # FSDP2's backward wrote them: the next one starts afresh
         for p in params:
             p.grad = None
     with torch.no_grad():
@@ -286,6 +295,12 @@ def _apply(state: TrainState, optimizer: Optimizer, grads, loss, ema_decay, ema_
         sc.step.add_(1)
         sc.k.add_(1)
     return loss
+
+
+def _owns_backward(state: TrainState) -> bool:
+    """Whether the state's sharding takes the gradients from its own
+    backward (FSDP2), not from autograd.grad."""
+    return state.sharding is not None and state.sharding.owns_backward
 
 
 def _loss_kw(shard: BatchShard | None) -> dict:
@@ -302,7 +317,7 @@ def step_body(model, optimizer: Optimizer, ema_decay: float = 0.999, ema_every_n
     def body(state: TrainState, generator: torch.Generator, x, mask, cond) -> torch.Tensor:
         loss = model.loss(state.net, generator, x, mask=mask, cond=cond, train=True,
                           **_loss_kw(shard))
-        if state.sharding is not None:
+        if _owns_backward(state):
             state.sharding.backward(loss)
             loss, grads = state.sharding.reduced_grads(state.params(), loss)
         else:
@@ -326,7 +341,7 @@ def accum_step_body(model, optimizer: Optimizer, ema_decay: float = 0.999,
 
     def body(state: TrainState, generator: torch.Generator, xs, ms, cs) -> torch.Tensor:
         params = state.params()
-        sharding = state.sharding
+        sharding = state.sharding if _owns_backward(state) else None
         gsum = None if sharding is not None else [torch.zeros_like(p) for p in params]
         wsum = lsum = None
         n_micro = xs.shape[0]

@@ -58,12 +58,18 @@ generator stays seeded from (seed + 1, step).
 Across processes (parallel/, launched by torchrun) every rank runs this
 loop on the same global batches: `strategy="dp"` replicates the state and
 sums the gradients over the ranks each step, `strategy="fsdp"` shards the
-parameters, their EMA twin and the AdamW moments (parallel/fsdp.py). Rank r
-takes rows [r*B/W, (r+1)*B/W) of each global batch B (`batch_size` is
-global, as in the JAX trainer) from its own device cache, shuffled by the
-same permutation, or from the same streamed batches; the cache is trimmed
-to a multiple of W as the JAX trainer trims it, and so is each validation
-batch. Each rank draws from the same generator at the global batch's size
+parameters, their EMA twin and the AdamW moments (parallel/fsdp.py). On a
+(data, model) mesh of `model_axis_size` ranks a row (parallel/mesh.py; the
+world must divide, as in the JAX trainer) `dp_tp` splits the EPiC local
+MLPs and `dp_ep` the MoE's experts over the model axis (parallel/tp.py),
+and `sp` splits each set's particles (the EPiC model and the full
+transformer without experts; another family, or CFM-OT, raises); the model
+ranks of a row hold the same rows. Rank r takes rows [d*B/D, (d+1)*B/D) of
+each global batch B, d its data coordinate of D (D = W but on the mesh;
+`batch_size` is global, as in the JAX trainer) from its own device cache,
+shuffled by the same permutation, or from the same streamed batches; the
+cache is trimmed to a multiple of D as the JAX trainer trims it, and so is
+each validation batch. Each rank draws from the same generator at the global batch's size
 and keeps its rows (parallel/dist.py), so the losses and the updates are
 one process's at the same global batch. The state starts from rank 0's.
 Callbacks compute on every rank (generation rank-split, metrics identical
@@ -71,10 +77,10 @@ everywhere, so checkpoint decisions agree); logs, stdout, checkpoints and
 callback files are rank 0's (`artifacts_dir` is None on the others). In
 one process without a process group nothing of this runs.
 
-Not carried: the mesh strategies beyond dp and fsdp (ROADMAP.md Queue 1
-item 7) and the JAX trainer's cache and prefetch options (here the
-constants DEVICE_CACHE_LIMIT_MB and PREFETCH_BATCHES); asking for them
-raises.
+Not carried: the pipeline strategies pp and dp_pp, and the model axis in
+one process (ROADMAP.md Queue 1 item 7), and the JAX trainer's cache and
+prefetch options (here the constants DEVICE_CACHE_LIMIT_MB and
+PREFETCH_BATCHES); asking for them raises.
 """
 
 from __future__ import annotations
@@ -91,6 +97,8 @@ from particle_fm_tpu_torch.data.prefetch import pinned_placer, prefetch_to_devic
 from particle_fm_tpu_torch.parallel import dist
 from particle_fm_tpu_torch.parallel.dist import BatchShard
 from particle_fm_tpu_torch.parallel.fsdp import shard_state_fsdp
+from particle_fm_tpu_torch.parallel.mesh import ROADMAP_ITEM, make_mesh
+from particle_fm_tpu_torch.parallel.tp import STRATEGY_RULES, shard_state_tp
 from particle_fm_tpu_torch.training.checkpoint import CheckpointManager
 from particle_fm_tpu_torch.training.checkpoint import load_weights_from as _load_weights
 from particle_fm_tpu_torch.training.epochs import make_train_superepoch, step_seed
@@ -107,8 +115,10 @@ from particle_fm_tpu_torch.utils.device import resolve_device
 VAL_SEED = 9999  # fixed validation seed, as in the JAX trainer
 DEVICE_CACHE_LIMIT_MB = 2048  # the JAX trainer's default device_cache_limit_mb
 PREFETCH_BATCHES = 2  # streamed batches the worker keeps in flight
-STRATEGIES = ("dp", "fsdp")
-UNPORTED_STRATEGIES = ("dp_tp", "sp", "pp", "dp_pp", "dp_ep")
+STRATEGIES = ("dp", "fsdp", "dp_tp", "sp", "dp_ep")
+MODEL_AXIS_STRATEGIES = ("dp_tp", "sp", "dp_ep")  # on a (data, model) mesh
+UNPORTED_STRATEGIES = ("pp", "dp_pp")
+SP_FAMILIES = ("epic", "droid_fulltransformer")  # the networks sp runs
 
 
 @dataclass
@@ -139,6 +149,8 @@ class Trainer:
     scan_epochs: bool = True
     fuse_epochs: int = 1
     strategy: str = "dp"
+    # ranks on the model axis of dp_tp, sp and dp_ep (the JAX trainer's default)
+    model_axis_size: int = 2
     seed: int = 0
     verbose: bool = True
     device: str = "cuda"
@@ -160,18 +172,24 @@ class Trainer:
                 f"(expected {' | '.join(STRATEGIES + UNPORTED_STRATEGIES)})")
         if self.strategy in UNPORTED_STRATEGIES:
             raise NotImplementedError(
-                f"trainer.strategy={self.strategy!r} is not ported yet (ROADMAP.md Queue 1 "
-                "item 7); the port trains with dp and fsdp")
+                f"trainer.strategy={self.strategy!r} is not ported yet ({ROADMAP_ITEM}); the "
+                f"port trains with {', '.join(STRATEGIES)}")
         if self.fuse_epochs < 1:
             raise ValueError("trainer.fuse_epochs must be >= 1")
         if self.accumulate_grad_batches < 1:
             raise ValueError("trainer.accumulate_grad_batches must be >= 1")
-        self.world = dist.world_size()
+        self.mesh = None
         shard = BatchShard.of_group() if dist.is_initialized() else None
+        if self.strategy in MODEL_AXIS_STRATEGIES:
+            self._check_model_axis()
+            self.mesh = make_mesh(self.model_axis_size)
+            shard = BatchShard.of_mesh(self.mesh, sp=self.strategy == "sp")
         if self.strategy == "fsdp" and shard is None:
             raise NotImplementedError(
                 "trainer.strategy='fsdp' in one process is not ported: it shards over the "
                 "ranks of a process group (launch with torchrun)")
+        # the ranks that hold distinct rows of each global batch
+        self.world = 1 if shard is None else shard.world
         if shard is not None:
             if "shard" not in inspect.signature(self.model.loss).parameters:
                 raise NotImplementedError(
@@ -211,10 +229,38 @@ class Trainer:
         # None on every rank but 0
         self.artifacts_dir = (self.log_dir or ".") if self._rank0 else None
 
+    def _check_model_axis(self) -> None:
+        """The port's limits and JAX's checks of a (data, model) strategy: a
+        process group (one process has no model axis), the world divisible
+        by model_axis_size, and for sp a network family whose particles it
+        can split."""
+        if not dist.is_initialized():
+            raise NotImplementedError(
+                f"trainer.strategy={self.strategy!r} in one process is not ported "
+                f"({ROADMAP_ITEM}): it splits the model axis over the ranks of a process group "
+                "(launch with torchrun)")
+        w, m = dist.world_size(), self.model_axis_size
+        if m < 1 or w % m:
+            raise ValueError(f"strategy={self.strategy} needs the world size ({w}) divisible by "
+                             f"model_axis_size ({m})")
+        if self.strategy != "sp":
+            return
+        family = getattr(self.model, "model", None)
+        te = dict(dict(getattr(self.model, "net_config", None) or {}).get("te_config") or {})
+        if family not in SP_FAMILIES or te.get("moe_config") is not None:
+            raise NotImplementedError(
+                f"trainer.strategy='sp' is not ported for {type(self.model).__name__} "
+                f"model={family!r}{' with experts' if te.get('moe_config') else ''} "
+                f"({ROADMAP_ITEM}); sp runs {' and '.join(SP_FAMILIES)} without experts")
+        if getattr(self.model, "loss_type", None) == "CFM-OT":
+            raise NotImplementedError(
+                f"trainer.strategy='sp' with CFM-OT is not ported ({ROADMAP_ITEM}): the pairing "
+                "couples each set's particles across the split")
+
     def _per_step_reason(self) -> str | None:
         """Why epochs cannot run as one captured run, or None."""
         if self.shard is not None:
-            return f"a process group ({self.strategy} over {self.world} ranks)"
+            return f"a process group ({self.strategy} over {dist.world_size()} ranks)"
         reads_host = getattr(self.model, "loss_reads_host", None)
         if reads_host is not None and reads_host():
             return "the loss reads the host (OT-CFM with ot_method=exact)"
@@ -238,8 +284,7 @@ class Trainer:
         """This rank's rows of a host batch (the batch in one process)."""
         if self.shard is None:
             return batch
-        rows = dist.local_rows(len(batch[0]))
-        return tuple(None if a is None else a[rows] for a in batch)
+        return tuple(None if a is None else self.shard.local(a) for a in batch)
 
     def _even(self, batch):
         """A validation batch trimmed to a multiple of the world size, as the
@@ -317,7 +362,8 @@ class Trainer:
         n_use, k = self._usable_batches(n, bs, accum)
         perm = self._epoch_perm(n, n_use, epoch)
         if self.shard is not None:  # this rank's rows of every batch
-            perm = perm.reshape(k, bs)[:, dist.local_rows(bs)].reshape(-1)
+            perm = perm.reshape(k, bs)[:, dist.local_rows(bs, self.shard.rank,
+                                                          self.world)].reshape(-1)
             bs //= self.world
         perm = torch.from_numpy(perm).to(self.device)
         shuffled = [None if a is None else a.index_select(0, perm) for a in dev_data]
@@ -419,12 +465,17 @@ class Trainer:
 
     def _place_state(self, state: TrainState) -> TrainState:
         """In a process group: rank 0's state on every rank, then sharded
-        under fsdp (the counterpart of the JAX trainer's `_place_state`)."""
+        under fsdp, split over the model axis under dp_tp and dp_ep (the
+        counterpart of the JAX trainer's `_place_state`)."""
         if self.shard is None:
             return state
         dist.broadcast_(list(state.net.parameters()) + list(state.net.buffers())
                         + list(state.ema_params))
-        return shard_state_fsdp(state) if self.strategy == "fsdp" else state
+        if self.strategy == "fsdp":
+            return shard_state_fsdp(state)
+        if self.strategy in STRATEGY_RULES:
+            return shard_state_tp(state, self.mesh.axis, STRATEGY_RULES[self.strategy])
+        return state
 
     # ------------------------------------------------------------ validate
     def validate(self) -> float:

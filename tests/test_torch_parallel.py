@@ -15,13 +15,14 @@ the JAX package on the CPU:
 - the normaliser's statistics updated by two halves in lockstep (two
   threads whose `reduce` sums over both) equal the whole batch's update in
   one process within 1e-6;
-- `trainer.strategy`: the strategies not ported raise NotImplementedError
+- `trainer.strategy`: the strategies not ported (pp, dp_pp) and the model
+  axis's (dp_tp, sp, dp_ep) in one process raise NotImplementedError
   naming ROADMAP Queue 1 item 7, an unknown one ValueError, fsdp without a
   process group NotImplementedError (tests/test_strategy.py's
   `test_strategy_validation` is the JAX counterpart);
 - one process starts no process group; PFM_MULTIHOST=1 outside torchrun
-  raises; importing every module of the port, `parallel/` included, loads
-  no JAX.
+  raises; importing every module of the port, `parallel/` included (the
+  mesh and the tensor and expert placements too), loads no JAX.
 
 Two processes: tests/test_torch_parallel_multiproc.py (against JAX dp) and
 tests/test_torch_parallel_cli.py (the entry points under torchrun).
@@ -234,6 +235,8 @@ def test_importing_every_module_of_the_port_loads_no_jax():
             "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
             "assert 'particle_fm_tpu_torch.parallel.dist' in mods, mods\n"
             "assert 'particle_fm_tpu_torch.parallel.fsdp' in mods, mods\n"
+            "assert 'particle_fm_tpu_torch.parallel.mesh' in mods, mods\n"
+            "assert 'particle_fm_tpu_torch.parallel.tp' in mods, mods\n"
             "new = {'training.epochs', 'training.stopping', 'training.hparam'}\n"
             "assert {'particle_fm_tpu_torch.' + m for m in new} <= set(mods), mods\n"
             "[importlib.import_module(m) for m in mods]\n"
