@@ -181,7 +181,7 @@
    - eval timing: 1,500 jets generated against 1,500 synthetic test jets
      (N = 150), each stage timed: generation (exact EPiC launches), EFPs and
      energy correlators on the card, the native clustering (tau1-3, d12/d23),
-     W1M, W1P (on 5 of its 40 bootstrap batches, to keep the run inside its
+     W1M, W1P (on 2 of its 40 bootstrap batches, to keep the run inside its
      time limit), W1EFP and W1(tau21); then the EFPs and
      correlators on the card against the CPU on 256 jets (rtol 1e-4).
 6. Family phases (the other loss families and solvers), each composed from
@@ -209,7 +209,7 @@
      launches, sets/s; dopri5 kernel against plain within 1e-3; on the
      per-set solver, whose step sizes read each set's rounding, every kernel
      launch against the plain layer on its inputs (1e-4), the solver in
-     float64 card against CPU on 64 sets (the same decisions, within 1e-3),
+     float64 card against CPU on 32 sets (the same decisions, within 1e-3),
      and the two paths' results shown beside the spread that a start moved
      by one ulp gives; the flagship's cosine embedding shown beside,
      unchecked;
@@ -348,7 +348,13 @@
      jets, batch 1024) trained by dp, float32 and bf16, by fsdp (FSDP2),
      and the flagship EPiC by dp; each against the single-process step in
      the same process, in turns (one process, dp, dp, one process; 4 steps
-     a turn, each path on a state of its own from the same seed): float32
+     a turn, each path on a state of its own from the same seed): dp in
+     float32 bit-equal to one process (each tensor of the summed list
+     starts 16-byte aligned in the all-reduce's buffer: the clip's
+     `_foreach_norm` summed a misaligned view in another order), and path A
+     first walked in lockstep with one process for 3 steps, each stage's
+     difference printed (batch, loss, gradients, summed, clip norm, clipped,
+     parameters, AdamW moments, EMA) with the first that differs; float32
      losses and the first step's gradient within 1e-5, 99% of the parameter
      and EMA entries within 1e-5 and every entry within Adam's reach of
      2 x 8 steps x lr; bf16 closer to one process than bf16 is to float32
@@ -366,7 +372,8 @@
      (1e-4, exactly 600 EPiC launches a rank); the training CLI
      (fm_tops150_cond, trainer=smoke, trainer.strategy=dp) on both ranks;
    - that 2-rank checkpoint loaded in this process (`load_run`) and served
-     through make_serve_fn/serve_batches: 64 sets, exactly 600 launches.
+     through make_serve_fn/serve_batches: 64 sets, exactly 600 launches;
+   - the W=2 launch also runs the slice20 and slice21 cases (13 and 14).
 12. The phases of the training loop's services (`slice19` lines, then
    their total; `slice19_phases`), the epochs captured as CUDA graphs of one
    step (particle_fm_tpu_torch/training/epochs.py):
@@ -382,7 +389,7 @@
      one epoch of the 13,999-jet split (43 steps) a turn, eager and captured
      in turns (eager, captured, captured, eager) after an epoch of each, in
      float32 and bf16: ms a step, jets/s, the device's busy share
-     (torch.profiler over a quarter epoch more), peak memory, capture time;
+     (torch.profiler over 6 more steps), peak memory, capture time;
    - train.py (trainer=smoke, callbacks=none, 4,096 jets): fuse_epochs=2
      with an EarlyStopping callback that stops at epoch 3 of 10;
      load_weights_from its `last` at lr 0 with the device-stats callback
@@ -414,7 +421,25 @@
    takes the einsum path). Then the dp_tp run's gathered checkpoint served
    in this process (64 sets, NFE 100: exactly 600 `epic_layer` launches,
    against its plain path 1e-3). One `slice20` timing line, no claim.
-14. Prints the `kernels` JSON line (the launches of the training, eval,
+14. The pipeline phases (`slice21` lines, then their total;
+   `slice21_phases`): cases of the same W=2 gloo launch, the two ranks the
+   two stages of one pipeline (trainer.strategy=pp, model_axis_size 2,
+   pp_microbatches 8; particle_fm_tpu_torch/parallel/pp.py): path A
+   (fm_droid_transformer, packed, scores_dtype=null) at 4 layers (the
+   shipped 3 over 2 stages raise JAX's ValueError, checked first), every
+   parameter re-drawn, 4,096 synthetic jets, batch 1024, in float32 and
+   bf16. Each: the first step's gradients summed over the stages and 4 steps
+   against one process on the same global batches (the W=2 gate of 11; bf16
+   closer to one process than bf16 is to float32), the ranks bit-equal;
+   exactly (L/S) M = 16 packed (or packed bf16) launches a step a rank, none
+   in the backward; 2 steps a turn in turns with dp at W=2 (pp, dp, pp, dp)
+   for ms a step, the second pp turn under torch.profiler for the hops'
+   share (`particle_fm.pipe` ranges: 8 sends or receives forward, 8
+   backward and the output's broadcast a step a rank) and the all-reduce's;
+   peak memory a rank. Then rank 0's float32 checkpoint served in this
+   process (64 sets, NFE 100: exactly 400 packed launches, 4 an evaluation,
+   against its plain path 1e-3). One `slice21` timing line, no claim.
+15. Prints the `kernels` JSON line (the launches of the training, eval,
    family, dataset, classifier, slice and ddp phases under
    `launches_by_path` too), the card line again, and as the last line
    {"ok": true, "device": {...}}.
@@ -1972,7 +1997,7 @@ EVAL_JETS = 2000  # the callback's num_jet_samples: 2 batches of 1000
 EVAL_TIMING_JETS = 1_500
 # W1P's bootstrap timed on this many of the callback's 40 batches (its seconds
 # scale with the batches: about 92 s for all 40 at 5,000 jets on an H100)
-W1P_TIMING_BATCHES = 5
+W1P_TIMING_BATCHES = 2  # 5 until the pipeline phases took their time
 EVAL_W1_TOL = 1e-3  # W1M and W1P, kernel path against plain path
 EVAL_CPU_JETS = 256
 EVAL_CPU_RTOL = 1e-4
@@ -2462,7 +2487,8 @@ def dopri5_runs(torch, ops, dev, counted, model, net, mask, cond, solver, held=N
     return runs
 
 
-WITNESS_SETS = 64  # sets of the float64 per-set run, card against CPU
+WITNESS_SETS = 32  # sets of the float64 per-set run, card against CPU (64 until the pipeline
+# phases took their time)
 
 
 def same_decisions(torch, st, st_p):
@@ -4243,7 +4269,8 @@ DDP_DIR = ROOT / "build" / "ddp_smoke"
 DDP_STEPS = 4  # steps a turn
 DDP_TIMEOUT_S = 420  # a torchrun launch
 DDP_PROFILED_STEPS = 2  # dp steps under torch.profiler at W=2, for the all-reduce share
-DDP_F32_TOL = 1e-5  # W=1 against one process, parameters and losses (relative)
+DDP_F32_TOL = 1e-5  # W=1 against one process, parameters and losses (relative); dp in float32
+# is also held bit-equal to it
 DDP2_TOL = 1e-4  # W=2 against one process: losses (relative) over DDP_STEPS steps, the
 # first step's summed gradient (of the largest), DDP2_QUANTILE of the parameter and EMA entries
 DDP2_QUANTILE = 0.99
@@ -4337,6 +4364,66 @@ def whole_params(state) -> dict:
             "ema": [e.detach().cpu() for e in sd["ema_params"]]}
 
 
+W1_STAGE_STEPS = 3  # lockstep steps: the third is where path A's clip norm used to differ
+
+
+def w1_step_stages(torch, model, opt, trainer, glob_b, mine, dev) -> dict:
+    """One process and dp at W=1 (the trainer's shard) in lockstep over the
+    first W1_STAGE_STEPS steps, each from the same seeded state: at every step its batch,
+    then, from the states as they stand, the loss and the gradients (the
+    rank's share, then summed over the one rank), the clip's global norm
+    (over the summed gradients as the step holds them, and over copies of
+    them), the clipped gradients, then each path's own step and the
+    parameters, AdamW moments and EMA after it; each stage's largest
+    difference at each step and the first (step, stage) that differs
+    (ROADMAP.md Queue 3 item 15)."""
+    from particle_fm_tpu_torch.training import step as pstep
+    from particle_fm_tpu_torch.training.trainer import step_seed
+
+    states = [ddp_state(torch, model, opt, dev) for _ in range(2)]
+    steps = [pstep.make_train_step(model, opt, ema_decay=trainer.ema_decay), trainer.train_step]
+
+    def norm(gs):
+        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
+
+    def gap(a, b):
+        a = a if isinstance(a, (list, tuple)) else [a]
+        b = b if isinstance(b, (list, tuple)) else [b]
+        return max(float((x.detach().float() - y.detach().float()).abs().max())
+                   for x, y in zip(a, b) if x is not None)
+
+    by_step, first = [], None
+    for k, (ba, bb) in enumerate(zip(glob_b[:W1_STAGE_STEPS], mine)):
+        st = {"batch": gap(ba, bb)}
+        gens = [torch.Generator(dev).manual_seed(step_seed(trainer.seed, s.step)) for s in states]
+        loss_a = model.loss(states[0].net, gens[0], *ba, train=True)
+        loss_b = model.loss(states[1].net, gens[1], *bb, train=True, shard=trainer.shard)
+        g_a = pstep._grads(loss_a, states[0].params())
+        g_b = pstep._grads(loss_b, states[1].params())
+        st["loss share"], st["gradients"] = gap(loss_a, loss_b), gap(g_a, g_b)
+        l_b, s_b = pstep._summed(loss_b.detach(), g_b, trainer.shard)
+        st["summed loss"], st["summed gradients"] = gap(loss_a, l_b), gap(g_a, s_b)
+        st["clip norm"] = gap(norm(g_a), norm(s_b))
+        st["clip norm of contiguous copies"] = gap(norm(g_a), norm([g.clone() for g in s_b]))
+        c_a, c_b = [g.clone() for g in g_a], [g.clone() for g in s_b]
+        pstep.clip_by_global_norm_(c_a, opt.grad_clip)
+        pstep.clip_by_global_norm_(c_b, opt.grad_clip, norm=norm(s_b))
+        st["clipped gradients"] = gap(c_a, c_b)
+        del loss_a, loss_b, g_a, g_b, s_b, c_a, c_b
+        for s, step, b in zip(states, steps, (ba, bb)):
+            gen = torch.Generator(dev).manual_seed(step_seed(trainer.seed, s.step))
+            step(s, gen, *b)
+        st["parameters after the step"] = gap(states[0].params(), states[1].params())
+        st["AdamW moments after the step"] = gap(
+            [states[0].opt_state.state[p]["exp_avg_sq"] for p in states[0].params()],
+            [states[1].opt_state.state[p]["exp_avg_sq"] for p in states[1].params()])
+        st["EMA after the step"] = gap(states[0].ema_params, states[1].ema_params)
+        by_step.append(st)
+        if first is None:
+            first = next(([k, name] for name, v in st.items() if v != 0.0), None)
+    return {"max_abs_by_step_and_stage": by_step, "first_step_and_stage_that_differs": first}
+
+
 def ddp_train_case(torch, dev, counted, case) -> dict:
     """One model trained by this rank's strategy. At W=1 against the
     single-process step in the same process, in turns (single, dp, dp,
@@ -4366,6 +4453,8 @@ def ddp_train_case(torch, dev, counted, case) -> dict:
     n_ddp = steps * turns.count("ddp")
     glob_b = global_batches(torch, trainer, data, n_ddp)
     mine = local_batches(trainer, data, n_ddp)
+    if case.get("stages"):  # dp at W=1 against one process, stage by stage
+        out["w1_stages"] = w1_step_stages(torch, model, opt, trainer, glob_b, mine, dev)
     states = {"single": ddp_state(torch, model, opt, dev)}
     states["ddp"] = trainer._place_state(ddp_state(torch, model, opt, dev))
     if case["strategy"] == "fsdp" and states["ddp"].sharding is None:
@@ -4477,7 +4566,8 @@ def ddp_cli_case(torch, dev, counted, case) -> dict:
 
 
 DDP_CASES = {"train": ddp_train_case, "sample": ddp_sample_case, "cli": ddp_cli_case,
-             "model_axis": lambda *a: model_axis_case(*a)}
+             "model_axis": lambda *a: model_axis_case(*a),
+             "pipeline": lambda *a: pipeline_case(*a)}
 
 
 def ddp_worker(job_path: str) -> None:
@@ -4606,7 +4696,7 @@ def ddp_phases(torch, dev, counted) -> dict:
 
     bf16 = "model.dtype=bfloat16"
     w1 = ddp_launch(torch, "w1_nccl", 1, "nccl", [
-        dict(kind="train", name="path A", overrides=PATH_A, strategy="dp"),
+        dict(kind="train", name="path A", overrides=PATH_A, strategy="dp", stages=True),
         dict(kind="train", name="path A bf16", overrides=PATH_A + [bf16], strategy="dp"),
         dict(kind="train", name="path A fsdp", overrides=PATH_A, strategy="fsdp"),
         dict(kind="train", name="EPiC", overrides=EPIC, strategy="dp")])[0]
@@ -4625,6 +4715,8 @@ def ddp_phases(torch, dev, counted) -> dict:
                                   "grad_err_over_largest", "run_to_run_max_abs")}
         line["ddp_over_one_process_step"] = (r["median_step_ms"]["ddp"]
                                              / r["median_step_ms"]["single"])
+        if "w1_stages" in r:
+            line["stage_by_stage_vs_one_process"] = r["w1_stages"]
         if name == "path A bf16":  # the bf16 training gate: closer to one process than bf16 to f32
             gaps = (params_frob(r["ddp"], r["single"]),
                     params_frob(r["single"], w1["path A"]["single"]))
@@ -4636,6 +4728,12 @@ def ddp_phases(torch, dev, counted) -> dict:
             line["vs_dp"] = held_by_entries(
                 f"fsdp {name} against dp", r["ddp"], w1["path A"]["ddp"], r["losses"]["ddp"],
                 w1["path A"]["losses"]["ddp"], None, FSDP_ATOL, FSDP_RTOL, 2 * n_ddp)
+        if name in ("path A", "EPiC"):  # dp at W=1 is one process to the bit (Queue 3 item 15)
+            if (params_err(r["ddp"], r["single"]) != 0.0
+                    or r["losses"]["ddp"] != r["losses"]["single"]):
+                fail(f"ddp {name}: dp at W=1 is not bit-equal to one process "
+                     f"({params_err(r['ddp'], r['single'])})")
+            line["bit_equal_to_one_process"] = True
         if name != "path A fsdp":
             line["vs_one_process"] = held_by_entries(
                 f"ddp {name} against one process", r["ddp"], r["single"], r["losses"]["ddp"],
@@ -4644,7 +4742,8 @@ def ddp_phases(torch, dev, counted) -> dict:
         out[f"ddp {name} (W=1, nccl)"] = line
         print(json.dumps({"ddp": f"ddp {name} (W=1, nccl)", **line}), flush=True)
 
-    # the slice20 cases ride this launch (one process start less); slice20_phases reads them
+    # the slice20 and slice21 cases ride this launch (one process start less); slice20_phases
+    # and slice21_phases read them
     w2 = ddp_launch(torch, "w2_gloo", 2, "gloo", [
         dict(kind="train", name="path A", overrides=PATH_A + [f"data.batch_size={DDP2_BATCH}"],
              strategy="dp"),
@@ -4653,7 +4752,9 @@ def ddp_phases(torch, dev, counted) -> dict:
             "data.synthetic_num_jets=2049", "trainer=smoke", "trainer.max_epochs=1",
             "callbacks=none", "trainer.strategy=dp"])] + [
         dict(kind="model_axis", name=name, strategy=strategy, overrides=overrides)
-        for name, strategy, overrides in SLICE20_CASES])
+        for name, strategy, overrides in SLICE20_CASES] + [
+        dict(kind="pipeline", name=name, overrides=overrides)
+        for name, overrides in SLICE21_CASES])
     out["ddp2_launch_s"] = w2[0]["launch_s"]
     r0, r1 = w2[0]["path A"], w2[1]["path A"]
     if not (r0["backend"] == "gloo" and r0["world"] == 2):
@@ -4899,7 +5000,8 @@ def busy_share(torch, dev, fn, wall: float) -> float | None:
     return device_ms / (1e3 * wall) if device_ms > 0 else None
 
 
-PROFILED_STEPS = 11  # steps of the busy-share reading: a quarter epoch (reading a recording is slow)
+PROFILED_STEPS = 6  # steps of the busy-share reading (reading a recording is slow; 11 until
+# the pipeline phases took their time)
 
 
 def timing_in_turns(torch, dev, dtype_overrides) -> dict:
@@ -5116,6 +5218,50 @@ def expert_choices(box: list):
         yield
 
 
+def strategy_turns(torch, dev, counted, path: str, steps: int, trainer, runs: dict, states: dict,
+                   ranges) -> dict:
+    """`path` (the strategy under test) and dp at W=2 in turns, `steps` steps a
+    turn (path, dp, path, dp), rank 0 first training one process ("single",
+    two turns) on the same global batches; `runs` maps each path to its
+    batches and its step, `states` to its state. The second `path` turn runs
+    under torch.profiler, which reads the named `ranges`. Returns the losses,
+    the seconds and median ms a step, the peak memory over each path's start,
+    `path`'s launches and the profile."""
+    from torch.profiler import ProfilerActivity, profile
+
+    losses = {k: [] for k in runs}
+    secs = {k: [] for k in runs}
+    peak, profiled = {}, None
+    launches = {w.__name__: 0 for w in counted}
+    done = {k: 0 for k in runs}
+    for name in ("single", "single") * ("single" in states) + (path, "dp", path, "dp"):
+        batches, step = runs[name]
+        i = done[name]
+        done[name] += steps
+        reset(counted)
+        torch.cuda.reset_peak_memory_stats(dev)
+        start_bytes = torch.cuda.memory_allocated(dev)
+        traced = name == path and i > 0  # the second turn of the path under test
+        with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if traced
+              else contextlib.nullcontext()) as prof:
+            got_l, got_s = ddp_steps(torch, step, trainer, states[name], batches[i:i + steps])
+        if traced:
+            by_range = {r: [e for e in prof.key_averages() if e.key == r] for r in ranges}
+            profiled = {"steps": len(got_s), "wall_s": sum(got_s), "step_s": got_s,
+                        "ranges_s": {k: sum(e.cpu_time_total for e in r) / 1e6
+                                     for k, r in by_range.items()},
+                        "range_calls": {k: sum(e.count for e in r) for k, r in by_range.items()}}
+        peak[name] = max(peak.get(name, 0), torch.cuda.max_memory_allocated(dev) - start_bytes)
+        if name == path:
+            for k, v in launched(counted).items():
+                launches[k] += v
+        losses[name] += got_l
+        secs[name] += got_s
+    return {"losses": losses, "launches": launches, "peak_bytes": peak, "step_s": secs,
+            "median_step_ms": {k: 1e3 * float(np.median(v)) for k, v in secs.items() if v},
+            "profiled": profiled}
+
+
 def model_axis_case(torch, dev, counted, case) -> dict:
     """One model trained at its strategy on the (data 1, model 2) mesh: the
     first step's gradients (summed, gathered whole) against one process's;
@@ -5187,46 +5333,12 @@ def model_axis_case(torch, dev, counted, case) -> dict:
         out["expert_slots_differing"] = sum(
             int((a != b[:, r * e_loc:(r + 1) * e_loc]).sum()) for a, b in zip(axis_idx, one_idx))
 
-    from torch.profiler import ProfilerActivity, profile
-
-    losses = {"axis": [], "dp": [], "single": []}
-    secs = {"axis": [], "dp": [], "single": []}
-    peak, profiled = {}, None
-    launches = {w.__name__: 0 for w in counted}
-    done = {"axis": 0, "dp": 0}
-    turns = ("single", "single") if rank0 else ()
     out["phase_s"] = {"set_up_and_first_gradients": time.perf_counter() - t_case}
     t0 = time.perf_counter()
-    for path in turns + ("axis", "dp", "axis", "dp"):
-        if path == "single":
-            i = len(losses["single"])
-            batches, step = glob_b[i:i + steps], single_step
-        else:
-            i = done[path]
-            batches = (mine if path == "axis" else dp_mine)[i:i + steps]
-            step = (trainer if path == "axis" else dp).train_step
-            done[path] += steps
-        reset(counted)
-        torch.cuda.reset_peak_memory_stats(dev)
-        start_bytes = torch.cuda.memory_allocated(dev)
-        traced = path == "axis" and i > 0  # the second model-axis turn
-        with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if traced
-              else contextlib.nullcontext()) as prof:
-            got_l, got_s = ddp_steps(torch, step, trainer, states[path], batches)
-        if traced:
-            ranges = {name: [e for e in prof.key_averages() if e.key == name]
-                      for name in (pmesh.MODEL_AXIS_RANGE, dist.ALL_REDUCE_RANGE)}
-            profiled = {"steps": len(batches), "wall_s": sum(got_s), "step_s": got_s,
-                        "collectives_s": {k: sum(e.cpu_time_total for e in r) / 1e6
-                                          for k, r in ranges.items()},
-                        "collective_calls": {k: sum(e.count for e in r)
-                                             for k, r in ranges.items()}}
-        peak[path] = max(peak.get(path, 0), torch.cuda.max_memory_allocated(dev) - start_bytes)
-        if path == "axis":
-            for k, v in launched(counted).items():
-                launches[k] += v
-        losses[path] += got_l
-        secs[path] += got_s
+    turns = strategy_turns(torch, dev, counted, "axis", SLICE20_STEPS, trainer, {
+        "single": (glob_b, single_step), "axis": (mine, trainer.train_step),
+        "dp": (dp_mine, dp.train_step)}, states, (pmesh.MODEL_AXIS_RANGE, dist.ALL_REDUCE_RANGE))
+    losses = turns["losses"]
     out["phase_s"]["turns"] = time.perf_counter() - t0
     if not np.isfinite(losses["axis"]).all():
         fail(f"{case['name']}: non-finite loss {losses['axis']}")
@@ -5240,9 +5352,7 @@ def model_axis_case(torch, dev, counted, case) -> dict:
             SLICE20_DIR.mkdir(parents=True, exist_ok=True)
             torch.save(sd, SLICE20_DIR / "dp_tp_flagship.pt")
     out["phase_s"]["gather_and_save"] = time.perf_counter() - t0
-    out.update(losses=losses, launches=launches, peak_bytes=peak, step_s=secs,
-               median_step_ms={k: 1e3 * float(np.median(v)) for k, v in secs.items() if v},
-               profiled=profiled)
+    out.update(turns)
     return out
 
 
@@ -5298,13 +5408,13 @@ def slice20_phases(torch, ops, dev, counted, ranks) -> dict:
         if n_packed:
             launches[wrapper] = (f"slice20 {name} (both ranks)", 2 * n_packed)
         prof = r0["profiled"]
-        coll = sum(prof["collectives_s"].values())
+        coll = sum(prof["ranges_s"].values())
         timing[name] = {
             "ms_a_step": {k: r0["median_step_ms"][k] for k in ("axis", "dp", "single")},
             "over_dp": r0["median_step_ms"]["axis"] / r0["median_step_ms"]["dp"],
             "rank1_ms_a_step": {k: r1["median_step_ms"][k] for k in ("axis", "dp")},
-            "collectives_share": coll / prof["wall_s"], "collectives_s": prof["collectives_s"],
-            "collective_calls": prof["collective_calls"], "profiled_wall_s": prof["wall_s"],
+            "collectives_share": coll / prof["wall_s"], "collectives_s": prof["ranges_s"],
+            "collective_calls": prof["range_calls"], "profiled_wall_s": prof["wall_s"],
             "peak_bytes_a_rank": {k: [r0["peak_bytes"][k], r1["peak_bytes"].get(k)]
                                   for k in ("axis", "dp")},
             "launches": [r0["launches"], r1["launches"]]}
@@ -5347,6 +5457,208 @@ def slice20_phases(torch, ops, dev, counted, ranks) -> dict:
     print(json.dumps({"slice20": "dp_tp checkpoint served (one process)", **served}), flush=True)
     out["served"] = served
     launches["epic_layer"] = ("slice20 dp_tp checkpoint served (one process)", got["epic_layer"])
+    out["_launches"] = launches
+    return out
+
+
+# slice 21: pipeline parallelism over the droid transformer's layers (parallel/pp.py)
+SLICE21_BATCH = 1024
+SLICE21_STEPS = 2  # steps a turn: pp, dp, pp, dp; the second pp turn under torch.profiler
+SLICE21_STAGES = 2
+SLICE21_MICROBATCHES = 8
+SLICE21_DIR = DDP_DIR / "slice21"
+# the shipped 3 layers do not split over 2 stages (the case checks that they raise)
+PIPE_DEPTH = ["model.net_config.te_config.num_layers=4"]
+SLICE21_CASES = [  # (name, overrides)
+    ("pp path A", PATH_A + PIPE_DEPTH),
+    ("pp path A bf16", PATH_A + PIPE_DEPTH + ["model.dtype=bfloat16"]),
+]
+
+
+def pipeline_case(torch, dev, counted, case) -> dict:
+    """Path A at 4 layers trained by pp over the two ranks (S=2, M=8): the
+    first step's gradients against one process's; SLICE21_STEPS steps a turn
+    in turns with dp at W=2 (pp, dp, pp, dp), each from the same seeded
+    state, rank 0 also training one process on the same global batches; the
+    second pp turn under torch.profiler for the hops' and the all-reduce's
+    shares; the whole state after (rank 0 writes the float32 one: the
+    checkpoint served in one process). The float32 case first checks that
+    the shipped 3 layers over 2 stages raise JAX's ValueError."""
+    from particle_fm_tpu_torch.parallel import dist
+    from particle_fm_tpu_torch.parallel import pp as ppar
+    from particle_fm_tpu_torch.training.step import (make_optimizer, make_train_step,
+                                                     pipelined_loss_and_grads)
+    from particle_fm_tpu_torch.training.trainer import Trainer
+
+    t_case = time.perf_counter()
+    batch = [f"data.batch_size={SLICE21_BATCH}"]
+    out = {}
+    if case["name"] == "pp path A":
+        shipped, dm3, _ = compose_training(PATH_A + batch)
+        try:
+            Trainer(shipped, dm3, make_optimizer(), strategy="pp", model_axis_size=SLICE21_STAGES,
+                    device=dev, verbose=False)
+        except ValueError as e:
+            out["shipped_depth_refused"] = str(e)
+        else:
+            fail("slice21: the shipped 3 layers over 2 stages did not raise ValueError")
+    model, dm, cfg = compose_training(case["overrides"] + batch)
+    dm.setup()
+    opt = make_optimizer(lr=1e-3, weight_decay=cfg["model"]["optimizer"]["weight_decay"],
+                         grad_clip=cfg["trainer"]["grad_clip"])
+    kw = dict(seed=cfg["seed"], device=dev, verbose=False, ema_decay=cfg["trainer"]["ema"]["decay"])
+    trainer = Trainer(model, dm, opt, strategy="pp", model_axis_size=SLICE21_STAGES,
+                      pp_microbatches=SLICE21_MICROBATCHES, **kw)
+    dp = Trainer(model, dm, opt, strategy="dp", **kw)
+    single_step = make_train_step(model, opt, ema_decay=trainer.ema_decay)
+    data = trainer._place_train_split()
+    steps, rank0 = SLICE21_STEPS, dist.rank() == 0
+    glob_b = global_batches(torch, trainer, data, 2 * steps)
+    mine = local_batches(trainer, data, 2 * steps)
+    dp_mine = local_batches(dp, data, 2 * steps)
+    states = {"pipe": trainer._place_state(ddp_state(torch, model, opt, dev)),
+              "dp": dp._place_state(ddp_state(torch, model, opt, dev))}
+    if rank0:
+        states["single"] = ddp_state(torch, model, opt, dev)
+    out.update(config=" ".join(case["overrides"]), world=dist.world_size(),
+               backend=dist.backend(), global_batch=dm.batch_size,
+               stage=trainer.pipe.stage, stages=trainer.pipe.size,
+               microbatches=trainer.pp_microbatches,
+               layers=list(ppar.PipelinedField(states["pipe"].net, trainer.pipe, 1).layers))
+
+    # the first step's gradients, summed over the stages, against one process's
+    gen = torch.Generator(dev).manual_seed(5)
+    _, grads = pipelined_loss_and_grads(model, states["pipe"].net, gen, *mine[0], trainer.pipe,
+                                        trainer.pp_microbatches, trainer.shard)
+    g_pipe = [g.detach().cpu() for g in grads]
+    out["grad_err_over_largest"] = None
+    if rank0:
+        g_one = first_gradients(torch, model, states["single"], glob_b[0], None, 5)
+        scale = max(float(g.abs().max()) for g in g_one)
+        out["grad_err_over_largest"] = max(float((a - b).abs().max())
+                                           for a, b in zip(g_pipe, g_one)) / scale
+
+    out["phase_s"] = {"set_up_and_first_gradients": time.perf_counter() - t_case}
+    t0 = time.perf_counter()
+    turns = strategy_turns(torch, dev, counted, "pipe", SLICE21_STEPS, trainer, {
+        "single": (glob_b, single_step), "pipe": (mine, trainer.train_step),
+        "dp": (dp_mine, dp.train_step)}, states, (ppar.PIPE_RANGE, dist.ALL_REDUCE_RANGE))
+    losses = turns["losses"]
+    out["phase_s"]["turns"] = time.perf_counter() - t0
+    if not np.isfinite(losses["pipe"]).all():
+        fail(f"{case['name']}: non-finite loss {losses['pipe']}")
+    out["pipe"] = whole_params(states["pipe"])
+    if rank0:
+        out["single"] = whole_params(states["single"])
+        if case["name"] == "pp path A":  # the checkpoint, served in one process
+            SLICE21_DIR.mkdir(parents=True, exist_ok=True)
+            torch.save(states["pipe"].state_dict(), SLICE21_DIR / "pp_path_a.pt")
+    out.update(turns)
+    return out
+
+
+def slice21_phases(torch, sa, dev, counted, ranks) -> dict:
+    """The pp cases' results from the W=2 gloo launch of `ddp_phases`
+    (`ranks`, one card), their checks against one process, the `slice21`
+    lines, and the pp checkpoint served in this process against its plain
+    path; the kernels' launches under "_launches"."""
+    from particle_fm_tpu_torch.parallel import dist
+    from particle_fm_tpu_torch.parallel import pp as ppar
+    from particle_fm_tpu_torch.serving import make_serve_fn, serve_batches
+
+    out = {"cases_s": sum(ranks[0][name]["case_s"] for name, _ in SLICE21_CASES)}
+    timing, launches = {}, {}
+    per_step = SLICE21_MICROBATCHES * 4 // SLICE21_STAGES  # (L/S) M packed launches a step a rank
+    for name, _ in SLICE21_CASES:
+        r0, r1 = ranks[0][name], ranks[1][name]
+        if not (r0["backend"] == "gloo" and r0["world"] == 2 and r0["stages"] == 2
+                and [r0["stage"], r1["stage"]] == [0, 1]):
+            fail(f"slice21 {name}: ran on {r0['backend']} at W={r0['world']}, stages "
+                 f"{r0['stages']}")
+        if params_err(r0["pipe"], r1["pipe"]) != 0.0 or r0["losses"]["pipe"] != r1["losses"]["pipe"]:
+            fail(f"slice21 {name}: the ranks' states differ")
+        bf16 = name.endswith("bf16")
+        line = {"config": r0["config"], "strategy": "pp", "stages": 2,
+                "microbatches": r0["microbatches"], "layers_a_rank": [r0["layers"], r1["layers"]],
+                "global_batch": r0["global_batch"], "steps": 2 * SLICE21_STEPS,
+                "losses": r0["losses"], "vs_one_process": held_by_entries(
+                    f"slice21 {name} against one process", r0["pipe"], r0["single"],
+                    r0["losses"]["pipe"], r0["losses"]["single"], r0["grad_err_over_largest"],
+                    None if bf16 else DDP2_TOL, 0.0, 2 * 2 * SLICE21_STEPS)}
+        if "shipped_depth_refused" in r0:
+            line["shipped_3_layers_over_2_stages"] = r0["shipped_depth_refused"]
+        if bf16:  # the bf16 training gate: closer to one process than bf16 to float32
+            gaps = (params_frob(r0["pipe"], r0["single"]),
+                    params_frob(r0["single"], ranks[0][name[:-len(" bf16")]]["single"]))
+            if not gaps[0] < gaps[1]:
+                fail(f"slice21 {name}: |pp - one process| {gaps[0]} against "
+                     f"|bf16 - f32| {gaps[1]}")
+            line["frobenius_vs_one_process_and_bf16_vs_f32"] = gaps
+        wrapper = "packed_short_attention_bf16" if bf16 else "packed_short_attention"
+        n_packed = per_step * 2 * SLICE21_STEPS
+        for r, res in enumerate((r0, r1)):
+            expect_launches(f"slice21 {name} rank {r}", res["launches"], wrapper, n_packed)
+        line["packed_launches_a_step_a_rank"] = per_step
+        launches[wrapper] = (f"slice21 {name} (both ranks)", 2 * n_packed)
+        prof = r0["profiled"]
+        hops = prof["ranges_s"][ppar.PIPE_RANGE]
+        if not (hops > 0.0 and prof["range_calls"][ppar.PIPE_RANGE] > 0):
+            fail(f"slice21 {name}: torch.profiler recorded no {ppar.PIPE_RANGE} range")
+        timing[name] = {
+            "ms_a_step": {k: r0["median_step_ms"][k] for k in ("pipe", "dp", "single")},
+            "over_dp": r0["median_step_ms"]["pipe"] / r0["median_step_ms"]["dp"],
+            "rank1_ms_a_step": {k: r1["median_step_ms"][k] for k in ("pipe", "dp")},
+            "hops_share": hops / prof["wall_s"],
+            "all_reduce_share": prof["ranges_s"][dist.ALL_REDUCE_RANGE] / prof["wall_s"],
+            "ranges_s": prof["ranges_s"], "range_calls": prof["range_calls"],
+            "profiled_wall_s": prof["wall_s"],
+            "bubble_of_compute": (SLICE21_STAGES - 1) / (SLICE21_MICROBATCHES + SLICE21_STAGES - 1),
+            "peak_bytes_a_rank": {k: [r0["peak_bytes"][k], r1["peak_bytes"].get(k)]
+                                  for k in ("pipe", "dp")},
+            "peak_pipe_over_dp": [r["peak_bytes"]["pipe"] / r["peak_bytes"]["dp"]
+                                  for r in (r0, r1)],
+            "launches": [r0["launches"], r1["launches"]]}
+        line["case_s"], line["phase_s"] = r0["case_s"], r0["phase_s"]
+        out[name] = line
+        print(json.dumps({"slice21": name, **line}), flush=True)
+    print(json.dumps({"slice21": "timing (no claim)", "card": card_line(), **timing}), flush=True)
+    out["timing"] = timing
+
+    # rank 0's pp checkpoint served in this process: kernel, then plain
+    sd = torch.load(SLICE21_DIR / "pp_path_a.pt", map_location=dev, weights_only=True)
+    for k, v in ranks[0]["pp path A"]["pipe"]["params"].items():
+        if not torch.equal(sd["params"][k].cpu(), v):
+            fail(f"slice21 served checkpoint: {k} differs from the ranks' state")
+    model, _, _ = compose_training(SLICE21_CASES[0][1])
+    net = model.init(seed=0, device=dev)
+    net.load_state_dict(sd["params"])
+    with torch.no_grad():
+        for p, e in zip(net.parameters(), sd["ema_params"]):
+            p.copy_(e)
+    fn = make_serve_fn(model, net, batch_size=64, ode_steps=ODE_STEPS, has_cond=True,
+                       has_mask=True)
+    rs = np.random.RandomState(7)
+    mask = ragged_mask(rs, 64, model.num_particles)[..., None]
+    cond = rs.randn(64, model.global_cond_dim).astype(np.float32)
+    reset(counted)
+    x = serve_batches(fn, fn.meta, 64, cond=cond, mask=mask, seed=3)
+    got = launched(counted)
+    nfe = 2 * (ODE_STEPS - 1)
+    expect_launches("slice21 pp checkpoint served", got, "packed_short_attention", 4 * nfe)
+    with mock.patch.object(sa, "packed_short_attention", sa.packed_short_attention_reference):
+        x_plain = serve_batches(fn, fn.meta, 64, cond=cond, mask=mask, seed=3)
+    err = float(np.abs(x - x_plain).max())
+    if not (np.isfinite(x).all() and x.shape == (64, model.num_particles, model.features)
+            and err <= PATH_TOL):
+        fail(f"slice21 pp checkpoint served: shape {x.shape}, against the plain path {err}")
+    served = {"sets": 64, "nfe": nfe, "launches": got,
+              "launches_an_evaluation": got["packed_short_attention"] / nfe,
+              "max_abs_err_vs_plain": err, "largest_abs": float(np.abs(x).max())}
+    print(json.dumps({"slice21": "pp checkpoint served (one process)", **served}), flush=True)
+    out["served"] = served
+    n, path = launches["packed_short_attention"][1], launches["packed_short_attention"][0]
+    launches["packed_short_attention"] = (path + "; pp checkpoint served (one process)",
+                                          n + got["packed_short_attention"])
     out["_launches"] = launches
     return out
 
@@ -5667,6 +5979,13 @@ def main() -> None:
         kernels[kernel_name]["launches"] += launches
         kernels[kernel_name]["launches_by_path"][path] = launches
     print(json.dumps({"slice20_phases_s": time.perf_counter() - t0}), flush=True)
+
+    t0 = time.perf_counter()
+    res = slice21_phases(torch, sa, dev, counted, w2)  # prints its lines
+    for kernel_name, (path, launches) in res["_launches"].items():
+        kernels[kernel_name]["launches"] += launches
+        kernels[kernel_name]["launches_by_path"][path] = launches
+    print(json.dumps({"slice21_phases_s": time.perf_counter() - t0}), flush=True)
 
     kernels = list(kernels.values())
     print(json.dumps({"smoke_s": time.perf_counter() - started}), flush=True)

@@ -147,6 +147,14 @@ class CNF(nn.Module):
     ) -> torch.Tensor:
         """t: scalar or (B,) -> v(t, x) of x's shape; `x_sc` is the
         self-conditioning estimate."""
+        emb, x = self.net_inputs(t, x, x_sc)
+        return self.net(emb, x, cond, mask)
+
+    def net_inputs(self, t: torch.Tensor, x: torch.Tensor,
+                   x_sc: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """(the per-set time embedding (B, T) in x's type, the network's
+        point input): x with the self-conditioning estimate and the time
+        embedding concatenated as configured."""
         if self.self_cond:
             x = torch.cat([x, torch.zeros_like(x) if x_sc is None else x_sc], dim=-1)
         b, n, _ = x.shape
@@ -155,7 +163,7 @@ class CNF(nn.Module):
         emb = emb.expand(b, emb.shape[-1])
         if self.add_time_to_input:
             x = torch.cat([emb[:, None, :].expand(b, n, emb.shape[-1]), x], dim=-1)
-        return self.net(emb, x, cond, mask)
+        return emb, x
 
 
 class CNFStack(nn.Module):

@@ -259,6 +259,7 @@ class FlowMatchingModel:
         cond: torch.Tensor | None = None,
         train: bool = False,
         shard: BatchShard | None = None,
+        field=None,
     ) -> torch.Tensor:
         """Masked training (`train=True`) or validation loss of the unfolded
         network, with every draw from `generator`. With `use_normaliser`, x
@@ -271,7 +272,11 @@ class FlowMatchingModel:
         reads for a Bernoulli(0.5) half of the sets (drawn next), zeros for
         the others. Then t and the noises, as the loss family draws them.
         With a `shard`, x is this rank's rows and the loss is its share of the
-        global batch's (module docstring)."""
+        global batch's (module docstring). `field(t, y, cond=, mask=)`
+        replaces the network's forward (the pipelined field of
+        parallel/pp.py, JAX's `vf_fn`); the normalisers are still `net`'s."""
+        if field is not None and self.self_cond:
+            raise ValueError("self_cond is not supported with a vf_fn override (pp)")
         if is_folded(net):
             raise RuntimeError(
                 "loss needs the unfolded network: folded weights carry no gradient to "
@@ -292,7 +297,8 @@ class FlowMatchingModel:
             with sequence_parallel(shard.seq):
                 return self._loss(net, generator, x, mask, cond, train, shard,
                                   lambda *a, **k: net(*a, **k) * real)
-        return self._loss(net, generator, x, mask, cond, train, shard, net)
+        return self._loss(net, generator, x, mask, cond, train, shard,
+                          net if field is None else field)
 
     def _loss(self, net, generator, x, mask, cond, train, shard, field):
         """`loss` on these rows and particles; `field` is the network's
@@ -473,17 +479,19 @@ class FlowMatchingModel:
         guidance_scale: float | None = None,
         generator: torch.Generator | None = None,
         stats: list | None = None,
+        noise_rows: tuple[int, slice] | None = None,
     ) -> torch.Tensor:
         """Integrate every flow transform in reverse order from the starting
         point z at t=1 to t=0, with weight norm folded once; with
         `use_normaliser`, around the normalised cond and the reverse
         normalisation of the result, as the JAX `sample` places them. `em`
-        draws its noise from `generator`; the DOPRI5 solvers append their
-        statistics of each flow to `stats` when it is given."""
+        draws its noise from `generator` (with `noise_rows` = (n, rows), each
+        step's for a batch of n, z's rows of it kept); the DOPRI5 solvers
+        append their statistics of each flow to `stats` when it is given."""
         self.fold_weight_norm(net)
         try:
             return self.integrate_folded(net, z, cond, mask, ode_solver, ode_steps,
-                                         guidance_scale, generator, stats)
+                                         guidance_scale, generator, stats, noise_rows)
         finally:
             self.unfold_weight_norm(net)
 
@@ -499,6 +507,7 @@ class FlowMatchingModel:
         guidance_scale: float | None = None,
         generator: torch.Generator | None = None,
         stats: list | None = None,
+        noise_rows: tuple[int, slice] | None = None,
     ) -> torch.Tensor:
         """`integrate` on a network whose weight norm is folded already: the
         body of the program that serving.py exports."""
@@ -518,7 +527,7 @@ class FlowMatchingModel:
             x = z
             for k in reversed(range(self.n_transforms)):
                 x = self._integrate_flow(net, k, x, cond, mask, ode_solver, ode_steps,
-                                         guidance_scale, generator, stats)
+                                         guidance_scale, generator, stats, noise_rows)
         if self.use_normaliser:
             x = net.reverse_norm(x, mask)
         return x
@@ -535,12 +544,13 @@ class FlowMatchingModel:
         return odeint_fixed_sc(drift_sc, z, 1.0, 0.0, ode_steps=ode_steps, method=ode_solver)
 
     def _integrate_flow(self, net, k, x, cond, mask, ode_solver, ode_steps, guidance_scale,
-                        generator, stats):
+                        generator, stats, noise_rows=None):
         if ode_solver in ("em", "ddim"):
             sched = VPDiffusionSchedule(**dict(self.diff_config))
             noise_model = self._guided_net(net, k, cond, mask, guidance_scale)
             if ode_solver == "em":
-                return euler_maruyama_sampler(noise_model, sched, x, generator, n_steps=ode_steps)
+                return euler_maruyama_sampler(noise_model, sched, x, generator, n_steps=ode_steps,
+                                              noise_rows=noise_rows)
             return ddim_sampler(noise_model, sched, x, n_steps=ode_steps)
         drift = self.make_drift(net, cond, mask, flow_idx=k, guidance_scale=guidance_scale)
         if ode_solver in FIXED_SOLVERS:
@@ -572,10 +582,10 @@ class FlowMatchingModel:
 
         With `rank_split` in a process group, every rank draws the whole z,
         integrates its rows of it (and of cond and mask) and gathers the
-        ranks' rows: each rank returns what one process returns. Every rank
-        must make the call; `n_samples` must split evenly over the ranks.
-        Euler-Maruyama's per-step noise would need the same treatment and
-        raises there."""
+        ranks' rows: each rank returns what one process returns.
+        Euler-Maruyama draws each step's noise for the whole batch too and
+        keeps this rank's rows. Every rank must make the call; `n_samples`
+        must split evenly over the ranks."""
         if n_samples is None:
             n_samples = cond.shape[0] if cond is not None else mask.shape[0]
         if mask is not None:
@@ -591,10 +601,8 @@ class FlowMatchingModel:
         if not (rank_split and dist.is_initialized()):
             return self.integrate(net, z, cond, mask, ode_solver, ode_steps, guidance_scale,
                                   generator, stats)
-        if ode_solver == "em":
-            raise NotImplementedError("rank-split sampling with the em solver")
         rows = dist.local_rows(n_samples)
         x = self.integrate(net, z[rows], None if cond is None else cond[rows],
                            None if mask is None else mask[rows], ode_solver, ode_steps,
-                           guidance_scale, generator, stats)
+                           guidance_scale, generator, stats, noise_rows=(n_samples, rows))
         return dist.gather_rows(x)

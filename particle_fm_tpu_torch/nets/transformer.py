@@ -347,13 +347,20 @@ class TransformerEncoder(nn.Module):
             )
         self.final_norm = LayerNorm(model_dim, eps=_LN_EPS, dtype=dtype)
 
+    def run_layers(self, x, mask=None, ctxt=None, attn_bias=None,
+                   layers: range | None = None) -> torch.Tensor:
+        """The encoder layers `layers` (default: all) in turn, without the
+        final LayerNorm: the loop that the pipeline splits by stage
+        (parallel/pp.py)."""
+        for i in range(self.num_layers) if layers is None else layers:
+            x = getattr(self, f"layer_{i}")(x, mask, ctxt, attn_bias)
+        return x
+
     def forward(self, x, mask=None, ctxt=None, attn_bias=None) -> torch.Tensor:
         seq = sequence_axis()
         if seq is not None and mask is not None:  # the keys' mask, every rank's
             mask = seq.all_gather(mask, 1)
-        for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x, mask, ctxt, attn_bias)
-        return self.final_norm(x)
+        return self.final_norm(self.run_layers(x, mask, ctxt, attn_bias))
 
 
 def resolve_fte_configs(
@@ -403,9 +410,14 @@ class _FullEncoder(nn.Module):
         self.outp_embd = DenseNetwork(model_dim, outp_dim=outp_dim, ctxt_dim=ctxt_out,
                                       generator=generator, dtype=dtype, **outp_cfg)
 
+    def context(self, t_set, cond=None) -> torch.Tensor | None:
+        """The per-set context cat(t_set, cond) through `ctxt_embd` (None
+        without one)."""
+        return self.ctxt_embd(cat(t_set, cond)) if self.ctxt_dim else None
+
     def forward(self, t_set, x, cond=None, mask=None) -> torch.Tensor:
         kv_mask = mask[..., 0] if mask is not None else None
-        ctxt = self.ctxt_embd(cat(t_set, cond)) if self.ctxt_dim else None
+        ctxt = self.context(t_set, cond)
         x = self.node_embd(x, ctxt)
         x = getattr(self, self.core_name)(x, mask=kv_mask, ctxt=ctxt)
         return self.outp_embd(x, ctxt)

@@ -30,6 +30,7 @@ axis too (`BatchShard.of_mesh`).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import Callable
 
@@ -139,12 +140,25 @@ def all_reduce_sum_(t: torch.Tensor, group=None) -> torch.Tensor:
     return t
 
 
+SEGMENT_ALIGN_BYTES = 16  # where each tensor starts in the flat buffer of a summed list
+
+
 def all_reduce_tensors_(tensors: list[torch.Tensor], group=None) -> list[torch.Tensor]:
     """The tensors summed over the ranks (of `group`) in one collective (one
-    flat buffer of their common dtype); returns views of the summed buffer."""
-    flat = all_reduce_sum_(torch.cat([t.reshape(-1) for t in tensors]), group)
-    return [part.view(t.shape) for part, t in
-            zip(torch.split(flat, [t.numel() for t in tensors]), tensors)]
+    flat buffer of their common dtype); returns views of the summed buffer,
+    each starting SEGMENT_ALIGN_BYTES-aligned. The alignment matters: the
+    CUDA `_foreach_norm` of the clip sums a misaligned view in another order
+    than a tensor of its own, which moved dp at W=1 from one process by up
+    to 3.9e-6 in 8 steps (ROADMAP.md Queue 3 item 15)."""
+    dtype = functools.reduce(torch.promote_types, (t.dtype for t in tensors))
+    step = max(SEGMENT_ALIGN_BYTES // dtype.itemsize, 1)
+    sizes = [-(-t.numel() // step) * step for t in tensors]
+    flat = tensors[0].new_zeros(sum(sizes), dtype=dtype)
+    torch._foreach_copy_([part[:t.numel()] for part, t in zip(torch.split(flat, sizes), tensors)],
+                         [t.reshape(-1) for t in tensors])
+    flat = all_reduce_sum_(flat, group)
+    return [part[:t.numel()].view(t.shape) for part, t in
+            zip(torch.split(flat, sizes), tensors)]
 
 
 def broadcast_(tensors) -> None:

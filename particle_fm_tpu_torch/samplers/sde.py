@@ -59,10 +59,13 @@ def ddim_sampler(model: NoiseModel, schedule: VPDiffusionSchedule, initial_noise
 
 def euler_maruyama_sampler(model: NoiseModel, schedule: VPDiffusionSchedule,
                            initial_noise: torch.Tensor, generator: torch.Generator,
-                           n_steps: int = 50, clip_predictions: tuple | None = None
-                           ) -> torch.Tensor:
+                           n_steps: int = 50, clip_predictions: tuple | None = None,
+                           noise_rows: tuple[int, slice] | None = None) -> torch.Tensor:
     """Reverse-SDE sampling: x += 0.5*beta*(x + 2*s)*dt + sqrt(beta*dt)*eps,
-    with the score s = -pred_noise / noise_rate."""
+    with the score s = -pred_noise / noise_rate. With `noise_rows` = (n,
+    rows) the state is `rows` of a batch of n (a rank's part of a rank-split
+    sample): each step draws eps for the n sets and keeps those rows, so
+    the ranks draw what one process draws."""
     ts, _, delta_t = _times(n_steps, initial_noise.device)
     x_t = initial_noise
     for t in ts:
@@ -70,7 +73,10 @@ def euler_maruyama_sampler(model: NoiseModel, schedule: VPDiffusionSchedule,
         _, noise_rates = schedule(t)
         s = -pred_noises / noise_rates
         betas = schedule.get_betas(t)
-        eps = _normal(generator, x_t.shape, x_t.device)
+        if noise_rows is None:
+            eps = _normal(generator, x_t.shape, x_t.device)
+        else:
+            eps = _normal(generator, (noise_rows[0],) + x_t.shape[1:], x_t.device)[noise_rows[1]]
         x_t = x_t + 0.5 * betas * (x_t + 2.0 * s) * delta_t
         x_t = x_t + torch.sqrt(betas * delta_t) * eps
         if clip_predictions is not None:

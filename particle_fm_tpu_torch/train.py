@@ -30,8 +30,7 @@ flat models on (B, F) batches without a mask. A callback the port lacks
 raises through config/core.py. An entry without a `_target_`, as an
 experiment overlay leaves after `callbacks=none`, is skipped, as in the JAX
 package. A trainer key the port's Trainer does not declare (the JAX
-trainer's `cache_data_on_device`, `pp_microbatches`, ...) raises
-NotImplementedError.
+trainer's `cache_data_on_device`, ...) raises NotImplementedError.
 
 Across processes, every rank runs the same command:
 
@@ -43,8 +42,10 @@ The process group starts (parallel/dist.py: torchrun's environment,
 before the Trainer is built; `trainer.strategy` is `dp`, `fsdp`, or, on a
 (data, model) mesh of W / `trainer.model_axis_size` x model_axis_size
 ranks (default 2, as in the JAX trainer; `configs/` does not set it),
-`dp_tp`, `sp` or `dp_ep` (parallel/mesh.py, parallel/tp.py). `pp` and
-`dp_pp` raise. Rank 0 names the run directory and writes the config, the
+`dp_tp`, `sp` or `dp_ep` (parallel/mesh.py, parallel/tp.py), or, over
+`trainer.model_axis_size` pipeline stages of the droid full transformer's
+layers and `trainer.pp_microbatches` microbatches, `pp` (W stages) or
+`dp_pp` (W / stages pipelines) (parallel/pp.py). Rank 0 names the run directory and writes the config, the
 logs, the checkpoints (the single-process format, gathered) and
 `final_metrics.yaml`; every rank trains and evaluates.
 """

@@ -51,6 +51,15 @@ replicated, is summed over the data group; under sp each rank's loss is its
 own share, so the sum runs over every rank. A state split by parallel/tp.py
 (`ModelSharding`) clips by the norm whose sharded squares are summed over
 the model group and whose replicated ones count once.
+
+With a pipe axis (`pipe`, parallel/pp.py: pp and dp_pp) the state stays
+replicated; the loss runs the pipelined field and its backward pipeline
+leaves each rank's part of every gradient in `.grad` (a layer's on its
+stage, the embedders' where they were used), so the gradients are summed
+over every rank in one all-reduce, the pipe ranks' parts and the data
+ranks' rows at once; the loss, the same on the stages of a pipeline, is
+summed over the data group only. There is no accumulation under a pipe
+axis, as in JAX (the pipeline microbatches already).
 """
 
 from __future__ import annotations
@@ -65,6 +74,7 @@ from torch import nn
 from particle_fm_tpu_torch.parallel import dist
 from particle_fm_tpu_torch.parallel.dist import BatchShard
 from particle_fm_tpu_torch.parallel.fsdp import local_view
+from particle_fm_tpu_torch.parallel.pp import PipeAxis, PipelinedField
 from particle_fm_tpu_torch.training.ema import ema_update
 
 
@@ -327,6 +337,45 @@ def step_body(model, optimizer: Optimizer, ema_decay: float = 0.999, ema_every_n
     return body
 
 
+def pipeline_step_body(model, optimizer: Optimizer, pipe: PipeAxis, microbatches: int,
+                       ema_decay: float = 0.999, ema_every_n: int = 1, ema_start_step: int = 0,
+                       shard: BatchShard | None = None) -> Callable:
+    """body(state, generator, x, mask, cond) -> loss: one step with the layer
+    stack pipelined over `pipe` in `microbatches` microbatches (module
+    docstring); with a `shard`, x is this data replica's rows."""
+
+    def body(state: TrainState, generator: torch.Generator, x, mask, cond) -> torch.Tensor:
+        loss, grads = pipelined_loss_and_grads(model, state.net, generator, x, mask, cond, pipe,
+                                               microbatches, shard)
+        return _apply(state, optimizer, grads, loss, ema_decay, ema_every_n, ema_start_step)
+
+    return body
+
+
+def pipelined_loss_and_grads(model, net, generator: torch.Generator, x, mask, cond,
+                             pipe: PipeAxis, microbatches: int,
+                             shard: BatchShard | None = None):
+    """(loss, grads) of one training loss with the layer stack pipelined
+    over `pipe`: the global batch's loss and every parameter's whole
+    gradient, summed over the ranks (every rank calls)."""
+    params = list(net.parameters())
+    for p in params:
+        p.grad = None
+    field = PipelinedField(net, pipe, microbatches, 1 if shard is None else shard.world)
+    loss = model.loss(net, generator, x, mask=mask, cond=cond, train=True, field=field,
+                      **_loss_kw(shard))
+    field.backward(loss)
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+    for p in params:
+        p.grad = None
+    loss = loss.detach()
+    if dist.world_size() > 1:
+        grads = dist.all_reduce_tensors_(grads)
+        if shard is not None:
+            loss = shard.total(loss)
+    return loss, grads
+
+
 def accum_step_body(model, optimizer: Optimizer, ema_decay: float = 0.999,
                     ema_every_n: int = 1, ema_start_step: int = 0,
                     shard: BatchShard | None = None) -> Callable:
@@ -413,8 +462,15 @@ def _build_accum_step_fn(model, optimizer: Optimizer, ema_decay: float = 0.999,
 
 def make_train_step(model, optimizer: Optimizer, ema_decay: float = 0.999,
                     ema_every_n: int = 1, ema_start_step: int = 0, accum: int = 1,
-                    shard: BatchShard | None = None) -> Callable:
-    """The train step; with `accum` > 1 the accumulation step."""
+                    shard: BatchShard | None = None, pipe: PipeAxis | None = None,
+                    microbatches: int = 8) -> Callable:
+    """The train step; with `accum` > 1 the accumulation step; with a `pipe`
+    axis the pipelined step (`pipeline_step_body`)."""
+    if pipe is not None:
+        if accum > 1:
+            raise ValueError("accumulate_grad_batches is not supported with a pipe axis")
+        return _eager(pipeline_step_body(model, optimizer, pipe, microbatches, ema_decay,
+                                         ema_every_n, ema_start_step, shard), optimizer)
     build = _build_accum_step_fn if accum > 1 else _build_step_fn
     return build(model, optimizer, ema_decay=ema_decay, ema_every_n=ema_every_n,
                  ema_start_step=ema_start_step, shard=shard)

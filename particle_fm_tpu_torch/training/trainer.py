@@ -77,10 +77,24 @@ everywhere, so checkpoint decisions agree); logs, stdout, checkpoints and
 callback files are rank 0's (`artifacts_dir` is None on the others). In
 one process without a process group nothing of this runs.
 
-Not carried: the pipeline strategies pp and dp_pp, and the model axis in
-one process (ROADMAP.md Queue 1 item 7), and the JAX trainer's cache and
-prefetch options (here the constants DEVICE_CACHE_LIMIT_MB and
-PREFETCH_BATCHES); asking for them raises.
+The pipeline strategies (parallel/pp.py) split the droid full
+transformer's layers over S = `model_axis_size` stages, M = `pp_microbatches`
+microbatches a step: `pp` is one pipeline of the S ranks (data 1, pipe S),
+`dp_pp` W / S pipelines on the (data, pipe) layout, each training its rows.
+The state stays replicated (each rank holds it whole; the step sums every
+rank's part of the gradients); validation and the callbacks run the
+unpipelined network, as the JAX trainer's eval step does; checkpoints are
+rank 0's, in the single-process format. They refuse what JAX refuses, with
+its exception types: another family, n_transforms != 1, the gaussian time
+embedding (NotImplementedError); accumulation, self_cond, layers or a
+batch that the stages or M x D microbatches do not divide, a world that S
+does not divide (ValueError). In one process pp runs with S = 1 only; a
+world larger than S under pp raises ValueError naming dp_pp where JAX
+leaves the other devices idle (ROADMAP.md Queue 3 item 16).
+
+Not carried: the model axis in one process (ROADMAP.md Queue 1 item 7), and
+the JAX trainer's cache and prefetch options (here the constants
+DEVICE_CACHE_LIMIT_MB and PREFETCH_BATCHES); asking for them raises.
 """
 
 from __future__ import annotations
@@ -98,6 +112,8 @@ from particle_fm_tpu_torch.parallel import dist
 from particle_fm_tpu_torch.parallel.dist import BatchShard
 from particle_fm_tpu_torch.parallel.fsdp import shard_state_fsdp
 from particle_fm_tpu_torch.parallel.mesh import ROADMAP_ITEM, make_mesh
+from particle_fm_tpu_torch.parallel.pp import (check_batch, check_pipelined, pipe_axis,
+                                               single_stage)
 from particle_fm_tpu_torch.parallel.tp import STRATEGY_RULES, shard_state_tp
 from particle_fm_tpu_torch.training.checkpoint import CheckpointManager
 from particle_fm_tpu_torch.training.checkpoint import load_weights_from as _load_weights
@@ -115,9 +131,9 @@ from particle_fm_tpu_torch.utils.device import resolve_device
 VAL_SEED = 9999  # fixed validation seed, as in the JAX trainer
 DEVICE_CACHE_LIMIT_MB = 2048  # the JAX trainer's default device_cache_limit_mb
 PREFETCH_BATCHES = 2  # streamed batches the worker keeps in flight
-STRATEGIES = ("dp", "fsdp", "dp_tp", "sp", "dp_ep")
+STRATEGIES = ("dp", "fsdp", "dp_tp", "sp", "pp", "dp_pp", "dp_ep")
 MODEL_AXIS_STRATEGIES = ("dp_tp", "sp", "dp_ep")  # on a (data, model) mesh
-UNPORTED_STRATEGIES = ("pp", "dp_pp")
+PIPELINE_STRATEGIES = ("pp", "dp_pp")  # on a (data, pipe) mesh
 SP_FAMILIES = ("epic", "droid_fulltransformer")  # the networks sp runs
 
 
@@ -149,8 +165,10 @@ class Trainer:
     scan_epochs: bool = True
     fuse_epochs: int = 1
     strategy: str = "dp"
-    # ranks on the model axis of dp_tp, sp and dp_ep (the JAX trainer's default)
+    # ranks on the model axis of dp_tp, sp and dp_ep, stages of pp and dp_pp
+    # (the JAX trainer's default)
     model_axis_size: int = 2
+    pp_microbatches: int = 8  # microbatches a step of pp and dp_pp, as in the JAX trainer
     seed: int = 0
     verbose: bool = True
     device: str = "cuda"
@@ -166,24 +184,28 @@ class Trainer:
     should_stop: bool = False
 
     def __post_init__(self):
-        if self.strategy not in STRATEGIES + UNPORTED_STRATEGIES:
+        if self.strategy not in STRATEGIES:
             raise ValueError(
                 f"unknown trainer.strategy {self.strategy!r} "
-                f"(expected {' | '.join(STRATEGIES + UNPORTED_STRATEGIES)})")
-        if self.strategy in UNPORTED_STRATEGIES:
-            raise NotImplementedError(
-                f"trainer.strategy={self.strategy!r} is not ported yet ({ROADMAP_ITEM}); the "
-                f"port trains with {', '.join(STRATEGIES)}")
+                f"(expected {' | '.join(STRATEGIES)})")
         if self.fuse_epochs < 1:
             raise ValueError("trainer.fuse_epochs must be >= 1")
         if self.accumulate_grad_batches < 1:
             raise ValueError("trainer.accumulate_grad_batches must be >= 1")
-        self.mesh = None
+        self.mesh = self.pipe = None
         shard = BatchShard.of_group() if dist.is_initialized() else None
         if self.strategy in MODEL_AXIS_STRATEGIES:
             self._check_model_axis()
             self.mesh = make_mesh(self.model_axis_size)
             shard = BatchShard.of_mesh(self.mesh, sp=self.strategy == "sp")
+        if self.strategy in PIPELINE_STRATEGIES:
+            self._check_pipeline()
+            self.pipe = single_stage()
+            shard = None
+            if dist.is_initialized():
+                self.mesh = make_mesh(self.model_axis_size)
+                self.pipe = pipe_axis(self.mesh)
+                shard = BatchShard.of_mesh(self.mesh) if self.mesh.data > 1 else None
         if self.strategy == "fsdp" and shard is None:
             raise NotImplementedError(
                 "trainer.strategy='fsdp' in one process is not ported: it shards over the "
@@ -208,6 +230,7 @@ class Trainer:
         self.train_step = make_train_step(
             self.model, self.optimizer, ema_decay=self.ema_decay, ema_every_n=self.ema_every_n,
             ema_start_step=self.ema_start_step, accum=self.accumulate_grad_batches, shard=shard,
+            pipe=self.pipe, microbatches=self.pp_microbatches,
         )
         self.eval_step = make_eval_step(self.model, shard=shard)
         self.per_step_reason = self._per_step_reason() if self.scan_epochs else None
@@ -257,8 +280,32 @@ class Trainer:
                 f"trainer.strategy='sp' with CFM-OT is not ported ({ROADMAP_ITEM}): the pairing "
                 "couples each set's particles across the split")
 
+    def _check_pipeline(self) -> None:
+        """JAX's checks of pp and dp_pp (the trainer's, `make_pipe_mesh`'s and
+        parallel/pp.py's) and the port's limit on pp's world."""
+        w, s = dist.world_size(), self.model_axis_size
+        if self.accumulate_grad_batches > 1:
+            raise ValueError(
+                "accumulate_grad_batches is not supported with strategy=pp/dp_pp (the pipeline "
+                "already microbatches internally; raise pp_microbatches instead)")
+        if s < 1 or w % s:
+            raise ValueError(f"strategy={self.strategy} needs the world size ({w}) divisible by "
+                             f"model_axis_size ({s})")
+        if self.strategy == "pp" and w > s:
+            raise ValueError(
+                f"strategy=pp runs one pipeline of model_axis_size ({s}) stages, the world has "
+                f"{w} ranks: use strategy=dp_pp for {w // s} pipelines (ROADMAP.md Queue 3 "
+                "item 16)")
+        check_pipelined(self.model, s)
+        if self.pp_microbatches < 1:
+            raise ValueError("trainer.pp_microbatches must be >= 1")
+        if self.datamodule is not None:
+            check_batch(self.datamodule.batch_size, self.pp_microbatches, w // s)
+
     def _per_step_reason(self) -> str | None:
         """Why epochs cannot run as one captured run, or None."""
+        if self.pipe is not None:
+            return f"the pipeline ({self.strategy}, as in the JAX trainer)"
         if self.shard is not None:
             return f"a process group ({self.strategy} over {dist.world_size()} ranks)"
         reads_host = getattr(self.model, "loss_reads_host", None)
@@ -467,7 +514,7 @@ class Trainer:
         """In a process group: rank 0's state on every rank, then sharded
         under fsdp, split over the model axis under dp_tp and dp_ep (the
         counterpart of the JAX trainer's `_place_state`)."""
-        if self.shard is None:
+        if not dist.is_initialized():
             return state
         dist.broadcast_(list(state.net.parameters()) + list(state.net.buffers())
                         + list(state.ema_params))

@@ -12,13 +12,16 @@ Cases:
   train    the first gradients at the initial state (summed over the ranks
            that hold distinct data, gathered whole), then `steps` optimizer
            steps of `training/step.py` on this rank's rows of the global
-           batches under the case's strategy (dp_tp, sp, dp_ep), t and the
-           noise pinned at the global batch's shape; the global losses, the
-           whole state after, and the elements this rank holds of every
-           parameter, its EMA and its AdamW moments.
+           batches under the case's strategy (dp_tp, sp, dp_ep; pp and dp_pp
+           with `microbatches`, the layers over the model axis as pipeline
+           stages), t and the noise pinned at the global batch's shape; the
+           global losses, the whole state after, and the elements this rank
+           holds of every parameter, its EMA and its AdamW moments.
   trainer  `Trainer.fit` on an in-memory datamodule with checkpoints: a run
            of `epochs` and a run of `epochs // 2` resumed to `epochs`; the
            gathered states of both.
+  cli      `train.main` with the case's arguments (every rank; rank 0
+           writes the run): the run directory and the trainer's state.
   refuse   Trainer constructions in the group that must raise: the error
            type and message of each.
 """
@@ -34,23 +37,27 @@ from particle_fm_tpu_torch.models.flow_matching import FlowMatchingModel
 from particle_fm_tpu_torch.parallel import dist
 from particle_fm_tpu_torch.parallel.dist import BatchShard
 from particle_fm_tpu_torch.parallel.mesh import make_mesh
+from particle_fm_tpu_torch.parallel.pp import pipe_axis
 from particle_fm_tpu_torch.parallel.tp import STRATEGY_RULES, shard_state_tp
 from particle_fm_tpu_torch.training import step as pstep
-from particle_fm_tpu_torch.training.trainer import Trainer
+from particle_fm_tpu_torch.training.trainer import PIPELINE_STRATEGIES, Trainer
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from torch_parallel_worker import Arrays, pin, run_trainer  # noqa: E402
 
 
 def _placed(case, state):
-    """The state placed by the case's strategy on a fresh mesh; the mesh and
-    the batch shard."""
+    """The state placed by the case's strategy on a fresh mesh; the batch
+    shard (None: every rank holds the whole batch) and the pipe axis (None
+    but under pp and dp_pp)."""
     mesh = make_mesh(case["model_axis_size"])
     strategy = case["strategy"]
     dist.broadcast_(list(state.net.parameters()) + list(state.net.buffers()) + state.ema_params)
+    if strategy in PIPELINE_STRATEGIES:
+        return state, BatchShard.of_mesh(mesh) if mesh.data > 1 else None, pipe_axis(mesh)
     if strategy in STRATEGY_RULES:
         state = shard_state_tp(state, mesh.axis, STRATEGY_RULES[strategy])
-    return state, BatchShard.of_mesh(mesh, sp=strategy == "sp")
+    return state, BatchShard.of_mesh(mesh, sp=strategy == "sp"), None
 
 
 def run_train(case) -> dict:
@@ -70,20 +77,28 @@ def _train(case) -> dict:
     state = pstep.create_train_state(model, opt, device="cpu")
     state.net.load_state_dict(case["params"])
     state.ema_params = [p.detach().clone() for p in state.net.parameters()]
-    state, shard = _placed(case, state)
+    state, shard, pipe = _placed(case, state)
+    micro = case.get("microbatches", 8)
 
     def mine(a):
-        return torch.from_numpy(a[dist.local_rows(a.shape[0], shard.rank, shard.world)].copy())
+        rows = (slice(None) if shard is None
+                else dist.local_rows(a.shape[0], shard.rank, shard.world))
+        return torch.from_numpy(a[rows].copy())
 
     batches = [tuple(mine(a) for a in batch) for batch in case["batches"]]
     # the first gradients, whole
-    loss = model.loss(state.net, torch.Generator(), *batches[0], train=True, shard=shard)
-    grads = pstep._grads(loss, state.params())
-    loss, grads = pstep._summed(loss.detach(), grads, shard)
+    if pipe is not None:
+        loss, grads = pstep.pipelined_loss_and_grads(model, state.net, torch.Generator(),
+                                                     *batches[0], pipe, micro, shard)
+    else:
+        loss = model.loss(state.net, torch.Generator(), *batches[0], train=True, shard=shard)
+        grads = pstep._grads(loss, state.params())
+        loss, grads = pstep._summed(loss.detach(), grads, shard)
     placed = getattr(state.sharding, "placed", [None] * len(grads))
     first = [g.clone() if pl is None else pl.whole(g, state.sharding.axis)
              for g, pl in zip(grads, placed)]
-    step = pstep.make_train_step(model, opt, ema_decay=0.9, shard=shard)
+    step = pstep.make_train_step(model, opt, ema_decay=0.9, shard=shard, pipe=pipe,
+                                 microbatches=micro)
     losses = [float(step(state, torch.Generator(), *batch)) for batch in batches]
     sd = state.state_dict()
     moments = [state.opt_state.state[p]["exp_avg"] for p in state.net.parameters()]
@@ -107,7 +122,15 @@ def run_refuse(case) -> dict:
     return out
 
 
-RUNNERS = {"train": run_train, "trainer": run_trainer, "refuse": run_refuse}
+def run_cli(case) -> dict:
+    from particle_fm_tpu_torch import train as ptrain
+
+    _, objs = ptrain.main(case["argv"])
+    sd = objs["trainer"].state.state_dict()
+    return {"run_dir": objs["out_dir"], "params": sd["params"], "step": sd["step"]}
+
+
+RUNNERS = {"train": run_train, "trainer": run_trainer, "cli": run_cli, "refuse": run_refuse}
 
 
 def main(workdir: str) -> None:

@@ -145,14 +145,15 @@ def run_trainer(case) -> dict:
         trainer = Trainer(model=model, datamodule=dm, optimizer=opt, max_epochs=first,
                           ema_decay=0.9, ckpt_dir=os.path.join(run_dir, "checkpoints"),
                           log_dir=run_dir, logger_backends=("jsonl",), save_last_every_n_epoch=1,
-                          strategy=case["strategy"], seed=3, device="cpu", verbose=False)
+                          strategy=case["strategy"], seed=3, device="cpu", verbose=False,
+                          **case.get("trainer_kw", {}))
         trainer.fit()
         if resume:
             trainer = Trainer(model=model, datamodule=dm, optimizer=opt,
                               max_epochs=case["epochs"], ema_decay=0.9,
                               ckpt_dir=os.path.join(run_dir, "checkpoints"), log_dir=run_dir,
                               save_last_every_n_epoch=1, strategy=case["strategy"], seed=3,
-                              device="cpu", verbose=False)
+                              device="cpu", verbose=False, **case.get("trainer_kw", {}))
             trainer.fit(resume_from=os.path.join(run_dir, "checkpoints", "last.pt"))
         sd = trainer.state.state_dict()
         out[name] = {"params": sd["params"], "ema": sd["ema_params"], "step": sd["step"],
@@ -170,7 +171,8 @@ def run_sample(case) -> dict:
     out = {}
     for name, split in (("split", True), ("local", False)):
         gen = torch.Generator().manual_seed(7)
-        out[name] = model.sample(net, gen, cond=cond, mask=mask, ode_solver="midpoint",
+        out[name] = model.sample(net, gen, cond=cond, mask=mask,
+                                 ode_solver=case.get("solver", "midpoint"),
                                  ode_steps=case["ode_steps"], rank_split=split)
     return out
 

@@ -204,8 +204,8 @@ def test_normaliser_update_over_two_halves_in_lockstep_equals_the_whole_batch():
 @pytest.mark.parametrize("strategy,error,match", [
     ("dp_tp", NotImplementedError, "Queue 1 item 7"),
     ("sp", NotImplementedError, "Queue 1 item 7"),
-    ("pp", NotImplementedError, "Queue 1 item 7"),
-    ("dp_pp", NotImplementedError, "Queue 1 item 7"),
+    ("pp", ValueError, "divisible by model_axis_size"),  # one process: one stage only
+    ("dp_pp", ValueError, "divisible by model_axis_size"),
     ("dp_ep", NotImplementedError, "Queue 1 item 7"),
     ("ddp", ValueError, "unknown trainer.strategy"),
     ("bogus", ValueError, "unknown trainer.strategy"),
@@ -216,6 +216,18 @@ def test_strategy_validation(strategy, error, match):
     with pytest.raises(error, match=match):
         Trainer(model=model, datamodule=None, optimizer=pstep.make_optimizer(),
                 strategy=strategy, device="cpu")
+
+
+def test_summed_tensors_start_aligned_in_the_flat_buffer(monkeypatch):
+    """Each tensor of a summed list is a view that starts 16-byte aligned
+    (the clip's CUDA `_foreach_norm` sums a misaligned view in another
+    order: ROADMAP Queue 3 item 15), with the values of a plain sum."""
+    monkeypatch.setattr(dist, "all_reduce_sum_", lambda t, group=None: t * 2)
+    ts = [torch.randn(()), torch.randn(3, 5), torch.randn(7), torch.randn(2, 2, 3)]
+    out = dist.all_reduce_tensors_(ts)
+    assert [o.shape for o in out] == [t.shape for t in ts]
+    assert all(torch.equal(o, 2 * t) for o, t in zip(out, ts))
+    assert all(o.data_ptr() % dist.SEGMENT_ALIGN_BYTES == 0 for o in out)
 
 
 def test_one_process_starts_no_group_and_multihost_needs_torchrun(monkeypatch):
@@ -237,6 +249,7 @@ def test_importing_every_module_of_the_port_loads_no_jax():
             "assert 'particle_fm_tpu_torch.parallel.fsdp' in mods, mods\n"
             "assert 'particle_fm_tpu_torch.parallel.mesh' in mods, mods\n"
             "assert 'particle_fm_tpu_torch.parallel.tp' in mods, mods\n"
+            "assert 'particle_fm_tpu_torch.parallel.pp' in mods, mods\n"
             "new = {'training.epochs', 'training.stopping', 'training.hparam'}\n"
             "assert {'particle_fm_tpu_torch.' + m for m in new} <= set(mods), mods\n"
             "[importlib.import_module(m) for m in mods]\n"

@@ -362,8 +362,10 @@ def test_sp_training_loss_shares_add_up_to_the_whole(monkeypatch, base):
 
 
 # ------------------------------------------------------------------ refusals
-@pytest.mark.parametrize("strategy", ["pp", "dp_pp", "dp_tp", "sp", "dp_ep"])
+@pytest.mark.parametrize("strategy", ["dp_tp", "sp", "dp_ep"])
 def test_pipeline_and_one_process_strategies_raise_naming_item_7(strategy):
+    """The model axis in one process (pp trains in one process with one
+    stage: tests/test_torch_parallel_pipeline.py)."""
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         Trainer(model=PortModel(**EPIC), datamodule=None, optimizer=pstep.make_optimizer(),
                 strategy=strategy, device="cpu")

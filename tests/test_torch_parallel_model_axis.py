@@ -29,10 +29,20 @@ re-drawn, carried by utils/from_jax.py). The masks are ragged.
   1e-4 after 8 steps), and a single-process
   `Trainer.test` loads rank 0's file with the ranks' gathered state.
 - In the group: a model axis that does not divide the world raises
-  ValueError; sp on MDMA, pp and dp_pp raise naming ROADMAP Queue 1 item 7.
+  ValueError; sp on MDMA raises naming ROADMAP Queue 1 item 7; pp over fewer
+  stages than ranks raises ValueError naming dp_pp (Queue 3 item 16), and
+  dp_pp over stages that do not divide the layers ValueError, as in JAX.
 - The training CLI under torchrun at `trainer.strategy=dp_tp
   trainer.model_axis_size=2` (two ranks: data 1 x model 2), whose
   `last.pt` one process loads and resumes.
+- Pipeline parallelism over gloo processes (parallel/pp.py): pp at S=4,
+  M=4 and dp_pp at (data 2, pipe 2), M=2 on tests/test_torch_parallel_pipeline.py's
+  droid transformer, 3 AdamW steps held against the same steps on threads
+  (which that file holds against JAX's `make_train_step_pp`) within its
+  bounds, the ranks bit-equal; pp at S=4 through the Trainer with
+  checkpoints (resumed, against one process, rank 0's file loaded in one
+  process); dp_pp through `train.main` on the four ranks, whose `last.pt`
+  one process loads and resumes.
 """
 
 from __future__ import annotations
@@ -62,6 +72,8 @@ from particle_fm_tpu_torch.training.trainer import Trainer
 from particle_fm_tpu_torch.utils.from_jax import state_dict_from_flax
 from tests.test_torch_parallel_mesh import EPIC, MDMA_SMALL, MOE, TRANSFORMER
 from tests.test_torch_parallel_multiproc import _arrays, _draws
+from tests.test_torch_parallel_pipeline import CLI as PIPE_CLI
+from tests.test_torch_parallel_pipeline import DROID, batch, check_against, droid, thread_steps
 from tests.torch_port_helpers import filled, grads_by_name
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -92,6 +104,7 @@ CASES = {  # name: (strategy, config, particles)
     "sp-transformer": ("sp", TRANSFORMER1, 16),
     "dp_ep-moe": ("dp_ep", MOE1, 16),
 }
+PIPE_CASES = {"pp": (4, 4), "dp_pp": (2, 2)}  # strategy: (stages, microbatches)
 
 
 def _free_port() -> int:
@@ -182,17 +195,28 @@ def runs(tmp_path_factory):
         draws[name] = (jm, params, batches, t_arr, z_arr)
         cases.append(dict(kind="train", name=name, cfg=cfg, params=sd, batches=batches,
                           t=t_arr, z=z_arr, lr=LR, strategy=strategy, model_axis_size=2))
+    pipe_batches = [batch(seed=20 + i) for i in range(STEPS)]
+    pipe_t, pipe_z = _draws(pipe_batches[0][0].shape)
+    pipe_sd = _initial(DROID)[2]
+    for strategy, (stages, micro) in PIPE_CASES.items():
+        cases.append(dict(kind="train", name=strategy, cfg=DROID, params=pipe_sd,
+                          batches=pipe_batches, t=pipe_t, z=pipe_z, lr=LR, strategy=strategy,
+                          model_axis_size=stages, microbatches=micro))
     arrays = {split: _arrays(32 if split == "train" else 16, seed)
               for split, seed in (("train", 60), ("val", 61))}
-    for strategy, cfg in (("dp_tp", EPIC1), ("dp_ep", MOE1)):
+    for strategy, cfg, kw in (("dp_tp", EPIC1, {}), ("dp_ep", MOE1, {}),
+                              ("pp", DROID, {"model_axis_size": 4, "pp_microbatches": 2})):
         cases.append(dict(kind="trainer", name=f"trainer-{strategy}", cfg=cfg, lr=LR,
                           arrays=arrays, batch_size=B, epochs=2, strategy=strategy,
-                          dir=os.path.join(workdir, strategy)))
+                          trainer_kw=kw, dir=os.path.join(workdir, strategy)))
+    cases.append(dict(kind="cli", name="cli-dp_pp", argv=PIPE_CLI + [
+        "trainer.strategy=dp_pp", "trainer.model_axis_size=2", "trainer.pp_microbatches=2",
+        f"output_dir={os.path.join(workdir, 'cli_dp_pp')}"]))
     cases.append(dict(kind="refuse", name="refuse", arrays=arrays, constructions={
         "model axis 3 of 4": dict(cfg=EPIC, strategy="dp_tp", model_axis_size=3),
         "sp on MDMA": dict(cfg=MDMA_SMALL, strategy="sp"),
-        "pp": dict(cfg=TRANSFORMER, strategy="pp"),
-        "dp_pp": dict(cfg=TRANSFORMER, strategy="dp_pp")}))
+        "pp over 2 stages of 4 ranks": dict(cfg=DROID, strategy="pp"),
+        "dp_pp, 3 layers over 2 stages": dict(cfg=droid(num_layers=3), strategy="dp_pp")}))
     torch.save(cases, os.path.join(workdir, "setup.pt"))
     port = _free_port()
     procs = [subprocess.Popen([sys.executable, WORKER, workdir], env=_env(r, port), cwd=ROOT,
@@ -205,7 +229,17 @@ def runs(tmp_path_factory):
         finally:
             mp.undo()
         one = {s: _one_process_trainer(cfg, arrays, s) for s, cfg in (("dp_tp", EPIC1),
-                                                                      ("dp_ep", MOE1))}
+                                                                      ("dp_ep", MOE1),
+                                                                      ("pp", DROID))}
+        pipe_net = PortModel(**DROID).init(device="cpu")
+        pipe_net.load_state_dict(pipe_sd)
+        mp = pytest.MonkeyPatch()
+        try:
+            for strategy, (stages, micro) in PIPE_CASES.items():
+                ref[strategy] = thread_steps(DROID, pipe_net, pipe_batches, pipe_t, pipe_z,
+                                             stages, 4 // stages, micro, mp)[0]
+        finally:
+            mp.undo()
         outs = [p.communicate(timeout=300)[0] for p in procs]
     finally:
         for p in procs:
@@ -268,7 +302,35 @@ def test_each_rank_holds_only_its_part(runs, name):
                     (r, n, count, p.numel())
 
 
-@pytest.mark.parametrize("strategy", ["dp_tp", "dp_ep"])
+@pytest.mark.parametrize("strategy", ["pp", "dp_pp"])
+def test_pipeline_over_processes_equals_the_threads(runs, strategy):
+    ranks, ref, _, _ = runs
+    names = [n for n, _ in PortModel(**DROID).init(device="cpu").named_parameters()]
+    check_against([r[strategy] for r in ranks], ref[strategy], names, strategy)
+    for r in range(W):  # the state stays replicated: every rank holds it whole
+        for n, (count, ema, moment) in ranks[r][strategy]["held"].items():
+            assert count == ema == moment, (r, n)
+
+
+def test_dp_pp_cli_checkpoint_loads_and_resumes_in_one_process(runs, tmp_path):
+    ranks, _, _, _ = runs
+    got = [r["cli-dp_pp"] for r in ranks]
+    assert len({g["run_dir"] for g in got}) == 1 and all(g["step"] == got[0]["step"] for g in got)
+    for g in got[1:]:
+        for k, v in got[0]["params"].items():
+            assert torch.equal(g["params"][k], v), k
+    last = os.path.join(got[0]["run_dir"], "checkpoints", "last.pt")
+    sd = torch.load(last, weights_only=True)
+    for k, v in got[0]["params"].items():
+        assert torch.equal(sd["params"][k], v), k
+    from particle_fm_tpu_torch import train as ptrain
+
+    metrics, objs = ptrain.main(PIPE_CLI[:-1] + ["trainer.max_epochs=3", f"ckpt_path={last}",
+                                            f"output_dir={tmp_path / 'resumed'}"])
+    assert objs["trainer"].state.step > sd["step"] and np.isfinite(metrics["train_loss"])
+
+
+@pytest.mark.parametrize("strategy", ["dp_tp", "dp_ep", "pp"])
 def test_checkpoints_resume_under_the_strategy_and_load_in_one_process(runs, strategy):
     ranks, _, one, cases = runs
     case = next(c for c in cases if c["name"] == f"trainer-{strategy}")
@@ -308,9 +370,13 @@ def test_model_axis_refusals_in_a_group(runs):
     got = runs[0][0]["refuse"]
     assert got["model axis 3 of 4"][0] == "ValueError"
     assert "divisible by model_axis_size (3)" in got["model axis 3 of 4"][1]
-    for name in ("sp on MDMA", "pp", "dp_pp"):
-        assert got[name][0] == "NotImplementedError", (name, got[name])
-        assert "Queue 1 item 7" in got[name][1], (name, got[name])
+    assert got["sp on MDMA"][0] == "NotImplementedError", got["sp on MDMA"]
+    assert "Queue 1 item 7" in got["sp on MDMA"][1], got["sp on MDMA"]
+    pp_world = got["pp over 2 stages of 4 ranks"]
+    assert pp_world[0] == "ValueError" and "strategy=dp_pp" in pp_world[1], pp_world
+    assert "Queue 3 item 16" in pp_world[1], pp_world
+    layers = got["dp_pp, 3 layers over 2 stages"]
+    assert layers[0] == "ValueError" and "divisible by pipeline stages (2)" in layers[1], layers
 
 
 def test_torchrun_cli_dp_tp_writes_a_checkpoint_one_process_loads_and_resumes(tmp_path):

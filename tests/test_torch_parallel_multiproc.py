@@ -59,6 +59,7 @@ B, N, STEPS, LR = 8, 16, 3, 1e-3
 # sincos time: the jitted JAX step rounds the cosine ladder's products otherwise
 # than the port, and that field is chaotic in t
 CFG = dict(YAML_FLAGSHIP, t_emb="sincos", frequencies=6)
+DIFF = {"max_sr": 0.999, "min_sr": 0.02}  # configs/model/fm_droid_transformer.yaml's diff_config
 NORMED = dict(CFG, use_normaliser=True)
 
 
@@ -200,6 +201,10 @@ def runs(tmp_path_factory):
     mask = cloud(b=8, n=N, seed=3)[1]
     cases.append(dict(kind="sample", name="sample", cfg=CFG, params=sd, mask=mask,
                       cond=cloud(b=8, n=N, seed=3)[2], ode_steps=6))
+    cases.append(dict(kind="sample", name="sample-em", cfg=dict(CFG, loss_type="diffusion",
+                                                                diff_config=DIFF),
+                      params=sd, mask=mask, cond=cloud(b=8, n=N, seed=3)[2], ode_steps=6,
+                      solver="em"))
     arrays = {split: _arrays(48 if split == "train" else 20, seed)
               for split, seed in (("train", 60), ("val", 61))}
     for strategy in ("dp", "fsdp"):
@@ -345,6 +350,18 @@ def test_rank_split_sampling_equals_local(runs):
         np.testing.assert_allclose(split.numpy(), local.numpy(), atol=1e-4)
         assert float(local.abs().max()) > 0.1
     assert torch.equal(ranks[0]["sample"]["split"], ranks[1]["sample"]["split"])
+
+
+def test_rank_split_em_sampling_equals_local(runs):
+    """Euler-Maruyama rank-split: each rank draws every step's noise for the
+    whole batch and keeps its rows, so the split sample is one process's."""
+    ranks, _, _, _ = runs
+    for r in range(2):
+        split, local = ranks[r]["sample-em"]["split"], ranks[r]["sample-em"]["local"]
+        assert split.shape == local.shape == (8, N, 3)
+        np.testing.assert_allclose(split.numpy(), local.numpy(), atol=1e-4)
+        assert float(local.abs().max()) > 0.1
+    assert torch.equal(ranks[0]["sample-em"]["split"], ranks[1]["sample-em"]["split"])
 
 
 @pytest.mark.parametrize("strategy", ["dp", "fsdp"])

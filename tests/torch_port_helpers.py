@@ -558,9 +558,10 @@ def classifier_batch(cfg, b=8, seed=0, labels="binary"):
 
 
 def classifier_pair(cfg, seed=0, scale=0.3):
-    """(JAX model, its filled params, port model, port network carrying them)."""
+    """(JAX model, its filled params, port model, port network carrying them).
+    Every leaf is re-drawn, so only the shapes of JAX's init are read."""
     jm = jcls.SetClassifierModel(**cfg)
-    params = filled(jm.init(jax.random.PRNGKey(seed))["params"], seed, scale)
+    params = filled(jax.eval_shape(jm.init, jax.random.PRNGKey(seed))["params"], seed, scale)
     pm = pcls.SetClassifierModel(**cfg)
     net = pm.init(seed=seed, device="cpu")
     load_flax_params(net, params)
@@ -606,10 +607,13 @@ def pin_dropout(monkeypatch, seed=0):
 
 
 def jax_classifier_loss_grads(jm, params, batch, train=False):
+    """JAX's loss and gradients, jitted (one compile, where op by op compiles
+    every primitive: ParT's took a minute); pinned draws are taken at the
+    trace, once a site, as op by op takes them once a call."""
     x, mask, y = (jnp.asarray(a) for a in batch)
-    loss, grads = jax.value_and_grad(
+    loss, grads = jax.jit(jax.value_and_grad(
         lambda p: jm.loss({"params": p}, jax.random.PRNGKey(1), x, mask, y, train=train)[0]
-    )(params)
+    ))(params)
     return float(loss), grads_by_name(grads)
 
 
