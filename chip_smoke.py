@@ -173,12 +173,13 @@
      experiment=jetnet/fm_tops150_cond data.synthetic=true
      data.synthetic_num_jets=4096 trainer=smoke and the shipped
      `callbacks: jetnet` (batch 1000, midpoint, ode_steps 200, EMA weights,
-     40 bootstrap batches), evaluated every epoch from epoch 0 on 2,000
-     jets, and `test: true`: finite W1M/W1P every epoch, the test pass on
-     the restored best checkpoint, exactly 6 x 2 x 199 x 2 EPiC launches per
-     pass; then the same evaluation with the plain EPiC layer: jets within
-     1e-3, W1M and W1P within 1e-3 absolute;
-   - eval timing: 1,500 jets generated against 1,500 synthetic test jets
+     40 bootstrap batches), evaluated every epoch from epoch 0 on 1,000
+     jets (2,000 until the slice22 phases), and `test: true`: finite W1M/W1P
+     every epoch, the test pass on the restored best checkpoint, exactly 6 x
+     2 x 199 EPiC launches per pass; then the same evaluation with the plain
+     EPiC layer: jets within 1e-3, W1M and W1P within 1e-3 absolute;
+   - eval timing: 1,000 jets generated against 1,000 synthetic test jets
+     (1,500 until the slice22 phases)
      (N = 150), each stage timed: generation (exact EPiC launches), EFPs and
      energy correlators on the card, the native clustering (tau1-3, d12/d23),
      W1M, W1P (on 2 of its 40 bootstrap batches, to keep the run inside its
@@ -190,7 +191,7 @@
      experiment=jetnet/diffusion_tops150_cond data.synthetic=true (4096
      jets, trainer=smoke, 2 epochs) and the experiment's `callbacks:
      jetnet` (em, 200 steps, batch 1000, EMA weights) every epoch from
-     epoch 0 on 2,000 jets and the test pass: exactly 6 x 200 x 2 x 3 EPiC
+     epoch 0 on 1,000 jets and the test pass: exactly 6 x 200 x 3 EPiC
      launches; then 1,000 jets by em (200 steps) and by ddim (100 steps),
      kernel path against plain path with the same generator (atol 1e-3), and
      one train step's loss and gradients, card against CPU;
@@ -238,8 +239,9 @@
      test pass on 1,000 jets: exactly 20 x 398 launches; then one batch of
      1,000 kernel against plain within 1e-4 of the largest |x|;
    - calo/mdma_calo at its shipped width and lengths (8 heads of 32:
-     attention(impl="auto") takes the einsum path, so no kernel runs): 2,000
-     synthetic showers of 190 to 6,000 hits (1,700 on average) written from
+     attention(impl="auto") takes the einsum path, so no kernel runs): 1,000
+     (2,000 until the slice22 phases) synthetic showers of 190 to 6,000 hits
+     (1,700 on average) written from
      the seed as the ragged npz the datamodule reads, bucketed host batches
      (multiples of 64) under the shipped 400,000-hit budget, which binds,
      with the alpha rotation and the fitted scaler, streamed through the
@@ -296,8 +298,9 @@
    - LHCO two-stage chain (particle_fm_tpu_torch/lhco_chain.py): stage 1
      loaded from that run, stage 2 lhco/x_jet and lhco/y_jet at full width
      (EPiC, 279 particles, 6 layers, cond 4) with seeded weights; 2,048
-     events at batch 1024, midpoint, 100 steps, reclustered: exactly 6 x 198
-     x 2 x 2 EPiC launches, then the plain layer: constituents within 1e-3;
+     events at batch 1024, midpoint, 50 steps (100 until the slice22 phases),
+     reclustered: exactly 6 x 98 x 2 x 2 EPiC launches, then the plain layer:
+     constituents within 1e-3;
    - fm_moe_transformer at full width (2 heads of 64, 4 experts), every
      parameter re-drawn: 4 steps card against the CPU in float32 (1e-4), one
      step's loss and gradients in bfloat16 closer to the CPU's bf16 than that
@@ -335,8 +338,8 @@
      weights and request, bit for bit, with the exact launches of its
      kernel and none of another; the flagship's also in a process that
      imports no model code (bit for bit, 600 launches counted there), and
-     its sets/s against make_serve_fn in turns (8 batches a reading behind
-     one sync);
+     its sets/s against make_serve_fn in turns (4 batches a reading behind
+     one sync; 8 until the slice22 phases);
    - make_server on the flagship artifact at 127.0.0.1:0: /healthz, /meta,
      one /sample of 1,000 sets with cond and a num_points list, equal to
      serve_batches on the same artifact; the request's seconds, and the
@@ -439,7 +442,44 @@
    peak memory a rank. Then rank 0's float32 checkpoint served in this
    process (64 sets, NFE 100: exactly 400 packed launches, 4 an evaluation,
    against its plain path 1e-3). One `slice21` timing line, no claim.
-15. Prints the `kernels` JSON line (the launches of the training, eval,
+15. The slice22 phases (`slice22` lines, each with its phase_s, then their
+   total; `slice22_phases`):
+   - reference import: the flagship (fm_tops150_cond), path A
+     (fm_droid_transformer, packed), path B (fm_droid_crossattention, fused)
+     and path C (calo/mdma_calo, net_config.num_heads=2) at full width, and
+     fm_cfg_tops30 for the sweep below, every parameter drawn from a seed and
+     written under the reference's key names (with the `loss.flows.*`
+     aliases) as a Lightning `.ckpt`; scripts/torch_import_reference_ckpt.py
+     on the first four, in processes of their own started together first
+     (they run while the classifier test, the timing study and the sweep use
+     the card), on fm_cfg_tops30 through its `main` in this process; each
+     run directory loaded on the card by `load_run` (EMA weights), it and its
+     checkpoint's live weights equal to the state dict's tensors after the
+     relayout bit for bit; the flagship serves
+     64 sets at NFE 100 (exactly 600 `epic_layer` launches, against its plain
+     path 1e-3), paths A, B and C one batch of one euler evaluation (exactly
+     3 packed, 16 fused, 8 flash launches, against the plain path 1e-4;
+     path C's 1e-4 of its largest |x|, some hundreds with drawn weights);
+   - classifier test: scripts/torch_classifier_test.py --arch epic on the
+     train CLI phase's run (`last`, up to 2,000 test sets, 20 midpoint steps,
+     1 epoch): the generation's launches (6 x 38 a batch of 1024) and the
+     discriminator's predictions through the folded layer (S = 0, 3 a test
+     batch) exact, the first generated batch against the plain path 1e-3,
+     classifier_test.yaml with the JAX script's keys, finite;
+   - guidance sweep: scripts/torch_guidance_sweep.py on the imported
+     fm_cfg_tops30 run, w = 1 and 2 on 1,000 test sets, 20 midpoint steps:
+     w = 1 bit-equal to guidance_scale=1.0, each w exactly 6 x 38 launches a
+     batch (one doubled-batch forward an evaluation under guidance), w = 2
+     against the plain path 1e-3;
+   - timing study: scripts/torch_timing_plots.py's `measure` (seeded EPiC at
+     N = 30 and 150, 1,000 jets at NFE 100, batch 256), its launches exact;
+     ms a jet by size, no claim.
+   To pay for them: the eval and diffusion CLIs evaluate 1,000 jets (were
+   2,000), the LHCO chain integrates 50 midpoint steps (was 100), the eval
+   timing runs at 1,000 jets (was 1,500), the calo phase writes 1,000
+   showers (was 2,000) and an artifact's sets/s reading takes 4 batches
+   (was 8).
+16. Prints the `kernels` JSON line (the launches of the training, eval,
    family, dataset, classifier, slice and ddp phases under
    `launches_by_path` too), the card line again, and as the last line
    {"ok": true, "device": {...}}.
@@ -1990,11 +2030,12 @@ def train_cli_phase(torch, ops, dev, counted, overrides=()) -> dict:
 
 
 # eval phase: the shipped JetNet callbacks in the training entry point, then
-# the evaluation stages timed at 1,500 jets (3,000 until the model-axis
-# phases came, 5,000 until the captured-epoch phases, 10,000 before): the time
-# that the later phases need under the run's limit
-EVAL_JETS = 2000  # the callback's num_jet_samples: 2 batches of 1000
-EVAL_TIMING_JETS = 1_500
+# the evaluation stages timed at 1,000 jets (1,500 until the slice22 phases,
+# 3,000 until the model-axis phases came, 5,000 until the captured-epoch
+# phases, 10,000 before): the time that the later phases need under the run's
+# limit
+EVAL_JETS = 1000  # the callback's num_jet_samples: 1 batch of 1000 (2 until the slice22 phases)
+EVAL_TIMING_JETS = 1_000
 # W1P's bootstrap timed on this many of the callback's 40 batches (its seconds
 # scale with the batches: about 92 s for all 40 at 5,000 jets on an H100)
 W1P_TIMING_BATCHES = 2  # 5 until the pipeline phases took their time
@@ -2261,7 +2302,8 @@ def diffusion_cli_phase(torch, ops, dev, counted) -> dict:
     the training entry point with 4096 synthetic jets, trainer=smoke (2
     epochs) and the shipped `callbacks: jetnet` of the experiment (em, 200
     steps, batch 1000, EMA weights), evaluated every epoch from epoch 0 on
-    EVAL_JETS jets, and `test: true`: exactly 6 x 200 x 2 x 3 EPiC launches.
+    EVAL_JETS jets, and `test: true`: exactly 6 x 200 x ceil(EVAL_JETS / 1000) x 3 EPiC
+    launches.
     Then 1000 jets by em (200 steps) and by ddim (100 steps) on the EMA
     weights, kernel path against plain path with the same generator, and one
     training step's loss and gradients, card against CPU (64 jets, pinned
@@ -2864,7 +2906,7 @@ def streamed_epoch(torch, trainer, epoch: int) -> tuple[int, int, float]:
     return steps, tokens, time.perf_counter() - t0
 
 
-CALO_SHOWERS = 2000  # 1,600 train, 200 val, 200 test
+CALO_SHOWERS = 1000  # 800 train, 100 val, 100 test (2,000 until the slice22 phases)
 CALO_EVAL_SHOWERS = 64
 
 
@@ -2885,7 +2927,7 @@ def write_calo_showers(path: Path, n: int, seed: int) -> None:
 
 def calo_phase(torch, dev, counted) -> dict:
     """calo/mdma_calo at its shipped width (MDMA, hidden 256, 8 layers, 8
-    heads of 32) and lengths: 2,000 synthetic showers of up to 6,000 hits
+    heads of 32) and lengths: CALO_SHOWERS synthetic showers of up to 6,000 hits
     from a file, batch 256 under the 400,000-hit budget (which binds: the
     long showers come in batches of 66 and up), bucketed host batches
     (multiples of 64) with the alpha rotation and the fitted scaler,
@@ -3293,7 +3335,7 @@ SLICE_TRAIN_STEPS = 8  # timed train steps of the MoE transformer, each type
 STEP_LOSS_RTOL = 1e-4
 CHAIN_EVENTS = 2048
 CHAIN_BATCH = 1024
-CHAIN_ODE_STEPS = 100  # 198 evaluations
+CHAIN_ODE_STEPS = 50  # 98 evaluations (198 until the slice22 phases)
 NORM_STEPS = 20
 NORM_MAX_N = 1_000_000  # real particles before the normalisers freeze: some 8 batches
 NORM_STATS_TOL = 1e-5  # of each statistic's largest magnitude, card against CPU
@@ -3471,7 +3513,7 @@ def lhco_chain_phase(torch, ops, dev, counted, stage1_dir: str) -> dict:
     shipped width (EPiC, 279 particles, hidden 128, 6 layers, cond 4 on both
     paths) with seeded weights on their synthetic datamodules; CHAIN_EVENTS
     events at batch CHAIN_BATCH, midpoint, CHAIN_ODE_STEPS steps, anti-kt
-    reclustered: exactly 6 x 198 x 2 x 2 EPiC launches; then the same chain
+    reclustered: exactly 6 x 2 (CHAIN_ODE_STEPS - 1) x 2 x 2 EPiC launches; then the same chain
     with the plain EPiC layer: the constituents of both jets within PATH_TOL."""
     from particle_fm_tpu_torch import lhco_chain
 
@@ -3734,7 +3776,7 @@ def slice16_phases(torch, ops, sa, dev, counted) -> dict:
 # slice 17: the kernels as custom ops, the served artifact, its HTTP server,
 # ReFlow and consistency distillation
 SLICE17_DIR = ROOT / "build" / "slice17"
-ARTIFACT_BATCHES = 8  # batches of a sets/s reading, behind one sync
+ARTIFACT_BATCHES = 4  # batches of a sets/s reading, behind one sync (8 until the slice22 phases)
 ARTIFACT_TURNS = 1  # rounds of artifact, live, live, artifact readings
 ATTENTION_STEPS = 2  # euler ode_steps of the attention artifacts: one evaluation
 REFLOW_PAIRS = 4096
@@ -5663,6 +5705,355 @@ def slice21_phases(torch, sa, dev, counted, ranks) -> dict:
     return out
 
 
+SLICE22_DIR = ROOT / "build" / "slice22"
+SLICE22_IMPORT_JETS = "data.synthetic_num_jets=512"
+# (name, the import CLI's dotlist, the kernel's wrapper, its launches an evaluation)
+SLICE22_IMPORTS = [
+    ("flagship", ["experiment=jetnet/fm_tops150_cond", "data.synthetic=true",
+                  SLICE22_IMPORT_JETS], "epic_layer", 6),
+    ("path A", ["experiment=jetnet/fm_tops150_cond", "model=fm_droid_transformer",
+                "data.synthetic=true", SLICE22_IMPORT_JETS,
+                "model.net_config.te_config.mha_config.attn_impl=packed",
+                "model.net_config.te_config.mha_config.scores_dtype=null"],
+     "packed_short_attention", 3),
+    ("path B", ["experiment=jetnet/fm_tops150_cond", "model=fm_droid_crossattention",
+                "data.synthetic=true", SLICE22_IMPORT_JETS,
+                "model.net_config.cae_config.mha_config.attn_impl=fused",
+                "model.net_config.cae_config.mha_config.scores_dtype=null"],
+     "fused_short_attention", 16),
+    ("path C", ["experiment=calo/mdma_calo", "data.synthetic=true",
+                "data.synthetic_num_showers=64", "model.net_config.num_heads=2"],
+     "flash_masked_attention", 8),
+    # the guidance sweep's run: a test split of 1,050 jets
+    ("fm_cfg_tops30", ["experiment=jetnet/fm_cfg_tops30", "data.synthetic=true",
+                       "data.synthetic_num_jets=7000"], "epic_layer", 6),
+]
+SLICE22_FLAGSHIP_SETS = 64
+SLICE22_ATTENTION_SETS = {"path A": 64, "path B": 64, "path C": 4}
+SLICE22_CLASSIFIER_ARGS = ["--arch", "epic", "--ckpt", "last", "--n_samples", "2000",
+                           "--ode_steps", "20", "--epochs", "1"]
+SLICE22_SWEEP = dict(n=1000, ode_steps=20, ws=(1.0, 2.0))
+SLICE22_TIMING = dict(sizes=[30, 150], jets=1000, batch_size=256, ode_steps=ODE_STEPS)
+SLICE22_IMPORT_TIMEOUT_S = 300
+SLICE22_IN_PROCESS = "fm_cfg_tops30"  # the sweep's run: imported in this process (the CLI's main)
+
+
+def reference_checkpoints(torch) -> dict:
+    """For each import case: a seeded network of the composed model (every
+    parameter drawn, seed 1, 2, ...) written under the reference's key names
+    with the `loss.flows.*` aliases of a Lightning checkpoint, as
+    {"state_dict": sd} in a .ckpt; returns {name: (model, network on the
+    CPU, state dict, path)}."""
+    from particle_fm_tpu_torch.utils.torch_import import reference_state_dict
+
+    SLICE22_DIR.mkdir(parents=True, exist_ok=True)
+    out = {}
+    for seed, (name, overrides, _, _) in enumerate(SLICE22_IMPORTS, 1):
+        model, _, _ = compose_training(overrides)
+        net = model.init(seed=0, device="cpu")
+        redraw_parameters(torch, net, seed=seed)
+        sd = reference_state_dict(net.state_dict())
+        sd.update({f"loss.{k}": v.clone() for k, v in sd.items()})
+        path = SLICE22_DIR / f"{name.replace(' ', '_')}.ckpt"
+        torch.save({"state_dict": sd}, path)
+        out[name] = (model, net, sd, path)
+    return out
+
+
+def start_imports(written: dict) -> dict:
+    """scripts/torch_import_reference_ckpt.py on every checkpoint but the
+    sweep's, each in a process of its own, all started together; returns
+    {name: (process, run dir, start time)}."""
+    procs = {}
+    for name, overrides, _, _ in SLICE22_IMPORTS:
+        if name == SLICE22_IN_PROCESS:
+            continue
+        out = SLICE22_DIR / f"{name.replace(' ', '_')}_run"
+        cmd = [sys.executable, str(ROOT / "scripts" / "torch_import_reference_ckpt.py"),
+               "--ckpt", str(written[name][3]), "--out", str(out), *overrides]
+        procs[name] = (subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       out, time.perf_counter())
+    return procs
+
+
+def finish_imports(procs: dict) -> dict:
+    """Wait for the import processes; {name: (run dir, seconds)}; any failure
+    (or one past SLICE22_IMPORT_TIMEOUT_S) fails the run, the others killed."""
+    out = {}
+    for name, (proc, run_dir, t0) in procs.items():
+        try:
+            log, _ = proc.communicate(timeout=SLICE22_IMPORT_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            log = f"no exit within {SLICE22_IMPORT_TIMEOUT_S} s"
+        if proc.returncode != 0:
+            for p, _, _ in procs.values():
+                p.kill()
+            fail(f"slice22 import {name}: exit {proc.returncode}: {log[-2000:]}")
+        out[name] = (run_dir, time.perf_counter() - t0)
+    return out
+
+
+def check_import(torch, name: str, run_dir: Path, dev, model, net_cpu, sd):
+    """The run directory loaded on the card by `load_run` (EMA weights),
+    and its checkpoint's live weights, equal to the state dict's tensors
+    after the relayout bit for bit; returns (model, network on the card)."""
+    from particle_fm_tpu_torch.utils.run_io import load_run
+    from particle_fm_tpu_torch.utils.torch_import import state_dict_from_reference
+
+    want = state_dict_from_reference(sd, model)
+    _, _, model2, net = load_run(str(run_dir), "last", ema=True, device=dev)
+    live = torch.load(run_dir / "checkpoints" / "last.pt", map_location="cpu",
+                      weights_only=True)["params"]
+    for k, v in net.state_dict().items():
+        if not (torch.equal(v.cpu(), want[k]) and torch.equal(live[k], want[k])
+                and torch.equal(want[k], net_cpu.state_dict()[k])):
+            fail(f"slice22 import {name}: {k} differs from the reference tensors")
+    return model2, net
+
+
+def imported_served(torch, dev, counted, name, model, net, wrapper, per_eval, owner) -> dict:
+    """An imported network served through its kernel: the flagship
+    SLICE22_FLAGSHIP_SETS sets at NFE 100 (midpoint), the attention paths one
+    batch of one euler evaluation; exact launches, and the plain path (the
+    wrapper replaced by its plain version) on the same inputs."""
+    from particle_fm_tpu_torch.serving import make_serve_fn, serve_batches
+
+    flagship = name == "flagship"
+    b = SLICE22_FLAGSHIP_SETS if flagship else SLICE22_ATTENTION_SETS[name]
+    steps, solver = (ODE_STEPS, "midpoint") if flagship else (2, "euler")
+    nfe = 2 * (steps - 1) if flagship else 1
+    fn = make_serve_fn(model, net, batch_size=b, ode_solver=solver, ode_steps=steps,
+                       has_cond=True, has_mask=True)
+    rs = np.random.RandomState(11)
+    mask = ragged_mask(rs, b, model.num_particles,
+                       lo=1000 if model.num_particles > 1000 else 30)[..., None]
+    cond = rs.randn(b, model.global_cond_dim).astype(np.float32)
+    reset(counted)
+    x = serve_batches(fn, fn.meta, b, cond=cond, mask=mask, seed=5)
+    got = launched(counted)
+    expect_launches(f"slice22 imported {name} served", got, wrapper, per_eval * nfe)
+    with mock.patch.object(owner, wrapper, getattr(owner, wrapper + "_reference")):
+        plain = serve_batches(fn, fn.meta, b, cond=cond, mask=mask, seed=5)
+    err = float(np.abs(x - plain).max())
+    tol = PATH_TOL if flagship else KERNEL_TOL
+    if name == "path C":  # of the largest |x|: drawn MDMA weights put its field in the hundreds
+        tol *= max(1.0, float(np.abs(plain).max()))
+    if not (np.isfinite(x).all() and x.shape == (b, model.num_particles, model.features)
+            and err <= tol and np.abs(x).max() > 0.0):
+        fail(f"slice22 imported {name} served: shape {x.shape}, against the plain path {err} "
+             f"(limit {tol})")
+    return {"sets": b, "solver": solver, "ode_steps": steps, "evaluations": nfe,
+            "launches": got[wrapper], "max_abs_err_vs_plain": err, "limit": tol,
+            "largest_abs": float(np.abs(x).max())}
+
+
+def serve_imports(torch, ops, sa, fa, dev, counted, written: dict, dirs: dict) -> dict:
+    """Each imported run (but the sweep's) checked and served through its
+    kernel; one `slice22` line each."""
+    owners = {"epic_layer": ops, "packed_short_attention": sa, "fused_short_attention": sa,
+              "flash_masked_attention": fa}
+    out = {}
+    for name, overrides, wrapper, per_eval in SLICE22_IMPORTS:
+        if name == SLICE22_IN_PROCESS:
+            continue
+        model, net_cpu, sd, _ = written[name]
+        run_dir, import_s = dirs[name]
+        model2, net = check_import(torch, name, run_dir, dev, model, net_cpu, sd)
+        line = {"overrides": overrides, "reference_tensors": len(sd),
+                "parameters": sum(p.numel() for p in net.parameters()),
+                "bit_equal_after_relayout": True, "run_dir": str(run_dir.relative_to(ROOT)),
+                "import_process_s": import_s,
+                "served": imported_served(torch, dev, counted, name, model2, net, wrapper,
+                                          per_eval, owners[wrapper])}
+        out[name] = line
+        print(json.dumps({"slice22": f"reference import {name}", **line}), flush=True)
+    return out
+
+
+def classifier_test_phase(torch, ops, dev, counted, run_dir: Path) -> dict:
+    """scripts/torch_classifier_test.py on the train CLI phase's run: the
+    generation's EPiC launches (6 x 38 a batch) and the discriminator's
+    predictions through the folded layer (S = 0, 3 a test batch) exact, the
+    first generated batch against the plain path within PATH_TOL, and
+    classifier_test.yaml with the JAX script's keys, finite."""
+    import yaml as _yaml
+
+    from particle_fm_tpu_torch.eval import generation as pgen
+    from particle_fm_tpu_torch.training import trainer as ptrainer
+    from scripts import torch_classifier_test as script
+
+    calls, seen = [], {}
+    inner_gen, inner_fit = pgen.generate_data, ptrainer.Trainer.fit
+
+    def generate(*a, **k):
+        out = inner_gen(*a, **k)
+        calls.append((a, k, out[0], launched(counted)))
+        return out
+
+    def fit(self, *a, **k):
+        seen["trainer"] = self
+        return inner_fit(self, *a, **k)
+
+    reset(counted)
+    t0 = time.perf_counter()
+    with mock.patch.object(pgen, "generate_data", generate), \
+            mock.patch.object(ptrainer.Trainer, "fit", fit):
+        res = script.main(["--run_dir", str(run_dir), *SLICE22_CLASSIFIER_ARGS])
+    script_s = time.perf_counter() - t0
+    total = launched(counted)
+    ((args, kw, gen, gen_launches),) = calls
+    model, n = args[0], kw["num_jet_samples"]
+    batches = -(-n // kw["batch_size"])
+    evals = 2 * (kw["ode_steps"] - 1)
+    expect_launches("slice22 classifier test (generation)", gen_launches, "epic_layer",
+                    model.layers * evals * batches)
+    trainer = seen["trainer"]
+    test_batches = len(list(trainer.datamodule.test_batches()))
+    predict = {k: total[k] - gen_launches[k] for k in total}
+    expect_launches("slice22 classifier test (predict, S=0)", predict, "epic_layer",
+                    3 * test_batches * len(trainer.metrics_history))
+    m = min(n, kw["batch_size"])
+    first = dict(kw, num_jet_samples=m, cond=kw["cond"][:m], mask=kw["mask"][:m])
+    with mock.patch.object(ops, "epic_layer", ops.epic_layer_reference):
+        plain, _ = inner_gen(args[0], args[1], **first)
+    err = float(np.abs(gen[:m] - plain).max())
+    written = _yaml.safe_load(open(run_dir / "classifier_test.yaml"))
+    if not (err <= PATH_TOL and np.isfinite(gen).all()
+            and set(written) == {"classifier_auc", "classifier_accuracy"}
+            and all(np.isfinite(v) for v in written.values()) and written == res):
+        fail(f"slice22 classifier test: first batch against plain {err}, yaml {written}")
+    return {"run_dir": str(run_dir.relative_to(ROOT)), "args": SLICE22_CLASSIFIER_ARGS,
+            "generated_sets": n, "generation_batches": batches, "evaluations": evals,
+            "generation_launches": gen_launches["epic_layer"],
+            "predict_launches": predict["epic_layer"], "test_batches": test_batches,
+            "train_split": len(trainer.datamodule.train.x),
+            "first_batch_max_abs_err_vs_plain": err, "limit": PATH_TOL, "yaml": written,
+            "script_s": script_s}
+
+
+def guidance_sweep_phase(torch, ops, dev, counted, run_dir: Path) -> dict:
+    """scripts/torch_guidance_sweep.py on the imported fm_cfg_tops30 run
+    (seeded weights at full width), w = 1 and 2 on 1,000 test sets at 20
+    midpoint steps: w = 1 bit-equal to guidance_scale=1.0 (which the guided
+    drift skips), w = 2's launches those of one doubled-batch forward an
+    evaluation, and w = 2 against the plain path within PATH_TOL."""
+    from particle_fm_tpu_torch.eval import generation as pgen
+    from scripts import torch_guidance_sweep as script
+
+    calls = []
+    inner_gen = pgen.generate_data
+
+    def generate(*a, **k):
+        before = launched(counted)
+        out = inner_gen(*a, **k)
+        after = launched(counted)
+        calls.append((a, k, out[0], {w: after[w] - before[w] for w in after}))
+        return out
+
+    reset(counted)
+    t0 = time.perf_counter()
+    with mock.patch.object(pgen, "generate_data", generate):
+        res = script.main(["--run_dir", str(run_dir), "--ckpt", "last", "--n",
+                           str(SLICE22_SWEEP["n"]), "--ode_steps", str(SLICE22_SWEEP["ode_steps"]),
+                           "--ws", *map(str, SLICE22_SWEEP["ws"])])
+    sweep_s = time.perf_counter() - t0
+    total = launched(counted)
+    (a1, k1, x1, l1), (a2, k2, x2, l2) = calls
+    model = a1[0]
+    batches = -(-k1["num_jet_samples"] // k1["batch_size"])
+    per = model.layers * 2 * (SLICE22_SWEEP["ode_steps"] - 1) * batches
+    for w, got in ((1, l1), (2, l2)):
+        expect_launches(f"slice22 guidance sweep (w={w})", got, "epic_layer", per)
+    unguided, _ = inner_gen(*a1, **dict(k1, guidance_scale=1.0))
+    with mock.patch.object(ops, "epic_layer", ops.epic_layer_reference):
+        plain, _ = inner_gen(*a2, **k2)
+    err = float(np.abs(x2 - plain).max())
+    if not (np.array_equal(x1, unguided) and err <= PATH_TOL and np.isfinite(x2).all()
+            and not np.array_equal(x1, x2)):
+        fail(f"slice22 guidance sweep: w=1 bit-equal to unguided {np.array_equal(x1, unguided)}, "
+             f"w=2 against plain {err}")
+    return {"run_dir": str(run_dir.relative_to(ROOT)), "sets": k1["num_jet_samples"],
+            "ode_steps": SLICE22_SWEEP["ode_steps"], "ws": list(SLICE22_SWEEP["ws"]),
+            "launches_a_w": per, "launches": total["epic_layer"],
+            "w1_bit_equal_to_unguided": True, "w2_max_abs_err_vs_plain": err, "limit": PATH_TOL,
+            "yaml": res, "sweep_s": sweep_s}
+
+
+def timing_study_phase(torch, dev, counted) -> dict:
+    """scripts/torch_timing_plots.py's measurement (no plot: the card's
+    machine has no matplotlib) at 30 and 150 particles, 1,000 jets at NFE 100
+    through the EPiC kernel, its launches exact; ms a jet by size."""
+    from scripts import torch_timing_plots as script
+
+    t = SLICE22_TIMING
+    reset(counted)
+    sizes, per_jet = script.measure(t["sizes"], jets=t["jets"], batch_size=t["batch_size"],
+                                    ode_steps=t["ode_steps"], device=dev)
+    got = launched(counted)
+    n = len(t["sizes"]) * 6 * 2 * (t["ode_steps"] - 1) * -(-t["jets"] // t["batch_size"])
+    expect_launches("slice22 timing study", got, "epic_layer", n)
+    if sizes != t["sizes"] or not all(np.isfinite(s) and s > 0 for s in per_jet):
+        fail(f"slice22 timing study: sizes {sizes}, seconds a jet {per_jet}")
+    return {"jets": t["jets"], "batch": t["batch_size"], "nfe": 2 * (t["ode_steps"] - 1),
+            "ms_a_jet": {str(s): 1e3 * v for s, v in zip(sizes, per_jet)},
+            "launches": got["epic_layer"], "card": card_line()}
+
+
+def slice22_phases(torch, ops, sa, fa, dev, counted, train_cli: dict) -> dict:
+    """The reference import (its processes started first and left to run
+    while the classifier test and the timing study use the card), the
+    classifier test, the timing study, the guidance sweep on the run that
+    this process imports, then the imported runs checked and served; each
+    line with its phase_s, the kernels' launches under "_launches"."""
+    from scripts import torch_import_reference_ckpt as import_script
+
+    launches = {}
+    t0 = time.perf_counter()
+    written = reference_checkpoints(torch)
+    procs = start_imports(written)
+    write_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    run_dir = (ROOT / train_cli["checkpoints"][0]).parent.parent
+    clf = classifier_test_phase(torch, ops, dev, counted, run_dir)
+    print(json.dumps({"slice22": "classifier test", "phase_s": time.perf_counter() - t0, **clf}),
+          flush=True)
+    launches["epic_layer"] = [("slice22 classifier test (generation)", clf["generation_launches"]),
+                              ("slice22 classifier test (predict, S=0)", clf["predict_launches"])]
+
+    t0 = time.perf_counter()
+    timing = timing_study_phase(torch, dev, counted)
+    print(json.dumps({"slice22": "timing study (no claim)", "phase_s": time.perf_counter() - t0,
+                      **timing}), flush=True)
+    launches["epic_layer"].append(("slice22 timing study (N = 30, 150)", timing["launches"]))
+
+    t0 = time.perf_counter()
+    (name, overrides, _, _), = [c for c in SLICE22_IMPORTS if c[0] == SLICE22_IN_PROCESS]
+    model, net_cpu, sd, ckpt = written[name]
+    sweep_dir = Path(import_script.main(["--ckpt", str(ckpt), "--out",
+                                         str(SLICE22_DIR / f"{name}_run"), *overrides]))
+    check_import(torch, name, sweep_dir, dev, model, net_cpu, sd)
+    import_s = time.perf_counter() - t0
+    sweep = guidance_sweep_phase(torch, ops, dev, counted, sweep_dir)
+    print(json.dumps({"slice22": "guidance sweep", "phase_s": time.perf_counter() - t0,
+                      "import_s": import_s, **sweep}), flush=True)
+    launches["epic_layer"].append(("slice22 guidance sweep (w = 1, 2)", sweep["launches"]))
+
+    t0 = time.perf_counter()
+    dirs = finish_imports(procs)
+    wait_s = time.perf_counter() - t0
+    served = serve_imports(torch, ops, sa, fa, dev, counted, written, dirs)
+    print(json.dumps({"slice22": "reference import", "write_and_start_s": write_s,
+                      "wait_s": wait_s, "phase_s": write_s + time.perf_counter() - t0}),
+          flush=True)
+    for name, _, wrapper, _ in SLICE22_IMPORTS:
+        if name in served:
+            launches.setdefault(wrapper, []).append(
+                (f"slice22 imported {name} served", served[name]["served"]["launches"]))
+    return {"_launches": launches}
+
+
 def serving_runs(torch, dev, FlowMatchingModel, ops, sa, fa) -> list[dict]:
     """The six served models at full width with their seeded weights, as the
     serving phases serve them (one dict a path: name, config, model, net,
@@ -5986,6 +6377,14 @@ def main() -> None:
         kernels[kernel_name]["launches"] += launches
         kernels[kernel_name]["launches_by_path"][path] = launches
     print(json.dumps({"slice21_phases_s": time.perf_counter() - t0}), flush=True)
+
+    t0 = time.perf_counter()
+    res = slice22_phases(torch, ops, sa, fa, dev, counted, cli)  # prints its lines
+    for kernel_name, paths in res["_launches"].items():
+        for path, launches in paths:
+            kernels[kernel_name]["launches"] += launches
+            kernels[kernel_name]["launches_by_path"][path] = launches
+    print(json.dumps({"slice22_phases_s": time.perf_counter() - t0}), flush=True)
 
     kernels = list(kernels.values())
     print(json.dumps({"smoke_s": time.perf_counter() - started}), flush=True)

@@ -38,13 +38,18 @@ def pinned_placer(device: torch.device) -> Callable:
 
 
 def prefetch_to_device(iterator: Iterable, place: Callable, depth: int = 2) -> Iterator:
-    """Yield `place(item)` for each item, with up to `depth` (>= 1) placed
-    items prepared ahead by a worker thread.
+    """Yield `place(item)` for each item, with up to `depth` placed items
+    prepared ahead by a worker thread (`depth` <= 0: no worker, each item
+    placed at its pull).
 
     `place` runs on the worker thread. A worker's exception is re-raised at
     the consumer's next pull. If the consumer leaves the generator early,
     the worker is told to stop and exits at its next queue hand-off.
     """
+    if depth <= 0:
+        for item in iterator:
+            yield place(item)
+        return
     q: queue.Queue = queue.Queue(maxsize=depth)
     stop = threading.Event()
     sentinel = object()

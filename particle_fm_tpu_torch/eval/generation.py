@@ -158,3 +158,20 @@ def generate_data(
     data = np.concatenate(chunks, axis=0)
     generation_time = (end_time - start_time) if start_time is not None else 0.0
     return data, generation_time
+
+
+def measure_generation_timing(models_by_size: list, jets_to_generate: int = 1000,
+                              batch_size: int = 256, ode_solver: str = "midpoint",
+                              ode_steps: int = 100) -> tuple[list, list]:
+    """Generation seconds per jet at several jet sizes: `models_by_size` =
+    [(n_particles, model, net), ...], each generated on its network's
+    device. Returns (sizes, seconds_per_jet)."""
+    sizes, times = [], []
+    for n, model, net in models_by_size:
+        _, t = generate_data(model, net, num_jet_samples=jets_to_generate,
+                             batch_size=batch_size, variable_set_sizes=False,
+                             ode_solver=ode_solver, ode_steps=ode_steps,
+                             device=next(net.parameters()).device)
+        sizes.append(int(n))
+        times.append(t / jets_to_generate)
+    return sizes, times

@@ -10,7 +10,8 @@ this module only when it plots, so a run without matplotlib raises an
 ImportError that names it there and nowhere else. The EFPs of
 `prepare_data_for_plotting` and the generation of `measure_generation_timing`
 run on the device of the port's eval/efp.py and eval/generation.py: the
-given `device`, or the network's own.
+given `device`, or the network's own (`measure_generation_timing` lives in
+eval/generation.py, which imports without matplotlib, and is named here).
 
 Each function saves its figure to `save_path` (its directory made) and
 returns the path, or returns the figure when no path is given.
@@ -30,6 +31,7 @@ from particle_fm_tpu_torch.data.utils import (  # noqa: E402
     calculate_jet_features,
     get_pt_of_selected_particles,
 )
+from particle_fm_tpu_torch.eval.generation import measure_generation_timing  # noqa: E402,F401
 
 FEATURE_LABELS = [r"$\eta^{rel}$", r"$\phi^{rel}$", r"$p_T^{rel}$"]
 JET_LABELS = [r"jet $p_T$", "jet $y$", r"jet $\phi$", "jet mass"]
@@ -231,25 +233,6 @@ def plot_calo_showers(x: np.ndarray, mask: np.ndarray | None = None,
         fig.colorbar(sc, ax=ax, label="E")
     fig.tight_layout()
     return _finish(fig, save_path)
-
-
-def measure_generation_timing(models_by_size: list, jets_to_generate: int = 1000,
-                              batch_size: int = 256, ode_solver: str = "midpoint",
-                              ode_steps: int = 100) -> tuple[list, list]:
-    """Generation seconds per jet at several jet sizes: `models_by_size` =
-    [(n_particles, model, net), ...], each generated on its network's
-    device. Returns (sizes, seconds_per_jet)."""
-    from particle_fm_tpu_torch.eval.generation import generate_data
-
-    sizes, times = [], []
-    for n, model, net in models_by_size:
-        _, t = generate_data(model, net, num_jet_samples=jets_to_generate,
-                             batch_size=batch_size, variable_set_sizes=False,
-                             ode_solver=ode_solver, ode_steps=ode_steps,
-                             device=next(net.parameters()).device)
-        sizes.append(int(n))
-        times.append(t / jets_to_generate)
-    return sizes, times
 
 
 def plot_generation_timing(curves: list, save_path: str | None = None,

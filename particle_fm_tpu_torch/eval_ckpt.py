@@ -21,7 +21,11 @@ and cond, and their substructure are written as the classifier test's input
 (`write_classifier_h5`, the JAX package's schema, read by
 data/jetclass_classifier.py); it needs h5py and raises at once without it.
 
-Not ported: the comparison plot.
+The comparison grid of the test split against the generated sets is drawn
+to `eval_ckpt_comparison.png` with eval/plotting.py::plot_data, as the JAX
+script draws it (the hardest particles' pT only for ranks the sets hold,
+where JAX's raises an IndexError on sets of fewer than 10). Where matplotlib is not installed the metrics are written
+all the same, and one line names the missing package and the plot.
 
 Under torchrun every rank runs the same command (parallel/dist.py): the
 generation is rank-split over the ranks' devices, every rank computes the
@@ -100,6 +104,22 @@ def write_classifier_h5(path: str, dm, gen, mask_gen, cond_gen, real, mask_real,
             f.create_dataset(f"{key}_gen", data=np.asarray(hl_gen[key], np.float32))
             f.create_dataset(f"{key}_sim", data=np.asarray(hl_real[key], np.float32))
     print(f"[eval_ckpt] wrote {path} (+_substructure.h5)")
+
+
+def plot_comparison(real, gen, path: str, device) -> str | None:
+    """The comparison grid at `path` (the pT of the 1st, 3rd and 10th
+    hardest particles where the sets hold them: a set of two jets has only
+    the 1st); None, and a line that says so, where matplotlib is not
+    installed."""
+    try:
+        from particle_fm_tpu_torch.eval.plotting import plot_data
+    except ImportError as e:
+        if not (e.name or "").startswith("matplotlib"):
+            raise
+        print(f"[eval_ckpt] matplotlib is not installed: not writing the plot {path}")
+        return None
+    selected = tuple(k for k in (1, 3, 10) if k <= real.shape[1])
+    return plot_data(real, gen, path, selected_particles=selected, device=device)
 
 
 def parse_args(argv=None):
@@ -223,6 +243,7 @@ def main(argv: list[str] | None = None) -> dict:
         write_classifier_h5(os.path.join(args.run_dir, "classifier_data.h5"), dm, gen, mask_gen,
                             cond_gen, real_k, mask_k, cond_sim, hl_g, hl_r)
 
+    plot_comparison(real_k, gen, os.path.join(args.run_dir, "eval_ckpt_comparison.png"), device)
     out = os.path.join(args.run_dir, "eval_metrics.yaml")
     with open(out, "w") as fh:
         yaml.safe_dump({k: float(v) for k, v in metrics.items()}, fh)

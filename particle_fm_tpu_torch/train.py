@@ -29,8 +29,14 @@ classifier models train as the generators do (labels in `cond`), and the
 flat models on (B, F) batches without a mask. A callback the port lacks
 raises through config/core.py. An entry without a `_target_`, as an
 experiment overlay leaves after `callbacks=none`, is skipped, as in the JAX
-package. A trainer key the port's Trainer does not declare (the JAX
-trainer's `cache_data_on_device`, ...) raises NotImplementedError.
+package. The `logger` group's `backends` names the logger backends and its
+other keys are their init arguments (`logger_kwargs`, with
+`trainer.logger_kwargs` on top); `trainer.cache_data_on_device`,
+`device_cache_limit_mb` and `prefetch_batches` choose the device cache or
+the stream as in the JAX trainer. A trainer key the port's Trainer does not
+declare raises NotImplementedError. `main` runs the task under
+utils/helpers.py::task_wrapper: a failed run appends its traceback to
+`<output_dir>/exec_error.log` and raises again.
 
 Across processes, every rank runs the same command:
 
@@ -95,6 +101,9 @@ def build_trainer(cfg: dict, out_dir: str | None = None,
     for key in ("multihost", "grad_clip"):
         trainer_cfg.pop(key, None)
     ema_cfg = trainer_cfg.pop("ema", {})
+    logger_cfg = dict(cfg.get("logger") or {})
+    backends = tuple(logger_cfg.pop("backends", ["jsonl"]))
+    logger_kwargs = {**logger_cfg, **(trainer_cfg.pop("logger_kwargs", None) or {})}
     declared = {f.name for f in dataclasses.fields(Trainer)}
     unported = sorted(k for k in trainer_cfg if k not in declared)
     if unported:
@@ -111,7 +120,8 @@ def build_trainer(cfg: dict, out_dir: str | None = None,
         ema_start_step=ema_cfg.get("start_step", 0),
         ckpt_dir=os.path.join(out_dir, "checkpoints") if out_dir else None,
         log_dir=out_dir,
-        logger_backends=tuple((cfg.get("logger") or {}).get("backends", ["jsonl"])),
+        logger_backends=backends,
+        logger_kwargs=logger_kwargs,
         seed=cfg.get("seed", 0),
         device=device,
         **trainer_cfg,
@@ -178,8 +188,10 @@ def train(cfg: dict, extra_callbacks: list | None = None) -> tuple[dict, dict]:
 
 
 def main(argv: list[str] | None = None) -> tuple[dict, dict]:
+    from particle_fm_tpu_torch.utils.helpers import task_wrapper
+
     argv = argv if argv is not None else sys.argv[1:]
-    return train(compose(CONFIG_DIR, "train", overrides=list(argv)))
+    return task_wrapper(train)(compose(CONFIG_DIR, "train", overrides=list(argv)))
 
 
 if __name__ == "__main__":

@@ -3,7 +3,11 @@
 `tensorboard` (event files under `<log_dir>/tb`, through
 `torch.utils.tensorboard`: where the `tensorboard` package is missing it
 raises an ImportError that names it, where the JAX package skips the
-backend). The others log to outside services: asking for one raises. In a
+backend). The others log to outside services: asking for one raises.
+`MultiLogger`'s keyword arguments are the backends' init arguments, one dict
+a backend name (the trainer's `logger_kwargs`, the `logger` config group
+less its `backends`): the file name of `jsonl` and `csv`, and
+`SummaryWriter`'s arguments for `tensorboard`. In a
 process group only rank 0 logs (the Trainer builds no logger on the other
 ranks; one built there writes nothing).
 """
@@ -18,9 +22,9 @@ from particle_fm_tpu_torch.parallel import dist
 
 
 class JsonlLogger:
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: str, filename: str = "metrics.jsonl"):
         os.makedirs(log_dir, exist_ok=True)
-        self.path = os.path.join(log_dir, "metrics.jsonl")
+        self.path = os.path.join(log_dir, filename)
 
     def log_metrics(self, metrics: dict, step: int) -> None:
         with open(self.path, "a") as f:
@@ -35,9 +39,9 @@ class CSVLogger:
     widens the header (rare: typically once when eval callbacks first fire) —
     a 10k-epoch run logs in O(n), not O(n^2)."""
 
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: str, filename: str = "metrics.csv"):
         os.makedirs(log_dir, exist_ok=True)
-        self.path = os.path.join(log_dir, "metrics.csv")
+        self.path = os.path.join(log_dir, filename)
         self._keys: list[str] = []
         self._rows: list[dict] = []
 
@@ -63,13 +67,13 @@ class CSVLogger:
 class TensorBoardLogger:
     """One scalar a metric a step, flushed each call."""
 
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: str, **writer_kwargs):
         try:
             from torch.utils.tensorboard import SummaryWriter
         except ImportError as e:
             raise ImportError("the tensorboard logger backend needs the `tensorboard` package, "
                               f"which is not installed ({e})") from e
-        self._writer = SummaryWriter(os.path.join(log_dir, "tb"))
+        self._writer = SummaryWriter(os.path.join(log_dir, "tb"), **writer_kwargs)
 
     def log_metrics(self, metrics: dict, step: int) -> None:
         for k, v in metrics.items():
@@ -86,13 +90,14 @@ _BACKENDS = {"jsonl": JsonlLogger, "csv": CSVLogger, "tensorboard": TensorBoardL
 class MultiLogger:
     """Fan-out to the configured backends."""
 
-    def __init__(self, log_dir: str, backends: tuple = ("jsonl",)):
+    def __init__(self, log_dir: str, backends: tuple = ("jsonl",), **kwargs):
         unknown = [name for name in backends if name not in _BACKENDS]
         if unknown:
             raise NotImplementedError(
                 f"logger backends {unknown} are not ported (the port logs to {sorted(_BACKENDS)})"
             )
-        self.loggers = ([_BACKENDS[name](log_dir) for name in backends]
+        self.loggers = ([_BACKENDS[name](log_dir, **(kwargs.get(name) or {}))
+                         for name in backends]
                         if dist.is_rank_zero() else [])
 
     def log_metrics(self, metrics: dict, step: int) -> None:

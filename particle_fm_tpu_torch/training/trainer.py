@@ -3,17 +3,19 @@ checkpoints, logging; counterpart of particle_fm_tpu/training/trainer.py
 (field names and semantics as there).
 
 A train split of fixed-shape batches (`datamodule.device_cacheable`) is
-placed on the device once when it is under DEVICE_CACHE_LIMIT_MB, and each
-epoch's shuffle is one gather there.
+placed on the device once, and each epoch's shuffle is one gather there:
+with `cache_data_on_device=None` (the default) when the split is under
+`device_cache_limit_mb`, with True always, with False never.
 The shuffle is the JAX trainer's,
 `np.random.default_rng(seed + epoch).permutation(n)[:n_use]`, over the same
 usable batches, so both packages see the same batches in the same order.
 Otherwise the epoch's batches come from
 `datamodule.train_batches(seed=seed + epoch)` on the host (the bucketed
 CaloChallenge batches) and are streamed: a worker thread builds the next
-PREFETCH_BATCHES batches and copies them from page-locked buffers with
+`prefetch_batches` batches and copies them from page-locked buffers with
 `non_blocking` copies (data/prefetch.py); a worker's exception is raised at
-the next pull. With accumulation, each group of streamed batches is stacked
+the next pull; 0 turns the worker off (each batch placed at its pull). With
+accumulation, each group of streamed batches is stacked
 on the host first, as in the JAX trainer.
 Each step draws from a generator seeded from (seed + 1, step), the
 counterpart of the JAX step's `fold_in(rng, step)`: a run resumed from a
@@ -92,9 +94,10 @@ does not divide (ValueError). In one process pp runs with S = 1 only; a
 world larger than S under pp raises ValueError naming dp_pp where JAX
 leaves the other devices idle (ROADMAP.md Queue 3 item 16).
 
-Not carried: the model axis in one process (ROADMAP.md Queue 1 item 7), and
-the JAX trainer's cache and prefetch options (here the constants
-DEVICE_CACHE_LIMIT_MB and PREFETCH_BATCHES); asking for them raises.
+The logger backends (training/loggers.py) take their init arguments from
+`logger_kwargs`, one dict a backend name, as in the JAX trainer.
+
+Not carried: the model axis in one process (ROADMAP.md Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -129,8 +132,6 @@ from particle_fm_tpu_torch.training.step import (
 from particle_fm_tpu_torch.utils.device import resolve_device
 
 VAL_SEED = 9999  # fixed validation seed, as in the JAX trainer
-DEVICE_CACHE_LIMIT_MB = 2048  # the JAX trainer's default device_cache_limit_mb
-PREFETCH_BATCHES = 2  # streamed batches the worker keeps in flight
 STRATEGIES = ("dp", "fsdp", "dp_tp", "sp", "pp", "dp_pp", "dp_ep")
 MODEL_AXIS_STRATEGIES = ("dp_tp", "sp", "dp_ep")  # on a (data, model) mesh
 PIPELINE_STRATEGIES = ("pp", "dp_pp")  # on a (data, pipe) mesh
@@ -155,6 +156,11 @@ class Trainer:
     save_last_every_n_epoch: int = 10
     log_dir: Optional[str] = None
     logger_backends: tuple = ("jsonl",)
+    logger_kwargs: dict = field(default_factory=dict)  # init arguments a backend name
+    # the train split on the device: None = when under device_cache_limit_mb
+    cache_data_on_device: Optional[bool] = None
+    device_cache_limit_mb: int = 2048
+    prefetch_batches: int = 2  # streamed batches the worker keeps in flight; 0 = no worker
     # one optimizer step per this many microbatches of datamodule.batch_size,
     # their gradients weighted by the loss normalisation mass
     accumulate_grad_batches: int = 1
@@ -246,7 +252,8 @@ class Trainer:
         self.ckpt = (CheckpointManager(self.ckpt_dir, self.ckpt_monitors, self.ckpt_top_k,
                                        async_save=self.ckpt_async)
                      if self.ckpt_dir else None)
-        self.logger = (MultiLogger(self.log_dir, backends=tuple(self.logger_backends))
+        self.logger = (MultiLogger(self.log_dir, backends=tuple(self.logger_backends),
+                                   **(self.logger_kwargs or {}))
                        if self.log_dir else None)
         # where callbacks write their files (final_generated_data.npy, ...):
         # None on every rank but 0
@@ -355,7 +362,9 @@ class Trainer:
         if split is None or not getattr(dm, "device_cacheable", False):
             return None
         nbytes = split.x.nbytes + (split.mask.nbytes if split.mask is not None else 0)
-        return self._place_train_split() if nbytes < DEVICE_CACHE_LIMIT_MB * 2**20 else None
+        enabled = (self.cache_data_on_device if self.cache_data_on_device is not None
+                   else nbytes < self.device_cache_limit_mb * 2**20)
+        return self._place_train_split() if enabled else None
 
     def _streamed_batches(self, epoch: int):
         """The epoch's host batches (this rank's rows) on the device,
@@ -374,7 +383,8 @@ class Trainer:
                                     for j in range(3))
                         buf = []
             batches = groups()
-        return prefetch_to_device(batches, pinned_placer(self.device), PREFETCH_BATCHES)
+        return prefetch_to_device(batches, pinned_placer(self.device),
+                                  self.prefetch_batches)
 
     def _epoch_perm(self, n: int, n_use: int, epoch: int) -> np.ndarray:
         return np.random.default_rng(self.seed + epoch).permutation(n)[:n_use]

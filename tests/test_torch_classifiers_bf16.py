@@ -49,7 +49,7 @@ def _inputs(cfg, b=8, seed=0):
 def test_epic_discriminator_bf16_closer_to_jax_bf16_than_jax_is_to_f32(name, monkeypatch):
     cfg = CFGS[name]
     jm, jm16 = jcls.SetClassifierModel(**cfg), jcls.SetClassifierModel(**cfg, dtype="bfloat16")
-    params = filled(jm.init(jax.random.PRNGKey(0))["params"], 0, 0.6)
+    params = filled(jax.eval_shape(jm.init, jax.random.PRNGKey(0))["params"], 0, 0.6)
     variables = {"params": params}
     pm16 = pcls.SetClassifierModel(**cfg, dtype="bfloat16")
     net16 = pm16.init(device="cpu")

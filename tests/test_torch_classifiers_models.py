@@ -82,7 +82,7 @@ def test_predict_matches_jax(name):
 
 def test_hl_classifier_matches_jax():
     jm = jcls.HLClassifierModel(features=3, layers=(16, 32, 16))
-    params = filled(jm.init(jax.random.PRNGKey(0))["params"])
+    params = filled(jax.eval_shape(jm.init, jax.random.PRNGKey(0))["params"])
     pm = pcls.HLClassifierModel(features=3, layers=(16, 32, 16))
     net = pm.init(device="cpu")
     load_flax_params(net, params)

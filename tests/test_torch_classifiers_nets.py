@@ -44,7 +44,8 @@ def _sets(b=6, n=12, feats=3, seed=0, lo=1):
 
 
 def _pair(jmod, pmod, *jargs, seed=0, scale=0.3, **jkw):
-    params = filled(jmod.init(jax.random.PRNGKey(0), *jargs, **jkw)["params"], seed, scale)
+    shapes = jax.eval_shape(lambda r: jmod.init(r, *jargs, **jkw), jax.random.PRNGKey(0))
+    params = filled(shapes["params"], seed, scale)
     load_flax_params(pmod, params)
     return {"params": params}
 

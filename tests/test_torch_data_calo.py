@@ -40,7 +40,6 @@ from particle_fm_tpu_torch.data import calo as pcalo
 from particle_fm_tpu_torch.data import calo_scalers as psc
 from particle_fm_tpu_torch.data.prefetch import prefetch_to_device
 from particle_fm_tpu_torch.training import step as pstep
-from particle_fm_tpu_torch.training import trainer as ptrainer
 from particle_fm_tpu_torch.training.trainer import Trainer
 from tests.test_torch_train_step import _port_state
 from tests.torch_port_helpers import MDMA_SMALL, model_pair, pin_draws_on_demand
@@ -203,7 +202,7 @@ def test_streaming_fit_raises_the_worker_exception():
         trainer.fit()
 
 
-def test_the_cache_follows_the_jax_rule(monkeypatch):
+def test_the_cache_follows_the_jax_rule():
     """A device-cacheable split under the limit is placed on the device;
     the bucketed calo split never is; a split over the limit streams."""
     _, pdm = calo_pair(synthetic_num_showers=30, max_hits=64, batch_size=8, bucket_multiple=16)
@@ -214,13 +213,12 @@ def test_the_cache_follows_the_jax_rule(monkeypatch):
     jets.setup()
     _, _, pm, _ = model_pair(MDMA_SMALL)
 
-    def cached(dm):
-        t = Trainer(pm, dm, pstep.make_optimizer(), device="cpu", verbose=False)
+    def cached(dm, **kw):
+        t = Trainer(pm, dm, pstep.make_optimizer(), device="cpu", verbose=False, **kw)
         return t._maybe_cache_train_data() is not None
 
     assert cached(jets) and not cached(pdm)
-    monkeypatch.setattr(ptrainer, "DEVICE_CACHE_LIMIT_MB", 0)
-    assert not cached(jets)
+    assert not cached(jets, device_cache_limit_mb=0)
 
 
 def test_streamed_accumulation_stacks_the_host_batches():

@@ -242,17 +242,37 @@ def test_one_process_starts_no_group_and_multihost_needs_torchrun(monkeypatch):
     assert not torch.distributed.is_initialized()
 
 
+# the port's scripts of the reference import, the classifier test and the
+# other JAX scripts: each is imported, and none names JAX or its package in an
+# import, lazy ones included
+PORTED_SCRIPTS = ["torch_import_reference_ckpt", "torch_classifier_test", "torch_guidance_sweep",
+                  "torch_generate_jets_jetclass", "torch_timing_plots",
+                  "torch_prepare_dataset_jetclass", "torch_preprocessing_calo_challenge"]
+
+
 def test_importing_every_module_of_the_port_loads_no_jax():
-    code = ("import pkgutil, importlib, sys, particle_fm_tpu_torch as p\n"
+    code = (f"SCRIPTS = {PORTED_SCRIPTS!r}\n"
+            "import pkgutil, importlib, sys, particle_fm_tpu_torch as p\n"
             "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
             "assert 'particle_fm_tpu_torch.parallel.dist' in mods, mods\n"
             "assert 'particle_fm_tpu_torch.parallel.fsdp' in mods, mods\n"
             "assert 'particle_fm_tpu_torch.parallel.mesh' in mods, mods\n"
             "assert 'particle_fm_tpu_torch.parallel.tp' in mods, mods\n"
             "assert 'particle_fm_tpu_torch.parallel.pp' in mods, mods\n"
-            "new = {'training.epochs', 'training.stopping', 'training.hparam'}\n"
+            "new = {'training.epochs', 'training.stopping', 'training.hparam', "
+            "'utils.torch_import', 'utils.helpers', 'utils.pylogger'}\n"
             "assert {'particle_fm_tpu_torch.' + m for m in new} <= set(mods), mods\n"
             "[importlib.import_module(m) for m in mods]\n"
+            "import ast\n"
+            "for name in SCRIPTS:\n"
+            "    importlib.import_module('scripts.' + name)\n"
+            "    tree = ast.parse(open(f'scripts/{name}.py').read())\n"
+            "    for node in ast.walk(tree):\n"
+            "        if isinstance(node, (ast.Import, ast.ImportFrom)):\n"
+            "            names = [a.name for a in node.names] if isinstance(node, ast.Import) "
+            "else [node.module or '']\n"
+            "            assert not [n for n in names if n.split('.')[0] in "
+            "('jax', 'flax', 'optax', 'particle_fm_tpu')], (name, names)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'particle_fm_tpu')]\n"
             "assert not bad, bad\n")

@@ -112,7 +112,7 @@ def _initial(cfg):
     """(jax model, variables with norm_stats where the model has them, port
     state dict of the same parameters and statistics)."""
     jm = JaxModel(**cfg)
-    params = filled(jm.init(jax.random.PRNGKey(0))["params"], 0, 0.1)
+    params = filled(jax.eval_shape(jm.init, jax.random.PRNGKey(0))["params"], 0, 0.1)
     fresh = PortModel(**cfg).init(device="cpu")
     norm_stats = {name: {leaf: getattr(getattr(fresh, name), leaf).numpy()
                          for leaf in ("means", "m2", "vars", "n")}

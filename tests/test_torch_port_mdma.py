@@ -77,7 +77,8 @@ def test_block_matches_flax(flags):
     _, mask, _, t_set = _set_inputs(0, seed=1)
     jblock = jmdma.MDMABlock(embed_dim=LAT, hidden=HID, num_heads=4, **flags)
     args = [jnp.asarray(a) for a in (x, x_cls, cond_vec, mask)]
-    params = filled(jblock.init(jax.random.PRNGKey(0), *args, t_in=_broadcast(t_set))["params"], 1)
+    params = filled(jax.eval_shape(lambda r: jblock.init(r, *args, t_in=_broadcast(t_set)),
+                                   jax.random.PRNGKey(0))["params"], 1)
     ref_x, ref_cls = jblock.apply({"params": params}, *args, t_in=_broadcast(t_set))
     block = load_flax_params(pmdma.MDMABlock(LAT, HID, T, 3, num_heads=4, **flags), params)
     with torch.no_grad():
@@ -99,7 +100,7 @@ def test_mdma_matches_flax(flags, cond_dim):
     jnet = jmdma.MDMA(**cfg)
     jargs = (_broadcast(t_set), jnp.asarray(x), None if cond is None else jnp.asarray(cond),
              jnp.asarray(mask))
-    params = filled(jnet.init(jax.random.PRNGKey(0), *jargs)["params"], 2)
+    params = filled(jax.eval_shape(lambda r: jnet.init(r, *jargs), jax.random.PRNGKey(0))["params"], 2)
     ref = np.asarray(jnet.apply({"params": params}, *jargs))
     net = load_flax_params(pmdma.MDMA(4, T, cond_dim=cond_dim, **cfg), params)
     with torch.no_grad():
@@ -121,7 +122,8 @@ def test_heads_share_one_parameter_tree(num_heads):
     x, mask, cond, t_set = _set_inputs(1, seed=3)
     cfg = dict(out_features=4, latent=LAT, hidden_dim=HID, layers=2, global_cond_dim=1)
     jargs = (_broadcast(t_set), jnp.asarray(x), jnp.asarray(cond), jnp.asarray(mask))
-    params = filled(jmdma.MDMA(num_heads=8, **cfg).init(jax.random.PRNGKey(0), *jargs)["params"], 3)
+    params = filled(jax.eval_shape(lambda r: jmdma.MDMA(num_heads=8, **cfg).init(r, *jargs),
+                                   jax.random.PRNGKey(0))["params"], 3)
     ref = np.asarray(jmdma.MDMA(num_heads=num_heads, **cfg).apply({"params": params}, *jargs))
     net = load_flax_params(pmdma.MDMA(4, T, cond_dim=1, num_heads=num_heads, **cfg), params)
     with torch.no_grad():

@@ -32,7 +32,8 @@ DENSE = dict(act_h="lrlu", nrm="layer", output_init_zeros=True)
 def _transplant(jmod, pmod, *jargs, seed=0, **jkwargs):
     """Init the flax module, fill its tree from numpy, load it into the port
     module; returns the flax variables."""
-    params = filled(jmod.init(jax.random.PRNGKey(0), *jargs, **jkwargs)["params"], seed)
+    shapes = jax.eval_shape(lambda r: jmod.init(r, *jargs, **jkwargs), jax.random.PRNGKey(0))
+    params = filled(shapes["params"], seed)
     load_flax_params(pmod, params)
     return {"params": params}
 
@@ -230,7 +231,7 @@ def test_transplant_catches_a_missing_leaf(name, dropped):
     jmod, pmod = _full_pair(name)
     _, mask, cond, _ = cloud(b=2, n=16, seed=15)
     jargs = (jnp.zeros((2, 16, 32)), jnp.zeros((2, 16, 35)), jnp.asarray(cond), jnp.asarray(mask))
-    params = filled(jmod.init(jax.random.PRNGKey(0), *jargs)["params"])
+    params = filled(jax.eval_shape(lambda r: jmod.init(r, *jargs), jax.random.PRNGKey(0))["params"])
     node = params
     for key in dropped[:-1]:
         node = node[key]

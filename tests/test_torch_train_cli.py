@@ -74,12 +74,14 @@ def test_cli_without_cuda_raises(tmp_path, monkeypatch):
     args = [a for a in ARGS if a != "device=cpu"] + [f"output_dir={tmp_path}"]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ptrain.main(args)
-    assert not os.listdir(tmp_path)  # nothing ran
+    # nothing ran: the task wrapper's traceback is the only file
+    assert os.listdir(tmp_path) == ["exec_error.log"]
+    assert "CUDA is not available" in (tmp_path / "exec_error.log").read_text()
 
 
 @pytest.mark.parametrize("override,match", [
     ("trainer.strategy=fsdp", "strategy"),
-    ("+trainer.cache_data_on_device=false", "cache_data_on_device"),
+    ("logger=wandb", "wandb"),
 ])
 def test_cli_raises_for_what_is_not_ported(tmp_path, override, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -106,9 +106,11 @@ def model_pair(cfg: dict, seed: int = 0, port_cfg: dict | None = None, fill: boo
     of scale 0.3; a number: of that scale);
     `norm_stats` is the statistics collection of a model with normalisers."""
     jm = JaxModel(**cfg)
-    variables = jm.init(jax.random.PRNGKey(seed))
-    if fill:
-        variables = {"params": filled(variables["params"], seed, 0.3 if fill is True else fill)}
+    if fill:  # every leaf re-drawn: JAX's init gives the tree's shapes, traced, not run op by op
+        shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(seed))
+        variables = {"params": filled(shapes["params"], seed, 0.3 if fill is True else fill)}
+    else:
+        variables = jm.init(jax.random.PRNGKey(seed))
     if norm_stats is not None:
         variables["norm_stats"] = norm_stats
     pm = PortModel(**(port_cfg or cfg))
