@@ -2358,7 +2358,8 @@ def diffusion_cli_phase(torch, ops, dev, counted) -> dict:
     card = pinned_loss_and_grads(torch, model, trainer.state.net, [a.to(dev) for a in batch], 5)
     cpu = pinned_loss_and_grads(torch, model, copy.deepcopy(trainer.state.net).cpu(), batch, 5)
     agree = held_against("diffusion train step, card against CPU", card, cpu)
-    return {"args": args, "cli_s": cli_s, "epochs": len(history), "passes": passes,
+    return {"_model": model, "_net": net,  # its EMA weights, for the slice23 artifacts
+            "args": args, "cli_s": cli_s, "epochs": len(history), "passes": passes,
             "launches_per_pass": per_pass, "launches": got["epic_layer"],
             "per_epoch": [{k: m[k] for k in ("epoch", "train_loss", "val_loss", "w1m_mean",
                                              "w1p_mean")} for m in history],
@@ -2516,8 +2517,8 @@ def dopri5_runs(torch, ops, dev, counted, model, net, mask, cond, solver, held=N
         sync(torch, dev)
         t0 = time.perf_counter()
         with mock.patch.object(ops, "epic_layer", patch):
-            x = model.sample(net, torch.Generator(dev).manual_seed(14), cond=cond, mask=mask,
-                             ode_solver=solver, stats=stats) * mask
+            x = model.sample(net, torch.Generator(dev).manual_seed(DOPRI5_SEED), cond=cond,
+                             mask=mask, ode_solver=solver, stats=stats) * mask
         sync(torch, dev)
         secs = time.perf_counter() - t0
         (st,) = stats
@@ -2569,7 +2570,8 @@ def per_set_witnesses(torch, ops, dev, model, net, mask, cond, plain) -> dict:
             x = model.integrate(net, z, cond, mask, "dopri5_per_sample", stats=stats) * mask
         return x, stats[0]
 
-    z = draw_noise(torch.Generator(dev).manual_seed(14), (B, N, model.features), dev) * mask
+    z = draw_noise(torch.Generator(dev).manual_seed(DOPRI5_SEED), (B, N, model.features),
+                   dev) * mask
     base = flow(net, z, cond, mask)
     if not torch.equal(base[0], plain[0]):
         fail("dopri5_per_sample: integrate from the drawn start differs from sample")
@@ -2589,6 +2591,23 @@ def per_set_witnesses(torch, ops, dev, model, net, mask, cond, plain) -> dict:
              f"every set and within {PATH_TOL} expected)")
     return {"plain_start_moved_by_one_ulp": moved,
             "float64_card_vs_cpu": {**held, "card_s": card_s, "cpu_s": cpu_s}}
+
+
+DOPRI5_SEED = 14  # the generator's seed of the DOPRI5 phase's sample
+
+
+def dopri5_request() -> tuple[np.ndarray, np.ndarray]:
+    """(mask (B, N, 1), cond (B, C)) of the DOPRI5 phase's request."""
+    rs = np.random.RandomState(9)
+    mask = ragged_mask(rs, B, N)[..., None]
+    return mask, rs.randn(B, C).astype(np.float32)
+
+
+def dopri5_model(model):
+    """The DOPRI5 phase's model: the flagship's with the sincos time
+    embedding (frequencies 6), on which float32 rounding does not move the
+    step decisions."""
+    return dataclasses.replace(model, t_emb="sincos", frequencies=6)
 
 
 def dopri5_phase(torch, ops, dev, counted, model) -> dict:
@@ -2612,12 +2631,8 @@ def dopri5_phase(torch, ops, dev, counted, model) -> dict:
     inputs (KERNEL_TOL, the kernel phase's limit), the solver is held in
     float64 card against CPU (`per_set_witnesses`), and the kernel and plain
     paths' results are shown beside the one-ulp spread."""
-    import dataclasses
-
-    rs = np.random.RandomState(9)
-    mask = torch.from_numpy(ragged_mask(rs, B, N)[..., None]).to(dev)
-    cond = torch.from_numpy(rs.randn(B, C).astype(np.float32)).to(dev)
-    sincos = dataclasses.replace(model, t_emb="sincos", frequencies=6)
+    mask, cond = (torch.from_numpy(a).to(dev) for a in dopri5_request())
+    sincos = dopri5_model(model)
     net = sincos.init(seed=0, device=dev)
     out = {}
     for solver in ("dopri5", "dopri5_per_sample"):
@@ -3825,55 +3840,71 @@ def op_nodes(exported) -> dict:
     return {"op_nodes": ops_, "graph_nodes": total}
 
 
-def export_worker(job_path: str) -> None:
-    """Export one artifact (a job `start_exports` wrote): the model from its
-    fields and weights, `export_sampler` timed; prints one JSON line."""
+def export_worker(*job_paths: str) -> None:
+    """Export artifacts one after the other (jobs `start_exports` wrote):
+    each model from its fields and weights, `export_sampler` timed; prints
+    one JSON line a job."""
     import torch
 
     sys.path.insert(0, str(ROOT))
     from particle_fm_tpu_torch.models.flow_matching import FlowMatchingModel
     from particle_fm_tpu_torch.serving import ARTIFACT_NAME, export_sampler
 
-    job = torch.load(job_path, weights_only=False)
-    model = FlowMatchingModel(**job["fields"])
-    net = model.init(seed=0, device=job["device"])
-    net.load_state_dict(job["state"])
-    t0 = time.perf_counter()
-    exported, _ = export_sampler(model, net, **job["kwargs"], out_dir=job["out_dir"])
-    secs = time.perf_counter() - t0
-    print(json.dumps({"export_s": secs, "bytes": (Path(job["out_dir"]) / ARTIFACT_NAME).stat()
-                      .st_size, **op_nodes(exported)}), flush=True)
+    for job_path in job_paths:
+        job = torch.load(job_path, weights_only=False)
+        model = FlowMatchingModel(**job["fields"])
+        net = model.init(seed=0, device=job["device"])
+        net.load_state_dict(job["state"])
+        t0 = time.perf_counter()
+        exported, _ = export_sampler(model, net, **job["kwargs"], out_dir=job["out_dir"])
+        secs = time.perf_counter() - t0
+        print(json.dumps({"job": job["name"], "export_s": secs,
+                          "bytes": (Path(job["out_dir"]) / ARTIFACT_NAME).stat().st_size,
+                          **op_nodes(exported)}), flush=True)
 
 
-def start_exports(torch, jobs: dict) -> dict:
+def start_exports(torch, jobs: dict, root: Path | None = None, processes: int | None = None
+                  ) -> dict:
     """Write each job (the model's fields, its weights, export_sampler's
-    arguments) and start one exporting process for each, all together:
-    tracing is host work, and the card's machine has cores to spare."""
-    procs = {}
+    arguments) under `root` (SLICE17_DIR) and start the exporting processes
+    all together: one a job, or `processes` of them taking the jobs in
+    turn. Tracing is host work, and the card's machine has cores to spare."""
+    root = SLICE17_DIR if root is None else root
+    paths = []
     for name, (model, net, kwargs) in jobs.items():
-        out = SLICE17_DIR / name
+        out = root / name
         out.mkdir(parents=True, exist_ok=True)
         fields = {f.name: getattr(model, f.name) for f in dataclasses.fields(model)}
-        torch.save({"fields": fields, "state": net.state_dict(), "kwargs": kwargs,
+        torch.save({"name": name, "fields": fields, "state": net.state_dict(), "kwargs": kwargs,
                     "out_dir": str(out / "exported"),
                     "device": str(next(net.parameters()).device)},
                    out / "job.pt")
+        paths.append(str(out / "job.pt"))
+    n = len(paths) if processes is None else min(processes, len(paths))
+    procs = {}
+    for i in range(n):
+        mine = paths[i::n]
         code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
-                f"chip_smoke.export_worker({str(out / 'job.pt')!r})")
-        procs[name] = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
-                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                       text=True)
+                f"chip_smoke.export_worker(*{mine!r})")
+        procs[tuple(list(jobs)[i::n])] = subprocess.Popen(
+            [sys.executable, "-c", code], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
     return procs
 
 
 def finish_exports(procs: dict) -> dict:
-    """Wait for every exporting process; {name: its JSON line}."""
+    """Wait for every exporting process; {job name: its JSON line}."""
     out = {}
-    for name, proc in procs.items():
+    for names, proc in procs.items():
         stdout, stderr = proc.communicate(timeout=900)
         if proc.returncode != 0:
-            fail(f"exporting {name} failed ({proc.returncode}):\n{stderr[-4000:]}")
-        out[name] = json.loads(stdout.strip().splitlines()[-1])
+            fail(f"exporting {', '.join(names)} failed ({proc.returncode}):\n{stderr[-4000:]}")
+        for line in stdout.strip().splitlines():
+            if line.startswith("{"):
+                res = json.loads(line)
+                out[res.pop("job")] = res
+        if set(names) - set(out):
+            fail(f"exporting {', '.join(names)}: no line for {sorted(set(names) - set(out))}")
     return out
 
 
@@ -3945,23 +3976,28 @@ def twin(model, net, dtype, dev):
 
 
 def check_artifact(torch, dev, name, model, net, art, counted, counter, per_batch, proto,
-                   steps, solver, seed) -> dict:
+                   steps, solver, seed, request=None) -> dict:
     """The artifact loaded in this process against make_serve_fn on the same
-    weights and request: bit for bit, exactly `per_batch` launches of
-    `counter` and none of another kernel."""
+    weights and request (`artifact_inputs(model, B, seed)` unless given):
+    bit for bit, exactly `per_batch` launches of `counter` (a number, or a
+    function of the artifact's function after its call) and none of another
+    kernel."""
     from particle_fm_tpu_torch.serving import load_exported, make_serve_fn
 
     t0 = time.perf_counter()
     fn, meta = load_exported(str(art))
     load_s = time.perf_counter() - t0
     live = make_serve_fn(model, net, **{**proto, "ode_solver": solver}, ode_steps=steps)
-    s, cond, mask = artifact_inputs(model, proto["batch_size"], seed)
+    s, cond, mask = request or artifact_inputs(model, proto["batch_size"], seed)
+    args = (cond, mask) if proto["has_cond"] else (mask,)
     reset(counted)
-    got = fn(s, cond, mask)
+    got = fn(s, *args)
     sync(torch, dev)
     launches = launched(counted)
+    if callable(per_batch):
+        per_batch = per_batch(fn)
     expect(f"{name} artifact", launches, **{counter.__name__: per_batch})
-    want = live(s, cond, mask)
+    want = live(s, *args)
     if not torch.equal(got, want):
         fail(f"{name}: the artifact differs from make_serve_fn: "
              f"{float((got - want).abs().max())}")
@@ -3972,10 +4008,11 @@ def check_artifact(torch, dev, name, model, net, art, counted, counter, per_batc
             "_request": (s, cond, mask)}
 
 
-def sets_in_turns(torch, dev, fn, live, request, batch: int) -> dict:
+def sets_in_turns(torch, dev, fn, live, request, batch: int, batches: int = ARTIFACT_BATCHES
+                  ) -> dict:
     """sets/s through the artifact and through make_serve_fn, in turns
     (artifact, live, live, artifact, ARTIFACT_TURNS times), each reading
-    ARTIFACT_BATCHES batches behind one sync."""
+    `batches` batches behind one sync."""
     _, cond, mask = request
     turns = {"artifact": [], "make_serve_fn": []}
     for _ in range(ARTIFACT_TURNS):
@@ -3983,10 +4020,10 @@ def sets_in_turns(torch, dev, fn, live, request, batch: int) -> dict:
             f = fn if key == "artifact" else live
             sync(torch, dev)
             t0 = time.perf_counter()
-            for i in range(ARTIFACT_BATCHES):
+            for i in range(batches):
                 f(i, cond, mask)
             sync(torch, dev)
-            turns[key].append(ARTIFACT_BATCHES * batch / (time.perf_counter() - t0))
+            turns[key].append(batches * batch / (time.perf_counter() - t0))
     return {"sets_per_s": {k: float(np.median(v)) for k, v in turns.items()},
             "sets_per_s_turns": turns}
 
@@ -6054,6 +6091,150 @@ def slice22_phases(torch, ops, sa, fa, dev, counted, train_cli: dict) -> dict:
     return {"_launches": launches}
 
 
+# the served artifact of every solver (slice23): each loop one `while_loop` of one
+# step on the EPiC kernel, exported in SLICE23_PROCESSES processes started after
+# the family phases (they run beside the dataset to slice22 phases), then each
+# checked in this process against make_serve_fn
+SLICE23_DIR = ROOT / "build" / "slice23"
+SLICE23_PROCESSES = 3
+EM_STEPS = 200  # configs/experiment/jetnet/diffusion_tops150_cond.yaml's callback
+DDIM_STEPS = 100
+ADAMS_STEPS = 101  # ab2: 100 evaluations, ab3: 101 (two bootstrap evaluations)
+SELF_COND_STEPS = 200  # configs/experiment/jetnet/fm_selfcond_tops30.yaml's callback (midpoint)
+SLICE23_READING_BATCHES = 1  # batches a reading of the em artifact's sets/s (200 evaluations)
+
+
+def slice23_artifacts(torch, dev, epic: dict, diffusion_model, diffusion_net) -> dict:
+    """{name: the artifact's model, network, solver, steps, counting kernel,
+    launches a batch (a number, or a function of the loaded function: the
+    DOPRI5 ones count its attempts or loops), request, what it is}."""
+    mask, cond = dopri5_request()
+    sincos = dopri5_model(epic["model"])
+    self_cond = compose_training(["experiment=jetnet/fm_selfcond_tops30"])[0]
+    if not self_cond.self_cond or self_cond.conditioned:
+        fail("slice23: fm_selfcond_tops30 is not the shipped experiment")
+
+    def passes(key):
+        return lambda fn: 7 * sincos.layers * int(fn.stats[0][key])
+
+    arts = {}
+    for dtype, suffix in ((None, ""), ("bfloat16", "_bf16")):
+        model, net = twin(diffusion_model, diffusion_net, dtype, dev)
+        arts["em" + suffix] = dict(
+            model=model, net=net, solver="em", steps=EM_STEPS, kernel="epic_layer" + suffix,
+            per_batch=model.layers * EM_STEPS,
+            config="jetnet/diffusion_tops150_cond, the diffusion CLI's EMA weights")
+    arts["ddim"] = dict(arts["em"], solver="ddim", steps=DDIM_STEPS,
+                        per_batch=diffusion_model.layers * DDIM_STEPS)
+    sincos_net = sincos.init(seed=0, device=dev)
+    for solver, key in (("dopri5", "steps"), ("dopri5_per_sample", "loops")):
+        arts[solver] = dict(
+            model=sincos, net=sincos_net, solver=solver, steps=ODE_STEPS, kernel="epic_layer",
+            per_batch=passes(key), request=(DOPRI5_SEED, cond, mask),
+            config="fm_tops150_cond's network with sincos time (frequencies 6), seeded weights; "
+                   "the DOPRI5 phase's request")
+    for solver, evals in (("ab2", ADAMS_STEPS - 1), ("ab3", ADAMS_STEPS)):
+        arts[solver] = dict(model=epic["model"], net=epic["net"], solver=solver,
+                            steps=ADAMS_STEPS, kernel="epic_layer",
+                            per_batch=epic["model"].layers * evals,
+                            config="fm_tops150_cond, seeded weights")
+    arts["self_cond"] = dict(
+        model=self_cond, net=self_cond.init(seed=0, device=dev), solver="midpoint",
+        steps=SELF_COND_STEPS, kernel="epic_layer",
+        per_batch=self_cond.layers * 2 * (SELF_COND_STEPS - 1),
+        config="jetnet/fm_selfcond_tops30 (self_cond, unconditional), seeded weights")
+    return arts
+
+
+def start_slice23(torch, dev, epic: dict, diffusion_model, diffusion_net) -> dict:
+    """Build the slice23 artifacts' models and start their exports: the
+    artifacts and the exporting processes."""
+    import shutil
+
+    shutil.rmtree(SLICE23_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    arts = slice23_artifacts(torch, dev, epic, diffusion_model, diffusion_net)
+    jobs = {}
+    for name, a in arts.items():
+        model = a["model"]
+        proto = {k: v for k, v in serving_proto(model, B).items()
+                 if k not in ("has_cond", "has_mask")}
+        jobs[name] = (model, a["net"], dict(
+            proto, num_points=model.num_particles, features=model.features,
+            cond_dim=model.global_cond_dim, ode_solver=a["solver"], ode_steps=a["steps"]))
+    procs = start_exports(torch, jobs, root=SLICE23_DIR, processes=SLICE23_PROCESSES)
+    return {"artifacts": arts, "procs": procs, "start_s": time.perf_counter() - t0,
+            "started": time.perf_counter()}
+
+
+def slice23_phases(torch, dev, counted, started: dict) -> dict:
+    """Each slice23 artifact loaded here and held against make_serve_fn on
+    the card (`check_artifact`): bit for bit, exactly its launches of
+    `epic_layer` (or `_bf16`) and none of another kernel, finite samples;
+    DOPRI5's attempts (per set) and loops equal to the live run's; the em
+    artifact's sets/s in turns against make_serve_fn (no claim), then one
+    HTTP request of B sets on it against serve_batches. One line each."""
+    from particle_fm_tpu_torch.ops import epic_layer as ops
+    from particle_fm_tpu_torch.serving import ADAPTIVE
+
+    t0 = time.perf_counter()
+    exports = finish_exports(started["procs"])
+    wait_s = time.perf_counter() - t0
+    print(json.dumps({"slice23": "exports", "processes": len(started["procs"]),
+                      "start_s": started["start_s"], "wait_s": wait_s,
+                      "since_start_s": time.perf_counter() - started["started"]}), flush=True)
+    launches = {"epic_layer": [], "epic_layer_bf16": []}
+    for name, a in started["artifacts"].items():
+        t1 = time.perf_counter()
+        model, net = a["model"], a["net"]
+        proto = serving_proto(model, B)
+        res = check_artifact(torch, dev, f"slice23 {name}", model, net,
+                             SLICE23_DIR / name / "exported", counted, getattr(ops, a["kernel"]),
+                             a["per_batch"], proto, a["steps"], a["solver"], 23,
+                             request=a.get("request"))
+        extra = {}
+        if a["solver"] in ADAPTIVE:
+            (st,) = res["_fn"].stats
+            seed, cond, mask = a["request"]
+            stats = []
+            model.sample(net, torch.Generator(dev).manual_seed(seed),
+                         cond=torch.from_numpy(cond).to(dev), mask=torch.from_numpy(mask).to(dev),
+                         ode_solver=a["solver"], stats=stats)
+            (live,) = stats
+            steps, live_steps = (torch.as_tensor(v["steps"]).cpu() for v in (st, live))
+            if not torch.equal(steps, live_steps) or not bool(torch.as_tensor(st["reached"]).all()):
+                fail(f"slice23 {name}: the artifact's attempts {steps.tolist()} (reached "
+                     f"{st['reached']}) differ from the live run's {live_steps.tolist()}")
+            extra = {"attempts": steps.tolist() if steps.ndim == 0 else {
+                "min": int(steps.min()), "mean": float(steps.float().mean()),
+                "max": int(steps.max())}, "equal_to_live_stats": True}
+            if "loops" in st:
+                if int(st["loops"]) != live["loops"]:
+                    fail(f"slice23 {name}: {int(st['loops'])} loops, live {live['loops']}")
+                extra["loops"] = int(st["loops"])
+        if name == "em":
+            extra.update(sets_in_turns(torch, dev, res["_fn"], res["_live"], res["_request"], B,
+                                       SLICE23_READING_BATCHES))
+        line = {"solver": a["solver"], "ode_steps": a["steps"], "batch": B,
+                "config": a["config"], **{k: v for k, v in res.items() if not k.startswith("_")},
+                **extra, "export": exports[name]}
+        print(json.dumps({"slice23": name, "phase_s": time.perf_counter() - t1, **line}),
+              flush=True)
+        launches[a["kernel"]].append((f"slice23 {name} artifact ({a['solver']})",
+                                      res["launches"]))
+    t1 = time.perf_counter()
+    reset(counted)
+    http = http_phase(torch, dev, SLICE23_DIR / "em" / "exported", B, seed=5)
+    em = started["artifacts"]["em"]
+    # the server's warm-up batch, the request's batch, serve_batches' batch
+    http["launches"] = 3 * em["per_batch"]
+    expect("slice23 HTTP on the em artifact", launched(counted), epic_layer=http["launches"])
+    print(json.dumps({"slice23": "HTTP (em artifact)", "phase_s": time.perf_counter() - t1,
+                      **http}), flush=True)
+    launches["epic_layer"].append(("slice23 HTTP on the em artifact", http["launches"]))
+    return {"_launches": launches}
+
+
 def serving_runs(torch, dev, FlowMatchingModel, ops, sa, fa) -> list[dict]:
     """The six served models at full width with their seeded weights, as the
     serving phases serve them (one dict a path: name, config, model, net,
@@ -6263,15 +6444,21 @@ def main() -> None:
            ("DOPRI5 (dopri5, dopri5_per_sample)", "epic_layer",
             lambda: dopri5_phase(torch, ops, dev, counted, epic)),
            ("log_prob", None, lambda: log_prob_phase(torch, dev, counted, epic))]
+    family = {}
     for path, kernel_name, phase in fam:
         t1 = time.perf_counter()
-        res = phase()
-        print(json.dumps({"family": path, "phase_s": time.perf_counter() - t1, **res}),
+        res = family[path] = phase()
+        print(json.dumps({"family": path, "phase_s": time.perf_counter() - t1,
+                          **{k: v for k, v in res.items() if not k.startswith("_")}}),
               flush=True)
         if kernel_name is not None:
             kernels[kernel_name]["launches"] += res["launches"]
             kernels[kernel_name]["launches_by_path"][path] = res["launches"]
     print(json.dumps({"family_phases_s": time.perf_counter() - t0}), flush=True)
+    # the slice23 artifacts' exporting processes, left to run beside the phases up to slice23
+    diffusion = family[fam[0][0]]
+    slice23 = start_slice23(torch, dev, dict(runs[0], net=copy.deepcopy(runs[0]["net"])),
+                            diffusion.pop("_model"), diffusion.pop("_net"))
 
     t0 = time.perf_counter()
     datasets = [("lhco/bigPC CLI (lhco_eval, lhco_eval_sr)", "epic_layer",
@@ -6385,6 +6572,14 @@ def main() -> None:
             kernels[kernel_name]["launches"] += launches
             kernels[kernel_name]["launches_by_path"][path] = launches
     print(json.dumps({"slice22_phases_s": time.perf_counter() - t0}), flush=True)
+
+    t0 = time.perf_counter()
+    res = slice23_phases(torch, dev, counted, slice23)  # prints its lines
+    for kernel_name, paths in res["_launches"].items():
+        for path, launches in paths:
+            kernels[kernel_name]["launches"] += launches
+            kernels[kernel_name]["launches_by_path"][path] = launches
+    print(json.dumps({"slice23_phases_s": time.perf_counter() - t0}), flush=True)
 
     kernels = list(kernels.values())
     print(json.dumps({"smoke_s": time.perf_counter() - started}), flush=True)

@@ -185,10 +185,58 @@ def get_nonrel_consts(jets: np.ndarray, particles: np.ndarray) -> np.ndarray:
     return np.concatenate([nr_pt, nr_eta * mask, nr_phi * mask], axis=-1)
 
 
+def sort_consts(constituents: np.ndarray, sort_by: str = "pt", high_to_low=True) -> np.ndarray:
+    """Sort the constituents of each set along the particle axis by a feature
+    (pt, eta, phi), or shuffle them (`np.random`)."""
+    keys = {"pt": 0, "eta": 1, "phi": 2}
+    if sort_by == "shuffle":
+        args = np.random.rand(*constituents[..., 0].shape).argsort(axis=-1)
+    elif sort_by in keys:
+        args = np.argsort(constituents[..., keys[sort_by]], axis=-1)
+    else:
+        raise ValueError(f"sort_by must be one of ['pt','eta','phi','shuffle'], got {sort_by}")
+    if high_to_low:
+        args = args[..., ::-1]
+    return np.take_along_axis(constituents, args[..., None], axis=-2)
+
+
+def sort_jets(jets, constituents, mask=None, sort_by="pt", high_to_low=True):
+    """Sort the jets of each event (B, J, F), with their constituents
+    (B, J, N, F) and mask, by a jet feature (pt, eta, phi, mass), or shuffle
+    them (`np.random`)."""
+    keys = {"pt": 0, "eta": 1, "phi": 2, "mass": 3}
+    if sort_by not in keys and sort_by != "shuffle":
+        raise ValueError(f"invalid sort_by {sort_by}")
+    sort_dim = jets[..., keys.get(sort_by, 0)]
+    args = np.argsort(sort_dim, axis=1)
+    if high_to_low:
+        args = args[:, ::-1]
+    if sort_by == "shuffle":
+        idx = np.random.rand(*args.shape).argsort(axis=1)
+        args = np.take_along_axis(args, idx, axis=1)
+    out_jets = np.take_along_axis(jets, args[..., None], axis=1)
+    out_consts = np.take_along_axis(constituents, args[..., None, None], axis=1)
+    if mask is not None:
+        return out_jets, out_consts, np.take_along_axis(mask, args[..., None, None], axis=1)
+    return out_jets, out_consts
+
+
 def get_pt_of_selected_particles(particle_data, selected_particles=(1, 3, 10)):
     """pT of the k-th hardest particle of each jet, for each k: (K, B)."""
     sorted_pt = np.sort(particle_data[:, :, 2])[:, ::-1]
     return np.array([sorted_pt[:, k - 1] for k in selected_particles])
+
+
+def get_pt_of_selected_multiplicities(particle_data, selected_multiplicities=(10, 20, 30),
+                                      num_jets=150):
+    """pT (feature 2) of up to `num_jets` jets with exactly m particles among
+    their first m, for each m: {"0": (<=num_jets, m), ...}."""
+    data = {}
+    for count, m in enumerate(selected_multiplicities):
+        tmp = particle_data[:, :m, :]
+        keep = np.count_nonzero(tmp[:, :, 0], axis=1) == m
+        data[f"{count}"] = tmp[keep][:num_jets, :, 2]
+    return data
 
 
 def import_h5py():

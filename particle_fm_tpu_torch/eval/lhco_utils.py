@@ -1,5 +1,5 @@
 """LHCO event-level utilities: anti-kt clustering of whole-event clouds into
-their two leading jets; counterpart of particle_fm_tpu/eval/lhco_utils.py,
+their two leading jets, and sorting constituents by pt; counterpart of particle_fm_tpu/eval/lhco_utils.py,
 on the port's own clusterer (`native/binding.py::cluster_events`).
 """
 
@@ -8,6 +8,12 @@ from __future__ import annotations
 import numpy as np
 
 from particle_fm_tpu_torch.native.binding import cluster_events
+
+
+def sort_by_pt(consts: np.ndarray) -> np.ndarray:
+    """Sort constituents by descending pt along the particle axis."""
+    order = np.argsort(-consts[..., 0], axis=-1)
+    return np.take_along_axis(consts, order[..., None], axis=-2)
 
 
 def cluster_data(

@@ -508,15 +508,22 @@ class FlowMatchingModel:
         generator: torch.Generator | None = None,
         stats: list | None = None,
         noise_rows: tuple[int, slice] | None = None,
+        eps: torch.Tensor | None = None,
     ) -> torch.Tensor:
         """`integrate` on a network whose weight norm is folded already: the
-        body of the program that serving.py exports."""
+        body of the program that serving.py exports. There em may read its
+        noise from `eps` (n_transforms * ode_steps, *z.shape) in place of a
+        generator: each flow its `ode_steps` draws, in the order the flows
+        run (the last flow first), as they would draw from a generator.
+        Inside samplers/ode.py's `exported_loops()` the DOPRI5 solvers'
+        statistics appended to `stats` are tensors (the program's outputs)."""
         if ode_solver not in SOLVERS:
             raise NotImplementedError(f"Solver {ode_solver} not implemented")
         if ode_solver in ("em", "ddim") and self.loss_type != "diffusion":
             raise ValueError(f"Solver {ode_solver} requires diffusion loss")
-        if ode_solver == "em" and generator is None:
-            raise ValueError("the em solver draws its noise from a generator: pass one")
+        if ode_solver == "em" and generator is None and eps is None:
+            raise ValueError("the em solver draws its noise from a generator or reads it from "
+                             "eps: pass one")
         if guidance_scale is not None and self.self_cond:
             raise NotImplementedError("guidance_scale with self_cond")
         if cond is not None and self.use_normaliser and self.conditioned:
@@ -525,9 +532,10 @@ class FlowMatchingModel:
             x = self._integrate_sc(net, z, cond, mask, ode_solver, ode_steps)
         else:
             x = z
-            for k in reversed(range(self.n_transforms)):
+            for i, k in enumerate(reversed(range(self.n_transforms))):
+                flow_eps = None if eps is None else eps[i * ode_steps:(i + 1) * ode_steps]
                 x = self._integrate_flow(net, k, x, cond, mask, ode_solver, ode_steps,
-                                         guidance_scale, generator, stats, noise_rows)
+                                         guidance_scale, generator, stats, noise_rows, flow_eps)
         if self.use_normaliser:
             x = net.reverse_norm(x, mask)
         return x
@@ -544,13 +552,14 @@ class FlowMatchingModel:
         return odeint_fixed_sc(drift_sc, z, 1.0, 0.0, ode_steps=ode_steps, method=ode_solver)
 
     def _integrate_flow(self, net, k, x, cond, mask, ode_solver, ode_steps, guidance_scale,
-                        generator, stats, noise_rows=None):
+                        generator, stats, noise_rows=None, eps=None):
         if ode_solver in ("em", "ddim"):
             sched = VPDiffusionSchedule(**dict(self.diff_config))
             noise_model = self._guided_net(net, k, cond, mask, guidance_scale)
             if ode_solver == "em":
-                return euler_maruyama_sampler(noise_model, sched, x, generator, n_steps=ode_steps,
-                                              noise_rows=noise_rows)
+                return euler_maruyama_sampler(noise_model, sched, x,
+                                              None if eps is not None else generator,
+                                              n_steps=ode_steps, noise_rows=noise_rows, eps=eps)
             return ddim_sampler(noise_model, sched, x, n_steps=ode_steps)
         drift = self.make_drift(net, cond, mask, flow_idx=k, guidance_scale=guidance_scale)
         if ode_solver in FIXED_SOLVERS:

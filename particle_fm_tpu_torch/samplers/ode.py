@@ -15,14 +15,18 @@ tensors, so the loop never waits on the host.
 carry the data-endpoint estimate from one evaluation to the next.
 
 Inside `exported_loops()` (serving.py's program, as `torch.export` traces
-it) the Euler, midpoint, Heun and RK4 loops are one `while_loop` whose body
-is one step, as the JAX package's exported scan is: the program holds one
-step's graph whatever the step count, so that it exports and loads in
-seconds. The loop's test reads a step counter on the host (no device read
-a step), and the step's times are computed from a float32 step index on the
-state's device in the operations and order of `time_grid`, so the exported
-loop computes what the Python loop computes, bit for bit. The Adams loops,
-DDIM's and the self-conditioned loop are exported unrolled.
+it) every loop is one `while_loop` whose body is one step, as the JAX
+package's exported scan and while loop are: the program holds one step's
+graph whatever the step count, so that it exports and loads in seconds.
+The fixed-step loops (Euler, midpoint, Heun, RK4, the Adams loops after
+their bootstrap steps, the self-conditioned loop, and samplers/sde.py's em
+and DDIM) test a step counter on the host (no device read a step), and
+compute the step's times from a float32 step index on the state's device in
+the operations and order of `time_grid`, so the exported loop computes what
+the Python loop computes, bit for bit. The DOPRI5 loops carry t, dt and the
+attempt count on the device and test them there, as the JAX loop does; they
+return their statistics as tensors, and warn of nothing: the program's
+caller reads `reached` (serving.py).
 
 A network that computes in bfloat16 may return a bfloat16 field while the
 state stays float32. Its promotion follows JAX's: a Python float (the fixed
@@ -114,8 +118,15 @@ def odeint_fixed(
     if method in ("ab2", "ab3"):
         return _odeint_adams(f, x0, t0, t1, ode_steps, order=int(method[-1]))
     stepper = _STEPPERS[method]
-    if _exporting[0]:
-        return _exported_loop(stepper, f, x0, t0, (t1 - t0) / (ode_steps - 1), ode_steps - 1)
+    if exporting():
+        dt = (t1 - t0) / (ode_steps - 1)
+        t_of, half, whole = _grid_times(x0, t0, dt)
+
+        def advance(k, x):
+            t = t_of(k)
+            return (stepper(f, t, t + half, t + whole, dt, x),)
+
+        return step_loop(advance, (x0,), 0, ode_steps - 1)[0]
     ts, dt = time_grid(t0, t1, ode_steps)
     # the stage times t + 0.5*dt and t + dt, rounded as the JAX steppers round them
     grid = torch.stack([ts, ts + _f32(0.5 * dt), ts + _f32(dt)], dim=1).to(x0.device)
@@ -130,8 +141,8 @@ _exporting = [0]  # depth of `exported_loops` blocks
 
 @contextlib.contextmanager
 def exported_loops():
-    """A block in which `odeint_fixed` builds its loop as one `while_loop`,
-    the form of an exported program (serving.py)."""
+    """A block in which every loop of the samplers is built as one
+    `while_loop`, the form of an exported program (serving.py)."""
     _exporting[0] += 1
     try:
         yield
@@ -139,66 +150,92 @@ def exported_loops():
         _exporting[0] -= 1
 
 
-def _exported_loop(stepper, f: Drift, x0: torch.Tensor, t0: float, dt: float, n: int):
-    """`odeint_fixed`'s loop as one `while_loop` of an exported program:
-    carried (step on the host, the same step as a float32 on the device, x);
-    t_k = t0 + k * dt and its stages as `time_grid` and the grid compute them."""
+def exporting() -> bool:
+    """Whether the loops are being built for an exported program."""
+    return _exporting[0] > 0
+
+
+def _full(like: torch.Tensor, v: float, dtype=torch.float32) -> torch.Tensor:
+    """A 0-dim constant as an op of the program (a tensor made from data
+    would be a constant inside the loop's graph, which `torch.export.save`
+    refuses on torch 2.11)."""
+    return torch.full((), v, dtype=dtype, device=like.device)
+
+
+def step_loop(step, state: tuple, k0: int, n: int) -> tuple:
+    """Steps k0..n-1 of a fixed-step loop as one `while_loop` of an exported
+    program: step(k, *state) -> state, with k the step index as a float32 on
+    the state's device (from which the step computes its times). Carried:
+    the step on the host (the loop's test), k, the state."""
     from torch._higher_order_ops.while_loop import while_loop
 
-    dev = x0.device
-    # the times as ops of the program (a tensor made from data would be a
-    # constant inside the loop's graph)
-    start, step, half = (torch.full((), v, dtype=torch.float32, device=dev)
-                         for v in (t0, dt, 0.5 * dt))
-
-    def cond(i, k, x):
+    def cond(i, k, *s):
         return i < n
 
-    def body(i, k, x):
-        t = start + k * step
-        return i + 1, k + 1, stepper(f, t, t + half, t + step, dt, x)
+    def body(i, k, *s):
+        return (i + 1, k + 1) + tuple(step(k, *s))
 
-    carried = (torch.zeros((), dtype=torch.int64), torch.zeros((), device=dev), x0)
-    return while_loop(cond, body, carried)[2]
+    carried = (torch.full((), k0, dtype=torch.int64), _full(state[0], k0)) + tuple(state)
+    return tuple(while_loop(cond, body, carried)[2:])
+
+
+def _grid_times(like, t0: float, dt: float):
+    """t(k) = t0 + k * dt for a float32 step index k, as `time_grid`
+    computes t_k, and the stage offsets 0.5*dt and dt as its grid adds them."""
+    start, step, half = (_full(like, v) for v in (t0, dt, 0.5 * dt))
+    return (lambda k: start + k * step), half, step
 
 
 def _odeint_adams(f: Drift, x0, t0, t1, ode_steps: int, order: int):
     """Adams-Bashforth of order 2 (euler bootstrap) or 3 (midpoint bootstrap
     for step 0, AB2 for step 1): one drift evaluation per step after the
     bootstrap. The bootstrap times t0 + k*dt are taken in float64 and then
-    rounded, as the JAX version passes Python floats there."""
-    ts, dt = time_grid(t0, t1, ode_steps)
-    ts = ts.to(x0.device)
-    n = ts.shape[0]
+    rounded, as the JAX version passes Python floats there; the loop after
+    them carries (x, the previous fields)."""
+    n = ode_steps - 1
+    dt = (t1 - t0) / n
 
     def t_at(k):
-        return _f32(t0 + k * dt).to(x0.device)
+        return _full(x0, t0 + k * dt)
 
     def step(v):  # dt times a field, as JAX's float32 dt computes it
         return dt * v.to(x0.dtype)
 
+    if order == 2:
+        def combine(fk, f_prev):
+            return 1.5 * fk - 0.5 * f_prev
+    else:
+        def combine(fk, fm1, fm2):
+            return 23.0 / 12.0 * fk - 16.0 / 12.0 * fm1 + 5.0 / 12.0 * fm2
+
     f0 = f(t_at(0), x0)
     if order == 2:
-        x = x0 + step(f0)
-        f_prev = f0
-        for k in range(1, n):
-            fk = f(ts[k], x)
-            x = x + step(1.5 * fk - 0.5 * f_prev)
-            f_prev = fk
-        return x
+        state, k0 = (x0 + step(f0), f0), 1
+    else:
+        k1 = f(t_at(0.5), x0 + 0.5 * step(f0))
+        x1 = x0 + step(k1)
+        if n == 1:
+            return x1
+        f1 = f(t_at(1), x1)
+        state, k0 = (x1 + step(1.5 * f1 - 0.5 * f0), f1, f0), 2
+    if k0 >= n:  # as in JAX, no loop after the bootstrap steps
+        return state[0]
 
-    k1 = f(t_at(0.5), x0 + 0.5 * step(f0))
-    x1 = x0 + step(k1)
-    if n == 1:
-        return x1
-    f1 = f(t_at(1), x1)
-    x = x1 + step(1.5 * f1 - 0.5 * f0)
-    fm1, fm2 = f1, f0
-    for k in range(2, n):
-        fk = f(ts[k], x)
-        x = x + step(23.0 / 12.0 * fk - 16.0 / 12.0 * fm1 + 5.0 / 12.0 * fm2)
-        fm1, fm2 = fk, fm1
-    return x
+    def advance(t, x, *previous):
+        fk = f(t, x)
+        kept = previous[:-1]
+        if exporting():  # a while_loop's output may not be its input: the kept field a copy
+            kept = tuple(p.clone() for p in kept)
+        return (x + step(combine(fk, *previous)), fk) + kept
+
+    if exporting():
+        t_of = _grid_times(x0, t0, dt)[0]
+        return step_loop(lambda k, *s: advance(t_of(k), *s), state, k0, n)[0]
+    ts, _ = time_grid(t0, t1, ode_steps)
+    ts = ts.to(x0.device)
+    for k in range(k0, n):
+        state = advance(ts[k], *state)
+    return state[0]
 
 
 def odeint_fixed_sc(f, x0: torch.Tensor, t0: float = 1.0, t1: float = 0.0, ode_steps: int = 100,
@@ -209,17 +246,28 @@ def odeint_fixed_sc(f, x0: torch.Tensor, t0: float = 1.0, t1: float = 0.0, ode_s
     (zeros before the first). euler or midpoint."""
     if method not in ("euler", "midpoint"):
         raise ValueError(f"self-conditioned sampling supports euler/midpoint, got {method}")
-    ts, dt = time_grid(t0, t1, ode_steps)
-    grid = torch.stack([ts, ts + _f32(0.5 * dt)], dim=1).to(x0.device)
-    x, sc = x0, torch.zeros_like(x0)
-    for t, t_half in grid:
+    dt = (t1 - t0) / (ode_steps - 1)
+
+    def advance(t, t_half, x, sc):
         v1 = f(t, x, sc)
         sc = x - t * v1.to(x.dtype)
         if method == "euler":
-            x = x + dt * v1
-        else:
-            x = x + dt * f(t_half, x + 0.5 * dt * v1, sc)
-    return x
+            return x + dt * v1, sc
+        return x + dt * f(t_half, x + 0.5 * dt * v1, sc), sc
+
+    state = (x0, torch.zeros_like(x0))
+    if exporting():
+        t_of, half, _ = _grid_times(x0, t0, dt)
+
+        def step(k, x, sc):
+            t = t_of(k)
+            return advance(t, t + half, x, sc)
+
+        return step_loop(step, state, 0, ode_steps - 1)[0]
+    ts, _ = time_grid(t0, t1, ode_steps)
+    for t, t_half in torch.stack([ts, ts + _f32(0.5 * dt)], dim=1).to(x0.device):
+        state = advance(t, t_half, *state)
+    return state[0]
 
 
 # Dormand-Prince 5(4): nodes and weights rounded to float32 as the JAX
@@ -239,12 +287,15 @@ _DP_B5 = [35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84, 0.0]
 _DP_B4 = [5179 / 57600, 0.0, 7571 / 16695, 393 / 640, -92097 / 339200, 187 / 2100, 1 / 40]
 
 
-@functools.lru_cache(maxsize=None)
-def _dp_weights(device: torch.device, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+def _dp_weight_ops(device: torch.device, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
     """The 5th- and 4th-order weights, rounded to float32 as the JAX package's
-    are and then held in the state's dtype, on `device`, copied once."""
-    return tuple(torch.tensor(w, dtype=torch.float32).to(device=device, dtype=dtype)
-                 for w in (_DP_B5, _DP_B4))
+    are and then held in the state's dtype, on `device`, built by ops (the
+    form an exported program takes them in)."""
+    return tuple(torch.stack([torch.full((), v, dtype=torch.float32, device=device) for v in w])
+                 .to(dtype) for w in (_DP_B5, _DP_B4))
+
+
+_dp_weights = functools.lru_cache(maxsize=None)(_dp_weight_ops)  # the live loops': built once
 
 
 def _dp_stages(f: Drift, t: torch.Tensor, dt: torch.Tensor, x: torch.Tensor):
@@ -258,7 +309,7 @@ def _dp_stages(f: Drift, t: torch.Tensor, dt: torch.Tensor, x: torch.Tensor):
             xi = xi + dtb * aij * ks[j]
         ks.append(f(t + _DP_C[i] * dt, xi).to(x.dtype))
     k = torch.stack(ks)
-    b5, b4 = _dp_weights(x.device, k.dtype)
+    b5, b4 = (_dp_weight_ops if exporting() else _dp_weights)(x.device, k.dtype)
     x5 = x + dtb * torch.tensordot(b5, k, dims=1)
     x4 = x + dtb * torch.tensordot(b4, k, dims=1)
     return x5, x5 - x4
@@ -274,8 +325,8 @@ def _dopri5_start(x0, t0, t1, init_dt, shape=()):
     the JAX loop (a float64 state is integrated in float64 time)."""
     direction = 1.0 if t1 > t0 else -1.0
     dt0 = direction * (init_dt if init_dt is not None else abs(t1 - t0) / 50.0)
-    t = torch.full(shape, t0, dtype=x0.dtype).to(x0.device)
-    dt = torch.full(shape, dt0, dtype=x0.dtype).to(x0.device)
+    t = torch.full(shape, t0, dtype=x0.dtype, device=x0.device)
+    dt = torch.full(shape, dt0, dtype=x0.dtype, device=x0.device)
     return direction, t, dt
 
 
@@ -292,6 +343,21 @@ def _dopri5_update(f, t, dt, x, t1, direction, rtol, atol, safety, dims):
     return t, x, dt * factor, accept
 
 
+def _running(direction, t, t1, n, max_steps):
+    """Whether an integration (or each set's) goes on: short of t1 and of
+    the step budget, the JAX loop's test."""
+    return (direction * (t1 - t) > 1e-10) & (n < max_steps)
+
+
+def truncation_warning(max_steps: int, t: float, t1: float, stacklevel: int = 2) -> None:
+    """The warning of a DOPRI5 run that spent its step budget short of t1."""
+    warnings.warn(
+        f"odeint_dopri5: step budget ({max_steps}) exhausted at t={t} before "
+        f"reaching t1={t1}; the result is truncated (raise max_steps or loosen rtol/atol)",
+        RuntimeWarning, stacklevel=stacklevel + 1,
+    )
+
+
 def odeint_dopri5(f: Drift, x0: torch.Tensor, t0: float = 1.0, t1: float = 0.0,
                   rtol: float = 1e-4, atol: float = 1e-4, init_dt: float | None = None,
                   max_steps: int = 1000, safety: float = 0.9, warn_on_truncation: bool = True,
@@ -300,19 +366,31 @@ def odeint_dopri5(f: Drift, x0: torch.Tensor, t0: float = 1.0, t1: float = 0.0,
 
     A run that spends `max_steps` attempts before reaching t1 is truncated:
     it warns (`warn_on_truncation`), and with `return_stats` the result is
-    (x, {"steps": attempts, "reached": bool})."""
+    (x, {"steps": attempts, "reached": bool}). Inside `exported_loops()` the
+    loop is one `while_loop` on the device, and the statistics are tensors,
+    with the end time "t" beside them; nothing warns."""
     direction, t, dt = _dopri5_start(x0, t0, t1, init_dt)
+    if exporting():
+        from torch._higher_order_ops.while_loop import while_loop
+
+        def cond(t, dt, x, n):
+            return _running(direction, t, t1, n, max_steps)
+
+        def body(t, dt, x, n):
+            t, x, dt, _ = _dopri5_update(f, t, dt, x, t1, direction, rtol, atol, safety, None)
+            return t, dt, x, n + 1
+
+        n0 = torch.zeros((), dtype=torch.int64, device=x0.device)
+        t, _, x, n = while_loop(cond, body, (t, dt, x0, n0))
+        stats = {"steps": n, "reached": direction * (t1 - t) <= 1e-10, "t": t}
+        return (x, stats) if return_stats else x
     x, n = x0, 0
     while n < max_steps and bool(direction * (t1 - t) > 1e-10):
         t, x, dt, _ = _dopri5_update(f, t, dt, x, t1, direction, rtol, atol, safety, None)
         n += 1
     reached = bool(direction * (t1 - t) <= 1e-10)
     if warn_on_truncation and not reached:
-        warnings.warn(
-            f"odeint_dopri5: step budget ({max_steps}) exhausted at t={float(t)} before "
-            f"reaching t1={t1}; the result is truncated (raise max_steps or loosen rtol/atol)",
-            RuntimeWarning, stacklevel=2,
-        )
+        truncation_warning(max_steps, float(t), t1)
     if return_stats:
         return x, {"steps": n, "reached": reached}
     return x
@@ -327,24 +405,39 @@ def odeint_dopri5_per_sample(f: Drift, x0: torch.Tensor, t0: float = 1.0, t1: fl
     `return_stats`: (x, {"steps": attempts per set (B,), "loops": network
     passes per stage, "reached": per set (B,), "accepted": (loops, B), which
     attempts each set accepted}). No truncation warning, as the JAX package
-    gives none under vmap."""
+    gives none under vmap. Inside `exported_loops()` the loop is one
+    `while_loop` on the device, and the statistics are tensors, without
+    "accepted"."""
     b = x0.shape[0]
     dims = tuple(range(1, x0.ndim))
     direction, t, dt = _dopri5_start(x0, t0, t1, init_dt, (b,))
-    x = x0
-    n = torch.zeros(b, dtype=torch.int64, device=x0.device)
-    accepted = []
-    while True:
-        active = (direction * (t1 - t) > 1e-10) & (n < max_steps)
-        if not bool(active.any()):
-            break
+
+    def attempt(t, dt, x, n):
+        active = _running(direction, t, t1, n, max_steps)
         t_new, x_new, dt_new, accept = _dopri5_update(f, t, dt, x, t1, direction, rtol, atol,
                                                       safety, dims)
-        accepted.append(active & accept)
         t = torch.where(active, t_new, t)
         x = torch.where(active.reshape((b,) + (1,) * (x.ndim - 1)), x_new, x)
         dt = torch.where(active, dt_new, dt)
-        n = n + active.to(torch.int64)
+        return t, dt, x, n + active.to(torch.int64), active & accept
+
+    n = torch.zeros(b, dtype=torch.int64, device=x0.device)
+    if exporting():
+        from torch._higher_order_ops.while_loop import while_loop
+
+        def cond(t, dt, x, n, loops):
+            return _running(direction, t, t1, n, max_steps).any()
+
+        def body(t, dt, x, n, loops):
+            return attempt(t, dt, x, n)[:4] + (loops + 1,)
+
+        t, _, x, n, loops = while_loop(cond, body, (t, dt, x0, n, torch.zeros_like(n[0])))
+        stats = {"steps": n, "loops": loops, "reached": direction * (t1 - t) <= 1e-10}
+        return (x, stats) if return_stats else x
+    x, accepted = x0, []
+    while bool(_running(direction, t, t1, n, max_steps).any()):
+        t, dt, x, n, took = attempt(t, dt, x, n)
+        accepted.append(took)
     if return_stats:
         return x, {"steps": n, "loops": len(accepted), "reached": direction * (t1 - t) <= 1e-10,
                    "accepted": torch.stack(accepted) if accepted else

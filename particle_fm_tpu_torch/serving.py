@@ -21,14 +21,25 @@ baked in as constants and the kernels as their custom ops
     meta.yaml     the calling convention, the sampling protocol and the
                   output units, with the JAX package's keys, and `noise`
 
+Every solver of `models/flow_matching.py::SOLVERS` exports (the fixed-step
+ones, the Adams loops, DOPRI5 with one step size or one a set, em, ddim, and
+the self-conditioned loop of a `self_cond` model), each loop as one
+`while_loop` of one step (samplers/ode.py::exported_loops): the program's
+graph does not grow with the steps.
+
 A generator cannot be an input of an exported program, so the program takes
 the prior noise z (B, N, F) float32, and the function `load_exported`
 returns draws it from the seed as `models/flow_matching.py::draw_noise`
 does: the artifact gives what `make_serve_fn` gives for the same seed, bit
-for bit on the same device. Loading imports this module and the op
-registrations, and no model, network, config or training code. Solvers:
-the fixed-step ones and ddim; em (noise drawn at every step) and the DOPRI5
-solvers (a host read at every step) raise at export.
+for bit on the same device. An em artifact also takes its step noise eps
+(n_transforms * ode_steps, B, N, F), meta `step_noise`: the function draws
+it from the same generator after z, one `torch.randn` of z's shape a step,
+as the live sampler draws it (`sde_noise`). A DOPRI5 artifact returns its
+statistics beside the samples; the function keeps the last call's on
+itself (`fn.stats`: attempts, and for dopri5_per_sample the loop's passes)
+and warns as the live solver warns where the step budget ran out short of
+t = 0. Loading imports this module, the samplers' and the op registrations,
+and no model, network, config or training code.
 
     fn, meta = load_exported("runs/<run>/exported")
     x = fn(seed, cond_batch, mask_batch)   # physical-space particle clouds
@@ -45,8 +56,10 @@ import torch
 
 ARTIFACT_NAME = "sampler.pt2"
 META_NAME = "meta.yaml"
-EXPORTED_SOLVERS = ("euler", "midpoint", "heun", "rk4", "ab2", "ab3", "ddim")
 NOISE = "torch.randn(shape, generator=torch.Generator(device).manual_seed(seed), dtype=float32)"
+STEP_NOISE = ("torch.randn(shape[1:], generator=<noise's generator, after noise>, "
+              "dtype=float32, out=eps[k]) for k in range(shape[0])")
+ADAPTIVE = ("dopri5", "dopri5_zuko", "dopri5_per_sample")
 
 
 def prior_noise(seed: int, shape: tuple[int, ...], device: torch.device) -> torch.Tensor:
@@ -54,6 +67,20 @@ def prior_noise(seed: int, shape: tuple[int, ...], device: torch.device) -> torc
     from `torch.Generator(device).manual_seed(seed)` (`draw_noise`)."""
     gen = torch.Generator(device).manual_seed(int(seed))
     return torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+
+
+def sde_noise(seed: int, shape: tuple[int, ...], n_steps: int, device: torch.device
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(z, eps) of one em batch from one generator seeded by `seed`: z as
+    `prior_noise` draws it, then each step's draw of z's shape in the live
+    sampler's order (samplers/sde.py::_normal), each into its slice of one
+    buffer (n_steps, *shape): one large draw would be another stream."""
+    gen = torch.Generator(device).manual_seed(int(seed))
+    z = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+    eps = torch.empty((n_steps,) + tuple(shape), device=device, dtype=torch.float32)
+    for k in range(n_steps):
+        torch.randn(shape, generator=gen, dtype=torch.float32, out=eps[k])
+    return z, eps
 
 
 def make_serve_fn(
@@ -122,11 +149,12 @@ def make_serve_fn(
 
 
 class SamplerProgram(torch.nn.Module):
-    """What `export_sampler` traces: forward(z, [cond], [mask]) -> samples,
-    the rest of `make_serve_fn`'s function after the prior draw: z scaled
-    for droid's prior and masked, every flow integrated on the folded
-    network (`FlowMatchingModel.integrate_folded`, guidance baked in), the
-    inverse z-score and the mask."""
+    """What `export_sampler` traces: forward(z, [eps], [cond], [mask]) ->
+    samples, the rest of `make_serve_fn`'s function after the prior draw: z
+    scaled for droid's prior and masked, every flow integrated on the folded
+    network (`FlowMatchingModel.integrate_folded`, guidance baked in; em
+    reading its step noise from eps), the inverse z-score and the mask. The
+    DOPRI5 solvers return (samples, [each flow's statistics])."""
 
     def __init__(self, model, net, *, has_cond: bool, has_mask: bool, ode_solver: str,
                  ode_steps: int, means, stds, normalize_sigma: float,
@@ -142,6 +170,9 @@ class SamplerProgram(torch.nn.Module):
                 v, dtype=torch.float32, device=device), persistent=False)
 
     def forward(self, z, *args):
+        eps = None
+        if self.ode_solver == "em":
+            eps, args = args[0], args[1:]
         cond = args[0] if self.has_cond else None
         mask = args[-1] if self.has_mask else None
         x = z
@@ -151,14 +182,16 @@ class SamplerProgram(torch.nn.Module):
             x = x * mask
         from particle_fm_tpu_torch.samplers.ode import exported_loops
 
+        stats = []
         with exported_loops():
             x = self.model.integrate_folded(self.net, x, cond, mask, self.ode_solver,
-                                            self.ode_steps, self.guidance_scale)
+                                            self.ode_steps, self.guidance_scale, stats=stats,
+                                            eps=eps)
         if self.means is not None:
             x = x * (self.stds / self.normalize_sigma) + self.means
         if mask is not None:
             x = x * mask
-        return x
+        return (x, stats) if self.ode_solver in ADAPTIVE else x
 
 
 def export_sampler(
@@ -184,14 +217,10 @@ def export_sampler(
     another device exports a copy of the network moved there), and return
     (ExportedProgram, meta); with `out_dir`, also write the artifact there
     (`save_exported`). The network is left as it was given."""
-    from particle_fm_tpu_torch.models.flow_matching import is_folded
+    from particle_fm_tpu_torch.models.flow_matching import SOLVERS, is_folded
 
-    if ode_solver not in EXPORTED_SOLVERS:
-        why = ("draws its noise from a generator at every step" if ode_solver == "em" else
-               "reads the host at every step to accept or reject it")
-        raise ValueError(
-            f"ode_solver={ode_solver!r} does not export: it {why}, which one exported graph "
-            f"cannot hold; export one of {EXPORTED_SOLVERS}")
+    if ode_solver not in SOLVERS:
+        raise NotImplementedError(f"Solver {ode_solver} not implemented")
     has_cond = cond_dim is not None and cond_dim > 0
     if guidance_scale is not None and not has_cond:
         raise ValueError("guidance_scale requires a conditional artifact (cond_dim > 0)")
@@ -206,6 +235,11 @@ def export_sampler(
                              ode_solver=ode_solver, ode_steps=ode_steps, means=means, stds=stds,
                              normalize_sigma=normalize_sigma, guidance_scale=guidance_scale)
     inputs = [torch.zeros(batch_size, num_points, features, device=dev)]
+    step_noise = None
+    if ode_solver == "em":
+        step_noise = [int(model.n_transforms * ode_steps), int(batch_size), int(num_points),
+                      int(features)]
+        inputs.append(torch.zeros(step_noise, device=dev))
     if has_cond:
         inputs.append(torch.zeros(batch_size, cond_dim, device=dev))
     if use_mask:
@@ -217,8 +251,10 @@ def export_sampler(
     finally:
         if not folded:
             model.unfold_weight_norm(net)
-    # the Python stack of every node, kept for debugging, is most of the
-    # serialised program and of its load time
+    # the example inputs are no part of the program (em's step noise alone is
+    # 230 MB at B=640, 200 steps), and the Python stack of every node, kept
+    # for debugging, is most of the serialised program and of its load time
+    exported.example_inputs = None
     for gm in exported.graph_module.modules():
         if isinstance(gm, torch.fx.GraphModule):
             for node in gm.graph.nodes:
@@ -243,6 +279,8 @@ def export_sampler(
         "noise": {"shape": [int(batch_size), int(num_points), int(features)],
                   "draw": NOISE},
     }
+    if step_noise is not None:  # em's second input, drawn after `noise` from its generator
+        meta["step_noise"] = {"shape": step_noise, "draw": STEP_NOISE}
     if out_dir is not None:
         save_exported(out_dir, exported, meta)
     return exported, meta
@@ -261,13 +299,17 @@ def save_exported(out_dir: str, exported: torch.export.ExportedProgram, meta: di
 
 def load_exported(path: str) -> tuple[Callable, dict]:
     """Load an artifact directory for serving. Returns (fn, meta);
-    fn(seed, [cond], [mask]) draws the prior noise from the seed
-    (`prior_noise`, on the artifact's device) and runs the program there.
-    A CUDA artifact raises where no card is present."""
+    fn(seed, [cond], [mask]) draws the prior noise (and em's step noise)
+    from the seed (`prior_noise`, `sde_noise`, on the artifact's device) and
+    runs the program there. A DOPRI5 artifact's statistics of the last call
+    stay on `fn.stats`, and a run that spent its step budget warns (one step
+    size for the batch, as the live solver). A CUDA artifact raises where no
+    card is present."""
     import yaml
 
     # the kernels' custom ops, which the program calls
     from particle_fm_tpu_torch.ops import epic_layer, flash_attention, short_attention  # noqa: F401
+    from particle_fm_tpu_torch.samplers.ode import truncation_warning
 
     with open(os.path.join(path, META_NAME)) as f:
         meta: dict[str, Any] = yaml.safe_load(f)
@@ -281,13 +323,25 @@ def load_exported(path: str) -> tuple[Callable, dict]:
     exported = torch.export.load(os.path.join(path, ARTIFACT_NAME))
     program = exported.module()
     shape = tuple(meta["noise"]["shape"])
+    n_steps = meta["step_noise"]["shape"][0] if "step_noise" in meta else None
+    solver = meta["ode_solver"]
 
     def fn(seed, *args):
-        z = prior_noise(seed, shape, device)
+        noise = ((prior_noise(seed, shape, device),) if n_steps is None else
+                 sde_noise(seed, shape, n_steps, device))
         with torch.no_grad():
-            return program(z, *(torch.as_tensor(a, dtype=torch.float32, device=device)
-                                for a in args))
+            out = program(*noise, *(torch.as_tensor(a, dtype=torch.float32, device=device)
+                                    for a in args))
+        if solver not in ADAPTIVE:
+            return out
+        out, fn.stats = out
+        if solver != "dopri5_per_sample":  # as the live solvers: no warning per set
+            for st in fn.stats:
+                if not bool(st["reached"]):
+                    truncation_warning(int(st["steps"]), float(st["t"]), 0.0)
+        return out
 
+    fn.stats = None
     fn.exported = exported
     fn.meta = meta
     return fn, meta

@@ -11,7 +11,9 @@ serving.py) loads with `serving.load_exported` and runs without model code:
 the folded weights are the program's, the kernels its custom ops, the
 inverse normalisation baked in; the outputs are physical-space particle
 clouds. It runs on the device it was exported for (the card unless
-`--device cpu`). `--verify` reloads the artifact, holds one batch against
+`--device cpu`). The solver is the run's evaluation solver unless
+`--ode_solver` names another (em for the shipped diffusion experiments);
+every solver exports. `--verify` reloads the artifact, holds one batch against
 the live model bit for bit on the same device, and reports sets/s through
 the artifact.
 """
@@ -34,7 +36,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--ckpt", default="best", choices=["best", "last"])
     ap.add_argument("--no-ema", action="store_true")
     ap.add_argument("--batch_size", type=int, default=1024)
-    ap.add_argument("--ode_solver", default=None, help="default: the run's eval solver or midpoint")
+    ap.add_argument("--ode_solver", default=None, help="default: the run's eval solver (em for a diffusion run) or midpoint")
     ap.add_argument("--ode_steps", type=int, default=None)
     ap.add_argument("--dtype", default=None, help="compute type to serve in (e.g. bfloat16)")
     ap.add_argument("--guidance_scale", type=float, default=None,

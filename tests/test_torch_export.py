@@ -11,10 +11,13 @@ flagship (EPiC, 2 layers, midpoint `ode_steps=2`: one step, two evaluations):
   "cpu" on both), and `noise`;
 - a fresh process loads and runs it with no module of the port's models,
   nets, config or training imported;
-- em and the DOPRI5 solvers raise at export; a CUDA artifact raises where no
-  card is present.
+- a CUDA artifact raises where no card is present.
 
-On the card: tests/test_torch_export_cuda.py.
+The other solvers' artifacts: tests/test_torch_export_solvers.py (em,
+ddim), tests/test_torch_export_multistep.py (the Adams and self-conditioned
+loops), tests/test_torch_export_adaptive.py (DOPRI5),
+tests/test_torch_export_graphs.py (the loops' graphs). On the card:
+tests/test_torch_export_cuda.py.
 """
 
 from __future__ import annotations
@@ -155,13 +158,6 @@ def test_artifact_loads_without_model_code(pair, artifact, tmp_path):
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120,
                    env={**os.environ, "PYTHONPATH": str(ROOT)})
-
-
-@pytest.mark.parametrize("solver", ["em", "dopri5", "dopri5_zuko", "dopri5_per_sample"])
-def test_solvers_that_do_not_export_raise(pair, tmp_path, solver):
-    _, _, pm, net = pair
-    with pytest.raises(ValueError, match="does not export"):
-        _export(pm, net, tmp_path, solver=solver)
 
 
 def test_cuda_artifact_raises_without_a_card(artifact, tmp_path, monkeypatch):

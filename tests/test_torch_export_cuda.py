@@ -8,7 +8,11 @@
   number of times a batch: a narrow EPiC flagship (midpoint, float32 and
   bfloat16) and the narrow attention paths (packed, fused, flash; euler);
 - a process that imports no model code loads the EPiC artifact, and its
-  samples and launches are those of this process.
+  samples and launches are those of this process;
+- every looped solver's artifact (em, with guidance too, ddim, ab2, ab3,
+  the self-conditioned midpoint loop, dopri5 and dopri5_per_sample; float32
+  and bfloat16) equals `make_serve_fn` bit for bit, launches the EPiC kernel
+  once a layer an evaluation, and DOPRI5 reports the live run's attempts.
 
 Every test needs an NVIDIA GPU and skips without one. This file imports no
 JAX:
@@ -210,3 +214,61 @@ def test_attention_artifacts_on_the_card(cuda, tmp_path, path, dtype):
         net16.load_state_dict(net.state_dict())
         net, counter = net16, BF16_TWIN[counter]
     _held(model, net, tmp_path, counter, per_eval, "euler", 3, b=4)
+
+
+DIFFUSION = dict(EPIC, loss_type="diffusion", criterion="huber",
+                 diff_config={"max_sr": 0.999, "min_sr": 0.02})
+SINCOS = dict(EPIC, t_emb="sincos", frequencies=2)
+SOLVER_CASES = {  # config, solver, ode_steps, guidance, evaluations a batch (None: the stats')
+    "em": (DIFFUSION, "em", 6, None, 6),
+    "em_guidance": (DIFFUSION, "em", 6, 2.0, 6),
+    "ddim": (DIFFUSION, "ddim", 6, None, 6),
+    "ab2": (EPIC, "ab2", 6, None, 5),
+    "ab3": (EPIC, "ab3", 6, None, 6),
+    "self_cond_midpoint": (dict(EPIC, self_cond=True), "midpoint", 4, None, 6),
+    "dopri5": (SINCOS, "dopri5", 100, None, None),
+    "dopri5_per_sample": (SINCOS, "dopri5_per_sample", 100, None, None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, "bfloat16"], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(SOLVER_CASES))
+def test_solver_artifacts_on_the_card(cuda, tmp_path, case, dtype):
+    """Every looped solver's artifact (one `while_loop` of one step) equals
+    make_serve_fn bit for bit on the card and launches the EPiC kernel once
+    a layer an evaluation; DOPRI5 reports the live run's attempts."""
+    cfg, solver, steps, guidance, nfe = SOLVER_CASES[case]
+    model = FlowMatchingModel(**cfg, dtype=dtype)
+    net = model.init(seed=0, device=cuda)
+    counter = ops.epic_layer_bf16 if dtype else ops.epic_layer
+    b = 8
+    kw = dict(batch_size=b, ode_solver=solver, ode_steps=steps, means=[0.1, -0.2, 0.3],
+              stds=[1.5, 0.5, 2.0], guidance_scale=guidance)
+    serving.export_sampler(model, net, num_points=model.num_particles, features=3, cond_dim=2,
+                           out_dir=str(tmp_path), **kw)
+    fn, meta = serving.load_exported(str(tmp_path))
+    assert meta["platforms"] == ["cuda"] and ("step_noise" in meta) == (solver == "em")
+    live = serving.make_serve_fn(model, net, has_cond=True, has_mask=True, **kw)
+    mask, cond = _request(model, b, seed=3)
+    for seed in (11, 2**40 + 3):
+        for w in COUNTED:
+            w.launches = 0
+        got = fn(seed, cond, mask)
+        torch.cuda.synchronize()
+        launches = _launches()
+        if nfe is None:
+            (st,) = fn.stats
+            stats = []
+            model.sample(net, torch.Generator(cuda).manual_seed(seed),
+                         cond=torch.as_tensor(cond, device=cuda),
+                         mask=torch.as_tensor(mask, device=cuda), ode_solver=solver, stats=stats)
+            assert torch.equal(torch.as_tensor(st["steps"]).cpu(),
+                               torch.as_tensor(stats[0]["steps"]).cpu())
+            assert bool(torch.as_tensor(st["reached"]).all())
+            nfe = 7 * int(st["loops"] if solver == "dopri5_per_sample" else st["steps"])
+        want = {w.__name__: 0 for w in COUNTED}
+        want[counter.__name__] = model.layers * nfe
+        assert launches == want
+        assert torch.equal(got, live(seed, cond, mask)) and bool(torch.isfinite(got).all())
+        nfe = SOLVER_CASES[case][4]

@@ -137,22 +137,56 @@ def test_sde_solvers_need_diffusion_and_em_a_generator():
     assert out.shape == (2, 4, 3) and torch.isfinite(out).all()
 
 
-def test_diffusion_cli_trains_and_evaluates_with_em(tmp_path, monkeypatch):
+@pytest.fixture(scope="module")
+def diffusion_run(tmp_path_factory):
     """train.py on experiment=jetnet/diffusion_tops150_cond, narrowed, with
-    the shipped jetnet callback: its test pass generates with em."""
+    the shipped jetnet callback (em): (metrics, the em calls' step counts,
+    the run directory)."""
     from particle_fm_tpu_torch import train as ptrain
     from particle_fm_tpu_torch.models import flow_matching as pflow
 
     calls = []
     em = pflow.euler_maruyama_sampler
-    monkeypatch.setattr(pflow, "euler_maruyama_sampler",
-                        lambda *a, **k: calls.append(k["n_steps"]) or em(*a, **k))
-    metrics, _ = ptrain.main([
-        "experiment=jetnet/diffusion_tops150_cond", "data.synthetic=true",
-        "data.synthetic_num_jets=256", "trainer=smoke", "trainer.max_epochs=1",
-        "model.scheduler.name=constant", "device=cpu", "model.hidden_dim=16", "model.layers=2",
-        "model.latent=4", "data.batch_size=64", "model.num_particles=16",
-        "callbacks.jetnet_eval.num_jet_samples=100", "callbacks.jetnet_eval.ode_steps=3",
-        f"output_dir={tmp_path}"])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pflow, "euler_maruyama_sampler",
+                   lambda *a, **k: calls.append(k["n_steps"]) or em(*a, **k))
+        metrics, objects = ptrain.main([
+            "experiment=jetnet/diffusion_tops150_cond", "data.synthetic=true",
+            "data.synthetic_num_jets=256", "trainer=smoke", "trainer.max_epochs=1",
+            "model.scheduler.name=constant", "device=cpu", "model.hidden_dim=16",
+            "model.layers=2", "model.latent=4", "data.batch_size=64", "model.num_particles=16",
+            "callbacks.jetnet_eval.num_jet_samples=100", "callbacks.jetnet_eval.ode_steps=3",
+            f"output_dir={tmp_path_factory.mktemp('diffusion_run')}"])
+    return metrics, calls, objects["out_dir"]
+
+
+def test_diffusion_cli_trains_and_evaluates_with_em(diffusion_run):
+    """The run's test pass generates with em, the shipped callback's solver."""
+    metrics, calls, _ = diffusion_run
     assert calls and set(calls) == {3}
     assert np.isfinite(metrics["w1m_mean"]) and np.isfinite(metrics["val_loss"])
+
+
+def test_export_cli_exports_the_diffusion_runs_em_bit_for_bit(diffusion_run, tmp_path):
+    """scripts/torch_export_model.py on the run exports its evaluation
+    solver (em, 3 steps) by default, and --verify holds the artifact bit for
+    bit against the live model."""
+    import importlib.util
+    import os
+
+    import yaml
+
+    from particle_fm_tpu_torch import serving as pserving
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "torch_export_model", os.path.join(root, "scripts", "torch_export_model.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    report = script.main(["--run_dir", diffusion_run[2], "--ckpt", "last", "--batch_size", "8",
+                          "--out", str(tmp_path), "--device", "cpu", "--verify"])
+    assert report["bytes"] > 0 and report["sets_per_s"] > 0
+    with open(tmp_path / pserving.META_NAME) as f:
+        meta = yaml.safe_load(f)
+    assert (meta["ode_solver"], meta["ode_steps"], meta["platforms"]) == ("em", 3, ["cpu"])
+    assert meta["step_noise"]["shape"] == [3, 8, 16, 3]
